@@ -1,0 +1,166 @@
+"""Engine + model configuration (port of ``dynamo_tpu/engine/config.py``).
+
+``ModelConfig`` and every preset are copied as they are, so one preset
+name means the same geometry in both packages. ``EngineArgs`` keeps only
+the knobs this port honours, plus ``device``.
+
+What went: the prefill token and table-width bucket ladders existed so
+that each jitted shape compiled once; PyTorch runs eagerly, so prefill
+chunks are padded only to a block multiple (the page-scatter contract)
+and block tables are exactly as wide as the longest sequence. The decode
+batch ladder stays: a fixed row count gives every decode matmul the same
+shape whatever the batch holds, so a row's result does not depend on how
+many other rows run beside it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+ATTN_IMPLS = ("auto", "cuda", "torch")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Llama-family architecture hyperparameters."""
+
+    name: str = "test-tiny"
+    vocab_size: int = 512
+    hidden_size: int = 128
+    intermediate_size: int = 256
+    num_layers: int = 2
+    num_heads: int = 4
+    num_kv_heads: int = 2
+    head_dim: int = 32
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    max_position: int = 8192
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    # QKV projection bias (Qwen2-family). o_proj stays bias-free.
+    attn_bias: bool = False
+    # Mixture-of-experts (0 = dense FFN). The port's forward pass does not
+    # run MoE yet (model.py raises NotImplementedError).
+    num_experts: int = 0
+    num_experts_per_token: int = 2
+    moe_intermediate_size: int | None = None
+
+    @property
+    def q_size(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @staticmethod
+    def preset(name: str) -> "ModelConfig":
+        presets = {
+            "test-tiny": ModelConfig(),
+            "llama-1b": ModelConfig(
+                name="llama-1b", vocab_size=32000, hidden_size=2048,
+                intermediate_size=5632, num_layers=22, num_heads=32,
+                num_kv_heads=4, head_dim=64, rope_theta=500000.0,
+                max_position=131072, tie_embeddings=True,
+            ),
+            "llama-3b": ModelConfig(
+                name="llama-3b", vocab_size=128256, hidden_size=3072,
+                intermediate_size=8192, num_layers=28, num_heads=24,
+                num_kv_heads=8, head_dim=128, rope_theta=500000.0,
+                max_position=131072, tie_embeddings=True,
+            ),
+            # Llama-3.1-8B geometry.
+            "llama-8b": ModelConfig(
+                name="llama-8b", vocab_size=128256, hidden_size=4096,
+                intermediate_size=14336, num_layers=32, num_heads=32,
+                num_kv_heads=8, head_dim=128, rope_theta=500000.0,
+                max_position=131072, tie_embeddings=False,
+            ),
+            "qwen2-7b": ModelConfig(
+                name="qwen2-7b", vocab_size=152064, hidden_size=3584,
+                intermediate_size=18944, num_layers=28, num_heads=28,
+                num_kv_heads=4, head_dim=128, rope_theta=1000000.0,
+                max_position=32768, tie_embeddings=False, attn_bias=True,
+            ),
+            "moe-tiny": ModelConfig(
+                name="moe-tiny", vocab_size=512, hidden_size=128,
+                intermediate_size=256, num_layers=2, num_heads=4,
+                num_kv_heads=2, head_dim=32, num_experts=4,
+                num_experts_per_token=2,
+            ),
+            "moe-wide": ModelConfig(
+                name="moe-wide", vocab_size=32000, hidden_size=2048,
+                intermediate_size=8192, num_layers=12, num_heads=16,
+                num_kv_heads=4, head_dim=128, num_experts=64,
+                num_experts_per_token=8, moe_intermediate_size=1024,
+            ),
+            "llama-70b": ModelConfig(
+                name="llama-70b", vocab_size=128256, hidden_size=8192,
+                intermediate_size=28672, num_layers=80, num_heads=64,
+                num_kv_heads=8, head_dim=128, rope_theta=500000.0,
+                max_position=131072, tie_embeddings=False,
+            ),
+        }
+        if name not in presets:
+            raise ValueError(f"unknown model preset {name!r}; have {sorted(presets)}")
+        return presets[name]
+
+
+@dataclass
+class EngineArgs:
+    """Capacity and behaviour knobs of the port's engine."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    block_size: int = 16                 # KV page size (tokens)
+    num_kv_blocks: int = 256             # device pool size (block 0 is the garbage sink)
+    max_num_seqs: int = 8                # max concurrent sequences in decode
+    max_model_len: int = 2048            # max prompt+gen tokens per sequence
+    max_prefill_tokens: int = 2048       # longest single prefill chunk
+    dtype: str = "bfloat16"              # weights/activations; sampling in fp32
+    prefix_caching: bool = True
+    # KV page storage: "none" = pages in ``dtype``; "int8" = int8 pages
+    # with per-position-per-head fp32 scales (model.KVCache).
+    kv_quant: str = "none"
+    # "auto" → the CUDA kernel on a CUDA device, the plain PyTorch version
+    # on the CPU; "cuda" / "torch" force one (ops/paged_attention.py).
+    attn_impl: str = "auto"
+    # Fused decode substeps per host fetch (model.multi_decode).
+    decode_steps: int = 8
+    # Max prompt tokens admitted per scheduler step (0 = until slots are full).
+    admission_budget_tokens: int = 8192
+    # Ranked alternatives returned to requests asking for top_logprobs.
+    top_logprobs_max: int = 8
+    # Where params and the KV cache live: "cuda" unless the caller asks
+    # for "cpu" (device.resolve_device; no silent fallback).
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8'; got {self.kv_quant!r}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}; got {self.attn_impl!r}")
+        if self.max_model_len % self.block_size:
+            self.max_model_len = ((self.max_model_len // self.block_size) + 1) * self.block_size
+        if self.max_prefill_tokens % self.block_size:
+            # prefill chunks must be block-aligned (model.py scatter contract)
+            self.max_prefill_tokens = (
+                (self.max_prefill_tokens // self.block_size) + 1
+            ) * self.block_size
+
+    @property
+    def decode_buckets(self) -> tuple[int, ...]:
+        # Floor of 8 (or max_num_seqs if smaller), 4x stride: the JAX
+        # package's ladder, kept so that decode matmul shapes are fixed.
+        lo, hi = min(8, self.max_num_seqs), self.max_num_seqs
+        out, b = [], lo
+        while b < hi:
+            out.append(b)
+            b *= 4
+        out.append(hi)
+        return tuple(dict.fromkeys(out))
+
+    def bucket_decode(self, n: int) -> int:
+        for b in self.decode_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"decode batch {n} exceeds max_num_seqs={self.max_num_seqs}")

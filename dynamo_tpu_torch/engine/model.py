@@ -1,0 +1,381 @@
+"""Llama-family forward with a paged KV cache, in PyTorch (port of
+``dynamo_tpu/engine/model.py``).
+
+Weights keep the JAX package's layout (``x @ w``; per-layer tensors
+stacked on a leading layer axis: ``wq [L, d, q]``, ``w_down [L, i, d]``,
+…), so carrying weights across is a plain copy (engine/weights.py).
+Norms, rope, softmax and logits run in f32; matmuls in the weights' dtype.
+
+Cache layout: k, v each ``[L, num_blocks, block_size, KVH*head_dim]``;
+with ``kv_quant="int8"`` the pages are int8 and per-position-per-head f32
+scales ride ``[L, num_blocks, block_size, KVH]``. Block 0 is the garbage
+sink — padded positions and inactive rows write there.
+
+The JAX functions return an updated cache (the caller donates the old
+one); here every write updates the cache tensors in place and the
+functions return only the logits.
+
+Prefill attention is plain tensor code (XLA in the JAX package); decode
+attention goes through ``ops.paged_attention`` — the CUDA kernel on the
+card, the plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.sampler import (
+    row_gumbel,
+    sample_simple,
+    token_logprobs,
+    top_k_logprobs,
+)
+from dynamo_tpu_torch.ops import paged_attention as pa
+
+Params = dict[str, Any]
+
+
+class KVCache(NamedTuple):
+    """Paged KV storage; ``k_scale``/``v_scale`` only for int8 pages."""
+
+    k: torch.Tensor  # [L, N, bs, KVH*hd]
+    v: torch.Tensor
+    k_scale: torch.Tensor | None = None  # [L, N, bs, KVH] f32
+    v_scale: torch.Tensor | None = None
+
+
+def init_kv_cache(
+    cfg: ModelConfig, num_blocks: int, block_size: int, dtype: torch.dtype,
+    device: torch.device, kv_quant: str = "none",
+) -> KVCache:
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads * cfg.head_dim)
+    if kv_quant == "int8":
+        sshape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads)
+        return KVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+            torch.zeros(sshape, dtype=torch.float32, device=device),
+        )
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 quantization along the head dim: x [..., KVH,
+    hd] → (int8 [..., KVH, hd], f32 scale [..., KVH]). Round half to even;
+    all-zero rows get scale 1.0 so dequant is exactly zero."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax, torch.full_like(absmax, 127.0)) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def init_params(cfg: ModelConfig, device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                seed: int = 0) -> Params:
+    """Random-init params on ``device`` from a seeded ``torch.Generator``
+    there: normal(0, 1/fan_in) weights, unit norms, 0.02-scale biases —
+    the JAX package's distribution (not its random bits). Each layer's
+    tensors are drawn in f32 and cast one at a time, so the f32
+    temporaries stay one tensor large."""
+    if cfg.num_experts:
+        raise NotImplementedError("MoE models are not ported yet")
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+
+    def normal(shape, fan_in, std=None):
+        w = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+        return (w * (std if std is not None else fan_in ** -0.5)).to(dtype)
+
+    shapes = {
+        "wq": ((d, cfg.q_size), d), "wk": ((d, cfg.kv_size), d),
+        "wv": ((d, cfg.kv_size), d), "wo": ((cfg.q_size, d), cfg.q_size),
+        "w_gate": ((d, i), d), "w_up": ((d, i), d), "w_down": ((i, d), i),
+    }
+    if cfg.attn_bias:
+        shapes.update({"bq": ((cfg.q_size,), None), "bk": ((cfg.kv_size,), None),
+                       "bv": ((cfg.kv_size,), None)})
+    layers: dict[str, torch.Tensor] = {
+        name: torch.empty((L, *shape), dtype=dtype, device=device)
+        for name, (shape, _) in shapes.items()
+    }
+    for layer in range(L):
+        for name, (shape, fan_in) in shapes.items():
+            layers[name][layer] = normal(shape, fan_in, None if fan_in else 0.02)
+    layers["attn_norm"] = torch.ones((L, d), dtype=dtype, device=device)
+    layers["mlp_norm"] = torch.ones((L, d), dtype=dtype, device=device)
+    params: Params = {
+        "embed": normal((cfg.vocab_size, d), d),
+        "layers": layers,
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), d)
+    return params
+
+
+def _layer(params: Params, i: int) -> dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    norm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (norm * w.float()).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, rotate-half layout, in f32. x: [..., heads, hd];
+    positions broadcast against x's leading dims."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = torch.arange(half, dtype=torch.float32, device=x.device)
+    inv_freq = torch.tensor(theta, dtype=torch.float32, device=x.device) ** (-freq / half)
+    angles = positions[..., None].float() * inv_freq
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _embed_rows(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig):
+    """q/k/v projections with optional Qwen2-style bias."""
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    return q, k, v
+
+
+def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
+    g = x @ lp["w_gate"]
+    u = x @ lp["w_up"]
+    return (torch.nn.functional.silu(g.float()).to(x.dtype) * u) @ lp["w_down"]
+
+
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head).float()
+
+
+def _write_pages(cache: KVCache, layer: int, idx: tuple, k: torch.Tensor, v: torch.Tensor,
+                 shape: tuple) -> None:
+    """Write fresh K/V rows (``[..., KVH, hd]``) at ``cache.*[layer][idx]``
+    (quantizing for int8 pages). ``shape`` is the target view of the
+    written values."""
+    if cache.k_scale is not None:
+        kq, ksc = kv_quantize(k)
+        vq, vsc = kv_quantize(v)
+        cache.k[layer][idx] = kq.reshape(shape)
+        cache.v[layer][idx] = vq.reshape(shape)
+        cache.k_scale[layer][idx] = ksc.reshape(*shape[:-1], -1)
+        cache.v_scale[layer][idx] = vsc.reshape(*shape[:-1], -1)
+    else:
+        cache.k[layer][idx] = k.reshape(shape)
+        cache.v[layer][idx] = v.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill_batch(
+    cfg: ModelConfig,
+    params: Params,
+    cache: KVCache,
+    tokens: torch.Tensor,        # [Bp, T] suffix token ids per row (T a block multiple)
+    block_tables: torch.Tensor,  # [Bp, W] int32 — blocks for each FULL sequence
+    start_pos: torch.Tensor,     # [Bp] int32 — first suffix position (block-aligned)
+    true_len: torch.Tensor,      # [Bp] int32 — true total length (0 = inactive row)
+) -> torch.Tensor:
+    """Prefill Bp sequences' suffixes, each attending its own cached
+    prefix pages; writes the suffix KV into the cache and returns
+    last-token logits [Bp, V] (f32).
+
+    Prefix caching contract per row: positions [0, start_pos) are already
+    in the blocks ``block_tables`` names (whole blocks); suffix positions
+    [start_pos, true_len) are computed here."""
+    Bp, T = tokens.shape
+    W = block_tables.shape[1]
+    bs = cache.k.shape[2]
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KVH
+    dev = tokens.device
+    start = start_pos.long()
+    tlen = true_len.long()
+    sfx = torch.arange(T, device=dev)
+    suffix_positions = start[:, None] + sfx[None, :]                       # [Bp, T]
+
+    x = _embed_rows(params, tokens)                                        # [Bp, T, D]
+
+    # Additive f32 masks, fixed for all layers.
+    neg = -1e9
+    causal = (sfx[None, :] <= sfx[:, None]).float()                        # [T, T]
+    valid_sfx = (suffix_positions < tlen[:, None]).float()
+    mask_ss = (1.0 - causal[None] * valid_sfx[:, None, :]) * neg           # [Bp, T, T]
+    ctx = torch.arange(W * bs, device=dev)
+    mask_sp = torch.where(ctx[None, :] < start[:, None], 0.0, neg)         # [Bp, W*bs]
+
+    # Suffix block scatter targets: suffix-local block j → table slot
+    # start_pos//bs + j; padded blocks (beyond true_len) → garbage block 0.
+    nb = T // bs
+    jb = torch.arange(nb, device=dev)
+    slot = start[:, None] // bs + jb[None, :]
+    padded = torch.cat([block_tables.long(),
+                        torch.zeros((Bp, nb), dtype=torch.long, device=dev)], dim=1)
+    sfx_ids = torch.gather(padded, 1, slot)
+    sfx_ids = torch.where(start[:, None] + jb[None, :] * bs < tlen[:, None], sfx_ids, 0)
+    flat_ids = sfx_ids.reshape(Bp * nb)
+    scale = hd ** -0.5
+
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = _rope(q.reshape(Bp, T, cfg.num_heads, hd), suffix_positions, cfg.rope_theta)
+        k = _rope(k.reshape(Bp, T, KVH, hd), suffix_positions, cfg.rope_theta)
+        v = v.reshape(Bp, T, KVH, hd)
+        # The suffix self-attends its exact values below; only later
+        # readers see the (possibly int8-rounded) stored pages.
+        _write_pages(cache, layer, (flat_ids,), k, v, (Bp * nb, bs, KVH * hd))
+
+        sk = sv = None
+        if cache.k_scale is not None:
+            sk, sv = cache.k_scale[layer], cache.v_scale[layer]
+        pk = pa.gather_dequant_pages(cache.k[layer], sk, block_tables, KVH, hd, x.dtype)
+        pv = pa.gather_dequant_pages(cache.v[layer], sv, block_tables, KVH, hd, x.dtype)
+
+        qg = q.reshape(Bp, T, KVH, G, hd)
+        s_p = torch.einsum("btkgh,bckh->btkgc", qg, pk).float() * scale
+        s_s = torch.einsum("btkgh,bskh->btkgs", qg, k).float() * scale
+        s_p = s_p + mask_sp[:, None, None, None, :]
+        s_s = s_s + mask_ss[:, :, None, None, :]
+        p = torch.softmax(torch.cat([s_p, s_s], dim=-1), dim=-1).to(x.dtype)
+        p_p, p_s = p[..., : W * bs], p[..., W * bs :]
+        o = (torch.einsum("btkgc,bckh->btkgh", p_p, pv)
+             + torch.einsum("btkgs,bskh->btkgh", p_s, v))
+        x = x + o.reshape(Bp, T, cfg.q_size) @ lp["wo"]
+        x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+
+    last = torch.clamp(tlen - start - 1, 0, T - 1)
+    x_last = x[torch.arange(Bp, device=dev), last]                         # [Bp, D]
+    return _logits(cfg, params, x_last)
+
+
+def prefill(cfg: ModelConfig, params: Params, cache: KVCache, tokens: torch.Tensor,
+            block_table: torch.Tensor, start_pos: int, true_len: int) -> torch.Tensor:
+    """Single-sequence prefill (the chunked-prefill entry point): the
+    Bp=1 case of ``prefill_batch`` → logits [V]."""
+    dev = tokens.device
+    return prefill_batch(
+        cfg, params, cache, tokens[None, :], block_table[None, :],
+        torch.tensor([start_pos], dtype=torch.int32, device=dev),
+        torch.tensor([true_len], dtype=torch.int32, device=dev),
+    )[0]
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: Params,
+    cache: KVCache,
+    tokens: torch.Tensor,        # [B] int32 — current token per sequence
+    positions: torch.Tensor,     # [B] int32 — position of that token
+    block_tables: torch.Tensor,  # [B, W] int32
+    active: torch.Tensor,        # [B] bool — padding rows are False
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """One decode step: write each sequence's new KV at its position, then
+    attend over its pages ([0, position]) → logits [B, V] (f32)."""
+    impl = pa.resolve_attn_impl(attn_impl, tokens.device)
+    attend = pa.paged_decode_attention if impl == "cuda" else pa.paged_decode_attention_ref
+    B = tokens.shape[0]
+    bs = cache.k.shape[2]
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KVH
+    pos = positions.long()
+    rows = torch.arange(B, device=tokens.device)
+    blk = torch.where(active, block_tables.long()[rows, pos // bs], 0)
+    off = torch.where(active, pos % bs, 0)
+    # token at `positions` attends [0, positions]; inactive rows attend nothing
+    lengths = torch.where(active, pos + 1, 0).to(torch.int32)
+
+    x = _embed_rows(params, tokens)                                        # [B, D]
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = _rope(q.reshape(B, cfg.num_heads, hd), pos, cfg.rope_theta)
+        k = _rope(k.reshape(B, KVH, hd), pos, cfg.rope_theta)
+        v = v.reshape(B, KVH, hd)
+        # Write, then attend: this step's own token is read back from the
+        # cache (int8-rounded under kv_quant), as every later step reads it.
+        _write_pages(cache, layer, (blk, off), k, v, (B, KVH * hd))
+        o = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, layer, block_tables,
+                   lengths, cache.k_scale, cache.v_scale)
+        x = x + o.reshape(B, cfg.q_size) @ lp["wo"]
+        x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+    return _logits(cfg, params, x)
+
+
+def multi_decode(
+    cfg: ModelConfig,
+    num_steps: int,
+    mode: str,                   # "greedy" | "simple"
+    top_n: int,                  # top-n alternative logprobs (0 = off)
+    params: Params,
+    cache: KVCache,
+    tokens: torch.Tensor,        # [B] int32
+    positions: torch.Tensor,     # [B] int32
+    block_tables: torch.Tensor,  # [B, W] int32 (must cover positions+num_steps)
+    active: torch.Tensor,        # [B] bool
+    temperature: torch.Tensor,   # [B] f32 (<= 0 → greedy row)
+    seeds: list[int],            # per-row sample seed (host)
+    steps0: list[int],           # per-row emission index of the first substep (host)
+    attn_impl: str = "auto",
+):
+    """``num_steps`` fused decode+sample substeps: sampled tokens feed back
+    on the device, so the caller fetches once per window. → (tokens
+    [K, B] int32, logprobs [K, B] f32, top_vals [K, B, top_n], top_ids
+    [K, B, top_n]), all on the device. Logprobs are of the raw model
+    distribution. The "full" sampler mode (penalties, top-k/top-p) is not
+    ported yet."""
+    if mode not in ("greedy", "simple"):
+        raise NotImplementedError(f"sampler mode {mode!r} is not ported yet")
+    B = tokens.shape[0]
+    V = cfg.vocab_size
+    dev = tokens.device
+    toks, logps, tvals, tids = [], [], [], []
+    tok, pos = tokens, positions
+    for i in range(num_steps):
+        logits = decode_step(cfg, params, cache, tok, pos, block_tables, active, attn_impl)
+        if mode == "greedy":
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            gumbel = row_gumbel(seeds, [s + i for s in steps0], V, dev)
+            nxt = sample_simple(logits, temperature, gumbel)
+        toks.append(nxt)
+        logps.append(token_logprobs(logits, nxt))
+        if top_n > 0:
+            v_, i_ = top_k_logprobs(logits, top_n)
+        else:
+            v_ = torch.zeros((B, 0), dtype=torch.float32, device=dev)
+            i_ = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+        tvals.append(v_)
+        tids.append(i_)
+        tok, pos = nxt, pos + 1
+    return torch.stack(toks), torch.stack(logps), torch.stack(tvals), torch.stack(tids)
