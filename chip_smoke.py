@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the run exits non-zero:
 3. Kernel parity and timing at the main path's shapes (llama-8b decode
    geometry: B=8, KVH=8, G=4, hd=128, bs=16), every mode of the paged
    attention kernel against its plain PyTorch version on the same CUDA
-   tensors, with NaN in every position past each row's walk.
+   tensors, with NaN in every position past each row's walk; then decode
+   again at the row lengths the main path's burst reaches
+   (`decode_bfloat16_burst`). Each case times the whole wrapper call (the
+   split kernel and its merge).
 4. Main path at full width: `run --in batch:`'s pipeline (preprocessor →
    Backend → TorchEngine) serving 8 concurrent llama-8b completions with
    random weights made on the card, then one prompt alone again. The
@@ -42,6 +45,10 @@ WARMUP_RUNS = 3
 SPIN_CYCLES = 400_000  # ~0.2 ms of GPU spin ahead of each timed call
 KERNEL_SOURCE = "dynamo_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "dynamo_tpu/ops/paged_attention.py:210"
+KERNEL_VERSION = 3
+# Row lengths the main path's decode sees: the burst's prompts (64-1536
+# byte-tokens) at mid-generation.
+BURST_HIST = [96, 192, 352, 544, 800, 1056, 1312, 1568]
 
 # The kernel is held against its plain PyTorch version evaluated in float32
 # on the same values (bf16 → f32 is exact; int8 pages are first dequantized
@@ -68,12 +75,13 @@ def _tree_anc(parents, T):
 
 
 def make_case(mode, qdt_name, quant, seed, device, hist, T=5, KVH=8, G=4, hd=128, bs=16,
-              L=2, layer=1):
+              L=2, layer=1, width=None):
     """Inputs for one kernel case → dict with the wrapper's ``args`` (CUDA
     tensors on ``device``) and host metadata. ``hist`` are per-row history
     lengths (0 = dead row); mode decode|linear|tree. Rows own disjoint
     pages; every position past a row's walk and every page no row owns
-    holds NaN (NaN scales for int8 pages)."""
+    holds NaN (NaN scales for int8 pages). ``width`` widens the block table
+    to that many pages (the extra entries name unowned, NaN pages)."""
     import numpy as np
     import torch
 
@@ -94,7 +102,7 @@ def make_case(mode, qdt_name, quant, seed, device, hist, T=5, KVH=8, G=4, hd=128
         anc = np.where(live[:, None, None], _tree_anc([0, 0, 1, 1], T)[None], 0).astype(np.int8)
         walk = np.where(live, hist + T, 0)
     pages = -(-walk // bs)
-    W = int(pages.max())
+    W = max(int(pages.max()), width or 0)
     N = int(pages.sum()) + 16
     perm = rng.permutation(np.arange(1, N))
     tables = rng.integers(1, N, size=(B, W)).astype(np.int32)
@@ -232,22 +240,23 @@ def kernel_phase(device):
 
     hist = [0, 1, 15, 16, 17, 300, 1024, 2047]
     cases = [
-        ("decode", "bfloat16", False), ("decode", "float32", False),
-        ("decode", "bfloat16", True), ("linear", "bfloat16", False),
-        ("tree", "bfloat16", False), ("tree", "bfloat16", True),
+        ("decode", "bfloat16", False, hist), ("decode", "float32", False, hist),
+        ("decode", "bfloat16", True, hist), ("linear", "bfloat16", False, hist),
+        ("tree", "bfloat16", False, hist), ("tree", "bfloat16", True, hist),
+        ("decode", "bfloat16", False, BURST_HIST),
     ]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     results = []
-    for i, (mode, qdt_name, quant) in enumerate(cases):
-        name = f"{mode}_{'int8' if quant else qdt_name}"
-        case = make_case(mode, qdt_name, quant, 100 + i, device, hist)
+    for i, (mode, qdt_name, quant, rows) in enumerate(cases):
+        name = f"{mode}_{'int8' if quant else qdt_name}" + ("_burst" if rows is BURST_HIST else "")
+        case = make_case(mode, qdt_name, quant, 100 + i, device, rows)
         args = case["args"]
         out = pa.paged_spec_attention(*args)
         ref = plain_f32(args)
         torch.cuda.synchronize()
         if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
             raise RuntimeError(f"{name}: non-finite output (kernel or plain)")
-        if float(out[0].abs().max()) != 0.0:
+        if rows[0] == 0 and float(out[0].abs().max()) != 0.0:
             raise RuntimeError(f"{name}: the length-0 row must output zeros")
         diff = (out.float() - ref).abs()
         err = float(diff.max())
@@ -258,12 +267,14 @@ def kernel_phase(device):
         plain_ms = time_ms(lambda: pa.paged_spec_attention_ref(*args), flush)
         lib_ms = time_ms(library_call(case), flush)
         b_ms, b_by = bound(case, qdt_name, quant)
+        splits = pa.split_plan(case["B"], case["KVH"], case["T"] * case["G"], case["hd"],
+                               case["W"], case["bs"]).splits
         r = {"case": name, "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
              "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "T": case["T"]}
+             "bound_ms": b_ms, "bound_by": b_by, "T": case["T"], "splits": splits}
         log(f"kernel {name}: max_abs_err={err:.3e} (tol {atol:g} + {rtol:g}*|plain|, "
             f"{'ok' if ok else 'FAIL'}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) splits={splits}")
         if not ok:
             raise RuntimeError(f"{name}: kernel disagrees with its plain version "
                                f"(max |err| - rtol*|plain| = {excess:.3e} > {atol})")
@@ -378,7 +389,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     if busy_ms == 0:
         log("profile: the profiler recorded no device time (device busy share not measured)")
     else:
-        attn_ms = sum(k[1] for k in kernels if "paged_attention_kernel" in k[0])
+        attn_ms = sum(k[1] for k in kernels if "paged_attention" in k[0])
         log(f"profile: second pass (1 request, 64 tokens, profiler on): wall {wall2 * 1e3:.1f} ms, "
             f"device busy {busy_ms:.1f} ms ({100 * busy_ms / (wall2 * 1e3):.1f}%), "
             f"paged_attention {attn_ms:.1f} ms ({card_line})")
@@ -473,9 +484,11 @@ def main() -> int:
     small_reference(device)
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
+    burst = cases[-1]  # the same at the burst's row lengths
     entry = {
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": stats["launches"],
+        "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
+        "launches": stats["launches"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,

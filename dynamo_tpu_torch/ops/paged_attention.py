@@ -9,12 +9,20 @@ pages. Layouts are the JAX package's: q ``[B, (T,) KVH, G, hd]``, caches
 
 ``paged_decode_attention`` / ``paged_spec_attention`` launch the kernel
 for CUDA tensors and call the plain version for CPU tensors; there is no
-fallback from one to the other. ``launches`` counts kernel launches.
+fallback from one to the other.
+
+The kernel splits each row into chunks of whole pages (``split_plan``):
+one block per (chunk, KV head, row) writes a partial softmax state to
+scratch, and a second kernel merges the partials of rows longer than one
+chunk. The plan depends only on host-known shapes, never on ``lengths``.
+``launches`` counts attention calls: one per call, the split kernel and
+its merge together.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -24,7 +32,11 @@ NEG_INF = -1e30
 MAX_T = 64          # tree ancestor bits ride a 64-bit mask per query
 MAX_HEAD_DIM = 256
 
-# Kernel launches made by the wrappers (read and reset by chip_smoke.py).
+CHUNK_POSITIONS = 128  # positions one split block walks (whole pages, at least one)
+MAX_CHUNK_PAGES = 256  # the kernel's page list per block
+
+# Attention calls that launched the kernel (read and reset by chip_smoke.py);
+# the split kernel and its merge count as one.
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -40,6 +52,34 @@ def resolve_attn_impl(requested: str, device: torch.device) -> str:
     if requested not in ("cuda", "torch"):
         raise ValueError(f"unknown attn_impl {requested!r}")
     return requested
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts rows across blocks. ``chunk`` = ``chunk_pages``
+    × ``bs`` positions per block; ``splits`` = ceil(W / chunk_pages) blocks
+    per (row, KV head). Partials live in ``acc_shape`` and ``ml_shape`` f32
+    scratch (None when one split covers the table: every row is written
+    directly)."""
+
+    chunk_pages: int
+    chunk: int
+    splits: int
+    acc_shape: tuple[int, ...] | None
+    ml_shape: tuple[int, ...] | None
+
+
+def split_plan(B: int, KVH: int, nq: int, hd: int, W: int, bs: int) -> SplitPlan:
+    """The split plan for B rows of a W-page table (block size ``bs``),
+    ``nq`` = T·G query columns per KV head of width ``hd``. Only shapes go
+    in, so the grid is fixed for a given table width."""
+    chunk_pages = max(1, CHUNK_POSITIONS // bs)
+    splits = -(-W // chunk_pages)
+    acc = ml = None
+    if splits > 1:
+        acc = (B, KVH, splits, nq, hd)
+        ml = (B, KVH, splits, nq, 2)
+    return SplitPlan(chunk_pages, chunk_pages * bs, splits, acc, ml)
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +214,8 @@ def _launch(q, k_cache, v_cache, layer, block_tables, lengths, k_scale, v_scale,
         raise ValueError(f"head_dim must be a multiple of 32 up to {MAX_HEAD_DIM}, got {hd}")
     if T > MAX_T:
         raise ValueError(f"at most {MAX_T} query positions per row, got {T}")
+    if B > 65535:
+        raise ValueError(f"at most 65535 rows per call, got {B}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -209,18 +251,27 @@ def _launch(q, k_cache, v_cache, layer, block_tables, lengths, k_scale, v_scale,
     lib = _build.library("paged_attention")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("cache storage must be 16-byte aligned")
+    if q.data_ptr() % 16:  # the kernel copies q rows 16 bytes at a time
+        q = q.clone()
+    W = block_tables.shape[1]
+    plan = split_plan(B, KVH, T * G, hd, W, bs)
     out = torch.empty_like(q)
+    acc = ml = None
+    if plan.splits > 1:
+        acc = torch.empty(plan.acc_shape, dtype=torch.float32, device=q.device)
+        ml = torch.empty(plan.ml_shape, dtype=torch.float32, device=q.device)
     fn = lib.dtpu_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         block_tables.data_ptr(), lengths.data_ptr(),
         anc.data_ptr() if anc is not None else None, out.data_ptr(),
+        acc.data_ptr() if acc is not None else None, ml.data_ptr() if ml is not None else None,
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype],
-        B, T, KVH, G, hd, N, bs, block_tables.shape[1], layer,
+        B, T, KVH, G, hd, N, bs, W, layer, plan.chunk_pages, plan.splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "paged_attention launch")

@@ -60,6 +60,75 @@ def test_kernel_matches_plain(dev, mode, qdt, quant, hd):
     assert float(excess.max()) <= atol, (mode, qdt, quant, hd, float(excess.max()))
 
 
+def _check(args, qdt, dead_row=None):
+    before = pa.launches
+    out = pa.paged_spec_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1  # split kernel + merge count as one
+    ref = plain_f32(args)
+    assert out.dtype == getattr(torch, qdt) and out.shape == ref.shape
+    assert torch.isfinite(out).all() and torch.isfinite(ref).all()
+    if dead_row is not None:
+        assert float(out[dead_row].abs().max()) == 0.0
+    atol, rtol = TOL[qdt]
+    excess = (out.float() - ref).abs() - rtol * ref.abs()
+    assert float(excess.max()) <= atol, float(excess.max())
+    return out
+
+
+CHUNK = pa.split_plan(1, 1, 1, 128, 1024, 16).chunk  # positions per split block at bs 16
+
+
+@pytest.mark.parametrize("mode,qdt,quant", CASES)
+def test_kernel_chunk_edges(dev, mode, qdt, quant):
+    """Rows whose walk is exactly one chunk, exactly two, and one chunk
+    plus one position (linear and tree rows walk hist + T)."""
+    extra = 0 if mode == "decode" else 5
+    hist = [CHUNK - extra, 2 * CHUNK - extra, CHUNK + 1 - extra, 0]
+    args = make_case(mode, qdt, quant, 21, dev, hist, KVH=2)["args"]
+    _check(args, qdt, dead_row=3)
+
+
+@pytest.mark.parametrize("mode,qdt,quant", CASES)
+def test_kernel_wide_table_short_rows(dev, mode, qdt, quant):
+    """A 4096-position table (256 pages) holding only short rows: most
+    splits are empty, and the table's unused entries name NaN pages."""
+    args = make_case(mode, qdt, quant, 22, dev, [3, 0, 17, 40], KVH=2, width=4096 // 16)["args"]
+    assert pa.split_plan(4, 2, 5, 128, 4096 // 16, 16).splits == 4096 // CHUNK
+    _check(args, qdt, dead_row=1)
+
+
+@pytest.mark.parametrize("qdt,quant", [("bfloat16", False), ("bfloat16", True), ("float32", False)])
+def test_kernel_tree_slots_straddle_chunks(dev, qdt, quant):
+    """Tree rows whose five in-flight slots cross a chunk boundary."""
+    hist = [CHUNK - 2, 2 * CHUNK - 4, CHUNK - 5, CHUNK - 1]
+    args = make_case("tree", qdt, quant, 23, dev, hist, KVH=2)["args"]
+    _check(args, qdt)
+
+
+@pytest.mark.parametrize("mode,qdt,quant,T,G", [
+    ("linear", "bfloat16", False, 5, 8), ("tree", "bfloat16", False, 5, 8),
+    ("tree", "bfloat16", True, 5, 8), ("linear", "float32", False, 5, 8),
+    ("tree", "float32", True, 5, 8), ("linear", "bfloat16", False, 64, 2),
+    ("linear", "float32", False, 64, 2), ("decode", "bfloat16", False, 1, 8),
+])
+def test_kernel_many_query_columns(dev, mode, qdt, quant, T, G):
+    """G = 8 (llama-70b's grouping) and T*G > 16: several m-tiles and
+    several query passes per KV head."""
+    args = make_case(mode, qdt, quant, 24, dev, [0, 30, CHUNK + 9, 600], T=T, G=G, KVH=2)["args"]
+    _check(args, qdt, dead_row=0)
+
+
+@pytest.mark.parametrize("mode,qdt,quant", CASES)
+def test_kernel_repeat_calls_bit_identical(dev, mode, qdt, quant):
+    """The merge adds in a fixed order: two calls give the same bits."""
+    args = make_case(mode, qdt, quant, 25, dev, [0, 7, 300, 1024, 2047], KVH=2)["args"]
+    a = pa.paged_spec_attention(*args)
+    b = pa.paged_spec_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_main_path_shape_decode(dev):
     """llama-8b decode geometry: B=8, KVH=8, G=4, hd=128, bs=16."""
     args = make_case("decode", "bfloat16", False, 11, dev, [0, 1, 15, 16, 17, 300, 1024, 2047])["args"]
