@@ -17,10 +17,25 @@ Phases, in order; any failure raises and the run exits non-zero:
    split kernel and its merge).
 4. Main path at full width: `run --in batch:`'s pipeline (preprocessor →
    Backend → TorchEngine) serving 8 concurrent llama-8b completions with
-   random weights made on the card, then one prompt alone again. The
-   kernel's launch counter is zeroed just before the requests and read
-   just after.
-5. A small-input reference: test-tiny in float32 through the model with
+   random weights made on the card, at the default pipeline depth 2 with
+   every K-step window a CUDA-graph replay (the burst's window shapes are
+   captured first, `LocalRunner.warm_windows`); the kernel's launch
+   counter is zeroed just before the requests and read just after. Then
+   the same burst again at pipeline_depth=0 (its own counts zeroed and
+   read), whose 8 token and logprob streams must be identical, and one
+   prompt alone again under torch.profiler. Decode ms per substep,
+   tokens/s, TTFT per request, the host-blocked share, graph capture and
+   pool numbers and the device-busy share are printed beside the card's
+   name and power limit.
+5. Graph parity: one K=8 window at llama-8b shapes (all 32 layers, the
+   engine's weights, its own small cache) as a CUDA-graph replay and op by
+   op, in each sampler mode: tokens, logprobs, top-n, the written KV pages
+   and the chain buffer bit-identical; two chained windows against the
+   same two drained; at the burst's row lengths, each mode's replay device
+   time per substep against the op-by-op window, one profiled replay by
+   kernel family; and the threefry noise's device time per substep
+   (batch 8, the full vocabulary).
+6. A small-input reference: test-tiny in float32 through the model with
    the kernel and with the plain attention, tokens equal.
 
 The last lines are the kernels JSON line, nvidia-smi's name/power line,
@@ -282,6 +297,9 @@ def kernel_phase(device):
     return results
 
 
+DECODE_PHASES = ("decode_dispatch", "drain_sync", "drain_ready", "emit")
+
+
 async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cuda"):
     import numpy as np
     import torch
@@ -300,10 +318,17 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     torch.cuda.reset_peak_memory_stats()
     pipe = await build_pipeline(args)
     engine = pipe.engine
+    runner = engine.runner
     torch.cuda.synchronize()
     log(f"main: {preset} pipeline up in {time.perf_counter() - t0:.1f}s "
-        f"(random bf16 weights made on the card)")
+        f"(random bf16 weights made on the card), pipeline_depth "
+        f"{engine.args.effective_pipeline_depth}")
     cfg = engine.cfg
+    g = runner.graphs
+    n = runner.warm_windows(("greedy", "simple"), (0,))
+    log(f"main: {n} window graphs captured ahead of traffic in {g.capture_s:.2f}s "
+        f"(shapes B, W, L, K, mode, top_n: {g.shapes}), graph pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
     rng = np.random.default_rng(2024)
     lens = [64, 160, 320, 512, 768, 1024, 1280, 1536]
     prompts = ["".join(chr(c) for c in rng.integers(32, 127, n)) for n in lens]
@@ -325,51 +350,82 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         return {"i": i, "ttft_s": t_first, "resp": gen.final_response(),
                 "tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
 
-    steps0, decode_s0, _ = _phase_totals(engine)
-    pa.launches = 0
-    t0 = time.perf_counter()
-    outs = await asyncio.gather(*(one(i, p, t, 1000 + i)
-                                  for i, (p, t) in enumerate(zip(prompts, temps))))
-    wall = time.perf_counter() - t0
-    launches = pa.launches
-    steps1, decode_s1, prefill_s = _phase_totals(engine)
-    substeps, decode_s = steps1 - steps0, decode_s1 - decode_s0
-    for o in outs:
-        usage, choice = o["resp"]["usage"], o["resp"]["choices"][0]
-        if usage["completion_tokens"] != max_tokens or choice["finish_reason"] != "length":
-            raise RuntimeError(f"request {o['i']}: {usage['completion_tokens']} tokens, "
-                               f"finish {choice['finish_reason']!r}")
-        if len(o["tokens"]) != max_tokens or not all(
-                np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
-            raise RuntimeError(f"request {o['i']}: bad token/logprob stream")
-        if not all(0 <= t < cfg.vocab_size for t in o["tokens"]):
-            raise RuntimeError(f"request {o['i']}: token id out of range")
-    if launches != cfg.num_layers * substeps or substeps == 0:
-        raise RuntimeError(f"kernel launches {launches} != layers {cfg.num_layers} x "
-                           f"substeps {substeps}")
-    total_tokens = sum(o["resp"]["usage"]["completion_tokens"] for o in outs)
-    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine._runner.params))
-    weight_bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
-    substep_ms = decode_s / substeps * 1e3
-    log(f"main: card {card_line}")
-    log(f"main: 8 requests, {total_tokens} completion tokens in {wall:.3f}s → "
-        f"{total_tokens / wall:.1f} tokens/s ({card_line})")
-    for o in outs:
-        log(f"main: request {o['i']} prompt {lens[o['i']]} tokens, temperature "
-            f"{temps[o['i']]}: TTFT {o['ttft_s'] * 1e3:.1f} ms ({card_line})")
-    log(f"main: decode {substeps} substeps, {substep_ms:.3f} ms per substep (batch of 8, "
-        f"host clock around each window incl. its fetch) vs weight-stream bound "
-        f"{weight_bound_ms:.3f} ms ({param_bytes / 1e9:.2f} GB / 3.35 TB/s) ({card_line})")
-    log(f"main: prefill of the 8 prompts ({sum(lens)} tokens, one row at a time, first "
-        f"token sampled per wave): {prefill_s * 1e3:.1f} ms host clock ({card_line})")
-    log(f"main: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"({card_line})")
-    log(f"main: paged_attention launches {launches} = {cfg.num_layers} layers x {substeps} substeps")
+    async def burst(label):
+        """The 8 requests at once; every count zeroed just before, read just
+        after, once the engine has drained its queue."""
+        steps0, phases0 = _counters(engine)
+        replays0, eager0 = runner.graphs.replays, runner.eager_windows
+        pa.launches = 0
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*(one(i, p, t, 1000 + i)
+                                      for i, (p, t) in enumerate(zip(prompts, temps))))
+        wall = time.perf_counter() - t0
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        launches = pa.launches
+        steps1, phases1 = _counters(engine)
+        substeps = steps1 - steps0
+        phase = {k: v - phases0.get(k, 0.0) for k, v in phases1.items()}
+        for o in outs:
+            usage, choice = o["resp"]["usage"], o["resp"]["choices"][0]
+            if usage["completion_tokens"] != max_tokens or choice["finish_reason"] != "length":
+                raise RuntimeError(f"{label} request {o['i']}: {usage['completion_tokens']} "
+                                   f"tokens, finish {choice['finish_reason']!r}")
+            if len(o["tokens"]) != max_tokens or not all(
+                    np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
+                raise RuntimeError(f"{label} request {o['i']}: bad token/logprob stream")
+            if not all(0 <= t < cfg.vocab_size for t in o["tokens"]):
+                raise RuntimeError(f"{label} request {o['i']}: token id out of range")
+        if launches != cfg.num_layers * substeps or substeps == 0:
+            raise RuntimeError(f"{label}: kernel launches {launches} != layers "
+                               f"{cfg.num_layers} x substeps {substeps}")
+        eager = runner.eager_windows - eager0
+        if eager:
+            raise RuntimeError(f"{label}: {eager} K-step windows ran eagerly on the card")
+        decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
+        total_tokens = sum(o["resp"]["usage"]["completion_tokens"] for o in outs)
+        st = {"launches": launches, "substeps": substeps, "wall_s": wall,
+              "tokens_per_s": total_tokens / wall, "substep_ms": decode_s / substeps * 1e3,
+              "decode_s": decode_s, "host_blocked": phase.get("drain_sync", 0.0) / decode_s,
+              "prefill_dispatch_s": phase.get("prefill", 0.0),
+              "replays": runner.graphs.replays - replays0,
+              "ttft_s": [o["ttft_s"] for o in outs]}
+        log(f"main[{label}]: 8 requests, {total_tokens} completion tokens in {wall:.3f}s → "
+            f"{st['tokens_per_s']:.1f} tokens/s ({card_line})")
+        for o in outs:
+            log(f"main[{label}]: request {o['i']} prompt {lens[o['i']]} tokens, temperature "
+                f"{temps[o['i']]}: TTFT {o['ttft_s'] * 1e3:.1f} ms ({card_line})")
+        log(f"main[{label}]: decode {substeps} substeps, {st['substep_ms']:.3f} ms per substep "
+            f"(host time in decode phases {decode_s:.3f}s / substeps; batch of 8), host blocked "
+            f"on fetches {100 * st['host_blocked']:.1f}% of it, {st['replays']} graph replays "
+            f"({card_line})")
+        log(f"main[{label}]: phases " + json.dumps({k: round(v, 4) for k, v in phase.items()}))
+        log(f"main[{label}]: paged_attention launches {launches} = {cfg.num_layers} layers x "
+            f"{substeps} substeps")
+        return outs, st
 
-    # Second pass: one greedy prompt alone, after clearing the idle prefix
-    # cache so it takes the same prefill path, must give the same tokens.
-    # It runs under torch.profiler, whose CUDA kernel records split the
-    # pass's wall time into device-busy time per kernel and host time.
+    first, st2 = await burst("depth2")
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
+    weight_bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"main: weight-stream bound {weight_bound_ms:.3f} ms per substep "
+        f"({param_bytes / 1e9:.2f} GB / 3.35 TB/s) ({card_line})")
+    log(f"main: {g.captured} window graphs in all, captured in {g.capture_s:.2f}s, graph pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card_line})")
+
+    # The same burst unpipelined, from an empty prefix cache (so every
+    # prefill takes the same path): the streams must not change.
+    engine.clear_kv_blocks()
+    engine.args.pipeline_depth = 0
+    second, st0 = await burst("depth0")
+    engine.args.pipeline_depth = 2
+    for a, b in zip(first, second):
+        if a["tokens"] != b["tokens"] or a["logprobs"] != b["logprobs"]:
+            raise RuntimeError(f"request {a['i']}: depth 2 and depth 0 streams differ")
+    log("main: all 8 token and logprob streams identical at pipeline_depth 2 and 0")
+
+    # One greedy prompt alone again, under torch.profiler, whose CUDA kernel
+    # records split the pass's wall time into device-busy time and the rest.
     from torch.profiler import ProfilerActivity, profile
 
     engine.clear_kv_blocks()
@@ -378,7 +434,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         again = await one(0, prompts[0], temps[0], 1000)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
-    if again["tokens"] != outs[0]["tokens"]:
+    if again["tokens"] != first[0]["tokens"]:
         raise RuntimeError("second greedy pass of request 0 differs from its first pass")
     log("main: second greedy pass of request 0 alone is token-identical to its first pass")
     kernels = sorted(
@@ -386,28 +442,271 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
          if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
         key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
+    busy_share = None
     if busy_ms == 0:
         log("profile: the profiler recorded no device time (device busy share not measured)")
     else:
+        busy_share = busy_ms / (wall2 * 1e3)
         attn_ms = sum(k[1] for k in kernels if "paged_attention" in k[0])
         log(f"profile: second pass (1 request, 64 tokens, profiler on): wall {wall2 * 1e3:.1f} ms, "
-            f"device busy {busy_ms:.1f} ms ({100 * busy_ms / (wall2 * 1e3):.1f}%), "
+            f"device busy {busy_ms:.1f} ms ({100 * busy_share:.1f}%), "
             f"paged_attention {attn_ms:.1f} ms ({card_line})")
         for name, ms, n in kernels[:6]:
             log(f"profile:   {ms:9.3f} ms  {n:6d}x  {name[:90]}")
-    await engine.stop()
-    stats = {"launches": launches, "substeps": substeps, "tokens_per_s": total_tokens / wall,
-             "substep_ms": substep_ms, "weight_bound_ms": weight_bound_ms,
+    stats = {"launches": st2["launches"], "substeps": st2["substeps"],
+             "tokens_per_s": st2["tokens_per_s"], "substep_ms": st2["substep_ms"],
+             "host_blocked": st2["host_blocked"], "ttft_s": st2["ttft_s"],
+             "depth0": {k: st0[k] for k in ("substeps", "tokens_per_s", "substep_ms",
+                                             "host_blocked", "ttft_s")},
+             "weight_bound_ms": weight_bound_ms, "graphs": g.captured,
+             "capture_s": g.capture_s, "graph_pool_bytes": g.pool_bytes(),
+             "replays": st2["replays"], "device_busy_share": busy_share,
              "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    del pipe, engine
+    stats.update(window_phase(engine, card_line))
+    await engine.stop()
+    del pipe, engine, runner
     torch.cuda.empty_cache()
     return stats
 
 
-def _phase_totals(engine):
-    """(decode substeps, host seconds in decode windows, host seconds in
-    prefill) so far; read while the engine is idle between request waves."""
-    return engine.total_decode_steps, engine.phase_s["decode"], engine.phase_s["prefill"]
+def window_inputs(runner, mode, seed, K=8, lens=None):
+    """Prefill six rows of random prompts (of lengths ``lens``, else random
+    5..39) on ``runner`` (disjoint blocks, room for two K-step windows),
+    sample their first tokens in
+    ``mode`` with the fold into ``last_toks``, and return the operands of
+    the next K-step window over them, chained from the folds and padded to
+    the batch bucket. The rows mix greedy and sampled temperatures; in
+    "full" mode they also carry top-k, top-p and both penalties."""
+    import numpy as np
+
+    live = 6
+    args, V = runner.args, runner.cfg.vocab_size
+    bs, B, sink = args.block_size, args.bucket_decode(live), args.max_num_seqs
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(5, 40, live) if lens is None else np.asarray(lens)
+    tables, logits, nxt = [], [], 1
+    for n in lens:
+        nblk = -(-(int(n) + 2 * K + 1) // bs)
+        tables.append(list(range(nxt, nxt + nblk)))
+        nxt += nblk
+        toks = np.zeros((-(-int(n) // bs) * bs,), np.int32)
+        toks[:n] = rng.integers(1, V, n)
+        logits.append(runner.prefill_chunk(toks, np.asarray(tables[-1], np.int32), 0, int(n)))
+    W = args.bucket_table(max(len(t) for t in tables))
+    tab = np.zeros((B, W), np.int32)
+    for i, t in enumerate(tables):
+        tab[i, : len(t)] = t
+    f = lambda v, dt=np.float32: np.asarray(v + [0] * (B - live), dt)  # noqa: E731
+    temps = f([0.0, 0.8, 0.0, 1.1, 0.6, 0.9])
+    if mode == "greedy":
+        temps[:] = 0.0
+    full = mode == "full"
+    tks = f([0, 5, 40, 0, 3, 0] if full else [0] * live, np.int32)
+    tps = f([1.0, 0.9, 1.0, 0.8, 1.0, 0.95] if full else [1.0] * live)
+    freqs = f([0.0, 0.5, 0.25, 0.0, 1.0, 0.5] if full else [0.0] * live)
+    press = f([0.0, 0.25, 0.0, 0.5, 0.0, 1.0] if full else [0.0] * live)
+    seeds = f(list(range(100 + seed, 100 + seed + live)), np.int32)
+    slots = np.full((B,), sink, np.int32)
+    slots[:live] = np.arange(live)
+    pen = np.full((B, args.max_model_len if full else 1), -1, np.int32)
+    ref = runner.sample_rows(logits + [logits[0]] * (B - live), mode, temps, tks, tps, pen,
+                             freqs, press, seeds, np.zeros((B,), np.int32), slots, 0)
+    first = ref.arrs[0].cpu().numpy()
+    if full:
+        pen[:live, 0] = first[:live]
+    active = np.zeros((B,), bool)
+    active[:live] = True
+    return dict(
+        K=K, mode=mode, tokens=np.zeros((B,), np.int32),
+        chain=(list(range(live)), list(range(live))),
+        positions=f([int(n) for n in lens], np.int32), tables=tab, active=active,
+        temps=temps, seeds=seeds, steps0=f([1] * live, np.int32), tks=tks, tps=tps,
+        freqs=freqs, press=press, pen=pen, fold_slots=slots,
+        top_n=runner.args.top_logprobs_max,
+    )
+
+
+def _device_state(runner):
+    return [t.clone() for t in runner.cache if t is not None] + [runner.last_toks.clone()]
+
+
+def _restore(runner, state):
+    for dst, src in zip([t for t in runner.cache if t is not None] + [runner.last_toks], state):
+        dst.copy_(src)
+
+
+def graph_vs_eager(runner, kw):
+    """Run the window ``kw`` as a CUDA-graph replay and op by op from the
+    same device state; raise unless outputs, KV pages (block 0, the garbage
+    sink, aside) and the chain buffer (sink slot aside) are bit-identical.
+    → the window's token ids."""
+    import torch
+
+    before = _device_state(runner)
+    runs = []
+    for eager in (False, True):
+        _restore(runner, before)
+        outs = [a.clone() for a in runner.multi_decode(**kw, eager=eager).arrs]
+        runs.append((outs, _device_state(runner)))
+    torch.cuda.synchronize()
+    (g_out, g_state), (e_out, e_state) = runs
+    names = ("tokens", "logprobs", "top_vals", "top_ids")
+    for name, a, b in zip(names, g_out, e_out):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{kw['mode']}: graph and eager windows differ in {name}")
+    for i, (a, b) in enumerate(zip(g_state, e_state)):
+        a, b = (a[:-1], b[:-1]) if i == len(g_state) - 1 else (a[:, 1:], b[:, 1:])
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{kw['mode']}: graph and eager windows differ in device state {i}")
+    return g_out[0]
+
+
+def chained_vs_drained(runner, kw):
+    """Two windows back to back: the second dispatched before the first is
+    fetched, chaining from the fold (depth 2), against the first fetched
+    and the second fed its tokens from the host (depth 0). Raise unless
+    both windows' outputs are bit-identical."""
+    import numpy as np
+    import torch
+
+    K = kw["K"]
+    live = len(kw["chain"][0])
+    kw2 = dict(kw, positions=kw["positions"] + K, steps0=kw["steps0"] + K * kw["active"])
+    before = _device_state(runner)
+    r1 = runner.multi_decode(**kw)
+    o1 = [a.clone() for a in r1.arrs]
+    o2 = [a.clone() for a in runner.multi_decode(**kw2).arrs]
+    _restore(runner, before)
+    d1 = [a.clone() for a in runner.multi_decode(**kw).arrs]
+    toks = np.zeros_like(kw["tokens"])
+    toks[:live] = d1[0][-1].cpu().numpy()[:live]
+    d2 = [a.clone() for a in runner.multi_decode(**dict(kw2, tokens=toks, chain=None)).arrs]
+    torch.cuda.synchronize()
+    for a, b in zip(o1 + o2, d1 + d2):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{kw['mode']}: chained windows differ from drained ones")
+
+
+def profile_replay(runner, kw, card_line: str) -> dict:
+    """torch.profiler over one graph replay of the window ``kw``: its
+    kernels by family, device time per substep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.multi_decode(**kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.multi_decode(**kw)
+        torch.cuda.synchronize()
+    K = kw["K"]
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    families = {"gemm (nvjet/cutlass/gemv)": ("nvjet", "gemm", "gemv", "cutlass", "splitK"),
+                "paged_attention": ("paged_attention",), "copy": ("copy",),
+                "reduce": ("reduce",), "index/scatter/gather": ("index", "scatter", "gather"),
+                "sort/topk": ("sort", "topk", "Sort", "radix")}
+    fam = {k: [0.0, 0] for k in [*families, "other elementwise"]}
+    for key, ms, n in rows:
+        name = next((f for f, pats in families.items() if any(p in key for p in pats)),
+                    "other elementwise")
+        fam[name][0] += ms / K
+        fam[name][1] += n / K
+    total = sum(v[0] for v in fam.values())
+    kernels = sum(v[1] for v in fam.values())
+    log(f"graphs: profiled replay ({kw['mode']}, burst lengths): {total:.3f} ms device time "
+        f"and {kernels:.0f} kernels per substep ({card_line})")
+    for name, (ms, n) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
+        log(f"graphs:   {ms:7.3f} ms {n:6.0f} kernels per substep  {name}")
+    return {"ms_per_substep": total, "kernels_per_substep": kernels,
+            "families": {k: {"ms": v[0], "kernels": v[1]} for k, v in fam.items()}}
+
+
+def window_phase(engine, card_line: str):
+    """Graph vs eager at llama-8b shapes in every sampler mode, chained vs
+    drained windows, and the threefry noise's device time per substep."""
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+    from dynamo_tpu_torch.engine.sampler import row_gumbel
+
+    import numpy as np
+
+    args = EngineArgs(model=engine.cfg, block_size=16, num_kv_blocks=256, max_num_seqs=8,
+                      max_model_len=2048, decode_steps=8, dtype="bfloat16", device="cuda")
+    runner = LocalRunner(args, params=engine.runner.params)
+    runner.start()
+    out = {}
+    for i, mode in enumerate(("greedy", "simple", "full")):
+        kw = window_inputs(runner, mode, 40 + i)
+        toks = graph_vs_eager(runner, kw)
+        log(f"graphs: {engine.cfg.name} K=8 {mode} window, graph replay bit-identical to eager "
+            f"(tokens, logprobs, top-{kw['top_n']}, KV pages, chain buffer); row 1 tokens "
+            f"{toks[:, 1].tolist()}")
+        # One window at the burst's row lengths (W = 128): the replay's
+        # device time, against the same window run op by op (host clock).
+        kw = dict(window_inputs(runner, mode, 60 + i, lens=BURST_HIST[:6]), top_n=0)
+        runner.multi_decode(**kw)
+        times = []
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            runner.multi_decode(**kw)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times) / kw["K"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.multi_decode(**kw, eager=True)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / kw["K"]
+        out[f"replay_ms_per_substep_{mode}"] = ms
+        out[f"eager_ms_per_substep_{mode}"] = eager_ms
+        log(f"graphs: {mode} window at the burst's lengths (W={np.shape(kw['tables'])[1]}): "
+            f"{ms:.3f} ms device time per substep as one graph replay, {eager_ms:.3f} ms per "
+            f"substep op by op (host clock) ({card_line})")
+        if mode == "simple":
+            out["replay_profile"] = profile_replay(runner, kw, card_line)
+    chained_vs_drained(runner, window_inputs(runner, "simple", 50))
+    log("graphs: two chained windows (depth 2) bit-identical to drained ones (depth 0)")
+
+    B, V = 8, engine.cfg.vocab_size
+    seeds = torch.arange(1000, 1000 + B, device="cuda")
+    steps = torch.full((B,), 7, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            row_gumbel(seeds, steps, V)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        noise = row_gumbel(seeds, steps, V)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.isfinite(noise).all():
+        raise RuntimeError("threefry noise is not finite")
+    times = []
+    for _ in range(TIMED_RUNS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    log(f"graphs: threefry Gumbel noise for {B} rows x {V} tokens (one sampled substep): "
+        f"{ms:.4f} ms device time as one graph replay ({card_line})")
+    runner.stop()
+    out["threefry_ms"] = ms
+    return out
+
+
+def _counters(engine):
+    """(decode substeps dispatched, host seconds per phase) so far; read
+    while the engine is idle between request waves."""
+    return engine.total_decode_steps, dict(engine.phase_s)
 
 
 def _leaves(tree):

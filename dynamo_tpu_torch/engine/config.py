@@ -4,13 +4,14 @@
 name means the same geometry in both packages. ``EngineArgs`` keeps only
 the knobs this port honours, plus ``device``.
 
-What went: the prefill token and table-width bucket ladders existed so
-that each jitted shape compiled once; PyTorch runs eagerly, so prefill
-chunks are padded only to a block multiple (the page-scatter contract)
-and block tables are exactly as wide as the longest sequence. The decode
-batch ladder stays: a fixed row count gives every decode matmul the same
-shape whatever the batch holds, so a row's result does not depend on how
-many other rows run beside it.
+What went: the prefill token ladder existed so that each jitted shape
+compiled once; prefill runs eagerly here, so prefill chunks are padded
+only to a block multiple (the page-scatter contract). The decode batch
+ladder stays: a fixed row count gives every decode matmul the same shape
+whatever the batch holds, so a row's result does not depend on how many
+other rows run beside it. The table-width ladder stays too (two buckets,
+as in the JAX package): each decode window shape is one CUDA graph
+(engine/graphs.py), so widths must come from a short list.
 """
 
 from __future__ import annotations
@@ -126,6 +127,17 @@ class EngineArgs:
     attn_impl: str = "auto"
     # Fused decode substeps per host fetch (model.multi_decode).
     decode_steps: int = 8
+    # Keep decode windows in flight: window w+1 is dispatched, chaining its
+    # input tokens from w's on-device outputs, before w is fetched. Stops
+    # are then discovered up to pipeline_depth windows late (at most depth
+    # x decode_steps wasted tokens per finished sequence). Full-sampler
+    # batches and K=1 tail steps always run unpipelined.
+    pipeline_windows: bool = True
+    # Max decode windows dispatched but not yet fetched (0 = drain each
+    # window before dispatching the next). Fetches start at dispatch and
+    # are harvested when ready, so the host blocks only when the pipeline
+    # is full.
+    pipeline_depth: int = 2
     # Max prompt tokens admitted per scheduler step (0 = until slots are full).
     admission_budget_tokens: int = 8192
     # Ranked alternatives returned to requests asking for top_logprobs.
@@ -164,3 +176,29 @@ class EngineArgs:
             if n <= b:
                 return b
         raise ValueError(f"decode batch {n} exceeds max_num_seqs={self.max_num_seqs}")
+
+    @property
+    def blocks_per_seq(self) -> int:
+        return self.max_model_len // self.block_size
+
+    @property
+    def table_buckets(self) -> tuple[int, ...]:
+        """Decode block-table widths: the smallest covering the longest row
+        of the batch is used. Two buckets, as in the JAX package: the
+        attention kernel's work follows true lengths, so a wide table costs
+        little, and the small one keeps short batches and the CPU tests
+        cheap."""
+        return tuple(dict.fromkeys((min(8, self.blocks_per_seq), self.blocks_per_seq)))
+
+    def bucket_table(self, n_blocks: int) -> int:
+        for b in self.table_buckets:
+            if n_blocks <= b:
+                return b
+        raise ValueError(
+            f"sequence of {n_blocks} blocks exceeds blocks_per_seq={self.blocks_per_seq}"
+        )
+
+    @property
+    def effective_pipeline_depth(self) -> int:
+        """pipeline_windows is the master enable; depth 0 = unpipelined."""
+        return max(0, self.pipeline_depth) if self.pipeline_windows else 0

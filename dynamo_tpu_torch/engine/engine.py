@@ -3,24 +3,26 @@
 
 Same contract: ``start`` / ``stop`` / ``generate(request, context)``,
 yielding ``LLMEngineOutput`` dicts (token deltas; text is the Backend's
-job). Device calls block, so the scheduler loop runs in its own thread;
-asyncio callers submit through a lock-guarded queue and receive deltas on
-per-request asyncio queues via ``loop.call_soon_threadsafe``.
+job). The scheduler loop runs in its own thread; asyncio callers submit
+through a lock-guarded queue and receive deltas on per-request asyncio
+queues via ``loop.call_soon_threadsafe``.
 
 Kept from TpuEngine: FIFO admission with block allocation and prefix-
-cache hits; single-row prefill chunked at ``max_prefill_tokens``; the
-first token sampled per admission wave; fused K-step decode windows
-(``decode_steps``) over the running set, one host fetch per window;
-stops on max_tokens / EOS (``ignore_eos``, ``min_tokens``) /
-max_model_len; cancellation through ``Context``; recompute preemption of
-the newest sequence under KV pressure.
+cache hits; single-row prefill chunked at ``max_prefill_tokens``; first
+tokens sampled on the device per admission wave and folded into each
+sequence's chain slot, their fetch queued (async admission); fused K-step
+decode windows (``decode_steps``) over the running set in the sampler
+mode the batch needs ("greedy", "simple", "full"), with up to
+``pipeline_depth`` windows in flight, chained on the device and fetched
+asynchronously (the decode window pipeline below); stops on max_tokens /
+EOS (``ignore_eos``, ``min_tokens``) / max_model_len; cancellation
+through ``Context``; recompute preemption of the newest sequence under KV
+pressure.
 
-Omitted for now, each a ROADMAP item: window pipelining and async
-fetches (every window is fetched before the next is planned), the full
-sampler (requests with penalties / top-k / top-p get an EngineError),
-speculative decoding, LoRA, grammar-constrained decoding, KV tiers and
-offload, QoS classes, live migration, disaggregated export/inject,
-embeddings, delta coalescing, tracing and metrics registries.
+Omitted for now, each a ROADMAP item: speculative decoding, LoRA,
+grammar-constrained decoding, KV tiers and offload, QoS classes, live
+migration, disaggregated export/inject, embeddings, delta coalescing,
+tracing and metrics registries.
 """
 
 from __future__ import annotations
@@ -34,14 +36,12 @@ import time
 from typing import Any, AsyncIterator
 
 import numpy as np
-import torch
 
 from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
 from dynamo_tpu_torch.engine.config import EngineArgs
-from dynamo_tpu_torch.engine.runner import LocalRunner
+from dynamo_tpu_torch.engine.runner import HostFetch, LocalRunner, host_ready, start_host_fetch
 from dynamo_tpu_torch.engine.sampler import GREEDY_EPS, row_needs_full
 from dynamo_tpu_torch.llm.protocols import (
-    EngineError,
     FinishReason,
     LLMEngineOutput,
     PreprocessedRequest,
@@ -53,21 +53,23 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 
 _SENTINEL_DONE = object()
 
-
 class RequestValidationError(Exception):
     """Client error (clean rejection, no stack trace)."""
 
 
 class _Seq:
     __slots__ = (
-        "request_id", "tokens", "sampling", "stop", "eos_ids", "block_ids",
-        "block_seq", "registered_blocks", "queue", "emitted", "cancelled",
-        "sample_seed", "kv_written", "dead",
+        "request_id", "tokens", "prompt_len", "sampling", "stop", "eos_ids",
+        "block_ids", "block_seq", "registered_blocks", "queue", "emitted",
+        "cancelled", "sample_seed", "kv_written", "dead", "slot", "first_pend",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
         self.request_id = request_id
         self.tokens: list[int] = list(req.token_ids)
+        # The original prompt boundary: penalties count tokens[prompt_len:],
+        # and it survives preemption (which re-prefills every token).
+        self.prompt_len = len(req.token_ids)
         self.sampling = req.sampling
         self.stop = req.stop
         self.eos_ids = set(req.eos_token_ids) | set(req.stop.stop_token_ids)
@@ -85,11 +87,45 @@ class _Seq:
         # prefix reuse only once fully written: a just-sampled token's KV
         # lands on the NEXT step (it is that step's input).
         self.kv_written = 0
-        self.dead = False  # finished or cancelled (set by _finish)
+        # Finished or cancelled (set by _finish). In-flight windows drain
+        # after the fact; dead rows' outputs are discarded.
+        self.dead = False
+        # Stable chain slot (the runner's last_toks index) while running;
+        # first_pend = first token sampled on the device, not yet emitted.
+        self.slot: int | None = None
+        self.first_pend = False
 
     @property
     def next_write_pos(self) -> int:
         return len(self.tokens) - 1
+
+
+class _Window:
+    """One dispatched K-step decode window (results not yet fetched)."""
+
+    __slots__ = ("rows", "pos0", "K", "row_of", "top_n", "fetch")
+
+    def __init__(self, rows: list[_Seq], pos0: list[int], K: int, top_n: int,
+                 fetch: HostFetch):
+        self.rows = rows
+        self.pos0 = pos0
+        self.K = K
+        self.row_of = {s: i for i, s in enumerate(rows)}
+        self.top_n = top_n
+        # toks [K, B], logps [K, B] (+ top_vals, top_ids [K, B, top_n])
+        self.fetch = fetch
+
+
+class _First:
+    """One admission wave's first-token samples (not yet fetched).
+    Entries: (seq, row) into the wave's padded sample batch."""
+
+    __slots__ = ("entries", "fetch")
+
+    def __init__(self, entries: list[tuple[_Seq, int]], fetch: HostFetch):
+        self.entries = entries
+        # toks [B], logps [B] (+ top_vals, top_ids [B, top_n])
+        self.fetch = fetch
 
 
 class TorchEngine:
@@ -109,14 +145,20 @@ class TorchEngine:
         self._submissions: collections.deque[_Seq] = collections.deque()
         self._waiting: collections.deque[_Seq] = collections.deque()
         self._running: list[_Seq] = []
+        # Dispatched work whose results are not yet on the host, in
+        # dispatch order: admission samples and decode windows.
+        self._fetchq: collections.deque[_First | _Window] = collections.deque()
+        self._free_slots: list[int] = list(range(args.max_num_seqs))
         self._stopping = False
         # Monotonic counters, read racily by callers (stale reads harmless).
         self.total_generated = 0
         self.total_prefilled = 0
-        self.total_decode_steps = 0   # device substeps, padded rows included
+        self.total_decode_steps = 0   # device substeps dispatched, padded rows included
         self.total_preemptions = 0
-        # Host seconds per phase; "decode" ends in the window's fetch, so
-        # it is device time plus launch overhead.
+        # Host seconds per phase: admission, prefill, first_dispatch,
+        # decode_dispatch, drain_sync (waiting on a window's fetch),
+        # drain_ready (a window already on the host), first_sample (waiting
+        # on an admission sample), emit.
         self.phase_s: dict[str, float] = collections.defaultdict(float)
 
     # -- lifecycle --------------------------------------------------------
@@ -140,6 +182,14 @@ class TorchEngine:
         """Drop every idle cached block (admin clear-KV) → count."""
         return self.pool.clear()
 
+    @property
+    def runner(self) -> LocalRunner:
+        return self._runner
+
+    def busy(self) -> bool:
+        """Anything submitted, running or still in flight (a racy read)."""
+        return bool(self._submissions or self._waiting or self._running or self._fetchq)
+
     # -- async API --------------------------------------------------------
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
@@ -155,11 +205,6 @@ class TorchEngine:
             ).to_dict()
             return
         s = req.sampling
-        if row_needs_full(s.top_k, s.top_p, s.frequency_penalty, s.presence_penalty):
-            raise EngineError(
-                "top_k, top_p < 1 and frequency/presence penalties need the full "
-                "sampler, which this port does not have yet"
-            )
         if s.top_logprobs:
             s.top_logprobs = min(s.top_logprobs, self.args.top_logprobs_max) if s.logprobs else 0
         queue: asyncio.Queue = asyncio.Queue()
@@ -221,8 +266,19 @@ class TorchEngine:
                 self._post(seq, LLMEngineOutput(finish_reason=reason, error=err).to_dict())
                 self._post_done(seq)
 
+    def _phase(self, key: str, t0: float) -> float:
+        """Add perf_counter() - t0 to phase ``key``; → the new t0."""
+        t1 = time.perf_counter()
+        self.phase_s[key] += t1 - t0
+        return t1
+
     def _step(self) -> None:
+        # Harvest whatever fetches completed while the host was away: frees
+        # slots and blocks and finds stops early, and costs nothing when
+        # the head of the queue is still in flight.
+        self._drain_completed()
         self._reap_cancelled()
+        t0 = time.perf_counter()
         allocated: list[tuple[_Seq, int]] = []  # (seq, suffix start)
         budget = self.args.admission_budget_tokens or (1 << 62)
         while (
@@ -247,35 +303,53 @@ class TorchEngine:
                 self._finish(seq, FinishReason.ERROR, error=str(e))
                 continue
             allocated.append((seq, start))
+        t0 = self._phase("admission", t0)
         if allocated:
             self._admit(allocated)
         if self._running:
             self._decode_iteration()
+        elif self._fetchq:
+            # Every owner of the queued fetches died during a drain: release
+            # them (the idle wait in _run ignores _fetchq).
+            self._drain_completed(force=True)
 
     def _admit(self, allocated: list[tuple[_Seq, int]]) -> None:
-        """Prefill an admission wave and sample its first tokens (one
-        host fetch for the wave)."""
+        """Prefill an admission wave and sample its first tokens on the
+        device, folded into each sequence's chain slot; the wave's fetch
+        joins the queue (async admission), so the next window can chain
+        from the samples while they travel to the host."""
         seqs = [s for s, _ in allocated]
         t0 = time.perf_counter()
         try:
             logits = [self._prefill(seq, start) for seq, start in allocated]
-            toks, logps, tvals, tids = self._runner.sample_rows(
-                torch.stack(logits),
-                [s.sampling.temperature for s in seqs],
-                [s.sample_seed for s in seqs],
-                [s.emitted for s in seqs],
-                self._top_n(seqs),
-            )
+            t0 = self._phase("prefill", t0)
+            B = self.args.bucket_decode(len(seqs))
+            for s in seqs:
+                s.slot = self._free_slots.pop()
+            slots = np.full((B,), self.args.max_num_seqs, np.int32)
+            slots[: len(seqs)] = [s.slot for s in seqs]
+            top_n = self._top_n(seqs)
+            ref = self._sample_rows_device(logits + [logits[0]] * (B - len(seqs)), seqs, slots,
+                                           top_n)
         except Exception as e:  # noqa: BLE001 — contain wave faults to the wave
             log.exception("prefill failed")
             for seq in seqs:
                 self._finish(seq, FinishReason.ERROR, error=f"prefill failed: {e}")
             return
-        self.phase_s["prefill"] += time.perf_counter() - t0
-        for i, seq in enumerate(seqs):
+        first = _First([(s, i) for i, s in enumerate(seqs)],
+                       start_host_fetch(self._fetch_arrays(ref, top_n)))
+        self._phase("first_dispatch", t0)
+        for seq in seqs:
+            seq.first_pend = True
             self._running.append(seq)
-            tops = self._tops(seq, tvals[i : i + 1], tids[i : i + 1])
-            self._emit_tokens(seq, [int(toks[i])], [float(logps[i])], tops)
+        self._fetchq.append(first)
+        # Prefill-only requests (max_tokens=1) finish at the first token:
+        # resolve just this wave now (its rows ride no earlier queued item,
+        # so draining it out of order is safe), so they never ride a
+        # decode window as instant zombies.
+        if any(s.stop.max_tokens == 1 for s in seqs):
+            self._fetchq.pop()
+            self._drain_one(first)
 
     def _reap_cancelled(self) -> None:
         for seq in [s for s in self._running if s.cancelled]:
@@ -354,9 +428,14 @@ class TorchEngine:
     def _preempt(self, seq: _Seq) -> None:
         """Recompute-preemption: free blocks, requeue with all tokens as the
         new prompt (vLLM's recompute mode)."""
+        self._drain_completed(force=True)  # pending tokens must be host-visible
+        if seq.dead or seq not in self._running:
+            return  # the drain finished it
         log.warning("preempting request %s (KV pressure)", seq.request_id)
         self.total_preemptions += 1
         self._running.remove(seq)
+        self._free_slots.append(seq.slot)
+        seq.slot = None
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []
         seq.registered_blocks = 0
@@ -364,73 +443,264 @@ class TorchEngine:
         seq.block_seq = None
         self._waiting.appendleft(seq)
 
-    def _decode_iteration(self) -> None:
+    # -- decode window pipeline -------------------------------------------
+    #
+    # The engine keeps up to ``pipeline_depth`` decode windows in flight:
+    # window w+1 is dispatched (chaining its input tokens from w's
+    # on-device outputs through the per-slot fold buffer) BEFORE w's
+    # results are fetched, and every fetch starts at dispatch, so the host
+    # prepares the next window while the card runs this one. Consequences:
+    # - stops are discovered up to depth windows late; a stopped sequence
+    #   rides the remaining in-flight windows as a zombie row whose output
+    #   is discarded (waste bounded by depth × K tokens);
+    # - zombie rows only write KV at positions beyond the drained
+    #   boundary, and block registration is gated by complete kept-token
+    #   blocks, so prefix reuse never sees junk;
+    # - the device stream is serial and a sequence's blocks and slot are
+    #   freed only after every window containing it has been DISPATCHED, so
+    #   later prefills and samples reusing them are ordered after all
+    #   zombie writes and folds;
+    # - the full sampler needs host-visible penalty windows, so batches
+    #   with a full-sampler row drain everything first and run unpipelined.
+
+    def _pend(self, seq: _Seq) -> int:
+        """Tokens sampled on the device for this sequence but not yet
+        emitted: K per in-flight window it rides, plus an unfetched
+        admission sample."""
+        p = 1 if seq.first_pend else 0
+        for item in self._fetchq:
+            if isinstance(item, _Window) and seq in item.row_of:
+                p += item.K
+        return p
+
+    def _inflight_windows(self) -> int:
+        return sum(1 for it in self._fetchq if isinstance(it, _Window))
+
+    def _drain_completed(self, force: bool = False) -> None:
+        """Harvest the queue from the front, strictly FIFO. Not forced:
+        only items whose fetch already landed (the host never waits).
+        Forced: wait for everything."""
+        while self._fetchq:
+            if not force and not host_ready(self._fetchq[0].fetch):
+                break
+            self._drain_one(self._fetchq.popleft())
+
+    def _drain_one(self, item: _First | _Window) -> None:
+        """Fetch and emit one queue item, its fetch time attributed by
+        whether the host actually had to wait."""
+        blocked = not host_ready(item.fetch)
+        if isinstance(item, _First):
+            self._drain_first(item, blocked)
+        else:
+            self._drain_window(item, blocked)
+
+    @staticmethod
+    def _fetch_arrays(ref, top_n: int) -> tuple:
+        """What a dispatch's fetch brings back: tokens and logprobs, and
+        the ranked alternatives only when asked for."""
+        return ref.arrs if top_n else ref.arrs[:2]
+
+    def _drain_first(self, f: _First, blocked: bool) -> None:
+        t0 = time.perf_counter()
+        arrs = f.fetch.wait()
+        t0 = self._phase("first_sample" if blocked else "drain_ready", t0)
+        toks_l, lps_l = arrs[0].tolist(), arrs[1].tolist()
+        tvals_l = arrs[2].tolist() if len(arrs) > 2 else None
+        tids_l = arrs[3].tolist() if len(arrs) > 2 else None
+        for seq, row in f.entries:
+            seq.first_pend = False
+            if seq.dead:
+                continue  # cancelled while the sample was in flight
+            tops = None
+            if tids_l is not None and seq.sampling.top_logprobs:
+                n = seq.sampling.top_logprobs
+                tops = [[list(p) for p in zip(tids_l[row][:n], tvals_l[row][:n])]]
+            self._emit_tokens(seq, [toks_l[row]], [lps_l[row]], tops)
+        self._phase("emit", t0)
+
+    def _plan_window(self) -> tuple[int, int]:
+        """→ (K, depth). K=1 is the end-of-life tail near max_model_len;
+        pipelining (depth > 0) needs K > 1 and no full-sampler rows."""
         K = max(1, self.args.decode_steps)
-        if any(len(s.tokens) + K > self.args.max_model_len for s in self._running):
-            K = 1  # end-of-life tail: one token at a time
-        # Grow block tables K ahead; under KV pressure preempt the newest
-        # sequence. A lone sequence that cannot grow is finished.
+        if K > 1 and any(len(s.tokens) + self._pend(s) + K > self.args.max_model_len
+                         for s in self._running):
+            K = 1
+        depth = self.args.effective_pipeline_depth
+        if K == 1 or any(self._needs_full_sampler(s) for s in self._running):
+            depth = 0
+        return K, depth
+
+    def _decode_iteration(self) -> None:
+        K, depth = self._plan_window()
+        if depth == 0 and self._fetchq:
+            # Unpipelined plan (full sampler, K=1 tail): host-visible tokens
+            # are needed, so everything pending drains first, then re-plan.
+            self._drain_completed(force=True)
+            if self._running:
+                self._decode_iteration()
+            return
+        # Grow block tables to cover pend + K; under KV pressure drain the
+        # in-flight windows first (their tokens must land before a
+        # preempted sequence re-queues), then preempt newest-first. A lone
+        # sequence that cannot grow is finished.
         while self._running:
-            blocked = next((s for s in self._running if not self._ensure_block(s, K)), None)
+            blocked = next((s for s in self._running
+                            if not self._ensure_block(s, K + self._pend(s))), None)
             if blocked is None:
                 break
+            if self._fetchq:
+                self._drain_completed(force=True)
+                if self._running:
+                    self._decode_iteration()
+                return
             if len(self._running) == 1:
                 self._finish(blocked, FinishReason.LENGTH)
             else:
                 self._preempt(self._running[-1])
-        if self._running:
-            self._decode_window(K)
+        if not self._running:
+            self._drain_completed(force=True)
+            return
+        self._fetchq.append(self._dispatch_window(K))
+        # Free harvest first, then hold the depth bound: waiting on the
+        # OLDEST window while the newest runs is where the fetch hides.
+        self._drain_completed()
+        while self._inflight_windows() > depth and self._fetchq:
+            self._drain_one(self._fetchq.popleft())
+        if not self._running:
+            # Every sequence finished during the drains: the queued windows
+            # hold only zombie rows and nothing would wake the loop to
+            # fetch them.
+            self._drain_completed(force=True)
 
-    def _decode_window(self, K: int) -> None:
-        """One fused K-step window over the running set, fetched at its end."""
+    def _dispatch_window(self, K: int) -> _Window:
+        """Enqueue one fused K-step window over the running set. Rows with
+        device-pending tokens (an in-flight window or an unfetched
+        admission sample) chain their input from their slot (no host
+        sync)."""
+        t0 = time.perf_counter()
         batch = list(self._running)
         B = self.args.bucket_decode(len(batch))
-        W = max(len(s.block_ids) for s in batch)
+        W = self.args.bucket_table(max(len(s.block_ids) for s in batch))
         tokens = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
         tables = np.zeros((B, W), np.int32)
         active = np.zeros((B,), bool)
-        temps = np.zeros((B,), np.float32)
-        seeds = [0] * B
-        steps0 = [0] * B
+        fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        temps = np.ones((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        steps0 = np.zeros((B,), np.int32)
+        tks = np.zeros((B,), np.int32)
+        tps = np.ones((B,), np.float32)
+        freqs = np.zeros((B,), np.float32)
+        press = np.zeros((B,), np.float32)
         pos0: list[int] = []
+        dst: list[int] = []
+        src: list[int] = []
         for i, seq in enumerate(batch):
-            p0 = seq.next_write_pos
+            pend = self._pend(seq)
+            p0 = seq.next_write_pos + pend
             pos0.append(p0)
             positions[i] = p0
-            tokens[i] = seq.tokens[-1]
             tables[i, : len(seq.block_ids)] = seq.block_ids
             active[i] = True
-            temps[i] = seq.sampling.temperature
+            fold_slots[i] = seq.slot
+            if pend:
+                dst.append(i)
+                src.append(seq.slot)
+            else:
+                tokens[i] = seq.tokens[-1]
+            s = seq.sampling
+            temps[i] = s.temperature
             seeds[i] = seq.sample_seed
-            steps0[i] = seq.emitted
-        mode = "greedy" if all(t < GREEDY_EPS for t in temps) else "simple"
-        t0 = time.perf_counter()
-        toks, logps, tvals, tids = self._runner.multi_decode(
-            K, mode, tokens, positions, tables, active, temps, seeds, steps0,
-            self._top_n(batch),
+            steps0[i] = seq.emitted + pend
+            tks[i] = s.top_k or 0
+            tps[i] = s.top_p if s.top_p is not None else 1.0
+            freqs[i] = s.frequency_penalty
+            press[i] = s.presence_penalty
+        mode = self._mode(batch)
+        pen = self._penalty_window(batch, B) if mode == "full" else np.full((B, 1), -1, np.int32)
+        top_n = self._top_n(batch)
+        ref = self._runner.multi_decode(
+            K, mode, tokens, (dst, src) if dst else None, positions, tables, active,
+            temps, seeds, steps0, tks, tps, freqs, press, pen, fold_slots, top_n,
         )
-        self.phase_s["decode"] += time.perf_counter() - t0
         self.total_decode_steps += K
-        for i, seq in enumerate(batch):
+        w = _Window(batch, pos0, K, top_n, start_host_fetch(self._fetch_arrays(ref, top_n)))
+        self._phase("decode_dispatch", t0)
+        return w
+
+    def _drain_window(self, w: _Window, blocked: bool) -> None:
+        t0 = time.perf_counter()
+        arrs = w.fetch.wait()  # the window's one host fetch
+        t0 = self._phase("drain_sync" if blocked else "drain_ready", t0)
+        toks_l = arrs[0].T.tolist()    # [B][K]
+        logps_l = arrs[1].T.tolist()
+        tvals_l = tids_l = None
+        if w.top_n:
+            tvals_l = arrs[2].transpose(1, 0, 2).tolist()  # [B][K][top_n]
+            tids_l = arrs[3].transpose(1, 0, 2).tolist()
+        for i, seq in enumerate(w.rows):
             if seq.dead:
-                continue
-            seq.kv_written = pos0[i] + K
+                continue  # finished or cancelled while this window was in flight
+            seq.kv_written = w.pos0[i] + w.K
             self._register_written_blocks(seq)
-            tops = self._tops(seq, tvals[:, i], tids[:, i])
-            self._emit_tokens(seq, toks[:, i].tolist(), logps[:, i].tolist(), tops)
+            tops = None
+            if tids_l is not None and seq.sampling.top_logprobs:
+                n = seq.sampling.top_logprobs
+                tops = [[list(p) for p in zip(tids_l[i][j][:n], tvals_l[i][j][:n])]
+                        for j in range(w.K)]
+            self._emit_tokens(seq, toks_l[i], logps_l[i], tops)
+        self._phase("emit", t0)
+
+    # -- sampling ----------------------------------------------------------
+
+    @staticmethod
+    def _needs_full_sampler(seq: _Seq) -> bool:
+        s = seq.sampling
+        return row_needs_full(s.top_k, s.top_p, s.frequency_penalty, s.presence_penalty)
+
+    def _mode(self, seqs: list[_Seq]) -> str:
+        if any(self._needs_full_sampler(s) for s in seqs):
+            return "full"
+        return "greedy" if all(s.sampling.temperature < GREEDY_EPS for s in seqs) else "simple"
+
+    def _penalty_window(self, seqs: list[_Seq], B: int) -> np.ndarray:
+        """[B, max_model_len] generated-so-far ids, -1 pad. One width for
+        every batch, so the "full" window has one shape (one CUDA graph)
+        per table bucket."""
+        pen = np.full((B, self.args.max_model_len), -1, np.int32)
+        for i, s in enumerate(seqs):
+            gen = s.tokens[s.prompt_len:]
+            pen[i, : len(gen)] = gen
+        return pen
+
+    def _sample_rows_device(self, logits: list, seqs: list[_Seq], fold_slots: np.ndarray,
+                            top_n: int):
+        """First tokens of an admission wave (``logits`` padded to the
+        batch bucket), sampled and folded on the device → StepRef."""
+        B = len(logits)
+        temps = np.ones((B,), np.float32)
+        tks = np.zeros((B,), np.int32)
+        tps = np.ones((B,), np.float32)
+        freqs = np.zeros((B,), np.float32)
+        press = np.zeros((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        steps = np.zeros((B,), np.int32)
+        for i, s in enumerate(seqs):
+            temps[i] = s.sampling.temperature
+            tks[i] = s.sampling.top_k or 0
+            tps[i] = s.sampling.top_p if s.sampling.top_p is not None else 1.0
+            freqs[i] = s.sampling.frequency_penalty
+            press[i] = s.sampling.presence_penalty
+            seeds[i] = s.sample_seed
+            steps[i] = s.emitted
+        mode = self._mode(seqs)
+        pen = self._penalty_window(seqs, B) if mode == "full" else np.full((B, 1), -1, np.int32)
+        return self._runner.sample_rows(logits, mode, temps, tks, tps, pen, freqs, press,
+                                        seeds, steps, fold_slots, top_n)
 
     def _top_n(self, seqs: list[_Seq]) -> int:
         return self.args.top_logprobs_max if any(s.sampling.top_logprobs for s in seqs) else 0
-
-    @staticmethod
-    def _tops(seq: _Seq, tvals: np.ndarray, tids: np.ndarray) -> list | None:
-        """Per-token [[id, logprob], ...] alternatives (tvals/tids [n_tok, top_n])."""
-        n = seq.sampling.top_logprobs
-        if not n or tvals.shape[-1] == 0:
-            return None
-        return [[[int(t), float(v)] for t, v in zip(ti[:n], tv[:n])]
-                for tv, ti in zip(tvals, tids)]
 
     # -- token emission / finish ------------------------------------------
 
@@ -477,6 +747,9 @@ class TorchEngine:
         seq.dead = True
         if seq in self._running:
             self._running.remove(seq)
+        if seq.slot is not None:
+            self._free_slots.append(seq.slot)
+            seq.slot = None
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []
         if not already_posted:

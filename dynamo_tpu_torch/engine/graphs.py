@@ -1,0 +1,107 @@
+"""CUDA-graph decode windows: the port's counterpart of the JAX package's
+one jitted dispatch per window (``dynamo_tpu/engine/runner.py``
+``multi_decode``).
+
+An eager window issues hundreds of small launches per substep and leaves
+the card idle while the host issues them. Here each window shape (B
+bucket, W bucket, penalty width, K, sampler mode, top_n) is captured once,
+at first use, as one ``torch.cuda.CUDAGraph`` of the whole window:
+``multi_decode`` plus the fold of its last tokens into ``last_toks``.
+Later windows of that shape copy their packed inputs into the graph's
+static input buffer and replay it.
+
+- Capture follows torch's documented pattern: the window runs twice on a
+  side stream first, on inert inputs (every row inactive, so KV writes land
+  in block 0, the garbage sink, and folds land in the sink slot), then is
+  captured. A capture that fails raises; nothing falls back to the eager
+  window.
+- All graphs share one memory pool. Each keeps references to its static
+  inputs and outputs, so no capture reuses another graph's live buffers;
+  every replay runs on the one stream, in dispatch order, and the runner
+  enqueues the copy of a replay's outputs to the host right behind it,
+  before any later replay.
+- ``paged_attention.launches`` counts in Python, so a capture records it
+  once; the warmup and capture counts are taken back, and each replay adds
+  the attention calls its graph holds.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.ops import paged_attention as pa
+
+WARMUP_RUNS = 2
+
+
+class _Graph:
+    __slots__ = ("graph", "static_in", "outs", "attn_calls")
+
+    def __init__(self, graph, static_in, outs, attn_calls):
+        self.graph = graph
+        self.static_in = static_in
+        self.outs = outs
+        self.attn_calls = attn_calls
+
+
+class WindowGraphs:
+    """The runner's captured windows, keyed by window shape."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self._graphs: dict[tuple, _Graph] = {}
+        self.capture_s = 0.0
+        self.replays = 0
+
+    @property
+    def captured(self) -> int:
+        return len(self._graphs)
+
+    @property
+    def shapes(self) -> list[tuple]:
+        """Captured window shapes: (B, W, L, K, mode, top_n)."""
+        return list(self._graphs)
+
+    def run(self, key: tuple, words: np.ndarray,
+            make: Callable[[], tuple[Callable, np.ndarray]]) -> tuple[torch.Tensor, ...]:
+        """Replay the graph of ``key`` on the packed inputs ``words``,
+        capturing it first if needed (``make()`` → the window function of
+        its packed inputs and inert inputs for the warmup). → the graph's
+        static outputs, overwritten by its next replay."""
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(*make())
+        g.static_in.copy_(torch.from_numpy(words).pin_memory(), non_blocking=True)
+        g.graph.replay()
+        pa.launches += g.attn_calls
+        self.replays += 1
+        return g.outs
+
+    def _capture(self, fn: Callable, inert: np.ndarray) -> _Graph:
+        t0 = time.perf_counter()
+        static_in = torch.from_numpy(inert).to(self.device)
+        base = pa.launches
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                fn(static_in)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        mark = pa.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            outs = tuple(fn(static_in))
+        attn_calls = pa.launches - mark
+        pa.launches = base
+        self.capture_s += time.perf_counter() - t0
+        return _Graph(graph, static_in, outs, attn_calls)
+
+    def pool_bytes(self) -> int:
+        """Device bytes reserved by the shared graph pool."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))

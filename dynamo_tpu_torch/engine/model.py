@@ -28,8 +28,11 @@ import torch
 
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.sampler import (
+    apply_penalties,
     row_gumbel,
     sample_simple,
+    sample_step,
+    token_counts,
     token_logprobs,
     top_k_logprobs,
 )
@@ -128,16 +131,22 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (norm * w.float()).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding, rotate-half layout, in f32. x: [..., heads, hd];
-    positions broadcast against x's leading dims."""
-    hd = x.shape[-1]
+def _rope_table(positions: torch.Tensor, hd: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotary cos/sin for ``positions`` (f32, [..., 1, hd/2], broadcast over
+    heads), computed once per forward pass and shared by every layer."""
     half = hd // 2
-    freq = torch.arange(half, dtype=torch.float32, device=x.device)
-    inv_freq = torch.tensor(theta, dtype=torch.float32, device=x.device) ** (-freq / half)
+    freq = torch.arange(half, dtype=torch.float32, device=positions.device)
+    # A Python-number base: no host-to-device copy (a CUDA graph captures this).
+    inv_freq = torch.pow(float(theta), -freq / half)
     angles = positions[..., None].float() * inv_freq
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def _rope(x: torch.Tensor, table: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Rotary embedding, rotate-half layout, in f32. x: [..., heads, hd];
+    ``table`` from ``_rope_table`` for x's leading dims."""
+    cos, sin = table
+    half = x.shape[-1] // 2
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
@@ -237,13 +246,14 @@ def prefill_batch(
     sfx_ids = torch.where(start[:, None] + jb[None, :] * bs < tlen[:, None], sfx_ids, 0)
     flat_ids = sfx_ids.reshape(Bp * nb)
     scale = hd ** -0.5
+    rope = _rope_table(suffix_positions, hd, cfg.rope_theta)
 
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(h, lp, cfg)
-        q = _rope(q.reshape(Bp, T, cfg.num_heads, hd), suffix_positions, cfg.rope_theta)
-        k = _rope(k.reshape(Bp, T, KVH, hd), suffix_positions, cfg.rope_theta)
+        q = _rope(q.reshape(Bp, T, cfg.num_heads, hd), rope)
+        k = _rope(k.reshape(Bp, T, KVH, hd), rope)
         v = v.reshape(Bp, T, KVH, hd)
         # The suffix self-attends its exact values below; only later
         # readers see the (possibly int8-rounded) stored pages.
@@ -315,12 +325,13 @@ def decode_step(
     lengths = torch.where(active, pos + 1, 0).to(torch.int32)
 
     x = _embed_rows(params, tokens)                                        # [B, D]
+    rope = _rope_table(pos, hd, cfg.rope_theta)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(h, lp, cfg)
-        q = _rope(q.reshape(B, cfg.num_heads, hd), pos, cfg.rope_theta)
-        k = _rope(k.reshape(B, KVH, hd), pos, cfg.rope_theta)
+        q = _rope(q.reshape(B, cfg.num_heads, hd), rope)
+        k = _rope(k.reshape(B, KVH, hd), rope)
         v = v.reshape(B, KVH, hd)
         # Write, then attend: this step's own token is read back from the
         # cache (int8-rounded under kv_quant), as every later step reads it.
@@ -335,7 +346,7 @@ def decode_step(
 def multi_decode(
     cfg: ModelConfig,
     num_steps: int,
-    mode: str,                   # "greedy" | "simple"
+    mode: str,                   # "greedy" | "simple" | "full"
     top_n: int,                  # top-n alternative logprobs (0 = off)
     params: Params,
     cache: KVCache,
@@ -344,30 +355,58 @@ def multi_decode(
     block_tables: torch.Tensor,  # [B, W] int32 (must cover positions+num_steps)
     active: torch.Tensor,        # [B] bool
     temperature: torch.Tensor,   # [B] f32 (<= 0 → greedy row)
-    seeds: list[int],            # per-row sample seed (host)
-    steps0: list[int],           # per-row emission index of the first substep (host)
+    seeds: torch.Tensor,         # [B] int per-row sample seed ("simple"/"full")
+    steps0: torch.Tensor,        # [B] int per-row emission index of the first substep
+    top_k: torch.Tensor | None = None,           # [B] int ("full"; 0 = off)
+    top_p: torch.Tensor | None = None,           # [B] f32 ("full"; 1.0 = off)
+    freq_penalty: torch.Tensor | None = None,    # [B] f32 ("full")
+    pres_penalty: torch.Tensor | None = None,    # [B] f32 ("full")
+    penalty_tokens: torch.Tensor | None = None,  # [B, L] int generated ids, -1 pad ("full")
+    chain_mask: torch.Tensor | None = None,      # [B] bool — row chains from last_toks
+    chain_src: torch.Tensor | None = None,       # [B] int — its SLOT in last_toks
+    last_toks: torch.Tensor | None = None,       # [slots+1] int32 per-slot latest token
     attn_impl: str = "auto",
 ):
     """``num_steps`` fused decode+sample substeps: sampled tokens feed back
     on the device, so the caller fetches once per window. → (tokens
     [K, B] int32, logprobs [K, B] f32, top_vals [K, B, top_n], top_ids
     [K, B, top_n]), all on the device. Logprobs are of the raw model
-    distribution. The "full" sampler mode (penalties, top-k/top-p) is not
-    ported yet."""
-    if mode not in ("greedy", "simple"):
-        raise NotImplementedError(f"sampler mode {mode!r} is not ported yet")
+    distribution (before penalties).
+
+    Sampler modes: "greedy" (argmax, no noise), "simple" (temperature by
+    Gumbel-max), "full" (frequency/presence penalties plus exact top-k and
+    top-p; the penalty counts start from ``penalty_tokens`` and are updated
+    on the device with each sampled token, so the window stays fused).
+
+    Window pipeline: rows with ``chain_mask`` set take their input token
+    from ``last_toks[chain_src]``, the newest on-device sample of their
+    slot (the previous window's fold or the admission sample), so a window
+    can be dispatched before the one it follows is fetched. Every operand
+    is a tensor, so nothing host-side varies inside a window and a CUDA
+    graph can capture it whole."""
+    if mode not in ("greedy", "simple", "full"):
+        raise ValueError(f"unknown sampler mode {mode!r}")
     B = tokens.shape[0]
     V = cfg.vocab_size
     dev = tokens.device
+    if chain_mask is not None:
+        tokens = torch.where(chain_mask, last_toks[chain_src.long()], tokens)
+    if mode == "full":
+        counts = token_counts(penalty_tokens, V)
+        one = torch.ones((B, 1), dtype=torch.float32, device=dev)
     toks, logps, tvals, tids = [], [], [], []
     tok, pos = tokens, positions
     for i in range(num_steps):
         logits = decode_step(cfg, params, cache, tok, pos, block_tables, active, attn_impl)
         if mode == "greedy":
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        elif mode == "simple":
+            nxt = sample_simple(logits, temperature, row_gumbel(seeds, steps0 + i, V))
         else:
-            gumbel = row_gumbel(seeds, [s + i for s in steps0], V, dev)
-            nxt = sample_simple(logits, temperature, gumbel)
+            penalized = apply_penalties(logits, counts, freq_penalty, pres_penalty)
+            nxt = sample_step(penalized, temperature, top_k, top_p,
+                              row_gumbel(seeds, steps0 + i, V))
+            counts.scatter_add_(1, nxt.long()[:, None], one)
         toks.append(nxt)
         logps.append(token_logprobs(logits, nxt))
         if top_n > 0:

@@ -1,14 +1,36 @@
 """LocalRunner: every device dispatch the engine makes, behind one seam
 (port of ``dynamo_tpu/engine/runner.py`` ``LocalRunner``).
 
-Owns the device state (params, KV cache) and turns the engine's host
-arrays into device calls. Decode windows end in one plain ``.cpu()``
-fetch; asynchronous fetches and window pipelining are later work.
+Owns the device state (params, KV cache, the per-slot chain buffer) and
+turns the engine's host arrays into device calls that never wait for the
+device:
+
+- Host inputs of a dispatch are packed into one int32 word buffer
+  (``Layout``) and go up in one ``non_blocking`` copy from pinned memory.
+  Pinned blocks come from torch's caching host allocator, which records
+  the copy on the stream and hands a block out again only after that copy
+  has run, so the host may build window w+2's inputs while w+1 has not
+  started.
+- Results come back by ``start_host_fetch``: ``non_blocking`` copies into
+  pinned host memory enqueued right after the dispatch on the same
+  stream, plus a recorded event. ``HostFetch.ready`` polls the event and
+  ``HostFetch.wait`` blocks on it. On the CPU both are synchronous.
+- Decode windows chain on the device through ``last_toks``
+  ``[max_num_seqs + 1]``: each window folds its last sampled token per row
+  into its sequence's slot (padding rows into the tail slot, a sink), and
+  so do admission samples, so the next window can be dispatched before
+  this one is fetched.
+- On CUDA a K-step window (K > 1) is one CUDA-graph replay
+  (``engine/graphs.py``), the counterpart of the JAX package's one jitted
+  dispatch per window. K=1 tail steps, prefill and admission sampling run
+  eagerly, as the JAX package dispatches them separately too.
+
 Thread affinity: the engine's scheduler thread only.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any
 
 import numpy as np
@@ -17,8 +39,10 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
+from dynamo_tpu_torch.engine.graphs import WindowGraphs
 from dynamo_tpu_torch.engine.sampler import (
     row_gumbel,
+    sample_full,
     sample_simple,
     token_logprobs,
     top_k_logprobs,
@@ -26,6 +50,112 @@ from dynamo_tpu_torch.engine.sampler import (
 from dynamo_tpu_torch.ops.paged_attention import resolve_attn_impl
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+_RETAIN = 128  # refs kept by id
+
+
+class Layout:
+    """Where each host operand of one dispatch sits in a single int32 word
+    buffer: one host→device copy per dispatch. Kinds: "i" int32, "f"
+    float32 (bit-cast), "b" bool (one word each)."""
+
+    def __init__(self, *fields: tuple[str, tuple[int, ...], str]):
+        self.slices: dict[str, tuple[int, int, tuple[int, ...], str]] = {}
+        off = 0
+        for name, shape, kind in fields:
+            n = int(np.prod(shape))
+            self.slices[name] = (off, off + n, shape, kind)
+            off += n
+        self.size = off
+
+    def pack(self, **arrays) -> np.ndarray:
+        words = np.empty((self.size,), np.int32)
+        for name, (lo, hi, shape, kind) in self.slices.items():
+            a = np.asarray(arrays[name]).reshape(-1)
+            if kind == "f":
+                words[lo:hi] = a.astype(np.float32).view(np.int32)
+            else:
+                words[lo:hi] = a.astype(np.int32)
+        return words
+
+    def unpack(self, words: torch.Tensor) -> dict[str, torch.Tensor]:
+        out = {}
+        for name, (lo, hi, shape, kind) in self.slices.items():
+            w = words[lo:hi]
+            if kind == "f":
+                w = w.view(torch.float32)
+            elif kind == "b":
+                w = w != 0
+            out[name] = w.reshape(shape)
+        return out
+
+
+def window_layout(B: int, W: int, L: int) -> Layout:
+    """Operands of one decode window: B rows, W-wide tables, L-wide penalty
+    windows (1 outside the "full" mode)."""
+    return Layout(
+        ("tokens", (B,), "i"), ("positions", (B,), "i"), ("tables", (B, W), "i"),
+        ("active", (B,), "b"), ("temps", (B,), "f"), ("seeds", (B,), "i"),
+        ("steps0", (B,), "i"), ("top_k", (B,), "i"), ("top_p", (B,), "f"),
+        ("freq", (B,), "f"), ("pres", (B,), "f"), ("pen", (B, L), "i"),
+        ("chain_mask", (B,), "b"), ("chain_src", (B,), "i"), ("fold_slots", (B,), "i"),
+    )
+
+
+def sample_layout(B: int, L: int) -> Layout:
+    return Layout(
+        ("temps", (B,), "f"), ("seeds", (B,), "i"), ("steps", (B,), "i"),
+        ("top_k", (B,), "i"), ("top_p", (B,), "f"), ("freq", (B,), "f"),
+        ("pres", (B,), "f"), ("pen", (B, L), "i"), ("fold_slots", (B,), "i"),
+    )
+
+
+class StepRef:
+    """Handle to a dispatch's device-side results. A graph window's arrays
+    are the graph's static outputs, valid until its next replay; the host
+    fetch enqueued at dispatch is what the engine reads."""
+
+    __slots__ = ("rid", "arrs")
+
+    def __init__(self, rid: int, arrs: tuple):
+        self.rid = rid
+        self.arrs = arrs
+
+
+class HostFetch:
+    """An asynchronous device→host copy of some result tensors."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tensors):
+        if tensors and tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = list(tensors)
+            self.event = None
+
+    def ready(self) -> bool:
+        """True once the copies have landed: waiting now costs nothing."""
+        return self.event is None or self.event.query()
+
+    def wait(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+def start_host_fetch(tensors) -> HostFetch:
+    """Begin the device→host copy of a dispatch's result tensors, right
+    behind the dispatch on the current stream."""
+    return HostFetch(tensors)
+
+
+def host_ready(fetch: HostFetch) -> bool:
+    return fetch.ready()
 
 
 class LocalRunner:
@@ -38,6 +168,14 @@ class LocalRunner:
         self.device: torch.device | None = None
         self.dtype = DTYPES[args.dtype]
         self.attn_impl = "torch"
+        self._rid = 0
+        self._refs: OrderedDict[int, StepRef] = OrderedDict()
+        # Per-SLOT latest sampled token, on the device (the tail slot is
+        # the sink for padding rows). Allocated once: captured graphs hold
+        # its address.
+        self.last_toks: torch.Tensor | None = None
+        self.graphs: WindowGraphs | None = None
+        self.eager_windows = 0  # K-step windows run eagerly on CUDA
 
     def start(self) -> None:
         self.device = resolve_device(self.args.device)
@@ -48,9 +186,39 @@ class LocalRunner:
             self.cfg, self.args.num_kv_blocks, self.args.block_size, self.dtype,
             self.device, kv_quant=self.args.kv_quant,
         )
+        self.last_toks = torch.zeros((self.args.max_num_seqs + 1,), dtype=torch.int32,
+                                      device=self.device)
+        if self.device.type == "cuda":
+            self.graphs = WindowGraphs(self.device)
 
     def stop(self) -> None:
+        self._refs.clear()
+        self.graphs = None
         self.cache = None
+
+    # -- ref bookkeeping --------------------------------------------------
+
+    def _new_ref(self, arrs: tuple, rid: int | None = None) -> StepRef:
+        if rid is None:
+            rid = self._rid
+        self._rid = rid + 1
+        ref = StepRef(rid, arrs)
+        self._refs[rid] = ref
+        while len(self._refs) > _RETAIN:
+            self._refs.popitem(last=False)
+        return ref
+
+    def ref_by_id(self, rid: int) -> StepRef:
+        return self._refs[rid]
+
+    # -- host → device ----------------------------------------------------
+
+    def upload(self, words: np.ndarray) -> torch.Tensor:
+        """int32 words → a device tensor, without waiting for the device."""
+        host = torch.from_numpy(words)
+        if self.device.type == "cpu":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
@@ -66,11 +234,14 @@ class LocalRunner:
         )
 
     def prefill_chunk(self, toks, table, pos: int, tlen: int) -> torch.Tensor:
-        """→ last-token logits [V] (device)."""
-        return M.prefill(
-            self.cfg, self.params, self.cache, self._t(toks, torch.int32),
-            self._t(table, torch.int32), int(pos), int(tlen),
-        )
+        """Positions [pos, tlen) of one sequence → last-token logits [V]
+        (device), dispatched without waiting for the device."""
+        T, W = len(toks), len(table)
+        lay = Layout(("toks", (1, T), "i"), ("table", (1, W), "i"),
+                     ("pos", (1,), "i"), ("tlen", (1,), "i"))
+        a = lay.unpack(self.upload(lay.pack(toks=toks, table=table, pos=pos, tlen=tlen)))
+        return M.prefill_batch(self.cfg, self.params, self.cache, a["toks"], a["table"],
+                               a["pos"], a["tlen"])[0]
 
     def decode_step(self, tokens, positions, tables, active) -> torch.Tensor:
         """→ logits [B, V] (device)."""
@@ -80,34 +251,127 @@ class LocalRunner:
             self._t(active, torch.bool), self.attn_impl,
         )
 
-    def multi_decode(self, K, mode, tokens, positions, tables, active, temps, seeds,
-                     steps0, top_n=0) -> tuple[np.ndarray, ...]:
-        """One fused K-step window → host arrays (tokens [K, B], logprobs
-        [K, B], top_vals [K, B, n], top_ids [K, B, n]); the window's one
-        host fetch."""
-        out = M.multi_decode(
-            self.cfg, int(K), mode, int(top_n), self.params, self.cache,
-            self._t(tokens, torch.int32), self._t(positions, torch.int32),
-            self._t(tables, torch.int32), self._t(active, torch.bool),
-            self._t(temps, torch.float32), list(seeds), list(steps0), self.attn_impl,
-        )
-        return tuple(a.cpu().numpy() for a in out)
+    def multi_decode(self, K, mode, tokens, chain, positions, tables, active, temps,
+                     seeds, steps0, tks, tps, freqs, press, pen, fold_slots=None,
+                     top_n=0, *, rid=None, eager=False) -> StepRef:
+        """One fused K-step window → StepRef (tokens [K, B], logprobs [K, B],
+        top_vals [K, B, n], top_ids [K, B, n]) on the device.
 
-    def sample_rows(self, logits: torch.Tensor, temps, seeds, steps,
-                    top_n: int = 0) -> tuple[np.ndarray, ...]:
-        """Sample one token per row of ``logits`` [B, V] → host arrays
-        (tokens [B], logprobs [B], top_vals [B, n], top_ids [B, n])."""
-        temps_t = self._t(temps, torch.float32)
-        greedy = bool((np.asarray(temps) < 1e-5).all())
-        if greedy:
-            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        chain: None | (dst rows, src slots) — rows whose input token is the
+        latest on-device sample of that sequence SLOT (no host sync).
+        ``fold_slots`` [B] names each row's slot so the window's final
+        tokens land back in ``last_toks`` (padding rows → the tail slot).
+        ``pen`` [B, L] is the penalty window ("full" mode; [B, 1] of -1
+        otherwise). On CUDA a window with K > 1 replays its CUDA graph;
+        ``eager=True`` runs it op by op instead (the parity checks' seam)."""
+        B, W = np.shape(tables)
+        L = np.shape(pen)[1]
+        mask = np.zeros((B,), bool)
+        srcmap = np.zeros((B,), np.int32)
+        if chain is not None:
+            dst, src = chain
+            mask[np.asarray(dst, np.int64)] = True
+            srcmap[np.asarray(dst, np.int64)] = src
+        if fold_slots is None:
+            fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        lay = window_layout(B, W, L)
+        words = lay.pack(
+            tokens=tokens, positions=positions, tables=tables, active=active, temps=temps,
+            seeds=seeds, steps0=steps0, top_k=tks, top_p=tps, freq=freqs, pres=press,
+            pen=pen, chain_mask=mask, chain_src=srcmap, fold_slots=fold_slots,
+        )
+        if self.graphs is not None and K > 1 and not eager:
+            outs = self._graph_window(lay, int(K), mode, int(top_n), words)
         else:
-            gumbel = row_gumbel(seeds, steps, logits.shape[-1], self.device)
-            toks = sample_simple(logits, temps_t, gumbel)
-        logps = token_logprobs(logits, toks)
+            if self.device.type == "cuda" and K > 1:
+                self.eager_windows += 1
+            outs = self._window_fn(int(K), mode, int(top_n), lay)(self.upload(words))
+        return self._new_ref(tuple(outs), rid)
+
+    def _graph_window(self, lay: Layout, K: int, mode: str, top_n: int, words: np.ndarray):
+        B, W = lay.slices["tables"][2]
+        key = (B, W, lay.slices["pen"][2][1], K, mode, top_n)
+        return self.graphs.run(
+            key, words, lambda: (self._window_fn(K, mode, top_n, lay), self._inert_window(lay)))
+
+    def warm_windows(self, modes=("greedy", "simple"), top_ns=(0,)) -> int:
+        """Capture, ahead of traffic, the CUDA graph of every window shape
+        these sampler modes and top_n values can take (each decode bucket ×
+        table bucket at ``decode_steps``), so that no request waits for a
+        capture; each is replayed once on inert inputs. → graphs newly
+        captured (0 on the CPU or with decode_steps 1)."""
+        K = self.args.decode_steps
+        if self.graphs is None or K < 2:
+            return 0
+        before = self.graphs.captured
+        for mode in modes:
+            L = self.args.max_model_len if mode == "full" else 1
+            for top_n in top_ns:
+                for B in self.args.decode_buckets:
+                    for W in self.args.table_buckets:
+                        lay = window_layout(B, W, L)
+                        self._graph_window(lay, K, mode, top_n, self._inert_window(lay))
+        return self.graphs.captured - before
+
+    def _window_fn(self, K: int, mode: str, top_n: int, lay: Layout):
+        """The window as one function of its packed inputs (what a graph
+        captures): multi_decode, then the fold into ``last_toks``."""
+
+        def window(words: torch.Tensor):
+            a = lay.unpack(words)
+            out = M.multi_decode(
+                self.cfg, K, mode, top_n, self.params, self.cache, a["tokens"],
+                a["positions"], a["tables"], a["active"], a["temps"], a["seeds"],
+                a["steps0"], a["top_k"], a["top_p"], a["freq"], a["pres"], a["pen"],
+                a["chain_mask"], a["chain_src"], self.last_toks, self.attn_impl,
+            )
+            self.last_toks[a["fold_slots"].long()] = out[0][-1]
+            return out
+
+        return window
+
+    def _inert_window(self, lay: Layout) -> np.ndarray:
+        """Window inputs that touch nothing live: every row inactive (its KV
+        writes land in block 0), no chaining, folds into the sink slot."""
+        B = lay.slices["tokens"][2][0]
+        sink = self.args.max_num_seqs
+        z = np.zeros((B,), np.int32)
+        return lay.pack(
+            tokens=z, positions=z, tables=np.zeros(lay.slices["tables"][2], np.int32),
+            active=z, temps=np.ones((B,), np.float32), seeds=z, steps0=z, top_k=z,
+            top_p=np.ones((B,), np.float32), freq=z, pres=z,
+            pen=np.full(lay.slices["pen"][2], -1, np.int32), chain_mask=z, chain_src=z,
+            fold_slots=np.full((B,), sink, np.int32),
+        )
+
+    def sample_rows(self, logits: list[torch.Tensor], mode: str, temps, tks, tps, pen, freqs,
+                    press, seeds, steps, fold_slots=None, top_n: int = 0) -> StepRef:
+        """Sample one token per row of the stacked ``logits`` ([V] each) in
+        sampler ``mode`` → StepRef (tokens [B], logprobs [B], top_vals
+        [B, n], top_ids [B, n]).
+        With ``fold_slots`` the tokens also land in ``last_toks``, so the
+        next window chains from them without a host sync (async
+        admission)."""
+        x = torch.stack(logits)
+        B, V = x.shape
+        if fold_slots is None:
+            fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        lay = sample_layout(B, np.shape(pen)[1])
+        a = lay.unpack(self.upload(lay.pack(
+            temps=temps, seeds=seeds, steps=steps, top_k=tks, top_p=tps, freq=freqs,
+            pres=press, pen=pen, fold_slots=fold_slots,
+        )))
+        if mode == "greedy":
+            toks = torch.argmax(x, dim=-1).to(torch.int32)
+        elif mode == "simple":
+            toks = sample_simple(x, a["temps"], row_gumbel(a["seeds"], a["steps"], V))
+        else:
+            toks = sample_full(x, a["temps"], a["top_k"], a["top_p"], a["pen"], a["freq"],
+                               a["pres"], row_gumbel(a["seeds"], a["steps"], V))
+        self.last_toks[a["fold_slots"].long()] = toks
         if top_n > 0:
-            tv, ti = top_k_logprobs(logits, top_n)
+            tv, ti = top_k_logprobs(x, top_n)
         else:
-            tv = torch.zeros((logits.shape[0], 0), dtype=torch.float32, device=self.device)
-            ti = torch.zeros((logits.shape[0], 0), dtype=torch.int32, device=self.device)
-        return tuple(a.cpu().numpy() for a in (toks, logps, tv, ti))
+            tv = torch.zeros((B, 0), dtype=torch.float32, device=x.device)
+            ti = torch.zeros((B, 0), dtype=torch.int32, device=x.device)
+        return self._new_ref((toks, token_logprobs(x, toks), tv, ti))

@@ -1,47 +1,37 @@
-"""On-device sampling (port of the "greedy"/"simple" half of
-``dynamo_tpu/engine/sampler.py``).
+"""On-device sampling (port of ``dynamo_tpu/engine/sampler.py``).
 
-``sample_simple`` is greedy / temperature sampling by the Gumbel-max
-trick. It takes its noise as an argument, so tests can feed the port and
-the JAX package the same numbers. ``row_gumbel`` draws each row's noise
-from a Philox ``torch.Generator`` (on CUDA; the CPU generator is
-Mersenne Twister) seeded by (request seed, emission index), so a seeded
-request is reproducible whatever batch it rides in. It does not
-reproduce jax's threefry bits: seeded sampled streams differ between the
-two packages until that generator is ported.
+Three modes, chosen host-side per batch as the JAX engine does:
 
-Temperature <= 0 means greedy (argmax) for that row. Requests that need
-the full sampler (penalties, exact top-k/top-p) are refused by the
-engine for now (``row_needs_full``).
+- "greedy": argmax, no noise;
+- "simple": greedy / temperature via the Gumbel-max trick
+  (``sample_simple``); no sort;
+- "full": frequency/presence penalties over the generated tokens plus
+  exact top-k and top-p (nucleus) over a full descending sort
+  (``token_counts``, ``apply_penalties``, ``sample_step``).
+
+The noise is jax's: ``row_gumbel`` draws ``gumbel(fold_in(PRNGKey(seed),
+step))`` per row with the port's threefry (``engine/threefry.py``) from
+device tensors, so a seeded request samples the same tokens as in the
+JAX package whatever batch it rides in, and the draw needs no host call
+(a CUDA graph captures it). ``sample_simple`` and ``sample_step`` take the
+noise as an argument, so tests can feed both packages the same numbers.
+
+Temperature <= 0 means greedy (argmax) for that row in every mode.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dynamo_tpu_torch.engine import threefry
+
 GREEDY_EPS = 1e-5
 
 
-def _mix64(x: int) -> int:
-    """splitmix64 finalizer, kept to 63 bits: every input bit reaches the
-    low bits (the CPU generator keeps only the low 32 bits of its seed)."""
-    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return (x ^ (x >> 31)) & 0x7FFFFFFFFFFFFFFF
-
-
-def row_gumbel(seeds, steps, V: int, device: torch.device) -> torch.Tensor:
-    """Per-row Gumbel noise [B, V] f32 from (seed, step) host ints."""
-    out = torch.empty((len(seeds), V), dtype=torch.float32, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    for b, (seed, step) in enumerate(zip(seeds, steps)):
-        g = torch.Generator(device=device).manual_seed(
-            _mix64(((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-        )
-        u = torch.rand((V,), generator=g, device=device, dtype=torch.float32)
-        out[b] = -torch.log(-torch.log(u.clamp_min(tiny)))
-    return out
+def row_gumbel(seeds: torch.Tensor, steps: torch.Tensor, V: int) -> torch.Tensor:
+    """Per-row Gumbel noise [B, V] float32 from (seed, emission index)
+    integer tensors [B] on the device that the noise is wanted on."""
+    return threefry.gumbel(threefry.fold_in(threefry.prng_key(seeds), steps), V)
 
 
 def sample_simple(
@@ -53,6 +43,71 @@ def sample_simple(
     temp = torch.where(greedy, torch.ones_like(temperature), temperature)
     noisy = torch.where(greedy[:, None], logits, logits / temp[:, None] + gumbel)
     return torch.argmax(noisy, dim=-1).to(torch.int32)
+
+
+def token_counts(penalty_tokens: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, L] generated ids (-1 pad) → [B, V] f32 occurrence counts."""
+    valid = penalty_tokens >= 0
+    safe = torch.where(valid, penalty_tokens, 0).long()
+    counts = torch.zeros((penalty_tokens.shape[0], V), dtype=torch.float32,
+                         device=penalty_tokens.device)
+    return counts.scatter_add_(1, safe, valid.float())
+
+
+def apply_penalties(
+    logits: torch.Tensor,        # [B, V] f32
+    counts: torch.Tensor,        # [B, V] f32 occurrence counts of generated ids
+    freq_penalty: torch.Tensor,  # [B] f32
+    pres_penalty: torch.Tensor,  # [B] f32
+) -> torch.Tensor:
+    """OpenAI frequency/presence penalties over generated tokens."""
+    logits = logits - freq_penalty[:, None] * counts
+    return logits - pres_penalty[:, None] * (counts > 0).float()
+
+
+def sample_step(
+    logits: torch.Tensor,       # [B, V] f32 (penalties already applied)
+    temperature: torch.Tensor,  # [B] f32
+    top_k: torch.Tensor,        # [B] int, 0 = off
+    top_p: torch.Tensor,        # [B] f32, 1.0 = off
+    gumbel: torch.Tensor,       # [B, V] f32 noise
+) -> torch.Tensor:
+    """Exact top-k + top-p (nucleus) + temperature + Gumbel-max: the core
+    of the full sampler and of the fused window's "full" mode. The sort is
+    stable, so equal values keep index order as ``lax.top_k`` does."""
+    greedy = temperature < GREEDY_EPS
+    temp = torch.where(greedy, torch.ones_like(temperature), temperature)
+    scaled = logits / temp[:, None]
+    V = logits.shape[1]
+    svals, sidx = torch.sort(scaled, dim=-1, descending=True, stable=True)
+    ranks = torch.arange(V, dtype=torch.int64, device=logits.device)[None, :]
+    k = torch.where(top_k <= 0, V, top_k.long())[:, None]
+    keep_k = ranks < k
+    probs = torch.softmax(svals, dim=-1)
+    cum_before = torch.cumsum(probs, dim=-1) - probs
+    # nucleus: keep tokens whose preceding cumulative mass < top_p
+    keep_p = cum_before < top_p[:, None]
+    keep = keep_k & keep_p
+    keep[:, 0] = True  # never mask the argmax
+    masked = torch.where(keep, svals, torch.full_like(svals, float("-inf")))
+    noise = torch.gather(gumbel, 1, sidx)
+    pick = torch.argmax(torch.where(greedy[:, None], masked, masked + noise), dim=-1)
+    return torch.gather(sidx, 1, pick[:, None])[:, 0].to(torch.int32)
+
+
+def sample_full(
+    logits: torch.Tensor,          # [B, V] f32
+    temperature: torch.Tensor,     # [B] f32
+    top_k: torch.Tensor,           # [B] int, 0 = off
+    top_p: torch.Tensor,           # [B] f32, 1.0 = off
+    penalty_tokens: torch.Tensor,  # [B, L] int previously generated ids, -1 pad
+    freq_penalty: torch.Tensor,    # [B] f32
+    pres_penalty: torch.Tensor,    # [B] f32
+    gumbel: torch.Tensor,          # [B, V] f32 noise
+) -> torch.Tensor:
+    counts = token_counts(penalty_tokens, logits.shape[1])
+    logits = apply_penalties(logits, counts, freq_penalty, pres_penalty)
+    return sample_step(logits, temperature, top_k, top_p, gumbel)
 
 
 def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

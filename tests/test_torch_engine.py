@@ -28,7 +28,6 @@ from dynamo_tpu_torch.engine.config import EngineArgs as TArgs
 from dynamo_tpu_torch.engine.config import ModelConfig as TCfg
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.weights import params_from_numpy
-from dynamo_tpu_torch.llm.protocols import EngineError
 from dynamo_tpu_torch.runtime.engine import Context
 
 ARGS = dict(block_size=4, num_kv_blocks=64, max_num_seqs=4, max_model_len=128,
@@ -184,21 +183,27 @@ def test_preemption_matches_tpu_engine(np_params):
 
 
 def test_seeded_sampling_reproducible_and_full_sampler_refused(np_params):
+    """Seeded sampling is reproducible and seed-dependent; a request with
+    ``top_k`` (the full sampler, once refused by the port) is served and
+    matches TpuEngine token for token; an empty prompt is an error."""
     async def go():
         eng = await torch_engine(np_params).start()
+        j_eng = await jax_engine(np_params).start()
         try:
             req = request([4, 4, 2], 10, temperature=0.8, seed=11)
             a, b = await run_one(eng, req), await run_one(eng, req)
             assert tokens(a) == tokens(b) and len(tokens(a)) == 10
             other = await run_one(eng, request([4, 4, 2], 10, temperature=0.8, seed=12))
             assert tokens(other) != tokens(a)
-            bad = request([4, 4, 2], 4)
-            bad["sampling"]["top_k"] = 5
-            with pytest.raises(EngineError):
-                await run_one(eng, bad)
+            full = request([4, 4, 2], 10, temperature=0.9, seed=5)
+            full["sampling"]["top_k"] = 5
+            t_full = await run_one(eng, full)
+            assert t_full[-1]["finish_reason"] == "length" and len(tokens(t_full)) == 10
+            assert tokens(t_full) == tokens(await run_one(j_eng, full, JContext()))
             err = await run_one(eng, request([], 4))
             assert err[-1]["finish_reason"] == "error"
         finally:
             await eng.stop()
+            await j_eng.stop()
 
     asyncio.run(go())

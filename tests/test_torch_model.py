@@ -193,8 +193,8 @@ def test_sample_simple_with_shared_noise(models):
 
 
 def test_row_gumbel_is_seeded_per_row_and_step():
-    a = TS.row_gumbel([5, 5, 6], [0, 1, 0], 64, CPU)
-    b = TS.row_gumbel([6, 5], [0, 1], 64, CPU)
+    a = TS.row_gumbel(torch.tensor([5, 5, 6]), torch.tensor([0, 1, 0]), 64)
+    b = TS.row_gumbel(torch.tensor([6, 5]), torch.tensor([0, 1]), 64)
     assert torch.equal(a[2], b[0]) and torch.equal(a[1], b[1])
     assert not torch.equal(a[0], a[1])
     assert torch.isfinite(a).all()
@@ -254,11 +254,21 @@ def test_local_runner_dispatches_match_model(models):
     want_step = TM.decode_step(tcfg, tparams, tcache, torch.from_numpy(first), torch.from_numpy(pos),
                                torch.from_numpy(tables), torch.from_numpy(active))
     torch.testing.assert_close(step, want_step, rtol=0, atol=0)
-    toks_s, logps_s, _, _ = runner.sample_rows(step, [0.0, 0.0], [0, 0], [0, 0])
+    zi, zf, pen = np.zeros(2, np.int32), np.zeros(2, np.float32), np.full((2, 1), -1, np.int32)
+    ref = runner.sample_rows([step[0], step[1]], "greedy", zf, zi, zf + 1, pen, zf, zf, zi, zi,
+                             np.array([0, 1], np.int32))
+    toks_s, logps_s = ref.arrs[0].numpy(), ref.arrs[1].numpy()
     np.testing.assert_array_equal(toks_s, step.argmax(-1).numpy())
     assert np.all(logps_s <= 0)
-    out = runner.multi_decode(3, "greedy", toks_s, pos + 1, tables, active, [0.0, 0.0], [0, 0],
-                              [1, 1], top_n=2)
-    assert out[0].shape == (3, 2) and out[2].shape == (3, 2, 2) and out[3].dtype == np.int32
+    # The next window chains both rows from the folded samples.
+    out = runner.multi_decode(3, "greedy", np.zeros(2, np.int32), ([0, 1], [0, 1]), pos + 1,
+                              tables, active, zf, zi, zi + 1, zi, zf + 1, zf, zf, pen,
+                              np.array([0, 1], np.int32), top_n=2).arrs
+    assert out[0].shape == (3, 2) and out[2].shape == (3, 2, 2) and out[3].dtype == torch.int32
+    want = TM.multi_decode(tcfg, 3, "greedy", 2, tparams, tcache, torch.from_numpy(toks_s),
+                           torch.from_numpy(pos + 1), torch.from_numpy(tables),
+                           torch.from_numpy(active), torch.from_numpy(zf), None, None)
+    for g, w in zip(out, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     chunk = runner.prefill_chunk(np.arange(1, 9, dtype=np.int32), np.array([20, 21], np.int32), 0, 8)
     assert chunk.shape == (tcfg.vocab_size,)
