@@ -22,8 +22,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    captured first, `LocalRunner.warm_windows`); the kernel's launch
    counter is zeroed just before the requests and read just after. Then
    the same burst again at pipeline_depth=0 (its own counts zeroed and
-   read), whose 8 token and logprob streams must be identical, and one
-   prompt alone again under torch.profiler. Decode ms per substep,
+   read), whose 8 token and logprob streams must be identical, request 7
+   once more on its cached prefix (the reference of phase 7's repeat),
+   and one prompt alone again under torch.profiler. Decode ms per substep,
    tokens/s, TTFT per request, the host-blocked share, graph capture and
    pool numbers and the device-busy share are printed beside the card's
    name and power limit.
@@ -37,6 +38,29 @@ Phases, in order; any failure raises and the run exits non-zero:
    (batch 8, the full vocabulary).
 6. A small-input reference: test-tiny in float32 through the model with
    the kernel and with the plain attention, tokens equal.
+7. The distributed serving path over HTTP: the in-process engine freed,
+   the port's store server, two `python -m dynamo_tpu_torch.worker`
+   processes (the main path's engine arguments, seed 0, so the same
+   weights) and a kv-mode `python -m dynamo_tpu_torch.frontend`. The same
+   8 /v1/completions as the main path's burst (even ones as SSE streams,
+   odd ones aggregated, over raw asyncio sockets), two chat completions
+   (streamed and aggregated, equal), one burst prompt again, then, after
+   /clear_kv_blocks, the burst once more, all 8 aggregated. Every
+   response must be 200, every stream end in [DONE], every completion
+   carry 64 tokens and equal the in-process burst's text for the same
+   request; every aggregate response must carry the in-process burst's
+   64 token texts and logprobs bit for bit, and both workers must have
+   served such a response; the repeated prompt must land
+   on the worker that served it first (the router's choice, read from the
+   frontend's ledger and traces) and carry the token texts and logprobs
+   of the in-process prefix-hit pass bit for bit; each worker's kernel
+   launches (counted from after its graph warm-up, printed on its last
+   line at SIGTERM) must equal 32 x its decode substeps; every process
+   must exit 0 on SIGTERM. The frontend ledger's TTFT of the aggregate
+   requests, each pass's tokens/s against the in-process burst, each
+   worker's start-up and graph warm-up seconds and msgpack_lite's
+   microseconds per frame are printed beside the card's
+   name and power limit.
 
 The last lines are the kernels JSON line, nvidia-smi's name/power line,
 and {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -47,9 +71,14 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -64,6 +93,16 @@ KERNEL_VERSION = 3
 # Row lengths the main path's decode sees: the burst's prompts (64-1536
 # byte-tokens) at mid-generation.
 BURST_HIST = [96, 192, 352, 544, 800, 1056, 1312, 1568]
+# The main path's burst: 8 prompts of these byte lengths, these
+# temperatures, seeds 1000-1007, 64 tokens each.
+BURST_LENS = [64, 160, 320, 512, 768, 1024, 1280, 1536]
+BURST_TEMPS = [0.0, 0.0, 0.0, 0.7, 0.0, 0.0, 0.7, 0.0]
+BURST_TOKENS = 64
+# Engine arguments of the main path, shared by its in-process pipeline and
+# the HTTP phase's workers.
+ENGINE_ARGV = ["--block-size", "16", "--num-kv-blocks", "2048", "--max-num-seqs", "8",
+               "--max-model-len", "2048", "--decode-steps", "8", "--seed", "0"]
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 # The kernel is held against its plain PyTorch version evaluated in float32
 # on the same values (bf16 → f32 is exact; int8 pages are first dequantized
@@ -76,6 +115,22 @@ TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-4, 2.0 ** -8 + 1e-3)}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reference_entry(gen, ttft_s: float) -> dict:
+    """One in-process request as the HTTP phase's reference: its text, and
+    its per-token logprobs and token texts as an aggregate completion
+    carries them."""
+    choice = gen.final_response()["choices"][0]
+    return {"text": choice["text"], "logprobs": list(gen.lp_values),
+            "lp_tokens": choice["logprobs"]["tokens"], "ttft_s": ttft_s}
+
+
+def burst_prompts() -> list[str]:
+    import numpy as np
+
+    rng = np.random.default_rng(2024)
+    return ["".join(chr(c) for c in rng.integers(32, 127, n)) for n in BURST_LENS]
 
 
 def _tree_anc(parents, T):
@@ -309,11 +364,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
-    args = parse_args([
-        "--in", "batch:-", "--preset", preset, "--dtype", "bfloat16",
-        "--block-size", "16", "--num-kv-blocks", "2048", "--max-num-seqs", "8",
-        "--max-model-len", "2048", "--decode-steps", "8", "--device", device, "--seed", "0",
-    ])
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", "bfloat16",
+                       "--device", device, *ENGINE_ARGV])
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     pipe = await build_pipeline(args)
@@ -329,11 +381,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     log(f"main: {n} window graphs captured ahead of traffic in {g.capture_s:.2f}s "
         f"(shapes B, W, L, K, mode, top_n: {g.shapes}), graph pool "
         f"{g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
-    rng = np.random.default_rng(2024)
-    lens = [64, 160, 320, 512, 768, 1024, 1280, 1536]
-    prompts = ["".join(chr(c) for c in rng.integers(32, 127, n)) for n in lens]
-    temps = [0.0, 0.0, 0.0, 0.7, 0.0, 0.0, 0.7, 0.0]
-    max_tokens = 64
+    lens, temps, max_tokens = BURST_LENS, BURST_TEMPS, BURST_TOKENS
+    prompts = burst_prompts()
 
     async def one(i, prompt, temp, seed):
         req = CompletionRequest.parse({
@@ -348,7 +397,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
                 t_first = time.perf_counter() - t_start
             gen = g
         return {"i": i, "ttft_s": t_first, "resp": gen.final_response(),
-                "tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
+                "tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values),
+                "ref": reference_entry(gen, t_first)}
 
     async def burst(label):
         """The 8 requests at once; every count zeroed just before, read just
@@ -423,6 +473,14 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         if a["tokens"] != b["tokens"] or a["logprobs"] != b["logprobs"]:
             raise RuntimeError(f"request {a['i']}: depth 2 and depth 0 streams differ")
     log("main: all 8 token and logprob streams identical at pipeline_depth 2 and 0")
+    # Request 7 again, on the prefix its depth-0 pass cached: the reference
+    # of the HTTP phase's repeat, which takes the same prefix-hit path.
+    repeat = await one(7, prompts[7], temps[7], 1007)
+    drift = max(abs(a - b) for a, b in zip(repeat["logprobs"], first[7]["logprobs"]))
+    log(f"main: request 7 again on its cached prefix: tokens "
+        f"{'equal to' if repeat['tokens'] == first[7]['tokens'] else 'not equal to'} its cold "
+        f"pass, max |logprob - cold pass| {drift:.3g}, TTFT {repeat['ttft_s'] * 1e3:.1f} ms "
+        f"({card_line})")
 
     # One greedy prompt alone again, under torch.profiler, whose CUDA kernel
     # records split the pass's wall time into device-busy time and the rest.
@@ -466,7 +524,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     await engine.stop()
     del pipe, engine, runner
     torch.cuda.empty_cache()
-    return stats
+    reference = {"burst": [o["ref"] for o in first], "repeat": repeat["ref"]}
+    return stats, reference
 
 
 def window_inputs(runner, mode, seed, K=8, lens=None):
@@ -749,6 +808,445 @@ def small_reference(device):
         f"path, logprob max diff {err:.2e}")
 
 
+# -- phase 7: the distributed serving path over HTTP ---------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class Proc:
+    """A child process of the HTTP phase: stdout and stderr go to a log
+    file under build/http_phase/ and, line by line, to ``lines``."""
+
+    def __init__(self, name: str, argv: list[str], env: dict | None = None):
+        self.name = name
+        os.makedirs(os.path.join(HERE, "build", "http_phase"), exist_ok=True)
+        self.log = open(os.path.join(HERE, "build", "http_phase", f"{name}.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": HERE, "PYTHONUNBUFFERED": "1", **(env or {})})
+        self.lines: list[str] = []
+        self._cv = threading.Condition()
+        self._reader = threading.Thread(target=self._pump, daemon=True)
+        self._reader.start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self.log.write(line)
+            self.log.flush()
+            with self._cv:
+                self.lines.append(line.rstrip("\n"))
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def wait_for(self, pattern: str, timeout: float) -> tuple[re.Match, float]:
+        """→ (the first line matching ``pattern``, seconds since launch)."""
+        rx = re.compile(pattern)
+        deadline = time.monotonic() + timeout
+        seen = 0
+        with self._cv:
+            while True:
+                for line in self.lines[seen:]:
+                    m = rx.search(line)
+                    if m:
+                        return m, time.perf_counter() - self.t0
+                seen = len(self.lines)
+                if self.proc.poll() is not None and not self._reader.is_alive():
+                    raise RuntimeError(f"{self.name} exited rc={self.proc.returncode}: "
+                                       + " | ".join(self.lines[-15:]))
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise RuntimeError(f"{self.name}: no line matching {pattern!r} in {timeout}s: "
+                                       + " | ".join(self.lines[-15:]))
+                self._cv.wait(min(left, 0.5))
+
+    def stop(self, timeout: float = 60.0) -> int:
+        """SIGTERM, wait → the exit code."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout)
+        finally:
+            self._reader.join(5)
+            self.log.close()
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(10)
+        if not self.log.closed:
+            self._reader.join(5)
+            self.log.close()
+
+
+async def http_request(port: int, path: str, body=None, headers=None, method: str = "POST"):
+    """One HTTP/1.1 request over a raw asyncio socket → (status, headers,
+    [(arrival perf_counter, body piece)], send perf_counter). Chunked
+    bodies come back one piece per chunk."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    head = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1", "Connection: close",
+            "Content-Type: application/json", f"Content-Length: {len(data)}"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    t0 = time.perf_counter()
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + data)
+    await writer.drain()
+    try:
+        status = int((await reader.readline()).split()[1])
+        hdrs = {}
+        while (line := await reader.readline()) not in (b"\r\n", b""):
+            k, _, v = line.decode("latin-1").partition(":")
+            hdrs[k.strip().lower()] = v.strip()
+        pieces = []
+        if hdrs.get("transfer-encoding") == "chunked":
+            while (size := int((await reader.readline()).split(b";")[0], 16)) > 0:
+                pieces.append((time.perf_counter(), await reader.readexactly(size)))
+                await reader.readexactly(2)
+            await reader.readline()
+        else:
+            n = int(hdrs.get("content-length", "0"))
+            pieces.append((time.perf_counter(), await reader.readexactly(n)))
+    finally:
+        writer.close()
+    return status, hdrs, pieces, t0
+
+
+def sse_payloads(pieces) -> list[tuple[float, str]]:
+    """Chunked SSE pieces → [(arrival time, data payload)]."""
+    out, buf = [], b""
+    for t, piece in pieces:
+        buf += piece
+        while b"\n\n" in buf:
+            event, buf = buf.split(b"\n\n", 1)
+            for line in event.split(b"\n"):
+                if line.startswith(b"data: "):
+                    out.append((t, line[6:].decode()))
+    return out
+
+
+async def http_completion(port: int, body: dict, trace_id: str) -> dict:
+    """POST one completion (SSE or aggregate) with a W3C traceparent →
+    its text, usage, finish reason, TTFT (streams) and latency."""
+    kind = "chat" if "messages" in body else "completion"
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    status, _hdrs, pieces, t0 = await http_request(
+        port, path, body, {"traceparent": f"00-{trace_id}-{'1' * 16}-01"})
+    out = {"status": status, "latency_s": pieces[-1][0] - t0 if pieces else None,
+           "trace_id": trace_id, "stream": bool(body.get("stream"))}
+    if status != 200:
+        out["error"] = b"".join(p for _, p in pieces)[:300].decode("utf-8", "replace")
+        return out
+    if not body.get("stream"):
+        resp = json.loads(b"".join(p for _, p in pieces))
+        choice = resp["choices"][0]
+        lp = choice.get("logprobs") or {}
+        out.update(text=choice["message"]["content"] if kind == "chat" else choice["text"],
+                   finish=choice["finish_reason"], usage=resp["usage"], done=True,
+                   logprobs=lp.get("token_logprobs"), lp_tokens=lp.get("tokens"))
+        return out
+    events = sse_payloads(pieces)
+    out["done"] = bool(events) and events[-1][1] == "[DONE]"
+    texts, usage, finish = [], None, None
+    # A completion chunk goes out only with text; a chat stream's first
+    # event (the role) goes out with its first token.
+    first_event = events[0][0] - t0 if events and events[0][1] != "[DONE]" else None
+    for _t, data in events:
+        if data == "[DONE]":
+            continue
+        ev = json.loads(data)
+        if "error" in ev:
+            out["error"] = ev["error"]
+            continue
+        ch = ev["choices"][0]
+        piece = (ch.get("delta") or {}).get("content") if kind == "chat" else ch.get("text")
+        if piece:
+            texts.append(piece)
+        usage = ev.get("usage") or usage
+        finish = ch.get("finish_reason") or finish
+    out.update(text="".join(texts), usage=usage, finish=finish, first_event_s=first_event)
+    return out
+
+
+async def routed(port: int, trace_id: str) -> tuple[str, float | None]:
+    """The frontend's record of one request: its ledger entry (looked up by
+    trace id) → the TTFT the frontend saw, and the trace's router.attempt
+    span → the instance the router chose. → (instance, ledger ttft_s)."""
+    status, _, pieces, _ = await http_request(
+        port, f"/debug/requests?trace_id={trace_id}", method="GET")
+    records = json.loads(b"".join(p for _, p in pieces))["requests"]
+    if status != 200 or not records or records[0]["status"] != "200":
+        raise RuntimeError(f"http: no 200 ledger record for trace {trace_id}: {records}")
+    _, _, pieces, _ = await http_request(port, f"/debug/traces/{trace_id}", method="GET")
+    spans = json.loads(b"".join(p for _, p in pieces))["spans"]
+    served = [s["attrs"]["instance"] for s in spans
+              if s["name"] == "router.attempt" and s.get("status", "ok") == "ok"]
+    if not served:
+        raise RuntimeError(f"http: trace {trace_id} has no router.attempt span")
+    return served[-1], records[0].get("ttft_s")
+
+
+def msgpack_frame_us(reps: int = 2000) -> dict:
+    """Microseconds to pack + unpack one frame with the port's pure-Python
+    msgpack, for the two frames the serving path sends most: a decode
+    window's delta (8 tokens with logprobs) and the longest burst request."""
+    from dynamo_tpu_torch.runtime import msgpack_lite
+
+    delta = {"t": "data", "id": "0" * 32, "payload": {
+        "token_ids": [91234, 17, 40012, 3, 128000, 77, 1045, 9981],
+        "log_probs": [-0.125, -2.5, -0.03125, -7.75, -1.0, -0.5, -3.25, -0.0625],
+        "finish_reason": None}}
+    request = {"t": "request", "id": "0" * 32, "subject": "dynamo/backend/generate",
+               "headers": {"timeout_s": 60.0, "traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"},
+               "payload": {"model": "llama-8b", "token_ids": list(range(1536)),
+                           "sampling": {"temperature": 0.7, "seed": 1007, "logprobs": False},
+                           "stop": {"max_tokens": 64, "ignore_eos": True},
+                           "eos_token_ids": [257]}}
+    out = {}
+    for name, frame in (("delta_8_tokens", delta), ("request_1536_tokens", request)):
+        raw = msgpack_lite.packb(frame)
+        if msgpack_lite.unpackb(raw) != frame:
+            raise RuntimeError(f"msgpack_lite: {name} does not round-trip")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            msgpack_lite.unpackb(msgpack_lite.packb(frame))
+        out[name] = {"bytes": len(raw), "us": (time.perf_counter() - t0) / reps * 1e6}
+    return out
+
+
+def _metric(text: str, name: str) -> float | None:
+    m = re.search(rf"^{re.escape(name)}(?:{{[^}}]*}})? ([0-9.eE+-]+)$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def http_phase(card_line: str, reference: dict, inproc_tps: float,
+               preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """Phase 7: store + two workers + kv frontend as separate processes,
+    the main path's burst over HTTP. ``reference``: the in-process burst's
+    requests (``reference_entry``) under "burst", and request 7 served
+    again on its cached prefix under "repeat"."""
+    procs: list[Proc] = []
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+    try:
+        store = Proc("store", ["dynamo_tpu_torch.runtime.store_server", "--host", "127.0.0.1",
+                               "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        workers = []
+        for i in range(2):
+            sys_port = _free_port()
+            w = Proc(f"worker{i}", [
+                "dynamo_tpu_torch.worker", "--store-url", store_url, "--preset", preset,
+                "--dtype", dtype, "--device", device, *ENGINE_ARGV],
+                env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port)})
+            w.sys_port = sys_port
+            procs.append(w)
+            workers.append(w)
+        startup = []
+        for w in workers:
+            m, secs = w.wait_for(r"serving .* \((\d+) window graphs captured in ([0-9.]+)s", 600)
+            startup.append({"launch_to_registered_s": secs, "graphs": int(m.group(1)),
+                            "graph_warmup_s": float(m.group(2))})
+            log(f"http: {w.name} registered {secs:.2f}s after launch, {m.group(1)} window graphs "
+                f"captured in {m.group(2)}s ({card_line})")
+        fe = Proc("frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                               "--host", "127.0.0.1", "--port", "0", "--router-mode", "kv"])
+        procs.append(fe)
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+        result = asyncio.run(_drive_http(port, preset, reference, inproc_tps, card_line))
+
+        for w in workers:
+            _, _, pieces, _ = asyncio.run(http_request(w.sys_port, "/metrics", method="GET"))
+            text = b"".join(p for _, p in pieces).decode()
+            w.metrics = {k: _metric(text, f"dynamo_tpu_{k}") for k in (
+                "engine_kv_cache_bytes", "engine_prefill_pad_ratio", "engine_inflight_windows",
+                "engine_kv_quant_enabled")}
+            if w.metrics["engine_kv_cache_bytes"] is None:
+                raise RuntimeError(f"http: {w.name}'s /metrics has no engine series")
+        rcs = {p.name: p.stop() for p in [fe, *workers, store]}
+        if any(rcs.values()):
+            raise RuntimeError(f"http: processes did not exit 0 on SIGTERM: {rcs}")
+        per_worker, total = [], 0
+        for w, st in zip(workers, startup):
+            counters = next(json.loads(line) for line in reversed(w.lines)
+                            if line.startswith('{"event": "engine_counters"'))
+            launches, substeps = counters["paged_attention_launches"], counters["decode_substeps"]
+            # On the CPU (a rehearsal) the plain attention runs: no launch.
+            want = counters["num_layers"] * substeps if device == "cuda" else 0
+            if launches != want:
+                raise RuntimeError(f"http: {w.name} kernel launches {launches} != layers "
+                                   f"{counters['num_layers']} x substeps {substeps}")
+            total += launches
+            per_worker.append({**st, **counters, "metrics": w.metrics})
+            log(f"http: {w.name} paged_attention launches {launches} (= {want}: "
+                f"{counters['num_layers']} layers x {substeps} substeps on the card, 0 on the CPU), "
+                f"{counters['generated_tokens']} tokens generated, "
+                f"eager windows {counters['eager_windows']}, /metrics {w.metrics}")
+        if total <= 0 and device == "cuda":
+            raise RuntimeError("http: no worker launched the kernel")
+        log(f"http: every process exited 0 on SIGTERM ({rcs})")
+        result.update(workers=per_worker, launches=total, exit_codes=rcs)
+        return result
+    finally:
+        for p in procs:
+            p.kill()
+
+
+async def clear_kv(port: int, model: str) -> dict[str, int]:
+    """POST /clear_kv_blocks until a call drops nothing on any worker (a
+    row still draining its last windows frees its blocks a moment after
+    its response) → blocks dropped per instance."""
+    await asyncio.sleep(1.0)
+    total: dict[str, int] = {}
+    for _ in range(50):
+        status, _, pieces, _ = await http_request(port, "/clear_kv_blocks", {})
+        cleared = json.loads(b"".join(p for _, p in pieces))["cleared"].get(model) or {}
+        if status != 200 or len(cleared) != 2 or any(n < 0 for n in cleared.values()):
+            raise RuntimeError(f"http: /clear_kv_blocks answered {status}: {cleared}")
+        for inst, n in cleared.items():
+            total[inst] = total.get(inst, 0) + n
+        if total and not any(cleared.values()):
+            return total
+        await asyncio.sleep(0.2)
+    raise RuntimeError(f"http: the workers' caches never came up empty: {total}")
+
+
+async def _drive_http(port: int, model: str, reference: dict, inproc_tps: float,
+                      card_line: str) -> dict:
+    for _ in range(600):
+        _, _, pieces, _ = await http_request(port, "/v1/models", method="GET")
+        if [m["id"] for m in json.loads(b"".join(p for _, p in pieces))["data"]] == [model]:
+            break
+        await asyncio.sleep(0.1)
+    else:
+        raise RuntimeError(f"http: the frontend never listed {model}")
+    prompts = burst_prompts()
+
+    def body(i: int, stream: bool) -> dict:
+        return {"model": model, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+                "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True,
+                "logprobs": 0, "stream": stream}
+
+    def check(label: str, r: dict, ref: dict | None) -> None:
+        """200, [DONE], 64 tokens; against the in-process request: the same
+        text and, for an aggregate response (which carries every token's
+        text and logprob), the same 64 token texts and logprobs bit for bit."""
+        if r["status"] != 200 or r.get("error"):
+            raise RuntimeError(f"http {label}: status {r['status']} {r.get('error')}")
+        if not r["done"]:
+            raise RuntimeError(f"http {label}: the stream did not end in [DONE]")
+        if (r["usage"] or {}).get("completion_tokens") != BURST_TOKENS or r["finish"] != "length":
+            raise RuntimeError(f"http {label}: usage {r['usage']}, finish {r['finish']!r}")
+        if ref is None:
+            return
+        if r["text"] != ref["text"]:
+            raise RuntimeError(f"http {label}: text differs from the in-process request's")
+        if not r["stream"] and (r["logprobs"] != ref["logprobs"]
+                                or r["lp_tokens"] != ref["lp_tokens"]):
+            raise RuntimeError(f"http {label}: token logprobs differ from the in-process request's")
+
+    async def burst_pass(n: int, sse: bool) -> dict:
+        """All 8 at once, the even ones streamed if ``sse``, the others
+        aggregated; every aggregate one held to the in-process burst bit
+        for bit."""
+        t0 = time.perf_counter()
+        rs = await asyncio.gather(*(
+            http_completion(port, body(i, sse and i % 2 == 0), f"{0xB00 + 0x10 * n + i:032x}")
+            for i in range(8)))
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(rs):
+            check(f"pass {n} request {i} ({'SSE' if r['stream'] else 'aggregate'})", r,
+                  reference["burst"][i])
+        seen = [await routed(port, r["trace_id"]) for r in rs]
+        tps = 8 * BURST_TOKENS / wall
+        instances = [inst for inst, _ in seen]
+        log(f"http: pass {n}: 8 requests ({'4 SSE, 4' if sse else 'all 8'} aggregate), "
+            f"{8 * BURST_TOKENS} completion tokens in "
+            f"{wall:.3f}s → {tps:.1f} tokens/s over HTTP against {inproc_tps:.1f} in process "
+            f"({tps / inproc_tps:.3f}x); routed to instances "
+            + ", ".join(f"{i}:{inst}" for i, inst in enumerate(instances)) + f" ({card_line})")
+        return {"responses": rs, "wall": wall, "tps": tps, "instances": instances,
+                "ledger_ttft": [t for _, t in seen]}
+
+    # Pass 1: the burst, even requests streamed, odd aggregated.
+    one = await burst_pass(1, sse=True)
+    burst, wall, tps, instances = one["responses"], one["wall"], one["tps"], one["instances"]
+    if len(set(instances)) != 2:
+        raise RuntimeError(f"http: the kv router used {len(set(instances))} of 2 workers")
+
+    # Two chat completions, the same greedy request streamed and aggregated.
+    chat = {"model": model, "max_tokens": BURST_TOKENS, "temperature": 0.0, "seed": 42,
+            "ignore_eos": True,
+            "messages": [{"role": "system", "content": "You are a helpful assistant."},
+                         {"role": "user", "content": prompts[2]}]}
+    chats = await asyncio.gather(http_completion(port, dict(chat, stream=True), f"{0xC0:032x}"),
+                                 http_completion(port, dict(chat, stream=False), f"{0xC1:032x}"))
+    for r in chats:
+        check(f"chat ({'SSE' if r['stream'] else 'aggregate'})", r, None)
+    if chats[0]["text"] != chats[1]["text"]:
+        raise RuntimeError("http: the streamed and aggregated chat completions differ")
+    log(f"http: two chat completions (SSE and aggregate) of 64 tokens, equal; the SSE one's "
+        f"first event (its first token) after {chats[0]['first_event_s'] * 1e3:.1f} ms "
+        f"({card_line})")
+
+    # One burst prompt again: the KV router must send it to the worker
+    # holding its prefix (the longest prompt: 96 cached blocks). Only its
+    # last block is prefilled, attending over the cached pages: its token
+    # stream must equal the in-process engine's on the same prefix hit.
+    again = await http_completion(port, body(7, False), f"{0xD7:032x}")
+    check("repeated request 7", again, reference["repeat"])
+    drift = max(abs(a - b) for a, b in zip(again["logprobs"], reference["burst"][7]["logprobs"]))
+    inst, again_ttft = await routed(port, again["trace_id"])
+    if inst != instances[7]:
+        raise RuntimeError(f"http: repeated request 7 went to instance {inst}, not {instances[7]} "
+                           "which holds its prefix")
+    log(f"http: repeated request 7 routed to instance {inst} again (its prefix holder); its 64 "
+        f"token texts and logprobs equal the in-process prefix-hit pass's bit for bit (max "
+        f"|logprob - cold pass| {drift:.3g}); frontend ledger TTFT {again_ttft * 1e3:.1f} ms, "
+        f"latency {again['latency_s'] * 1e3:.1f} ms ({card_line})")
+
+    # Pass 2, from empty caches: the same burst all aggregated, so every
+    # request is held bit for bit, on whichever worker serves it.
+    cleared = await clear_kv(port, model)
+    log(f"http: /clear_kv_blocks dropped {cleared} cached blocks per instance")
+    two = await burst_pass(2, sse=False)
+    held = {inst for p in (one, two) for inst, r in zip(p["instances"], p["responses"])
+            if not r["stream"]}
+    if held != set(instances):
+        raise RuntimeError(f"http: only instances {held} served a request held bit for bit")
+    visible = sum(len(r["text"]) for r in burst)
+    # TTFT: the frontend ledger's, for the aggregate requests of both
+    # passes (a completion's SSE chunk waits for visible text, and random
+    # weights mostly emit ids the byte tokenizer renders as nothing).
+    ttfts = sorted(t for p in (one, two) for t, r in zip(p["ledger_ttft"], p["responses"])
+                   if not r["stream"])
+    log(f"http: frontend ledger TTFT of the {len(ttfts)} aggregate requests (4 in pass 1, 8 in "
+        f"pass 2) p50 "
+        f"{statistics.median(ttfts) * 1e3:.1f} ms, max {max(ttfts) * 1e3:.1f} ms; in process "
+        + ", ".join(f"{ref['ttft_s'] * 1e3:.0f}" for ref in reference["burst"])
+        + " ms for requests 0-7; pass 1 client latencies " + ", ".join(
+            f"{r['latency_s'] * 1e3:.0f}" for r in burst) + f" ms ({card_line})")
+    log(f"http: every completion's text ({visible} visible characters in pass 1) equals the "
+        "in-process burst's, and the 64 token texts and logprobs of every aggregate one (4 in "
+        f"pass 1, 8 in pass 2) equal it bit for bit, on instances {sorted(held)}")
+    return {"tokens_per_s": tps, "inproc_tokens_per_s": inproc_tps, "wall_s": wall,
+            "tokens_per_s_pass2": two["tps"], "wall_s_pass2": two["wall"],
+            "ttft_p50_s": statistics.median(ttfts), "ttft_max_s": max(ttfts),
+            "ttft_s": one["ledger_ttft"], "ttft_s_pass2": two["ledger_ttft"],
+            "latency_s": [r["latency_s"] for r in burst], "instances": instances,
+            "instances_pass2": two["instances"], "visible_chars": visible,
+            "cleared_blocks": cleared,
+            "chat_first_event_s": chats[0]["first_event_s"], "repeat_ttft_s": again_ttft,
+            "repeat_latency_s": again["latency_s"], "repeat_logprob_drift": drift}
+
+
 def main() -> int:
     try:
         import torch
@@ -779,20 +1277,28 @@ def main() -> int:
         f"{', '.join(str(v) for v in libs.values())}")
 
     cases = kernel_phase(device)
-    stats = asyncio.run(main_path(card_line))
+    stats, reference = asyncio.run(main_path(card_line))
     small_reference(device)
+    frames = msgpack_frame_us()
+    log("wire: msgpack_lite pack+unpack per frame: " + ", ".join(
+        f"{k} {v['us']:.1f} us ({v['bytes']} bytes)" for k, v in frames.items())
+        + f" (host CPU beside {card_line})")
+    torch.cuda.empty_cache()
+    http = http_phase(card_line, reference, stats["tokens_per_s"])
+    http["msgpack_lite"] = frames
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = cases[-1]  # the same at the burst's row lengths
     entry = {
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
-        "launches": stats["launches"],
+        "launches": stats["launches"], "launches_http": http["launches"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
     }
     log("main_path: " + json.dumps(stats))
+    log("http_path: " + json.dumps(http))
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

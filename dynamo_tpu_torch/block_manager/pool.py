@@ -1,14 +1,18 @@
-"""Device block pool: allocation, ref-counting, prefix reuse, LRU eviction,
-KV event emission (port of ``dynamo_tpu/block_manager/pool.py``).
+"""G1 (device/HBM) block pool: allocation, ref-counting, prefix reuse, LRU
+eviction, KV event emission.
 
-States:
+Reference analogue: lib/llm/src/block_manager/pool.rs:156,457 (active +
+inactive pools with sequence-hash reuse matching) and the block lifecycle
+Reset→Partial→Complete→Registered (block_manager/block/registry.rs).
+
+States here:
 
 - **free**: on the free list, contents meaningless.
-- **active**: ref_count > 0, owned by at least one live sequence. A block
-  becomes *registered* (hash known, event emitted) once its tokens'
-  KV is fully written; shared prefix blocks have ref_count > 1.
-- **cached**: ref_count == 0 but registered — kept for prefix hits,
-  evictable LRU-first.
+- **active**: ref_count > 0, owned by ≥1 live sequence. A block becomes
+  *registered* (hash known, event emitted) once it holds a full block of
+  tokens; shared prefix blocks are active with ref_count > 1.
+- **cached**: ref_count == 0 but registered — contents retained for
+  future prefix hits, evictable LRU-first.
 
 Block id 0 is reserved as the garbage sink for padded writes (model.py
 contract) and never allocated.
@@ -30,12 +34,13 @@ class NoFreeBlocksError(Exception):
 
 
 class _Block:
-    __slots__ = ("block_id", "ref_count", "seq_hash")
+    __slots__ = ("block_id", "ref_count", "seq_hash", "parent_hash")
 
     def __init__(self, block_id: int):
         self.block_id = block_id
         self.ref_count = 0
         self.seq_hash: int | None = None
+        self.parent_hash: int | None = None
 
 
 class BlockPool:
@@ -55,13 +60,28 @@ class BlockPool:
         self._free: list[int] = list(range(num_blocks - 1, 0, -1))  # pop() → low ids first
         self._cached: dict[int, int] = {}          # seq_hash → block_id (registered)
         self._lru: OrderedDict[int, None] = OrderedDict()  # block_id → None, oldest first
+        # Radix fan-out: parent seq_hash → number of REGISTERED children.
+        # A hash with >= 2 children is a branch point (shared prefix that
+        # several continuations diverge from) — the tier eviction policy
+        # protects those blocks from one-off-prompt churn.
+        self._children: dict[int, int] = {}
         self._event_sink = event_sink
         self._event_id = 0
-        # The engine thread mutates; other threads read capacity — every
-        # public method takes this lock.
+        # Mutations run on the engine scheduler thread while snapshot()/
+        # metrics run on the asyncio loop thread (kv_events subscribers,
+        # load_metrics) — every public method takes this lock.
         self._lock = threading.RLock()
+        # prefix-cache observability
         self.hit_blocks = 0
         self.miss_blocks = 0
+
+    # -- events -----------------------------------------------------------
+
+    def set_event_sink(self, sink: EventSink | None) -> None:
+        """Late-bind the event sink (workers construct engine-then-
+        broadcaster). Events emitted before binding are recoverable via
+        snapshot()."""
+        self._event_sink = sink
 
     def _emit(self, event: KvCacheEvent) -> None:
         if self._event_sink is not None:
@@ -81,10 +101,22 @@ class BlockPool:
     def num_active(self) -> int:
         return self.num_blocks - 1 - self.num_free
 
+    @property
+    def usage(self) -> float:
+        cap = self.num_blocks - 1
+        return self.num_active / cap if cap else 0.0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hit_blocks + self.miss_blocks
+        return self.hit_blocks / total if total else 0.0
+
     # -- allocation -------------------------------------------------------
 
     def match_prefix(self, seq_hashes: list[int]) -> list[int]:
-        """Longest run of leading hashes present in the cache → block ids."""
+        """Longest run of leading hashes present in the cache → block ids.
+        (Chained hashes: a hit at i implies hits at 0..i-1 had the same
+        content, so greedy front-matching is exact.)"""
         if not self.enable_prefix_caching:
             return []
         with self._lock:
@@ -98,15 +130,16 @@ class BlockPool:
 
     def allocate_sequence(self, seq_hashes: list[int], total_blocks: int) -> tuple[list[int], int]:
         """Allocate ``total_blocks`` for a sequence whose complete-prompt
-        block hashes are ``seq_hashes``, reusing cached prefix blocks.
+        block hashes are ``seq_hashes``. Reuses cached prefix blocks.
+
         → (block_ids, num_hit_blocks). Raises NoFreeBlocksError (nothing
         allocated) if the pool can't satisfy the request."""
         with self._lock:
             hits = self.match_prefix(seq_hashes)
             need_new = total_blocks - len(hits)
-            in_lru = sum(1 for b in hits if b in self._lru)
-            if need_new > len(self._free) + len(self._lru) - in_lru:
+            if need_new > len(self._free) + len(self._lru) - self._lru_overlap(hits):
                 raise NoFreeBlocksError(f"need {need_new}, have {self.num_free}")
+            # Claim hits first (removes them from the evictable LRU).
             for bid in hits:
                 self._ref(bid)
             block_ids = list(hits)
@@ -126,6 +159,11 @@ class BlockPool:
         with self._lock:
             return self._pop_free()
 
+    def _lru_overlap(self, hits: list[int]) -> int:
+        # hits currently in LRU will leave it on _ref; they don't reduce
+        # the evictable supply for the *new* blocks beyond themselves.
+        return sum(1 for b in hits if b in self._lru)
+
     def _pop_free(self) -> int:
         if self._free:
             bid = self._free.pop()
@@ -137,6 +175,7 @@ class BlockPool:
         b = self._blocks[bid]
         b.ref_count = 1
         b.seq_hash = None
+        b.parent_hash = None
         return bid
 
     def _evict(self, bid: int) -> None:
@@ -144,7 +183,18 @@ class BlockPool:
         if b.seq_hash is not None:
             self._cached.pop(b.seq_hash, None)
             self._emit(KvCacheEvent.removed([b.seq_hash]))
+            self._drop_child(b.parent_hash)
             b.seq_hash = None
+            b.parent_hash = None
+
+    def _drop_child(self, parent_hash: int | None) -> None:
+        if parent_hash is None:
+            return
+        n = self._children.get(parent_hash, 0) - 1
+        if n > 0:
+            self._children[parent_hash] = n
+        else:
+            self._children.pop(parent_hash, None)
 
     def _ref(self, bid: int) -> None:
         b = self._blocks[bid]
@@ -168,17 +218,39 @@ class BlockPool:
 
     def register_block(self, bid: int, seq_hash: int, parent_hash: int | None) -> int:
         """A sequence filled this block: record its identity and emit a
-        ``stored`` event. An identical registered block (same hash) keeps
-        the canonical cache entry; → the canonical block id."""
+        `stored` event. If an identical registered block already exists
+        (same hash, concurrent fill), the caller keeps its copy but the
+        canonical cache entry stays with the first — returns the canonical
+        block id."""
         with self._lock:
+            b = self._blocks[bid]
             canonical = self._cached.get(seq_hash)
             if canonical is not None:
-                return canonical
-            self._blocks[bid].seq_hash = seq_hash
+                return canonical  # already registered (this block or a twin): no re-emit
+            b.seq_hash = seq_hash
+            b.parent_hash = parent_hash
             if self.enable_prefix_caching:
                 self._cached[seq_hash] = bid
+                if parent_hash is not None:
+                    self._children[parent_hash] = self._children.get(parent_hash, 0) + 1
                 self._emit(KvCacheEvent.stored([StoredBlock(seq_hash, parent_hash)]))
             return bid
+
+    def hash_fanout(self, seq_hash: int) -> int:
+        """Registered children of this hash in the radix chain."""
+        with self._lock:
+            return self._children.get(seq_hash, 0)
+
+    def hash_protected(self, seq_hash: int) -> bool:
+        """Should the KV tiers protect this block from churn eviction?
+        True for branch points (>= 2 registered children — shared
+        prefixes several continuations diverge from, e.g. a system
+        prompt) and blocks multiple live sequences currently share."""
+        with self._lock:
+            if self._children.get(seq_hash, 0) >= 2:
+                return True
+            bid = self._cached.get(seq_hash)
+            return bid is not None and self._blocks[bid].ref_count >= 2
 
     # -- release ----------------------------------------------------------
 
@@ -187,10 +259,20 @@ class BlockPool:
             for bid in block_ids:
                 self._unref(bid)
 
+    def snapshot(self) -> list[tuple[int, int | None]]:
+        """All currently-registered (hash, parent_hash) pairs in original
+        registration order (parents before children — dict insertion
+        order). Used to seed a new KV-event subscriber. Thread-safe: may
+        be called from the asyncio loop while the engine thread mutates."""
+        with self._lock:
+            return [(h, self._blocks[bid].parent_hash) for h, bid in self._cached.items()]
+
     def clear(self) -> int:
-        """Drop every cached (ref 0) block — the admin clear-KV path.
-        Blocks still referenced by running sequences stay registered.
-        Emits one ``removed`` event for the dropped hashes; → count."""
+        """Drop every cached (ref 0) block — admin /clear_kv_blocks path
+        (reference: lib/llm/src/http/service/clear_kv_blocks.rs). Emits a
+        `removed` event for exactly the hashes dropped: blocks still
+        referenced by running sequences stay registered, so a blanket
+        `cleared` would desync remote radix indexers. → count dropped."""
         with self._lock:
             dropped: list[int] = []
             for bid in list(self._lru):
@@ -199,7 +281,9 @@ class BlockPool:
                 if b.seq_hash is not None:
                     self._cached.pop(b.seq_hash, None)
                     dropped.append(b.seq_hash)
+                    self._drop_child(b.parent_hash)
                     b.seq_hash = None
+                    b.parent_hash = None
                 self._free.append(bid)
             if dropped:
                 self._emit(KvCacheEvent.removed(dropped))

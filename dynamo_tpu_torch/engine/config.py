@@ -159,6 +159,18 @@ class EngineArgs:
                 (self.max_prefill_tokens // self.block_size) + 1
             ) * self.block_size
 
+    def kv_bytes_per_block(self) -> int:
+        """Device bytes one block costs across all layers, k+v, from the KV
+        storage dtype: int8 pages carry a per-position-per-head fp32 scale
+        (as the JAX package's ``EngineArgs.kv_bytes_per_block``)."""
+        m = self.model
+        elems = self.block_size * m.num_kv_heads * m.head_dim
+        if self.kv_quant == "int8":
+            per_layer = elems + self.block_size * m.num_kv_heads * 4
+        else:
+            per_layer = elems * (2 if self.dtype == "bfloat16" else 4)
+        return 2 * m.num_layers * per_layer
+
     @property
     def decode_buckets(self) -> tuple[int, ...]:
         # Floor of 8 (or max_num_seqs if smaller), 4x stride: the JAX

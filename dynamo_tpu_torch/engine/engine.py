@@ -19,10 +19,14 @@ EOS (``ignore_eos``, ``min_tokens``) / max_model_len; cancellation
 through ``Context``; recompute preemption of the newest sequence under KV
 pressure.
 
+For a worker it has the TpuEngine surface: ``metrics()`` (the load the KV
+router reads), ``pool.set_event_sink`` (KV events) and ``bind_metrics``
+(the engine series of the JAX package whose quantity the port computes).
+
 Omitted for now, each a ROADMAP item: speculative decoding, LoRA,
 grammar-constrained decoding, KV tiers and offload, QoS classes, live
-migration, disaggregated export/inject, embeddings, delta coalescing,
-tracing and metrics registries.
+migration, disaggregated export/inject, embeddings, delta coalescing and
+tracing.
 """
 
 from __future__ import annotations
@@ -41,17 +45,58 @@ from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.runner import HostFetch, LocalRunner, host_ready, start_host_fetch
 from dynamo_tpu_torch.engine.sampler import GREEDY_EPS, row_needs_full
+from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
 from dynamo_tpu_torch.llm.protocols import (
     FinishReason,
     LLMEngineOutput,
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.qos import DEFAULT_CLASS
 from dynamo_tpu_torch.tokens import TokenBlockSequence, compute_block_hashes
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 _SENTINEL_DONE = object()
+
+def register_engine_metrics(registry):
+    """Register the engine series on a MetricsRegistry → (inflight
+    windows, pending first fetches, prefill pad ratio, KV cache bytes, KV
+    quant flag, preemptions). Names and help texts are the JAX package's
+    (``register_engine_metrics`` there); the series whose quantity this
+    engine does not have (speculation, tiers, grammar, LoRA) are left out."""
+    return (
+        registry.gauge(
+            "engine_inflight_windows",
+            "Decode windows dispatched on device but not yet drained",
+        ),
+        registry.gauge(
+            "engine_pending_first_fetches",
+            "Admission first-token sample fetches in flight",
+        ),
+        registry.gauge(
+            "engine_prefill_pad_ratio",
+            "Cumulative dispatched/true prefill token ratio (bucket padding waste)",
+        ),
+        registry.gauge(
+            "engine_kv_cache_bytes",
+            "HBM bytes of the G1 paged KV pool (pages + quantization "
+            "scales, num_kv_blocks x kv_bytes_per_block)",
+        ),
+        registry.gauge(
+            "engine_kv_quant_enabled",
+            "1 when the paged KV cache stores int8 pages (kv_quant), "
+            "0 for full-precision storage",
+        ),
+        registry.counter(
+            "engine_preemptions_total",
+            "Recompute-preemptions under KV pressure by victim QoS "
+            "class (victims are lowest-class/newest-first; a preempted "
+            "request requeues and re-prefills, so its stream stays "
+            "byte-identical under greedy sampling)",
+        ),
+    )
+
 
 class RequestValidationError(Exception):
     """Client error (clean rejection, no stack trace)."""
@@ -153,6 +198,7 @@ class TorchEngine:
         # Monotonic counters, read racily by callers (stale reads harmless).
         self.total_generated = 0
         self.total_prefilled = 0
+        self.total_prefill_padded = 0  # prefill tokens dispatched, block padding included
         self.total_decode_steps = 0   # device substeps dispatched, padded rows included
         self.total_preemptions = 0
         # Host seconds per phase: admission, prefill, first_dispatch,
@@ -160,6 +206,10 @@ class TorchEngine:
         # drain_ready (a window already on the host), first_sample (waiting
         # on an admission sample), emit.
         self.phase_s: dict[str, float] = collections.defaultdict(float)
+        # Registry series (bind_metrics), updated once per scheduler step;
+        # preemptions already added to the counter.
+        self._gauges = None
+        self._preempt_pushed = 0
 
     # -- lifecycle --------------------------------------------------------
 
@@ -177,6 +227,44 @@ class TorchEngine:
         if self._thread is not None:
             await asyncio.to_thread(self._thread.join, 10.0)
         self._runner.stop()
+
+    def bind_metrics(self, registry) -> None:
+        """Attach the engine series to a MetricsRegistry; updated once per
+        scheduler step (never per token)."""
+        self._gauges = register_engine_metrics(registry)
+
+    def _update_gauges(self) -> None:
+        if self._gauges is None:
+            return
+        g_win, g_first, g_pad, g_kvb, g_kvq, c_preempt = self._gauges
+        g_win.set(sum(1 for it in self._fetchq if isinstance(it, _Window)))
+        g_first.set(sum(1 for it in self._fetchq if isinstance(it, _First)))
+        g_pad.set(self.total_prefill_padded / max(1, self.total_prefilled))
+        g_kvb.set(self.args.kv_bytes_per_block() * self.args.num_kv_blocks)
+        g_kvq.set(1 if self.args.kv_quant == "int8" else 0)
+        if self.total_preemptions > self._preempt_pushed:
+            c_preempt.inc(self.total_preemptions - self._preempt_pushed,
+                          **{"class": DEFAULT_CLASS})
+            self._preempt_pushed = self.total_preemptions
+
+    def metrics(self) -> ForwardPassMetrics:
+        """Load snapshot for the KV router (the worker's load_metrics
+        endpoint)."""
+        with self._mutex:
+            running, waiting = len(self._running), len(self._waiting) + len(self._submissions)
+        return ForwardPassMetrics(
+            worker=WorkerStats(
+                request_active_slots=running,
+                request_total_slots=self.args.max_num_seqs,
+                num_requests_waiting=waiting,
+            ),
+            kv=KvStats(
+                kv_active_blocks=self.pool.num_active,
+                kv_total_blocks=self.pool.num_blocks - 1,
+                gpu_cache_usage_perc=self.pool.usage,
+                gpu_prefix_cache_hit_rate=self.pool.hit_rate,
+            ),
+        )
 
     def clear_kv_blocks(self) -> int:
         """Drop every idle cached block (admin clear-KV) → count."""
@@ -312,6 +400,7 @@ class TorchEngine:
             # Every owner of the queued fetches died during a drain: release
             # them (the idle wait in _run ignores _fetchq).
             self._drain_completed(force=True)
+        self._update_gauges()
 
     def _admit(self, allocated: list[tuple[_Seq, int]]) -> None:
         """Prefill an admission wave and sample its first tokens on the
@@ -392,6 +481,7 @@ class TorchEngine:
             toks = np.zeros((-(-n // bs) * bs,), np.int32)
             toks[:n] = prompt[pos : pos + n]
             logits = self._runner.prefill_chunk(toks, table, pos, pos + n)
+            self.total_prefill_padded += len(toks)
             pos += n
         self.total_prefilled += plen - start
         seq.kv_written = plen

@@ -1,31 +1,37 @@
-"""Single-process launcher: ``python -m dynamo_tpu_torch.run --in batch:F|text``
-(port of ``dynamo_tpu/run/__main__.py``).
+"""Single-process launcher: ``python -m dynamo_tpu_torch.run --in
+text|http|batch:F`` (port of ``dynamo_tpu/run/__main__.py``).
 
 The whole LLM chain (preprocessor → detokenizing backend → engine) runs
 in this one process, on the card unless ``--device cpu`` is given. Batch
-mode prints one JSON line per prompt, as the JAX launcher does. ``--in
-http`` comes with the HTTP slice.
+mode prints one JSON line per prompt, as the JAX launcher does; ``--in
+http`` serves the OpenAI surface of the distributed frontend without a
+store or worker, after capturing the engine's decode-window graphs.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
+import signal
 import sys
-from typing import AsyncIterator
 
 from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
-from dynamo_tpu_torch.llm.preprocessor import DeltaGenerator, OpenAIPreprocessor
-from dynamo_tpu_torch.llm.protocols import CompletionRequest, EngineError
+from dynamo_tpu_torch.llm.pipeline import ModelPipeline
+from dynamo_tpu_torch.llm.protocols import CompletionRequest
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, parse_tokenizer_spec
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+from dynamo_tpu_torch.runtime.push_router import NoInstancesError
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="dynamo_tpu_torch.run")
-    p.add_argument("--in", dest="input", default="text", help="text | batch:<jsonl path>")
+    p.add_argument("--in", dest="input", default="text",
+                   help="text | http | batch:<jsonl path>")
     p.add_argument("--preset", default="test-tiny")
     p.add_argument("--tokenizer", default="byte")
     p.add_argument("--max-tokens", type=int, default=64)
@@ -37,49 +43,42 @@ def parse_args(argv=None):
     p.add_argument("--decode-steps", type=int, default=8)
     p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     p.add_argument("--dtype", default=None, help="default: bfloat16 on cuda, float32 on cpu")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
 
-class LocalPipeline:
-    """One served model wired straight to an in-process engine:
-    preprocessor → Backend(engine) → DeltaGenerator (the JAX package's
-    LocalPipeline / ModelPipeline.run, completions only)."""
+class LocalPipeline(ModelPipeline):
+    """ModelPipeline wired straight to an in-process engine (no router,
+    no store): Backend(engine) replaces the network chain."""
 
-    def __init__(self, card: ModelDeploymentCard, engine, tokenizer):
-        self.card = card
+    def __init__(self, card, engine, tokenizer):
+        super().__init__(namespace="local", card=card, runtime=None)
         self.engine = engine
-        self.preprocessor = OpenAIPreprocessor(card, tokenizer)
         self.backend = Backend(engine, tokenizer)
 
-    async def run(self, req: CompletionRequest,
-                  context: Context) -> AsyncIterator[tuple[DeltaGenerator, dict | None]]:
-        """Preprocess + stream. Yields (gen, chunk) pairs: chunk is a
-        completion chunk payload, or None for a bookkeeping-only delta."""
-        pre = self.preprocessor.preprocess_completion(req)
-        gen = DeltaGenerator(
-            self.card.name, prompt_tokens=len(pre.token_ids),
-            want_logprobs=pre.sampling.logprobs,
-            token_text_fn=lambda tid: self.preprocessor.tokenizer.decode([tid]),
-        )
-        stream = self.backend.generate(pre.to_dict(), context)
-        try:
-            async for raw in stream:
-                finish = raw.get("finish_reason")
-                if finish == "error":
-                    raise EngineError(raw.get("error") or "engine error")
-                token_ids = raw.get("token_ids") or ()
-                chunks = gen.on_delta(raw.get("text"), len(token_ids), finish,
-                                      token_ids=token_ids, logprobs=raw.get("log_probs"),
-                                      top_logprobs=raw.get("top_log_probs"))
-                if not chunks:
-                    yield gen, None
-                for c in chunks:
-                    yield gen, c
-                if finish is not None:
-                    return
-        finally:
-            await stream.aclose()
+    async def embed(self, token_ids):
+        # The engine has no embedding pass yet: answer as a frontend does
+        # for a model whose workers serve no embed endpoint (501).
+        raise NoInstancesError("no embed endpoint for this model")
+
+    async def clear_kv_blocks(self):
+        return {"local": self.engine.clear_kv_blocks()}
+
+
+class LocalManager:
+    def __init__(self, pipe: LocalPipeline):
+        self.pipe = pipe
+
+    def get(self, model_name: str):
+        return self.pipe if model_name == self.pipe.card.name else None
+
+    def list_names(self):
+        return [self.pipe.card.name]
+
+    def items(self):
+        return [(self.pipe.card.name, self.pipe)]
 
 
 async def build_pipeline(args) -> LocalPipeline:
@@ -162,15 +161,41 @@ async def run_batch(args, pipe: LocalPipeline, path: str) -> None:
     print(f"dynamo_tpu_torch.run: batch done ({n} prompts)", file=sys.stderr, flush=True)
 
 
+async def run_http(args, pipe: LocalPipeline) -> None:
+    # Capture the decode-window graphs before listening, so that no
+    # request waits for a capture (none on the CPU).
+    await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
+    http = await HttpService(
+        LocalManager(pipe), MetricsRegistry(), host=args.host, port=args.port
+    ).start()
+    print(f"dynamo_tpu_torch.run: http://{args.host}:{http.port} serving {pipe.card.name}",
+          flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        with contextlib.suppress(NotImplementedError):
+            loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    # Same SIGTERM contract as the distributed frontend: shed new work,
+    # finish in-flight streams, then close.
+    from dynamo_tpu_torch.runtime.config import global_config
+
+    http.start_draining()
+    await http.wait_drained(global_config().runtime.graceful_shutdown_timeout)
+    await http.close()
+
+
 async def async_main(args) -> None:
     pipe = await build_pipeline(args)
     try:
         if args.input == "text":
             await run_text(args, pipe)
+        elif args.input == "http":
+            await run_http(args, pipe)
         elif args.input.startswith("batch:"):
             await run_batch(args, pipe, args.input[len("batch:"):])
         else:
-            raise SystemExit(f"unknown --in {args.input!r} (text | batch:<path>)")
+            raise SystemExit(f"unknown --in {args.input!r} (text | http | batch:<path>)")
     finally:
         await pipe.engine.stop()
 

@@ -209,6 +209,17 @@ def xxh3_64(data: bytes, seed: int = 0) -> int:
 # ---------------------------------------------------------------------------
 
 
+def adapter_hash_seed(adapter_id: str | None, seed: int = HASH_SEED) -> int:
+    """Hash seed for one (base model, LoRA adapter) identity domain: a
+    prompt prefilled under an adapter has other K/V than the base model, so
+    its blocks hash under a salted seed and never prefix-hit a base or
+    other-adapter request. Router and workers derive the same seed from the
+    same adapter id."""
+    if adapter_id is None:
+        return seed
+    return xxh3_64(b"adapter:" + adapter_id.encode(), seed)
+
+
 def hash_tokens(tokens: Sequence[int], seed: int = HASH_SEED) -> BlockHash:
     """Block-local hash: XXH3-64 over little-endian u32 token ids."""
     return xxh3_64(struct.pack(f"<{len(tokens)}I", *tokens), seed)

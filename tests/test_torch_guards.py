@@ -36,7 +36,8 @@ from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import paged_attention as pa
 
 REPO = Path(__file__).resolve().parents[1]
-ABSENT_ON_CARD = ("xxhash", "msgpack", "jinja2", "aiohttp", "tokenizers", "transformers")
+ABSENT_ON_CARD = ("xxhash", "msgpack", "jinja2", "aiohttp", "httpx", "tokenizers",
+                  "transformers")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -64,6 +65,9 @@ def test_port_imports_no_jax_and_no_reference_modules():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "dynamo_tpu_torch.engine.engine" in res["modules"]
     assert "dynamo_tpu_torch.run.__main__" in res["modules"]
+    for cli in ("worker.__main__", "frontend.__main__", "runtime.store_server",
+                "llm.http_service", "runtime.http_server", "runtime.msgpack_lite", "llm.template"):
+        assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -88,6 +92,12 @@ def test_launcher_and_chip_smoke_fail_without_cuda(tmp_path):
          "--preset", "test-tiny"], cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
     assert run.returncode != 0 and "CUDA is not available" in run.stderr
     assert run.stdout.strip() == ""
+    worker = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.worker", "--store-url", "memory://guard",
+         "--preset", "test-tiny"], cwd=REPO, env=_env(), capture_output=True, text=True,
+        timeout=120)
+    assert worker.returncode != 0 and "CUDA is not available" in worker.stderr
+    assert "serving" not in worker.stdout
     smoke = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, env=_env(),
                            capture_output=True, text=True, timeout=120)
     assert smoke.returncode != 0 and '"ok"' not in smoke.stdout
