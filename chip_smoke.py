@@ -15,6 +15,14 @@ Phases, in order; any failure raises and the run exits non-zero:
    again at the row lengths the main path's burst reaches
    (`decode_bfloat16_burst`). Each case times the whole wrapper call (the
    split kernel and its merge).
+3b. The int8 weight product (`dynamo_tpu_torch/ops/csrc/int8_matmul.cu`)
+   against its plain version evaluated in float32 on the same values, at
+   every llama-8b decode shape (wq/wo, wk/wv, w_gate/w_up, w_down, lm_head
+   with f32 logits) for M = 1, 8 and 64 rows, an odd shape in bf16 and f32,
+   wq in f32 and lm_head with a bf16 scale (`TOL_INT8`); every case called
+   twice, bit-identical. Kernel, plain, library (one `torch.matmul` of the
+   same x with a bf16 w of the same shape) and bound times, and their sums
+   over one substep's 225 products.
 4. Main path at full width: `run --in batch:`'s pipeline (preprocessor →
    Backend → TorchEngine) serving 8 concurrent llama-8b completions with
    random weights made on the card, at the default pipeline depth 2 with
@@ -28,6 +36,15 @@ Phases, in order; any failure raises and the run exits non-zero:
    tokens/s, TTFT per request, the host-blocked share, graph capture and
    pool numbers and the device-busy share are printed beside the card's
    name and power limit.
+4b. The main path at int8 weights (random int8 made on the card, seed 0),
+   twice: bf16 KV pages and int8 KV pages. Each serves the same burst at
+   depth 2 and 0 (streams identical), holds the attention launches to 32 x
+   substeps and the int8 launches to the shape rule (`int8_expected`: 225
+   per decode substep on the kernel; a prefill of more than 64 rows on the
+   prefill route, its last-token head on the kernel), and times and
+   profiles one "simple" window replay. Printed beside the bf16 burst's
+   numbers: tokens/s, host ms per substep, replay device ms per substep,
+   TTFT, peak memory and graph-pool bytes.
 5. Graph parity: one K=8 window at llama-8b shapes (all 32 layers, the
    engine's weights, its own small cache) as a CUDA-graph replay and op by
    op, in each sampler mode: tokens, logprobs, top-n, the written KV pages
@@ -62,7 +79,18 @@ Phases, in order; any failure raises and the run exits non-zero:
    microseconds per frame are printed beside the card's
    name and power limit.
 
-The last lines are the kernels JSON line, nvidia-smi's name/power line,
+8. A checkpoint on disk through the worker: llama-8b widths with 2 layers
+   (seed 0, bf16, two safetensors shards, an index and config.json, ~3 GB)
+   under build/checkpoints/, loaded in process with `load_model(quant=
+   "int8")` (every leaf equal to `quantize_params_np` of the written
+   arrays), then served by `python -m dynamo_tpu_torch.worker --model-path
+   <dir> --quant int8 --kv-quant int8 --tokenizer byte` behind the store and
+   a kv-mode frontend: the burst's first 4 requests as aggregate
+   completions, each bit-equal (token texts and logprobs) to an in-process
+   engine on the loaded weights with the same engine arguments; launches
+   held as in 4b; load and launch-to-registration seconds printed.
+
+The last lines are the kernels JSON line (both kernels), nvidia-smi's name/power line,
 and {"ok": true, "device": {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -352,33 +380,171 @@ def kernel_phase(device):
     return results
 
 
+# -- the int8 weight product ----------------------------------------------------
+
+INT8_SOURCE = "dynamo_tpu_torch/ops/csrc/int8_matmul.cu"
+INT8_REPLACES = "dynamo_tpu/engine/model.py:156"
+# llama-8b's decode products (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, and
+# lm_head; calls per substep beside each (32 layers).
+INT8_SHAPES = {"wq_wo": (4096, 4096, 64), "wk_wv": (4096, 1024, 64),
+               "w_gate_up": (4096, 14336, 64), "w_down": (14336, 4096, 32),
+               "lm_head": (4096, 128256, 1)}
+INT8_ODD = ("odd", 1000, 200)  # breaks every tile and 16-byte alignment
+# The kernel is held against its plain version evaluated in float32 on the
+# same values (int8_matmul_ref on f32 x and scale), as |kernel - plain| <=
+# rtol * |plain| + c * (|x| @ |w|) * |scale|. The c term is the summation
+# order (the kernel's split-K and warp order against cuBLAS's, each within
+# a few units of f32 rounding of the sum of |x w| over K; the tensor
+# cores' f32 accumulation is looser than IEEE). The rtol term is the plain
+# version's rounding points the f32 evaluation skips: for bf16 x, x @ w,
+# the scale and their product each rounded to bf16, half a step (2^-8 of
+# the value) each.
+TOL_INT8 = {"float32": (1e-6, 2.0 ** -16), "bfloat16": (3 * 2.0 ** -8, 2.0 ** -14)}
+
+
+def int8_case(M, K, N, xdt_name, seed, device, scale_dt="float32"):
+    """x [M, K] unit normals in ``xdt_name``, w [K, N] uniform int8 in
+    [-127, 127], per-column scales in ``scale_dt``, from a generator on the
+    card seeded with ``seed``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=device).to(getattr(torch, xdt_name))
+    w = torch.randint(-127, 128, (K, N), generator=g, device=device, dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=device) * 0.02 + 1e-3).to(getattr(torch, scale_dt))
+    return x, w, s
+
+
+def int8_check(x, w, s, out_f32, label):
+    """Kernel vs plain (f32 on the same values): → max |err|, or raise."""
+    import torch
+
+    from dynamo_tpu_torch.ops import int8_matmul as im
+
+    out = im.int8_matmul(x, w, s, out_f32=out_f32)
+    again = im.int8_matmul(x, w, s, out_f32=out_f32)
+    ref = im.int8_matmul_ref(x.float(), w, s.float(), out_f32=True)
+    absref = (x.float().abs() @ w.float().abs()) * s.float().abs()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError(f"int8 {label}: two calls on the same inputs differ")
+    want_dt = torch.float32 if out_f32 else x.dtype
+    if out.dtype != want_dt or out.shape != ref.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"int8 {label}: output {out.dtype} {tuple(out.shape)} not finite "
+                           f"{want_dt} {tuple(ref.shape)}")
+    rtol, c = TOL_INT8[str(x.dtype).removeprefix("torch.")]
+    diff = (out.float() - ref).abs()
+    excess = float((diff - rtol * ref.abs() - c * absref).max())
+    if excess > 0:
+        raise RuntimeError(f"int8 {label}: kernel disagrees with its plain version by "
+                           f"{excess:.3e} beyond the tolerance")
+    return float(diff.max())
+
+
+def int8_bound(M, K, N, x_bytes, out_bytes, scale_bytes, qdt_name):
+    """Least time (ms): each weight, x, scale and output byte moved once over
+    HBM bandwidth, against 2*M*K*N operations over the peak rate."""
+    nbytes = K * N + M * K * x_bytes + N * scale_bytes + M * N * out_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * M * K * N / PEAK_OPS[qdt_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_kernel_phase(device, card_line):
+    """The int8 kernel against its plain version at every llama-8b decode
+    shape for M in (1, 8, 64) (bf16 x; lm_head with f32 logits out), the
+    odd shape in bf16 and f32, and wq in f32: bit-identical repeats,
+    tolerance TOL_INT8, and kernel, plain, library and bound times."""
+    import torch
+
+    from dynamo_tpu_torch.ops import int8_matmul as im
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    cases = [(name, M, K, N, "bfloat16", name == "lm_head")
+             for name, (K, N, _) in INT8_SHAPES.items() for M in (1, 8, 64)]
+    cases += [(INT8_ODD[0], M, INT8_ODD[1], INT8_ODD[2], dt, False)
+              for M in (5, 64) for dt in ("bfloat16", "float32")]
+    cases += [("wq_wo", 8, 4096, 4096, "float32", False),
+              ("lm_head_bf16_scale", 8, 4096, 128256, "bfloat16", True)]
+    results = []
+    for i, (name, M, K, N, xdt, out_f32) in enumerate(cases):
+        x, w, s = int8_case(M, K, N, xdt, 500 + i, device,
+                            "bfloat16" if name.endswith("bf16_scale") else "float32")
+        err = int8_check(x, w, s, out_f32, f"{name} M={M} {xdt}")
+        ms = time_ms(lambda: im.int8_matmul(x, w, s, out_f32=out_f32), flush)
+        plain_ms = time_ms(lambda: im.int8_matmul_ref(x, w, s, out_f32=out_f32), flush)
+        wb = w.to(x.dtype)
+        lib_ms = time_ms(lambda: torch.matmul(x, wb), flush)
+        del wb
+        xb = x.element_size()
+        b_ms, b_by = int8_bound(M, K, N, xb, 4 if out_f32 else xb, s.element_size(), xdt)
+        r = {"case": f"{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "splits": im.split_k(K, N)}
+        log(f"int8 {r['case']} ({K}x{N}): max_abs_err={err:.3e} (tol {TOL_INT8[xdt]}) "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) splits={r['splits']} ({card_line})")
+        results.append(r)
+    by = {r["case"]: r for r in results}
+    substep = {k: sum(by[f"{name}_M8_bfloat16"][k] * calls
+                      for name, (_, _, calls) in INT8_SHAPES.items())
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"int8: the 225 products of one llama-8b substep at M=8, from the cases above: kernel "
+        f"{substep['ms']:.3f} ms, plain {substep['plain_ms']:.3f}, library (bf16 weights) "
+        f"{substep['library_ms']:.3f}, bound {substep['bound_ms']:.3f} ({card_line})")
+    return results, substep
+
+
 DECODE_PHASES = ("decode_dispatch", "drain_sync", "drain_ready", "emit")
 
 
-async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cuda"):
+def int8_expected(cfg, lens, substeps: int, bs: int = 16) -> tuple[int, int]:
+    """int8 calls a burst makes on each route (kernel, prefill): 7 per layer
+    plus lm_head per forward pass; every decode substep has 8 rows (the
+    kernel); each cold single-row prefill of a prompt padded to T tokens
+    runs its layer products on the kernel when T <= MAX_M rows and on the
+    prefill route otherwise, and its last-token head (1 row) on the kernel."""
+    from dynamo_tpu_torch.ops.int8_matmul import MAX_M
+
+    per_pass = 7 * cfg.num_layers
+    kernel, prefill = (per_pass + 1) * substeps, 0
+    for n in lens:
+        T = -(-n // bs) * bs
+        kernel += 1 + (per_pass if T <= MAX_M else 0)
+        prefill += per_pass if T > MAX_M else 0
+    return kernel, prefill
+
+
+async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cuda",
+                    quant: str = "none", kv_quant: str = "none"):
+    """The burst through ``run --in batch:``'s pipeline. The bf16 run
+    (quant "none") also serves the prefix-hit repeat, the profiled pass and
+    the graph phase; an int8 run times one replay and profiles it."""
     import numpy as np
     import torch
 
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
+    tag = "main" if quant == "none" else f"main-int8-kv{kv_quant}"
     args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", "bfloat16",
                        "--device", device, *ENGINE_ARGV])
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    pipe = await build_pipeline(args)
+    pipe = await build_pipeline(args, quant=quant, kv_quant=kv_quant)
     engine = pipe.engine
     runner = engine.runner
     torch.cuda.synchronize()
-    log(f"main: {preset} pipeline up in {time.perf_counter() - t0:.1f}s "
-        f"(random bf16 weights made on the card), pipeline_depth "
-        f"{engine.args.effective_pipeline_depth}")
+    log(f"{tag}: {preset} pipeline up in {time.perf_counter() - t0:.1f}s "
+        f"(random {'int8' if quant == 'int8' else 'bf16'} weights made on the card, "
+        f"{kv_quant} KV pages), pipeline_depth {engine.args.effective_pipeline_depth}")
     cfg = engine.cfg
     g = runner.graphs
     n = runner.warm_windows(("greedy", "simple"), (0,))
-    log(f"main: {n} window graphs captured ahead of traffic in {g.capture_s:.2f}s "
+    log(f"{tag}: {n} window graphs captured ahead of traffic in {g.capture_s:.2f}s "
         f"(shapes B, W, L, K, mode, top_n: {g.shapes}), graph pool "
         f"{g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
     lens, temps, max_tokens = BURST_LENS, BURST_TEMPS, BURST_TOKENS
@@ -405,14 +571,14 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         after, once the engine has drained its queue."""
         steps0, phases0 = _counters(engine)
         replays0, eager0 = runner.graphs.replays, runner.eager_windows
-        pa.launches = 0
+        pa.launches = im.launches = im.prefill_launches = 0
         t0 = time.perf_counter()
         outs = await asyncio.gather(*(one(i, p, t, 1000 + i)
                                       for i, (p, t) in enumerate(zip(prompts, temps))))
         wall = time.perf_counter() - t0
         while engine.busy():
             await asyncio.sleep(0.001)
-        launches = pa.launches
+        launches, i8, i8_prefill = pa.launches, im.launches, im.prefill_launches
         steps1, phases1 = _counters(engine)
         substeps = steps1 - steps0
         phase = {k: v - phases0.get(k, 0.0) for k, v in phases1.items()}
@@ -429,37 +595,43 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         if launches != cfg.num_layers * substeps or substeps == 0:
             raise RuntimeError(f"{label}: kernel launches {launches} != layers "
                                f"{cfg.num_layers} x substeps {substeps}")
+        want_i8 = int8_expected(cfg, lens, substeps) if quant == "int8" else (0, 0)
+        if (i8, i8_prefill) != want_i8:
+            raise RuntimeError(f"{label}: int8_matmul launches (kernel, prefill route) "
+                               f"{(i8, i8_prefill)} != {want_i8} for {substeps} substeps")
         eager = runner.eager_windows - eager0
         if eager:
             raise RuntimeError(f"{label}: {eager} K-step windows ran eagerly on the card")
         decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
         total_tokens = sum(o["resp"]["usage"]["completion_tokens"] for o in outs)
-        st = {"launches": launches, "substeps": substeps, "wall_s": wall,
+        st = {"launches": launches, "int8_launches": i8, "int8_prefill_launches": i8_prefill,
+              "substeps": substeps, "wall_s": wall,
               "tokens_per_s": total_tokens / wall, "substep_ms": decode_s / substeps * 1e3,
               "decode_s": decode_s, "host_blocked": phase.get("drain_sync", 0.0) / decode_s,
               "prefill_dispatch_s": phase.get("prefill", 0.0),
               "replays": runner.graphs.replays - replays0,
               "ttft_s": [o["ttft_s"] for o in outs]}
-        log(f"main[{label}]: 8 requests, {total_tokens} completion tokens in {wall:.3f}s → "
+        log(f"{tag}[{label}]: 8 requests, {total_tokens} completion tokens in {wall:.3f}s → "
             f"{st['tokens_per_s']:.1f} tokens/s ({card_line})")
         for o in outs:
-            log(f"main[{label}]: request {o['i']} prompt {lens[o['i']]} tokens, temperature "
+            log(f"{tag}[{label}]: request {o['i']} prompt {lens[o['i']]} tokens, temperature "
                 f"{temps[o['i']]}: TTFT {o['ttft_s'] * 1e3:.1f} ms ({card_line})")
-        log(f"main[{label}]: decode {substeps} substeps, {st['substep_ms']:.3f} ms per substep "
+        log(f"{tag}[{label}]: decode {substeps} substeps, {st['substep_ms']:.3f} ms per substep "
             f"(host time in decode phases {decode_s:.3f}s / substeps; batch of 8), host blocked "
             f"on fetches {100 * st['host_blocked']:.1f}% of it, {st['replays']} graph replays "
             f"({card_line})")
-        log(f"main[{label}]: phases " + json.dumps({k: round(v, 4) for k, v in phase.items()}))
-        log(f"main[{label}]: paged_attention launches {launches} = {cfg.num_layers} layers x "
-            f"{substeps} substeps")
+        log(f"{tag}[{label}]: phases " + json.dumps({k: round(v, 4) for k, v in phase.items()}))
+        log(f"{tag}[{label}]: paged_attention launches {launches} = {cfg.num_layers} layers x "
+            f"{substeps} substeps; int8_matmul launches {i8} on the kernel, {i8_prefill} on the "
+            f"prefill route")
         return outs, st
 
     first, st2 = await burst("depth2")
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
     weight_bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"main: weight-stream bound {weight_bound_ms:.3f} ms per substep "
+    log(f"{tag}: weight-stream bound {weight_bound_ms:.3f} ms per substep "
         f"({param_bytes / 1e9:.2f} GB / 3.35 TB/s) ({card_line})")
-    log(f"main: {g.captured} window graphs in all, captured in {g.capture_s:.2f}s, graph pool "
+    log(f"{tag}: {g.captured} window graphs in all, captured in {g.capture_s:.2f}s, graph pool "
         f"{g.pool_bytes() / 2**20:.1f} MiB, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card_line})")
 
@@ -471,19 +643,45 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     engine.args.pipeline_depth = 2
     for a, b in zip(first, second):
         if a["tokens"] != b["tokens"] or a["logprobs"] != b["logprobs"]:
-            raise RuntimeError(f"request {a['i']}: depth 2 and depth 0 streams differ")
-    log("main: all 8 token and logprob streams identical at pipeline_depth 2 and 0")
-    # Request 7 again, on the prefix its depth-0 pass cached: the reference
-    # of the HTTP phase's repeat, which takes the same prefix-hit path.
-    repeat = await one(7, prompts[7], temps[7], 1007)
-    drift = max(abs(a - b) for a, b in zip(repeat["logprobs"], first[7]["logprobs"]))
-    log(f"main: request 7 again on its cached prefix: tokens "
-        f"{'equal to' if repeat['tokens'] == first[7]['tokens'] else 'not equal to'} its cold "
-        f"pass, max |logprob - cold pass| {drift:.3g}, TTFT {repeat['ttft_s'] * 1e3:.1f} ms "
-        f"({card_line})")
+            raise RuntimeError(f"{tag} request {a['i']}: depth 2 and depth 0 streams differ")
+    log(f"{tag}: all 8 token and logprob streams identical at pipeline_depth 2 and 0")
+    stats = {"launches": st2["launches"], "int8_launches": st2["int8_launches"],
+             "int8_prefill_launches": st2["int8_prefill_launches"], "substeps": st2["substeps"],
+             "tokens_per_s": st2["tokens_per_s"], "substep_ms": st2["substep_ms"],
+             "host_blocked": st2["host_blocked"], "ttft_s": st2["ttft_s"],
+             "depth0": {k: st0[k] for k in ("substeps", "tokens_per_s", "substep_ms",
+                                             "host_blocked", "ttft_s")},
+             "weight_bound_ms": weight_bound_ms, "graphs": g.captured,
+             "capture_s": g.capture_s, "graph_pool_bytes": g.pool_bytes(),
+             "replays": st2["replays"],
+             "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    reference = {"burst": [o["ref"] for o in first]}
+    if quant == "none":
+        # Request 7 again, on the prefix its depth-0 pass cached: the
+        # reference of the HTTP phase's repeat, which takes the same path.
+        repeat = await one(7, prompts[7], temps[7], 1007)
+        drift = max(abs(a - b) for a, b in zip(repeat["logprobs"], first[7]["logprobs"]))
+        log(f"main: request 7 again on its cached prefix: tokens "
+            f"{'equal to' if repeat['tokens'] == first[7]['tokens'] else 'not equal to'} its "
+            f"cold pass, max |logprob - cold pass| {drift:.3g}, TTFT "
+            f"{repeat['ttft_s'] * 1e3:.1f} ms ({card_line})")
+        reference["repeat"] = repeat["ref"]
+        stats["device_busy_share"] = await busy_pass(engine, one, prompts, temps, first,
+                                                     card_line)
+        stats.update(window_phase(engine, card_line))
+    else:
+        stats.update(replay_phase(engine, card_line, tag))
+    await engine.stop()
+    del pipe, engine, runner
+    torch.cuda.empty_cache()
+    return stats, reference
 
-    # One greedy prompt alone again, under torch.profiler, whose CUDA kernel
-    # records split the pass's wall time into device-busy time and the rest.
+
+async def busy_pass(engine, one, prompts, temps, first, card_line):
+    """One greedy prompt alone again, under torch.profiler, whose CUDA kernel
+    records split the pass's wall time into device-busy time and the rest.
+    → the busy share (None when the profiler saw no device time)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     engine.clear_kv_blocks()
@@ -500,32 +698,17 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
          if "CUDA" in str(e.device_type) and e.self_device_time_total > 0),
         key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    busy_share = None
     if busy_ms == 0:
         log("profile: the profiler recorded no device time (device busy share not measured)")
-    else:
-        busy_share = busy_ms / (wall2 * 1e3)
-        attn_ms = sum(k[1] for k in kernels if "paged_attention" in k[0])
-        log(f"profile: second pass (1 request, 64 tokens, profiler on): wall {wall2 * 1e3:.1f} ms, "
-            f"device busy {busy_ms:.1f} ms ({100 * busy_share:.1f}%), "
-            f"paged_attention {attn_ms:.1f} ms ({card_line})")
-        for name, ms, n in kernels[:6]:
-            log(f"profile:   {ms:9.3f} ms  {n:6d}x  {name[:90]}")
-    stats = {"launches": st2["launches"], "substeps": st2["substeps"],
-             "tokens_per_s": st2["tokens_per_s"], "substep_ms": st2["substep_ms"],
-             "host_blocked": st2["host_blocked"], "ttft_s": st2["ttft_s"],
-             "depth0": {k: st0[k] for k in ("substeps", "tokens_per_s", "substep_ms",
-                                             "host_blocked", "ttft_s")},
-             "weight_bound_ms": weight_bound_ms, "graphs": g.captured,
-             "capture_s": g.capture_s, "graph_pool_bytes": g.pool_bytes(),
-             "replays": st2["replays"], "device_busy_share": busy_share,
-             "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    stats.update(window_phase(engine, card_line))
-    await engine.stop()
-    del pipe, engine, runner
-    torch.cuda.empty_cache()
-    reference = {"burst": [o["ref"] for o in first], "repeat": repeat["ref"]}
-    return stats, reference
+        return None
+    busy_share = busy_ms / (wall2 * 1e3)
+    attn_ms = sum(k[1] for k in kernels if "paged_attention" in k[0])
+    log(f"profile: second pass (1 request, 64 tokens, profiler on): wall {wall2 * 1e3:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_share:.1f}%), "
+        f"paged_attention {attn_ms:.1f} ms ({card_line})")
+    for name, ms, n in kernels[:6]:
+        log(f"profile:   {ms:9.3f} ms  {n:6d}x  {name[:90]}")
+    return busy_share
 
 
 def window_inputs(runner, mode, seed, K=8, lens=None):
@@ -660,7 +843,8 @@ def profile_replay(runner, kw, card_line: str) -> dict:
     K = kw["K"]
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.self_device_time_total > 0]
-    families = {"gemm (nvjet/cutlass/gemv)": ("nvjet", "gemm", "gemv", "cutlass", "splitK"),
+    families = {"int8_matmul": ("int8_matmul",),
+                "gemm (nvjet/cutlass/gemv)": ("nvjet", "gemm", "gemv", "cutlass", "splitK"),
                 "paged_attention": ("paged_attention",), "copy": ("copy",),
                 "reduce": ("reduce",), "index/scatter/gather": ("index", "scatter", "gather"),
                 "sort/topk": ("sort", "topk", "Sort", "radix")}
@@ -678,6 +862,44 @@ def profile_replay(runner, kw, card_line: str) -> dict:
         log(f"graphs:   {ms:7.3f} ms {n:6.0f} kernels per substep  {name}")
     return {"ms_per_substep": total, "kernels_per_substep": kernels,
             "families": {k: {"ms": v[0], "kernels": v[1]} for k, v in fam.items()}}
+
+
+def replay_ms(runner, kw) -> float:
+    """Device time per substep of the window ``kw`` as one graph replay:
+    the median of 5 CUDA-event timings after one warm replay."""
+    import torch
+
+    runner.multi_decode(**kw)
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        runner.multi_decode(**kw)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times) / kw["K"]
+
+
+def replay_phase(engine, card_line: str, tag: str) -> dict:
+    """An int8 run's window: the "simple" window at the burst's lengths on
+    the engine's weights and KV page format (its own small cache), its
+    replay device time per substep and one profiled replay by family."""
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+
+    args = EngineArgs(model=engine.cfg, block_size=16, num_kv_blocks=256, max_num_seqs=8,
+                      max_model_len=2048, decode_steps=8, dtype="bfloat16", device="cuda",
+                      kv_quant=engine.args.kv_quant)
+    runner = LocalRunner(args, params=engine.runner.params)
+    runner.start()
+    kw = dict(window_inputs(runner, "simple", 61, lens=BURST_HIST[:6]), top_n=0)
+    ms = replay_ms(runner, kw)
+    log(f"{tag}: simple window at the burst's lengths: {ms:.3f} ms device time per substep as "
+        f"one graph replay ({card_line})")
+    out = {"replay_ms_per_substep_simple": ms, "replay_profile": profile_replay(runner, kw, card_line)}
+    runner.stop()
+    return out
 
 
 def window_phase(engine, card_line: str):
@@ -705,16 +927,7 @@ def window_phase(engine, card_line: str):
         # One window at the burst's row lengths (W = 128): the replay's
         # device time, against the same window run op by op (host clock).
         kw = dict(window_inputs(runner, mode, 60 + i, lens=BURST_HIST[:6]), top_n=0)
-        runner.multi_decode(**kw)
-        times = []
-        for _ in range(5):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            runner.multi_decode(**kw)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        ms = statistics.median(times) / kw["K"]
+        ms = replay_ms(runner, kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runner.multi_decode(**kw, eager=True)
@@ -1247,6 +1460,219 @@ async def _drive_http(port: int, model: str, reference: dict, inproc_tps: float,
             "repeat_latency_s": again["latency_s"], "repeat_logprob_drift": drift}
 
 
+# -- a checkpoint on disk, served int8 through the worker -----------------------
+
+CKPT_REQUESTS = 4  # the burst's first four requests
+
+
+def _host_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _host_f32(v) for k, v in tree.items()}
+    return tree.numpy() if str(tree.dtype) == "torch.int8" else tree.float().numpy()
+
+
+def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
+                     device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """A checkpoint of ``preset``'s widths with ``layers`` layers (seed 0,
+    two safetensors shards, an index and config.json) written under build/,
+    loaded int8 in process (leaves held to quantize_params_np of the
+    written arrays) and served by one ``python -m dynamo_tpu_torch.worker
+    --model-path <dir> --quant int8 --kv-quant int8 --tokenizer byte``
+    behind the store and a kv-mode frontend: 4 aggregate completions, each
+    bit-equal (token texts and logprobs) to the in-process engine built
+    from the port's ``load_model(<dir>, quant="int8")``."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import model as M
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.loader import load_model, save_checkpoint
+    from dynamo_tpu_torch.engine.quant import quantize_params_np
+
+    cfg = dataclasses.replace(ModelConfig.preset(preset), num_layers=layers)
+    name = f"{preset}-{layers}layers"
+    path = os.path.join(HERE, "build", "checkpoints", name)
+    tdt = getattr(torch, dtype)
+    shutil.rmtree(path, ignore_errors=True)
+    procs: list[Proc] = []
+    try:
+        t0 = time.perf_counter()
+        dev_tree = M.init_params(cfg, torch.device(device), tdt, seed=0)
+        host = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in dev_tree.items()}
+        del dev_tree
+        save_checkpoint(path, cfg, host, shards=2)
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        write_s = time.perf_counter() - t0
+        log(f"ckpt: {name} written ({size / 1e9:.2f} GB, 2 shards + index + config.json) in "
+            f"{write_s:.1f}s")
+
+        t0 = time.perf_counter()
+        lcfg, params = load_model(path, dtype=dtype, quant="int8", device=device)
+        load_s = time.perf_counter() - t0
+        want = quantize_params_np(_host_f32(host))
+        del host
+        for k, leaf in _flat(params):
+            exp = torch.from_numpy(np.ascontiguousarray(_get(want, k)))
+            if leaf.dtype != torch.int8:
+                exp = exp.to(leaf.dtype)
+            if leaf.dtype != exp.dtype or not torch.equal(leaf.cpu(), exp):
+                raise RuntimeError(f"ckpt: loaded leaf {k} differs from quantize_params_np of "
+                                   "the written arrays")
+        del want
+        log(f"ckpt: load_model(quant='int8') in {load_s:.1f}s on {device}; every leaf equals "
+            f"quantize_params_np of the written arrays bit for bit ({card_line})")
+        ref, ref_counts = asyncio.run(_checkpoint_reference(lcfg, params, name, device, dtype))
+        del params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        store_port = _free_port()
+        store_url = f"tcp://127.0.0.1:{store_port}"
+        store = Proc("ckpt-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                    "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        worker = Proc("ckpt-worker", [
+            "dynamo_tpu_torch.worker", "--store-url", store_url, "--model-path", path,
+            "--quant", "int8", "--kv-quant", "int8", "--tokenizer", "byte", "--dtype", dtype,
+            "--device", device, *ENGINE_ARGV])
+        procs.append(worker)
+        m, _ = worker.wait_for(r"loaded .* \(quant int8\) in ([0-9.]+)s", 600)
+        worker_load_s = float(m.group(1))
+        _, registered_s = worker.wait_for(r"serving " + re.escape(name), 600)
+        log(f"ckpt: worker loaded the checkpoint int8 in {worker_load_s:.1f}s, registered "
+            f"{registered_s:.1f}s after launch ({card_line})")
+        fe = Proc("ckpt-frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                                    "--host", "127.0.0.1", "--port", "0", "--router-mode", "kv"])
+        procs.append(fe)
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+        got = asyncio.run(_checkpoint_http(port, name))
+        for i, (r, want_r) in enumerate(zip(got, ref)):
+            if r["status"] != 200 or r.get("error") or r["finish"] != "length":
+                raise RuntimeError(f"ckpt request {i}: {r['status']} {r.get('error')} "
+                                   f"{r.get('finish')!r}")
+            if r["logprobs"] != want_r["logprobs"] or r["lp_tokens"] != want_r["lp_tokens"]:
+                raise RuntimeError(f"ckpt request {i}: token logprobs differ from the in-process "
+                                   "engine's on the same checkpoint")
+        rcs = {p.name: p.stop() for p in [fe, worker, store]}
+        if any(rcs.values()):
+            raise RuntimeError(f"ckpt: processes did not exit 0 on SIGTERM: {rcs}")
+        counters = next(json.loads(line) for line in reversed(worker.lines)
+                        if line.startswith('{"event": "engine_counters"'))
+        got_counts = (counters["paged_attention_launches"], counters["int8_matmul_launches"],
+                      counters["int8_matmul_prefill_launches"])
+        want_counts = _ckpt_counts(lcfg, counters["decode_substeps"], device)
+        if got_counts != want_counts:
+            raise RuntimeError(f"ckpt: worker launches (attention, int8 kernel, int8 prefill) "
+                               f"{got_counts} != {want_counts}")
+        wall = max(r["latency_s"] for r in got)
+        log(f"ckpt: {CKPT_REQUESTS} aggregate completions through worker --model-path --quant "
+            f"int8 --kv-quant int8, each bit-equal to the in-process engine on the same "
+            f"checkpoint (token texts and logprobs); worker launches {got_counts} (attention, "
+            f"int8 kernel, int8 prefill route) for {counters['decode_substeps']} substeps; "
+            f"in-process {ref_counts}; slowest request {wall:.2f}s ({card_line})")
+        return {"name": name, "bytes": size, "write_s": write_s, "load_s": load_s,
+                "worker_load_s": worker_load_s, "launch_to_registered_s": registered_s,
+                "launches": got_counts, "decode_substeps": counters["decode_substeps"],
+                "inproc_launches": ref_counts, "latency_s": [r["latency_s"] for r in got]}
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _get(tree, key):
+    for k in key:
+        tree = tree[k]
+    return tree
+
+
+def _ckpt_counts(cfg, substeps: int, device: str) -> tuple[int, int, int]:
+    """(attention, int8 kernel, int8 prefill route) launches of the phase's
+    requests; all 0 on the CPU, where the plain versions run."""
+    if device != "cuda":
+        return 0, 0, 0
+    kernel, prefill = int8_expected(cfg, BURST_LENS[:CKPT_REQUESTS], substeps)
+    return cfg.num_layers * substeps, kernel, prefill
+
+
+async def _checkpoint_reference(cfg, params, name, device, dtype):
+    """The phase's requests through an in-process engine on the loaded
+    weights, with the worker's engine arguments → (reference entries,
+    launches as _ckpt_counts counts them)."""
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.run.__main__ import LocalPipeline
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    engine = await TorchEngine(EngineArgs(
+        model=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=8, max_model_len=2048,
+        decode_steps=8, dtype=dtype, quant="int8", kv_quant="int8", device=device,
+    ), params=params).start()
+    card = ModelDeploymentCard(name=name, tokenizer={"type": "byte"}, context_length=2048,
+                               kv_cache_block_size=16, eos_token_ids=[ByteTokenizer.EOS])
+    pipe = LocalPipeline(card, engine, ByteTokenizer())
+    await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
+    pa.launches = im.launches = im.prefill_launches = 0
+    steps0 = engine.total_decode_steps
+    prompts = burst_prompts()
+
+    async def one(i):
+        req = CompletionRequest.parse({
+            "model": name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+            "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True, "logprobs": 0})
+        gen = None
+        async for g, _chunk in pipe.run(req, Context()):
+            gen = g
+        return reference_entry(gen, 0.0)
+
+    try:
+        refs = await asyncio.gather(*(one(i) for i in range(CKPT_REQUESTS)))
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        counts = (pa.launches, im.launches, im.prefill_launches)
+        want = _ckpt_counts(cfg, engine.total_decode_steps - steps0, device)
+        if counts != want:
+            raise RuntimeError(f"ckpt in process: launches {counts} != {want}")
+    finally:
+        await engine.stop()
+    return refs, counts
+
+
+async def _checkpoint_http(port: int, model: str) -> list[dict]:
+    for _ in range(600):
+        _, _, pieces, _ = await http_request(port, "/v1/models", method="GET")
+        if [m["id"] for m in json.loads(b"".join(p for _, p in pieces))["data"]] == [model]:
+            break
+        await asyncio.sleep(0.1)
+    else:
+        raise RuntimeError(f"ckpt: the frontend never listed {model}")
+    prompts = burst_prompts()
+    return await asyncio.gather(*(
+        http_completion(port, {"model": model, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+                               "temperature": BURST_TEMPS[i], "seed": 1000 + i,
+                               "ignore_eos": True, "logprobs": 0, "stream": False},
+                        f"{0xE00 + i:032x}")
+        for i in range(CKPT_REQUESTS)))
+
+
 def main() -> int:
     try:
         import torch
@@ -1277,7 +1703,20 @@ def main() -> int:
         f"{', '.join(str(v) for v in libs.values())}")
 
     cases = kernel_phase(device)
+    int8_cases, int8_substep = int8_kernel_phase(device, card_line)
     stats, reference = asyncio.run(main_path(card_line))
+    int8_runs = {}
+    for kv_quant in ("none", "int8"):
+        int8_runs[kv_quant], _ = asyncio.run(main_path(card_line, quant="int8", kv_quant=kv_quant))
+        torch.cuda.empty_cache()
+    for kv_quant, st in int8_runs.items():
+        log(f"int8 vs bf16 ({kv_quant} KV pages for int8): tokens/s {st['tokens_per_s']:.1f} vs "
+            f"{stats['tokens_per_s']:.1f}, host ms per substep {st['substep_ms']:.3f} vs "
+            f"{stats['substep_ms']:.3f}, simple replay {st['replay_ms_per_substep_simple']:.3f} "
+            f"vs {stats['replay_ms_per_substep_simple']:.3f} ms per substep, peak memory "
+            f"{st['max_mem_gib']:.2f} vs {stats['max_mem_gib']:.2f} GiB, graph pool "
+            f"{st['graph_pool_bytes'] / 2**20:.1f} vs {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
+            f"({card_line})")
     small_reference(device)
     frames = msgpack_frame_us()
     log("wire: msgpack_lite pack+unpack per frame: " + ", ".join(
@@ -1286,6 +1725,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     http = http_phase(card_line, reference, stats["tokens_per_s"])
     http["msgpack_lite"] = frames
+    ckpt = checkpoint_phase(card_line)
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = cases[-1]  # the same at the burst's row lengths
@@ -1297,9 +1737,23 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
     }
+    i8 = next(r for r in int8_cases if r["case"] == "w_gate_up_M8_bfloat16")
+    int8_entry = {
+        "name": "int8_matmul", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES, "launches": int8_runs["none"]["int8_launches"],
+        "prefill_route_launches": int8_runs["none"]["int8_prefill_launches"],
+        "launches_kv_int8": int8_runs["int8"]["int8_launches"],
+        "launches_checkpoint_worker": ckpt["launches"][1],
+        "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
+        "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
+        "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
+    }
     log("main_path: " + json.dumps(stats))
+    for kv_quant, st in int8_runs.items():
+        log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
     log("http_path: " + json.dumps(http))
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    log("checkpoint_path: " + json.dumps(ckpt))
+    print(json.dumps({"kernels": [entry, int8_entry]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

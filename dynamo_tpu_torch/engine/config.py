@@ -119,6 +119,11 @@ class EngineArgs:
     max_prefill_tokens: int = 2048       # longest single prefill chunk
     dtype: str = "bfloat16"              # weights/activations; sampling in fp32
     prefix_caching: bool = True
+    # Weight format: "none" = weights in ``dtype``; "int8" = weight-only
+    # int8 with per-output-channel scales (engine/quant.py). Decode streams
+    # the weights once per substep, so int8 halves its bytes; the products
+    # run in ops/int8_matmul.py's kernel, which reads each weight once.
+    quant: str = "none"
     # KV page storage: "none" = pages in ``dtype``; "int8" = int8 pages
     # with per-position-per-head fp32 scales (model.KVCache).
     kv_quant: str = "none"
@@ -147,6 +152,8 @@ class EngineArgs:
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8'; got {self.quant!r}")
         if self.kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8'; got {self.kv_quant!r}")
         if self.attn_impl not in ATTN_IMPLS:

@@ -20,9 +20,10 @@ static input buffer and replay it.
   every replay runs on the one stream, in dispatch order, and the runner
   enqueues the copy of a replay's outputs to the host right behind it,
   before any later replay.
-- ``paged_attention.launches`` counts in Python, so a capture records it
-  once; the warmup and capture counts are taken back, and each replay adds
-  the attention calls its graph holds.
+- The kernels' launch counters (``paged_attention.launches``,
+  ``int8_matmul.launches`` and its ``prefill_launches``) count in Python,
+  so a capture records each call once; the warmup and capture counts are
+  taken back, and each replay adds the calls its graph holds.
 """
 
 from __future__ import annotations
@@ -33,19 +34,31 @@ from typing import Callable
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
 
 WARMUP_RUNS = 2
+# (module, counter) of every kernel wrapper a window can call.
+COUNTERS = ((pa, "launches"), (im, "launches"), (im, "prefill_launches"))
+
+
+def _read() -> tuple[int, ...]:
+    return tuple(getattr(mod, name) for mod, name in COUNTERS)
+
+
+def _set(values) -> None:
+    for (mod, name), v in zip(COUNTERS, values):
+        setattr(mod, name, v)
 
 
 class _Graph:
-    __slots__ = ("graph", "static_in", "outs", "attn_calls")
+    __slots__ = ("graph", "static_in", "outs", "calls")
 
-    def __init__(self, graph, static_in, outs, attn_calls):
+    def __init__(self, graph, static_in, outs, calls):
         self.graph = graph
         self.static_in = static_in
         self.outs = outs
-        self.attn_calls = attn_calls
+        self.calls = calls  # per COUNTERS entry: calls one replay makes
 
 
 class WindowGraphs:
@@ -78,28 +91,28 @@ class WindowGraphs:
             g = self._graphs[key] = self._capture(*make())
         g.static_in.copy_(torch.from_numpy(words).pin_memory(), non_blocking=True)
         g.graph.replay()
-        pa.launches += g.attn_calls
+        _set(a + b for a, b in zip(_read(), g.calls))
         self.replays += 1
         return g.outs
 
     def _capture(self, fn: Callable, inert: np.ndarray) -> _Graph:
         t0 = time.perf_counter()
         static_in = torch.from_numpy(inert).to(self.device)
-        base = pa.launches
+        base = _read()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
                 fn(static_in)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        mark = pa.launches
+        mark = _read()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
             outs = tuple(fn(static_in))
-        attn_calls = pa.launches - mark
-        pa.launches = base
+        calls = tuple(b - a for a, b in zip(mark, _read()))
+        _set(base)
         self.capture_s += time.perf_counter() - t0
-        return _Graph(graph, static_in, outs, attn_calls)
+        return _Graph(graph, static_in, outs, calls)
 
     def pool_bytes(self) -> int:
         """Device bytes reserved by the shared graph pool."""

@@ -4,7 +4,11 @@
 Weights keep the JAX package's layout (``x @ w``; per-layer tensors
 stacked on a leading layer axis: ``wq [L, d, q]``, ``w_down [L, i, d]``,
 …), so carrying weights across is a plain copy (engine/weights.py).
-Norms, rope, softmax and logits run in f32; matmuls in the weights' dtype.
+Norms, rope, softmax and logits run in f32; activations and matmuls in
+the compute dtype, which is the norms' dtype (``layers.attn_norm``), as in
+the JAX package. With ``quant="int8"`` the matmul weights are int8 with
+per-output-channel ``<name>_scale`` leaves (engine/quant.py); every product
+goes through ``_dot_q`` → ``ops.int8_matmul``.
 
 Cache layout: k, v each ``[L, num_blocks, block_size, KVH*head_dim]``;
 with ``kv_quant="int8"`` the pages are int8 and per-position-per-head f32
@@ -36,6 +40,7 @@ from dynamo_tpu_torch.engine.sampler import (
     token_logprobs,
     top_k_logprobs,
 )
+from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
 
 Params = dict[str, Any]
@@ -152,27 +157,56 @@ def _rope(x: torch.Tensor, table: tuple[torch.Tensor, torch.Tensor]) -> torch.Te
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _embed_rows(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _compute_dtype(params: Params) -> torch.dtype:
+    return params["layers"]["attn_norm"].dtype
+
+
+def _dot_q(x: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
+    """x @ lp[name]; an int8 weight goes through the int8 product with its
+    ``<name>_scale``, applied after the matmul (the JAX package's rounding)."""
+    w = lp[name]
+    if w.dtype == torch.int8:
+        return im.int8_matmul(x, w, lp[name + "_scale"])
+    return x @ w
+
+
+def _embed_rows(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    idx = tokens.long()
+    e = params["embed"][idx]
+    if e.dtype == torch.int8:
+        scale = params["embed_scale"][idx].to(dtype)
+        return e.to(dtype) * scale[..., None]
+    return e
 
 
 def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     """q/k/v projections with optional Qwen2-style bias."""
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    q, k, v = _dot_q(h, lp, "wq"), _dot_q(h, lp, "wk"), _dot_q(h, lp, "wv")
     if cfg.attn_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = q + lp["bq"].to(q.dtype)
+        k = k + lp["bk"].to(k.dtype)
+        v = v + lp["bv"].to(v.dtype)
     return q, k, v
 
 
 def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
-    g = x @ lp["w_gate"]
-    u = x @ lp["w_up"]
-    return (torch.nn.functional.silu(g.float()).to(x.dtype) * u) @ lp["w_down"]
+    g = _dot_q(x, lp, "w_gate")
+    u = _dot_q(x, lp, "w_up")
+    return _dot_q(torch.nn.functional.silu(g.float()).to(x.dtype) * u, lp, "w_down")
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """→ f32 logits. int8 heads: ``x @ w`` rounded to x's dtype, then f32
+    times the scale leaf as it is (the JAX package's ``_logits``)."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.tie_embeddings:
+        emb = params["embed"]
+        if emb.dtype == torch.int8:
+            return im.int8_matmul(x, emb.T, params["embed_scale"], out_f32=True)
+        return (x @ emb.T).float()
+    head = params["lm_head"]
+    if head.dtype == torch.int8:
+        return im.int8_matmul(x, head, params["lm_head_scale"], out_f32=True)
     return (x @ head).float()
 
 
@@ -225,7 +259,7 @@ def prefill_batch(
     sfx = torch.arange(T, device=dev)
     suffix_positions = start[:, None] + sfx[None, :]                       # [Bp, T]
 
-    x = _embed_rows(params, tokens)                                        # [Bp, T, D]
+    x = _embed_rows(params, tokens, _compute_dtype(params))                # [Bp, T, D]
 
     # Additive f32 masks, fixed for all layers.
     neg = -1e9
@@ -274,7 +308,7 @@ def prefill_batch(
         p_p, p_s = p[..., : W * bs], p[..., W * bs :]
         o = (torch.einsum("btkgc,bckh->btkgh", p_p, pv)
              + torch.einsum("btkgs,bskh->btkgh", p_s, v))
-        x = x + o.reshape(Bp, T, cfg.q_size) @ lp["wo"]
+        x = x + _dot_q(o.reshape(Bp, T, cfg.q_size), lp, "wo")
         x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
 
     last = torch.clamp(tlen - start - 1, 0, T - 1)
@@ -324,7 +358,7 @@ def decode_step(
     # token at `positions` attends [0, positions]; inactive rows attend nothing
     lengths = torch.where(active, pos + 1, 0).to(torch.int32)
 
-    x = _embed_rows(params, tokens)                                        # [B, D]
+    x = _embed_rows(params, tokens, _compute_dtype(params))                # [B, D]
     rope = _rope_table(pos, hd, cfg.rope_theta)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
@@ -338,7 +372,7 @@ def decode_step(
         _write_pages(cache, layer, (blk, off), k, v, (B, KVH * hd))
         o = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                    lengths, cache.k_scale, cache.v_scale)
-        x = x + o.reshape(B, cfg.q_size) @ lp["wo"]
+        x = x + _dot_q(o.reshape(B, cfg.q_size), lp, "wo")
         x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
     return _logits(cfg, params, x)
 

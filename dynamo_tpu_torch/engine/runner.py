@@ -40,6 +40,7 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.graphs import WindowGraphs
+from dynamo_tpu_torch.engine.quant import quantize_params_np, random_int8_params_device
 from dynamo_tpu_torch.engine.sampler import (
     row_gumbel,
     sample_full,
@@ -47,6 +48,7 @@ from dynamo_tpu_torch.engine.sampler import (
     token_logprobs,
     top_k_logprobs,
 )
+from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.ops.paged_attention import resolve_attn_impl
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -158,7 +160,20 @@ def host_ready(fetch: HostFetch) -> bool:
     return fetch.ready()
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 class LocalRunner:
+    """``params``: a tree of tensors on the device, a tree of numpy arrays
+    (moved there by ``params_from_numpy``; with ``quant="int8"`` float ones
+    are quantized on the host first), or None (random weights made on the
+    device, int8 ones with ``quant="int8"``)."""
+
     def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0):
         self.args = args
         self.cfg = args.model
@@ -180,8 +195,26 @@ class LocalRunner:
     def start(self) -> None:
         self.device = resolve_device(self.args.device)
         self.attn_impl = resolve_attn_impl(self.args.attn_impl, self.device)
+        leaves = list(_leaves(self.params)) if self.params is not None else []
+        on_host = bool(leaves) and all(isinstance(a, np.ndarray) for a in leaves)
+        if self.args.quant == "int8" and self.params is None:
+            # Made on the card: int8 from birth, no weight upload.
+            self.params = random_int8_params_device(self.cfg, self.device, self._seed,
+                                                    self.dtype)
+        elif self.args.quant == "int8" and not any(a.dtype == np.int8 or a.dtype == torch.int8
+                                                   for a in leaves):
+            if not on_host:
+                # Pulling float device params back to quantize them would
+                # defeat the memory saving: the loader quantizes on the host.
+                raise ValueError(
+                    "quant='int8' with unquantized device params — pass "
+                    "quant='int8' to load_model/load_params instead"
+                )
+            self.params = quantize_params_np(self.params)
         if self.params is None:
             self.params = M.init_params(self.cfg, self.device, self.dtype, self._seed)
+        elif on_host:
+            self.params = params_from_numpy(self.params, self.device, self.dtype)
         self.cache = M.init_kv_cache(
             self.cfg, self.args.num_kv_blocks, self.args.block_size, self.dtype,
             self.device, kv_quant=self.args.kv_quant,

@@ -56,6 +56,31 @@ class ByteTokenizer:
         return 259
 
 
+class TokenizerNotPortedError(NotImplementedError):
+    """A checkpoint's own tokenizer (HF ``tokenizer.json`` or a GGUF
+    vocabulary) was asked for: the port has no byte-level BPE or
+    SentencePiece tokenizer yet (the tokenizers package is absent on the
+    card's machine; the tokenizer slice, ROADMAP A). Serve the checkpoint
+    with ``--tokenizer byte``."""
+
+    def __init__(self, model_path: str):
+        super().__init__(
+            f"{model_path}: its tokenizer (HF tokenizer.json / GGUF vocabulary) is not "
+            "ported yet — the tokenizer slice adds it; pass --tokenizer byte to serve "
+            "this checkpoint with the byte tokenizer"
+        )
+
+
+def tokenizer_spec_for(model_path: str | None, arg: str | None) -> dict:
+    """The CLIs' tokenizer choice. Without a checkpoint: ``arg`` or "byte".
+    With one, only an explicit "byte" is served: the JAX CLIs default to
+    the checkpoint's own tokenizer, which the port cannot load yet, and it
+    refuses rather than silently tokenize by bytes."""
+    if model_path is not None and arg is None:
+        raise TokenizerNotPortedError(model_path)
+    return parse_tokenizer_spec(arg or "byte")
+
+
 def parse_tokenizer_spec(arg: str) -> dict:
     """CLI string → tokenizer spec dict. This port serves "byte" only."""
     if arg == "byte":

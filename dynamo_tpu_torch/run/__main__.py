@@ -6,6 +6,8 @@ in this one process, on the card unless ``--device cpu`` is given. Batch
 mode prints one JSON line per prompt, as the JAX launcher does; ``--in
 http`` serves the OpenAI surface of the distributed frontend without a
 store or worker, after capturing the engine's decode-window graphs.
+``--model-path`` serves a checkpoint (HF directory, .gguf file or cached
+hub name) with an explicit ``--tokenizer byte``, as the worker does.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from dynamo_tpu_torch.llm.http_service import HttpService
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.pipeline import ModelPipeline
 from dynamo_tpu_torch.llm.protocols import CompletionRequest
-from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, parse_tokenizer_spec
+from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.runtime.push_router import NoInstancesError
@@ -33,7 +35,9 @@ def parse_args(argv=None):
     p.add_argument("--in", dest="input", default="text",
                    help="text | http | batch:<jsonl path>")
     p.add_argument("--preset", default="test-tiny")
-    p.add_argument("--tokenizer", default="byte")
+    p.add_argument("--model-path", default=None)
+    p.add_argument("--tokenizer", default=None,
+                   help='"byte" (default without --model-path; required with it)')
     p.add_argument("--max-tokens", type=int, default=64)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--block-size", type=int, default=16)
@@ -81,22 +85,38 @@ class LocalManager:
         return [(self.pipe.card.name, self.pipe)]
 
 
-async def build_pipeline(args) -> LocalPipeline:
+async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> LocalPipeline:
+    """The CLI's pipeline. ``quant`` / ``kv_quant`` (no flags, as in the JAX
+    launcher) set the engine's weight and KV page formats for callers that
+    drive the pipeline in process; ``--model-path`` checkpoints load as
+    they are stored."""
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
     if args.dtype is None:
         args.dtype = "float32" if args.device == "cpu" else "bfloat16"
-    model = ModelConfig.preset(args.preset)
+    params = None
+    if args.model_path:
+        from dynamo_tpu_torch.engine.hub import resolve_model
+
+        args.model_path = resolve_model(args.model_path)
+    tok_spec = tokenizer_spec_for(args.model_path, args.tokenizer)
+    if args.model_path:
+        from dynamo_tpu_torch.engine.loader import load_model
+
+        model, params = load_model(args.model_path, args.dtype, device=args.device)
+    else:
+        model = ModelConfig.preset(args.preset)
     engine = await TorchEngine(EngineArgs(
         model=model, block_size=args.block_size, num_kv_blocks=args.num_kv_blocks,
         max_num_seqs=args.max_num_seqs, max_model_len=args.max_model_len,
         dtype=args.dtype, decode_steps=args.decode_steps, device=args.device,
-    ), seed=args.seed).start()
-    tokenizer = load_tokenizer(parse_tokenizer_spec(args.tokenizer))
+        quant=quant, kv_quant=kv_quant,
+    ), params=params, seed=args.seed).start()
+    tokenizer = load_tokenizer(tok_spec)
     card = ModelDeploymentCard(
         name=model.name,
-        tokenizer=parse_tokenizer_spec(args.tokenizer),
+        tokenizer=tok_spec,
         context_length=args.max_model_len,
         kv_cache_block_size=args.block_size,
         eos_token_ids=list(tokenizer.eos_token_ids) or [ByteTokenizer.EOS],

@@ -7,6 +7,12 @@ KV-event, load-metrics and clear-KV endpoints, and registers the model
 card: a frontend of either package discovers the model through the
 store watch and routes to it over the runtime's wire.
 
+``--model-path`` serves a checkpoint (an HF directory, a .gguf file or a
+hub name in the local hub cache) instead of a preset's random weights;
+``--quant int8`` quantizes it on the host before it goes to the card. The
+checkpoint's own tokenizer is not ported yet, so ``--model-path`` needs
+an explicit ``--tokenizer byte`` (``TokenizerNotPortedError`` otherwise).
+
 SIGTERM drains: the endpoints deregister and finish their in-flight
 streams, then the engine stops. The last line the worker logs is one
 JSON object with its engine's counters (decode substeps dispatched, the
@@ -15,7 +21,7 @@ paged-attention kernel's launches, tokens generated).
 Not ported yet (ROADMAP A): LoRA, disaggregated prefill/decode roles,
 peer KV fetch, the autoscaler role manager, the dp spawner, multi-host
 followers, trace export, the fleet prefix directory, ``--sla-profile``
-and ``--model-path`` checkpoints.
+and HF/GGUF tokenizers.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import time
 
 from dynamo_tpu_torch.kv_router.publisher import KvEventBroadcaster, serve_kv_endpoints
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, register_model
-from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, parse_tokenizer_spec
+from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
+from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -47,7 +54,14 @@ def parse_args(argv=None):
     p.add_argument("--model-name", default=None, help="served model name (defaults to preset name)")
     p.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     p.add_argument("--preset", default="llama-1b", help="model preset (random weights from --seed)")
-    p.add_argument("--tokenizer", default="byte", help='"byte" (the port serves the byte tokenizer)')
+    p.add_argument(
+        "--model-path", default=None,
+        help="HF checkpoint dir (config.json + *.safetensors), .gguf file or cached "
+             "org/repo hub name; overrides --preset with real weights",
+    )
+    p.add_argument("--tokenizer", default=None,
+                   help='"byte" (default without --model-path; required with it until the '
+                        "checkpoint tokenizers are ported)")
     p.add_argument("--context-length", type=int, default=None)
     p.add_argument("--migration-limit", type=int, default=0)
     p.add_argument("--block-size", type=int, default=16)
@@ -61,6 +75,8 @@ def parse_args(argv=None):
     p.add_argument("--kv-quant", choices=["none", "int8"], default="none",
                    help="paged KV cache storage (int8 = quantized pages + "
                         "per-position-per-head scales)")
+    p.add_argument("--quant", choices=["none", "int8"], default="none",
+                   help="weight format (int8 = weight-only quantization, engine/quant.py)")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
@@ -71,9 +87,23 @@ async def build_engine(args):
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
-    tok_spec = parse_tokenizer_spec(args.tokenizer)
+    params = None
+    if args.model_path:
+        from dynamo_tpu_torch.engine.hub import resolve_model
+
+        args.model_path = resolve_model(args.model_path)
+    tok_spec = tokenizer_spec_for(args.model_path, args.tokenizer)
     tokenizer = load_tokenizer(tok_spec)
-    model = ModelConfig.preset(args.preset)
+    if args.model_path:
+        from dynamo_tpu_torch.engine.loader import load_model
+
+        t0 = time.perf_counter()
+        model, params = await asyncio.to_thread(
+            load_model, args.model_path, args.dtype, args.quant, args.device)
+        print(f"dynamo_tpu_torch worker: loaded {args.model_path} (quant {args.quant}) in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+    else:
+        model = ModelConfig.preset(args.preset)
     engine = await TorchEngine(EngineArgs(
         model=model,
         block_size=args.block_size,
@@ -84,9 +114,10 @@ async def build_engine(args):
         decode_steps=args.decode_steps,
         pipeline_depth=args.pipeline_depth,
         pipeline_windows=args.pipeline_depth > 0,
+        quant=args.quant,
         kv_quant=args.kv_quant,
         device=args.device,
-    ), seed=args.seed).start()
+    ), params=params, seed=args.seed).start()
     card = ModelDeploymentCard(
         name=args.model_name or model.name,
         tokenizer=tok_spec,
@@ -108,6 +139,8 @@ def engine_counters(engine) -> dict:
         "event": "engine_counters",
         "decode_substeps": engine.total_decode_steps,
         "paged_attention_launches": pa.launches,
+        "int8_matmul_launches": im.launches,
+        "int8_matmul_prefill_launches": im.prefill_launches,
         "num_layers": engine.cfg.num_layers,
         "generated_tokens": engine.total_generated,
         "prefilled_tokens": engine.total_prefilled,
@@ -131,9 +164,9 @@ async def async_main(args) -> None:
     t0 = time.perf_counter()
     graphs = await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
     warm_s = time.perf_counter() - t0
-    # The warm-up replays served no request: the kernel's launch count
-    # starts here, beside the engine's decode substeps (both 0 now).
-    pa.launches = 0
+    # The warm-up replays served no request: the kernels' launch counts
+    # start here, beside the engine's decode substeps (all 0 now).
+    pa.launches = im.launches = im.prefill_launches = 0
     # Engine hot-loop series on this process's /metrics (system server).
     engine.bind_metrics(rt.metrics)
     broadcaster = KvEventBroadcaster(engine.pool)

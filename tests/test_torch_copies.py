@@ -34,7 +34,7 @@ COPIED = [
     "kv_router/publisher.py",
     "llm/protocols.py", "llm/backend.py", "llm/model_card.py", "llm/discovery.py",
     "llm/migration.py", "llm/pipeline.py", "llm/http_service.py", "llm/recorder.py",
-    "block_manager/pool.py",
+    "block_manager/pool.py", "engine/hub.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -48,8 +48,9 @@ CHANGED = {
                               "server core with aiohttp's web surface, under SystemHttpServer",
     "runtime/store_server.py": "SIGTERM closes the server and exits 0, as the worker and "
                                "frontend CLIs do (the JAX CLI dies by the signal)",
-    "llm/tokenizer.py": "byte tokenizer only: tokenizers / gguf loading come with the "
-                        "loader slice (ROADMAP A8)",
+    "llm/tokenizer.py": "byte tokenizer only: HF tokenizer.json and GGUF vocabularies come "
+                        "with the tokenizer slice (ROADMAP A, its next item); until then a "
+                        "checkpoint's tokenizer raises TokenizerNotPortedError",
     "tokens.py": "xxhash is absent on the card's machine: a pure-Python XXH3-64, bit-exact "
                  "(tests/test_torch_guards.py)",
 }

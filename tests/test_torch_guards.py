@@ -37,7 +37,7 @@ from dynamo_tpu_torch.ops import paged_attention as pa
 
 REPO = Path(__file__).resolve().parents[1]
 ABSENT_ON_CARD = ("xxhash", "msgpack", "jinja2", "aiohttp", "httpx", "tokenizers",
-                  "transformers")
+                  "transformers", "safetensors", "ml_dtypes", "huggingface_hub")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -66,7 +66,9 @@ def test_port_imports_no_jax_and_no_reference_modules():
     assert "dynamo_tpu_torch.engine.engine" in res["modules"]
     assert "dynamo_tpu_torch.run.__main__" in res["modules"]
     for cli in ("worker.__main__", "frontend.__main__", "runtime.store_server",
-                "llm.http_service", "runtime.http_server", "runtime.msgpack_lite", "llm.template"):
+                "llm.http_service", "runtime.http_server", "runtime.msgpack_lite", "llm.template",
+                "engine.loader", "engine.safetensors_io", "engine.gguf", "engine.hub",
+                "engine.quant", "ops.int8_matmul"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
@@ -137,6 +139,33 @@ def test_cuda_tensors_never_fall_back(monkeypatch):
         with pytest.raises(ValueError):  # wrong table dtype is refused before any launch
             pa.paged_spec_attention(q, kc, kc, 0, tables.long(), lengths)
     assert plain_calls == [] and pa.launches == before
+
+
+def test_int8_cuda_tensors_never_fall_back(monkeypatch):
+    """Fake CUDA tensors reach the int8 kernel (decode rows) or the prefill
+    route (more rows); with the kernel library absent the kernel route
+    raises, and the plain version is never called."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from dynamo_tpu_torch.ops import int8_matmul as im
+
+    def absent(name):
+        raise RuntimeError("kernel library absent")
+
+    plain_calls = []
+    monkeypatch.setattr(_build, "library", absent)
+    monkeypatch.setattr(im, "int8_matmul_ref", lambda *a, **k: plain_calls.append(a))
+    before = (im.launches, im.prefill_launches)
+    with FakeTensorMode():
+        w = torch.empty((256, 128), dtype=torch.int8, device="cuda")
+        s = torch.empty((128,), device="cuda")
+        with pytest.raises(RuntimeError, match="kernel library absent"):
+            im.int8_matmul(torch.empty((8, 256), device="cuda"), w, s)
+        assert im.int8_matmul(torch.empty((65, 256), device="cuda"), w, s).shape == (65, 128)
+        with pytest.raises(ValueError):  # a float w is refused before any launch
+            im.int8_matmul(torch.empty((8, 256), device="cuda"), w.float(), s)
+    assert plain_calls == []
+    assert (im.launches, im.prefill_launches) == (before[0], before[1] + 1)
 
 
 def test_build_reports_missing_nvcc(monkeypatch, tmp_path):
