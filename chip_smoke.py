@@ -89,6 +89,27 @@ Phases, in order; any failure raises and the run exits non-zero:
    completions, each bit-equal (token texts and logprobs) to an in-process
    engine on the loaded weights with the same engine arguments; launches
    held as in 4b; load and launch-to-registration seconds printed.
+9. The checkpoint's own tokenizer at full width: a Llama-3.1-shaped
+   tokenizer.json (128,256 ids: 128,000 BPE tokens, the first merges
+   learned from README.md and SURVEY.md, the rest filled from a seeded RNG,
+   and the 256 specials; Split + ByteLevel, ignore_merges, a BOS template)
+   and a generation_config.json (EOS 128001, 128008, 128009) written into
+   phase 8's checkpoint, which `python -m dynamo_tpu_torch.worker
+   --model-path <dir> --quant int8 --kv-quant int8` then serves with no
+   --tokenizer behind the store and a kv-mode frontend: 4 chat and 4
+   completion requests cut from README.md at the burst's lengths, 64
+   tokens each, each bit-equal (token texts and logprobs) to an in-process
+   engine on the loaded weights fed the port tokenizer's ids, with
+   usage.prompt_tokens as the port's preprocessor counts them; the worker's
+   launches for them (read on SIGUSR1) held as in phase 8. Then one
+   mixed-priority check on the same worker (its KV pool sized so that two
+   batch requests outgrow it): engine_preemptions_total{class="batch"}
+   rises and the interactive response equals its solo run. The
+   tokenizer's load seconds (frontend, in process), encode microseconds
+   per token and characters per token over the 8 prompts, DecodeStream
+   microseconds per token over the 512 generated tokens and the worker's
+   launch-to-registration seconds are printed as host numbers beside the
+   card's name and power limit.
 
 The last lines are the kernels JSON line (both kernels), nvidia-smi's name/power line,
 and {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -1158,11 +1179,7 @@ async def http_completion(port: int, body: dict, trace_id: str) -> dict:
         return out
     if not body.get("stream"):
         resp = json.loads(b"".join(p for _, p in pieces))
-        choice = resp["choices"][0]
-        lp = choice.get("logprobs") or {}
-        out.update(text=choice["message"]["content"] if kind == "chat" else choice["text"],
-                   finish=choice["finish_reason"], usage=resp["usage"], done=True,
-                   logprobs=lp.get("token_logprobs"), lp_tokens=lp.get("tokens"))
+        out.update(choice_view(kind, resp["choices"][0]), usage=resp["usage"], done=True)
         return out
     events = sse_payloads(pieces)
     out["done"] = bool(events) and events[-1][1] == "[DONE]"
@@ -1312,7 +1329,20 @@ def http_phase(card_line: str, reference: dict, inproc_tps: float,
             p.kill()
 
 
-async def clear_kv(port: int, model: str) -> dict[str, int]:
+def choice_view(kind: str, choice: dict) -> dict:
+    """An aggregate response's choice → its text, finish reason, and per
+    token logprobs and token texts (chat: ``logprobs.content``)."""
+    lp = choice.get("logprobs") or {}
+    if kind == "chat":
+        content = lp.get("content")
+        return {"text": choice["message"]["content"], "finish": choice["finish_reason"],
+                "logprobs": [e["logprob"] for e in content] if content else None,
+                "lp_tokens": [e["token"] for e in content] if content else None}
+    return {"text": choice["text"], "finish": choice["finish_reason"],
+            "logprobs": lp.get("token_logprobs"), "lp_tokens": lp.get("tokens")}
+
+
+async def clear_kv(port: int, model: str, workers: int = 2) -> dict[str, int]:
     """POST /clear_kv_blocks until a call drops nothing on any worker (a
     row still draining its last windows frees its blocks a moment after
     its response) → blocks dropped per instance."""
@@ -1321,7 +1351,7 @@ async def clear_kv(port: int, model: str) -> dict[str, int]:
     for _ in range(50):
         status, _, pieces, _ = await http_request(port, "/clear_kv_blocks", {})
         cleared = json.loads(b"".join(p for _, p in pieces))["cleared"].get(model) or {}
-        if status != 200 or len(cleared) != 2 or any(n < 0 for n in cleared.values()):
+        if status != 200 or len(cleared) != workers or any(n < 0 for n in cleared.values()):
             raise RuntimeError(f"http: /clear_kv_blocks answered {status}: {cleared}")
         for inst, n in cleared.items():
             total[inst] = total.get(inst, 0) + n
@@ -1472,9 +1502,11 @@ def _host_f32(tree):
 
 
 def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
-                     device: str = "cuda", dtype: str = "bfloat16") -> dict:
+                     device: str = "cuda", dtype: str = "bfloat16", keep: bool = False,
+                     vocab_size: int | None = None) -> dict:
     """A checkpoint of ``preset``'s widths with ``layers`` layers (seed 0,
-    two safetensors shards, an index and config.json) written under build/,
+    two safetensors shards, an index and config.json; ``vocab_size`` if
+    given) written under build/ (and left there with ``keep`` for phase 9),
     loaded int8 in process (leaves held to quantize_params_np of the
     written arrays) and served by one ``python -m dynamo_tpu_torch.worker
     --model-path <dir> --quant int8 --kv-quant int8 --tokenizer byte``
@@ -1492,8 +1524,9 @@ def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
     from dynamo_tpu_torch.engine.loader import load_model, save_checkpoint
     from dynamo_tpu_torch.engine.quant import quantize_params_np
 
-    cfg = dataclasses.replace(ModelConfig.preset(preset), num_layers=layers)
-    name = f"{preset}-{layers}layers"
+    cfg = dataclasses.replace(ModelConfig.preset(preset), num_layers=layers,
+                              **({"vocab_size": vocab_size} if vocab_size else {}))
+    name = f"{preset}-{layers}layers" + (f"-v{vocab_size}" if vocab_size else "")
     path = os.path.join(HERE, "build", "checkpoints", name)
     tdt = getattr(torch, dtype)
     shutil.rmtree(path, ignore_errors=True)
@@ -1575,14 +1608,16 @@ def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
             f"checkpoint (token texts and logprobs); worker launches {got_counts} (attention, "
             f"int8 kernel, int8 prefill route) for {counters['decode_substeps']} substeps; "
             f"in-process {ref_counts}; slowest request {wall:.2f}s ({card_line})")
-        return {"name": name, "bytes": size, "write_s": write_s, "load_s": load_s,
+        return {"name": name, "path": path, "cfg": lcfg, "bytes": size, "write_s": write_s,
+                "load_s": load_s,
                 "worker_load_s": worker_load_s, "launch_to_registered_s": registered_s,
                 "launches": got_counts, "decode_substeps": counters["decode_substeps"],
                 "inproc_launches": ref_counts, "latency_s": [r["latency_s"] for r in got]}
     finally:
         for p in procs:
             p.kill()
-        shutil.rmtree(path, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(path, ignore_errors=True)
 
 
 def _flat(tree, prefix=()):
@@ -1599,12 +1634,14 @@ def _get(tree, key):
     return tree
 
 
-def _ckpt_counts(cfg, substeps: int, device: str) -> tuple[int, int, int]:
+def _ckpt_counts(cfg, substeps: int, device: str,
+                 lens=tuple(BURST_LENS[:CKPT_REQUESTS])) -> tuple[int, int, int]:
     """(attention, int8 kernel, int8 prefill route) launches of the phase's
-    requests; all 0 on the CPU, where the plain versions run."""
+    requests (cold prompts of ``lens`` tokens); all 0 on the CPU, where the
+    plain versions run."""
     if device != "cuda":
         return 0, 0, 0
-    kernel, prefill = int8_expected(cfg, BURST_LENS[:CKPT_REQUESTS], substeps)
+    kernel, prefill = int8_expected(cfg, lens, substeps)
     return cfg.num_layers * substeps, kernel, prefill
 
 
@@ -1657,13 +1694,7 @@ async def _checkpoint_reference(cfg, params, name, device, dtype):
 
 
 async def _checkpoint_http(port: int, model: str) -> list[dict]:
-    for _ in range(600):
-        _, _, pieces, _ = await http_request(port, "/v1/models", method="GET")
-        if [m["id"] for m in json.loads(b"".join(p for _, p in pieces))["data"]] == [model]:
-            break
-        await asyncio.sleep(0.1)
-    else:
-        raise RuntimeError(f"ckpt: the frontend never listed {model}")
+    await _wait_listed(port, model)
     prompts = burst_prompts()
     return await asyncio.gather(*(
         http_completion(port, {"model": model, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
@@ -1671,6 +1702,502 @@ async def _checkpoint_http(port: int, model: str) -> list[dict]:
                                "ignore_eos": True, "logprobs": 0, "stream": False},
                         f"{0xE00 + i:032x}")
         for i in range(CKPT_REQUESTS)))
+
+
+# -- phase 9: the checkpoint's own tokenizer at full width ----------------------
+
+# Meta-Llama-3.1-8B's pre-tokenizer split and its 256 added specials
+# (ids 128000-128255 after 128,000 BPE tokens); EOS as its
+# generation_config.json names them.
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPECIALS = (["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+                    "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                    "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+                    "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+                   + [f"<|reserved_special_token_{i}|>" for i in range(3, 248)])
+LLAMA3_EOS = ("<|end_of_text|>", "<|eom_id|>", "<|eot_id|>")
+TOK_LEARNED_MAX = 20_000  # merges learned from the repository's Markdown at most
+TOK_MARGIN_BLOCKS = 16    # KV blocks the worker holds beyond the burst's need
+LOOKAHEAD = 24            # tokens a decoding row reserves ahead: K x (depth + 1)
+
+
+def _llama3_words(texts) -> "collections.Counter":
+    """Byte-level words of ``texts`` under the Llama-3 split (the port's
+    own pre-tokenizer) → their counts."""
+    import collections
+
+    from dynamo_tpu_torch.llm.tokenizer_json import TokenizerJson
+
+    pre = TokenizerJson({"model": {"type": "BPE", "vocab": {}, "merges": []},
+                         "pre_tokenizer": _llama3_pre_tokenizer()}).pre_tokenize
+    words = collections.Counter()
+    for t in texts:
+        words.update(w for w, _ in pre([(t, True)]))
+    return words
+
+
+def _llama3_pre_tokenizer() -> dict:
+    return {"type": "Sequence", "pretokenizers": [
+        {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+         "invert": False},
+        {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+         "use_regex": False}]}
+
+
+def learn_merges(words, limit: int) -> list[tuple[str, str]]:
+    """Byte-pair merges learned from word counts, most frequent pair first
+    (ties: the smallest pair), until ``limit`` or no pair occurs twice."""
+    import collections
+    import heapq
+
+    syms = [list(w) for w in words]
+    counts = list(words.values())
+    pairs: collections.Counter = collections.Counter()
+    where = collections.defaultdict(set)
+    for i, s in enumerate(syms):
+        for q in zip(s, s[1:]):
+            pairs[q] += counts[i]
+            where[q].add(i)
+    heap = [(-c, q) for q, c in pairs.items()]
+    heapq.heapify(heap)
+    merges: list[tuple[str, str]] = []
+    while heap and len(merges) < limit:
+        neg, q = heapq.heappop(heap)
+        if pairs.get(q, 0) != -neg:
+            continue  # a stale entry
+        if -neg < 2:
+            break
+        a, b = q
+        merges.append(q)
+        touched = set()
+        for i in where.pop(q):
+            s, c = syms[i], counts[i]
+            out, j = [], 0
+            while j < len(s):
+                if j + 1 < len(s) and s[j] == a and s[j + 1] == b:
+                    out.append(a + b)
+                    j += 2
+                else:
+                    out.append(s[j])
+                    j += 1
+            if len(out) == len(s):
+                continue
+            for p in zip(s, s[1:]):
+                pairs[p] -= c
+                touched.add(p)
+            for p in zip(out, out[1:]):
+                pairs[p] += c
+                where[p].add(i)
+                touched.add(p)
+            syms[i] = out
+        for p in touched:
+            if pairs[p] > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+            else:
+                pairs.pop(p, None)
+    return merges
+
+
+def write_llama3_tokenizer(path: str, n_bpe: int = 128_000, learned_max: int = TOK_LEARNED_MAX,
+                           seed: int = 0) -> dict:
+    """A Llama-3.1-shaped tokenizer.json and generation_config.json in
+    ``path``: ``n_bpe`` BPE tokens (the 256 byte-level characters, merges
+    learned from README.md and SURVEY.md, then merges filled from a seeded
+    RNG, each joining two existing tokens, until the vocabulary is full)
+    and the 256 specials after them; Split + ByteLevel(use_regex=false),
+    ignore_merges, a TemplateProcessing BOS, the ByteLevel decoder."""
+    import random
+
+    from dynamo_tpu_torch.llm.tokenizer_json import bytes_to_unicode
+
+    texts = []
+    for name in ("README.md", "SURVEY.md"):
+        with open(os.path.join(HERE, name), encoding="utf-8") as f:
+            texts += [p for p in f.read().split("\n\n") if p.strip()]
+    vocab = {ch: i for i, ch in enumerate(bytes_to_unicode()[b] for b in range(256))}
+    merges: list[tuple[str, str]] = []
+    for a, b in learn_merges(_llama3_words(texts), min(learned_max, n_bpe - 256)):
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+    learned = len(vocab) - 256
+    rng = random.Random(seed)
+    tokens = list(vocab)
+    while len(vocab) < n_bpe:
+        a = tokens[rng.randrange(len(tokens))]
+        b = tokens[rng.randrange(min(len(tokens), 4096))]
+        if a + b in vocab:
+            continue
+        vocab[a + b] = len(vocab)
+        tokens.append(a + b)
+        merges.append((a, b))
+    bos = LLAMA3_SPECIALS[0]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": n_bpe + i, "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, t in enumerate(LLAMA3_SPECIALS)],
+        "normalizer": None,
+        "pre_tokenizer": _llama3_pre_tokenizer(),
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [n_bpe], "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [list(m) for m in merges]},
+    }
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    eos = [n_bpe + LLAMA3_SPECIALS.index(t) for t in LLAMA3_EOS]
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"bos_token_id": n_bpe, "eos_token_id": eos}, f)
+    return {"ids": n_bpe + len(LLAMA3_SPECIALS), "learned_tokens": learned,
+            "merges": len(merges), "eos": eos}
+
+
+def readme_cuts() -> list[str]:
+    """The burst's lengths cut from README.md one after another (distinct
+    prefixes, so no request hits another's cached blocks)."""
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    out, at = [], 0
+    for n in BURST_LENS:
+        out.append(text[at:at + n])
+        at += n
+    return out
+
+
+def tok_bodies(model: str) -> list[dict]:
+    """Phase 9's requests: even ones chat, odd ones completions, the
+    burst's temperatures and seeds, 64 tokens, logprobs, aggregated."""
+    out = []
+    for i, prompt in enumerate(readme_cuts()):
+        body = {"model": model, "max_tokens": BURST_TOKENS, "temperature": BURST_TEMPS[i],
+                "seed": 1000 + i, "ignore_eos": True, "stream": False}
+        if i % 2 == 0:
+            body.update(messages=[{"role": "user", "content": prompt}], logprobs=True)
+        else:
+            body.update(prompt=prompt, logprobs=0)
+        out.append(body)
+    return out
+
+
+def tok_prompt_tokens(card, tokenizer, bodies) -> list[int]:
+    """Each body's prompt tokens as the port's preprocessor makes them (chat:
+    the rendered template)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest, CompletionRequest
+
+    pre = OpenAIPreprocessor(card, tokenizer)
+    out = []
+    for b in bodies:
+        if "messages" in b:
+            out.append(len(pre.preprocess_chat(ChatCompletionRequest.parse(b)).token_ids))
+        else:
+            out.append(len(pre.preprocess_completion(CompletionRequest.parse(b)).token_ids))
+    return out
+
+
+def tok_geometry(prompt_tokens: list[int], batch_prompt_tokens: list[int],
+                 max_model_len: int = 2048, bs: int = 16) -> dict:
+    """The worker's KV blocks and the mixed-priority check's batch lengths:
+    the burst fits with TOK_MARGIN_BLOCKS to spare (no preemption there),
+    and the two batch requests together need more blocks than the pool
+    holds, each within max_model_len, so running both forces a
+    preemption."""
+    need = sum(-(-(n + BURST_TOKENS + LOOKAHEAD) // bs) for n in prompt_tokens)
+    blocks = need + TOK_MARGIN_BLOCKS + 1  # block 0 is the sink
+    per_batch = -(-((blocks - 1) * bs * 11) // 20)  # 55% of the pool each
+    if per_batch > max_model_len - 8:
+        raise RuntimeError(f"tok: the burst needs {need} blocks; two batch requests of "
+                           f"{per_batch} tokens would not fit max_model_len {max_model_len}")
+    gens = [per_batch - n for n in batch_prompt_tokens]
+    if min(gens) < BURST_TOKENS:
+        raise RuntimeError(f"tok: batch prompts of {batch_prompt_tokens} tokens leave "
+                           f"{gens} to generate")
+    return {"num_kv_blocks": blocks, "burst_blocks": need, "batch_max_tokens": gens}
+
+
+def tok_mixed_prompts() -> tuple[list[str], str]:
+    """The mixed-priority check's two batch prompts (README's first 5,000
+    characters, halved) and its interactive one (a short cut from README's
+    end, so that it decodes within one 128-position attention chunk)."""
+    with open(os.path.join(HERE, "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    return [text[:2500], text[2500:5000]], text[-170:-20]
+
+
+def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
+                    dtype: str = "bfloat16") -> dict:
+    """Phase 9: a Llama-3.1-shaped tokenizer written into the phase-8
+    checkpoint ``path``, served by ``worker --model-path --quant int8
+    --kv-quant int8`` with no --tokenizer behind the store and a kv-mode
+    frontend; 4 chat and 4 completion requests bit-equal to an in-process
+    engine on the loaded weights fed the port tokenizer's ids, the launches
+    held, one mixed-priority check with a preemption, and the tokenizer's
+    host numbers."""
+    import shutil
+
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream, HFTokenizer, load_tokenizer
+
+    name = os.path.basename(path)
+    procs: list[Proc] = []
+    try:
+        t0 = time.perf_counter()
+        wrote = write_llama3_tokenizer(path, cfg.vocab_size - len(LLAMA3_SPECIALS))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok = load_tokenizer({"type": "hf", "path": path})
+        load_s = time.perf_counter() - t0
+        bos = wrote["ids"] - len(LLAMA3_SPECIALS)
+        if (tok.vocab_size != cfg.vocab_size or tok.eos_token_ids != wrote["eos"]
+                or tok.encode("<|begin_of_text|>") != [bos, bos]):
+            raise RuntimeError(f"tok: the written tokenizer reads back wrong: vocab "
+                               f"{tok.vocab_size}, eos {tok.eos_token_ids}")
+        log(f"tok: tokenizer.json written ({wrote['ids']} ids, {wrote['learned_tokens']} "
+            f"tokens learned from README.md and SURVEY.md, {wrote['merges']} merges) in "
+            f"{write_s:.1f}s; loaded in process in {load_s:.3f}s (host CPU beside {card_line})")
+
+        # Host numbers: encode over the 8 prompts on a fresh tokenizer (its
+        # BPE cache cold), then again (warm).
+        prompts = readme_cuts()
+        fresh = HFTokenizer(path)
+        t0 = time.perf_counter()
+        enc = [fresh.encode(p) for p in prompts]
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for p in prompts:
+            fresh.encode(p)
+        warm_s = time.perf_counter() - t0
+        n_tok = sum(len(e) for e in enc)
+        chars = sum(len(p) for p in prompts)
+
+        bodies = tok_bodies(name)
+        card = ModelDeploymentCard(name=name, tokenizer={"type": "hf", "path": path},
+                                   context_length=2048, kv_cache_block_size=16,
+                                   eos_token_ids=tok.eos_token_ids)
+        prompt_tokens = tok_prompt_tokens(card, tok, bodies)
+        if any(prompt_tokens[i] != len(enc[i]) for i in range(1, len(bodies), 2)):
+            raise RuntimeError("tok: a completion's prompt tokens differ from encode()")
+        batch_prompts, inter_prompt = tok_mixed_prompts()
+        geo = tok_geometry(prompt_tokens, [len(tok.encode(p)) for p in batch_prompts])
+        engine_argv = ["--block-size", "16", "--num-kv-blocks", str(geo["num_kv_blocks"]),
+                       "--max-num-seqs", "8", "--max-model-len", "2048", "--decode-steps", "8",
+                       "--seed", "0"]
+        ref, ref_counts, lp_ids = asyncio.run(_tok_reference(
+            cfg, path, card, tok, bodies, prompt_tokens, geo["num_kv_blocks"], device, dtype))
+        t0 = time.perf_counter()
+        for ids in lp_ids:
+            ds = DecodeStream(tok)
+            for t in ids:
+                ds.step(t)
+            ds.flush()
+        decode_us = (time.perf_counter() - t0) / sum(len(i) for i in lp_ids) * 1e6
+        if device == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()
+
+        store_port = _free_port()
+        store_url = f"tcp://127.0.0.1:{store_port}"
+        store = Proc("tok-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                   "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        sys_port = _free_port()
+        worker = Proc("tok-worker", [
+            "dynamo_tpu_torch.worker", "--store-url", store_url, "--model-path", path,
+            "--quant", "int8", "--kv-quant", "int8", "--dtype", dtype, "--device", device,
+            *engine_argv], env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port)})
+        procs.append(worker)
+        _, registered_s = worker.wait_for(r"serving " + re.escape(name), 600)
+        fe = Proc("tok-frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                                   "--host", "127.0.0.1", "--port", "0", "--router-mode", "kv"])
+        procs.append(fe)
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+        got = asyncio.run(_tok_http(port, name, bodies))
+        fe_load = next((float(m.group(1)) for m in (
+            re.search(r"tokenizer hf:\S+ loaded in ([0-9.]+)s", line) for line in fe.lines) if m),
+            None)
+        if fe_load is None:
+            raise RuntimeError("tok: the frontend logged no tokenizer load")
+        for i, (r, want) in enumerate(zip(got, ref)):
+            if r["status"] != 200 or r.get("error") or r["finish"] != "length":
+                raise RuntimeError(f"tok request {i}: {r['status']} {r.get('error')} "
+                                   f"{r.get('finish')!r}")
+            if (r["logprobs"] != want["logprobs"] or r["lp_tokens"] != want["lp_tokens"]
+                    or r["text"] != want["text"]):
+                raise RuntimeError(f"tok request {i}: token texts or logprobs differ from the "
+                                   "in-process engine's on the same checkpoint and tokenizer")
+            if r["usage"]["prompt_tokens"] != prompt_tokens[i]:
+                raise RuntimeError(f"tok request {i}: usage.prompt_tokens "
+                                   f"{r['usage']['prompt_tokens']} != {prompt_tokens[i]}")
+        time.sleep(1.0)  # the burst's last in-flight windows drain
+        worker.proc.send_signal(signal.SIGUSR1)
+        m, _ = worker.wait_for(r'^(\{"event": "engine_counters".*\})$', 60)
+        counters = json.loads(m.group(1))
+        got_counts = (counters["paged_attention_launches"], counters["int8_matmul_launches"],
+                      counters["int8_matmul_prefill_launches"])
+        want_counts = _ckpt_counts(cfg, counters["decode_substeps"], device, prompt_tokens)
+        if got_counts != want_counts:
+            raise RuntimeError(f"tok: worker launches (attention, int8 kernel, int8 prefill) "
+                               f"{got_counts} != {want_counts}")
+        mixed = asyncio.run(_tok_mixed(port, sys_port, name, batch_prompts, inter_prompt,
+                                       geo["batch_max_tokens"]))
+        rcs = {p.name: p.stop() for p in [fe, worker, store]}
+        if any(rcs.values()):
+            raise RuntimeError(f"tok: processes did not exit 0 on SIGTERM: {rcs}")
+        final = next(json.loads(line) for line in reversed(worker.lines)
+                     if line.startswith('{"event": "engine_counters"'))
+        if final["paged_attention_launches"] != (
+                cfg.num_layers * final["decode_substeps"] if device == "cuda" else 0):
+            raise RuntimeError(f"tok: worker attention launches {final} != layers x substeps")
+        log(f"tok: {len(bodies)} aggregate requests (4 chat, 4 completions) through worker "
+            f"--model-path --quant int8 --kv-quant int8 with no --tokenizer, each bit-equal to "
+            f"the in-process engine on the port tokenizer's ids (token texts and logprobs), "
+            f"prompt tokens {prompt_tokens}; worker launches {got_counts} (attention, int8 "
+            f"kernel, int8 prefill route) for {counters['decode_substeps']} substeps; "
+            f"in-process {ref_counts}; mixed priority: {mixed['preempted_batch']} batch "
+            f"preemption(s), the interactive stream equal to its solo run ({card_line})")
+        log(f"tok: host CPU beside {card_line}: tokenizer load {fe_load:.3f}s in the frontend, "
+            f"{load_s:.3f}s in process; encode {cold_s / n_tok * 1e6:.2f} us/token cold, "
+            f"{warm_s / n_tok * 1e6:.2f} warm, {chars / n_tok:.3f} chars/token over the "
+            f"{len(prompts)} prompts ({n_tok} tokens); DecodeStream {decode_us:.2f} us/token "
+            f"over {sum(len(i) for i in lp_ids)} tokens; worker registered {registered_s:.1f}s "
+            f"after launch")
+        return {"name": name, "ids": wrote["ids"], "learned_tokens": wrote["learned_tokens"],
+                "merges": wrote["merges"], "write_s": write_s, "load_s_inproc": load_s,
+                "load_s_frontend": fe_load, "encode_us_per_token_cold": cold_s / n_tok * 1e6,
+                "encode_us_per_token_warm": warm_s / n_tok * 1e6, "chars_per_token": chars / n_tok,
+                "decode_stream_us_per_token": decode_us, "prompt_tokens": prompt_tokens,
+                "launch_to_registered_s": registered_s, "num_kv_blocks": geo["num_kv_blocks"],
+                "launches": got_counts, "decode_substeps": counters["decode_substeps"],
+                "inproc_launches": ref_counts, "mixed": mixed,
+                "latency_s": [r["latency_s"] for r in got]}
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(path, ignore_errors=True)
+
+
+async def _tok_reference(cfg, path, card, tok, bodies, prompt_tokens, num_kv_blocks, device,
+                         dtype):
+    """Phase 9's requests through an in-process engine on the loaded
+    weights with the worker's engine arguments → (choice views, launches,
+    generated token ids)."""
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.loader import load_model
+    from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest, CompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.run.__main__ import LocalPipeline
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    _, params = await asyncio.to_thread(load_model, path, dtype, "int8", device)
+    engine = await TorchEngine(EngineArgs(
+        model=cfg, block_size=16, num_kv_blocks=num_kv_blocks, max_num_seqs=8,
+        max_model_len=2048, decode_steps=8, dtype=dtype, quant="int8", kv_quant="int8",
+        device=device), params=params).start()
+    del params
+    pipe = LocalPipeline(card, engine, tok)
+    await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
+    pa.launches = im.launches = im.prefill_launches = 0
+    steps0 = engine.total_decode_steps
+
+    async def one(body):
+        chat = "messages" in body
+        req = (ChatCompletionRequest if chat else CompletionRequest).parse(body)
+        gen = None
+        async for g, _chunk in pipe.run(req, Context()):
+            gen = g
+        view = choice_view("chat" if chat else "completion", gen.final_response()["choices"][0])
+        return view, list(gen.lp_tokens)
+
+    try:
+        out = await asyncio.gather(*(one(b) for b in bodies))
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        counts = (pa.launches, im.launches, im.prefill_launches)
+        want = _ckpt_counts(cfg, engine.total_decode_steps - steps0, device, prompt_tokens)
+        if counts != want:
+            raise RuntimeError(f"tok in process: launches {counts} != {want}")
+    finally:
+        await engine.stop()
+    return [v for v, _ in out], counts, [ids for _, ids in out]
+
+
+async def _wait_listed(port: int, model: str) -> None:
+    for _ in range(600):
+        _, _, pieces, _ = await http_request(port, "/v1/models", method="GET")
+        if [m["id"] for m in json.loads(b"".join(p for _, p in pieces))["data"]] == [model]:
+            return
+        await asyncio.sleep(0.1)
+    raise RuntimeError(f"the frontend never listed {model}")
+
+
+async def _tok_http(port: int, model: str, bodies: list[dict]) -> list[dict]:
+    await _wait_listed(port, model)
+    return await asyncio.gather(*(http_completion(port, b, f"{0xF00 + i:032x}")
+                                  for i, b in enumerate(bodies)))
+
+
+async def _preemptions(sys_port: int) -> dict[str, float]:
+    _, _, pieces, _ = await http_request(sys_port, "/metrics", method="GET")
+    text = b"".join(p for _, p in pieces).decode()
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^dynamo_tpu_engine_preemptions_total\{class="(\w+)"\} ([0-9.eE+-]+)$', text, re.M)}
+
+
+async def _tok_mixed(port: int, sys_port: int, model: str, batch_prompts: list[str],
+                     inter_prompt: str, batch_max_tokens: list[int]) -> dict:
+    """Two batch requests whose KV outgrows the pool, then an interactive
+    one: a batch sequence is preempted (engine_preemptions_total{class=
+    "batch"} rises, the interactive class's does not), and the interactive
+    response equals its solo run, both cold (token texts and logprobs)."""
+    def inter(tag):
+        return http_completion(port, {
+            "model": model, "prompt": inter_prompt, "max_tokens": BURST_TOKENS,
+            "temperature": 0.0, "seed": 7, "ignore_eos": True, "logprobs": 0,
+            "priority": "interactive"}, tag)
+
+    solo = await inter(f"{0xF10:032x}")
+    await clear_kv(port, model, workers=1)
+    before = await _preemptions(sys_port)
+    batch = [asyncio.ensure_future(http_completion(port, {
+        "model": model, "prompt": p, "max_tokens": n, "temperature": 0.0, "seed": 8 + i,
+        "ignore_eos": True, "priority": "batch"}, f"{0xF20 + i:032x}"))
+        for i, (p, n) in enumerate(zip(batch_prompts, batch_max_tokens))]
+    await asyncio.sleep(0.5)  # both batch requests admitted
+    mixed = await inter(f"{0xF30:032x}")
+    done = await asyncio.gather(*batch)
+    after = await _preemptions(sys_port)
+    rose = after.get("batch", 0.0) - before.get("batch", 0.0)
+    for r, n in zip(done, batch_max_tokens):
+        if r["status"] != 200 or r["usage"]["completion_tokens"] != n:
+            raise RuntimeError(f"tok mixed: a batch request ended {r['status']} {r.get('usage')}")
+    if rose < 1 or after.get("interactive", 0.0) != before.get("interactive", 0.0):
+        raise RuntimeError(f"tok mixed: preemptions by class {before} → {after}")
+    for r in (solo, mixed):
+        if r["status"] != 200 or r["finish"] != "length":
+            raise RuntimeError(f"tok mixed: interactive {r['status']} {r.get('error')}")
+    if (mixed["logprobs"], mixed["lp_tokens"]) != (solo["logprobs"], solo["lp_tokens"]):
+        raise RuntimeError("tok mixed: the interactive stream differs from its solo run")
+    return {"preempted_batch": rose, "batch_max_tokens": batch_max_tokens,
+            "interactive_latency_s": mixed["latency_s"], "solo_latency_s": solo["latency_s"]}
 
 
 def main() -> int:
@@ -1725,7 +2252,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     http = http_phase(card_line, reference, stats["tokens_per_s"])
     http["msgpack_lite"] = frames
-    ckpt = checkpoint_phase(card_line)
+    ckpt = checkpoint_phase(card_line, keep=True)
+    tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = cases[-1]  # the same at the burst's row lengths
@@ -1733,6 +2261,7 @@ def main() -> int:
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
         "launches": stats["launches"], "launches_http": http["launches"],
+        "launches_tokenizer_worker": tok["launches"][0],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -1744,6 +2273,7 @@ def main() -> int:
         "prefill_route_launches": int8_runs["none"]["int8_prefill_launches"],
         "launches_kv_int8": int8_runs["int8"]["int8_launches"],
         "launches_checkpoint_worker": ckpt["launches"][1],
+        "launches_tokenizer_worker": tok["launches"][1],
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
@@ -1753,6 +2283,7 @@ def main() -> int:
         log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
     log("http_path: " + json.dumps(http))
     log("checkpoint_path: " + json.dumps(ckpt))
+    log("tokenizer_path: " + json.dumps(tok))
     print(json.dumps({"kernels": [entry, int8_entry]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

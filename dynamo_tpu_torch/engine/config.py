@@ -132,6 +132,18 @@ class EngineArgs:
     attn_impl: str = "auto"
     # Fused decode substeps per host fetch (model.multi_decode).
     decode_steps: int = 8
+    # Emit coalescing: when a stream's consumer lags, decode-window deltas
+    # already queued merge into one frame up to this many tokens (0 = one
+    # frame per delta). Only the backlog merges: no added latency.
+    delta_max_tokens: int = 64
+    # Optional bounded wait (ms) to gather more deltas per frame after the
+    # first (adds up to this much inter-token latency; 0 never waits).
+    delta_max_ms: float = 0.0
+    # Multi-tenant QoS (runtime/qos.py): admission and preemption ordered
+    # by (priority class, age). Requests without a priority are one class,
+    # which is exactly FIFO admission and newest-first preemption. False
+    # pins every request to one class whatever its wire priority.
+    qos_scheduling: bool = True
     # Keep decode windows in flight: window w+1 is dispatched, chaining its
     # input tokens from w's on-device outputs, before w is fetched. Stops
     # are then discovered up to pipeline_depth windows late (at most depth

@@ -7,26 +7,27 @@ job). The scheduler loop runs in its own thread; asyncio callers submit
 through a lock-guarded queue and receive deltas on per-request asyncio
 queues via ``loop.call_soon_threadsafe``.
 
-Kept from TpuEngine: FIFO admission with block allocation and prefix-
-cache hits; single-row prefill chunked at ``max_prefill_tokens``; first
-tokens sampled on the device per admission wave and folded into each
+Kept from TpuEngine: (class, age)-ordered admission (FIFO for traffic of
+one QoS class) with block allocation and prefix-cache hits; single-row
+prefill chunked at ``max_prefill_tokens``; first tokens sampled on the
+device per admission wave and folded into each
 sequence's chain slot, their fetch queued (async admission); fused K-step
 decode windows (``decode_steps``) over the running set in the sampler
 mode the batch needs ("greedy", "simple", "full"), with up to
 ``pipeline_depth`` windows in flight, chained on the device and fetched
 asynchronously (the decode window pipeline below); stops on max_tokens /
 EOS (``ignore_eos``, ``min_tokens``) / max_model_len; cancellation
-through ``Context``; recompute preemption of the newest sequence under KV
-pressure.
+through ``Context``; recompute preemption under KV pressure, of the lowest
+QoS class first and the newest within it; per-stream delta coalescing
+(``delta_max_tokens`` / ``delta_max_ms``).
 
 For a worker it has the TpuEngine surface: ``metrics()`` (the load the KV
 router reads), ``pool.set_event_sink`` (KV events) and ``bind_metrics``
 (the engine series of the JAX package whose quantity the port computes).
 
 Omitted for now, each a ROADMAP item: speculative decoding, LoRA,
-grammar-constrained decoding, KV tiers and offload, QoS classes, live
-migration, disaggregated export/inject, embeddings, delta coalescing and
-tracing.
+grammar-constrained decoding, KV tiers and offload, live migration,
+disaggregated export/inject, embeddings and tracing.
 """
 
 from __future__ import annotations
@@ -50,9 +51,10 @@ from dynamo_tpu_torch.llm.protocols import (
     FinishReason,
     LLMEngineOutput,
     PreprocessedRequest,
+    coalesce_delta,
 )
 from dynamo_tpu_torch.runtime.engine import Context
-from dynamo_tpu_torch.runtime.qos import DEFAULT_CLASS
+from dynamo_tpu_torch.runtime.qos import DEFAULT_CLASS, QOS_CLASSES, qos_rank
 from dynamo_tpu_torch.tokens import TokenBlockSequence, compute_block_hashes
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -107,6 +109,7 @@ class _Seq:
         "request_id", "tokens", "prompt_len", "sampling", "stop", "eos_ids",
         "block_ids", "block_seq", "registered_blocks", "queue", "emitted",
         "cancelled", "sample_seed", "kv_written", "dead", "slot", "first_pend",
+        "qos", "qos_rank", "arrival",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
@@ -139,6 +142,15 @@ class _Seq:
         # first_pend = first token sampled on the device, not yet emitted.
         self.slot: int | None = None
         self.first_pend = False
+        # Multi-tenant QoS: the request's class name (metrics label;
+        # unknown wire values fall back to the default class), its
+        # scheduling rank (generate() zeroes it when qos_scheduling is
+        # off) and the engine-assigned arrival number: the (class, age)
+        # key of admission order and preemption victim selection.
+        priority = getattr(req, "priority", None)
+        self.qos = priority if priority in QOS_CLASSES else DEFAULT_CLASS
+        self.qos_rank = qos_rank(priority)
+        self.arrival = 0
 
     @property
     def next_write_pos(self) -> int:
@@ -200,16 +212,17 @@ class TorchEngine:
         self.total_prefilled = 0
         self.total_prefill_padded = 0  # prefill tokens dispatched, block padding included
         self.total_decode_steps = 0   # device substeps dispatched, padded rows included
-        self.total_preemptions = 0
+        self.total_preemptions_by: collections.Counter = collections.Counter()  # victim class
+        self._arrival_no = 0
         # Host seconds per phase: admission, prefill, first_dispatch,
         # decode_dispatch, drain_sync (waiting on a window's fetch),
         # drain_ready (a window already on the host), first_sample (waiting
         # on an admission sample), emit.
         self.phase_s: dict[str, float] = collections.defaultdict(float)
         # Registry series (bind_metrics), updated once per scheduler step;
-        # preemptions already added to the counter.
+        # preemptions already added to the counter, by class.
         self._gauges = None
-        self._preempt_pushed = 0
+        self._preempt_pushed: dict[str, int] = {}
 
     # -- lifecycle --------------------------------------------------------
 
@@ -242,10 +255,15 @@ class TorchEngine:
         g_pad.set(self.total_prefill_padded / max(1, self.total_prefilled))
         g_kvb.set(self.args.kv_bytes_per_block() * self.args.num_kv_blocks)
         g_kvq.set(1 if self.args.kv_quant == "int8" else 0)
-        if self.total_preemptions > self._preempt_pushed:
-            c_preempt.inc(self.total_preemptions - self._preempt_pushed,
-                          **{"class": DEFAULT_CLASS})
-            self._preempt_pushed = self.total_preemptions
+        for cls, n in self.total_preemptions_by.items():
+            pushed = self._preempt_pushed.get(cls, 0)
+            if n > pushed:
+                c_preempt.inc(n - pushed, **{"class": cls})
+                self._preempt_pushed[cls] = n
+
+    @property
+    def total_preemptions(self) -> int:
+        return sum(self.total_preemptions_by.values())
 
     def metrics(self) -> ForwardPassMetrics:
         """Load snapshot for the KV router (the worker's load_metrics
@@ -297,9 +315,13 @@ class TorchEngine:
             s.top_logprobs = min(s.top_logprobs, self.args.top_logprobs_max) if s.logprobs else 0
         queue: asyncio.Queue = asyncio.Queue()
         seq = _Seq(context.id, req, queue)
+        if not self.args.qos_scheduling:
+            seq.qos_rank = 0  # one class: FIFO admission, newest-first preempt
         with self._wakeup:
             if self._stopping:
                 raise RuntimeError("engine is stopping")
+            self._arrival_no += 1
+            seq.arrival = self._arrival_no
             self._submissions.append(seq)
             self._wakeup.notify()
 
@@ -310,11 +332,51 @@ class TorchEngine:
                 self._wakeup.notify()
 
         watcher = asyncio.get_running_loop().create_task(watch_cancel())
+        first = True
+        # Emit coalescing: merge the backlog of deltas already sitting in the
+        # queue into one frame (bounded by delta_max_tokens; optional
+        # delta_max_ms gather wait after the first delta). The first delta is
+        # never held (TTFT), and a finish delta ends the merge so it rides
+        # the same frame as its tokens.
+        cap = self.args.delta_max_tokens
+        gather_s = self.args.delta_max_ms / 1000.0
+        pending: Any = None
         try:
             while True:
-                item = await queue.get()
+                item = pending if pending is not None else await queue.get()
+                pending = None
+                if cap > 0 and isinstance(item, dict) and not item.get("finish_reason"):
+                    deadline = (time.monotonic() + gather_s
+                                if gather_s > 0.0 and not first else None)
+                    while (pending is None and len(item.get("token_ids") or ()) < cap
+                           and not item.get("finish_reason")):
+                        if not queue.empty():
+                            nxt = queue.get_nowait()
+                        elif deadline is not None:
+                            wait = deadline - time.monotonic()
+                            if wait <= 0:
+                                break
+                            try:
+                                nxt = await asyncio.wait_for(queue.get(), wait)
+                            except asyncio.TimeoutError:
+                                break
+                        else:
+                            break
+                        if not isinstance(nxt, dict):
+                            pending = nxt  # _SENTINEL_DONE: deliver after item
+                            break
+                        if (len(item.get("token_ids") or ())
+                                + len(nxt.get("token_ids") or ())) > cap:
+                            pending = nxt  # merging would exceed the cap
+                            break
+                        merged = coalesce_delta(item, nxt)
+                        if merged is None:
+                            pending = nxt
+                            break
+                        item = merged
                 if item is _SENTINEL_DONE:
                     return
+                first = False
                 yield item
                 if item.get("finish_reason"):
                     return
@@ -374,7 +436,7 @@ class TorchEngine:
             and len(self._running) + len(allocated) < self.args.max_num_seqs
             and (budget > 0 or not allocated)
         ):
-            seq = self._waiting.popleft()
+            seq = self._pop_next_waiting()
             if seq.cancelled:
                 self._post_done(seq)
                 continue
@@ -449,6 +511,21 @@ class TorchEngine:
 
     # -- admission / prefill ----------------------------------------------
 
+    def _pop_next_waiting(self) -> _Seq:
+        """(class, age)-ordered admission: the highest-rank class first,
+        oldest arrival within it — a waiting interactive request admits
+        ahead of queued batch work, including into blocks a batch
+        preemption just freed. Uniform-rank traffic (no-QoS, or
+        qos_scheduling off) reduces to EXACT FIFO: _waiting is
+        arrival-ordered (appendleft re-queues — preempted or
+        blocks-starved seqs — are always the oldest arrivals, since
+        admission itself drains oldest-first), so min arrival IS the
+        leftmost element and this selection is byte-identical to a
+        popleft."""
+        best = max(self._waiting, key=lambda s: (s.qos_rank, -s.arrival))
+        self._waiting.remove(best)
+        return best
+
     def _admit_alloc(self, seq: _Seq) -> int:
         """Allocate KV blocks and resolve prefix hits → suffix start."""
         bs = self.args.block_size
@@ -515,14 +592,27 @@ class TorchEngine:
                 return False
         return True
 
+    def _preempt_victim(self) -> _Seq:
+        """Class-aware victim selection: evict the LOWEST class first,
+        newest admission within it — the newest victim has the least
+        sunk prefill work, and a preempted batch request's freed blocks
+        admit the waiting interactive request on the next step. Uniform
+        ranks (no-QoS) select exactly ``self._running[-1]``, the
+        newest-first rule."""
+        best = self._running[-1]
+        for s in self._running:  # later index = newer admission event
+            if s.qos_rank <= best.qos_rank:
+                best = s
+        return best
+
     def _preempt(self, seq: _Seq) -> None:
         """Recompute-preemption: free blocks, requeue with all tokens as the
         new prompt (vLLM's recompute mode)."""
         self._drain_completed(force=True)  # pending tokens must be host-visible
         if seq.dead or seq not in self._running:
             return  # the drain finished it
-        log.warning("preempting request %s (KV pressure)", seq.request_id)
-        self.total_preemptions += 1
+        log.warning("preempting request %s (KV pressure, class=%s)", seq.request_id, seq.qos)
+        self.total_preemptions_by[seq.qos] += 1
         self._running.remove(seq)
         self._free_slots.append(seq.slot)
         seq.slot = None
@@ -631,8 +721,8 @@ class TorchEngine:
             return
         # Grow block tables to cover pend + K; under KV pressure drain the
         # in-flight windows first (their tokens must land before a
-        # preempted sequence re-queues), then preempt newest-first. A lone
-        # sequence that cannot grow is finished.
+        # preempted sequence re-queues), then preempt the lowest class,
+        # newest first. A lone sequence that cannot grow is finished.
         while self._running:
             blocked = next((s for s in self._running
                             if not self._ensure_block(s, K + self._pend(s))), None)
@@ -646,7 +736,7 @@ class TorchEngine:
             if len(self._running) == 1:
                 self._finish(blocked, FinishReason.LENGTH)
             else:
-                self._preempt(self._running[-1])
+                self._preempt(self._preempt_victim())
         if not self._running:
             self._drain_completed(force=True)
             return

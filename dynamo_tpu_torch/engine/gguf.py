@@ -5,8 +5,9 @@ GGUF feeds the same params tree as safetensors (engine/loader.py): a
 llama-family GGUF file becomes (ModelConfig, params), so `--model-path
 model.gguf` serves like an HF directory. Tensors come back as CPU torch
 tensors: BF16 through an int16 view (torch has bfloat16; no ml_dtypes).
-The GGUF vocabulary (``tokenizer_from_gguf``) waits for the port's
-tokenizer slice.
+The GGUF vocabulary (``tokenizer_from_gguf``) becomes the port's
+pure-Python tokenizer pipeline (llm/tokenizer_json.py), so ``--model-path
+model.gguf`` tokenizes by the file's own vocabulary.
 
 Format (GGUF v2/v3, little-endian):
   magic "GGUF" | u32 version | u64 n_tensors | u64 n_kv
@@ -289,3 +290,73 @@ def load_gguf_model(path: str, dtype: Any = None, quant: str = "none",
     params = load_gguf_params(g, cfg, dtype=dtype, quant=quant, device=device)
     log.info("loaded %s from GGUF %s", cfg.name, path)
     return cfg, params
+
+
+# ---------------------------------------------------------------------------
+# tokenizer
+# ---------------------------------------------------------------------------
+
+
+def tokenizer_from_gguf(g: GGUFFile):
+    """GGUF tokenizer metadata → a RawTokenizer over the port's tokenizer
+    pipeline (the components ``dynamo_tpu``'s ``tokenizer_from_gguf`` builds
+    with the tokenizers library).
+
+    - model "gpt2": byte-level BPE from tokens + merges.
+    - model "llama"/"spm": SentencePiece-style vocab with scores → Unigram
+      with byte fallback + metaspace, the Replace/ByteFallback/Fuse/Strip
+      decoder; add_bos_token defaults to true (false for gpt2).
+    - bos/eos/pad ids become special tokens.
+    """
+    from dynamo_tpu_torch.llm.tokenizer import RawTokenizer
+    from dynamo_tpu_torch.llm.tokenizer_json import TokenizerJson
+
+    md = g.metadata
+    tokens: list[str] = md.get("tokenizer.ggml.tokens") or []
+    if not tokens:
+        raise ValueError("GGUF has no tokenizer.ggml.tokens")
+    kind = md.get("tokenizer.ggml.model", "llama")
+    bos_id = md.get("tokenizer.ggml.bos_token_id")
+    if kind == "gpt2":
+        spec: dict[str, Any] = {
+            "model": {"type": "BPE", "vocab": {t: i for i, t in enumerate(tokens)},
+                      "merges": list(md.get("tokenizer.ggml.merges") or []), "fuse_unk": False},
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True},
+            "decoder": {"type": "ByteLevel"},
+        }
+        add_bos = bool(md.get("tokenizer.ggml.add_bos_token", False))
+    elif kind in ("llama", "spm"):
+        scores = md.get("tokenizer.ggml.scores") or [0.0] * len(tokens)
+        spec = {
+            "model": {"type": "Unigram", "vocab": [[t, float(s)] for t, s in zip(tokens, scores)],
+                      "unk_id": int(md.get("tokenizer.ggml.unknown_token_id", 0)),
+                      "byte_fallback": True},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                              "prepend_scheme": "always", "split": True},
+            "decoder": {"type": "Sequence", "decoders": [
+                {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"},
+                {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        }
+        # SentencePiece llama convention: BOS on unless metadata says off.
+        add_bos = bool(md.get("tokenizer.ggml.add_bos_token", True))
+    else:
+        raise NotImplementedError(f"GGUF tokenizer model {kind!r}")
+    if add_bos and bos_id is not None:
+        bos_tok = tokens[int(bos_id)]
+        spec["post_processor"] = {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": bos_tok, "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "special_tokens": {bos_tok: {"id": bos_tok, "ids": [int(bos_id)],
+                                         "tokens": [bos_tok]}},
+        }
+    special = [
+        int(i) for i in (
+            md.get("tokenizer.ggml.bos_token_id"),
+            md.get("tokenizer.ggml.eos_token_id"),
+            md.get("tokenizer.ggml.padding_token_id"),
+        ) if i is not None
+    ]
+    return RawTokenizer(TokenizerJson(spec), eos_ids=g.eos_token_ids() or [0],
+                        special_ids=special)

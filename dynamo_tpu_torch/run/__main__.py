@@ -7,7 +7,8 @@ mode prints one JSON line per prompt, as the JAX launcher does; ``--in
 http`` serves the OpenAI surface of the distributed frontend without a
 store or worker, after capturing the engine's decode-window graphs.
 ``--model-path`` serves a checkpoint (HF directory, .gguf file or cached
-hub name) with an explicit ``--tokenizer byte``, as the worker does.
+hub name) with its own tokenizer unless ``--tokenizer`` names another, as
+the worker does.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def parse_args(argv=None):
     p.add_argument("--preset", default="test-tiny")
     p.add_argument("--model-path", default=None)
     p.add_argument("--tokenizer", default=None,
-                   help='"byte" (default without --model-path; required with it)')
+                   help='"byte" | "hf:<path>" | "gguf:<path>" (default: the checkpoint\'s own '
+                        "with --model-path, byte without)")
     p.add_argument("--max-tokens", type=int, default=64)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--block-size", type=int, default=16)

@@ -9,19 +9,20 @@ store watch and routes to it over the runtime's wire.
 
 ``--model-path`` serves a checkpoint (an HF directory, a .gguf file or a
 hub name in the local hub cache) instead of a preset's random weights;
-``--quant int8`` quantizes it on the host before it goes to the card. The
-checkpoint's own tokenizer is not ported yet, so ``--model-path`` needs
-an explicit ``--tokenizer byte`` (``TokenizerNotPortedError`` otherwise).
+``--quant int8`` quantizes it on the host before it goes to the card, and
+the checkpoint's own tokenizer (its ``tokenizer.json`` or GGUF vocabulary,
+in the port's pure-Python pipeline) is served unless ``--tokenizer`` names
+another; ``--tokenizer byte`` serves bytes.
 
 SIGTERM drains: the endpoints deregister and finish their in-flight
 streams, then the engine stops. The last line the worker logs is one
 JSON object with its engine's counters (decode substeps dispatched, the
-paged-attention kernel's launches, tokens generated).
+kernels' launches, tokens generated); SIGUSR1 logs the same line and
+serves on.
 
 Not ported yet (ROADMAP A): LoRA, disaggregated prefill/decode roles,
 peer KV fetch, the autoscaler role manager, the dp spawner, multi-host
-followers, trace export, the fleet prefix directory, ``--sla-profile``
-and HF/GGUF tokenizers.
+followers, trace export, the fleet prefix directory and ``--sla-profile``.
 """
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ def parse_args(argv=None):
              "org/repo hub name; overrides --preset with real weights",
     )
     p.add_argument("--tokenizer", default=None,
-                   help='"byte" (default without --model-path; required with it until the '
-                        "checkpoint tokenizers are ported)")
+                   help='"byte" | "hf:<path>" | "gguf:<path>" (default: the checkpoint\'s own '
+                        "with --model-path, byte without)")
     p.add_argument("--context-length", type=int, default=None)
     p.add_argument("--migration-limit", type=int, default=0)
     p.add_argument("--block-size", type=int, default=16)
@@ -72,6 +73,16 @@ def parse_args(argv=None):
     # Decode-window pipelining: max windows dispatched-but-unfetched (0 =
     # unpipelined; fetches still start async).
     p.add_argument("--pipeline-depth", type=int, default=2)
+    # Streaming delta coalescing: cap on tokens merged into one wire frame
+    # when a stream's consumer lags (0 = one frame per decode window), and
+    # an optional bounded gather wait in ms (adds up to that much ITL).
+    p.add_argument("--delta-max-tokens", type=int, default=64)
+    p.add_argument("--delta-max-ms", type=float, default=0.0)
+    p.add_argument("--qos-sched", choices=["on", "off"], default="on",
+                   help="class-aware engine scheduling: admission and "
+                        "KV-pressure preemption ordered by (priority "
+                        "class, age). No-priority traffic is byte-"
+                        "identical either way; off pins one class")
     p.add_argument("--kv-quant", choices=["none", "int8"], default="none",
                    help="paged KV cache storage (int8 = quantized pages + "
                         "per-position-per-head scales)")
@@ -114,6 +125,9 @@ async def build_engine(args):
         decode_steps=args.decode_steps,
         pipeline_depth=args.pipeline_depth,
         pipeline_windows=args.pipeline_depth > 0,
+        delta_max_tokens=args.delta_max_tokens,
+        delta_max_ms=args.delta_max_ms,
+        qos_scheduling=args.qos_sched == "on",
         quant=args.quant,
         kv_quant=args.kv_quant,
         device=args.device,
@@ -199,6 +213,9 @@ async def async_main(args) -> None:
     for sig in (signal.SIGINT, signal.SIGTERM):
         with contextlib.suppress(NotImplementedError):
             loop.add_signal_handler(sig, stop.set)
+    with contextlib.suppress(NotImplementedError):
+        loop.add_signal_handler(signal.SIGUSR1, lambda: print(
+            json.dumps(engine_counters(engine)), flush=True))
     await stop.wait()
     log.info("worker shutting down")
     # Deregister and drain the endpoints first, so in-flight streams

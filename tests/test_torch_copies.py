@@ -48,9 +48,12 @@ CHANGED = {
                               "server core with aiohttp's web surface, under SystemHttpServer",
     "runtime/store_server.py": "SIGTERM closes the server and exits 0, as the worker and "
                                "frontend CLIs do (the JAX CLI dies by the signal)",
-    "llm/tokenizer.py": "byte tokenizer only: HF tokenizer.json and GGUF vocabularies come "
-                        "with the tokenizer slice (ROADMAP A, its next item); until then a "
-                        "checkpoint's tokenizer raises TokenizerNotPortedError",
+    "llm/tokenizer.py": "the tokenizers package is absent on the card's machine: HFTokenizer "
+                        "and RawTokenizer run the port's pure-Python tokenizer.json pipeline "
+                        "(llm/tokenizer_json.py); and tokenizer_spec_for states the CLIs' one "
+                        "difference: with --model-path, no --tokenizer serves the checkpoint's "
+                        "own and an explicit --tokenizer byte serves bytes, which the JAX CLIs "
+                        "cannot express (byte is their default and means the checkpoint's own)",
     "tokens.py": "xxhash is absent on the card's machine: a pure-Python XXH3-64, bit-exact "
                  "(tests/test_torch_guards.py)",
 }

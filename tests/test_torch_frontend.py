@@ -9,7 +9,8 @@
   and the port frontend each serve both. A JAX frontend with the port
   worker, and the port frontend with the JAX worker, give the same greedy
   and seeded streams as the all-JAX stack (SSE events and aggregate
-  bodies, ids dropped, logprobs to 1e-4).
+  bodies, ids dropped, logprobs to 1e-4), both engines coalescing deltas
+  at the JAX defaults behind ``settle`` workers (tests/test_torch_http.py).
 - The three port CLIs spawned with ``--device cpu`` (store server,
   worker, kv-mode frontend) serve a chat; SIGTERM ends each with exit
   code 0 (the worker after draining, reporting its engine counters); the
@@ -24,6 +25,7 @@ import asyncio
 import json
 import signal
 import socket
+import threading
 
 import httpx
 import pytest
@@ -106,8 +108,10 @@ def test_mixed_stacks_match_the_all_jax_stack():
         params = np_weights()
         jeng = await jax_engine(params).start()
         teng = await port_engine(params).start()
-        jw = await start_worker("dynamo_tpu", store.url, jeng, name="jw")
-        tw = await start_worker("dynamo_tpu_torch", store.url, teng, name="tw")
+        settle = threading.Event()
+        settle.set()
+        jw = await start_worker("dynamo_tpu", store.url, jeng, name="jw", settle=settle)
+        tw = await start_worker("dynamo_tpu_torch", store.url, teng, name="tw", settle=settle)
         jfe = await start_frontend("dynamo_tpu", store.url)
         tfe = await start_frontend("dynamo_tpu_torch", store.url)
         try:

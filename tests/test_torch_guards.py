@@ -37,7 +37,8 @@ from dynamo_tpu_torch.ops import paged_attention as pa
 
 REPO = Path(__file__).resolve().parents[1]
 ABSENT_ON_CARD = ("xxhash", "msgpack", "jinja2", "aiohttp", "httpx", "tokenizers",
-                  "transformers", "safetensors", "ml_dtypes", "huggingface_hub")
+                  "transformers", "safetensors", "ml_dtypes", "huggingface_hub", "regex",
+                  "sentencepiece")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -68,9 +69,26 @@ def test_port_imports_no_jax_and_no_reference_modules():
     for cli in ("worker.__main__", "frontend.__main__", "runtime.store_server",
                 "llm.http_service", "runtime.http_server", "runtime.msgpack_lite", "llm.template",
                 "engine.loader", "engine.safetensors_io", "engine.gguf", "engine.hub",
-                "engine.quant", "ops.int8_matmul"):
+                "engine.quant", "ops.int8_matmul", "llm.tokenizer_json", "llm.unicode_classes"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
+
+
+def test_no_source_imports_a_missing_package():
+    """Imports inside functions run only when called: scan the port's
+    sources and chip_smoke.py for any import of jax, the JAX package or a
+    package the card's machine lacks."""
+    import re
+
+    bad = re.compile(r"(?m)^\s*(?:import|from)\s+(%s|jax|dynamo_tpu)\b(?!_)"
+                     % "|".join(ABSENT_ON_CARD))
+    files = sorted((REPO / "dynamo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
+            for m in bad.finditer(f.read_text(encoding="utf-8"))]
+    # The hub copy's optional downloader: an ImportError there is the
+    # offline error the JAX package gives too.
+    allowed = ["dynamo_tpu_torch/engine/hub.py: from huggingface_hub"]
+    assert len(files) > 50 and hits == allowed
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -14,10 +14,15 @@ and completions, streamed and aggregated, with ``logprobs`` /
 ``system_fingerprint``, the bodies must be equal: token text,
 ``finish_reason`` and usage exactly, logprob values to atol = rtol =
 1e-4 (the forward pass's float32 tolerance, tests/test_torch_pipeline.py).
-Streams are compared event by event: both engines post one delta per
-admission sample and per K-step window (the JAX engine with its delta
-coalescing off, ``delta_max_tokens=0``, which the port does not have), and
-requests go one at a time, so the SSE event sequences must be equal.
+Streams are compared event by event. Both engines run at the JAX
+defaults, where a stream's consumer merges the deltas already queued for
+it into one frame (``delta_max_tokens=64``): which deltas are queued when
+it reads depends on the host's timing, in both packages. So the workers'
+handler of the comparisons (``settle``) hands the engine's stream on only
+once the engine has generated the whole request, with the event loop held:
+every delta is then queued at the first read, both engines merge the same
+frames, and requests go one at a time, so the SSE event sequences must be
+equal.
 
 Error paths give the same status and error type: unknown model 404, bad
 body 400, ``X-Request-Timeout`` 504, ``max_inflight`` 429 with
@@ -33,6 +38,8 @@ import asyncio
 import importlib
 import json
 import math
+import threading
+import time
 from types import SimpleNamespace
 
 import httpx
@@ -67,10 +74,42 @@ async def start_store(pkg: str):
     return await mod(pkg, "runtime.store_net").StoreServer().start()
 
 
+def _settled(engine, g0: int, n: int, timeout: float = 60.0) -> None:
+    """Block (the event loop too) until ``engine`` has generated ``n``
+    tokens since ``g0`` and holds no request: every delta of the request
+    is then posted, and none was delivered."""
+    deadline = time.monotonic() + timeout
+    while (engine.total_generated < g0 + n or engine._submissions or engine._waiting
+           or engine._running or engine._fetchq):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the engine did not finish the request")
+        time.sleep(0.001)
+
+
+async def settled_stream(engine, agen, max_tokens: int):
+    """``agen`` (the engine's ``generate`` for a request that runs to
+    ``max_tokens``), its first item read only once the engine has finished
+    the request (``_settled``): every delta is queued by then, so the
+    frames the consumer merges do not depend on timing."""
+    g0 = engine.total_generated
+    first = asyncio.ensure_future(agen.__anext__())
+    await asyncio.sleep(0)  # generate() submits, then waits on its queue
+    _settled(engine, g0, max_tokens)
+    try:
+        yield await first
+    except StopAsyncIteration:
+        return
+    async for item in agen:
+        yield item
+
+
 async def start_worker(pkg: str, store_url: str, engine, name: str = MODEL,
-                       namespace: str = "dynamo", block_size: int = 4):
+                       namespace: str = "dynamo", block_size: int = 4,
+                       settle: threading.Event | None = None, card=None):
     """A worker runtime serving ``engine`` as the JAX worker CLI wires it
-    (generate + kv_events + load_metrics + clear_kv, model card)."""
+    (generate + kv_events + load_metrics + clear_kv, model card: ``card``
+    or one made here). While ``settle`` is set, a request that runs to its
+    ``max_tokens`` (``ignore_eos``) is served by ``settled_stream``."""
     rt = await mod(pkg, "runtime.distributed").DistributedRuntime.create(store_url=store_url)
     pub = mod(pkg, "kv_router.publisher")
     mc = mod(pkg, "llm.model_card")
@@ -79,7 +118,12 @@ async def start_worker(pkg: str, store_url: str, engine, name: str = MODEL,
     comp = rt.namespace(namespace).component("backend")
 
     async def gen_handler(payload, ctx):
-        async for item in engine.generate(payload, ctx):
+        stop = payload.get("stop") or {}
+        agen = engine.generate(payload, ctx)
+        if settle is not None and settle.is_set() and stop.get("ignore_eos") \
+                and stop.get("max_tokens"):
+            agen = settled_stream(engine, agen, stop["max_tokens"])
+        async for item in agen:
             yield item
 
     async def clear_handler(payload, ctx):
@@ -88,8 +132,9 @@ async def start_worker(pkg: str, store_url: str, engine, name: str = MODEL,
     await comp.endpoint("generate").serve(gen_handler)
     await pub.serve_kv_endpoints(comp, broadcaster, engine.metrics)
     await comp.endpoint("clear_kv").serve(clear_handler)
-    card = mc.ModelDeploymentCard(name=name, kv_cache_block_size=block_size,
-                                  eos_token_ids=[257], context_length=BASE["max_model_len"])
+    card = card or mc.ModelDeploymentCard(name=name, kv_cache_block_size=block_size,
+                                          eos_token_ids=[257],
+                                          context_length=BASE["max_model_len"])
     await mc.register_model(rt, namespace, card)
     return rt
 
@@ -139,8 +184,8 @@ def np_weights():
 
 
 def jax_engine(np_params, **kw) -> TpuEngine:
-    return TpuEngine(JArgs(model=JCfg(), attn_impl="xla", pipeline_depth=2, delta_max_tokens=0,
-                           **{**BASE, **kw}), params=np_params)
+    return TpuEngine(JArgs(model=JCfg(), attn_impl="xla", pipeline_depth=2, **{**BASE, **kw}),
+                     params=np_params)
 
 
 def port_engine(np_params, **kw) -> TorchEngine:
@@ -207,13 +252,14 @@ def stacks():
     """Both serving stacks on one event loop, for the whole module."""
     loop = asyncio.new_event_loop()
     np_params = np_weights()
+    settle = threading.Event()  # set by the stream comparisons
 
     async def build():
-        out = {}
+        out = {"settle": settle}
         for pkg, make in (("dynamo_tpu", jax_engine), ("dynamo_tpu_torch", port_engine)):
             store = await start_store(pkg)
             engine = await make(np_params).start()
-            wrt = await start_worker(pkg, store.url, engine)
+            wrt = await start_worker(pkg, store.url, engine, settle=settle)
             fe = await start_frontend(pkg, store.url)
             await wait_for_models(fe.base, [MODEL])
             out["jax" if pkg == "dynamo_tpu" else "port"] = SimpleNamespace(
@@ -234,6 +280,15 @@ def stacks():
 
     loop.run_until_complete(teardown())
     loop.close()
+
+
+def with_settle(stacks, coro):
+    """Run ``coro`` with the workers' ``settle`` gate set."""
+    stacks["settle"].set()
+    try:
+        return stacks["run"](coro)
+    finally:
+        stacks["settle"].clear()
 
 
 def chat(content, **kw):
@@ -277,7 +332,7 @@ def test_responses_equal_the_jax_service(stacks, name):
         t = await call(stacks["port"].base, path, body, body.get("stream", False))
         return j, t
 
-    (js, _, jb), (ts, _, tb) = stacks["run"](go())
+    (js, _, jb), (ts, _, tb) = with_settle(stacks, go())
     assert js == ts == 200
     assert_close(tb, jb)
     if body.get("stream"):
@@ -303,7 +358,7 @@ def test_stop_strings_equal_the_jax_service(stacks, stream):
         t = await call(stacks["port"].base, "/v1/completions", body, stream)
         return stop, j, t
 
-    stop, (js, _, jb), (ts, _, tb) = stacks["run"](go())
+    stop, (js, _, jb), (ts, _, tb) = with_settle(stacks, go())
     assert js == ts == 200
     assert_close(tb, jb)
     final = jb[-2] if stream else jb
