@@ -13,8 +13,11 @@ Phases, in order; any failure raises and the run exits non-zero:
    attention kernel against its plain PyTorch version on the same CUDA
    tensors, with NaN in every position past each row's walk; then decode
    again at the row lengths the main path's burst reaches
-   (`decode_bfloat16_burst`). Each case times the whole wrapper call (the
-   split kernel and its merge).
+   (`decode_bfloat16_burst`), and (since the speculation slice) linear and
+   tree verify at T=4 and T=7 slots there, bf16 and int8 pages: the shapes
+   phase 10's verify passes give the kernel. The tree cases carry a row
+   with history but no live node, which must output zeros. Each case
+   times the whole wrapper call (the split kernel and its merge).
 3b. The int8 weight product (`dynamo_tpu_torch/ops/csrc/int8_matmul.cu`)
    against its plain version evaluated in float32 on the same values, at
    every llama-8b decode shape (wq/wo, wk/wv, w_gate/w_up, w_down, lm_head
@@ -111,8 +114,30 @@ Phases, in order; any failure raises and the run exits non-zero:
    launch-to-registration seconds are printed as host numbers beside the
    card's name and power limit.
 
-The last lines are the kernels JSON line (both kernels), nvidia-smi's name/power line,
-and {"ok": true, "device": {...}}. Without CUDA, or without the rest of
+10. Speculative decoding at full width, twice: bf16, and int8 weights
+   with int8 pages. `run`'s pipeline with `--spec-tokens 3` (spec_gate 0)
+   serves the burst's 8 requests (top-2 logprobs each) in turn dense
+   (spec_tokens 0: the reference), linear fused (twice: the repeat must
+   give the same streams), linear stepwise and tree (width 2, depth 3,
+   1-gram drafts), every verify shape captured ahead of its burst
+   (`runner.warm_spec`). Stepwise greedy streams must equal the dense ones
+   bit for bit; a fused or tree greedy stream may leave the dense one only
+   where the dense top-2 gap is under `SPEC_GAP_TOL` (the count is
+   printed); the tree burst must dispatch branched passes. Every burst
+   holds attention launches to 32 × (dense substeps + verify forwards: 1
+   per fused pass, S1 per stepwise pass), int8 calls to 225 per forward
+   with none on the prefill route from verify passes, and no eager window
+   or verify pass. Then verify passes at the burst's row lengths on a
+   runner of their own: graph replay bit-identical to the op-by-op pass
+   (linear, stepwise, tree; S1 = 4 and 7) and its device time against one
+   dense substep. Tokens/s, tokens per weight pass, accept rates, launches
+   per pass and the verify graphs' count and pool bytes are printed beside
+   the card's name and power limit.
+
+The last lines are the kernels JSON line (the attention kernel's decode
+entry, the int8 product, and the attention kernel's linear and tree
+verify modes), nvidia-smi's name/power line, and {"ok": true, "device":
+{...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
 
@@ -182,6 +207,12 @@ def burst_prompts() -> list[str]:
     return ["".join(chr(c) for c in rng.integers(32, 127, n)) for n in BURST_LENS]
 
 
+# Tree topologies of the kernel cases, by slot count: parents of nodes 1..
+# (T=4 and T=7 are the verify shapes of phase 10's tree run, width 2 and
+# depth 3 at spec_tokens 3: S+1 and 2S+1 slots).
+TREE_PARENTS = {4: [0, 0, 1], 5: [0, 0, 1, 1], 7: [0, 0, 1, 1, 3, 2]}
+
+
 def _tree_anc(parents, T):
     import numpy as np
 
@@ -194,13 +225,15 @@ def _tree_anc(parents, T):
 
 
 def make_case(mode, qdt_name, quant, seed, device, hist, T=5, KVH=8, G=4, hd=128, bs=16,
-              L=2, layer=1, width=None):
+              L=2, layer=1, width=None, no_live=()):
     """Inputs for one kernel case → dict with the wrapper's ``args`` (CUDA
     tensors on ``device``) and host metadata. ``hist`` are per-row history
     lengths (0 = dead row); mode decode|linear|tree. Rows own disjoint
     pages; every position past a row's walk and every page no row owns
     holds NaN (NaN scales for int8 pages). ``width`` widens the block table
-    to that many pages (the extra entries name unowned, NaN pages)."""
+    to that many pages (the extra entries name unowned, NaN pages). Tree
+    rows in ``no_live`` keep their history length but no ``anc`` bit: the
+    contract is that they attend nothing and output zeros."""
     import numpy as np
     import torch
 
@@ -218,7 +251,9 @@ def make_case(mode, qdt_name, quant, seed, device, hist, T=5, KVH=8, G=4, hd=128
         walk = lengths.max(axis=1)
     else:
         lengths = np.where(live[:, None], hist[:, None], 0).repeat(T, axis=1)
-        anc = np.where(live[:, None, None], _tree_anc([0, 0, 1, 1], T)[None], 0).astype(np.int8)
+        anc = np.where(live[:, None, None], _tree_anc(TREE_PARENTS[T], T)[None], 0).astype(np.int8)
+        anc[list(no_live)] = 0
+        live = live & anc.any(axis=(1, 2))
         walk = np.where(live, hist + T, 0)
     pages = -(-walk // bs)
     W = max(int(pages.max()), width or 0)
@@ -261,11 +296,12 @@ def make_case(mode, qdt_name, quant, seed, device, hist, T=5, KVH=8, G=4, hd=128
         slot = pos[None, None, :] - lengths[:, :, None]
         ok = (slot >= 0) & (slot < T)
         att |= ok & np.take_along_axis(anc != 0, np.clip(slot, 0, T - 1), axis=2)
+        att &= live[:, None, None]
     return {
         "args": (q, t(kc).to(pdt), t(vc).to(pdt), layer, t(tables), t(lengths.astype(np.int32)),
                  t(ks) if quant else None, t(vs) if quant else None,
                  t(anc) if anc is not None else None),
-        "walk": walk, "pages": pages, "att": att, "B": B, "T": T, "KVH": KVH, "G": G,
+        "walk": walk, "pages": pages, "att": att, "live": live, "B": B, "T": T, "KVH": KVH, "G": G,
         "hd": hd, "bs": bs, "W": W, "q_bytes": 2 if qdt_name == "bfloat16" else 4,
         "page_bytes": 1 if quant else (2 if qdt_name == "bfloat16" else 4),
     }
@@ -358,17 +394,27 @@ def kernel_phase(device):
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     hist = [0, 1, 15, 16, 17, 300, 1024, 2047]
+    # The tree cases add a ninth row of history 700 with no live node: it
+    # must output zeros (the Pallas kernel's empty rows, the plain version's
+    # contract).
+    tree_hist = hist + [700]
     cases = [
-        ("decode", "bfloat16", False, hist), ("decode", "float32", False, hist),
-        ("decode", "bfloat16", True, hist), ("linear", "bfloat16", False, hist),
-        ("tree", "bfloat16", False, hist), ("tree", "bfloat16", True, hist),
-        ("decode", "bfloat16", False, BURST_HIST),
+        ("decode", "bfloat16", False, hist, 5), ("decode", "float32", False, hist, 5),
+        ("decode", "bfloat16", True, hist, 5), ("linear", "bfloat16", False, hist, 5),
+        ("tree", "bfloat16", False, tree_hist, 5), ("tree", "bfloat16", True, tree_hist, 5),
+        ("decode", "bfloat16", False, BURST_HIST, 5),
     ]
+    # The verify shapes of phase 10 (spec_tokens 3: S+1 = 4 and 2S+1 = 7
+    # slots) at the burst's row lengths, bf16 and int8 pages.
+    cases += [(mode, "bfloat16", quant, BURST_HIST, T) for mode in ("linear", "tree")
+              for T in (4, 7) for quant in (False, True)]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     results = []
-    for i, (mode, qdt_name, quant, rows) in enumerate(cases):
-        name = f"{mode}_{'int8' if quant else qdt_name}" + ("_burst" if rows is BURST_HIST else "")
-        case = make_case(mode, qdt_name, quant, 100 + i, device, rows)
+    for i, (mode, qdt_name, quant, rows, T) in enumerate(cases):
+        name = (f"{mode}{'' if T == 5 or mode == 'decode' else f'_T{T}'}_"
+                f"{'int8' if quant else qdt_name}" + ("_burst" if rows is BURST_HIST else ""))
+        no_live = (len(rows) - 1,) if rows is tree_hist else ()
+        case = make_case(mode, qdt_name, quant, 100 + i, device, rows, T=T, no_live=no_live)
         args = case["args"]
         out = pa.paged_spec_attention(*args)
         ref = plain_f32(args)
@@ -377,6 +423,10 @@ def kernel_phase(device):
             raise RuntimeError(f"{name}: non-finite output (kernel or plain)")
         if rows[0] == 0 and float(out[0].abs().max()) != 0.0:
             raise RuntimeError(f"{name}: the length-0 row must output zeros")
+        for r in no_live:
+            if float(out[r].abs().max()) != 0.0 or float(ref[r].abs().max()) != 0.0:
+                raise RuntimeError(f"{name}: tree row {r} (history {rows[r]}, no live node) "
+                                   "must output zeros in the kernel and the plain version")
         diff = (out.float() - ref).abs()
         err = float(diff.max())
         atol, rtol = TOL[qdt_name]
@@ -2200,6 +2250,421 @@ async def _tok_mixed(port: int, sys_port: int, model: str, batch_prompts: list[s
             "interactive_latency_s": mixed["latency_s"], "solo_latency_s": solo["latency_s"]}
 
 
+# -- phase 10: speculative decoding at full width ------------------------------
+
+SPEC_TOKENS = 3
+SPEC_TREE = dict(spec_tree_width=2, spec_tree_depth=3)
+# Random weights repeat single tokens long before they repeat trigrams, so
+# every run of the phase drafts from 1-gram contexts (the flag's default, 3,
+# left the int8 model's 64-token streams without a single draft).
+SPEC_NGRAM = 1
+# A fused or tree verify pass computes a greedy row's logits in other
+# products than the dense substep (B·S1 rows against 8, the multi-query
+# attention against the decode one), so in bf16 its logits differ from the
+# dense run's by rounding. Its greedy stream may therefore leave the dense
+# stream only at a position where the dense run's two most likely tokens
+# are within this many nats of each other; past that point the two streams
+# continue different texts and are not compared. Stepwise passes run the
+# dense substep itself and must match bit for bit.
+SPEC_GAP_TOL = 0.25
+
+
+def _first_divergence(a: list, b: list) -> int | None:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def verify_rows(runner, S1: int, lens=None) -> dict:
+    """Prefill 8 rows of random prompts of lengths ``lens`` (the burst's row
+    lengths by default) on ``runner`` and decode each row's greedy
+    continuation of S1-1 tokens → the rows' first tokens, tables and
+    continuations. A verify pass over them writes every slot it attends
+    before it reads it, so several passes may share the rows."""
+    import numpy as np
+
+    args, V = runner.args, runner.cfg.vocab_size
+    lens = np.asarray(BURST_HIST if lens is None else lens)
+    B, bs = len(lens), args.block_size
+    rng = np.random.default_rng(70 + S1)
+    tables, nxt, first = [], 1, []
+    for n in lens:
+        nblk = -(-(int(n) + 2 * S1 + 1) // bs)
+        tables.append(list(range(nxt, nxt + nblk)))
+        nxt += nblk
+        toks = np.zeros((-(-int(n) // bs) * bs,), np.int32)
+        toks[:n] = rng.integers(1, V, n)
+        lg = runner.prefill_chunk(toks, np.asarray(tables[-1], np.int32), 0, int(n))
+        first.append(int(lg.argmax()))
+    W = args.bucket_table(max(len(t) for t in tables))
+    tab = np.zeros((B, W), np.int32)
+    for i, t in enumerate(tables):
+        tab[i, : len(t)] = t
+    z = np.zeros((B,), np.int32)
+    K = S1 - 1
+    ref = runner.multi_decode(
+        K, "greedy", np.asarray(first, np.int32), None, lens.astype(np.int32), tab,
+        np.ones((B,), bool), np.zeros((B,), np.float32), z, z, z, np.ones((B,), np.float32),
+        np.zeros((B,), np.float32), np.zeros((B,), np.float32), np.full((B, 1), -1, np.int32),
+        eager=True)
+    return dict(lens=lens, first=first, tables=tab, chain=ref.arrs[0].cpu().numpy().T)
+
+
+def verify_inputs(runner, S1: int, kind: str, mode: str = "simple", lens=None, rows=None):
+    """The operands of a verify pass over ``rows`` (``verify_rows``, made
+    here when not given) with each row's greedy continuation as its draft:
+    ``kind`` "linear" (row 1's third draft token made wrong) or "tree"
+    (TREE_PARENTS[S1]: the first child of each node on the accepted path
+    carries the continuation, its siblings other tokens). Rows 3 and 6
+    sample at temperature 0.7 in "simple" mode."""
+    import numpy as np
+
+    rows = rows or verify_rows(runner, S1, lens)
+    lens, first, tab, chain = rows["lens"], rows["first"], rows["tables"], rows["chain"]
+    B, V = len(lens), runner.cfg.vocab_size
+    tokens = np.zeros((B, S1), np.int32)
+    tokens[:, 0] = first
+    tree = None
+    if kind == "tree":
+        parents = [0] + TREE_PARENTS[S1]
+        anc = np.zeros((S1, S1), np.int8)
+        depth = np.zeros((S1,), np.int32)
+        on_path, kids = {0}, {}
+        anc[0, 0] = 1
+        for j in range(1, S1):
+            p = parents[j]
+            anc[j] = anc[p]
+            anc[j, j] = 1
+            depth[j] = depth[p] + 1
+            kids[p] = kids.get(p, 0) + 1
+            if p in on_path and kids[p] == 1:
+                on_path.add(j)
+                tokens[:, j] = chain[:, depth[j] - 1]
+            else:
+                tokens[:, j] = (chain[:, depth[j] - 1] + 1 + kids[p]) % V
+        tree = (np.tile(np.asarray(parents, np.int32), (B, 1)), np.tile(anc, (B, 1, 1)),
+                np.tile(depth, (B, 1)))
+    else:
+        tokens[:, 1:] = chain
+        tokens[1, 3 % S1] = (tokens[1, 3 % S1] + 1) % V
+    temps = np.zeros((B,), np.float32)
+    if mode == "simple":
+        temps[[3, 6]] = 0.7
+    return dict(S1=S1, mode=mode, tokens=tokens, positions0=lens.astype(np.int32),
+                draft_len=np.full((B,), S1 - 1, np.int32), tables=tab,
+                active=np.ones((B,), bool), temps=temps,
+                seeds=np.arange(1000, 1000 + B, dtype=np.int32), steps0=np.ones((B,), np.int32),
+                fold_slots=np.arange(B, dtype=np.int32), top_n=0, tree=tree)
+
+
+def verify_graph_vs_eager(runner, kw):
+    """One verify pass as a CUDA-graph replay and op by op from the same
+    device state; raise unless every output, the KV pages (block 0 aside)
+    and the chain buffer (sink slot aside) are bit-identical. → n_emit."""
+    import torch
+
+    before = _device_state(runner)
+    runs = []
+    for eager in (False, True):
+        _restore(runner, before)
+        outs = [a.clone() for a in runner.spec_verify(**kw, eager=eager).arrs]
+        runs.append((outs, _device_state(runner)))
+    torch.cuda.synchronize()
+    (g_out, g_state), (e_out, e_state) = runs
+    names = ("out", "n_emit", "logps", "cand", "top_vals", "top_ids")
+    for name, a, b in zip(names, g_out, e_out):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"verify S1={kw['S1']}: graph and eager passes differ in {name}")
+    for i, (a, b) in enumerate(zip(g_state, e_state)):
+        a, b = (a[:-1], b[:-1]) if i == len(g_state) - 1 else (a[:, 1:], b[:, 1:])
+        if not torch.equal(a, b):
+            raise RuntimeError(f"verify S1={kw['S1']}: graph and eager passes differ in device "
+                               f"state {i}")
+    return g_out[1].cpu().tolist()
+
+
+def verify_replay_ms(runner, kw) -> float:
+    """Device time of one verify pass as a graph replay: the median of 5
+    CUDA-event timings after one warm replay."""
+    import torch
+
+    runner.spec_verify(**kw)
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        runner.spec_verify(**kw)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def verify_timing(engine, card_line: str, tag: str) -> dict:
+    """Verify passes at the burst's row lengths on the engine's weights and
+    KV page format (a runner of its own): graph replay bit-identical to the
+    op-by-op pass for linear fused, stepwise and tree passes at S1 = 4 and
+    7, each pass's replay device time, and one dense substep's (a K=8 greedy
+    window replay over the same rows, per substep)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+
+    args = dataclasses.replace(engine.args, num_kv_blocks=640, spec_tokens=SPEC_TOKENS,
+                               spec_fused=True)
+    runner = LocalRunner(args, params=engine.runner.params)
+    runner.start()
+    out = {}
+    for S1 in (SPEC_TOKENS + 1, 2 * SPEC_TOKENS + 1):
+        rows = verify_rows(runner, S1)
+        for kind in ("linear", "stepwise", "tree"):
+            runner.args.spec_fused = kind != "stepwise"
+            kw = verify_inputs(runner, S1, "tree" if kind == "tree" else "linear", rows=rows)
+            n_emit = verify_graph_vs_eager(runner, kw)
+            ms = verify_replay_ms(runner, kw)
+            out[f"{kind}_S1_{S1}_ms"] = ms
+            log(f"{tag}: {kind} verify pass, S1={S1}, 8 rows at the burst's lengths: graph "
+                f"replay bit-identical to op by op, n_emit {n_emit}, {ms:.3f} ms device time "
+                f"per replay ({card_line})")
+    runner.args.spec_fused = True
+    B = len(BURST_HIST)
+    z = np.zeros((B,), np.int32)
+    kw = dict(K=8, mode="greedy", tokens=kw["tokens"][:, 0].copy(), chain=None,
+              positions=kw["positions0"], tables=kw["tables"], active=np.ones((B,), bool),
+              temps=np.zeros((B,), np.float32), seeds=z, steps0=z, tks=z,
+              tps=np.ones((B,), np.float32), freqs=np.zeros((B,), np.float32),
+              press=np.zeros((B,), np.float32), pen=np.full((B, 1), -1, np.int32), top_n=0)
+    out["dense_substep_ms"] = replay_ms(runner, kw)
+    log(f"{tag}: one dense substep at the same lengths (K=8 greedy window replay / 8): "
+        f"{out['dense_substep_ms']:.3f} ms device time ({card_line})")
+    runner.stop()
+    return out
+
+
+async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
+                     dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none"):
+    """Phase 10: the burst through ``run``'s pipeline with ``--spec-tokens
+    3 --spec-ngram 1`` (spec_gate 0 on the engine), in turn dense
+    (spec_tokens 0, the reference), linear fused (twice: the repeat must
+    give the same streams), linear stepwise (greedy streams bit-equal to
+    dense) and tree (width 2, depth 3), every request asking for its top-2
+    logprobs and every verify shape captured ahead of its burst. Each
+    speculating burst must dispatch verify passes and holds the launch
+    counts: attention = layers × (dense substeps + verify forwards: 1 per
+    fused pass, S1 per stepwise pass), int8 = 225 per forward on the
+    kernel and none on the prefill route from verify passes, no eager
+    window or verify pass on the card.
+
+    Which tokens a verify pass computes (and so their rounding in bf16,
+    and a sampled row's noise keys) depends on when passes happen, so the
+    phase makes that a function of the requests alone: the engine runs
+    unpipelined (a row drafts on its whole history, not on what the host
+    has fetched so far) and each burst's 8 requests are all queued before
+    the scheduler admits any (it is held by ``run_on_engine_thread``
+    meanwhile), so they admit as one wave."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.graphs import COUNTERS
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    cuda = device == "cuda"
+    tag = f"spec[{'int8' if quant == 'int8' else dtype} weights, {kv_quant} KV]"
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype,
+                       "--device", device, *ENGINE_ARGV, "--spec-tokens", str(SPEC_TOKENS),
+                       "--spec-ngram", str(SPEC_NGRAM)])
+    t0 = time.perf_counter()
+    pipe = await build_pipeline(args, quant=quant, kv_quant=kv_quant)
+    engine, runner = pipe.engine, pipe.engine.runner
+    cfg, L = engine.cfg, engine.cfg.num_layers
+    engine.set_spec(spec_gate=0.0)
+    engine.args.pipeline_depth = 0
+    g = runner.graphs
+    # Every burst asks for each position's top-2 logprobs (the dense
+    # burst's gaps are the reference of the comparisons): one ranked width.
+    n_win = runner.warm_windows(("greedy", "simple"), (engine.args.top_logprobs_max,))
+    log(f"{tag}: {preset} pipeline up in {time.perf_counter() - t0:.1f}s, {n_win} window graphs")
+    prompts = burst_prompts()
+    greedy_rows = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
+
+    def warm(label):
+        if g is None:
+            return {}
+        pool0, cap0, t1 = g.pool_bytes(), g.capture_s, time.perf_counter()
+        n = runner.warm_spec(("greedy", "simple"), (engine.args.top_logprobs_max,))
+        st = {"graphs": n, "capture_s": g.capture_s - cap0,
+              "pool_bytes_added": g.pool_bytes() - pool0, "pool_bytes": g.pool_bytes()}
+        log(f"{tag}: {label} verify lattice: {n} graphs captured in {st['capture_s']:.2f}s "
+            f"({time.perf_counter() - t1:.2f}s wall), graph pool +"
+            f"{st['pool_bytes_added'] / 2**20:.1f} MiB to {st['pool_bytes'] / 2**20:.1f} MiB "
+            f"({card_line})")
+        return st
+
+    async def one(i, top):
+        req = CompletionRequest.parse({
+            "model": pipe.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+            "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True,
+            "logprobs": top,
+        })
+        gen = None
+        async for g_, _chunk in pipe.run(req, Context()):
+            gen = g_
+        return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values),
+                "tops": list(gen.lp_tops)}
+
+    async def burst(label, top=2):
+        engine.clear_kv_blocks()  # every burst prefills cold
+        steps0, rows0 = engine.total_decode_steps, (engine.total_row_passes,
+                                                     engine.total_row_tokens)
+        spec0 = {k: getattr(engine, f"total_spec_{k}") for k in (
+            "passes", "rows", "proposed", "accepted", "emitted", "tree_passes")}
+        ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls)
+        eager0 = (runner.eager_windows, runner.eager_verifies)
+        pa.launches = im.launches = im.prefill_launches = 0
+        entered, gate = threading.Event(), threading.Event()
+
+        def hold():
+            entered.set()
+            gate.wait(120)
+
+        held = asyncio.ensure_future(engine.run_on_engine_thread(hold))
+        while not entered.is_set():
+            await asyncio.sleep(0.001)
+        tasks = [asyncio.ensure_future(one(i, top)) for i in range(len(prompts))]
+        deadline = time.perf_counter() + 60
+        while engine.metrics().worker.num_requests_waiting < len(prompts):
+            if time.perf_counter() > deadline or any(t.done() for t in tasks):
+                gate.set()
+                break
+            await asyncio.sleep(0.001)
+        t1 = time.perf_counter()
+        gate.set()
+        await held
+        outs = await asyncio.gather(*tasks)
+        wall = time.perf_counter() - t1
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        launches = (pa.launches, im.launches, im.prefill_launches)
+        substeps = engine.total_decode_steps - steps0
+        passes = runner.verify_passes - ver0[0]
+        forwards = runner.verify_forwards - ver0[1]
+        vcalls = tuple(b - a for a, b in zip(ver0[2], runner.verify_calls))
+        spec = {k: getattr(engine, f"total_spec_{k}") - v for k, v in spec0.items()}
+        row_passes = engine.total_row_passes - rows0[0]
+        row_tokens = engine.total_row_tokens - rows0[1]
+        for i, o in enumerate(outs):
+            if len(o["tokens"]) != BURST_TOKENS or not all(
+                    np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
+                raise RuntimeError(f"{tag}[{label}] request {i}: bad token/logprob stream")
+            if not all(0 <= t < cfg.vocab_size for t in o["tokens"]):
+                raise RuntimeError(f"{tag}[{label}] request {i}: token id out of range")
+        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0)
+        if launches[0] != per_fwd[0] * (substeps + forwards):
+            raise RuntimeError(f"{tag}[{label}]: paged_attention launches {launches[0]} != "
+                               f"{L} x (dense substeps {substeps} + verify forwards {forwards})")
+        if tuple(vcalls) != tuple(n * forwards for n in per_fwd):
+            raise RuntimeError(f"{tag}[{label}]: verify passes made {dict(zip(COUNTERS, vcalls))} "
+                               f"kernel calls for {forwards} forwards; want "
+                               f"{tuple(n * forwards for n in per_fwd)} (attention, int8 kernel, "
+                               f"int8 prefill route)")
+        if label != "dense" and passes == 0:
+            raise RuntimeError(f"{tag}[{label}]: no verify pass was dispatched")
+        eager = (runner.eager_windows - eager0[0], runner.eager_verifies - eager0[1])
+        if cuda and eager != (0, 0):
+            raise RuntimeError(f"{tag}[{label}]: {eager[0]} windows and {eager[1]} verify passes "
+                               "ran eagerly on the card")
+        st = {"wall_s": wall, "tokens_per_s": len(prompts) * BURST_TOKENS / wall,
+              "substeps": substeps, "verify_passes": passes, "verify_forwards": forwards,
+              "attention_launches": launches[0], "int8_launches": launches[1],
+              "int8_prefill_launches": launches[2],
+              "verify_calls_per_pass": [c / max(1, passes) for c in vcalls],
+              "tokens_per_weight_pass": row_tokens / max(1, row_passes),
+              "accept_rate": spec["accepted"] / max(1, spec["proposed"]), **spec}
+        log(f"{tag}[{label}]: 8 requests x {BURST_TOKENS} tokens in {wall:.3f}s → "
+            f"{st['tokens_per_s']:.1f} tokens/s; {substeps} dense substeps, {passes} verify "
+            f"passes ({spec['tree_passes']} branched, {forwards} forwards), "
+            f"{st['tokens_per_weight_pass']:.3f} tokens per weight pass, accept rate "
+            f"{st['accept_rate']:.3f} ({spec['accepted']}/{spec['proposed']}) ({card_line})")
+        log(f"{tag}[{label}]: paged_attention launches {launches[0]} = {L} x ({substeps} + "
+            f"{forwards}); per verify pass: attention {st['verify_calls_per_pass'][0]:.1f}, "
+            f"int8 kernel {st['verify_calls_per_pass'][1]:.1f}, int8 prefill route "
+            f"{st['verify_calls_per_pass'][2]:.1f}")
+        return outs, st
+
+    def against_dense(label, outs, dense):
+        """Greedy rows against the dense burst: → divergences allowed by the
+        gap rule, the largest dense top-2 gap among them, and the largest
+        |logprob - dense| on the common prefixes."""
+        n_div, gaps, drift = 0, [], 0.0
+        for i in greedy_rows:
+            d, o = dense[i], outs[i]
+            p = _first_divergence(o["tokens"], d["tokens"])
+            end = BURST_TOKENS if p is None else p
+            if end:
+                drift = max(drift, max(abs(a - b) for a, b in
+                                       zip(o["logprobs"][:end], d["logprobs"][:end])))
+            if p is None:
+                continue
+            tops = sorted((lp for _tok, lp in d["tops"][p]), reverse=True)
+            gap = tops[0] - tops[1]
+            if gap >= SPEC_GAP_TOL:
+                raise RuntimeError(f"{tag}[{label}] request {i}: greedy stream leaves the dense "
+                                   f"stream at token {p}, where the dense top-2 gap is "
+                                   f"{gap:.4f} >= {SPEC_GAP_TOL}")
+            n_div += 1
+            gaps.append(gap)
+        log(f"{tag}[{label}]: {len(greedy_rows)} greedy streams against dense: {n_div} leave "
+            f"it, each where the dense top-2 gap is under {SPEC_GAP_TOL} (gaps "
+            f"{[round(x, 4) for x in gaps]}); max |logprob - dense| before that {drift:.4g}")
+        return {"divergences": n_div, "gaps": gaps, "max_logprob_drift": drift}
+
+    result = {"window_graphs": n_win}
+    engine.set_spec(spec_tokens=0)
+    dense, result["dense"] = await burst("dense")
+    engine.set_spec(spec_tokens=SPEC_TOKENS)
+    result["fused_lattice"] = warm("linear fused")
+    fused, result["fused"] = await burst("fused")
+    again, _ = await burst("fused repeat")
+    if any(a["tokens"] != b["tokens"] or a["logprobs"] != b["logprobs"]
+           for a, b in zip(fused, again)):
+        raise RuntimeError(f"{tag}: the fused burst's repeat gave other streams")
+    log(f"{tag}: the fused burst again (same seeds): all 8 streams identical")
+    result["fused"]["vs_dense"] = against_dense("fused", fused, dense)
+
+    engine.set_spec(spec_fused=False)
+    result["stepwise_lattice"] = warm("linear stepwise")
+    stepwise, result["stepwise"] = await burst("stepwise")
+    for i in greedy_rows:
+        if stepwise[i] != dense[i]:
+            raise RuntimeError(f"{tag}: stepwise greedy stream {i} differs from the dense one")
+    log(f"{tag}: stepwise verify: the {len(greedy_rows)} greedy streams equal the dense ones "
+        "bit for bit (tokens, logprobs, top-2)")
+
+    engine.set_spec(spec_fused=True, **SPEC_TREE)
+    result["tree_lattice"] = warm("tree (width 2, depth 3)")
+    tree, result["tree"] = await burst("tree")
+    if result["tree"]["tree_passes"] == 0:
+        raise RuntimeError(f"{tag}: the tree burst dispatched no branched pass")
+    result["tree"]["vs_dense"] = against_dense("tree", tree, dense)
+    if g is not None:
+        verify = [k for k in g.shapes if k[0] == "verify"]
+        result["verify_graphs"] = len(verify)
+        result["graph_pool_bytes"] = g.pool_bytes()
+        log(f"{tag}: {len(verify)} verify graphs and {g.captured - len(verify)} window graphs "
+            f"in one pool of {g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
+    if cuda:
+        result["timing"] = verify_timing(engine, card_line, tag)
+    await engine.stop()
+    del pipe, engine, runner
+    if cuda:
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -2216,6 +2681,7 @@ def main() -> int:
         print(f"chip_smoke: the dynamo_tpu_torch package is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card_line = subprocess.run(
@@ -2254,9 +2720,22 @@ def main() -> int:
     http["msgpack_lite"] = frames
     ckpt = checkpoint_phase(card_line, keep=True)
     tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
+    torch.cuda.empty_cache()
+    spec = {"bf16": asyncio.run(spec_phase(card_line))}
+    spec["int8"] = asyncio.run(spec_phase(card_line, quant="int8", kv_quant="int8"))
+    for name, st in spec.items():
+        t = st["timing"]
+        log(f"spec[{name}]: tokens/s dense {st['dense']['tokens_per_s']:.1f}, fused "
+            f"{st['fused']['tokens_per_s']:.1f}, stepwise {st['stepwise']['tokens_per_s']:.1f}, "
+            f"tree {st['tree']['tokens_per_s']:.1f}; tokens per weight pass fused "
+            f"{st['fused']['tokens_per_weight_pass']:.3f}, tree "
+            f"{st['tree']['tokens_per_weight_pass']:.3f}; verify replay S1=4 "
+            f"{t['linear_S1_4_ms']:.3f} / S1=7 {t['linear_S1_7_ms']:.3f} ms (tree "
+            f"{t['tree_S1_4_ms']:.3f} / {t['tree_S1_7_ms']:.3f}) against a dense substep "
+            f"{t['dense_substep_ms']:.3f} ms ({card_line})")
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
-    burst = cases[-1]  # the same at the burst's row lengths
+    burst = next(r for r in cases if r["case"] == "decode_bfloat16_burst")
     entry = {
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
@@ -2278,13 +2757,35 @@ def main() -> int:
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
     }
+    # Modes 3 and 4 on the path: the speculative verify passes of phase 10
+    # (bf16 run); times from phase 3's cases at the burst's lengths, T=4.
+    spec_entries = []
+    for mode in ("linear", "tree"):
+        r = next(c for c in cases if c["case"] == f"{mode}_T4_bfloat16_burst")
+        st = spec["bf16"]
+        fused = sum(st[b]["verify_passes"] for b in ("fused", "tree"))
+        tree_passes = sum(st[b]["tree_passes"] for b in ("fused", "tree"))
+        spec_entries.append({
+            "name": f"paged_attention_{mode}_verify", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION,
+            "launches": 32 * (tree_passes if mode == "tree" else fused - tree_passes),
+            "launches_int8_run": 32 * (
+                sum(spec["int8"][b]["tree_passes"] for b in ("fused", "tree")) if mode == "tree"
+                else sum(spec["int8"][b]["verify_passes"] - spec["int8"][b]["tree_passes"]
+                         for b in ("fused", "tree"))),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "case": r["case"],
+        })
     log("main_path: " + json.dumps(stats))
     for kv_quant, st in int8_runs.items():
         log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
     log("http_path: " + json.dumps(http))
     log("checkpoint_path: " + json.dumps(ckpt))
     log("tokenizer_path: " + json.dumps(tok))
-    print(json.dumps({"kernels": [entry, int8_entry]}), flush=True)
+    log("spec_path: " + json.dumps(spec))
+    log(f"chip_smoke: phases 1-10 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
+    print(json.dumps({"kernels": [entry, int8_entry, *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 ``ModelConfig`` and every preset are copied as they are, so one preset
 name means the same geometry in both packages. ``EngineArgs`` keeps only
-the knobs this port honours, plus ``device``.
+the knobs this port honours, plus ``device``; the speculative-decoding
+knobs carry the JAX package's names and defaults.
 
 What went: the prefill token ladder existed so that each jitted shape
 compiled once; prefill runs eagerly here, so prefill chunks are padded
@@ -162,12 +163,56 @@ class EngineArgs:
     # Where params and the KV cache live: "cuda" unless the caller asks
     # for "cpu" (device.resolve_device; no silent fallback).
     device: str = "cuda"
+    # Speculative decoding (engine/drafter.py + model.spec_verify), the
+    # JAX package's knobs and defaults: max draft tokens verified per pass
+    # (0 = off). One verify pass streams the weights once for up to
+    # spec_tokens+1 tokens per sequence; drafts come from host-side n-gram
+    # prompt lookup; greedy rows accept by exact match, sampled rows by
+    # rejection sampling.
+    spec_tokens: int = 0
+    # n-gram match length of the prompt-lookup drafter.
+    spec_ngram: int = 3
+    # Per-sequence acceptance EMA: update weight, the EMA below which a row
+    # stops proposing, and the decode iterations a disabled row waits
+    # before it probes again with an EMA-shortened draft.
+    spec_ema_alpha: float = 0.3
+    spec_ema_disable: float = 0.2
+    spec_probe_every: int = 16
+    # Draft trees (SpecInfer): max branching factor per node (1 = linear
+    # drafts) and max path depth (0 = spec_tokens). The whole tree verifies
+    # in one pass through the attention kernel's tree mode.
+    spec_tree_width: int = 1
+    spec_tree_depth: int = 0
+    # Verify forward: True = one forward over all draft slots (one weight
+    # stream, the multi-query attention kernel); False = a teacher-forced
+    # loop of the dense decode step, bitwise identical to the dense path.
+    spec_fused: bool = True
+    # Batch dispatch gate: speculate only when mean(1 + ema_i * potential_i)
+    # over the batch reaches it (0 = whenever any row drafts).
+    spec_gate: float = 1.5
+    # Batch-level draft budgets: hot rows may draft up to 2 x spec_tokens
+    # under the fixed batch total rows x spec_tokens (False = uniform).
+    spec_budget_adaptive: bool = True
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8'; got {self.quant!r}")
         if self.kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8'; got {self.kv_quant!r}")
+        if self.spec_tree_width < 1:
+            raise ValueError(f"spec_tree_width must be >= 1; got {self.spec_tree_width}")
+        if self.spec_tree_depth < 0:
+            raise ValueError(
+                f"spec_tree_depth must be >= 0 (0 = spec_tokens); got {self.spec_tree_depth}"
+            )
+        # A verify pass holds up to 2 x spec_tokens + 1 slots per row (S + 1
+        # when budgets are uniform); the attention kernel takes 64.
+        slots = (2 if self.spec_budget_adaptive else 1) * self.spec_tokens + 1
+        if self.spec_tokens < 0 or slots > 64:
+            raise ValueError(
+                f"spec_tokens must be in [0, {63 // (2 if self.spec_budget_adaptive else 1)}] "
+                f"(at most 64 verify slots per row); got {self.spec_tokens}"
+            )
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}; got {self.attn_impl!r}")
         if self.max_model_len % self.block_size:
@@ -233,3 +278,16 @@ class EngineArgs:
     def effective_pipeline_depth(self) -> int:
         """pipeline_windows is the master enable; depth 0 = unpipelined."""
         return max(0, self.pipeline_depth) if self.pipeline_windows else 0
+
+
+def spec_engine_args(ns) -> dict:
+    """The worker's and ``run``'s speculative-decoding flags (an argparse
+    namespace) as EngineArgs fields."""
+    return dict(
+        spec_tokens=ns.spec_tokens,
+        spec_ngram=ns.spec_ngram,
+        spec_fused=not ns.spec_stepwise,
+        spec_tree_width=ns.spec_tree_width,
+        spec_tree_depth=ns.spec_tree_depth,
+        spec_budget_adaptive=ns.spec_budget == "adaptive",
+    )

@@ -25,9 +25,15 @@ For a worker it has the TpuEngine surface: ``metrics()`` (the load the KV
 router reads), ``pool.set_event_sink`` (KV events) and ``bind_metrics``
 (the engine series of the JAX package whose quantity the port computes).
 
-Omitted for now, each a ROADMAP item: speculative decoding, LoRA,
-grammar-constrained decoding, KV tiers and offload, live migration,
-disaggregated export/inject, embeddings and tracing.
+Speculative decoding is the JAX engine's (``_try_speculative`` and its
+helpers, the same names): n-gram or tree drafts verified in one pass
+(``runner.spec_verify``, a CUDA graph per verify shape), on-device
+acceptance, an acceptance EMA with probe cooldowns, adaptive batch node
+budgets, and the ``engine_spec_*`` series.
+
+Omitted for now, each a ROADMAP item: LoRA, grammar-constrained decoding
+(and with it grammar masks on the tree path), KV tiers and offload, live
+migration, disaggregated export/inject, embeddings and tracing.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import numpy as np
 
 from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
 from dynamo_tpu_torch.engine.config import EngineArgs
+from dynamo_tpu_torch.engine.drafter import TreeDraft, build_drafter
 from dynamo_tpu_torch.engine.runner import HostFetch, LocalRunner, host_ready, start_host_fetch
 from dynamo_tpu_torch.engine.sampler import GREEDY_EPS, row_needs_full
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
@@ -61,12 +68,50 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 
 _SENTINEL_DONE = object()
 
+# Adaptive tree budgets: the per-row draft-node cap, as a multiple of
+# spec_tokens. Bounding hot rows at 2x keeps the verify-shape lattice at
+# two S1 values (S+1 and 2S+1).
+SPEC_BUDGET_MAX_MULT = 2
+
+
+def trim_spec_budgets(rows: list[tuple[float, int]], S: int) -> list[int]:
+    """Batch-level draft-node reallocation (the JAX package's, as it is):
+    rows drafted optimistically (each up to min(cap, 2S) nodes), and this
+    decides how many nodes each row KEEPS so the batch stays under the
+    uniform budget ``len(rows) * S``. ``rows`` = per-row (spec_ema,
+    drafted_len). Over budget, EMA-cold rows are trimmed back toward the
+    uniform path's EMA shrink (S * ema / 0.5, floor 1), coldest first.
+
+    Invariants: sum(keep) <= len(rows) * S; keep_i >= min(drafted_i, 1);
+    keep_i >= min(drafted_i, desired_i); keep_i <= drafted_i."""
+    n = len(rows)
+    keep = [d for _, d in rows]
+    if n == 0 or S <= 0:
+        return [0] * n
+    total = sum(keep)
+    limit = n * S
+    if total <= limit:
+        return keep
+    order = sorted(range(n), key=lambda i: (rows[i][0], i))  # coldest first
+    for i in order:
+        if total <= limit:
+            break
+        desired = max(1, round(S * min(1.0, rows[i][0] / 0.5)))
+        cut = min(keep[i] - min(keep[i], desired), total - limit)
+        keep[i] -= cut
+        total -= cut
+    return keep
+
+
 def register_engine_metrics(registry):
     """Register the engine series on a MetricsRegistry → (inflight
     windows, pending first fetches, prefill pad ratio, KV cache bytes, KV
-    quant flag, preemptions). Names and help texts are the JAX package's
-    (``register_engine_metrics`` there); the series whose quantity this
-    engine does not have (speculation, tiers, grammar, LoRA) are left out."""
+    quant flag, preemptions, spec proposed, spec accepted, spec accept
+    rate, tokens per weight pass, spec tree passes, spec tree accept
+    depth, spec budget reallocs). Names and help texts are the JAX
+    package's (``register_engine_metrics`` there); the series whose
+    quantity this engine does not have (tiers, grammar, LoRA) are left
+    out."""
     return (
         registry.gauge(
             "engine_inflight_windows",
@@ -97,6 +142,39 @@ def register_engine_metrics(registry):
             "request requeues and re-prefills, so its stream stays "
             "byte-identical under greedy sampling)",
         ),
+        registry.counter(
+            "engine_spec_proposed_total",
+            "Draft tokens proposed to speculative verify passes",
+        ),
+        registry.counter(
+            "engine_spec_accepted_total",
+            "Proposed draft tokens accepted by speculative verification",
+        ),
+        registry.gauge(
+            "engine_spec_accept_rate",
+            "Cumulative accepted/proposed draft-token ratio",
+        ),
+        registry.gauge(
+            "engine_tokens_per_weight_pass",
+            "Decode tokens sampled per per-sequence weight stream "
+            "(1.0 = dense; >1.0 = speculation paying off)",
+        ),
+        registry.counter(
+            "engine_spec_tree_passes_total",
+            "Speculative verify passes dispatched with a branched "
+            "(non-chain) draft tree",
+        ),
+        registry.gauge(
+            "engine_spec_tree_accept_depth",
+            "Cumulative mean accepted root-path depth of tree verify "
+            "passes (0 = every tree pass rejected at the root)",
+        ),
+        registry.counter(
+            "engine_spec_budget_reallocs_total",
+            "Speculative verify passes whose batch-level draft-node "
+            "budget was reallocated away from the uniform per-row split "
+            "(EMA-hot rows drafting past spec_tokens)",
+        ),
     )
 
 
@@ -109,7 +187,7 @@ class _Seq:
         "request_id", "tokens", "prompt_len", "sampling", "stop", "eos_ids",
         "block_ids", "block_seq", "registered_blocks", "queue", "emitted",
         "cancelled", "sample_seed", "kv_written", "dead", "slot", "first_pend",
-        "qos", "qos_rank", "arrival",
+        "spec_ema", "spec_cool", "draft_state", "qos", "qos_rank", "arrival",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
@@ -142,6 +220,14 @@ class _Seq:
         # first_pend = first token sampled on the device, not yet emitted.
         self.slot: int | None = None
         self.first_pend = False
+        # Speculative decoding: acceptance-rate EMA (starts optimistic, so
+        # new sequences get full drafts), cooldown of decode iterations
+        # before a disabled row proposes again, and the drafter's
+        # incremental n-gram index (built on the first draft). All three
+        # ride the sequence object, so they survive preemption.
+        self.spec_ema = 1.0
+        self.spec_cool = 0
+        self.draft_state = None
         # Multi-tenant QoS: the request's class name (metrics label;
         # unknown wire values fall back to the default class), its
         # scheduling rank (generate() zeroes it when qos_scheduling is
@@ -185,6 +271,36 @@ class _First:
         self.fetch = fetch
 
 
+class _Spec:
+    """One dispatched speculative verify pass (results not yet fetched).
+    Unlike a _Window, the tokens a row will emit (1 + accepted drafts) are
+    unknown until the fetch lands, so no decode work is planned for these
+    rows while a _Spec is queued: _decode_iteration drains it first.
+
+    ``draft_lens`` counts proposed draft nodes per row; ``potentials`` the
+    longest accepted run each proposal could yield (the deepest path of a
+    tree), the EMA's denominator; ``node_tokens``/``node_parents`` the
+    host-side tree views, which feed the drafter's Jacobi pool."""
+
+    __slots__ = ("rows", "pos0", "draft_lens", "potentials", "top_n", "tree",
+                 "node_tokens", "node_parents", "fetch")
+
+    def __init__(self, rows: list[_Seq], pos0: list[int], draft_lens: list[int], top_n: int,
+                 potentials: list[int], tree: bool, node_tokens: list[list[int]],
+                 node_parents: list[list[int]], fetch: HostFetch):
+        self.rows = rows
+        self.pos0 = pos0
+        self.draft_lens = draft_lens
+        self.potentials = potentials
+        self.top_n = top_n
+        self.tree = tree
+        self.node_tokens = node_tokens
+        self.node_parents = node_parents
+        # out [B, S1], n_emit [B], logps [B, S1], cand [B, S1]
+        # (+ top_vals, top_ids [B, S1, top_n])
+        self.fetch = fetch
+
+
 class TorchEngine:
     def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0,
                  event_sink=None):
@@ -204,7 +320,10 @@ class TorchEngine:
         self._running: list[_Seq] = []
         # Dispatched work whose results are not yet on the host, in
         # dispatch order: admission samples and decode windows.
-        self._fetchq: collections.deque[_First | _Window] = collections.deque()
+        self._fetchq: collections.deque[_First | _Window | _Spec] = collections.deque()
+        # (fn, future, loop) host jobs run on the engine thread between
+        # steps (run_on_engine_thread).
+        self._host_jobs: collections.deque = collections.deque()
         self._free_slots: list[int] = list(range(args.max_num_seqs))
         self._stopping = False
         # Monotonic counters, read racily by callers (stale reads harmless).
@@ -220,9 +339,43 @@ class TorchEngine:
         # on an admission sample), emit.
         self.phase_s: dict[str, float] = collections.defaultdict(float)
         # Registry series (bind_metrics), updated once per scheduler step;
-        # preemptions already added to the counter, by class.
+        # preemptions already added to the counter, by class, and what the
+        # spec counters (proposed, accepted, tree passes, budget reallocs)
+        # already fed theirs.
         self._gauges = None
         self._preempt_pushed: dict[str, int] = {}
+        self._spec_pushed = [0, 0, 0, 0]
+        # Speculative decoding: the host-side drafter and a draft length
+        # that, like spec_budget_adaptive, may be changed on an idle engine
+        # (read once per scheduler iteration).
+        self._drafter = build_drafter(args)
+        self.spec_tokens = args.spec_tokens
+        self.spec_budget_adaptive = args.spec_budget_adaptive
+        # Scheduler-step counter and last-ticked stamp: probe cooldowns
+        # tick once per step, though a drain can re-enter
+        # _try_speculative within one.
+        self._step_no = 0
+        self._spec_ticked = -1
+        # Spec counters: proposed/accepted draft tokens, verify passes,
+        # live row-passes and the tokens they emitted; branched passes,
+        # accepted root-path depth sum and rows (mean accept depth), a
+        # histogram {depth: rows}; passes dispatched with a non-uniform
+        # node split.
+        self.total_spec_proposed = 0
+        self.total_spec_accepted = 0
+        self.total_spec_passes = 0
+        self.total_spec_rows = 0
+        self.total_spec_emitted = 0
+        self.total_spec_tree_passes = 0
+        self.total_spec_tree_rows = 0
+        self.total_spec_tree_depth = 0
+        self.spec_depth_hist: collections.Counter = collections.Counter()
+        self.total_spec_budget_reallocs = 0
+        # Tokens per weight pass: each (row, substep) of a drained window
+        # is one per-sequence weight pass yielding one token; a spec
+        # row-pass is one weight pass yielding n_emit tokens.
+        self.total_row_passes = 0
+        self.total_row_tokens = 0
 
     # -- lifecycle --------------------------------------------------------
 
@@ -249,7 +402,8 @@ class TorchEngine:
     def _update_gauges(self) -> None:
         if self._gauges is None:
             return
-        g_win, g_first, g_pad, g_kvb, g_kvq, c_preempt = self._gauges
+        (g_win, g_first, g_pad, g_kvb, g_kvq, c_preempt, c_prop, c_acc, g_rate, g_tpp,
+         c_tree, g_tree_depth, c_budget) = self._gauges
         g_win.set(sum(1 for it in self._fetchq if isinstance(it, _Window)))
         g_first.set(sum(1 for it in self._fetchq if isinstance(it, _First)))
         g_pad.set(self.total_prefill_padded / max(1, self.total_prefilled))
@@ -260,6 +414,15 @@ class TorchEngine:
             if n > pushed:
                 c_preempt.inc(n - pushed, **{"class": cls})
                 self._preempt_pushed[cls] = n
+        for i, (ctr, total) in enumerate((
+                (c_prop, self.total_spec_proposed), (c_acc, self.total_spec_accepted),
+                (c_tree, self.total_spec_tree_passes), (c_budget, self.total_spec_budget_reallocs))):
+            if total > self._spec_pushed[i]:
+                ctr.inc(total - self._spec_pushed[i])
+                self._spec_pushed[i] = total
+        g_rate.set(self.total_spec_accepted / max(1, self.total_spec_proposed))
+        g_tpp.set(self.total_row_tokens / max(1, self.total_row_passes))
+        g_tree_depth.set(self.total_spec_tree_depth / max(1, self.total_spec_tree_rows))
 
     @property
     def total_preemptions(self) -> int:
@@ -291,6 +454,49 @@ class TorchEngine:
     @property
     def runner(self) -> LocalRunner:
         return self._runner
+
+    def set_spec(self, **fields) -> None:
+        """Change speculative-decoding knobs (``EngineArgs`` spec_* fields)
+        of an idle engine, so that one warmed engine can serve the same
+        requests in several modes (dense, fused, stepwise, tree), as the
+        JAX engine's ``spec_tokens`` toggle does. Rebuilds the drafter;
+        new verify shapes are captured by ``runner.warm_spec`` or at first
+        use."""
+        if self.busy():
+            raise RuntimeError("set_spec needs an idle engine")
+        for name, value in fields.items():
+            if not name.startswith("spec_") or not hasattr(self.args, name):
+                raise ValueError(f"not a speculative-decoding knob: {name!r}")
+            setattr(self.args, name, value)
+        self.args.__post_init__()
+        self._drafter = build_drafter(self.args)
+        self.spec_tokens = self.args.spec_tokens
+        self.spec_budget_adaptive = self.args.spec_budget_adaptive
+
+    async def run_on_engine_thread(self, fn):
+        """Run ``fn()`` on the scheduler thread between steps and await its
+        result (the JAX engine's seam for work that must not interleave with
+        dispatch, such as holding the scheduler while a batch of requests
+        is submitted). Not a serving-path API."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        with self._wakeup:
+            if self._stopping:
+                raise RuntimeError("engine is stopping")
+            self._host_jobs.append((fn, fut, loop))
+            self._wakeup.notify()
+        return await fut
+
+    @staticmethod
+    def _serve_host_job(fn, fut, loop) -> None:
+        try:
+            result = fn()
+        except Exception as e:  # noqa: BLE001 — surface to the caller
+            err = e
+            loop.call_soon_threadsafe(
+                lambda: fut.set_exception(err) if not fut.cancelled() else None)
+            return
+        loop.call_soon_threadsafe(lambda: fut.set_result(result) if not fut.cancelled() else None)
 
     def busy(self) -> bool:
         """Anything submitted, running or still in flight (a racy read)."""
@@ -393,7 +599,8 @@ class TorchEngine:
             while True:
                 with self._wakeup:
                     while (not self._stopping and not self._submissions
-                           and not self._waiting and not self._running):
+                           and not self._waiting and not self._running
+                           and not self._host_jobs):
                         self._wakeup.wait()
                     if self._stopping:
                         break
@@ -410,6 +617,12 @@ class TorchEngine:
                 self._running.clear()
                 self._waiting.clear()
                 self._submissions.clear()
+                jobs = list(self._host_jobs)
+                self._host_jobs.clear()
+            for _fn, fut, loop in jobs:
+                exc = RuntimeError("engine loop crashed" if crashed else "engine stopped")
+                loop.call_soon_threadsafe(
+                    lambda f=fut, e=exc: f.set_exception(e) if not f.cancelled() else None)
             reason = FinishReason.ERROR if crashed else FinishReason.CANCELLED
             err = "engine loop crashed" if crashed else None
             for seq in leftovers:
@@ -423,11 +636,14 @@ class TorchEngine:
         return t1
 
     def _step(self) -> None:
+        self._step_no += 1
         # Harvest whatever fetches completed while the host was away: frees
         # slots and blocks and finds stops early, and costs nothing when
         # the head of the queue is still in flight.
         self._drain_completed()
         self._reap_cancelled()
+        while self._host_jobs:
+            self._serve_host_job(*self._host_jobs.popleft())
         t0 = time.perf_counter()
         allocated: list[tuple[_Seq, int]] = []  # (seq, suffix start)
         budget = self.args.admission_budget_tokens or (1 << 62)
@@ -646,7 +862,9 @@ class TorchEngine:
     def _pend(self, seq: _Seq) -> int:
         """Tokens sampled on the device for this sequence but not yet
         emitted: K per in-flight window it rides, plus an unfetched
-        admission sample."""
+        admission sample. A queued _Spec is invisible here by invariant:
+        its count is data-dependent, so _decode_iteration drains it before
+        any planning that reads this."""
         p = 1 if seq.first_pend else 0
         for item in self._fetchq:
             if isinstance(item, _Window) and seq in item.row_of:
@@ -665,12 +883,14 @@ class TorchEngine:
                 break
             self._drain_one(self._fetchq.popleft())
 
-    def _drain_one(self, item: _First | _Window) -> None:
+    def _drain_one(self, item: _First | _Window | _Spec) -> None:
         """Fetch and emit one queue item, its fetch time attributed by
         whether the host actually had to wait."""
         blocked = not host_ready(item.fetch)
         if isinstance(item, _First):
             self._drain_first(item, blocked)
+        elif isinstance(item, _Spec):
+            self._drain_spec(item, blocked)
         else:
             self._drain_window(item, blocked)
 
@@ -711,6 +931,16 @@ class TorchEngine:
         return K, depth
 
     def _decode_iteration(self) -> None:
+        # A queued _Spec hides an unknown number of pending tokens per row,
+        # so no decode work may be planned past it; its fetch has been in
+        # flight since dispatch (overlapping this step's admission).
+        if any(isinstance(it, _Spec) for it in self._fetchq):
+            self._drain_completed(force=True)
+        if not self._running:
+            self._drain_completed(force=True)
+            return
+        if self._try_speculative():
+            return
         K, depth = self._plan_window()
         if depth == 0 and self._fetchq:
             # Unpipelined plan (full sampler, K=1 tail): host-visible tokens
@@ -822,6 +1052,8 @@ class TorchEngine:
         for i, seq in enumerate(w.rows):
             if seq.dead:
                 continue  # finished or cancelled while this window was in flight
+            self.total_row_passes += w.K
+            self.total_row_tokens += w.K
             seq.kv_written = w.pos0[i] + w.K
             self._register_written_blocks(seq)
             tops = None
@@ -830,6 +1062,249 @@ class TorchEngine:
                 tops = [[list(p) for p in zip(tids_l[i][j][:n], tvals_l[i][j][:n])]
                         for j in range(w.K)]
             self._emit_tokens(seq, toks_l[i], logps_l[i], tops)
+        self._phase("emit", t0)
+
+    # -- speculative decoding ---------------------------------------------
+    #
+    # A dense substep streams the weights for one token per sequence; a
+    # verify pass streams them once for up to spec_tokens+1 tokens per
+    # sequence. The host drafts each row's likely continuation by n-gram
+    # prompt lookup (engine/drafter.py), the device scores draft_len+1
+    # positions in one forward (model.spec_verify) and keeps the longest
+    # prefix the model agrees with plus one corrected or bonus token. Greedy
+    # rows are the dense path's tokens; sampled rows use rejection sampling.
+    #
+    # Scheduling contract (the JAX engine's): drafting needs the full
+    # host-visible history and the drain reveals how far each row advanced,
+    # so a verify pass is a pipeline barrier: everything pending drains
+    # before dispatch, and the pass drains before the next decode plan.
+    # Rows whose drafts keep being rejected decay an acceptance EMA and
+    # enter a probe cooldown, so incompressible traffic falls back to the
+    # dense window pipeline.
+
+    def _row_draft(self, seq: _Seq, budget: int):
+        """A draft for one row (a token list, or a TreeDraft from the tree
+        drafter) under its node allowance ``budget``, shrunk by the row's
+        EMA; empty when the row is cooling down or near the model length."""
+        args = self.args
+        # Never draft past the model length: the pass emits up to
+        # potential+1 tokens and writes slots up to positions0 + nodes.
+        cap = min(budget, args.max_model_len - len(seq.tokens) - 1)
+        if cap <= 0 or seq.spec_cool > 0:
+            return []
+        # Full drafts at ema >= 0.5, linearly shorter below, floor 1.
+        eff = min(cap, max(1, round(budget * min(1.0, seq.spec_ema / 0.5))))
+        if seq.draft_state is None:
+            seq.draft_state = self._drafter.new_state()
+        if hasattr(self._drafter, "draft_tree"):
+            return self._drafter.draft_tree(seq.tokens, seq.draft_state, eff)
+        return self._drafter.draft(seq.tokens, seq.draft_state, eff)
+
+    @staticmethod
+    def _draft_potential(d) -> int:
+        """Best-case accepted run of one proposal: the whole chain, or the
+        deepest root path of a tree."""
+        return d.max_depth if isinstance(d, TreeDraft) else len(d)
+
+    def _spec_gate_passes(self, drafts: dict) -> bool:
+        """Dispatch when some row drafted and the EMA-weighted expected
+        tokens per row-pass, mean(1 + ema_i * potential_i), reach
+        spec_gate."""
+        if not drafts or not any(len(d) for d in drafts.values()):
+            return False
+        expected = sum(1.0 + s.spec_ema * self._draft_potential(d)
+                       for s, d in drafts.items()) / len(drafts)
+        return expected >= self.args.spec_gate
+
+    def _try_speculative(self) -> bool:
+        """Dispatch one verify pass over the running set when it is
+        eligible and some row has a draft → True when a pass went out (the
+        decode iteration is done). A first draft over the host-visible
+        history decides whether draining the pipeline can pay at all; only
+        then does everything drain and every row re-draft on its complete
+        history."""
+        S = self.spec_tokens
+        if S <= 0:
+            return False
+        # Full-sampler rows need host-visible penalty windows.
+        if any(self._needs_full_sampler(s) for s in self._running):
+            return False
+        if self._spec_ticked != self._step_no:
+            self._spec_ticked = self._step_no
+            for s in self._running:
+                if s.spec_cool > 0:
+                    s.spec_cool -= 1
+        t0 = time.perf_counter()
+        drafts = self._draft_all(S)
+        if not self._spec_gate_passes(drafts):
+            self._phase("draft", t0)
+            return False
+        if self._fetchq:
+            self._phase("draft", t0)
+            self._drain_completed(force=True)
+            if not self._running:
+                return True
+            t0 = time.perf_counter()
+            drafts = self._draft_all(S)
+        t0 = self._phase("draft", t0)
+        if not self._spec_gate_passes(drafts):
+            return False
+        batch = list(self._running)
+        # Cover writes at positions0 + draft nodes; a row that cannot grow
+        # leaves the pass to the dense path's pressure handling.
+        for seq in batch:
+            if not self._ensure_block(seq, len(drafts[seq]) + 1):
+                return False
+        B = self.args.bucket_decode(len(batch))
+        # Verify-shape bucket: S+1, or 2S+1 when an adaptive reallocation
+        # let a hot row draft past S.
+        max_nodes = max(len(d) for d in drafts.values())
+        S1 = S + 1 if max_nodes <= S else SPEC_BUDGET_MAX_MULT * S + 1
+        if max_nodes > S:
+            self.total_spec_budget_reallocs += 1
+        W = self.args.bucket_table(max(len(s.block_ids) for s in batch))
+        tokens = np.zeros((B, S1), np.int32)
+        pos0_arr = np.zeros((B,), np.int32)
+        dlen = np.zeros((B,), np.int32)
+        tables = np.zeros((B, W), np.int32)
+        active = np.zeros((B,), bool)
+        fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        temps = np.ones((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        steps0 = np.zeros((B,), np.int32)
+        pos0: list[int] = []
+        draft_lens: list[int] = []
+        potentials: list[int] = []
+        node_tokens: list[list[int]] = []
+        node_parents: list[list[int]] = []
+        # All-chain proposals dispatch through the linear op (stepwise
+        # parity included); any branched one upgrades the whole batch to
+        # the topology-masked tree op (chains are trees too).
+        any_tree = any(isinstance(d, TreeDraft) and not d.is_chain() for d in drafts.values())
+        for i, seq in enumerate(batch):
+            d = drafts[seq]
+            if isinstance(d, TreeDraft):
+                toks, pars = d.tokens, d.parents
+            else:
+                toks, pars = list(d), list(range(len(d)))
+            tokens[i, 0] = seq.tokens[-1]
+            tokens[i, 1 : 1 + len(toks)] = toks
+            p0 = seq.next_write_pos
+            pos0.append(p0)
+            pos0_arr[i] = p0
+            dlen[i] = len(toks)
+            draft_lens.append(len(toks))
+            potentials.append(self._draft_potential(d))
+            node_tokens.append([seq.tokens[-1]] + list(toks))
+            node_parents.append([0] + list(pars))
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+            active[i] = True
+            fold_slots[i] = seq.slot
+            temps[i] = seq.sampling.temperature
+            seeds[i] = seq.sample_seed
+            steps0[i] = seq.emitted
+        mode = "greedy" if all(t < GREEDY_EPS for t in temps[: len(batch)]) else "simple"
+        top_n = self._top_n(batch)
+        tree = self._build_tree_args(B, S1, node_parents) if any_tree else None
+        ref = self._runner.spec_verify(S1, mode, tokens, pos0_arr, dlen, tables, active, temps,
+                                       seeds, steps0, fold_slots, top_n, tree)
+        arrs = ref.arrs if top_n else ref.arrs[:4]
+        self._fetchq.append(_Spec(batch, pos0, draft_lens, top_n, potentials, any_tree,
+                                  node_tokens, node_parents, start_host_fetch(arrs)))
+        self._phase("spec_dispatch", t0)
+        return True
+
+    def _draft_all(self, S: int) -> dict:
+        """Draft every running row under the batch node budget. Uniform:
+        each row up to S (EMA-shrunk). Adaptive (spec_budget_adaptive):
+        each row drafts up to 2S, then trim_spec_budgets holds the batch
+        to rows x S, trimming EMA-cold rows first."""
+        if not self.spec_budget_adaptive:
+            return {s: self._row_draft(s, S) for s in self._running}
+        rows = list(self._running)
+        drafts = {s: self._row_draft(s, SPEC_BUDGET_MAX_MULT * S) for s in rows}
+        keep = trim_spec_budgets([(s.spec_ema, len(drafts[s])) for s in rows], S)
+        for s, k in zip(rows, keep):
+            d = drafts[s]
+            if len(d) <= k:
+                continue
+            if isinstance(d, TreeDraft):
+                d.truncate(k)
+            else:
+                drafts[s] = d[:k]
+        return drafts
+
+    @staticmethod
+    def _build_tree_args(B: int, S1: int, node_parents: list[list[int]]
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Tree topology of one verify dispatch → (parents [B, S1],
+        ancestor-or-self bits [B, S1, S1] int8, depth [B, S1]). Rows past
+        the live batch stay all-zero (inactive)."""
+        parents = np.zeros((B, S1), np.int32)
+        anc = np.zeros((B, S1, S1), np.int8)
+        depth = np.zeros((B, S1), np.int32)
+        for i, pars in enumerate(node_parents):
+            anc[i, 0, 0] = 1
+            for j in range(1, len(pars)):
+                p = pars[j]
+                parents[i, j] = p
+                anc[i, j] = anc[i, p]
+                anc[i, j, j] = 1
+                depth[i, j] = depth[i, p] + 1
+        return parents, anc, depth
+
+    def _drain_spec(self, sp: _Spec, blocked: bool) -> None:
+        self.total_spec_passes += 1
+        if sp.tree:
+            self.total_spec_tree_passes += 1
+        t0 = time.perf_counter()
+        arrs = sp.fetch.wait()
+        t0 = self._phase("drain_sync" if blocked else "drain_ready", t0)
+        out_l, n_emit_l, logps_l, cand_l = (a.tolist() for a in arrs[:4])
+        tvals_l = tids_l = None
+        if sp.top_n:
+            tvals_l, tids_l = arrs[4].tolist(), arrs[5].tolist()  # [B][S1][n]
+        alpha = self.args.spec_ema_alpha
+        for i, seq in enumerate(sp.rows):
+            if seq.dead:
+                continue  # finished or cancelled while the pass was in flight
+            n = int(n_emit_l[i])
+            a = n - 1
+            S_i = sp.draft_lens[i]
+            self.total_spec_rows += 1
+            self.total_spec_emitted += n
+            self.total_row_passes += 1
+            self.total_row_tokens += n
+            if S_i > 0:
+                self.total_spec_proposed += S_i
+                self.total_spec_accepted += a
+                # EMA over achievable acceptance: a tree can only accept
+                # down its deepest path.
+                pot = max(1, sp.potentials[i])
+                seq.spec_ema = (1 - alpha) * seq.spec_ema + alpha * (a / pot)
+                if seq.spec_ema < self.args.spec_ema_disable:
+                    seq.spec_cool = self.args.spec_probe_every
+                if sp.tree:
+                    self.total_spec_tree_rows += 1
+                    self.total_spec_tree_depth += a
+                    self.spec_depth_hist[a] += 1
+            # Every node's (context → argmax) pair feeds the drafter's
+            # Jacobi pool, rejected branches included; seq.tokens still
+            # ends at this pass's root.
+            if seq.draft_state is not None:
+                self._drafter.observe(seq.draft_state, seq.tokens, sp.node_tokens[i],
+                                      sp.node_parents[i], S_i + 1, cand_l[i])
+            # Positions p0..p0+a hold the right KV ([last, accepted
+            # drafts]); the emitted run's last token is written by the next
+            # dispatch, as a window's last sample is.
+            seq.kv_written = sp.pos0[i] + n
+            self._register_written_blocks(seq)
+            tops = None
+            if tids_l is not None and seq.sampling.top_logprobs:
+                tn = seq.sampling.top_logprobs
+                tops = [[list(p) for p in zip(tids_l[i][j][:tn], tvals_l[i][j][:tn])]
+                        for j in range(n)]
+            self._emit_tokens(seq, out_l[i][:n], logps_l[i][:n], tops)
         self._phase("emit", t0)
 
     # -- sampling ----------------------------------------------------------

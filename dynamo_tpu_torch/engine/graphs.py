@@ -1,6 +1,7 @@
-"""CUDA-graph decode windows: the port's counterpart of the JAX package's
-one jitted dispatch per window (``dynamo_tpu/engine/runner.py``
-``multi_decode``).
+"""CUDA-graph decode windows and verify passes: the port's counterpart of
+the JAX package's one jitted dispatch per window (``dynamo_tpu/engine/
+runner.py`` ``multi_decode``) and per speculative verify pass
+(``spec_verify``, whose shape lattice the JAX package AOT-compiles).
 
 An eager window issues hundreds of small launches per substep and leaves
 the card idle while the host issues them. Here each window shape (B
@@ -42,7 +43,8 @@ WARMUP_RUNS = 2
 COUNTERS = ((pa, "launches"), (im, "launches"), (im, "prefill_launches"))
 
 
-def _read() -> tuple[int, ...]:
+def read_counts() -> tuple[int, ...]:
+    """The COUNTERS' current values, in their order."""
     return tuple(getattr(mod, name) for mod, name in COUNTERS)
 
 
@@ -62,7 +64,9 @@ class _Graph:
 
 
 class WindowGraphs:
-    """The runner's captured windows, keyed by window shape."""
+    """The runner's captured windows and verify passes, keyed by shape:
+    (B, W, L, K, mode, top_n) for a window, ("verify", B, W, S1, mode,
+    top_n, tree, fused) for a verify pass."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -77,7 +81,7 @@ class WindowGraphs:
 
     @property
     def shapes(self) -> list[tuple]:
-        """Captured window shapes: (B, W, L, K, mode, top_n)."""
+        """Captured shapes (the keys above)."""
         return list(self._graphs)
 
     def run(self, key: tuple, words: np.ndarray,
@@ -91,25 +95,25 @@ class WindowGraphs:
             g = self._graphs[key] = self._capture(*make())
         g.static_in.copy_(torch.from_numpy(words).pin_memory(), non_blocking=True)
         g.graph.replay()
-        _set(a + b for a, b in zip(_read(), g.calls))
+        _set(a + b for a, b in zip(read_counts(), g.calls))
         self.replays += 1
         return g.outs
 
     def _capture(self, fn: Callable, inert: np.ndarray) -> _Graph:
         t0 = time.perf_counter()
         static_in = torch.from_numpy(inert).to(self.device)
-        base = _read()
+        base = read_counts()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
                 fn(static_in)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        mark = _read()
+        mark = read_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
             outs = tuple(fn(static_in))
-        calls = tuple(b - a for a, b in zip(mark, _read()))
+        calls = tuple(b - a for a, b in zip(mark, read_counts()))
         _set(base)
         self.capture_s += time.perf_counter() - t0
         return _Graph(graph, static_in, outs, calls)

@@ -20,8 +20,9 @@ one); here every write updates the cache tensors in place and the
 functions return only the logits.
 
 Prefill attention is plain tensor code (XLA in the JAX package); decode
-attention goes through ``ops.paged_attention`` — the CUDA kernel on the
-card, the plain version on the CPU.
+and speculative-verify attention go through ``ops.paged_attention`` — the
+CUDA kernel on the card (its decode, linear multi-query and tree modes),
+the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from dynamo_tpu_torch.engine.sampler import (
     row_gumbel,
     sample_simple,
     sample_step,
+    spec_acceptance,
+    spec_tree_acceptance,
     token_counts,
     token_logprobs,
     top_k_logprobs,
@@ -452,3 +455,179 @@ def multi_decode(
         tids.append(i_)
         tok, pos = nxt, pos + 1
     return torch.stack(toks), torch.stack(logps), torch.stack(tvals), torch.stack(tids)
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify
+# ---------------------------------------------------------------------------
+
+
+def spec_verify(
+    cfg: ModelConfig,
+    S1: int,                     # draft slots + 1 ([last, d1..dS])
+    mode: str,                   # "greedy" | "simple"
+    top_n: int,                  # top-n alternative logprobs (0 = off)
+    params: Params,
+    cache: KVCache,
+    tokens: torch.Tensor,        # [B, S1] int32 — [last_token, draft_1..draft_S]
+    positions0: torch.Tensor,    # [B] int32 — position of last_token
+    draft_len: torch.Tensor,     # [B] int32 — true draft length per row (<= S1-1)
+    block_tables: torch.Tensor,  # [B, W] int32 (must cover positions0+draft_len)
+    active: torch.Tensor,        # [B] bool
+    temperature: torch.Tensor,   # [B] f32 (<= 0 → greedy row)
+    seeds: torch.Tensor,         # [B] int per-row sample seed
+    steps0: torch.Tensor,        # [B] int per-row emission index of the first token
+    tree_parents: torch.Tensor | None = None,  # [B, S1] int — tree mode (below)
+    tree_anc: torch.Tensor | None = None,      # [B, S1, S1] ancestor-or-self bits
+    tree_depth: torch.Tensor | None = None,    # [B, S1] int per-node depth
+    mask_bits: torch.Tensor | None = None,     # grammar masks: not ported (A15)
+    lora: dict | None = None,                  # adapter bank: not ported (A16)
+    *,
+    fused: bool = True,
+    attn_impl: str = "auto",
+) -> tuple[torch.Tensor, ...]:
+    """Speculative verify (the JAX package's ``spec_verify_impl``): score S1
+    consecutive positions per row in one dispatch. Input j writes its KV at
+    positions0+j and position j's logits score the token after input j,
+    exactly as the j-th sequential ``decode_step`` would.
+
+    - ``fused=True``: one forward over all B·S1 rows (one weight stream).
+      Every layer writes the S1 new K/V rows to the pages first, then the
+      multi-query attention kernel (linear mode: per-query horizon
+      positions0+j+1) reads them back with the history, as the dense step
+      does.
+    - ``fused=False``: a teacher-forced loop of ``decode_step``, bitwise
+      identical to the dense path (S1 weight streams; the parity anchor).
+    - Tree mode (``tree_parents`` given, always fused): node j writes at
+      slot position positions0+j, rotates at positions0+depth[j] and
+      attends the history plus its ancestor-or-self slots (the kernel's
+      tree mode, ``anc`` masked by the live slots). Acceptance walks the
+      root path, and the accepted path's KV is compacted on the device
+      into positions0+1..positions0+a, every other depth written to block 0,
+      int8 scales included, so the engine rolls back as for a chain.
+
+    Dead slots (j > draft_len) and inactive rows write to block 0, the
+    garbage sink. The KV of drafts past the accepted run is junk that the
+    next dispatch rewrites.
+
+    Returns (out [B, S1] emitted tokens, n_emit [B], logps [B, S1] raw
+    logprobs of the emitted tokens, cand [B, S1] per-node argmax, top_vals
+    [B, S1, top_n], top_ids [B, S1, top_n], last_tok [B] = out[b,
+    n_emit-1]), all on the device; the cache is updated in place."""
+    if mask_bits is not None:
+        raise NotImplementedError("grammar masks in verify are not ported (ROADMAP A15)")
+    if lora is not None:
+        raise NotImplementedError("LoRA rows in verify are not ported (ROADMAP A16)")
+    if mode not in ("greedy", "simple"):
+        raise ValueError(f"unknown verify sampler mode {mode!r}")
+    B, T = tokens.shape
+    if T != S1:
+        raise ValueError(f"tokens carry {T} slots, S1 is {S1}")
+    dev = tokens.device
+    bs = cache.k.shape[2]
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KVH
+    tree = tree_parents is not None
+    slot = torch.arange(T, device=dev)[None, :]
+    use = active[:, None] & (slot <= draft_len[:, None])                  # [B, T]
+    # Write position per slot (slot-ordered: distinct cache slots for any
+    # tree shape) and RoPE position per node (its sequence depth).
+    p0 = positions0.long()
+    wpos = p0[:, None] + slot                                             # [B, T]
+    pos = wpos if not tree else p0[:, None] + tree_depth.long()
+    tables = block_tables.long()
+    last_col = tables.shape[1] - 1
+
+    def table_at(p: torch.Tensor) -> torch.Tensor:
+        """Block of each position; positions past the table (dead slots)
+        read its last column and are masked by the caller, as the JAX
+        gather clamps."""
+        return torch.gather(tables, 1, (p // bs).clamp(max=last_col))
+
+    if fused or tree:
+        impl = pa.resolve_attn_impl(attn_impl, dev)
+        attend = pa.paged_spec_attention if impl == "cuda" else pa.paged_spec_attention_ref
+        x = _embed_rows(params, tokens, _compute_dtype(params))           # [B, T, D]
+        blk = torch.where(use, table_at(wpos), 0)
+        off = torch.where(use, wpos % bs, 0)
+        if tree:
+            # Per-query history horizon; the slot window rides on top of
+            # it under the topology mask, dead slots masked out of it.
+            lengths = torch.where(use, p0[:, None], 0).to(torch.int32)
+            anc = ((tree_anc != 0) & use[:, :, None] & use[:, None, :]).to(torch.int8)
+        else:
+            lengths = torch.where(use, pos + 1, 0).to(torch.int32)       # query j: [0, pos_j]
+            anc = None
+        rope = _rope_table(pos, hd, cfg.rope_theta)
+        for layer in range(cfg.num_layers):
+            lp = _layer(params, layer)
+            h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+            q, k, v = _qkv(h, lp, cfg)
+            q = _rope(q.reshape(B, T, cfg.num_heads, hd), rope)
+            k = _rope(k.reshape(B, T, KVH, hd), rope)
+            v = v.reshape(B, T, KVH, hd)
+            # Write all T new rows, then attend: in-pass keys come back out
+            # of the pages, as the dense step reads its own (int8-rounded
+            # under kv_quant).
+            _write_pages(cache, layer, (blk, off), k, v, (B, T, KVH * hd))
+            o = attend(q.reshape(B, T, KVH, G, hd), cache.k, cache.v, layer, block_tables,
+                       lengths, cache.k_scale, cache.v_scale, anc)
+            x = x + _dot_q(o.reshape(B, T, cfg.q_size), lp, "wo")
+            x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+        logits = _logits(cfg, params, x)                                  # [B, T, V]
+    else:
+        # Dead slots step at position 0 (their rows are inactive there).
+        tok32, pos32 = tokens.to(torch.int32), torch.where(use, pos, 0).to(torch.int32)
+        step_logits = [
+            decode_step(cfg, params, cache, tok32[:, j], pos32[:, j], block_tables, use[:, j],
+                        attn_impl)
+            for j in range(T)
+        ]
+        logits = torch.stack(step_logits, dim=1)
+
+    if tree:
+        out, n_emit, path, cand = spec_tree_acceptance(
+            logits, tokens, tree_parents, draft_len, temperature, seeds, steps0, mode)
+        # Downstream reads path-aligned logits: emitted token k came from
+        # node path[k]'s distribution.
+        V = logits.shape[-1]
+        logits_out = torch.gather(logits, 1, path.long()[:, :, None].expand(B, T, V))
+        # KV compaction: the accepted depth-k node moves from its slot to
+        # positions0+k; depths past the accepted run go to block 0. The
+        # gather completes before the scatter, so a node already in place
+        # (a chain prefix) is rewritten with its own value.
+        kdepth = torch.arange(1, T, device=dev)[None, :]
+        src_pos = p0[:, None] + path.long()[:, 1:]
+        dst_pos = p0[:, None] + kdepth
+        keep = active[:, None] & (kdepth < n_emit[:, None])
+        src_blk, src_off = table_at(src_pos), src_pos % bs
+        dst_blk = torch.where(keep, table_at(dst_pos), 0)
+        dst_off = torch.where(keep, dst_pos % bs, 0)
+        for t in cache:
+            if t is not None:
+                t[:, dst_blk, dst_off] = t[:, src_blk, src_off]
+    else:
+        out, n_emit = spec_acceptance(logits, tokens[:, 1:], draft_len, temperature, seeds,
+                                      steps0, mode)
+        cand = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits_out = logits
+    # Raw-distribution logprobs of the emitted tokens (as the dense path).
+    # Stepwise, each slot's come from its own [B, V] logits through the
+    # dense path's functions, so that the reductions (and their rounding)
+    # are the dense substep's too.
+    if fused or tree:
+        slots = [logits_out.reshape(B * T, -1)]
+        emitted = [out.reshape(B * T)]
+    else:
+        slots, emitted = step_logits, [out[:, j] for j in range(T)]
+    logps = torch.stack([token_logprobs(lg, o) for lg, o in zip(slots, emitted)],
+                        dim=-1).reshape(B, T)
+    if top_n > 0:
+        tops = [top_k_logprobs(lg, top_n) for lg in slots]
+        top_vals = torch.stack([v for v, _ in tops], dim=-2).reshape(B, T, top_n)
+        top_ids = torch.stack([i for _, i in tops], dim=-2).reshape(B, T, top_n)
+    else:
+        top_vals = torch.zeros((B, T, 0), dtype=torch.float32, device=dev)
+        top_ids = torch.zeros((B, T, 0), dtype=torch.int32, device=dev)
+    last_tok = torch.gather(out, 1, (n_emit.long() - 1)[:, None])[:, 0]
+    return out, n_emit, logps, cand, top_vals, top_ids, last_tok

@@ -22,8 +22,10 @@ device:
   this one is fetched.
 - On CUDA a K-step window (K > 1) is one CUDA-graph replay
   (``engine/graphs.py``), the counterpart of the JAX package's one jitted
-  dispatch per window. K=1 tail steps, prefill and admission sampling run
-  eagerly, as the JAX package dispatches them separately too.
+  dispatch per window, and so is every speculative verify pass
+  (``spec_verify``; ``warm_spec`` captures its shape lattice). K=1 tail
+  steps, prefill and admission sampling run eagerly, as the JAX package
+  dispatches them separately too.
 
 Thread affinity: the engine's scheduler thread only.
 """
@@ -39,7 +41,7 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
-from dynamo_tpu_torch.engine.graphs import WindowGraphs
+from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts
 from dynamo_tpu_torch.engine.quant import quantize_params_np, random_int8_params_device
 from dynamo_tpu_torch.engine.sampler import (
     row_gumbel,
@@ -102,6 +104,20 @@ def window_layout(B: int, W: int, L: int) -> Layout:
         ("freq", (B,), "f"), ("pres", (B,), "f"), ("pen", (B, L), "i"),
         ("chain_mask", (B,), "b"), ("chain_src", (B,), "i"), ("fold_slots", (B,), "i"),
     )
+
+
+def verify_layout(B: int, W: int, S1: int, tree: bool) -> Layout:
+    """Operands of one speculative verify pass: B rows of S1 slots, W-wide
+    tables, and for a draft tree its topology (parents, ancestor bits as
+    one word each, depths)."""
+    fields = [
+        ("tokens", (B, S1), "i"), ("positions0", (B,), "i"), ("draft_len", (B,), "i"),
+        ("tables", (B, W), "i"), ("active", (B,), "b"), ("temps", (B,), "f"),
+        ("seeds", (B,), "i"), ("steps0", (B,), "i"), ("fold_slots", (B,), "i"),
+    ]
+    if tree:
+        fields += [("parents", (B, S1), "i"), ("anc", (B, S1, S1), "i"), ("depth", (B, S1), "i")]
+    return Layout(*fields)
 
 
 def sample_layout(B: int, L: int) -> Layout:
@@ -191,6 +207,13 @@ class LocalRunner:
         self.last_toks: torch.Tensor | None = None
         self.graphs: WindowGraphs | None = None
         self.eager_windows = 0  # K-step windows run eagerly on CUDA
+        self.eager_verifies = 0  # verify passes run eagerly on CUDA
+        # Verify passes dispatched, the forwards over all layers they made
+        # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
+        # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route).
+        self.verify_passes = 0
+        self.verify_forwards = 0
+        self.verify_calls = (0,) * len(COUNTERS)
 
     def start(self) -> None:
         self.device = resolve_device(self.args.device)
@@ -376,6 +399,116 @@ class LocalRunner:
             pen=np.full(lay.slices["pen"][2], -1, np.int32), chain_mask=z, chain_src=z,
             fold_slots=np.full((B,), sink, np.int32),
         )
+
+    def spec_verify(self, S1, mode, tokens, positions0, draft_len, tables, active, temps,
+                    seeds, steps0, fold_slots=None, top_n=0, tree=None, *, rid=None,
+                    eager=False) -> StepRef:
+        """One speculative verify pass over ``S1`` slots per row (fused: one
+        weight stream; ``spec_fused=False``: S1 decode steps), acceptance
+        on the device → StepRef (out [B, S1], n_emit [B], logps [B, S1],
+        cand [B, S1], top_vals, top_ids). ``tree`` = None for linear
+        drafts, or (parents [B, S1], anc [B, S1, S1], depth [B, S1]) numpy
+        arrays for a draft tree. The pass's last emitted token folds into
+        ``last_toks`` at ``fold_slots``, so the next window chains from it.
+        On CUDA each verify shape is one graph replay; ``eager=True`` runs
+        it op by op (the parity checks' seam). The JAX runner's grammar
+        masks and adapter slots are not ported (ROADMAP A15, A16)."""
+        B, W = np.shape(tables)
+        S1 = int(S1)
+        if fold_slots is None:
+            fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        lay = verify_layout(B, W, S1, tree is not None)
+        arrays = dict(tokens=tokens, positions0=positions0, draft_len=draft_len, tables=tables,
+                      active=active, temps=temps, seeds=seeds, steps0=steps0,
+                      fold_slots=fold_slots)
+        if tree is not None:
+            arrays.update(parents=tree[0], anc=tree[1], depth=tree[2])
+        words = lay.pack(**arrays)
+        fused = self.args.spec_fused or tree is not None
+        before = read_counts()
+        if self.graphs is not None and not eager:
+            outs = self._graph_verify(lay, S1, mode, int(top_n), fused, words)
+        else:
+            if self.device.type == "cuda":
+                self.eager_verifies += 1
+            outs = self._verify_fn(S1, mode, int(top_n), fused, lay)(self.upload(words))
+        self.verify_calls = tuple(c + b - a for c, a, b in
+                                  zip(self.verify_calls, before, read_counts()))
+        self.verify_passes += 1
+        self.verify_forwards += 1 if fused else S1
+        return self._new_ref(tuple(outs), rid)
+
+    def _graph_verify(self, lay: Layout, S1: int, mode: str, top_n: int, fused: bool,
+                      words: np.ndarray):
+        B, W = lay.slices["tables"][2]
+        key = ("verify", B, W, S1, mode, top_n, "parents" in lay.slices, fused)
+        return self.graphs.run(key, words, lambda: (
+            self._verify_fn(S1, mode, top_n, fused, lay), self._inert_verify(lay)))
+
+    def _verify_fn(self, S1: int, mode: str, top_n: int, fused: bool, lay: Layout):
+        """The verify pass as one function of its packed inputs (what a
+        graph captures): model.spec_verify, then the fold of each row's
+        last emitted token into ``last_toks``."""
+
+        def verify(words: torch.Tensor):
+            a = lay.unpack(words)
+            out = M.spec_verify(
+                self.cfg, S1, mode, top_n, self.params, self.cache, a["tokens"],
+                a["positions0"], a["draft_len"], a["tables"], a["active"], a["temps"],
+                a["seeds"], a["steps0"], a.get("parents"), a.get("anc"), a.get("depth"),
+                fused=fused, attn_impl=self.attn_impl,
+            )
+            self.last_toks[a["fold_slots"].long()] = out[6]
+            return out[:6]
+
+        return verify
+
+    def _inert_verify(self, lay: Layout) -> np.ndarray:
+        """Verify inputs that touch nothing live: every row inactive (KV
+        writes and compaction land in block 0), folds into the sink slot;
+        a tree layout carries a chain's topology."""
+        B, S1 = lay.slices["tokens"][2]
+        z = np.zeros((B,), np.int32)
+        arrays = dict(
+            tokens=np.zeros((B, S1), np.int32), positions0=z,
+            draft_len=np.full((B,), S1 - 1, np.int32),
+            tables=np.zeros(lay.slices["tables"][2], np.int32), active=z,
+            temps=np.ones((B,), np.float32), seeds=z, steps0=z,
+            fold_slots=np.full((B,), self.args.max_num_seqs, np.int32),
+        )
+        if "parents" in lay.slices:
+            arrays.update(
+                parents=np.broadcast_to(np.maximum(np.arange(S1) - 1, 0), (B, S1)),
+                anc=np.broadcast_to(np.tril(np.ones((S1, S1), np.int32)), (B, S1, S1)),
+                depth=np.broadcast_to(np.arange(S1), (B, S1)),
+            )
+        return lay.pack(**arrays)
+
+    def warm_spec(self, modes=("greedy", "simple"), top_ns=(0,)) -> int:
+        """Capture, ahead of traffic, the CUDA graph of every verify shape
+        the engine's speculation can dispatch in these sampler modes and
+        top_n values (the JAX package AOT-compiles the same lattice): each
+        decode bucket × table bucket × S1 (spec_tokens+1, and
+        2·spec_tokens+1 under adaptive budgets) × linear, and tree when
+        spec_tree_width > 1; each is replayed once on inert inputs. →
+        graphs newly captured (0 on the CPU or with spec_tokens 0)."""
+        S = self.args.spec_tokens
+        if self.graphs is None or S <= 0:
+            return 0
+        s1s = [S + 1] + ([2 * S + 1] if self.args.spec_budget_adaptive else [])
+        trees = [False] + ([True] if self.args.spec_tree_width > 1 else [])
+        before = self.graphs.captured
+        for S1 in s1s:
+            for tree in trees:
+                fused = self.args.spec_fused or tree
+                for mode in modes:
+                    for top_n in top_ns:
+                        for B in self.args.decode_buckets:
+                            for W in self.args.table_buckets:
+                                lay = verify_layout(B, W, S1, tree)
+                                self._graph_verify(lay, S1, mode, top_n, fused,
+                                                   self._inert_verify(lay))
+        return self.graphs.captured - before
 
     def sample_rows(self, logits: list[torch.Tensor], mode: str, temps, tks, tps, pen, freqs,
                     press, seeds, steps, fold_slots=None, top_n: int = 0) -> StepRef:

@@ -17,7 +17,8 @@ default) in 32-bit mode (also its default):
   element ``i`` (the high and low words of a 64-bit iota) and XORs the two
   output words;
 - ``uniform(minval=tiny, maxval=1)`` puts the top 23 bits in the mantissa
-  of a float in [1, 2), subtracts 1, adds ``tiny`` and clamps at ``tiny``;
+  of a float in [1, 2), subtracts 1, adds ``tiny`` and clamps at ``tiny``
+  (speculative acceptance draws with ``minval=1e-12`` the same way);
 - ``gumbel`` is ``-log(-log(u))`` of that uniform.
 
 The bits are exact. The Gumbel values agree with jax's to one ulp of
@@ -79,12 +80,15 @@ def random_bits(key: Key, n: int) -> torch.Tensor:
     return b0 ^ b1
 
 
-def uniform(key: Key, n: int) -> torch.Tensor:
-    """``uniform(key, (n,), float32, minval=tiny, maxval=1.0)`` for each key
-    of a [B] batch → [B, n] float32."""
+def uniform(key: Key, n: int, minval: float = _TINY) -> torch.Tensor:
+    """``uniform(key, (n,), float32, minval=minval, maxval=1.0)`` for each
+    key of a [B] batch → [B, n] float32. For any ``minval`` below half a
+    float32 ulp of 1 (the sampler's tiny and 1e-12), jax's scale
+    ``maxval - minval`` rounds to 1, so the value is ``floats + minval``
+    clamped at ``minval``."""
     fbits = ((random_bits(key, n) >> 9) | _ONE_BITS).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    return (floats + _TINY).clamp_min(_TINY)
+    return (floats + minval).clamp_min(minval)
 
 
 def gumbel(key: Key, n: int) -> torch.Tensor:

@@ -119,7 +119,9 @@ def paged_spec_attention_ref(
 ) -> torch.Tensor:
     """Gather formulation of the multi-query kernel (the JAX package's
     ``paged_spec_attention_xla``). Tree mode: in-flight slot s sits at
-    ``lengths[b, t] + s`` and query t attends it when ``anc[b, t, s]``.
+    ``lengths[b, t] + s`` and query t attends it when ``anc[b, t, s]``; a
+    row with no ``anc`` bit set attends nothing, whatever its lengths, as
+    the Pallas kernel's empty rows do (``rowlen = 0``).
 
     Two deliberate differences from the JAX gather path, both matching
     the kernel: positions that no query of the row attends are zeroed
@@ -141,6 +143,7 @@ def paged_spec_attention_ref(
         in_window = (slot >= 0) & (slot < T)
         anc_g = torch.gather(anc != 0, 2, slot.clamp(0, T - 1))
         attend = attend | (in_window & anc_g)
+        attend = attend & (anc != 0).flatten(1).any(dim=1)[:, None, None]
     seen = attend.any(dim=1)[:, :, None, None]                     # [B, C, 1, 1]
     pk = torch.where(seen, pk, torch.zeros((), dtype=pk.dtype, device=pk.device))
     pv = torch.where(seen, pv, torch.zeros((), dtype=pv.dtype, device=pv.device))

@@ -5,7 +5,9 @@ The whole LLM chain (preprocessor → detokenizing backend → engine) runs
 in this one process, on the card unless ``--device cpu`` is given. Batch
 mode prints one JSON line per prompt, as the JAX launcher does; ``--in
 http`` serves the OpenAI surface of the distributed frontend without a
-store or worker, after capturing the engine's decode-window graphs.
+store or worker, after capturing the engine's decode-window graphs (and
+with ``--spec-tokens`` its verify graphs); the speculative-decoding flags
+are the worker's.
 ``--model-path`` serves a checkpoint (HF directory, .gguf file or cached
 hub name) with its own tokenizer unless ``--tokenizer`` names another, as
 the worker does.
@@ -52,6 +54,19 @@ def parse_args(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--seed", type=int, default=0)
+    # Speculative decoding, the worker's flags and defaults.
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="max draft tokens verified per speculative pass (0 = off)")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="n-gram match length for the prompt-lookup drafter")
+    p.add_argument("--spec-stepwise", action="store_true",
+                   help="verify drafts with a stepwise loop of the dense decode step")
+    p.add_argument("--spec-tree-width", type=int, default=1,
+                   help="max draft-tree branching factor (1 = linear drafts)")
+    p.add_argument("--spec-tree-depth", type=int, default=0,
+                   help="max draft-tree path depth (0 = spec-tokens)")
+    p.add_argument("--spec-budget", choices=["adaptive", "uniform"], default="adaptive",
+                   help="per-pass draft-node allocation across the batch")
     return p.parse_args(argv)
 
 
@@ -92,7 +107,7 @@ async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> L
     launcher) set the engine's weight and KV page formats for callers that
     drive the pipeline in process; ``--model-path`` checkpoints load as
     they are stored."""
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
     if args.dtype is None:
@@ -113,7 +128,7 @@ async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> L
         model=model, block_size=args.block_size, num_kv_blocks=args.num_kv_blocks,
         max_num_seqs=args.max_num_seqs, max_model_len=args.max_model_len,
         dtype=args.dtype, decode_steps=args.decode_steps, device=args.device,
-        quant=quant, kv_quant=kv_quant,
+        quant=quant, kv_quant=kv_quant, **spec_engine_args(args),
     ), params=params, seed=args.seed).start()
     tokenizer = load_tokenizer(tok_spec)
     card = ModelDeploymentCard(
@@ -187,6 +202,7 @@ async def run_http(args, pipe: LocalPipeline) -> None:
     # Capture the decode-window graphs before listening, so that no
     # request waits for a capture (none on the CPU).
     await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
+    await asyncio.to_thread(pipe.engine.runner.warm_spec, ("greedy", "simple"))
     http = await HttpService(
         LocalManager(pipe), MetricsRegistry(), host=args.host, port=args.port
     ).start()

@@ -2,7 +2,8 @@
 ``dynamo_tpu/worker/__main__.py``, the aggregated serving path).
 
 Boots a ``TorchEngine`` (on the card unless ``--device cpu``), captures
-its decode-window CUDA graphs, serves the ``generate`` endpoint plus the
+its decode-window CUDA graphs (and, with ``--spec-tokens``, one graph per
+speculative verify shape), serves the ``generate`` endpoint plus the
 KV-event, load-metrics and clear-KV endpoints, and registers the model
 card: a frontend of either package discovers the model through the
 store watch and routes to it over the runtime's wire.
@@ -83,6 +84,29 @@ def parse_args(argv=None):
                         "KV-pressure preemption ordered by (priority "
                         "class, age). No-priority traffic is byte-"
                         "identical either way; off pins one class")
+    # Speculative decoding: n-gram prompt-lookup drafts verified in one
+    # batched forward per pass (engine/drafter.py + model.spec_verify).
+    # 0 = off. Greedy output is the dense path's; sampled requests keep
+    # their distribution by rejection sampling. A per-sequence acceptance
+    # EMA turns speculation off on incompressible streams.
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="max draft tokens verified per speculative pass (0 = off)")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="n-gram match length for the prompt-lookup drafter")
+    p.add_argument("--spec-stepwise", action="store_true",
+                   help="verify drafts with a stepwise loop of the dense decode step "
+                        "(bitwise parity with the dense path; forfeits the single-weight-"
+                        "stream win) instead of the fused single-pass forward")
+    p.add_argument("--spec-tree-width", type=int, default=1,
+                   help="max draft-tree branching factor (1 = linear drafts; >= 2 enables "
+                        "SpecInfer-style tree verification with the topology-masked kernel "
+                        "+ Lookahead Jacobi pool)")
+    p.add_argument("--spec-tree-depth", type=int, default=0,
+                   help="max draft-tree path depth (0 = spec-tokens)")
+    p.add_argument("--spec-budget", choices=["adaptive", "uniform"], default="adaptive",
+                   help="per-pass draft-node allocation: adaptive moves nodes from "
+                        "acceptance-EMA-cold rows to hot ones under the fixed batch budget "
+                        "(rows x spec-tokens); uniform = every row gets spec-tokens")
     p.add_argument("--kv-quant", choices=["none", "int8"], default="none",
                    help="paged KV cache storage (int8 = quantized pages + "
                         "per-position-per-head scales)")
@@ -95,7 +119,7 @@ def parse_args(argv=None):
 
 async def build_engine(args):
     """→ (engine, model_card)."""
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
     params = None
@@ -131,6 +155,7 @@ async def build_engine(args):
         quant=args.quant,
         kv_quant=args.kv_quant,
         device=args.device,
+        **spec_engine_args(args),
     ), params=params, seed=args.seed).start()
     card = ModelDeploymentCard(
         name=args.model_name or model.name,
@@ -160,6 +185,9 @@ def engine_counters(engine) -> dict:
         "prefilled_tokens": engine.total_prefilled,
         "preemptions": engine.total_preemptions,
         "eager_windows": engine.runner.eager_windows,
+        "spec_passes": engine.runner.verify_passes,
+        "spec_forwards": engine.runner.verify_forwards,
+        "eager_verifies": engine.runner.eager_verifies,
     }
 
 
@@ -173,11 +201,14 @@ async def async_main(args) -> None:
     t_launch = time.perf_counter()
     rt = await DistributedRuntime.create(store_url=args.store_url, proc_label=lane)
     engine, card = await build_engine(args)
-    # Capture the decode-window graphs before registering, so that no
-    # request waits for a capture (none on the CPU).
+    # Capture the decode-window graphs and, with --spec-tokens, the verify
+    # lattice before registering, so that no request waits for a capture
+    # (none on the CPU).
     t0 = time.perf_counter()
     graphs = await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
     warm_s = time.perf_counter() - t0
+    verify_graphs = await asyncio.to_thread(engine.runner.warm_spec, ("greedy", "simple"))
+    verify_s = time.perf_counter() - t0 - warm_s
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
     pa.launches = im.launches = im.prefill_launches = 0
@@ -203,7 +234,8 @@ async def async_main(args) -> None:
     print(
         f"dynamo_tpu_torch worker: serving {card.name} as "
         f"{args.namespace}/{args.component}/{args.endpoint} on {args.device} "
-        f"({graphs} window graphs captured in {warm_s:.2f}s; registered "
+        f"({graphs} window graphs captured in {warm_s:.2f}s, {verify_graphs} verify "
+        f"graphs in {verify_s:.2f}s; registered "
         f"{time.perf_counter() - t_launch:.2f}s after the runtime started)",
         flush=True,
     )

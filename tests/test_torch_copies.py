@@ -34,7 +34,7 @@ COPIED = [
     "kv_router/publisher.py",
     "llm/protocols.py", "llm/backend.py", "llm/model_card.py", "llm/discovery.py",
     "llm/migration.py", "llm/pipeline.py", "llm/http_service.py", "llm/recorder.py",
-    "block_manager/pool.py", "engine/hub.py",
+    "block_manager/pool.py", "engine/hub.py", "engine/drafter.py",
 ]
 
 # Changed on purpose, one line each on why.

@@ -69,7 +69,8 @@ def test_port_imports_no_jax_and_no_reference_modules():
     for cli in ("worker.__main__", "frontend.__main__", "runtime.store_server",
                 "llm.http_service", "runtime.http_server", "runtime.msgpack_lite", "llm.template",
                 "engine.loader", "engine.safetensors_io", "engine.gguf", "engine.hub",
-                "engine.quant", "ops.int8_matmul", "llm.tokenizer_json", "llm.unicode_classes"):
+                "engine.quant", "ops.int8_matmul", "llm.tokenizer_json", "llm.unicode_classes",
+                "engine.drafter", "engine.sampler", "engine.graphs"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
@@ -156,6 +157,39 @@ def test_cuda_tensors_never_fall_back(monkeypatch):
             pa.paged_decode_attention(q_dec, kc, kc, 0, tables, len_dec)
         with pytest.raises(ValueError):  # wrong table dtype is refused before any launch
             pa.paged_spec_attention(q, kc, kc, 0, tables.long(), lengths)
+    assert plain_calls == [] and pa.launches == before
+
+
+@pytest.mark.parametrize("T,tree", [(4, False), (7, True), (64, True)])
+def test_spec_cuda_tensors_never_fall_back(monkeypatch, T, tree):
+    """The verify shapes (linear and tree, up to MAX_T slots, with KVH·T·G
+    well past the 128 lanes at which the JAX package leaves its Pallas
+    kernel for the XLA gather) reach the kernel path for CUDA tensors and
+    never the plain version; a row of more than MAX_T slots is refused."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def absent(name):
+        raise RuntimeError("kernel library absent")
+
+    plain_calls = []
+    monkeypatch.setattr(_build, "library", absent)
+    monkeypatch.setattr(pa, "paged_spec_attention_ref", lambda *a, **k: plain_calls.append(a))
+    before = pa.launches
+    with FakeTensorMode():
+        B, KVH, G, hd = 8, 8, 4, 128
+        kc = torch.empty((2, 16, 16, KVH * hd), dtype=torch.bfloat16, device="cuda")
+        tables = torch.zeros((B, 4), dtype=torch.int32, device="cuda")
+        for t in (T, pa.MAX_T + 1):
+            q = torch.empty((B, t, KVH, G, hd), dtype=torch.bfloat16, device="cuda")
+            lengths = torch.ones((B, t), dtype=torch.int32, device="cuda")
+            anc = torch.ones((B, t, t), dtype=torch.int8, device="cuda") if tree else None
+            if t > pa.MAX_T:
+                with pytest.raises(ValueError, match="at most"):
+                    pa.paged_spec_attention(q, kc, kc, 1, tables, lengths, anc=anc)
+            else:
+                assert KVH * t * G > 128 or not tree
+                with pytest.raises(RuntimeError, match="kernel library absent"):
+                    pa.paged_spec_attention(q, kc, kc, 1, tables, lengths, anc=anc)
     assert plain_calls == [] and pa.launches == before
 
 

@@ -131,6 +131,25 @@ def test_tree_matches_jax(quant):
     assert np.all(port[3] == 0.0)
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_tree_row_without_live_node_outputs_zeros(quant):
+    """The tree-row contract: a row whose ``anc`` is all zero attends
+    nothing, even with lengths above zero, so it outputs zeros in the JAX
+    package's Pallas kernel (interpret mode, ``rowlen = 0``) and in the
+    port's plain version alike; the live rows beside it agree as before."""
+    B, T = 4, 5
+    q, kc, vc, tables, ks, vs = _inputs(41, B, T, quant=quant)
+    anc = np.broadcast_to(_tree_anc([0, 0, 1, 1], T), (B, T, T)).copy()
+    anc[1] = 0               # no live node, history 12
+    anc[3] = 0               # no live node, history 30
+    hist = np.array([7, 12, 15, 30], np.int32)
+    lens = np.broadcast_to(hist[:, None], (B, T)).copy()
+    port, _xla, pallas = _both(q, kc, vc, tables, lens, ks, vs, anc, 1)
+    dead = ~anc.any(axis=(1, 2))
+    assert np.all(pallas[dead] == 0.0) and np.all(port[dead] == 0.0)
+    np.testing.assert_allclose(port[~dead], pallas[~dead], **TOL)
+
+
 def test_nan_tails_never_leak():
     """Positions past each row's length hold NaN: the port's output on the
     poisoned cache equals the JAX reference on the clean one."""
