@@ -134,9 +134,42 @@ Phases, in order; any failure raises and the run exits non-zero:
    per pass and the verify graphs' count and pool bytes are printed beside
    the card's name and power limit.
 
+11. Disaggregated prefill/decode at full width, twice: bf16, and int8
+   weights with int8 pages. The store, one `python -m
+   dynamo_tpu_torch.worker --is-prefill-worker --component prefill` and
+   one default worker (`--disagg auto`, `--max-local-prefill-length 512`),
+   both with the main path's engine arguments (seed 0: the same weights),
+   and a kv-mode frontend; the burst as 8 aggregate /v1/completions. The
+   prompts of 768, 1024, 1280 and 1536 tokens (`REMOTE`) must prefill
+   remotely (queue dispatch), each moving (prompt - 1) // 16 full blocks
+   over the streaming data plane into the decode worker's cache, and the
+   other four locally: disagg_remote_prefill_total 4 and no fallback, on
+   the decode worker's /metrics and counters line. Every remote response
+   must equal the in-process engine's pass of the same request on its
+   cached prefix (main_path's `reference["repeats"]`: an injected prompt
+   is admitted as the same prefix hit), every local one the cold burst:
+   token texts and logprobs bit for bit. The decode worker's launches
+   (SIGUSR1) are held to 32 x its substeps and, with int8 weights, to the
+   shape rule over its prefills (the local prompts, and each remote
+   prompt's 16-token suffix); the prefill worker decodes nothing. Request 7
+   is then sent alone from an empty cache (one transfer with nothing else
+   running, held to the same reference). Then the prefill worker is
+   replaced by one started with
+   `DYNTPU_CHAOS_ENABLED=1 DYNTPU_CHAOS_TRANSFER_CUT_P=1`, the decode
+   worker's cache cleared, and request 7 sent again: its transfer is cut,
+   the decode worker falls back to a local prefill
+   (disagg_fallback_total{reason="transfer"} 1) and returns the cold
+   burst's stream. Every process must exit 0 on SIGTERM. Each remote
+   request's bytes, chunks, overlap_frac, dispatch-to-last-chunk seconds
+   and MB/s, every request's TTFT (frontend ledger) beside phase 7's (bf16)
+   or the in-process burst's (int8), the decode worker's drain_sync share
+   and inject seconds, and the host cost of one 47-block chunk on the wire
+   (`kv_wire_timing`) are printed beside the card's name and power limit.
+
 The last lines are the kernels JSON line (the attention kernel's decode
 entry, the int8 product, and the attention kernel's linear and tree
-verify modes), nvidia-smi's name/power line, and {"ok": true, "device":
+verify modes; the first two also carry phase 11's decode worker's
+launches), nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -172,6 +205,14 @@ BURST_HIST = [96, 192, 352, 544, 800, 1056, 1312, 1568]
 BURST_LENS = [64, 160, 320, 512, 768, 1024, 1280, 1536]
 BURST_TEMPS = [0.0, 0.0, 0.0, 0.7, 0.0, 0.0, 0.7, 0.0]
 BURST_TOKENS = 64
+# The decode worker's threshold: prompts with more uncached tokens than this
+# prefill remotely in phase 11 (the worker's default).
+MAX_LOCAL_PREFILL = 512
+# The burst's requests that go remote: 768, 1024, 1280 and 1536 tokens (the
+# byte tokenizer adds no BOS, so a prompt's tokens are its characters).
+REMOTE = [i for i, n in enumerate(BURST_LENS) if n > MAX_LOCAL_PREFILL]
+# The request rerun against a prefill worker that cuts every transfer.
+CHAOS_REQUEST = REMOTE[-1]
 # Engine arguments of the main path, shared by its in-process pipeline and
 # the HTTP phase's workers.
 ENGINE_ARGV = ["--block-size", "16", "--num-kv-blocks", "2048", "--max-num-seqs", "8",
@@ -727,10 +768,17 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
              "replays": st2["replays"],
              "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     reference = {"burst": [o["ref"] for o in first]}
+    if quant == "none" or kv_quant == "int8":
+        # The requests phase 11 prefills remotely, again on the prefixes the
+        # depth-0 pass cached (request 7 first: phase 7's repeat). A remote
+        # prefill is admitted as the same prefix hit, so these are the
+        # references of phases 7 and 11.
+        repeats = {}
+        for i in sorted(REMOTE, key=lambda i: i != 7):
+            repeats[i] = await one(i, prompts[i], temps[i], 1000 + i)
+        reference["repeats"] = {i: r["ref"] for i, r in repeats.items()}
     if quant == "none":
-        # Request 7 again, on the prefix its depth-0 pass cached: the
-        # reference of the HTTP phase's repeat, which takes the same path.
-        repeat = await one(7, prompts[7], temps[7], 1007)
+        repeat = repeats[7]
         drift = max(abs(a - b) for a, b in zip(repeat["logprobs"], first[7]["logprobs"]))
         log(f"main: request 7 again on its cached prefix: tokens "
             f"{'equal to' if repeat['tokens'] == first[7]['tokens'] else 'not equal to'} its "
@@ -1298,6 +1346,87 @@ def msgpack_frame_us(reps: int = 2000) -> dict:
             msgpack_lite.unpackb(msgpack_lite.packb(frame))
         out[name] = {"bytes": len(raw), "us": (time.perf_counter() - t0) / reps * 1e6}
     return out
+
+
+def kv_wire_timing(n_blocks: int = 47, reps: int = 3) -> dict:
+    """Host seconds to move one streamed KV chunk of ``n_blocks`` llama-8b
+    bf16 blocks (the 768-token prompt's export) through the wire, best of
+    ``reps``: framing it (``chunk_to_frames`` + ``framing.pack_prefixed``,
+    what the prefill worker's kv_fetch sends), reading it back (``unpackb`` +
+    ``KvChunkAssembler``) and turning it into the engine's inject dict
+    (``to_wire``, on the decode worker's event loop), and the chunk from an
+    endpoint to a router over the runtime's TCP wire; each beside one copy
+    of the same bytes into new memory (``tobytes``), so a time reads as a
+    number of copies."""
+    import numpy as np
+
+    from dynamo_tpu_torch.runtime import framing, msgpack_lite
+    from dynamo_tpu_torch.transfer.stream import KvChunk, KvChunkAssembler, chunk_to_frames
+
+    rng = np.random.default_rng(0)
+    shape = (32, n_blocks, 16, 1024)  # llama-8b: 32 layers, 16-token blocks, 8 x 128 lanes
+    pages = tuple(rng.integers(0, 1 << 16, shape, dtype=np.uint16) for _ in range(2))
+    chunk = KvChunk(block_offset=0, pages=pages, num_tokens=16 * n_blocks)
+    # a response data frame's envelope, as the endpoint server packs it
+    prefix = framing.map3_prefix("t", "data", "id", "0" * 32, "payload")
+    best = {"memcpy_s": [], "pack_s": [], "unpack_s": [], "to_wire_s": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        copies = [src.tobytes() for src in pages]
+        t1 = time.perf_counter()
+        del copies
+        raw = [framing.pack_prefixed(prefix, f) for f in chunk_to_frames(0, chunk)]
+        t2 = time.perf_counter()
+        asm, got = KvChunkAssembler(), None
+        for r in raw:
+            got = asm.feed(msgpack_lite.unpackb(r[4:])["payload"]) or got
+        t3 = time.perf_counter()
+        wire = got.to_wire()
+        t4 = time.perf_counter()
+        for k, v in zip(best, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            best[k].append(v)
+        if not all(np.array_equal(a, b) for a, b in zip(got.pages, pages)) or not wire["k"]:
+            raise RuntimeError("kv wire: a chunk did not round-trip")
+        n_frames, max_frame = len(raw), max(len(r) for r in raw)
+        del raw, asm, got, wire  # each rep starts from the same free memory
+    out = {k: min(v) for k, v in best.items()}
+    out["runtime_s"] = min(asyncio.run(_runtime_pull(chunk)) for _ in range(reps))
+    out.update(bytes=sum(p.nbytes for p in pages), frames=n_frames, max_frame=max_frame)
+    return out
+
+
+async def _runtime_pull(chunk) -> float:
+    """Seconds for one chunk's frames from an endpoint of one runtime to a
+    router of another in the same process, over the runtime's TCP wire
+    (what kv_fetch does between the two workers, without their engines)."""
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import RouterMode
+    from dynamo_tpu_torch.transfer.stream import KvChunkAssembler, chunk_to_frames
+
+    url = f"memory://kv-wire-{os.getpid()}-{time.perf_counter_ns()}"
+    server = await DistributedRuntime.create(store_url=url)
+    client = await DistributedRuntime.create(store_url=url)
+    try:
+        async def frames(payload, ctx):
+            for f in chunk_to_frames(0, chunk):
+                yield f
+
+        await server.namespace("kvwire").component("c").endpoint("kv").serve(frames)
+        router = await client.namespace("kvwire").component("c").endpoint("kv").router(
+            RouterMode.ROUND_ROBIN)
+        await router.discovery.wait_for_instances(1)
+        t0 = time.perf_counter()
+        asm, got = KvChunkAssembler(), None
+        async for f in router.generate({}, Context()):
+            got = asm.feed(f) or got
+        dt = time.perf_counter() - t0
+        if got is None or got.num_blocks != chunk.num_blocks:
+            raise RuntimeError("kv wire: the runtime pull lost the chunk")
+        return dt
+    finally:
+        await client.shutdown()
+        await server.shutdown()
 
 
 def _metric(text: str, name: str) -> float | None:
@@ -2665,6 +2794,272 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     return result
 
 
+# -- phase 11: disaggregated prefill/decode between port workers --------------
+
+
+def suffix_len(n: int, bs: int = 16) -> int:
+    """Tokens a decode worker prefills itself over an injected prompt: the
+    prefill worker exports full blocks only, (n - 1) // bs of them."""
+    return n - bs * ((n - 1) // bs)
+
+
+def usr1_counters(proc: Proc, timeout: float = 60.0) -> dict:
+    """SIGUSR1 a worker and read the engine_counters line it prints."""
+    seen = len(proc.lines)
+    proc.proc.send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for line in proc.lines[seen:]:
+            if line.startswith('{"event": "engine_counters"'):
+                return json.loads(line)
+        time.sleep(0.05)
+    raise RuntimeError(f"{proc.name}: no engine_counters line after SIGUSR1")
+
+
+def _disagg_sums(text: str) -> dict:
+    """Disagg series of a worker's /metrics: remote prefills, fallbacks by
+    reason, transfer bytes."""
+    fallbacks = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^dynamo_tpu_disagg_fallback_total\{reason="([^"]*)"\} ([0-9.eE+-]+)$', text, re.M)}
+    return {"remote": _metric(text, "dynamo_tpu_disagg_remote_prefill_total") or 0.0,
+            "fallbacks": fallbacks,
+            "bytes": _metric(text, "dynamo_tpu_disagg_kv_transfer_bytes_total") or 0.0}
+
+
+def disagg_phase(card_line: str, reference: dict, agg_ttft: tuple | None = None,
+                 preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16",
+                 quant: str = "none", kv_quant: str = "none") -> dict:
+    """Phase 11: the port's store server, one ``--is-prefill-worker`` and
+    one default worker (``--disagg auto``, ``--max-local-prefill-length
+    512``) on the same weights, and a kv-mode frontend; the burst as 8
+    aggregate /v1/completions. ``reference``: the in-process burst under
+    "burst" (cold) and the requests of ``REMOTE`` served again on their
+    cached prefixes under "repeats"; ``agg_ttft``: (label, per-request
+    TTFT) of an aggregated run to print beside this phase's."""
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+
+    tag = "disagg" if quant == "none" else f"disagg-int8-kv{kv_quant}"
+    cfg = ModelConfig.preset(preset)
+    bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
+    block_bytes = EngineArgs(model=cfg, block_size=bs, dtype=dtype,
+                             kv_quant=kv_quant).kv_bytes_per_block()
+    argv = ["--preset", preset, "--dtype", dtype, "--device", device, "--quant", quant,
+            "--kv-quant", kv_quant, *ENGINE_ARGV]
+    procs: list[Proc] = []
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+
+    def prefill_worker(name: str, env: dict | None = None) -> Proc:
+        p = Proc(name, ["dynamo_tpu_torch.worker", "--store-url", store_url,
+                        "--is-prefill-worker", "--component", "prefill", *argv], env=env)
+        procs.append(p)
+        _, secs = p.wait_for(r"prefill worker: serving", 600)
+        log(f"{tag}: {name} registered {secs:.2f}s after launch ({card_line})")
+        return p
+
+    try:
+        store = Proc(f"{tag}-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                      "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        sys_port = _free_port()
+        decode = Proc(f"{tag}-decode", [
+            "dynamo_tpu_torch.worker", "--store-url", store_url,
+            "--max-local-prefill-length", str(MAX_LOCAL_PREFILL), *argv],
+            env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port)})
+        procs.append(decode)
+        prefill = prefill_worker(f"{tag}-prefill")
+        _, secs = decode.wait_for(r"worker: serving .* window graphs captured", 600)
+        log(f"{tag}: decode worker registered {secs:.2f}s after launch ({card_line})")
+        fe = Proc(f"{tag}-frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                                      "--host", "127.0.0.1", "--port", "0", "--router-mode",
+                                      "kv"])
+        procs.append(fe)
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+
+        # The burst: 4 remote, 4 local; every response held to its reference.
+        rs, wall = asyncio.run(_disagg_burst(port, preset, list(range(8))))
+        for i, r in enumerate(rs):
+            ref = reference["repeats"][i] if i in REMOTE else reference["burst"][i]
+            _check_disagg(f"{tag} request {i} ({'remote' if i in REMOTE else 'local'})", r, ref)
+        time.sleep(1.0)  # the burst's last in-flight windows drain
+        dc = usr1_counters(decode)
+        pc = usr1_counters(prefill)
+        metrics = _disagg_sums(_get_text(sys_port, "/metrics"))
+        dg = dc["disagg"]
+        transfers = sorted(dg["transfers"], key=lambda t: t["prompt_tokens"])
+        remote_lens = [BURST_LENS[i] for i in REMOTE]
+        if (dg["remote_prefills"] != len(REMOTE) or dg["local_fallbacks"]
+                or metrics["remote"] != len(REMOTE) or any(metrics["fallbacks"].values())
+                or [t["prompt_tokens"] for t in transfers] != remote_lens
+                or any(t["outcome"] != "remote" for t in transfers)):
+            raise RuntimeError(f"{tag}: routing: handler {dg}, /metrics {metrics}")
+        for t in transfers:
+            n_blocks = (t["prompt_tokens"] - 1) // bs
+            if t["bytes"] != n_blocks * block_bytes:
+                raise RuntimeError(f"{tag}: {t['prompt_tokens']}-token transfer moved "
+                                   f"{t['bytes']} bytes, not {n_blocks} x {block_bytes}")
+        local_lens = [n for n in BURST_LENS if n <= MAX_LOCAL_PREFILL]
+        d_lens = local_lens + [suffix_len(n, bs) for n in remote_lens]
+        want_prefilled = sum(d_lens)
+        if dc["prefilled_tokens"] != want_prefilled or pc["prefilled_tokens"] != sum(remote_lens):
+            raise RuntimeError(f"{tag}: prefilled tokens decode {dc['prefilled_tokens']} (want "
+                               f"{want_prefilled}), prefill {pc['prefilled_tokens']} (want "
+                               f"{sum(remote_lens)})")
+        counts = _held_counts(tag, "decode worker", dc, cfg, d_lens, device, quant)
+        p_counts = _held_counts(tag, "prefill worker", pc, cfg, remote_lens, device, quant)
+        if pc["decode_substeps"] != 0:
+            raise RuntimeError(f"{tag}: the prefill worker decoded ({pc['decode_substeps']} "
+                               "substeps)")
+        ttft = [asyncio.run(routed(port, r["trace_id"]))[1] for r in rs]
+        phase = dc["phase_s"]
+        decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
+        drain_sync_share = phase.get("drain_sync", 0.0) / decode_s if decode_s else 0.0
+        for t in transfers:
+            t["mb_per_s"] = t["bytes"] / t["seconds"] / 1e6
+            log(f"{tag}: remote request of {t['prompt_tokens']} tokens: {t['bytes']} bytes in "
+                f"{t['chunks']} chunk(s), overlap_frac {t['overlap_frac']}, dispatch + pull "
+                f"{t['seconds']:.3f}s → {t['mb_per_s']:.1f} MB/s ({card_line})")
+        for i, t in enumerate(ttft):
+            vs = f", {agg_ttft[0]} {agg_ttft[1][i] * 1e3:.1f} ms" if agg_ttft else ""
+            log(f"{tag}: request {i} ({BURST_LENS[i]} tokens, "
+                f"{'remote' if i in REMOTE else 'local'}) ledger TTFT {t * 1e3:.1f} ms{vs} "
+                f"({card_line})")
+        log(f"{tag}: 8 requests, {8 * BURST_TOKENS} tokens in {wall:.3f}s → "
+            f"{8 * BURST_TOKENS / wall:.1f} tokens/s; decode worker: drain_sync "
+            f"{100 * drain_sync_share:.1f}% of its decode-phase host time, inject "
+            f"{dc['inject_s']:.3f}s on the scheduler thread for {dc['inject_bytes']} bytes; "
+            f"prefill worker: export {pc['export_s']:.3f}s on its scheduler thread; launches "
+            f"(attention, int8 kernel, int8 prefill route) decode {counts}, prefill {p_counts} "
+            f"({card_line})")
+        log(f"{tag}: routing exact: requests {REMOTE} remote ({remote_lens} tokens), the rest "
+            f"local; disagg_remote_prefill_total {metrics['remote']:.0f}, fallbacks "
+            f"{metrics['fallbacks'] or 0}; remote streams equal the in-process prefix-hit "
+            f"passes, local ones the cold burst, bit for bit (token texts and logprobs)")
+
+        # The longest prompt alone, from an empty cache: one transfer with
+        # nothing else on either worker, beside the burst's four.
+        asyncio.run(clear_kv(port, preset, workers=1))
+        (r,), _ = asyncio.run(_disagg_burst(port, preset, [CHAOS_REQUEST], "alone"))
+        _check_disagg(f"{tag} request {CHAOS_REQUEST} alone", r,
+                      reference["repeats"][CHAOS_REQUEST])
+        alone_ttft = asyncio.run(routed(port, r["trace_id"]))[1]
+        time.sleep(1.0)
+        dc1 = usr1_counters(decode)
+        alone = dc1["disagg"]["transfers"][-1]
+        if dc1["disagg"]["remote_prefills"] != len(REMOTE) + 1 or alone["outcome"] != "remote":
+            raise RuntimeError(f"{tag}: request {CHAOS_REQUEST} alone: {dc1['disagg']}")
+        alone["mb_per_s"] = alone["bytes"] / alone["seconds"] / 1e6
+        delta = {k: dc1[k] - dc[k] for k in ("decode_substeps", "paged_attention_launches",
+                                              "int8_matmul_launches",
+                                              "int8_matmul_prefill_launches")}
+        _held_counts(tag, "decode worker (request alone)", delta, cfg,
+                     [suffix_len(BURST_LENS[CHAOS_REQUEST], bs)], device, quant)
+        log(f"{tag}: request {CHAOS_REQUEST} alone ({BURST_LENS[CHAOS_REQUEST]} tokens, remote): "
+            f"{alone['bytes']} bytes, dispatch + pull {alone['seconds']:.3f}s → "
+            f"{alone['mb_per_s']:.1f} MB/s, ledger TTFT {alone_ttft * 1e3:.1f} ms; its stream "
+            f"equals the in-process prefix-hit pass ({card_line})")
+
+        # Fault path: a prefill worker that cuts every transfer after its
+        # first chunk; the decode worker's cache cleared so the request
+        # goes remote again, falls back and prefills locally (cold).
+        rcs = {prefill.name: prefill.stop()}
+        asyncio.run(clear_kv(port, preset, workers=1))
+        chaos = prefill_worker(f"{tag}-prefill-chaos", env={
+            "DYNTPU_CHAOS_ENABLED": "1", "DYNTPU_CHAOS_TRANSFER_CUT_P": "1"})
+        time.sleep(1.0)  # the decode worker's discovery sees the new instance
+        (r,), _ = asyncio.run(_disagg_burst(port, preset, [CHAOS_REQUEST], "chaos"))
+        _check_disagg(f"{tag} chaos request {CHAOS_REQUEST}", r,
+                      reference["burst"][CHAOS_REQUEST])
+        time.sleep(1.0)
+        dc2 = usr1_counters(decode)
+        metrics2 = _disagg_sums(_get_text(sys_port, "/metrics"))
+        if (dc2["disagg"]["fallback_reasons"] != {"transfer": 1}
+                or dc2["disagg"]["remote_prefills"] != len(REMOTE) + 1
+                or metrics2["fallbacks"] != {"transfer": 1.0}):
+            raise RuntimeError(f"{tag}: chaos: handler {dc2['disagg']}, /metrics {metrics2}")
+        delta = {k: dc2[k] - dc1[k] for k in ("decode_substeps", "paged_attention_launches",
+                                              "int8_matmul_launches",
+                                              "int8_matmul_prefill_launches")}
+        _held_counts(tag, "decode worker (chaos rerun)", delta, cfg,
+                     [BURST_LENS[CHAOS_REQUEST]], device, quant)
+        log(f"{tag}: chaos: DYNTPU_CHAOS_TRANSFER_CUT_P=1 on the prefill worker cut request "
+            f"{CHAOS_REQUEST}'s transfer; the decode worker fell back to a local prefill "
+            f"(disagg_fallback_total{{reason=\"transfer\"}} 1) and returned the cold burst's "
+            f"stream bit for bit")
+        rcs.update({p.name: p.stop() for p in [fe, decode, chaos, store]})
+        if any(rcs.values()):
+            raise RuntimeError(f"{tag}: processes did not exit 0 on SIGTERM: {rcs}")
+        final = next(json.loads(line) for line in reversed(decode.lines)
+                     if line.startswith('{"event": "engine_counters"'))
+        return {"tokens_per_s": 8 * BURST_TOKENS / wall, "wall_s": wall, "ttft_s": ttft,
+                "remote": REMOTE, "transfers": transfers, "launches": counts,
+                "prefill_launches": p_counts, "decode_substeps": dc["decode_substeps"],
+                "drain_sync_share": drain_sync_share, "inject_s": dc["inject_s"],
+                "inject_bytes": dc["inject_bytes"], "export_s": pc["export_s"],
+                "phase_s": phase, "prefill_phase_s": pc["phase_s"], "metrics": metrics,
+                "alone": dict(alone, ttft_s=alone_ttft), "chaos": dc2["disagg"],
+                "final_counters": final, "exit_codes": rcs}
+    finally:
+        for p in procs:
+            p.kill()
+
+
+def _held_counts(tag, who, c, cfg, lens, device, quant) -> tuple[int, int, int]:
+    """Hold a worker's launch counters to the count its substeps and
+    prefills give → (attention, int8 kernel, int8 prefill route)."""
+    got = (c["paged_attention_launches"], c["int8_matmul_launches"],
+           c["int8_matmul_prefill_launches"])
+    want = _ckpt_counts(cfg, c["decode_substeps"], device, lens)
+    if quant != "int8":
+        want = (want[0], 0, 0)
+    if got != want:
+        raise RuntimeError(f"{tag}: {who} launches (attention, int8 kernel, int8 prefill "
+                           f"route) {got} != {want} for {c['decode_substeps']} substeps")
+    return got
+
+
+def _get_text(port: int, path: str) -> str:
+    _, _, pieces, _ = asyncio.run(http_request(port, path, method="GET"))
+    return b"".join(p for _, p in pieces).decode()
+
+
+async def _disagg_burst(port: int, model: str, idx: list[int], label: str = "burst"):
+    """The burst's requests ``idx`` at once as aggregate completions →
+    (responses, wall seconds)."""
+    await _wait_listed(port, model)
+    prompts = burst_prompts()
+    base = {"burst": 0xE00, "alone": 0xE80}.get(label, 0xF00)
+    t0 = time.perf_counter()
+    rs = await asyncio.gather(*(http_completion(port, {
+        "model": model, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+        "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True, "logprobs": 0,
+        "stream": False}, f"{base + i:032x}") for i in idx))
+    return rs, time.perf_counter() - t0
+
+
+def _check_disagg(label: str, r: dict, ref: dict) -> None:
+    """200, 64 tokens, and the reference's text, token texts and logprobs
+    bit for bit; a divergence is reported at its first position."""
+    if r["status"] != 200 or r.get("error"):
+        raise RuntimeError(f"{label}: status {r['status']} {r.get('error')}")
+    if (r["usage"] or {}).get("completion_tokens") != BURST_TOKENS or r["finish"] != "length":
+        raise RuntimeError(f"{label}: usage {r['usage']}, finish {r['finish']!r}")
+    if r["lp_tokens"] != ref["lp_tokens"] or r["logprobs"] != ref["logprobs"]:
+        k = next((j for j, (a, b) in enumerate(zip(r["lp_tokens"], ref["lp_tokens"]))
+                  if a != b), None)
+        drift = max(abs(a - b) for a, b in zip(r["logprobs"], ref["logprobs"]))
+        where = (f"first token divergence at {k}: {r['lp_tokens'][k]!r} (logprob "
+                 f"{r['logprobs'][k]}) against {ref['lp_tokens'][k]!r} ({ref['logprobs'][k]}); "
+                 f"the two candidates' logprobs differ by "
+                 f"{abs(r['logprobs'][k] - ref['logprobs'][k]):.4g}") if k is not None else \
+            "tokens equal"
+        raise RuntimeError(f"{label}: stream differs from its reference ({where}; max "
+                           f"|logprob delta| {drift:.4g})")
+    if r["text"] != ref["text"]:
+        raise RuntimeError(f"{label}: text differs from its reference")
+
+
 def main() -> int:
     try:
         import torch
@@ -2698,9 +3093,10 @@ def main() -> int:
     cases = kernel_phase(device)
     int8_cases, int8_substep = int8_kernel_phase(device, card_line)
     stats, reference = asyncio.run(main_path(card_line))
-    int8_runs = {}
+    int8_runs, int8_refs = {}, {}
     for kv_quant in ("none", "int8"):
-        int8_runs[kv_quant], _ = asyncio.run(main_path(card_line, quant="int8", kv_quant=kv_quant))
+        int8_runs[kv_quant], int8_refs[kv_quant] = asyncio.run(
+            main_path(card_line, quant="int8", kv_quant=kv_quant))
         torch.cuda.empty_cache()
     for kv_quant, st in int8_runs.items():
         log(f"int8 vs bf16 ({kv_quant} KV pages for int8): tokens/s {st['tokens_per_s']:.1f} vs "
@@ -2733,6 +3129,21 @@ def main() -> int:
             f"{t['linear_S1_4_ms']:.3f} / S1=7 {t['linear_S1_7_ms']:.3f} ms (tree "
             f"{t['tree_S1_4_ms']:.3f} / {t['tree_S1_7_ms']:.3f}) against a dense substep "
             f"{t['dense_substep_ms']:.3f} ms ({card_line})")
+    torch.cuda.empty_cache()
+    wire = kv_wire_timing()
+    log(f"kv wire: one {wire['bytes']}-byte chunk (47 llama-8b bf16 blocks) in {wire['frames']} "
+        f"frames of at most {wire['max_frame']} bytes: one copy {wire['memcpy_s'] * 1e3:.1f} ms; "
+        + "; ".join(f"{name} {wire[k] * 1e3:.1f} ms ({wire[k] / wire['memcpy_s']:.2f} copies)"
+                    for name, k in (("frame + pack", "pack_s"), ("unpack + assemble", "unpack_s"),
+                                    ("to_wire", "to_wire_s"),
+                                    ("endpoint → router over TCP", "runtime_s")))
+        + f" (host CPU beside {card_line})")
+    disagg = {"kv_wire": wire,
+              "bf16": disagg_phase(card_line, reference, ("phase 7", http["ttft_s_pass2"]))}
+    disagg["int8"] = disagg_phase(
+        card_line, int8_refs["int8"],
+        ("in process", [r["ttft_s"] for r in int8_refs["int8"]["burst"]]),
+        quant="int8", kv_quant="int8")
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = next(r for r in cases if r["case"] == "decode_bfloat16_burst")
@@ -2741,6 +3152,8 @@ def main() -> int:
         "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
         "launches": stats["launches"], "launches_http": http["launches"],
         "launches_tokenizer_worker": tok["launches"][0],
+        "launches_disagg_decode_worker": disagg["bf16"]["launches"][0],
+        "launches_disagg_decode_worker_int8": disagg["int8"]["launches"][0],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -2753,6 +3166,8 @@ def main() -> int:
         "launches_kv_int8": int8_runs["int8"]["int8_launches"],
         "launches_checkpoint_worker": ckpt["launches"][1],
         "launches_tokenizer_worker": tok["launches"][1],
+        "launches_disagg_decode_worker": disagg["int8"]["launches"][1],
+        "prefill_route_launches_disagg_prefill_worker": disagg["int8"]["prefill_launches"][2],
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
@@ -2784,7 +3199,8 @@ def main() -> int:
     log("checkpoint_path: " + json.dumps(ckpt))
     log("tokenizer_path: " + json.dumps(tok))
     log("spec_path: " + json.dumps(spec))
-    log(f"chip_smoke: phases 1-10 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
+    log("disagg_path: " + json.dumps(disagg))
+    log(f"chip_smoke: phases 1-11 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
     print(json.dumps({"kernels": [entry, int8_entry, *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,9 +31,17 @@ helpers, the same names): n-gram or tree drafts verified in one pass
 acceptance, an acceptance EMA with probe cooldowns, adaptive batch node
 budgets, and the ``engine_spec_*`` series.
 
+Disaggregated prefill/decode is the JAX engine's too (the same names): a
+request with ``kv_transfer_params.do_remote_decode`` prefills only and
+exports its full prompt blocks, streamed chunk by chunk while the prefill
+runs when it carries a ``stream_handle`` (``get_stream_export``), else as
+one payload (``take_export``); a request with ``kv_transfer_params.inject``
+(pages a prefill worker exported) admits them as a prefix hit, written
+into the cache in place by ``runner.inject_pages``.
+
 Omitted for now, each a ROADMAP item: LoRA, grammar-constrained decoding
 (and with it grammar masks on the tree path), KV tiers and offload, live
-migration, disaggregated export/inject, embeddings and tracing.
+migration, embeddings and tracing.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from typing import Any, AsyncIterator
 import numpy as np
 
 from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
+from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.drafter import TreeDraft, build_drafter
 from dynamo_tpu_torch.engine.runner import HostFetch, LocalRunner, host_ready, start_host_fetch
@@ -62,11 +71,19 @@ from dynamo_tpu_torch.llm.protocols import (
 )
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.qos import DEFAULT_CLASS, QOS_CLASSES, qos_rank
-from dynamo_tpu_torch.tokens import TokenBlockSequence, compute_block_hashes
+from dynamo_tpu_torch.tokens import TokenBlockSequence, adapter_hash_seed, compute_block_hashes
+from dynamo_tpu_torch.transfer.stream import KvChunk, KvStreamExport
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 _SENTINEL_DONE = object()
+
+# Streaming disaggregated export (transfer/stream.py): host bytes of
+# published-but-unacked chunks one export may buffer (the JAX package's
+# default). A consumer that stops pulling aborts the stream at this budget
+# (the decode side falls back to local prefill) instead of growing the
+# prefill worker's heap without bound.
+TRANSFER_BUFFER_BYTES = 256 << 20
 
 # Adaptive tree budgets: the per-row draft-node cap, as a multiple of
 # spec_tokens. Bounding hot rows at 2x keeps the verify-shape lattice at
@@ -188,6 +205,8 @@ class _Seq:
         "block_ids", "block_seq", "registered_blocks", "queue", "emitted",
         "cancelled", "sample_seed", "kv_written", "dead", "slot", "first_pend",
         "spec_ema", "spec_cool", "draft_state", "qos", "qos_rank", "arrival",
+        "export", "export_meta", "inject", "export_handle", "export_stream",
+        "export_pub_blocks",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
@@ -237,6 +256,18 @@ class _Seq:
         self.qos = priority if priority in QOS_CLASSES else DEFAULT_CLASS
         self.qos_rank = qos_rank(priority)
         self.arrival = 0
+        # Disaggregation (the engine side of llm/disagg.py): prefill only
+        # and export the KV, or pre-load exported pages (a KvPagePayload
+        # dict, or {"chunks": [...]} from a stream). With a decode-worker-
+        # minted stream_handle, chunks publish DURING prefill;
+        # export_pub_blocks is the contiguous published coverage.
+        ktp = req.kv_transfer_params or {}
+        self.export = bool(ktp.get("do_remote_decode"))
+        self.export_meta: dict | None = None
+        self.inject = ktp.get("inject")
+        self.export_handle = ktp.get("stream_handle") if self.export else None
+        self.export_stream: KvStreamExport | None = None
+        self.export_pub_blocks = 0
 
     @property
     def next_write_pos(self) -> int:
@@ -376,6 +407,19 @@ class TorchEngine:
         # row-pass is one weight pass yielding n_emit tokens.
         self.total_row_passes = 0
         self.total_row_tokens = 0
+        # Disagg exports: handle → (KvPagePayload | KvStreamExport,
+        # deadline). Host copies, reaped after export_ttl_s since the
+        # consumer last pulled (unsealed streams abort at reap time).
+        self._exports: dict[str, tuple[Any, float]] = {}
+        self.export_ttl_s = 60.0
+        # Streaming-export page fetches in flight: (seq, lo, hi, HostFetch,
+        # n), dispatched per prefill chunk and harvested once landed.
+        self._export_fetches: list = []
+        # Host seconds the scheduler spent injecting pages (inject_s) and
+        # gathering and publishing exports (export_s), and the bytes.
+        self.inject_s = 0.0
+        self.inject_bytes = 0
+        self.export_s = 0.0
 
     # -- lifecycle --------------------------------------------------------
 
@@ -611,6 +655,12 @@ class TorchEngine:
             crashed = True
             log.exception("engine loop crashed")
         finally:
+            self._export_fetches.clear()
+            with self._mutex:
+                exports = [item for item, _dl in self._exports.values()]
+            for item in exports:
+                if isinstance(item, KvStreamExport):
+                    item.abort("engine_stopped")  # no-op when sealed
             with self._wakeup:
                 self._stopping = True
                 leftovers = list(self._running) + list(self._waiting) + list(self._submissions)
@@ -641,9 +691,13 @@ class TorchEngine:
         # slots and blocks and finds stops early, and costs nothing when
         # the head of the queue is still in flight.
         self._drain_completed()
+        if self._export_fetches:
+            self._drain_export_fetches()
         self._reap_cancelled()
         while self._host_jobs:
             self._serve_host_job(*self._host_jobs.popleft())
+        if self._exports:
+            self._reap_exports()
         t0 = time.perf_counter()
         allocated: list[tuple[_Seq, int]] = []  # (seq, suffix start)
         budget = self.args.admission_budget_tokens or (1 << 62)
@@ -757,7 +811,24 @@ class TorchEngine:
         block_ids, n_hit = self.pool.allocate_sequence(hashes[:max_hit], total_blocks)
         seq.block_ids = block_ids
         seq.block_seq = TokenBlockSequence(prompt, bs)
-        return n_hit * bs
+        start = n_hit * bs
+        # Disagg: pre-load remotely prefilled pages as a materialized
+        # prefix hit; the suffix (at least one token) is recomputed here,
+        # which also gives the first token's logits.
+        if seq.inject is not None:
+            start, n_hit = self._inject_kv(seq, n_hit, max_hit)
+        # Streaming export: register the stream at admission, so the
+        # decode worker's kv_fetch can pull while the prefill runs; blocks
+        # already in the cache (a prefix hit) publish as chunk 0 now.
+        if seq.export and seq.export_handle:
+            exp = KvStreamExport(seq.export_handle, max_buffer_bytes=TRANSFER_BUFFER_BYTES)
+            seq.export_stream = exp
+            with self._mutex:
+                self._exports[seq.export_handle] = (exp, time.monotonic() + self.export_ttl_s)
+            hit = min(start // bs, (plen - 1) // bs)  # full blocks only, like _export_kv
+            if hit > 0:
+                self._start_export_extract(seq, 0, hit)
+        return start
 
     def _prefill(self, seq: _Seq, start: int):
         """Single-row prefill of positions [start, len) in chunks of at most
@@ -776,9 +847,19 @@ class TorchEngine:
             logits = self._runner.prefill_chunk(toks, table, pos, pos + n)
             self.total_prefill_padded += len(toks)
             pos += n
+            # Streaming export: the blocks this chunk completed ship while
+            # the next chunks compute (their gather is enqueued after this
+            # chunk), and gathers that already landed publish now.
+            if seq.export_stream is not None and seq.export_stream.abort_reason is None:
+                done = min(pos // bs, (plen - 1) // bs)
+                if done > seq.export_pub_blocks:
+                    self._start_export_extract(seq, seq.export_pub_blocks, done)
+                self._drain_export_fetches()
         self.total_prefilled += plen - start
         seq.kv_written = plen
         self._register_written_blocks(seq)
+        if seq.export:
+            self._export_kv(seq, plen)
         return logits
 
     def _register_written_blocks(self, seq: _Seq) -> None:
@@ -795,6 +876,170 @@ class TorchEngine:
                 seq.block_ids[seq.registered_blocks], blk.sequence_hash, blk.parent_sequence_hash
             )
             seq.registered_blocks += 1
+
+    # -- disaggregated export / inject -------------------------------------
+
+    def _inject_kv(self, seq: _Seq, n_hit: int, max_hit: int) -> tuple[int, int]:
+        """Write fetched pages into this sequence's blocks past the locally
+        hit prefix. The payload's first page is prompt block
+        ``block_offset`` (0 for disagg exports). → (new start position,
+        new hit count)."""
+        payload = seq.inject
+        if isinstance(payload, dict) and payload.get("chunks") is not None:
+            return self._inject_kv_chunks(seq, payload["chunks"], n_hit, max_hit)
+        off = 0
+        if isinstance(payload, dict):
+            off = int(payload.get("block_offset") or 0)
+            payload = kv_transfer.KvPagePayload.from_dict(payload)
+        bs = self.args.block_size
+        n_inj = min(off + payload.num_tokens // bs, max_hit, off + payload.k.shape[1])
+        if n_inj <= n_hit or off > n_hit:
+            # Already covered locally, or the payload starts past what the
+            # cache holds: injecting would leave a KV gap, so recompute.
+            return n_hit * bs, n_hit
+        self._inject_run(seq.block_ids[n_hit:n_inj],
+                         [a[:, n_hit - off : n_inj - off] for a in payload.pages()])
+        seq.inject = None  # free host pages promptly
+        return n_inj * bs, n_inj
+
+    def _inject_kv_chunks(self, seq: _Seq, chunks: list, n_hit: int,
+                          max_hit: int) -> tuple[int, int]:
+        """Inject a streamed chunk list run by run (format bridging per
+        chunk). Coverage must stay contiguous from the local hit
+        boundary; a gap stops injection and the rest is recomputed."""
+        bs = self.args.block_size
+        n_cur = n_hit
+        for ch in chunks:
+            off = int(ch.get("block_offset") or 0)
+            payload = kv_transfer.KvPagePayload.from_dict(ch)
+            end = min(off + payload.k.shape[1], max_hit)
+            if end <= n_cur:
+                continue  # fully covered locally already
+            if off > n_cur:
+                break  # gap: injecting past it would leave a KV hole
+            self._inject_run(seq.block_ids[n_cur:end],
+                             [a[:, n_cur - off : end - off] for a in payload.pages()])
+            n_cur = end
+        seq.inject = None  # free host chunk buffers promptly
+        return n_cur * bs, n_cur
+
+    def _inject_run(self, block_ids: list[int], pages: list) -> None:
+        t0 = time.perf_counter()
+        self._runner.inject_pages(block_ids, *pages)
+        self.inject_bytes += sum(int(a.nbytes) for a in pages)
+        self.inject_s += time.perf_counter() - t0
+
+    def _export_kv(self, seq: _Seq, plen: int) -> None:
+        bs = self.args.block_size
+        n_exp = (plen - 1) // bs  # full blocks only; the suffix is recomputed remotely
+        if seq.export_stream is not None:
+            # Streaming export: publish the remainder, drain this stream's
+            # page fetches (blocking is fine: the prefill is done) and seal.
+            meta = {"remote_handle": seq.export_handle, "stream": True,
+                    "num_tokens": n_exp * bs, "num_blocks": n_exp}
+            if n_exp > seq.export_pub_blocks and seq.export_stream.abort_reason is None:
+                self._start_export_extract(seq, seq.export_pub_blocks, n_exp)
+            self._drain_export_fetches(force_seq=seq)
+            seq.export_stream.seal(num_blocks=n_exp, num_tokens=n_exp * bs)
+            seq.export_meta = meta
+            return
+        meta = {"remote_handle": seq.request_id, "num_tokens": n_exp * bs, "num_blocks": n_exp}
+        if n_exp > 0:
+            t0 = time.perf_counter()
+            pages = self._runner.extract_pages(seq.block_ids[:n_exp])
+            payload = kv_transfer.KvPagePayload.from_pages(pages, n_exp * bs)
+            self.export_s += time.perf_counter() - t0
+            with self._mutex:
+                self._exports[seq.request_id] = (payload, time.monotonic() + self.export_ttl_s)
+        seq.export_meta = meta
+
+    def _start_export_extract(self, seq: _Seq, lo: int, hi: int) -> None:
+        """Enqueue the gather of blocks [lo, hi) of a streaming export and
+        its device→host copy; harvested by _drain_export_fetches."""
+        t0 = time.perf_counter()
+        arrs, n = self._runner.start_extract_pages(seq.block_ids[lo:hi])
+        self._export_fetches.append((seq, lo, hi, start_host_fetch(arrs), n))
+        seq.export_pub_blocks = hi
+        self.export_s += time.perf_counter() - t0
+
+    def _drain_export_fetches(self, force_seq: _Seq | None = None) -> None:
+        """Publish, as one chunk each, the streaming-export fetches whose
+        copy has landed (never waiting); ``force_seq`` additionally waits
+        for THAT sequence's fetches (seal time). Fetches whose stream died
+        are dropped."""
+        t0 = time.perf_counter()
+        keep: list = []
+        blocked: set[int] = set()
+        bs = self.args.block_size
+        for item in self._export_fetches:
+            seq, lo, hi, fetch, n = item
+            exp = seq.export_stream
+            if exp is None or exp.abort_reason is not None:
+                continue  # stream gone: release the buffers
+            # Publish strictly in dispatch order per sequence: a later run
+            # landing first would punch a gap in the consumer's contiguous
+            # chunk stream.
+            if id(seq) in blocked or (seq is not force_seq and not host_ready(fetch)):
+                keep.append(item)
+                blocked.add(id(seq))
+                continue
+            pages = self._runner.finish_extract_pages(fetch, n)
+            exp.publish(KvChunk(block_offset=lo, pages=pages, num_tokens=(hi - lo) * bs))
+        self._export_fetches = keep
+        self.export_s += time.perf_counter() - t0
+
+    def prefix_hit_length(self, token_ids: list[int], adapter_id: str | None = None) -> int:
+        """Tokens of this prompt already resident in the local prefix cache
+        (whole blocks): a locally cached prompt is not prefilled remotely.
+        The port serves no adapters, so only ``adapter_id=None`` (the base
+        model's hash domain) can hit. Thread-safe."""
+        bs = self.args.block_size
+        max_hit = (len(token_ids) - 1) // bs
+        hashes = compute_block_hashes(token_ids, bs, adapter_hash_seed(adapter_id))[:max_hit]
+        return len(self.pool.match_prefix(hashes)) * bs
+
+    def take_export(self, handle: str):
+        """→ KvPagePayload | None. One-shot: the caller owns the pages.
+        Streaming exports are not served here (get_stream_export)."""
+        with self._mutex:
+            item = self._exports.get(handle)
+            if item is not None and isinstance(item[0], KvStreamExport):
+                return None
+            item = self._exports.pop(handle, None)
+        return item[0] if item else None
+
+    def get_stream_export(self, handle: str) -> KvStreamExport | None:
+        """→ the live streaming export for ``handle`` (not popped: the
+        consumer pulls windows against it), or None. Each lookup refreshes
+        the reap deadline, so the TTL bounds the time since the consumer
+        last pulled, not the whole transfer. Thread-safe."""
+        with self._mutex:
+            item = self._exports.get(handle)
+            if item is not None and isinstance(item[0], KvStreamExport):
+                exp = item[0]
+                self._exports[handle] = (exp, time.monotonic() + self.export_ttl_s)
+                return exp
+        return None
+
+    def release_stream_export(self, handle: str) -> None:
+        """Drop a fully delivered streaming export (the consumer saw
+        kv_eos) and free its remaining host pages. Thread-safe."""
+        with self._mutex:
+            item = self._exports.pop(handle, None)
+        if item is not None and isinstance(item[0], KvStreamExport):
+            item[0].ack(item[0].chunk_count())
+
+    def _reap_exports(self) -> None:
+        now = time.monotonic()
+        with self._mutex:
+            dead = [h for h, (_, dl) in self._exports.items() if dl < now]
+            reaped = [self._exports.pop(h) for h in dead]
+        for item, _dl in reaped:
+            if isinstance(item, KvStreamExport):
+                # The consumer never finished pulling: tell a late puller
+                # it is gone and free the buffered pages.
+                item.abort("expired")
+                item.ack(item.chunk_count())
 
     # -- decode ------------------------------------------------------------
 
@@ -832,6 +1077,15 @@ class TorchEngine:
         self._running.remove(seq)
         self._free_slots.append(seq.slot)
         seq.slot = None
+        # A preempted streaming export aborts (the decode worker falls back
+        # to local prefill) and the re-admission exports nothing: its
+        # handle is dropped with the stream.
+        if seq.export_stream is not None:
+            seq.export_stream.abort("preempted")
+            seq.export_stream = None
+            seq.export_handle = None
+            seq.export_pub_blocks = 0
+            seq.export = False
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []
         seq.registered_blocks = 0
@@ -1393,6 +1647,7 @@ class TorchEngine:
                 tops[: len(kept)]
                 if tops and seq.sampling.logprobs and seq.sampling.top_logprobs else None
             ),
+            kv_transfer_params=seq.export_meta if finish is not None else None,
         ).to_dict())
         if finish is not None:
             self._finish(seq, finish, already_posted=True)
@@ -1400,6 +1655,10 @@ class TorchEngine:
     def _finish(self, seq: _Seq, reason: FinishReason, error: str | None = None,
                 already_posted: bool = False) -> None:
         seq.dead = True
+        if seq.export_stream is not None and not seq.export_stream.sealed:
+            # Error or cancel before the prefill sealed the stream: the
+            # puller must not wait out its deadline on a dead export.
+            seq.export_stream.abort("prefill_failed")
         if seq in self._running:
             self._running.remove(seq)
         if seq.slot is not None:

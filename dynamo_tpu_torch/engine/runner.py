@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts
@@ -509,6 +510,31 @@ class LocalRunner:
                                 self._graph_verify(lay, S1, mode, top_n, fused,
                                                    self._inert_verify(lay))
         return self.graphs.captured - before
+
+    # -- KV page movement (disaggregated prefill/decode) -------------------
+
+    def extract_pages(self, block_ids: list[int]) -> tuple:
+        """→ (k, v) host page arrays, plus (k_scale, v_scale) under int8 KV
+        (synchronous)."""
+        return kv_transfer.extract_pages(self.cache, block_ids)
+
+    def start_extract_pages(self, block_ids: list[int]) -> tuple:
+        """Enqueue a page gather without waiting → (device tensors, n). The
+        streaming KV exporter starts their device→host copy
+        (start_host_fetch) and harvests it with ``finish_extract_pages``
+        once ready, so page copies overlap the remaining prefill chunks."""
+        return kv_transfer.start_extract(self.cache, block_ids)
+
+    @staticmethod
+    def finish_extract_pages(fetch: HostFetch, n: int) -> tuple:
+        return kv_transfer.finish_extract(fetch.wait(), n)
+
+    def inject_pages(self, block_ids: list[int], *pages) -> None:
+        """Write host pages into the named blocks, in place: the cache
+        tensors keep their addresses, which the captured graphs replay
+        against."""
+        pages = kv_transfer.adapt_pages(pages, self.cache, self.cfg.num_kv_heads)
+        kv_transfer.inject_pages(self.cache, block_ids, *pages)
 
     def sample_rows(self, logits: list[torch.Tensor], mode: str, temps, tks, tps, pen, freqs,
                     press, seeds, steps, fold_slots=None, top_n: int = 0) -> StepRef:

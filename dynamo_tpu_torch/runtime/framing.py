@@ -37,9 +37,11 @@ def map3_prefix(k1: str, v1, k2: str, v2, k3: str) -> bytes:
 
 
 def pack_prefixed(prefix: bytes, payload) -> bytes:
-    """One frame whose msgpack body is ``prefix || packb(payload)``."""
-    body = msgpack.packb(payload, use_bin_type=True)
-    return _LEN.pack(len(prefix) + len(body)) + prefix + body
+    """One frame whose msgpack body is ``prefix || packb(payload)``, its
+    bytes copied once (a 16 MiB KV page frame is a view of the pages)."""
+    parts = msgpack.pack_parts(payload)
+    n = len(prefix) + sum(len(p) for p in parts)
+    return b"".join([_LEN.pack(n), prefix, *parts])
 
 
 def set_nodelay(writer: asyncio.StreamWriter) -> None:

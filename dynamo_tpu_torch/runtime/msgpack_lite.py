@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import struct
 
-__all__ = ["packb", "unpackb"]
+__all__ = ["pack_parts", "packb", "unpackb"]
 
 _B = struct.Struct(">B")
 _H = struct.Struct(">H")
@@ -87,7 +87,9 @@ def _pack_str(s: str, out: list) -> None:
 
 
 def _pack_bin(data, out: list) -> None:
-    raw = bytes(data)
+    # A memoryview goes into the output as it is: the final join is the
+    # one copy of its bytes (KV page frames are 16 MiB views of the pages).
+    raw = _bytes_of(data) if type(data) is memoryview else bytes(data)
     n = len(raw)
     if n < 0x100:
         out.append(b"\xc4" + _B.pack(n))
@@ -98,6 +100,13 @@ def _pack_bin(data, out: list) -> None:
     else:
         raise ValueError("Bytes object is too large")
     out.append(raw)
+
+
+def _bytes_of(mv: memoryview) -> memoryview:
+    """A memoryview as a flat byte view (copied only if not contiguous)."""
+    if mv.format == "B" and mv.ndim == 1 and mv.c_contiguous:
+        return mv
+    return mv.cast("B") if mv.c_contiguous else memoryview(mv.tobytes())
 
 
 def _header(n: int, fix: int, b16: bytes, b32: bytes) -> bytes:
@@ -154,7 +163,7 @@ def _pack(o, out: list, depth: int) -> None:
         for v in o:
             _pack(v, out, depth + 1)
     elif isinstance(o, memoryview):
-        _pack_bin(o.tobytes(), out)
+        _pack_bin(o, out)
     else:
         raise TypeError(f"can not serialize {type(o).__name__!r} object")
 
@@ -163,9 +172,16 @@ def packb(o, use_bin_type: bool = True) -> bytes:
     """``o`` → MessagePack bytes (msgpack.packb(o, use_bin_type=True))."""
     if not use_bin_type:
         raise ValueError("msgpack_lite packs with use_bin_type=True only")
+    return b"".join(pack_parts(o))
+
+
+def pack_parts(o) -> list:
+    """``o`` → the pieces whose concatenation is ``packb(o)``, uncopied (a
+    memoryview value is one piece), so that a caller framing them joins
+    the bytes once (runtime/framing.py)."""
     out: list = []
     _pack(o, out, 0)
-    return b"".join(out)
+    return out
 
 
 class _Reader:

@@ -15,15 +15,27 @@ the checkpoint's own tokenizer (its ``tokenizer.json`` or GGUF vocabulary,
 in the port's pure-Python pipeline) is served unless ``--tokenizer`` names
 another; ``--tokenizer byte`` serves bytes.
 
+Disaggregated prefill/decode, as the JAX worker wires it:
+``--is-prefill-worker`` (run with ``--component prefill``) serves
+prefill-only requests and the ``kv_fetch`` endpoint that streams their KV
+pages, pulls queued prefill jobs, and registers no model card. Every
+other worker puts ``DisaggDecodeHandler`` in front of its engine
+(``--disagg auto``, the default): a prompt with more than
+``--max-local-prefill-length`` uncached tokens is prefilled by the
+prefill fleet, its pages streamed here and injected as a prefix hit;
+with no prefill fleet that costs one discovery lookup and the worker
+serves as an aggregated one. ``--disagg off`` serves the bare engine.
+
 SIGTERM drains: the endpoints deregister and finish their in-flight
 streams, then the engine stops. The last line the worker logs is one
 JSON object with its engine's counters (decode substeps dispatched, the
-kernels' launches, tokens generated); SIGUSR1 logs the same line and
-serves on.
+kernels' launches, tokens generated, host seconds by phase, KV pages
+injected and exported, and the disagg handler's counts); SIGUSR1 logs
+the same line and serves on.
 
-Not ported yet (ROADMAP A): LoRA, disaggregated prefill/decode roles,
-peer KV fetch, the autoscaler role manager, the dp spawner, multi-host
-followers, trace export, the fleet prefix directory and ``--sla-profile``.
+Not ported yet (ROADMAP A): LoRA, peer KV fetch, live migration, the
+autoscaler role manager, the dp spawner, multi-host followers, trace
+export, the fleet prefix directory and ``--sla-profile``.
 """
 
 from __future__ import annotations
@@ -37,12 +49,21 @@ import signal
 import time
 
 from dynamo_tpu_torch.kv_router.publisher import KvEventBroadcaster, serve_kv_endpoints
+from dynamo_tpu_torch.llm.disagg import (
+    DisaggConfig,
+    DisaggDecodeHandler,
+    PrefillHandler,
+    PrefillPuller,
+)
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, register_model
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
 from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
+from dynamo_tpu_torch.runtime.chaos import ChaosInjector
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.runtime.push_router import RouterMode
+from dynamo_tpu_torch.runtime.queue import WorkQueue
 
 log = get_logger("worker")
 
@@ -66,6 +87,25 @@ def parse_args(argv=None):
                         "with --model-path, byte without)")
     p.add_argument("--context-length", type=int, default=None)
     p.add_argument("--migration-limit", type=int, default=0)
+    # Disaggregated prefill/decode (the JAX worker's flags and defaults).
+    p.add_argument("--is-prefill-worker", action="store_true",
+                   help="serve prefill-only + kv_fetch; no model card (run with --component prefill)")
+    p.add_argument("--disagg", choices=["auto", "on", "off"], default="auto",
+                   help="disaggregated prefill/decode as the serving shape: auto (default) "
+                        "wires the decode-side disagg handler on every worker; with no "
+                        "prefill fleet discovered it costs one lookup per long prompt and "
+                        "serves aggregated; off serves the bare engine")
+    p.add_argument("--remote-prefill", action="store_true",
+                   help="alias for --disagg on (kept for compatibility)")
+    p.add_argument("--no-disagg-stream", action="store_true",
+                   help="legacy one-shot KV pull after prefill instead of the streaming "
+                        "data plane (dynamo_tpu_torch/transfer)")
+    p.add_argument("--prefill-component", default="prefill")
+    p.add_argument("--max-local-prefill-length", type=int, default=512,
+                   help="prompts with more uncached tokens than this prefill remotely")
+    p.add_argument("--prefill-dispatch", choices=["queue", "push"], default="queue",
+                   help="queue = competing-consumer work queue; push = round-robin RPC to a "
+                        "prefill worker")
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--num-kv-blocks", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=16)
@@ -114,7 +154,10 @@ def parse_args(argv=None):
                    help="weight format (int8 = weight-only quantization, engine/quant.py)")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.remote_prefill:
+        args.disagg = "on"
+    return args
 
 
 async def build_engine(args):
@@ -172,9 +215,29 @@ async def build_engine(args):
     return engine, card
 
 
-def engine_counters(engine) -> dict:
-    """The engine's monotonic counters as one JSON-able dict."""
-    return {
+class RecordingDecodeHandler(DisaggDecodeHandler):
+    """The decode-side disagg handler, keeping one record per streamed
+    remote prefill (its outcome, prompt tokens, bytes, chunks, overlap
+    fraction, and the seconds from dispatch to the last chunk) for the
+    counters line."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.transfers: list[dict] = []
+
+    async def _remote_prefill_stream(self, preq, ctx):
+        t0 = time.perf_counter()
+        inject, why, attrs = await super()._remote_prefill_stream(preq, ctx)
+        self.transfers.append({"prompt_tokens": len(preq.get("token_ids") or ()),
+                               "outcome": why or "remote",
+                               "seconds": round(time.perf_counter() - t0, 6), **(attrs or {})})
+        return inject, why, attrs
+
+
+def engine_counters(engine, disagg=None) -> dict:
+    """The engine's monotonic counters as one JSON-able dict, with the
+    disagg decode handler's when there is one."""
+    out = {
         "event": "engine_counters",
         "decode_substeps": engine.total_decode_steps,
         "paged_attention_launches": pa.launches,
@@ -188,7 +251,21 @@ def engine_counters(engine) -> dict:
         "spec_passes": engine.runner.verify_passes,
         "spec_forwards": engine.runner.verify_forwards,
         "eager_verifies": engine.runner.eager_verifies,
+        "phase_s": {k: round(v, 6) for k, v in engine.phase_s.items()},
+        "inject_s": round(engine.inject_s, 6),
+        "inject_bytes": engine.inject_bytes,
+        "export_s": round(engine.export_s, 6),
     }
+    if disagg is not None:
+        out["disagg"] = {
+            "remote_prefills": disagg.remote_prefills,
+            "local_fallbacks": disagg.local_fallbacks,
+            "fallback_reasons": dict(disagg.fallback_reasons),
+            "transfer_bytes": disagg.transfer_bytes_total,
+            "overlapped_bytes": disagg.transfer_overlapped_total,
+            "transfers": disagg.transfers,
+        }
+    return out
 
 
 async def async_main(args) -> None:
@@ -204,11 +281,15 @@ async def async_main(args) -> None:
     # Capture the decode-window graphs and, with --spec-tokens, the verify
     # lattice before registering, so that no request waits for a capture
     # (none on the CPU).
-    t0 = time.perf_counter()
-    graphs = await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
-    warm_s = time.perf_counter() - t0
-    verify_graphs = await asyncio.to_thread(engine.runner.warm_spec, ("greedy", "simple"))
-    verify_s = time.perf_counter() - t0 - warm_s
+    # A prefill worker never decodes: it captures nothing.
+    graphs = verify_graphs = 0
+    warm_s = verify_s = 0.0
+    if not args.is_prefill_worker:
+        t0 = time.perf_counter()
+        graphs = await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
+        warm_s = time.perf_counter() - t0
+        verify_graphs = await asyncio.to_thread(engine.runner.warm_spec, ("greedy", "simple"))
+        verify_s = time.perf_counter() - t0 - warm_s
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
     pa.launches = im.launches = im.prefill_launches = 0
@@ -218,21 +299,59 @@ async def async_main(args) -> None:
     engine.pool.set_event_sink(broadcaster.publish)
 
     comp = rt.namespace(args.namespace).component(args.component)
+    disagg = puller = None
+    if args.is_prefill_worker:
+        dcfg = DisaggConfig()
+        # Env-driven kill-mid-transfer faults (DYNTPU_CHAOS_TRANSFER_CUT_P)
+        # ride the runtime config's [chaos] section.
+        handler = PrefillHandler(engine, frame_bytes=dcfg.frame_bytes,
+                                 chaos=ChaosInjector.from_config(rt.config.chaos))
+        gen_handle = await comp.endpoint(args.endpoint).serve(handler.generate)
+        await comp.endpoint("kv_fetch").serve(handler.kv_fetch)
+        await serve_kv_endpoints(comp, broadcaster, engine.metrics)
+        # Pull queued prefill jobs too (competing consumer across the
+        # prefill fleet): push and queue dispatch both work.
+        puller = PrefillPuller(engine, WorkQueue(rt.store, dcfg.queue_name), rt.store,
+                               gen_handle.instance.instance_id, lane=lane).start()
+        # No model card: the frontend routes only to decode workers.
+        role = "prefill worker"
+    else:
+        handler = engine
+        if args.disagg != "off":
+            pcomp = rt.namespace(args.namespace).component(args.prefill_component)
+            dcfg = DisaggConfig(
+                max_local_prefill_length=args.max_local_prefill_length,
+                prefill_component=args.prefill_component,
+                stream=not args.no_disagg_stream,
+            )
+            handler = disagg = RecordingDecodeHandler(
+                engine,
+                await pcomp.endpoint(dcfg.prefill_endpoint).router(RouterMode.ROUND_ROBIN),
+                await pcomp.endpoint(dcfg.fetch_endpoint).router(RouterMode.DIRECT),
+                dcfg,
+                queue=(None if args.prefill_dispatch == "push"
+                       else WorkQueue(rt.store, dcfg.queue_name)),
+                store=rt.store,
+            )
+            # disagg_remote_prefill_total, disagg_fallback_total{reason} and
+            # the transfer series on this process's /metrics.
+            disagg.bind_metrics(rt.metrics)
 
-    async def gen_handler(payload, ctx):
-        async for item in engine.generate(payload, ctx):
-            yield item
+        async def gen_handler(payload, ctx):
+            async for item in handler.generate(payload, ctx):
+                yield item
 
-    await comp.endpoint(args.endpoint).serve(gen_handler)
-    await serve_kv_endpoints(comp, broadcaster, engine.metrics)
+        await comp.endpoint(args.endpoint).serve(gen_handler)
+        await serve_kv_endpoints(comp, broadcaster, engine.metrics)
 
-    async def clear_handler(payload, ctx):
-        yield {"cleared": engine.clear_kv_blocks()}
+        async def clear_handler(payload, ctx):
+            yield {"cleared": engine.clear_kv_blocks()}
 
-    await comp.endpoint("clear_kv").serve(clear_handler)
-    await register_model(rt, args.namespace, card)
+        await comp.endpoint("clear_kv").serve(clear_handler)
+        await register_model(rt, args.namespace, card)
+        role = "worker"
     print(
-        f"dynamo_tpu_torch worker: serving {card.name} as "
+        f"dynamo_tpu_torch {role}: serving {card.name} as "
         f"{args.namespace}/{args.component}/{args.endpoint} on {args.device} "
         f"({graphs} window graphs captured in {warm_s:.2f}s, {verify_graphs} verify "
         f"graphs in {verify_s:.2f}s; registered "
@@ -247,14 +366,18 @@ async def async_main(args) -> None:
             loop.add_signal_handler(sig, stop.set)
     with contextlib.suppress(NotImplementedError):
         loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            json.dumps(engine_counters(engine)), flush=True))
+            json.dumps(engine_counters(engine, disagg)), flush=True))
     await stop.wait()
     log.info("worker shutting down")
+    if puller is not None:
+        # Stop claiming queued jobs while the store is still reachable (its
+        # watch is cancelled on the store), then drain as any worker does.
+        await puller.stop()
     # Deregister and drain the endpoints first, so in-flight streams
     # finish on the engine; then stop it.
     await rt.shutdown()
     await engine.stop()
-    print(json.dumps(engine_counters(engine)), flush=True)
+    print(json.dumps(engine_counters(engine, disagg)), flush=True)
 
 
 def main(argv=None) -> int:

@@ -5,7 +5,8 @@ after the port's import rewrites, so a change to either side shows up
 here. The rewrites are mechanical:
 
 - ``dynamo_tpu.`` → ``dynamo_tpu_torch.``;
-- ``import msgpack`` → the port's pure-Python ``msgpack_lite``;
+- ``import msgpack`` → the port's pure-Python ``msgpack_lite``, at any
+  indent (``llm/disagg.py`` imports it inside functions);
 - ``from aiohttp import web`` → the port's asyncio ``http_server``;
 - ``import jinja2`` → the port's template renderer.
 
@@ -28,13 +29,14 @@ COPIED = [
     "runtime/engine.py", "runtime/chaos.py", "runtime/messaging.py", "runtime/store.py",
     "runtime/store_net.py", "runtime/client.py",
     "runtime/push_router.py", "runtime/distributed.py", "runtime/admission.py",
-    "runtime/qos.py", "runtime/slo.py", "runtime/framing.py", "runtime/component.py",
+    "runtime/qos.py", "runtime/slo.py", "runtime/component.py",
     "kv_router/protocols.py", "kv_router/indexer.py", "kv_router/sequence.py",
     "kv_router/scheduler.py", "kv_router/approx.py", "kv_router/router.py",
     "kv_router/publisher.py",
     "llm/protocols.py", "llm/backend.py", "llm/model_card.py", "llm/discovery.py",
     "llm/migration.py", "llm/pipeline.py", "llm/http_service.py", "llm/recorder.py",
     "block_manager/pool.py", "engine/hub.py", "engine/drafter.py",
+    "runtime/queue.py", "transfer/__init__.py", "llm/disagg.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -56,6 +58,11 @@ CHANGED = {
                         "cannot express (byte is their default and means the checkpoint's own)",
     "tokens.py": "xxhash is absent on the card's machine: a pure-Python XXH3-64, bit-exact "
                  "(tests/test_torch_guards.py)",
+    "runtime/framing.py": "pack_prefixed joins msgpack_lite's uncopied parts once: a streamed "
+                          "16 MiB KV page frame is copied once when packed, not twice "
+                          "(the same bytes on the wire)",
+    "transfer/stream.py": "one docstring line drops a pointer into the JAX package's "
+                          "planning history",
 }
 
 # The one block preprocessor.py changes: (JAX text, port text) after the rewrites.
@@ -90,8 +97,8 @@ PREPROCESSOR_BLOCK = (
 
 
 def rewrite(src: str) -> str:
-    src = re.sub(r"(?m)^import msgpack$",
-                 "from dynamo_tpu_torch.runtime import msgpack_lite as msgpack", src)
+    src = re.sub(r"(?m)^([ \t]*)import msgpack$",
+                 r"\1from dynamo_tpu_torch.runtime import msgpack_lite as msgpack", src)
     src = re.sub(r"(?m)^from aiohttp import web$",
                  "from dynamo_tpu_torch.runtime import http_server as web", src)
     src = re.sub(r"(?m)^import jinja2$",
@@ -120,8 +127,32 @@ def test_copy_equals_its_jax_file(rel):
         pytest.fail(f"dynamo_tpu_torch/{rel} drifted from its JAX original:\n{diff[:4000]}")
 
 
+# The one block framing.py changes: (JAX text, port text) after the rewrites.
+FRAMING_BLOCK = (
+    '''def pack_prefixed(prefix: bytes, payload) -> bytes:
+    """One frame whose msgpack body is ``prefix || packb(payload)``."""
+    body = msgpack.packb(payload, use_bin_type=True)
+    return _LEN.pack(len(prefix) + len(body)) + prefix + body
+''',
+    '''def pack_prefixed(prefix: bytes, payload) -> bytes:
+    """One frame whose msgpack body is ``prefix || packb(payload)``, its
+    bytes copied once (a 16 MiB KV page frame is a view of the pages)."""
+    parts = msgpack.pack_parts(payload)
+    n = len(prefix) + sum(len(p) for p in parts)
+    return b"".join([_LEN.pack(n), prefix, *parts])
+''',
+)
+
+
+# The docstring line stream.py changes, as the JAX file has it.
+STREAM_JAX_LINE = re.search(r"(?m)^    it \([^;\n]*; docs/performance\.md has the budget math\)\.\n",
+                            (REPO / "dynamo_tpu" / "transfer" / "stream.py").read_text()).group(0)
+
+
 # One-block changes: module → (JAX text after the rewrites, port text).
 ONE_BLOCK = {
+    "runtime/framing.py": FRAMING_BLOCK,
+    "transfer/stream.py": (STREAM_JAX_LINE, "    it (docs/performance.md has the budget math).\n"),
     "llm/preprocessor.py": PREPROCESSOR_BLOCK,
     "runtime/logging.py": ('    root = logging.getLogger("dynamo_tpu")\n',
                            '    root = logging.getLogger("dynamo_tpu_torch")\n'),

@@ -70,7 +70,8 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "llm.http_service", "runtime.http_server", "runtime.msgpack_lite", "llm.template",
                 "engine.loader", "engine.safetensors_io", "engine.gguf", "engine.hub",
                 "engine.quant", "ops.int8_matmul", "llm.tokenizer_json", "llm.unicode_classes",
-                "engine.drafter", "engine.sampler", "engine.graphs"):
+                "engine.drafter", "engine.sampler", "engine.graphs", "engine.kv_transfer",
+                "transfer", "transfer.stream", "runtime.queue", "llm.disagg"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
