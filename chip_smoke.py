@@ -166,10 +166,47 @@ Phases, in order; any failure raises and the run exits non-zero:
    and inject seconds, and the host cost of one 47-block chunk on the wire
    (`kv_wire_timing`) are printed beside the card's name and power limit.
 
+12. Structured output and embeddings at full width. 12a, twice (bf16;
+   int8 weights with int8 pages): `run`'s pipeline with `--spec-tokens 3
+   --spec-ngram 1 --spec-tree-width 2` (spec_gate 0, unpipelined) serves
+   the burst's 8 prompts as chat completions with a bounded json_schema
+   (`GRAMMAR_RF`: enum, const, boolean, integer, a string of at most 8
+   characters; max_tokens 128, top-8 logprobs, seeds 1000-1007, rows 3
+   and 6 at temperature 0.7), dense, tree, dense again, each burst's
+   masked single-step and masked tree verify graphs captured ahead. Every
+   response finishes stop and validates, every token is legal under the
+   FSM, the repeat equals the first dense burst bit for bit, a tree
+   greedy stream leaves the dense one only where the two legal tokens'
+   logprobs are within `SPEC_GAP_TOL` of each other, either way round;
+   attention launches are 32 ×
+   (single steps + verify forwards), int8 calls 225 per forward (prefill
+   by `int8_expected`), every verify pass a tree pass, nothing eager on
+   the card. Then on a runner of its own the masked single step and the
+   masked tree pass (S1 4, 7) as graph replays bit-identical to op by op,
+   and their device times against their unmasked twins and a dense
+   substep. The bf16 run embeds four cuts of the burst's prompts in
+   process and holds each vector to a plain float32 forward of the same
+   weights (`embed_f32_reference`: no padding, an explicit causal mask, a
+   plain mean) within `EMBED_REL_TOL` relative L2. 12b: the store, one `python -m dynamo_tpu_torch.worker` (the
+   main path's engine arguments) and a kv frontend: two schema chats (SSE
+   and aggregate) equal to 12a's dense responses, token texts and
+   logprobs bit for bit; a json_object chat; an unsupported schema's
+   typed 400; /v1/responses with text.format; /v1/embeddings with the
+   four cuts (one of 1,536 tokens) bit-equal to 12a's in-process vectors,
+   twice with the same bytes; the worker's launches (SIGUSR1) 32 × its
+   single steps; every process exits 0 on SIGTERM. 12c, host only: the
+   grammar compiler over a 128,256-id Llama-3.1-shaped tokenizer.json
+   and the schema's first 16 states lifted, each a walk of the
+   vocabulary. Compile seconds, mask seconds, constrained tokens/s dense
+   and tree, replay device times, mask bytes per upload, graph counts
+   and pool bytes, embedding ms and tokens/s, compiler build and lift
+   seconds are printed beside the card's name and power limit.
+
 The last lines are the kernels JSON line (the attention kernel's decode
 entry, the int8 product, and the attention kernel's linear and tree
 verify modes; the first two also carry phase 11's decode worker's
-launches), nvidia-smi's name/power line, and {"ok": true, "device":
+launches, and the decode, tree and int8 entries phase 12's),
+nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -3060,6 +3097,737 @@ def _check_disagg(label: str, r: dict, ref: dict) -> None:
         raise RuntimeError(f"{label}: text differs from its reference")
 
 
+# -- phase 12: structured output and embeddings ------------------------------
+
+# A bounded json_schema: an enum, a const, a boolean, an integer (the
+# compiler caps digit runs at 16) and a string of at most 8 characters. Its
+# longest match is 119 bytes (a signed 16-digit integer, every string
+# character a \uXXXX escape), so with the byte tokenizer every completion
+# ends, EOS included, within GRAMMAR_TOKENS.
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "kind": {"enum": ["cat", "dog"]}, "v": {"const": 1}, "ok": {"type": "boolean"},
+    "n": {"type": "integer"}, "tag": {"type": "string", "maxLength": 8}}}
+GRAMMAR_RF = {"type": "json_schema", "json_schema": {"name": "record", "schema": GRAMMAR_SCHEMA}}
+GRAMMAR_TOKENS = 128
+# Raw top-n alternatives per position asked by every 12a request (the
+# ranked-logprob variant of each graph runs).
+GRAMMAR_TOP = 8
+# Phase 12b's chat pair (streamed, aggregate): long prompts, so each row
+# alone takes the widest table bucket, as it does in the burst.
+GRAMMAR_HTTP = (7, 6)
+# Phase 12b's /v1/embeddings inputs: cuts of the burst's prompts (bytes).
+EMBED_CUTS = ((7, 1536), (5, 300), (2, 64), (0, 9))
+# 12a holds engine.embed's vectors to embed_f32_reference's, as
+# ||vec - ref|| / ||ref||, below this bound. On an H100 at llama-8b (bf16,
+# random weights from seed 0) the four cuts read 0.0068-0.0118; the same
+# forward without its causal mask reads 1.26-1.41 and the 9-token cut's
+# mean over its padded length 0.44, so 0.03 passes the first and fails
+# the others.
+EMBED_REL_TOL = 0.03
+GRAMMAR_LIFT_STATES = 16
+
+
+def grammar_valid(text: str) -> dict:
+    """Parse ``text`` and hold it to GRAMMAR_SCHEMA → the object."""
+    obj = json.loads(text)
+    ok = (isinstance(obj, dict) and list(obj) == list(GRAMMAR_SCHEMA["properties"])
+          and obj["kind"] in ("cat", "dog") and obj["v"] == 1 and type(obj["ok"]) is bool
+          and type(obj["n"]) is int and isinstance(obj["tag"], str) and len(obj["tag"]) <= 8)
+    if not ok:
+        raise RuntimeError(f"grammar: {text!r} does not validate against the schema")
+    return obj
+
+
+def fsm_legal(g, tokens: list[int], eos_ids) -> None:
+    """Walk the compiled grammar over a stream's tokens: every text token
+    legal in the state it was emitted in, EOS only last and only at a
+    terminal state."""
+    st = g.start
+    for k, t in enumerate(tokens):
+        if t in eos_ids:
+            if k != len(tokens) - 1 or not g.is_terminal(st):
+                raise RuntimeError(f"grammar: EOS at token {k} of {len(tokens)} in a "
+                                   f"{'terminal' if g.is_terminal(st) else 'non-terminal'} state")
+            return
+        nxt = g.advance(st, t)
+        if nxt is None:
+            raise RuntimeError(f"grammar: token {t} at position {k} is illegal under the FSM")
+        st = nxt
+    raise RuntimeError("grammar: the stream did not end in EOS")
+
+
+def embed_f32_reference(cfg, params, ids: list[int], causal: bool = True):
+    """The /v1/embeddings vector of ``ids`` from a plain float32 forward
+    over the same weights, each layer's cast to f32 in turn: no padding,
+    each query attends its own prefix (an explicit lower-triangular mask;
+    every token with ``causal=False``, the fault the check must see), and
+    the final-norm hidden states are averaged over the tokens. Written
+    apart from ``model.embed`` (the JAX ``embed_impl``'s padded forward with
+    its -1e9 additive mask) to hold it to. → [D] f32 on the params' device."""
+    import torch
+
+    dev = params["embed"].device
+    T, H, KVH, hd = len(ids), cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def norm(x, w):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + cfg.rms_norm_eps) * w.float()
+
+    half = hd // 2
+    ang = torch.arange(T, device=dev, dtype=torch.float32)[:, None] * torch.pow(
+        float(cfg.rope_theta), -torch.arange(half, device=dev, dtype=torch.float32) / half)
+    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]
+
+    def rope(t):  # rotate-half
+        a, b = t[..., :half], t[..., half:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1)
+
+    future = ~torch.ones((T, T), dtype=torch.bool, device=dev).tril(0 if causal else T)
+    x = params["embed"][torch.tensor(ids, device=dev).long()].float()
+    for i in range(cfg.num_layers):
+        lp = {k: v[i].float() for k, v in params["layers"].items()}
+        h = norm(x, lp["attn_norm"])
+        q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if cfg.attn_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = rope(q.reshape(T, H, hd))
+        k = rope(k.reshape(T, KVH, hd)).repeat_interleave(H // KVH, dim=1)
+        v = v.reshape(T, KVH, hd).repeat_interleave(H // KVH, dim=1)
+        s = torch.einsum("thd,shd->hts", q, k) * hd ** -0.5
+        p = s.masked_fill(future, float("-inf")).softmax(dim=-1)
+        x = x + torch.einsum("hts,shd->thd", p, v).reshape(T, H * hd) @ lp["wo"]
+        h = norm(x, lp["mlp_norm"])
+        x = x + (torch.nn.functional.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return norm(x, params["final_norm"]).mean(dim=0)
+
+
+def embed_against_f32(cfg, params, ids_list, vecs, chunk: int, block: int, tag: str) -> dict:
+    """Raise unless every vector of ``vecs`` is within EMBED_REL_TOL of
+    ``embed_f32_reference`` of its ids (relative L2), pooled over
+    ``chunk``-token chunks weighted by their lengths as the engine pools
+    inputs longer than max_prefill_tokens. As evidence that the bound sees
+    faults, also read each input's distance for the reference without its
+    causal mask (raise unless it exceeds the bound) and for the vector
+    averaged over its length padded to a ``block`` multiple. → the three
+    lists of relative distances: rel_err, no_causal_mask, padded_mean."""
+    import numpy as np
+
+    def ref_of(ids, causal):
+        return sum(embed_f32_reference(cfg, params, ids[i : i + chunk], causal).cpu().numpy()
+                   .astype(np.float64) * len(ids[i : i + chunk])
+                   for i in range(0, len(ids), chunk)) / len(ids)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    out: dict = {"rel_err": [], "no_causal_mask": [], "padded_mean": []}
+    for ids, v in zip(ids_list, vecs):
+        v, ref = np.asarray(v, np.float64), ref_of(ids, True)
+        err, blind = rel(v, ref), rel(ref_of(ids, False), ref)
+        if not err < EMBED_REL_TOL:
+            raise RuntimeError(f"{tag}: the embedding of {len(ids)} tokens is {err:.4g} (relative "
+                               f"L2) from the float32 reference (>= {EMBED_REL_TOL})")
+        if not blind >= EMBED_REL_TOL:
+            raise RuntimeError(f"{tag}: at {len(ids)} tokens the bound {EMBED_REL_TOL} cannot see "
+                               f"a dropped causal mask ({blind:.4g})")
+        out["rel_err"].append(err)
+        out["no_causal_mask"].append(blind)
+        out["padded_mean"].append(rel(v * len(ids) / (-(-len(ids) // block) * block), ref))
+    return out
+
+
+def tree_vs_dense_gaps(dense: list, tree: list, rows, tag: str) -> list[float]:
+    """Hold the greedy ``rows``' tree streams to the dense ones: a tree
+    stream may leave its dense one only where the two legal tokens are
+    within SPEC_GAP_TOL nats of each other, either way round. Both tokens
+    at the divergence are legal, each the legal argmax of its own pass: the
+    dense token's logprob in the dense pass less the tree token's in the
+    tree pass bounds the dense legal top-2 gap up to the passes' rounding
+    (the raw top-n lists may hold no legal token); a gap far below 0 means
+    a pass that did not take its legal argmax. → the gaps."""
+    gaps = []
+    for i in rows:
+        d, o = dense[i], tree[i]
+        p = _first_divergence(o["tokens"], d["tokens"])
+        if p is None and len(o["tokens"]) == len(d["tokens"]):
+            continue
+        if p is None:
+            raise RuntimeError(f"{tag}: tree stream {i} is a prefix of the dense one")
+        gap = d["logprobs"][p] - o["logprobs"][p]
+        if not abs(gap) < SPEC_GAP_TOL:
+            raise RuntimeError(f"{tag} request {i}: the tree greedy stream leaves the dense one "
+                               f"at token {p}, where the two legal tokens are {gap:.4f} nats "
+                               f"apart (|gap| >= {SPEC_GAP_TOL})")
+        gaps.append(gap)
+    return gaps
+
+
+def grammar_chat(i: int, prompts, model: str, stream: bool = False) -> dict:
+    return {"model": model, "messages": [{"role": "user", "content": prompts[i]}],
+            "max_tokens": GRAMMAR_TOKENS, "temperature": BURST_TEMPS[i], "seed": 1000 + i,
+            "logprobs": True, "top_logprobs": GRAMMAR_TOP, "response_format": GRAMMAR_RF,
+            "stream": stream}
+
+
+def grammar_states(g, n: int) -> list[int]:
+    """n FSM states along one valid record, spread over its bytes."""
+    text = b'{"kind": "dog", "v": 1, "ok": true, "n": -4021, "tag": "a\\u00e9b"}'
+    states, st = [g.start], g.start
+    for b in text:
+        st = g.advance(st, b)
+        states.append(st)
+    return [states[(k * (len(states) - 1)) // max(1, n - 1)] for k in range(n)]
+
+
+def step_graph_vs_eager(runner, kw):
+    """One single step (``runner.decode_sample``, masked or not) as a
+    CUDA-graph replay and op by op from the same device state; raise unless every
+    output, the KV pages (block 0 aside) and the chain buffer (sink slot
+    aside) are bit-identical. → its tokens."""
+    import torch
+
+    before = _device_state(runner)
+    runs = []
+    for eager in (False, True):
+        _restore(runner, before)
+        outs = [a.clone() for a in runner.decode_sample(**kw, eager=eager).arrs]
+        runs.append((outs, _device_state(runner)))
+    if runner.device.type == "cuda":
+        torch.cuda.synchronize()
+    (g_out, g_state), (e_out, e_state) = runs
+    for name, a, b in zip(("tokens", "logprobs", "top_vals", "top_ids"), g_out, e_out):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"grammar: single-step graph and eager runs differ in {name}")
+    for i, (a, b) in enumerate(zip(g_state, e_state)):
+        a, b = (a[:-1], b[:-1]) if i == len(g_state) - 1 else (a[:, 1:], b[:, 1:])
+        if not torch.equal(a, b):
+            raise RuntimeError(f"grammar: single-step graph and eager runs differ in device "
+                               f"state {i}")
+    return g_out[0].cpu().tolist()
+
+
+def step_replay_ms(runner, kw) -> float:
+    """Device time of one single step as a graph replay: the median of 5
+    CUDA-event timings after one warm replay."""
+    import torch
+
+    runner.decode_sample(**kw)
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        runner.decode_sample(**kw)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def grammar_timing(engine, card_line: str, tag: str) -> dict:
+    """On a runner of its own (the engine's weights and KV page format), at
+    the burst's row lengths: the masked single step and the masked tree
+    verify pass (S1 4 and 7) as graph replays bit-identical to op-by-op
+    runs, with real schema masks (the tree's node tokens OR-ed in, so that
+    drafts can be accepted); then on the card each replay's device time
+    against its unmasked twin and a dense substep."""
+    import dataclasses
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.grammar import build_compiler, mask_words, pack_token_ids
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+
+    cuda = engine.runner.device.type == "cuda"
+    args = dataclasses.replace(engine.args, num_kv_blocks=640, spec_tokens=SPEC_TOKENS,
+                               spec_fused=True)
+    runner = LocalRunner(args, params=engine.runner.params)
+    runner.start()
+    V = runner.cfg.vocab_size
+    g = build_compiler(None, V).compile(GRAMMAR_RF)
+    eos_bits = pack_token_ids([257], V)
+    B = len(BURST_HIST)
+    states = grammar_states(g, B)
+    row_masks = np.stack([g.mask(st, eos_bits) for st in states])
+    out = {"mask_bytes_step": row_masks.nbytes}
+    rows = verify_rows(runner, SPEC_TOKENS + 1)
+    z = np.zeros((B,), np.int32)
+    temps = np.zeros((B,), np.float32)
+    temps[[3, 6]] = 0.7
+    step = dict(mode="simple", tokens=np.asarray(rows["first"], np.int32),
+                positions=rows["lens"].astype(np.int32), tables=rows["tables"],
+                active=np.ones((B,), bool), temps=temps,
+                seeds=np.arange(1000, 1000 + B, dtype=np.int32), steps=np.ones((B,), np.int32),
+                tks=z, tps=np.ones((B,), np.float32), freqs=np.zeros((B,), np.float32),
+                press=np.zeros((B,), np.float32), pen=np.full((B, 1), -1, np.int32),
+                fold_slots=np.arange(B, dtype=np.int32), top_n=GRAMMAR_TOP, masks=row_masks)
+    toks = step_graph_vs_eager(runner, step)
+    legal = [g.advance(st, t) is not None or (t == 257 and g.is_terminal(st))
+             for st, t in zip(states, toks)]
+    if not all(legal):
+        raise RuntimeError(f"{tag}: the masked step sampled an illegal token: {toks}")
+    log(f"{tag}: masked single step, 8 rows at the burst's lengths: graph replay bit-identical "
+        f"to op by op, every token legal ({card_line})")
+    step_graph_vs_eager(runner, dict(step, masks=None))
+    log(f"{tag}: unmasked single step (every K=1 plan without a grammar row): graph replay "
+        f"bit-identical to op by op ({card_line})")
+    if cuda:
+        out["step_masked_ms"] = step_replay_ms(runner, step)
+        out["step_unmasked_ms"] = step_replay_ms(runner, dict(step, masks=None))
+    for S1 in (SPEC_TOKENS + 1, 2 * SPEC_TOKENS + 1):
+        kw = verify_inputs(runner, S1, "tree", rows=rows if S1 == SPEC_TOKENS + 1 else None)
+        masks = np.repeat(row_masks[:, None, :], S1, axis=1)
+        for b in range(B):
+            for t in kw["tokens"][b]:
+                masks[b, :, t >> 5] |= np.uint32(1 << (int(t) & 31))
+        kw["masks"] = masks
+        out[f"mask_bytes_verify_S1_{S1}"] = masks.nbytes
+        n_emit = verify_graph_vs_eager(runner, kw)
+        log(f"{tag}: masked tree verify pass, S1={S1}: graph replay bit-identical to op by op, "
+            f"n_emit {n_emit} ({card_line})")
+        if cuda:
+            out[f"tree_masked_S1_{S1}_ms"] = verify_replay_ms(runner, kw)
+            out[f"tree_unmasked_S1_{S1}_ms"] = verify_replay_ms(runner, dict(kw, masks=None))
+    if cuda:
+        kw8 = dict(K=8, mode="greedy", tokens=step["tokens"], chain=None,
+                   positions=step["positions"], tables=step["tables"],
+                   active=step["active"], temps=np.zeros((B,), np.float32), seeds=z, steps0=z,
+                   tks=z, tps=step["tps"], freqs=step["freqs"], press=step["press"],
+                   pen=step["pen"], top_n=0)
+        out["dense_substep_ms"] = replay_ms(runner, kw8)
+        log(f"{tag}: device ms per replay: masked step {out['step_masked_ms']:.3f} / unmasked "
+            f"{out['step_unmasked_ms']:.3f}; masked tree S1=4 {out['tree_masked_S1_4_ms']:.3f} / "
+            f"unmasked {out['tree_unmasked_S1_4_ms']:.3f}; S1=7 {out['tree_masked_S1_7_ms']:.3f}"
+            f" / {out['tree_unmasked_S1_7_ms']:.3f}; a dense substep (K=8 window / 8) "
+            f"{out['dense_substep_ms']:.3f}; mask bytes uploaded per step "
+            f"{out['mask_bytes_step']}, per S1=4 / 7 pass {out['mask_bytes_verify_S1_4']} / "
+            f"{out['mask_bytes_verify_S1_7']} ({card_line})")
+    runner.stop()
+    return out
+
+
+async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
+                        dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none"):
+    """Phase 12a: the burst's 8 prompts as chat completions with
+    GRAMMAR_RF (max_tokens GRAMMAR_TOKENS, top-8 logprobs, seeds 1000-1007,
+    rows 3 and 6 at temperature 0.7) through ``run``'s pipeline with
+    ``--spec-tokens 3 --spec-ngram 1 --spec-tree-width 2`` (spec_gate 0,
+    unpipelined, the scheduler held while the 8 queue), in turn dense
+    (spec_tokens 0), tree and dense again. Every response
+    finishes stop and validates; every token is legal under the FSM; the
+    repeat equals the first dense burst bit for bit; a tree greedy stream
+    leaves the dense one only where the two legal tokens' logprobs (each
+    from its own pass) are within SPEC_GAP_TOL; attention launches 32 × (single
+    steps + verify forwards), int8 calls by ``int8_expected`` over those
+    forwards, no eager window, step or verify pass on the card. Then
+    ``grammar_timing``. The bf16 run also embeds EMBED_CUTS in process
+    (phase 12b's reference)."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.grammar import build_compiler
+    from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    cuda = device == "cuda"
+    tag = f"grammar[{'int8' if quant == 'int8' else dtype} weights, {kv_quant} KV]"
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype,
+                       "--device", device, *ENGINE_ARGV, "--spec-tokens", str(SPEC_TOKENS),
+                       "--spec-ngram", str(SPEC_NGRAM), "--spec-tree-width", "2"])
+    t0 = time.perf_counter()
+    pipe = await build_pipeline(args, quant=quant, kv_quant=kv_quant)
+    engine, runner = pipe.engine, pipe.engine.runner
+    cfg, L = engine.cfg, engine.cfg.num_layers
+    engine.set_spec(spec_gate=0.0)
+    engine.args.pipeline_depth = 0
+    log(f"{tag}: {preset} pipeline up in {time.perf_counter() - t0:.1f}s")
+    result: dict = {}
+    g = runner.graphs
+    if g is not None:
+        pool0, cap0 = g.pool_bytes(), g.capture_s
+        n_steps = runner.warm_steps(("greedy", "simple"), (GRAMMAR_TOP,), masked=(True,))
+        n_verify = runner.warm_spec(("greedy", "simple"), (GRAMMAR_TOP,), grammar=True)
+        masked_verify = sum(1 for k in g.shapes if k[0] == "verify" and k[-1])
+        result["graphs"] = {"masked_steps": n_steps, "verify": n_verify,
+                            "masked_verify": masked_verify, "capture_s": g.capture_s - cap0,
+                            "pool_bytes_added": g.pool_bytes() - pool0}
+        log(f"{tag}: {n_steps} masked step graphs and {n_verify} verify graphs "
+            f"({masked_verify} masked) captured in {g.capture_s - cap0:.2f}s, graph pool "
+            f"+{(g.pool_bytes() - pool0) / 2**20:.1f} MiB to {g.pool_bytes() / 2**20:.1f} MiB "
+            f"({card_line})")
+    # Grammar compile: cold (the compiler over the vocabulary, then the
+    # schema's DFA) and cached.
+    t1 = time.perf_counter()
+    engine._compile_grammar(GRAMMAR_RF)
+    t2 = time.perf_counter()
+    engine._compile_grammar(json.loads(json.dumps(GRAMMAR_RF)))
+    result["compile_s"] = {"cold": t2 - t1, "cached": time.perf_counter() - t2}
+    log(f"{tag}: grammar compile cold {result['compile_s']['cold'] * 1e3:.2f} ms, cached "
+        f"{result['compile_s']['cached'] * 1e3:.3f} ms (host CPU beside {card_line})")
+    fsm = build_compiler(None, cfg.vocab_size).compile(GRAMMAR_RF)
+    prompts = burst_prompts()
+    greedy_rows = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
+    eos = set(pipe.card.eos_token_ids)
+
+    async def one(i):
+        req = ChatCompletionRequest.parse(grammar_chat(i, prompts, pipe.card.name))
+        gen = None
+        async for g_, _chunk in pipe.run(req, Context()):
+            gen = g_
+        body = gen.final_response()
+        return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values),
+                "tops": list(gen.lp_tops), "body": body,
+                "view": choice_view("chat", body["choices"][0])}
+
+    async def burst(label):
+        engine.clear_kv_blocks()
+        steps0 = engine.total_decode_steps
+        ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls)
+        eager0 = (runner.eager_windows, runner.eager_verifies, runner.eager_steps)
+        spec0 = (engine.total_spec_tree_passes, engine.total_spec_proposed,
+                 engine.total_spec_accepted)
+        mask0, gen0 = engine.total_grammar_mask_s, engine.total_generated
+        pa.launches = im.launches = im.prefill_launches = 0
+        entered, gate = threading.Event(), threading.Event()
+
+        def hold():
+            entered.set()
+            gate.wait(120)
+
+        held = asyncio.ensure_future(engine.run_on_engine_thread(hold))
+        while not entered.is_set():
+            await asyncio.sleep(0.001)
+        tasks = [asyncio.ensure_future(one(i)) for i in range(len(prompts))]
+        deadline = time.perf_counter() + 60
+        while engine.metrics().worker.num_requests_waiting < len(prompts):
+            if time.perf_counter() > deadline or any(t.done() for t in tasks):
+                gate.set()
+                break
+            await asyncio.sleep(0.001)
+        t1 = time.perf_counter()
+        gate.set()
+        await held
+        outs = await asyncio.gather(*tasks)
+        wall = time.perf_counter() - t1
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        launches = (pa.launches, im.launches, im.prefill_launches)
+        substeps = engine.total_decode_steps - steps0
+        passes = runner.verify_passes - ver0[0]
+        forwards = runner.verify_forwards - ver0[1]
+        vcalls = tuple(b - a for a, b in zip(ver0[2], runner.verify_calls))
+        eager = tuple(b - a for a, b in zip(eager0, (runner.eager_windows, runner.eager_verifies,
+                                                      runner.eager_steps)))
+        tokens = engine.total_generated - gen0
+        prompt_lens = [o["body"]["usage"]["prompt_tokens"] for o in outs]
+        for i, o in enumerate(outs):
+            if o["view"]["finish"] != "stop":
+                raise RuntimeError(f"{tag}[{label}] request {i}: finish {o['view']['finish']!r} "
+                                   f"after {len(o['tokens'])} tokens: {o['view']['text']!r}")
+            grammar_valid(o["view"]["text"])
+            fsm_legal(fsm, o["tokens"], eos)
+            if not all(np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
+                raise RuntimeError(f"{tag}[{label}] request {i}: bad logprobs")
+        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0)
+        if launches[0] != per_fwd[0] * (substeps + forwards):
+            raise RuntimeError(f"{tag}[{label}]: paged_attention launches {launches[0]} != "
+                               f"{L} x (single steps {substeps} + verify forwards {forwards})")
+        if tuple(vcalls) != tuple(n * forwards for n in per_fwd):
+            raise RuntimeError(f"{tag}[{label}]: verify passes made {vcalls} kernel calls for "
+                               f"{forwards} forwards")
+        want_i8 = (int8_expected(cfg, prompt_lens, substeps + forwards)
+                   if cuda and quant == "int8" else (0, 0))
+        if launches[1:] != want_i8:
+            raise RuntimeError(f"{tag}[{label}]: int8_matmul launches (kernel, prefill route) "
+                               f"{launches[1:]} != {want_i8}")
+        if cuda and eager != (0, 0, 0):
+            raise RuntimeError(f"{tag}[{label}]: {eager} windows, verify passes and single steps "
+                               "ran eagerly on the card")
+        if label.startswith("tree") and passes == 0:
+            raise RuntimeError(f"{tag}[{label}]: no verify pass was dispatched")
+        tree_passes = engine.total_spec_tree_passes - spec0[0]
+        if passes != tree_passes:
+            raise RuntimeError(f"{tag}[{label}]: {passes - tree_passes} constrained verify "
+                               "passes were not tree passes")
+        st = {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+              "single_steps": substeps, "verify_passes": passes, "verify_forwards": forwards,
+              "attention_launches": launches[0], "int8_launches": launches[1],
+              "int8_prefill_launches": launches[2], "verify_attention_launches": vcalls[0],
+              "mask_s": engine.total_grammar_mask_s - mask0,
+              "accepted": engine.total_spec_accepted - spec0[2],
+              "proposed": engine.total_spec_proposed - spec0[1],
+              "completion_tokens": [len(o["tokens"]) for o in outs]}
+        log(f"{tag}[{label}]: 8 constrained chats, {tokens} tokens in {wall:.3f}s → "
+            f"{st['tokens_per_s']:.1f} tokens/s; {substeps} single steps, {passes} tree verify "
+            f"passes ({st['accepted']}/{st['proposed']} drafts accepted); completions "
+            f"{st['completion_tokens']} tokens, all stop, valid and FSM-legal; "
+            f"engine_grammar_mask_seconds +{st['mask_s'] * 1e3:.2f} ms ({card_line})")
+        log(f"{tag}[{label}]: paged_attention launches {launches[0]} = {L} x ({substeps} + "
+            f"{forwards}); int8_matmul {launches[1]} on the kernel, {launches[2]} on the prefill "
+            f"route")
+        return outs, st
+
+    engine.set_spec(spec_tokens=0)
+    dense, result["dense"] = await burst("dense")
+    engine.set_spec(spec_tokens=SPEC_TOKENS, **SPEC_TREE)
+    tree_outs, result["tree"] = await burst("tree")
+    gaps = tree_vs_dense_gaps(dense, tree_outs, greedy_rows, tag)
+    result["tree"]["vs_dense"] = {"divergences": len(gaps), "gaps": gaps}
+    log(f"{tag}: {len(greedy_rows)} greedy tree streams against dense: {len(gaps)} leave it, "
+        f"each where the two legal tokens' logprobs are under {SPEC_GAP_TOL} nats apart "
+        f"(gaps {[round(x, 4) for x in gaps]})")
+    engine.set_spec(spec_tokens=0)
+    again, result["dense_repeat"] = await burst("dense repeat")
+    for i, (a, b) in enumerate(zip(dense, again)):
+        if (a["tokens"], a["logprobs"], a["tops"]) != (b["tokens"], b["logprobs"], b["tops"]):
+            raise RuntimeError(f"{tag}: the dense burst's repeat gave another stream {i}")
+    log(f"{tag}: the dense burst again: all 8 constrained streams identical bit for bit")
+    result["timing"] = grammar_timing(engine, card_line, tag)
+    if g is not None:
+        result["graph_pool_bytes"] = g.pool_bytes()
+    reference = {"chats": {i: dense[i]["view"] for i in GRAMMAR_HTTP}}
+    if quant == "none":
+        from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+        tok = ByteTokenizer()
+        reference["embed_ids"] = [tok.encode(prompts[i][:n]) for i, n in EMBED_CUTS]
+        vecs, times = [], []
+        for ids in reference["embed_ids"]:
+            t1 = time.perf_counter()
+            vecs.append(await engine.embed(ids))
+            times.append(time.perf_counter() - t1)
+        for v in vecs:
+            if len(v) != cfg.hidden_size or not all(np.isfinite(v)):
+                raise RuntimeError(f"{tag}: embedding of {len(v)} values, or not finite")
+        dist = embed_against_f32(cfg, runner.params, reference["embed_ids"], vecs,
+                                 engine.args.max_prefill_tokens, engine.args.block_size, tag)
+        reference["embeddings"] = vecs
+        result["embed_ms"] = [t * 1e3 for t in times]
+        result["embed_f32"] = dist
+        log(f"{tag}: in-process engine.embed of {[len(x) for x in reference['embed_ids']]} "
+            f"tokens: {[round(t * 1e3, 2) for t in times]} ms ({card_line})")
+        log(f"{tag}: relative L2 distance to the float32 reference "
+            f"{[f'{e:.4g}' for e in dist['rel_err']]} (< {EMBED_REL_TOL}); the reference "
+            f"without its causal mask {[f'{e:.4g}' for e in dist['no_causal_mask']]}, the "
+            f"vector averaged over its padded length {[f'{e:.4g}' for e in dist['padded_mean']]}"
+            f" ({card_line})")
+    await engine.stop()
+    del pipe, engine, runner
+    if cuda:
+        torch.cuda.empty_cache()
+    return result, reference
+
+
+def grammar_http_phase(card_line: str, reference: dict, preset: str = "llama-8b",
+                       device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """Phase 12b: the store, one ``python -m dynamo_tpu_torch.worker`` with
+    the main path's engine arguments (seed 0: 12a's weights) and a kv-mode
+    frontend. Two schema chats (GRAMMAR_HTTP: one streamed, one aggregate)
+    equal to 12a's dense responses token text for token text and logprob
+    for logprob; a json_object chat; an unsupported schema's typed 400; a
+    /v1/responses request with text.format; /v1/embeddings with EMBED_CUTS
+    in one request, each vector bit-equal to the in-process engine.embed of
+    the same ids, and the same request again giving the same bytes. The
+    worker's launches (SIGUSR1) are held to 32 × its single steps; every
+    process exits 0 on SIGTERM."""
+    procs: list[Proc] = []
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+    try:
+        store = Proc("grammar-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                       "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        worker = Proc("grammar-worker", [
+            "dynamo_tpu_torch.worker", "--store-url", store_url, "--preset", preset,
+            "--dtype", dtype, "--device", device, *ENGINE_ARGV])
+        procs.append(worker)
+        m, secs = worker.wait_for(r"serving .* \((\d+) window graphs captured in ([0-9.]+)s, "
+                                  r"(\d+) single-step graphs in ([0-9.]+)s", 600)
+        log(f"grammar-http: worker registered {secs:.2f}s after launch, {m.group(1)} window and "
+            f"{m.group(3)} single-step graphs (unmasked and masked) captured ({card_line})")
+        fe = Proc("grammar-frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                                       "--host", "127.0.0.1", "--port", "0",
+                                       "--router-mode", "kv"])
+        procs.append(fe)
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+        result = asyncio.run(_drive_grammar_http(port, preset, reference, card_line))
+        counters = usr1_counters(worker)
+        want = counters["num_layers"] * (counters["decode_substeps"] + counters["spec_forwards"])
+        if counters["paged_attention_launches"] != (want if device == "cuda" else 0):
+            raise RuntimeError(f"grammar-http: worker attention launches "
+                               f"{counters['paged_attention_launches']} != {want}")
+        if device == "cuda" and (counters["eager_windows"] or counters["eager_steps"]):
+            raise RuntimeError(f"grammar-http: eager dispatches on the card: {counters}")
+        log(f"grammar-http: worker paged_attention launches {counters['paged_attention_launches']}"
+            f" = {counters['num_layers']} x {counters['decode_substeps']} single steps (0 on the "
+            f"CPU), {counters['grammar_seqs']} constrained requests, mask seconds "
+            f"{counters['grammar_mask_s']}")
+        rcs = {p.name: p.stop() for p in [fe, worker, store]}
+        if any(rcs.values()):
+            raise RuntimeError(f"grammar-http: processes did not exit 0 on SIGTERM: {rcs}")
+        log(f"grammar-http: every process exited 0 on SIGTERM ({rcs})")
+        result.update(counters=counters, exit_codes=rcs, launch_to_registered_s=secs)
+        return result
+    finally:
+        for p in procs:
+            p.kill()
+
+
+async def _drive_grammar_http(port: int, model: str, reference: dict, card_line: str) -> dict:
+    prompts = burst_prompts()
+    out: dict = {}
+    await _wait_listed(port, model)
+    # The two schema chats: streamed (GRAMMAR_HTTP[0]) and aggregate.
+    for i, stream in zip(GRAMMAR_HTTP, (True, False)):
+        ref = reference["chats"][i]
+        status, _h, pieces, t0 = await http_request(
+            port, "/v1/chat/completions", grammar_chat(i, prompts, model, stream))
+        if status != 200:
+            raise RuntimeError(f"grammar-http: chat {i} status {status}: {pieces[:1]}")
+        if stream:
+            events = sse_payloads(pieces)
+            if not events or events[-1][1] != "[DONE]":
+                raise RuntimeError(f"grammar-http: stream {i} did not end in [DONE]")
+            text, lps, toks, finish = [], [], [], None
+            for _t, data in events[:-1]:
+                ch = json.loads(data)["choices"]
+                if not ch:
+                    continue
+                ch = ch[0]
+                text.append((ch.get("delta") or {}).get("content") or "")
+                for e in ((ch.get("logprobs") or {}).get("content") or ()):
+                    lps.append(e["logprob"])
+                    toks.append(e["token"])
+                finish = ch.get("finish_reason") or finish
+            got = {"text": "".join(text), "finish": finish, "logprobs": lps, "lp_tokens": toks}
+            if ref["lp_tokens"] and ref["lp_tokens"][-1] == "" and len(toks) + 1 == len(
+                    ref["lp_tokens"]):
+                # A chat stream's finish chunk carries no logprobs entry for
+                # the EOS token (empty text), as in the JAX package; the
+                # aggregate body lists it.
+                ref = dict(ref, logprobs=ref["logprobs"][:-1], lp_tokens=ref["lp_tokens"][:-1])
+        else:
+            got = choice_view("chat", json.loads(b"".join(p for _, p in pieces))["choices"][0])
+        if got != ref:
+            bad = {k: (got[k], ref[k]) for k in ref if got.get(k) != ref[k]}
+            raise RuntimeError(f"grammar-http: chat {i} ({'stream' if stream else 'aggregate'}) "
+                               f"differs from 12a's dense response in {sorted(bad)}: "
+                               f"{str(bad)[:600]}")
+        grammar_valid(got["text"])
+        out[f"chat_{i}_latency_s"] = pieces[-1][0] - t0
+        log(f"grammar-http: chat {i} ({'SSE' if stream else 'aggregate'}): {len(got['logprobs'])} "
+            f"token texts and logprobs equal 12a's dense response bit for bit, finish "
+            f"{got['finish']}, valid")
+    body = {"model": model, "messages": [{"role": "user", "content": prompts[0]}],
+            "max_tokens": 48, "temperature": 0, "seed": 5,
+            "response_format": {"type": "json_object"}}
+    status, _h, pieces, _t = await http_request(port, "/v1/chat/completions", body)
+    choice = json.loads(b"".join(p for _, p in pieces))["choices"][0] if status == 200 else {}
+    if status != 200 or choice.get("finish_reason") not in ("stop", "length"):
+        raise RuntimeError(f"grammar-http: json_object chat: status {status}, {choice}")
+    log(f"grammar-http: json_object chat 200, finish {choice['finish_reason']}: "
+        f"{choice['message']['content'][:60]!r}")
+    bad = dict(body, response_format={"type": "json_schema", "json_schema": {
+        "name": "bad", "schema": {"type": "object", "properties": {"a": {"type": "zzz"}}}}})
+    status, _h, pieces, _t = await http_request(port, "/v1/chat/completions", bad)
+    err = json.loads(b"".join(p for _, p in pieces)).get("error") or {}
+    if status != 400 or err.get("type") != "invalid_request_error" \
+            or "response_format" not in err.get("message", ""):
+        raise RuntimeError(f"grammar-http: unsupported schema got {status} {err}")
+    log(f"grammar-http: unsupported schema → 400 {err['type']}: {err['message'][:80]!r}")
+    status, _h, pieces, _t = await http_request(port, "/v1/responses", {
+        "model": model, "input": prompts[1], "max_output_tokens": GRAMMAR_TOKENS,
+        "temperature": 0, "seed": 9,
+        "text": {"format": {"type": "json_schema", "name": "record", "schema": GRAMMAR_SCHEMA}}})
+    resp = json.loads(b"".join(p for _, p in pieces))
+    if status != 200 or resp.get("status") != "completed":
+        raise RuntimeError(f"grammar-http: /v1/responses status {status}: {str(resp)[:200]}")
+    rtext = "".join(c["text"] for item in resp["output"] for c in item.get("content", [])
+                    if c.get("type") == "output_text")
+    grammar_valid(rtext)
+    log(f"grammar-http: /v1/responses text.format 200, completed, valid: {rtext!r}")
+    inputs = [list(ids) for ids in reference["embed_ids"]]
+    bodies = []
+    for rep in range(2):
+        t0 = time.perf_counter()
+        status, _h, pieces, _t = await http_request(port, "/v1/embeddings",
+                                                    {"model": model, "input": inputs})
+        secs = time.perf_counter() - t0
+        raw = b"".join(p for _, p in pieces)
+        if status != 200:
+            raise RuntimeError(f"grammar-http: /v1/embeddings status {status}: {raw[:200]!r}")
+        data = json.loads(raw)["data"]
+        bodies.append(json.dumps([d["embedding"] for d in data]))
+        for d, want in zip(data, reference["embeddings"]):
+            if d["embedding"] != want:
+                diff = max(abs(a - b) for a, b in zip(d["embedding"], want))
+                raise RuntimeError(f"grammar-http: embedding {d['index']} differs from the "
+                                   f"in-process engine.embed (max |diff| {diff:.3g})")
+        if len(data) != len(inputs):
+            raise RuntimeError(f"grammar-http: {len(data)} embeddings for {len(inputs)} inputs")
+        ntok = sum(len(x) for x in inputs)
+        out[f"embed_request_{rep}_ms"] = secs * 1e3
+        out["embed_tokens_per_s"] = ntok / secs
+        log(f"grammar-http: /v1/embeddings, {len(inputs)} inputs ({ntok} tokens) → 200, "
+            f"{len(data)} vectors of {len(data[0]['embedding'])} floats, each bit-equal to the "
+            f"in-process engine.embed, in {secs * 1e3:.1f} ms ({ntok / secs:.0f} tokens/s) "
+            f"({card_line})")
+    if bodies[0] != bodies[1]:
+        raise RuntimeError("grammar-http: the same /v1/embeddings request gave other bytes")
+    log("grammar-http: the same embeddings request again: the same bytes")
+    return out
+
+
+def grammar_lift_phase(card_line: str, vocab: int = 128_256, n_bpe: int | None = None) -> dict:
+    """Phase 12c (host only): a Llama-3.1-shaped tokenizer.json of
+    ``vocab`` ids (phase 9's recipe, ``write_llama3_tokenizer``) under
+    build/grammar_tokenizer/, the grammar compiler built over it
+    (``build_compiler``: every id decoded to its bytes) and the schema's
+    first GRAMMAR_LIFT_STATES states lifted along the smallest legal token,
+    each lift a walk of the whole vocabulary, as on a scheduler thread."""
+    import shutil
+
+    from dynamo_tpu_torch.engine.grammar import build_compiler
+
+    path = os.path.join(HERE, "build", "grammar_tokenizer")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    try:
+        n_bpe = n_bpe if n_bpe is not None else vocab - 256
+        t0 = time.perf_counter()
+        write_llama3_tokenizer(path, n_bpe)
+        t1 = time.perf_counter()
+        comp = build_compiler({"type": "hf", "path": path}, vocab)
+        t2 = time.perf_counter()
+        g = comp.compile(GRAMMAR_RF)
+        t3 = time.perf_counter()
+        st, lifted, seen = g.start, [], set()
+        while len(lifted) < GRAMMAR_LIFT_STATES and st is not None and st not in seen:
+            seen.add(st)
+            t = time.perf_counter()
+            legal = g.mask(st)
+            lifted.append(time.perf_counter() - t)
+            ids = [i for i in range(min(vocab, len(legal) * 32))
+                   if legal[i >> 5] >> (i & 31) & 1]
+            if not ids:
+                break
+            st = g.advance(st, ids[0])
+        out = {"tokenizer_write_s": t1 - t0, "compiler_build_s": t2 - t1,
+               "schema_compile_s": t3 - t2, "vocab_tokens": len(comp.vocab),
+               "lifted_states": len(lifted), "lift_s_per_state": statistics.mean(lifted),
+               "lift_s_max": max(lifted)}
+        log(f"grammar-lift: compiler over a {vocab}-id tokenizer built in "
+            f"{out['compiler_build_s']:.2f}s ({out['vocab_tokens']} text tokens), schema "
+            f"compiled in {out['schema_compile_s'] * 1e3:.2f} ms, {len(lifted)} states lifted at "
+            f"{out['lift_s_per_state'] * 1e3:.1f} ms each (max {out['lift_s_max'] * 1e3:.1f}) "
+            f"(host CPU beside {card_line})")
+        return out
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3145,6 +3913,22 @@ def main() -> int:
         ("in process", [r["ttft_s"] for r in int8_refs["int8"]["burst"]]),
         quant="int8", kv_quant="int8")
 
+    torch.cuda.empty_cache()
+    grammar, grammar_ref = {}, None
+    grammar["bf16"], grammar_ref = asyncio.run(grammar_phase(card_line))
+    grammar["int8"], _ = asyncio.run(grammar_phase(card_line, quant="int8", kv_quant="int8"))
+    for name, st in grammar.items():
+        t = st["timing"]
+        log(f"grammar[{name}]: constrained tokens/s dense {st['dense']['tokens_per_s']:.1f}, tree "
+            f"{st['tree']['tokens_per_s']:.1f} (phase 4's unconstrained burst "
+            f"{(stats if name == 'bf16' else int8_runs['int8'])['tokens_per_s']:.1f}); masked step "
+            f"{t['step_masked_ms']:.3f} ms vs unmasked {t['step_unmasked_ms']:.3f} and a dense "
+            f"substep {t['dense_substep_ms']:.3f}; engine_grammar_mask_seconds over the dense "
+            f"burst {st['dense']['mask_s'] * 1e3:.2f} ms ({card_line})")
+    torch.cuda.empty_cache()
+    grammar["http"] = grammar_http_phase(card_line, grammar_ref)
+    grammar["lift"] = grammar_lift_phase(card_line)
+
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = next(r for r in cases if r["case"] == "decode_bfloat16_burst")
     entry = {
@@ -3154,6 +3938,11 @@ def main() -> int:
         "launches_tokenizer_worker": tok["launches"][0],
         "launches_disagg_decode_worker": disagg["bf16"]["launches"][0],
         "launches_disagg_decode_worker_int8": disagg["int8"]["launches"][0],
+        "launches_grammar_single_steps": sum(
+            grammar["bf16"][b]["attention_launches"] for b in ("dense", "dense_repeat")),
+        "launches_grammar_single_steps_int8": sum(
+            grammar["int8"][b]["attention_launches"] for b in ("dense", "dense_repeat")),
+        "launches_grammar_worker": grammar["http"]["counters"]["paged_attention_launches"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -3168,6 +3957,8 @@ def main() -> int:
         "launches_tokenizer_worker": tok["launches"][1],
         "launches_disagg_decode_worker": disagg["int8"]["launches"][1],
         "prefill_route_launches_disagg_prefill_worker": disagg["int8"]["prefill_launches"][2],
+        "launches_grammar": sum(grammar["int8"][b]["int8_launches"]
+                                for b in ("dense", "tree", "dense_repeat")),
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
@@ -3180,7 +3971,12 @@ def main() -> int:
         st = spec["bf16"]
         fused = sum(st[b]["verify_passes"] for b in ("fused", "tree"))
         tree_passes = sum(st[b]["tree_passes"] for b in ("fused", "tree"))
+        grammar_tree = {
+            "launches_grammar": grammar["bf16"]["tree"]["verify_attention_launches"],
+            "launches_grammar_int8": grammar["int8"]["tree"]["verify_attention_launches"],
+        } if mode == "tree" else {}
         spec_entries.append({
+            **grammar_tree,
             "name": f"paged_attention_{mode}_verify", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION,
             "launches": 32 * (tree_passes if mode == "tree" else fused - tree_passes),
@@ -3200,7 +3996,8 @@ def main() -> int:
     log("tokenizer_path: " + json.dumps(tok))
     log("spec_path: " + json.dumps(spec))
     log("disagg_path: " + json.dumps(disagg))
-    log(f"chip_smoke: phases 1-11 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
+    log("grammar_path: " + json.dumps(grammar))
+    log(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
     print(json.dumps({"kernels": [entry, int8_entry, *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -193,6 +193,11 @@ class EngineArgs:
     # Batch-level draft budgets: hot rows may draft up to 2 x spec_tokens
     # under the fixed batch total rows x spec_tokens (False = uniform).
     spec_budget_adaptive: bool = True
+    # Tokenizer spec dict ({"type": "byte"} / {"type": "hf", ...}) the
+    # engine compiles grammar token-mask FSMs over (engine/grammar.py).
+    # None = byte tokenizer. Must match the serving tokenizer or masks
+    # would legalize undecodable ids; the worker wires its own spec.
+    grammar_tokenizer: dict | None = None
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):

@@ -39,9 +39,20 @@ one payload (``take_export``); a request with ``kv_transfer_params.inject``
 (pages a prefill worker exported) admits them as a prefix hit, written
 into the cache in place by ``runner.inject_pages``.
 
-Omitted for now, each a ROADMAP item: LoRA, grammar-constrained decoding
-(and with it grammar masks on the tree path), KV tiers and offload, live
-migration, embeddings and tracing.
+Grammar-constrained decoding (``response_format``) is the JAX engine's
+too (the same names): the request's schema compiles once per engine into
+a token-mask FSM (``engine/grammar.py``) off the scheduler thread; a
+batch with a constrained row decodes in single steps (``decode_step``
+then masked sampling, one CUDA graph per shape, ``runner.decode_sample``,
+the path of every K=1 plan) because the next mask needs the last token on
+the host; the FSM advances
+per emitted token; drafts are pruned to legal continuations and every
+constrained verify pass is a tree pass with per-node masks.
+``embed`` serves /v1/embeddings: mean-pooled final hidden states, one
+eager forward per ``max_prefill_tokens`` chunk on the scheduler thread.
+
+Omitted for now, each a ROADMAP item: LoRA, KV tiers and offload, live
+migration and tracing.
 """
 
 from __future__ import annotations
@@ -59,7 +70,18 @@ import numpy as np
 from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
 from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine.config import EngineArgs
-from dynamo_tpu_torch.engine.drafter import TreeDraft, build_drafter
+from dynamo_tpu_torch.engine.drafter import (
+    DraftConstraint,
+    TreeDraft,
+    build_drafter,
+    constrain_chain,
+)
+from dynamo_tpu_torch.engine.grammar import (
+    GrammarError,
+    build_compiler,
+    mask_words,
+    pack_token_ids,
+)
 from dynamo_tpu_torch.engine.runner import HostFetch, LocalRunner, host_ready, start_host_fetch
 from dynamo_tpu_torch.engine.sampler import GREEDY_EPS, row_needs_full
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
@@ -125,10 +147,10 @@ def register_engine_metrics(registry):
     windows, pending first fetches, prefill pad ratio, KV cache bytes, KV
     quant flag, preemptions, spec proposed, spec accepted, spec accept
     rate, tokens per weight pass, spec tree passes, spec tree accept
-    depth, spec budget reallocs). Names and help texts are the JAX
-    package's (``register_engine_metrics`` there); the series whose
-    quantity this engine does not have (tiers, grammar, LoRA) are left
-    out."""
+    depth, spec budget reallocs, grammar active seqs, grammar mask
+    seconds). Names and help texts are the JAX package's
+    (``register_engine_metrics`` there); the series whose quantity this
+    engine does not have (tiers, LoRA) are left out."""
     return (
         registry.gauge(
             "engine_inflight_windows",
@@ -192,6 +214,16 @@ def register_engine_metrics(registry):
             "budget was reallocated away from the uniform per-row split "
             "(EMA-hot rows drafting past spec_tokens)",
         ),
+        registry.gauge(
+            "engine_grammar_active_seqs",
+            "Running sequences decoding under a grammar constraint "
+            "(response_format token-mask FSMs)",
+        ),
+        registry.gauge(
+            "engine_grammar_mask_seconds",
+            "Cumulative host seconds spent building/packing grammar "
+            "token masks (FSM walks + bitset gathers per verify slot)",
+        ),
     )
 
 
@@ -206,7 +238,7 @@ class _Seq:
         "cancelled", "sample_seed", "kv_written", "dead", "slot", "first_pend",
         "spec_ema", "spec_cool", "draft_state", "qos", "qos_rank", "arrival",
         "export", "export_meta", "inject", "export_handle", "export_stream",
-        "export_pub_blocks",
+        "export_pub_blocks", "grammar", "grammar_state", "grammar_eos_bits",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
@@ -268,6 +300,20 @@ class _Seq:
         self.export_handle = ktp.get("stream_handle") if self.export else None
         self.export_stream: KvStreamExport | None = None
         self.export_pub_blocks = 0
+        # Grammar-constrained decoding: the compiled FSM (shared across
+        # requests of one schema), this sequence's state in it (host-side,
+        # advanced per emitted token) and the packed EOS bits OR-ed into
+        # terminal-state masks. Attached by generate().
+        self.grammar = None
+        self.grammar_state = 0
+        self.grammar_eos_bits = None
+        # A resumed leg (migration re-dispatch) carries its original prompt
+        # boundary: penalties and the grammar replay key off it.
+        resume = ktp.get("resume")
+        if isinstance(resume, dict):
+            pl = resume.get("prompt_len")
+            if isinstance(pl, int) and 1 <= pl <= len(self.tokens):
+                self.prompt_len = pl
 
     @property
     def next_write_pos(self) -> int:
@@ -420,6 +466,17 @@ class TorchEngine:
         self.inject_s = 0.0
         self.inject_bytes = 0
         self.export_s = 0.0
+        # Grammar: the compiler over the serving tokenizer's vocabulary,
+        # built once (under its lock, off the scheduler thread) and caching
+        # compiled schemas; host seconds building masks, and the number of
+        # constrained requests.
+        self._grammar_compiler = None
+        self._grammar_lock = threading.Lock()
+        self.total_grammar_mask_s = 0.0
+        self.total_grammar_seqs = 0
+        # (token_ids, future, loop) embedding jobs, served on the
+        # scheduler thread between steps.
+        self._embed_jobs: collections.deque = collections.deque()
 
     # -- lifecycle --------------------------------------------------------
 
@@ -447,7 +504,7 @@ class TorchEngine:
         if self._gauges is None:
             return
         (g_win, g_first, g_pad, g_kvb, g_kvq, c_preempt, c_prop, c_acc, g_rate, g_tpp,
-         c_tree, g_tree_depth, c_budget) = self._gauges
+         c_tree, g_tree_depth, c_budget, g_gram_seqs, g_gram_mask) = self._gauges
         g_win.set(sum(1 for it in self._fetchq if isinstance(it, _Window)))
         g_first.set(sum(1 for it in self._fetchq if isinstance(it, _First)))
         g_pad.set(self.total_prefill_padded / max(1, self.total_prefilled))
@@ -467,6 +524,8 @@ class TorchEngine:
         g_rate.set(self.total_spec_accepted / max(1, self.total_spec_proposed))
         g_tpp.set(self.total_row_tokens / max(1, self.total_row_passes))
         g_tree_depth.set(self.total_spec_tree_depth / max(1, self.total_spec_tree_rows))
+        g_gram_seqs.set(sum(1 for s in self._running if s.grammar is not None))
+        g_gram_mask.set(self.total_grammar_mask_s)
 
     @property
     def total_preemptions(self) -> int:
@@ -546,6 +605,114 @@ class TorchEngine:
         """Anything submitted, running or still in flight (a racy read)."""
         return bool(self._submissions or self._waiting or self._running or self._fetchq)
 
+    # -- grammar-constrained decoding -------------------------------------
+
+    def _compile_grammar(self, rf: dict):
+        """response_format dict → CompiledGrammar (None = unconstrained).
+        Called through to_thread from generate(); the compiler is built
+        once per engine over the serving tokenizer's vocabulary and caches
+        by schema hash, so requests sharing a schema pay its DFA once."""
+        comp = self._grammar_compiler
+        if comp is None:
+            with self._grammar_lock:
+                comp = self._grammar_compiler
+                if comp is None:
+                    comp = build_compiler(self.args.grammar_tokenizer, self.cfg.vocab_size)
+                    self._grammar_compiler = comp
+        return comp.compile(rf)
+
+    def _grammar_row_masks(self, seqs: list[_Seq], B: int) -> np.ndarray | None:
+        """Per-row packed grammar masks of a dense sampling dispatch
+        (admission first tokens, single steps) → [B, W32] uint32, or None
+        when no row is constrained (the unmasked dispatch: unconstrained
+        traffic never pays for the mask). Unconstrained rows of a mixed
+        batch ride all-ones masks, under which sampling is unchanged."""
+        if not any(s.grammar is not None for s in seqs):
+            return None
+        t0 = time.perf_counter()
+        masks = np.full((B, mask_words(self.cfg.vocab_size)), 0xFFFFFFFF, np.uint32)
+        for i, s in enumerate(seqs):
+            if s.grammar is not None:
+                masks[i] = s.grammar.mask(s.grammar_state, s.grammar_eos_bits)
+        self.total_grammar_mask_s += time.perf_counter() - t0
+        return masks
+
+    def _build_tree_masks(self, batch: list[_Seq], B: int, S1: int,
+                          node_tokens: list[list[int]], node_parents: list[list[int]]
+                          ) -> np.ndarray:
+        """Per-(row, node) packed grammar masks of one tree verify pass →
+        [B, S1, W32] uint32. Node j masks by its own FSM state, reached by
+        walking the draft tokens from the row's state down the parent
+        chain: node j's logits are what its children are checked against
+        and what its correction or bonus token samples from. Unconstrained
+        rows and dead slots ride all-ones masks; an illegal draft node
+        (which pruned drafting never makes) keeps its parent's state and
+        is never accepted, its own edge probability being masked to 0."""
+        t0 = time.perf_counter()
+        masks = np.full((B, S1, mask_words(self.cfg.vocab_size)), 0xFFFFFFFF, np.uint32)
+        for i, seq in enumerate(batch):
+            g = seq.grammar
+            if g is None:
+                continue
+            states = [seq.grammar_state]
+            masks[i, 0] = g.mask(states[0], seq.grammar_eos_bits)
+            toks_i, pars_i = node_tokens[i], node_parents[i]
+            for j in range(1, len(toks_i)):
+                st = g.advance(states[pars_i[j]], toks_i[j])
+                states.append(st if st is not None else states[pars_i[j]])
+                masks[i, j] = g.mask(states[j], seq.grammar_eos_bits)
+        self.total_grammar_mask_s += time.perf_counter() - t0
+        return masks
+
+    # -- embeddings --------------------------------------------------------
+
+    async def embed(self, token_ids: list[int]) -> list[float]:
+        """Mean-pooled final hidden state of ``token_ids`` (/v1/embeddings),
+        computed on the scheduler thread between steps (device dispatch
+        affinity)."""
+        if not token_ids:
+            raise RequestValidationError("empty input")
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        with self._wakeup:
+            if self._stopping:
+                raise RuntimeError("engine is stopping")
+            self._embed_jobs.append((list(token_ids), fut, loop))
+            self._wakeup.notify()
+        return await fut
+
+    def _serve_embed(self, token_ids: list[int], fut, loop) -> None:
+        """One embedding job. Inputs longer than ``max_prefill_tokens``
+        chunk-pool as in the JAX engine: each chunk embeds on its own and
+        the chunk vectors average weighted by their token counts. Each
+        chunk is padded to a block multiple, as a prefill chunk is (the
+        port has no prefill bucket ladder); padded positions are masked
+        out of attention and of the mean."""
+        try:
+            if len(token_ids) > self.args.max_model_len:
+                raise RequestValidationError(
+                    f"input of {len(token_ids)} tokens exceeds max_model_len "
+                    f"of {self.args.max_model_len}"
+                )
+            n, bs = self.args.max_prefill_tokens, self.args.block_size
+            chunks = [token_ids[i : i + n] for i in range(0, len(token_ids), n)]
+            vecs = []
+            for chunk in chunks:
+                toks = np.zeros((-(-len(chunk) // bs) * bs,), np.int32)
+                toks[: len(chunk)] = chunk
+                vecs.append(self._runner.embed(toks, len(chunk)))
+            acc = None
+            for chunk, v in zip(chunks, vecs):
+                v = v.cpu().numpy().astype(np.float64) * len(chunk)
+                acc = v if acc is None else acc + v
+            vec = [float(x) for x in acc / len(token_ids)]
+        except Exception as e:  # noqa: BLE001 — surface to the caller
+            err = e
+            loop.call_soon_threadsafe(
+                lambda: fut.set_exception(err) if not fut.cancelled() else None)
+            return
+        loop.call_soon_threadsafe(lambda: fut.set_result(vec) if not fut.cancelled() else None)
+
     # -- async API --------------------------------------------------------
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[dict]:
@@ -563,8 +730,38 @@ class TorchEngine:
         s = req.sampling
         if s.top_logprobs:
             s.top_logprobs = min(s.top_logprobs, self.args.top_logprobs_max) if s.logprobs else 0
+        # Grammar-constrained decoding: compile (or hit the cache for) the
+        # token-mask FSM of this request's response_format off the event
+        # loop and the scheduler thread. A malformed spec errors this
+        # stream only (the frontend already answers it with a 400).
+        grammar = None
+        if req.response_format:
+            try:
+                grammar = await asyncio.to_thread(self._compile_grammar, req.response_format)
+            except GrammarError as e:
+                yield LLMEngineOutput(finish_reason=FinishReason.ERROR,
+                                      error=f"invalid response_format: {e}").to_dict()
+                return
         queue: asyncio.Queue = asyncio.Queue()
         seq = _Seq(context.id, req, queue)
+        if grammar is not None:
+            seq.grammar = grammar
+            seq.grammar_state = grammar.start
+            seq.grammar_eos_bits = pack_token_ids(seq.eos_ids, self.cfg.vocab_size)
+            self.total_grammar_seqs += 1
+            if seq.prompt_len < len(seq.tokens):
+                # A resumed leg: the tokens past the original prompt were
+                # generated under this grammar on an earlier leg, so the FSM
+                # replays them and masking continues from the state reached.
+                st = grammar.start
+                for t in seq.tokens[seq.prompt_len:]:
+                    if t in seq.eos_ids:
+                        break
+                    ns = grammar.advance(st, t)
+                    if ns is None:
+                        break
+                    st = ns
+                seq.grammar_state = st
         if not self.args.qos_scheduling:
             seq.qos_rank = 0  # one class: FIFO admission, newest-first preempt
         with self._wakeup:
@@ -644,7 +841,7 @@ class TorchEngine:
                 with self._wakeup:
                     while (not self._stopping and not self._submissions
                            and not self._waiting and not self._running
-                           and not self._host_jobs):
+                           and not self._embed_jobs and not self._host_jobs):
                         self._wakeup.wait()
                     if self._stopping:
                         break
@@ -667,8 +864,11 @@ class TorchEngine:
                 self._running.clear()
                 self._waiting.clear()
                 self._submissions.clear()
-                jobs = list(self._host_jobs)
+                jobs = list(self._host_jobs) + list(self._embed_jobs)
                 self._host_jobs.clear()
+                self._embed_jobs.clear()
+            # Pending host-job and embedding futures resolve too, or their
+            # awaiters would hang.
             for _fn, fut, loop in jobs:
                 exc = RuntimeError("engine loop crashed" if crashed else "engine stopped")
                 loop.call_soon_threadsafe(
@@ -694,6 +894,8 @@ class TorchEngine:
         if self._export_fetches:
             self._drain_export_fetches()
         self._reap_cancelled()
+        while self._embed_jobs:
+            self._serve_embed(*self._embed_jobs.popleft())
         while self._host_jobs:
             self._serve_host_job(*self._host_jobs.popleft())
         if self._exports:
@@ -1174,10 +1376,15 @@ class TorchEngine:
 
     def _plan_window(self) -> tuple[int, int]:
         """→ (K, depth). K=1 is the end-of-life tail near max_model_len;
-        pipelining (depth > 0) needs K > 1 and no full-sampler rows."""
+        pipelining (depth > 0) needs K > 1 and no full-sampler rows.
+        Grammar rows force K=1 too: their FSM advances on the host per
+        emitted token and the next token's mask depends on it (a fused
+        window could mask only its first substep)."""
         K = max(1, self.args.decode_steps)
         if K > 1 and any(len(s.tokens) + self._pend(s) + K > self.args.max_model_len
                          for s in self._running):
+            K = 1
+        if K > 1 and any(s.grammar is not None for s in self._running):
             K = 1
         depth = self.args.effective_pipeline_depth
         if K == 1 or any(self._needs_full_sampler(s) for s in self._running):
@@ -1223,6 +1430,9 @@ class TorchEngine:
                 self._preempt(self._preempt_victim())
         if not self._running:
             self._drain_completed(force=True)
+            return
+        if K == 1:
+            self._decode_single_step()
             return
         self._fetchq.append(self._dispatch_window(K))
         # Free harvest first, then hold the depth bound: waiting on the
@@ -1293,6 +1503,55 @@ class TorchEngine:
         self._phase("decode_dispatch", t0)
         return w
 
+    def _decode_single_step(self) -> None:
+        """One decode step over the running set, fetched at once: every
+        K=1 plan (the end-of-life tail, ``decode_steps`` 1, and every batch
+        with a grammar row, whose next masks need this step's tokens on the
+        host), as in the JAX engine. Grammar rows sample under their masks;
+        a batch without one passes no mask. Nothing is device-pending here
+        (a K=1 plan drains the fetch queue first), so every input comes
+        from the host. One dispatch: ``runner.decode_sample``."""
+        t0 = time.perf_counter()
+        batch = list(self._running)
+        B = self.args.bucket_decode(len(batch))
+        W = self.args.bucket_table(max(len(s.block_ids) for s in batch))
+        tokens = np.zeros((B,), np.int32)
+        positions = np.zeros((B,), np.int32)
+        tables = np.zeros((B, W), np.int32)
+        active = np.zeros((B,), bool)
+        for i, seq in enumerate(batch):
+            tokens[i] = seq.tokens[-1]
+            positions[i] = seq.next_write_pos
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+            active[i] = True
+        fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        fold_slots[: len(batch)] = [s.slot for s in batch]
+        mode, temps, tks, tps, freqs, press, seeds, steps, pen = self._sampling_arrays(batch, B)
+        top_n = self._top_n(batch)
+        ref = self._runner.decode_sample(
+            mode, tokens, positions, tables, active, temps, seeds, steps, tks, tps, freqs,
+            press, pen, fold_slots, top_n, self._grammar_row_masks(batch, B))
+        self.total_decode_steps += 1
+        self.total_row_passes += len(batch)
+        self.total_row_tokens += len(batch)
+        fetch = start_host_fetch(self._fetch_arrays(ref, top_n))
+        t0 = self._phase("decode_dispatch", t0)
+        arrs = fetch.wait()
+        t0 = self._phase("drain_sync", t0)
+        toks_l, lps_l = arrs[0].tolist(), arrs[1].tolist()
+        tvals_l = arrs[2].tolist() if top_n else None
+        tids_l = arrs[3].tolist() if top_n else None
+        for i, seq in enumerate(batch):
+            # The step wrote each sequence's KV at its position.
+            seq.kv_written = int(positions[i]) + 1
+            self._register_written_blocks(seq)
+            tops = None
+            if tids_l is not None and seq.sampling.top_logprobs:
+                n = seq.sampling.top_logprobs
+                tops = [[list(p) for p in zip(tids_l[i][:n], tvals_l[i][:n])]]
+            self._emit_tokens(seq, [toks_l[i]], [lps_l[i]], tops)
+        self._phase("emit", t0)
+
     def _drain_window(self, w: _Window, blocked: bool) -> None:
         t0 = time.perf_counter()
         arrs = w.fetch.wait()  # the window's one host fetch
@@ -1350,9 +1609,19 @@ class TorchEngine:
         eff = min(cap, max(1, round(budget * min(1.0, seq.spec_ema / 0.5))))
         if seq.draft_state is None:
             seq.draft_state = self._drafter.new_state()
+        constraint = None
+        if seq.grammar is not None:
+            # Grammar-pruned drafting: candidates filtered to FSM-legal
+            # continuations, and a forced state drafts its one legal token.
+            constraint = DraftConstraint(seq.grammar_state, seq.grammar.advance,
+                                         seq.grammar.forced)
         if hasattr(self._drafter, "draft_tree"):
-            return self._drafter.draft_tree(seq.tokens, seq.draft_state, eff)
-        return self._drafter.draft(seq.tokens, seq.draft_state, eff)
+            return self._drafter.draft_tree(seq.tokens, seq.draft_state, eff,
+                                            constraint=constraint)
+        d = self._drafter.draft(seq.tokens, seq.draft_state, eff)
+        if constraint is not None:
+            d = constrain_chain(d, constraint, eff)
+        return d
 
     @staticmethod
     def _draft_potential(d) -> int:
@@ -1433,8 +1702,13 @@ class TorchEngine:
         node_parents: list[list[int]] = []
         # All-chain proposals dispatch through the linear op (stepwise
         # parity included); any branched one upgrades the whole batch to
-        # the topology-masked tree op (chains are trees too).
-        any_tree = any(isinstance(d, TreeDraft) and not d.is_chain() for d in drafts.values())
+        # the topology-masked tree op (chains are trees too). Grammar rows
+        # force the tree op as well: per-node masks ride only the tree
+        # acceptance (a draft-less constrained row needs its root mask for
+        # the bonus sample).
+        any_gram = any(s.grammar is not None for s in batch)
+        any_tree = any_gram or any(isinstance(d, TreeDraft) and not d.is_chain()
+                                   for d in drafts.values())
         for i, seq in enumerate(batch):
             d = drafts[seq]
             if isinstance(d, TreeDraft):
@@ -1460,8 +1734,10 @@ class TorchEngine:
         mode = "greedy" if all(t < GREEDY_EPS for t in temps[: len(batch)]) else "simple"
         top_n = self._top_n(batch)
         tree = self._build_tree_args(B, S1, node_parents) if any_tree else None
+        masks = (self._build_tree_masks(batch, B, S1, node_tokens, node_parents)
+                 if any_gram else None)
         ref = self._runner.spec_verify(S1, mode, tokens, pos0_arr, dlen, tables, active, temps,
-                                       seeds, steps0, fold_slots, top_n, tree)
+                                       seeds, steps0, fold_slots, top_n, tree, masks)
         arrs = ref.arrs if top_n else ref.arrs[:4]
         self._fetchq.append(_Spec(batch, pos0, draft_lens, top_n, potentials, any_tree,
                                   node_tokens, node_parents, start_host_fetch(arrs)))
@@ -1586,8 +1862,18 @@ class TorchEngine:
     def _sample_rows_device(self, logits: list, seqs: list[_Seq], fold_slots: np.ndarray,
                             top_n: int):
         """First tokens of an admission wave (``logits`` padded to the
-        batch bucket), sampled and folded on the device → StepRef."""
+        batch bucket), sampled and folded on the device → StepRef. Grammar
+        rows sample from their FSM state's legal vocabulary."""
         B = len(logits)
+        mode, temps, tks, tps, freqs, press, seeds, steps, pen = self._sampling_arrays(seqs, B)
+        return self._runner.sample_rows(logits, mode, temps, tks, tps, pen, freqs, press,
+                                        seeds, steps, fold_slots, top_n,
+                                        self._grammar_row_masks(seqs, B))
+
+    def _sampling_arrays(self, seqs: list[_Seq], B: int) -> tuple:
+        """The sampler mode and per-row sampling operands of ``seqs``
+        padded to B rows → (mode, temps, top_k, top_p, freqs, press,
+        seeds, steps, penalty window)."""
         temps = np.ones((B,), np.float32)
         tks = np.zeros((B,), np.int32)
         tps = np.ones((B,), np.float32)
@@ -1605,8 +1891,7 @@ class TorchEngine:
             steps[i] = s.emitted
         mode = self._mode(seqs)
         pen = self._penalty_window(seqs, B) if mode == "full" else np.full((B, 1), -1, np.int32)
-        return self._runner.sample_rows(logits, mode, temps, tks, tps, pen, freqs, press,
-                                        seeds, steps, fold_slots, top_n)
+        return mode, temps, tks, tps, freqs, press, seeds, steps, pen
 
     def _top_n(self, seqs: list[_Seq]) -> int:
         return self.args.top_logprobs_max if any(s.sampling.top_logprobs for s in seqs) else 0
@@ -1625,6 +1910,13 @@ class TorchEngine:
             seq.emitted += 1
             self.total_generated += 1
             kept.append(token)
+            # Advance the grammar FSM per emitted token (EOS ends the match
+            # and is not part of it). Masked sampling makes every token
+            # legal; an illegal one (a desync) leaves the state as it was.
+            if seq.grammar is not None and token not in seq.eos_ids:
+                ns = seq.grammar.advance(seq.grammar_state, token)
+                if ns is not None:
+                    seq.grammar_state = ns
             if seq.block_seq is not None:
                 seq.block_seq.append(token)
             if (

@@ -1,7 +1,9 @@
-"""CUDA-graph decode windows and verify passes: the port's counterpart of
-the JAX package's one jitted dispatch per window (``dynamo_tpu/engine/
-runner.py`` ``multi_decode``) and per speculative verify pass
-(``spec_verify``, whose shape lattice the JAX package AOT-compiles).
+"""CUDA-graph decode windows, verify passes and single steps: the port's
+counterpart of the JAX package's one jitted dispatch per window
+(``dynamo_tpu/engine/runner.py`` ``multi_decode``), per speculative verify
+pass (``spec_verify``, whose shape lattice the JAX package AOT-compiles)
+and per grammar-constrained single step (``decode_step`` then masked
+``sample_rows``).
 
 An eager window issues hundreds of small launches per substep and leaves
 the card idle while the host issues them. Here each window shape (B
@@ -64,9 +66,10 @@ class _Graph:
 
 
 class WindowGraphs:
-    """The runner's captured windows and verify passes, keyed by shape:
-    (B, W, L, K, mode, top_n) for a window, ("verify", B, W, S1, mode,
-    top_n, tree, fused) for a verify pass."""
+    """The runner's captured windows, verify passes and single steps,
+    keyed by shape: (B, W, L, K, mode, top_n) for a window, ("verify", B,
+    W, S1, mode, top_n, tree, fused, masked) for a verify pass, ("step",
+    B, W, L, mode, top_n, masked) for a single step."""
 
     def __init__(self, device: torch.device):
         self.device = device

@@ -19,7 +19,9 @@ The JAX functions return an updated cache (the caller donates the old
 one); here every write updates the cache tensors in place and the
 functions return only the logits.
 
-Prefill attention is plain tensor code (XLA in the JAX package); decode
+``embed`` is the JAX package's ``embed_impl`` (/v1/embeddings): a
+cache-free causal forward, mean-pooled. Its attention, like prefill
+attention, is plain tensor code (XLA in the JAX package); decode
 and speculative-verify attention go through ``ops.paged_attention`` — the
 CUDA kernel on the card (its decode, linear multi-query and tree modes),
 the plain version on the CPU.
@@ -480,7 +482,7 @@ def spec_verify(
     tree_parents: torch.Tensor | None = None,  # [B, S1] int — tree mode (below)
     tree_anc: torch.Tensor | None = None,      # [B, S1, S1] ancestor-or-self bits
     tree_depth: torch.Tensor | None = None,    # [B, S1] int per-node depth
-    mask_bits: torch.Tensor | None = None,     # grammar masks: not ported (A15)
+    mask_bits: torch.Tensor | None = None,     # [B, S1, W32] int32 per-node grammar masks
     lora: dict | None = None,                  # adapter bank: not ported (A16)
     *,
     fused: bool = True,
@@ -506,6 +508,12 @@ def spec_verify(
       into positions0+1..positions0+a, every other depth written to block 0,
       int8 scales included, so the engine rolls back as for a chain.
 
+    Grammar masks (``mask_bits``) ride the tree mode only, as in the JAX
+    package, whose engine upgrades every constrained batch to the tree op:
+    acceptance and the correction/bonus samples renormalize over each
+    node's legal vocabulary, while the reported logprobs stay the raw
+    model's. Linear and stepwise passes refuse masks.
+
     Dead slots (j > draft_len) and inactive rows write to block 0, the
     garbage sink. The KV of drafts past the accepted run is junk that the
     next dispatch rewrites.
@@ -514,8 +522,8 @@ def spec_verify(
     logprobs of the emitted tokens, cand [B, S1] per-node argmax, top_vals
     [B, S1, top_n], top_ids [B, S1, top_n], last_tok [B] = out[b,
     n_emit-1]), all on the device; the cache is updated in place."""
-    if mask_bits is not None:
-        raise NotImplementedError("grammar masks in verify are not ported (ROADMAP A15)")
+    if mask_bits is not None and tree_parents is None:
+        raise ValueError("grammar masks ride tree verify passes only")
     if lora is not None:
         raise NotImplementedError("LoRA rows in verify are not ported (ROADMAP A16)")
     if mode not in ("greedy", "simple"):
@@ -587,7 +595,7 @@ def spec_verify(
 
     if tree:
         out, n_emit, path, cand = spec_tree_acceptance(
-            logits, tokens, tree_parents, draft_len, temperature, seeds, steps0, mode)
+            logits, tokens, tree_parents, draft_len, temperature, seeds, steps0, mode, mask_bits)
         # Downstream reads path-aligned logits: emitted token k came from
         # node path[k]'s distribution.
         V = logits.shape[-1]
@@ -631,3 +639,50 @@ def spec_verify(
         top_ids = torch.zeros((B, T, 0), dtype=torch.int32, device=dev)
     last_tok = torch.gather(out, 1, (n_emit.long() - 1)[:, None])[:, 0]
     return out, n_emit, logps, cand, top_vals, top_ids, last_tok
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+
+def embed(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [T_pad] int32
+    true_len: int,         # tokens that count; the rest is padding
+) -> torch.Tensor:
+    """Mean-pooled final-norm hidden state over the true tokens → [D] f32
+    (the JAX package's ``embed_impl``; serves /v1/embeddings). A cache-free
+    causal forward with the JAX function's dense attention: einsum scores
+    in f32, a -1e9 additive mask over future and padded keys, softmax in
+    f32. Padded positions attend the true ones but are left out of the
+    mean, so the vector does not depend on the padding beyond rounding."""
+    T = tokens.shape[0]
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KVH
+    dev = tokens.device
+    x = _embed_rows(params, tokens, _compute_dtype(params))               # [T, D]
+    pos = torch.arange(T, device=dev)
+    valid = pos < true_len
+    allowed = (pos[None, :] <= pos[:, None]) & valid[None, :]
+    mask = torch.where(allowed, 0.0, -1e9)                                # [T, T] f32
+    scale = hd ** -0.5
+    rope = _rope_table(pos, hd, cfg.rope_theta)
+    for layer in range(cfg.num_layers):
+        lp = _layer(params, layer)
+        h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q = _rope(q.reshape(T, cfg.num_heads, hd), rope)
+        k = _rope(k.reshape(T, KVH, hd), rope)
+        v = v.reshape(T, KVH, hd)
+        qg = q.reshape(T, KVH, G, hd)
+        s = torch.einsum("tkgh,skh->tkgs", qg, k).float() * scale
+        s = s + mask[:, None, None, :]
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        o = torch.einsum("tkgs,skh->tkgh", p, v).reshape(T, cfg.q_size)
+        x = x + _dot_q(o, lp, "wo")
+        x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+    x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float()
+    w = valid.float()[:, None]
+    return (x * w).sum(dim=0) / max(float(true_len), 1.0)

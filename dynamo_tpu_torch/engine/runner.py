@@ -20,12 +20,14 @@ device:
   into its sequence's slot (padding rows into the tail slot, a sink), and
   so do admission samples, so the next window can be dispatched before
   this one is fetched.
-- On CUDA a K-step window (K > 1) is one CUDA-graph replay
-  (``engine/graphs.py``), the counterpart of the JAX package's one jitted
-  dispatch per window, and so is every speculative verify pass
-  (``spec_verify``; ``warm_spec`` captures its shape lattice). K=1 tail
-  steps, prefill and admission sampling run eagerly, as the JAX package
-  dispatches them separately too.
+- On CUDA a K-step window is one CUDA-graph replay (``engine/graphs.py``),
+  the counterpart of the JAX package's one jitted dispatch per window, and
+  so is every speculative verify pass (``spec_verify``; ``warm_spec``
+  captures its shape lattice) and every single step (``decode_sample``:
+  the decode step and its sampling, masked for a grammar-constrained
+  batch; ``warm_steps``). Grammar masks ride the packed upload as 32-bit
+  words. Prefill, admission sampling and embeddings run eagerly, as the
+  JAX package dispatches them separately too.
 
 Thread affinity: the engine's scheduler thread only.
 """
@@ -42,9 +44,11 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
+from dynamo_tpu_torch.engine.grammar import mask_words
 from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts
 from dynamo_tpu_torch.engine.quant import quantize_params_np, random_int8_params_device
 from dynamo_tpu_torch.engine.sampler import (
+    apply_mask,
     row_gumbel,
     sample_full,
     sample_simple,
@@ -62,9 +66,11 @@ _RETAIN = 128  # refs kept by id
 class Layout:
     """Where each host operand of one dispatch sits in a single int32 word
     buffer: one host→device copy per dispatch. Kinds: "i" int32, "f"
-    float32 (bit-cast), "b" bool (one word each)."""
+    float32 (bit-cast), "b" bool (one word each), "w" packed 32-bit words
+    (grammar bitsets, uint32 on the host, bit-cast to int32)."""
 
     def __init__(self, *fields: tuple[str, tuple[int, ...], str]):
+        self.fields = fields
         self.slices: dict[str, tuple[int, int, tuple[int, ...], str]] = {}
         off = 0
         for name, shape, kind in fields:
@@ -79,6 +85,8 @@ class Layout:
             a = np.asarray(arrays[name]).reshape(-1)
             if kind == "f":
                 words[lo:hi] = a.astype(np.float32).view(np.int32)
+            elif kind == "w":
+                words[lo:hi] = a.astype(np.uint32).view(np.int32)
             else:
                 words[lo:hi] = a.astype(np.int32)
         return words
@@ -107,10 +115,11 @@ def window_layout(B: int, W: int, L: int) -> Layout:
     )
 
 
-def verify_layout(B: int, W: int, S1: int, tree: bool) -> Layout:
+def verify_layout(B: int, W: int, S1: int, tree: bool, W32: int = 0) -> Layout:
     """Operands of one speculative verify pass: B rows of S1 slots, W-wide
-    tables, and for a draft tree its topology (parents, ancestor bits as
-    one word each, depths)."""
+    tables, for a draft tree its topology (parents, ancestor bits as one
+    word each, depths), and with ``W32`` > 0 per-node grammar masks of
+    W32 words each (tree passes only)."""
     fields = [
         ("tokens", (B, S1), "i"), ("positions0", (B,), "i"), ("draft_len", (B,), "i"),
         ("tables", (B, W), "i"), ("active", (B,), "b"), ("temps", (B,), "f"),
@@ -118,15 +127,30 @@ def verify_layout(B: int, W: int, S1: int, tree: bool) -> Layout:
     ]
     if tree:
         fields += [("parents", (B, S1), "i"), ("anc", (B, S1, S1), "i"), ("depth", (B, S1), "i")]
+    if W32:
+        fields.append(("masks", (B, S1, W32), "w"))
     return Layout(*fields)
 
 
-def sample_layout(B: int, L: int) -> Layout:
-    return Layout(
+def sample_layout(B: int, L: int, W32: int = 0) -> Layout:
+    """Operands of one sampling dispatch over B rows (L-wide penalty
+    windows; with ``W32`` > 0 per-row grammar masks)."""
+    fields = [
         ("temps", (B,), "f"), ("seeds", (B,), "i"), ("steps", (B,), "i"),
         ("top_k", (B,), "i"), ("top_p", (B,), "f"), ("freq", (B,), "f"),
         ("pres", (B,), "f"), ("pen", (B, L), "i"), ("fold_slots", (B,), "i"),
-    )
+    ]
+    if W32:
+        fields.append(("masks", (B, W32), "w"))
+    return Layout(*fields)
+
+
+def step_layout(B: int, W: int, L: int, W32: int = 0) -> Layout:
+    """Operands of one single decode step and its sampling: the step's
+    tokens, positions, W-wide tables and active rows, then
+    ``sample_layout``'s."""
+    return Layout(("tokens", (B,), "i"), ("positions", (B,), "i"), ("tables", (B, W), "i"),
+                  ("active", (B,), "b"), *sample_layout(B, L, W32).fields)
 
 
 class StepRef:
@@ -209,6 +233,7 @@ class LocalRunner:
         self.graphs: WindowGraphs | None = None
         self.eager_windows = 0  # K-step windows run eagerly on CUDA
         self.eager_verifies = 0  # verify passes run eagerly on CUDA
+        self.eager_steps = 0  # single decode steps run eagerly on CUDA
         # Verify passes dispatched, the forwards over all layers they made
         # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
         # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route).
@@ -319,8 +344,9 @@ class LocalRunner:
         ``fold_slots`` [B] names each row's slot so the window's final
         tokens land back in ``last_toks`` (padding rows → the tail slot).
         ``pen`` [B, L] is the penalty window ("full" mode; [B, 1] of -1
-        otherwise). On CUDA a window with K > 1 replays its CUDA graph;
-        ``eager=True`` runs it op by op instead (the parity checks' seam)."""
+        otherwise). On CUDA a window replays its CUDA graph; ``eager=True``
+        runs it op by op instead (the parity checks' seam). The engine
+        dispatches K > 1 only: a K=1 plan is ``decode_sample``."""
         B, W = np.shape(tables)
         L = np.shape(pen)[1]
         mask = np.zeros((B,), bool)
@@ -337,10 +363,10 @@ class LocalRunner:
             seeds=seeds, steps0=steps0, top_k=tks, top_p=tps, freq=freqs, pres=press,
             pen=pen, chain_mask=mask, chain_src=srcmap, fold_slots=fold_slots,
         )
-        if self.graphs is not None and K > 1 and not eager:
+        if self.graphs is not None and not eager:
             outs = self._graph_window(lay, int(K), mode, int(top_n), words)
         else:
-            if self.device.type == "cuda" and K > 1:
+            if self.device.type == "cuda":
                 self.eager_windows += 1
             outs = self._window_fn(int(K), mode, int(top_n), lay)(self.upload(words))
         return self._new_ref(tuple(outs), rid)
@@ -356,7 +382,8 @@ class LocalRunner:
         these sampler modes and top_n values can take (each decode bucket ×
         table bucket at ``decode_steps``), so that no request waits for a
         capture; each is replayed once on inert inputs. → graphs newly
-        captured (0 on the CPU or with decode_steps 1)."""
+        captured (0 on the CPU, or with decode_steps 1, whose every plan is
+        a single step)."""
         K = self.args.decode_steps
         if self.graphs is None or K < 2:
             return 0
@@ -402,28 +429,35 @@ class LocalRunner:
         )
 
     def spec_verify(self, S1, mode, tokens, positions0, draft_len, tables, active, temps,
-                    seeds, steps0, fold_slots=None, top_n=0, tree=None, *, rid=None,
-                    eager=False) -> StepRef:
+                    seeds, steps0, fold_slots=None, top_n=0, tree=None, masks=None, *,
+                    rid=None, eager=False) -> StepRef:
         """One speculative verify pass over ``S1`` slots per row (fused: one
         weight stream; ``spec_fused=False``: S1 decode steps), acceptance
         on the device → StepRef (out [B, S1], n_emit [B], logps [B, S1],
         cand [B, S1], top_vals, top_ids). ``tree`` = None for linear
         drafts, or (parents [B, S1], anc [B, S1, S1], depth [B, S1]) numpy
-        arrays for a draft tree. The pass's last emitted token folds into
-        ``last_toks`` at ``fold_slots``, so the next window chains from it.
-        On CUDA each verify shape is one graph replay; ``eager=True`` runs
-        it op by op (the parity checks' seam). The JAX runner's grammar
-        masks and adapter slots are not ported (ROADMAP A15, A16)."""
+        arrays for a draft tree. ``masks`` = None or [B, S1, W32] uint32
+        packed per-node grammar bitsets (tree passes only: the engine
+        upgrades every constrained batch to the tree op); they ride the
+        packed upload, so the masked pass is one more captured shape. The
+        pass's last emitted token folds into ``last_toks`` at
+        ``fold_slots``, so the next window chains from it. On CUDA each
+        verify shape is one graph replay; ``eager=True`` runs it op by op
+        (the parity checks' seam). The JAX runner's adapter slots are not
+        ported (ROADMAP A16)."""
         B, W = np.shape(tables)
         S1 = int(S1)
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
-        lay = verify_layout(B, W, S1, tree is not None)
+        W32 = 0 if masks is None else np.shape(masks)[-1]
+        lay = verify_layout(B, W, S1, tree is not None, W32)
         arrays = dict(tokens=tokens, positions0=positions0, draft_len=draft_len, tables=tables,
                       active=active, temps=temps, seeds=seeds, steps0=steps0,
                       fold_slots=fold_slots)
         if tree is not None:
             arrays.update(parents=tree[0], anc=tree[1], depth=tree[2])
+        if masks is not None:
+            arrays["masks"] = masks
         words = lay.pack(**arrays)
         fused = self.args.spec_fused or tree is not None
         before = read_counts()
@@ -442,7 +476,8 @@ class LocalRunner:
     def _graph_verify(self, lay: Layout, S1: int, mode: str, top_n: int, fused: bool,
                       words: np.ndarray):
         B, W = lay.slices["tables"][2]
-        key = ("verify", B, W, S1, mode, top_n, "parents" in lay.slices, fused)
+        key = ("verify", B, W, S1, mode, top_n, "parents" in lay.slices, fused,
+               "masks" in lay.slices)
         return self.graphs.run(key, words, lambda: (
             self._verify_fn(S1, mode, top_n, fused, lay), self._inert_verify(lay)))
 
@@ -457,7 +492,7 @@ class LocalRunner:
                 self.cfg, S1, mode, top_n, self.params, self.cache, a["tokens"],
                 a["positions0"], a["draft_len"], a["tables"], a["active"], a["temps"],
                 a["seeds"], a["steps0"], a.get("parents"), a.get("anc"), a.get("depth"),
-                fused=fused, attn_impl=self.attn_impl,
+                a.get("masks"), fused=fused, attn_impl=self.attn_impl,
             )
             self.last_toks[a["fold_slots"].long()] = out[6]
             return out[:6]
@@ -467,7 +502,8 @@ class LocalRunner:
     def _inert_verify(self, lay: Layout) -> np.ndarray:
         """Verify inputs that touch nothing live: every row inactive (KV
         writes and compaction land in block 0), folds into the sink slot;
-        a tree layout carries a chain's topology."""
+        a tree layout carries a chain's topology, a masked one all-ones
+        masks."""
         B, S1 = lay.slices["tokens"][2]
         z = np.zeros((B,), np.int32)
         arrays = dict(
@@ -483,30 +519,39 @@ class LocalRunner:
                 anc=np.broadcast_to(np.tril(np.ones((S1, S1), np.int32)), (B, S1, S1)),
                 depth=np.broadcast_to(np.arange(S1), (B, S1)),
             )
+        if "masks" in lay.slices:
+            arrays["masks"] = np.full(lay.slices["masks"][2], 0xFFFFFFFF, np.uint32)
         return lay.pack(**arrays)
 
-    def warm_spec(self, modes=("greedy", "simple"), top_ns=(0,)) -> int:
+    def warm_spec(self, modes=("greedy", "simple"), top_ns=(0,), grammar: bool = False) -> int:
         """Capture, ahead of traffic, the CUDA graph of every verify shape
         the engine's speculation can dispatch in these sampler modes and
         top_n values (the JAX package AOT-compiles the same lattice): each
         decode bucket × table bucket × S1 (spec_tokens+1, and
         2·spec_tokens+1 under adaptive budgets) × linear, and tree when
-        spec_tree_width > 1; each is replayed once on inert inputs. →
+        spec_tree_width > 1 or ``grammar``; ``grammar=True`` adds the
+        masked tree shapes constrained traffic dispatches (JAX
+        ``TpuEngine.warm_spec``). Each is replayed once on inert inputs. →
         graphs newly captured (0 on the CPU or with spec_tokens 0)."""
         S = self.args.spec_tokens
         if self.graphs is None or S <= 0:
             return 0
         s1s = [S + 1] + ([2 * S + 1] if self.args.spec_budget_adaptive else [])
-        trees = [False] + ([True] if self.args.spec_tree_width > 1 else [])
+        shapes = [(False, False)]
+        if self.args.spec_tree_width > 1 or grammar:
+            shapes.append((True, False))
+        if grammar:
+            shapes.append((True, True))
+        W32 = mask_words(self.cfg.vocab_size)
         before = self.graphs.captured
         for S1 in s1s:
-            for tree in trees:
+            for tree, masked in shapes:
                 fused = self.args.spec_fused or tree
                 for mode in modes:
                     for top_n in top_ns:
                         for B in self.args.decode_buckets:
                             for W in self.args.table_buckets:
-                                lay = verify_layout(B, W, S1, tree)
+                                lay = verify_layout(B, W, S1, tree, W32 if masked else 0)
                                 self._graph_verify(lay, S1, mode, top_n, fused,
                                                    self._inert_verify(lay))
         return self.graphs.captured - before
@@ -537,33 +582,140 @@ class LocalRunner:
         kv_transfer.inject_pages(self.cache, block_ids, *pages)
 
     def sample_rows(self, logits: list[torch.Tensor], mode: str, temps, tks, tps, pen, freqs,
-                    press, seeds, steps, fold_slots=None, top_n: int = 0) -> StepRef:
+                    press, seeds, steps, fold_slots=None, top_n: int = 0,
+                    masks=None) -> StepRef:
         """Sample one token per row of the stacked ``logits`` ([V] each) in
         sampler ``mode`` → StepRef (tokens [B], logprobs [B], top_vals
-        [B, n], top_ids [B, n]).
-        With ``fold_slots`` the tokens also land in ``last_toks``, so the
-        next window chains from them without a host sync (async
-        admission)."""
+        [B, n], top_ids [B, n]). ``masks`` = None or [B, W32] uint32 packed
+        grammar bitsets: each row samples from its legal vocabulary, while
+        the logprobs stay the raw model's. With ``fold_slots`` the tokens
+        also land in ``last_toks``, so the next window chains from them
+        without a host sync (async admission)."""
         x = torch.stack(logits)
-        B, V = x.shape
+        B = x.shape[0]
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
-        lay = sample_layout(B, np.shape(pen)[1])
-        a = lay.unpack(self.upload(lay.pack(
-            temps=temps, seeds=seeds, steps=steps, top_k=tks, top_p=tps, freq=freqs,
-            pres=press, pen=pen, fold_slots=fold_slots,
-        )))
+        lay = sample_layout(B, np.shape(pen)[1], 0 if masks is None else np.shape(masks)[-1])
+        arrays = dict(temps=temps, seeds=seeds, steps=steps, top_k=tks, top_p=tps, freq=freqs,
+                      pres=press, pen=pen, fold_slots=fold_slots)
+        if masks is not None:
+            arrays["masks"] = masks
+        a = lay.unpack(self.upload(lay.pack(**arrays)))
+        return self._new_ref(self._sample(x, mode, top_n, a))
+
+    def _sample(self, x: torch.Tensor, mode: str, top_n: int, a: dict) -> tuple:
+        """Sample ``x`` [B, V] in ``mode`` from the unpacked sampling
+        operands ``a`` (with their grammar masks, if any), fold the tokens
+        into ``last_toks`` → (tokens, logprobs, top_vals, top_ids)."""
+        B, V = x.shape
+        masks = a.get("masks")
         if mode == "greedy":
-            toks = torch.argmax(x, dim=-1).to(torch.int32)
+            toks = torch.argmax(apply_mask(x, masks), dim=-1).to(torch.int32)
         elif mode == "simple":
-            toks = sample_simple(x, a["temps"], row_gumbel(a["seeds"], a["steps"], V))
+            toks = sample_simple(x, a["temps"], row_gumbel(a["seeds"], a["steps"], V), masks)
         else:
             toks = sample_full(x, a["temps"], a["top_k"], a["top_p"], a["pen"], a["freq"],
-                               a["pres"], row_gumbel(a["seeds"], a["steps"], V))
+                               a["pres"], row_gumbel(a["seeds"], a["steps"], V), masks)
         self.last_toks[a["fold_slots"].long()] = toks
         if top_n > 0:
             tv, ti = top_k_logprobs(x, top_n)
         else:
             tv = torch.zeros((B, 0), dtype=torch.float32, device=x.device)
             ti = torch.zeros((B, 0), dtype=torch.int32, device=x.device)
-        return self._new_ref((toks, token_logprobs(x, toks), tv, ti))
+        return toks, token_logprobs(x, toks), tv, ti
+
+    # -- single decode step (the JAX engine's _decode_single_step) ----------
+
+    def decode_sample(self, mode, tokens, positions, tables, active, temps, seeds, steps, tks,
+                      tps, freqs, press, pen, fold_slots=None, top_n: int = 0, masks=None, *,
+                      rid=None, eager=False) -> StepRef:
+        """One decode step and the sampling of its logits as one dispatch:
+        ``decode_step`` then ``sample_rows`` on its rows (with their
+        grammar ``masks``, [B, W32] uint32, or None) → StepRef (tokens
+        [B], logprobs [B], top_vals [B, n], top_ids [B, n]). The engine's
+        every K=1 plan: the end-of-life tail, ``decode_steps`` 1, and a
+        batch with grammar rows, whose next mask needs this step's token
+        on the host. On CUDA it is one graph replay per shape (B, W, L,
+        mode, top_n, masked), ``eager=True`` runs it op by op (the parity
+        checks' seam)."""
+        B, W = np.shape(tables)
+        if fold_slots is None:
+            fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
+        W32 = 0 if masks is None else np.shape(masks)[-1]
+        lay = step_layout(B, W, np.shape(pen)[1], W32)
+        arrays = dict(tokens=tokens, positions=positions, tables=tables, active=active,
+                      temps=temps, seeds=seeds, steps=steps, top_k=tks, top_p=tps, freq=freqs,
+                      pres=press, pen=pen, fold_slots=fold_slots)
+        if masks is not None:
+            arrays["masks"] = masks
+        words = lay.pack(**arrays)
+        if self.graphs is not None and not eager:
+            outs = self._graph_step(lay, mode, int(top_n), words)
+        else:
+            if self.device.type == "cuda":
+                self.eager_steps += 1
+            outs = self._step_fn(mode, int(top_n), lay)(self.upload(words))
+        return self._new_ref(tuple(outs), rid)
+
+    def _graph_step(self, lay: Layout, mode: str, top_n: int, words: np.ndarray):
+        B, W = lay.slices["tables"][2]
+        key = ("step", B, W, lay.slices["pen"][2][1], mode, top_n, "masks" in lay.slices)
+        return self.graphs.run(key, words, lambda: (self._step_fn(mode, top_n, lay),
+                                                    self._inert_step(lay)))
+
+    def _step_fn(self, mode: str, top_n: int, lay: Layout):
+        """The single step as one function of its packed inputs (what a
+        graph captures)."""
+
+        def step(words: torch.Tensor):
+            a = lay.unpack(words)
+            logits = M.decode_step(self.cfg, self.params, self.cache, a["tokens"],
+                                   a["positions"], a["tables"], a["active"], self.attn_impl)
+            return self._sample(logits, mode, top_n, a)
+
+        return step
+
+    def _inert_step(self, lay: Layout) -> np.ndarray:
+        """Step inputs that touch nothing live: every row inactive, folds
+        into the sink slot, all-ones masks."""
+        B = lay.slices["tokens"][2][0]
+        z = np.zeros((B,), np.int32)
+        arrays = dict(
+            tokens=z, positions=z, tables=np.zeros(lay.slices["tables"][2], np.int32), active=z,
+            temps=np.ones((B,), np.float32), seeds=z, steps=z, top_k=z,
+            top_p=np.ones((B,), np.float32), freq=z, pres=z,
+            pen=np.full(lay.slices["pen"][2], -1, np.int32),
+            fold_slots=np.full((B,), self.args.max_num_seqs, np.int32),
+        )
+        if "masks" in lay.slices:
+            arrays["masks"] = np.full(lay.slices["masks"][2], 0xFFFFFFFF, np.uint32)
+        return lay.pack(**arrays)
+
+    def warm_steps(self, modes=("greedy", "simple"), top_ns=(0,),
+                   masked=(False, True)) -> int:
+        """Capture, ahead of traffic, the single-step graph of every shape
+        the engine can dispatch in these sampler modes and top_n values
+        (each decode bucket × table bucket), unmasked (the end-of-life
+        tail, ``decode_steps`` 1) and masked (grammar-constrained batches)
+        as ``masked`` lists, each replayed once on inert inputs. → graphs
+        newly captured (0 on the CPU)."""
+        if self.graphs is None:
+            return 0
+        before = self.graphs.captured
+        for m in masked:
+            W32 = mask_words(self.cfg.vocab_size) if m else 0
+            for mode in modes:
+                L = self.args.max_model_len if mode == "full" else 1
+                for top_n in top_ns:
+                    for B in self.args.decode_buckets:
+                        for W in self.args.table_buckets:
+                            lay = step_layout(B, W, L, W32)
+                            self._graph_step(lay, mode, top_n, self._inert_step(lay))
+        return self.graphs.captured - before
+
+    # -- embeddings ---------------------------------------------------------
+
+    def embed(self, toks, tlen: int) -> torch.Tensor:
+        """Mean-pooled final hidden state of ``toks[:tlen]`` (``toks``
+        padded) → [D] f32 on the device; eager, one forward."""
+        return M.embed(self.cfg, self.params, self._t(toks, torch.int32), int(tlen))

@@ -18,6 +18,11 @@ noise as an argument, so tests can feed both packages the same numbers.
 
 Temperature <= 0 means greedy (argmax) for that row in every mode.
 
+Grammar-constrained rows (response_format) carry packed bitsets of their
+FSM state's legal tokens: ``mask_bits`` of ``sample_simple``,
+``sample_full`` and ``spec_tree_acceptance`` sets every illegal logit to
+-inf before sampling (``apply_mask``); None leaves the logits untouched.
+
 Speculative acceptance (``spec_acceptance`` for linear drafts,
 ``spec_tree_acceptance`` for draft trees) runs on the verify pass's
 logits on the device, with its noise from the same threefry.
@@ -32,6 +37,26 @@ from dynamo_tpu_torch.engine import threefry
 GREEDY_EPS = 1e-5
 
 
+def unpack_mask(bits: torch.Tensor, V: int) -> torch.Tensor:
+    """Packed grammar bitsets → boolean legality mask: [..., W32] → [..., V].
+    Bit t of the flattened words marks token t legal. The words are int32
+    (torch's uint32 has few operations); the shift comes before the mask,
+    so a negative word's arithmetic shift never leaks its sign bit."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    b = (bits.to(torch.int32)[..., :, None] >> shifts) & 1
+    return b.reshape(*bits.shape[:-1], -1)[..., :V] != 0
+
+
+def apply_mask(logits: torch.Tensor, mask_bits: torch.Tensor | None) -> torch.Tensor:
+    """Grammar-mask logits: illegal tokens → -inf, so every later softmax,
+    argmax and Gumbel-max renormalizes over the legal vocabulary. None =
+    unconstrained: the logits pass through untouched (callers pass None
+    when no row of the batch carries a grammar)."""
+    if mask_bits is None:
+        return logits
+    return logits.masked_fill(~unpack_mask(mask_bits, logits.shape[-1]), float("-inf"))
+
+
 def row_gumbel(seeds: torch.Tensor, steps: torch.Tensor, V: int) -> torch.Tensor:
     """Per-row Gumbel noise [B, V] float32 from (seed, emission index)
     integer tensors [B] on the device that the noise is wanted on."""
@@ -42,7 +67,9 @@ def sample_simple(
     logits: torch.Tensor,       # [B, V] f32
     temperature: torch.Tensor,  # [B] f32
     gumbel: torch.Tensor,       # [B, V] f32 noise
+    mask_bits: torch.Tensor | None = None,  # [B, W32] int32 grammar masks
 ) -> torch.Tensor:
+    logits = apply_mask(logits, mask_bits)
     greedy = temperature < GREEDY_EPS
     temp = torch.where(greedy, torch.ones_like(temperature), temperature)
     noisy = torch.where(greedy[:, None], logits, logits / temp[:, None] + gumbel)
@@ -108,7 +135,9 @@ def sample_full(
     freq_penalty: torch.Tensor,    # [B] f32
     pres_penalty: torch.Tensor,    # [B] f32
     gumbel: torch.Tensor,          # [B, V] f32 noise
+    mask_bits: torch.Tensor | None = None,  # [B, W32] int32 grammar masks
 ) -> torch.Tensor:
+    logits = apply_mask(logits, mask_bits)
     counts = token_counts(penalty_tokens, logits.shape[1])
     logits = apply_penalties(logits, counts, freq_penalty, pres_penalty)
     return sample_step(logits, temperature, top_k, top_p, gumbel)
@@ -264,10 +293,11 @@ def spec_tree_acceptance(
     seeds: torch.Tensor,        # [B] int per-row sample seed
     steps0: torch.Tensor,       # [B] int emission index of the pass's first token
     mode: str,                  # "greedy" | "simple"
+    mask_bits: torch.Tensor | None = None,  # [B, S1, W32] int32 per-node grammar masks
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Multi-path (SpecInfer) acceptance over one tree verify pass →
     (out [B, S1], n_emit [B], path [B, S1], cand [B, S1]), the JAX
-    package's ``spec_tree_acceptance`` without grammar masks (ROADMAP A15).
+    package's ``spec_tree_acceptance``.
 
     The walk starts at the root and descends into the first accepted live
     child in slot order; where none accepts (or at a leaf) the node emits
@@ -276,8 +306,17 @@ def spec_tree_acceptance(
     end). "greedy": edge v → j accepts iff tokens[j] == argmax(p_v).
     "simple": child i accepts with probability p_v(x_i) / (1 - Σ_{j<i}
     p_v(x_j)); after the rejections the stopping node samples the residual
-    with every tried child masked."""
+    with every tried child masked.
+
+    Grammar masks (``mask_bits``): node j's bitset is the legal vocabulary
+    of the FSM state after node j's token, so it constrains the
+    distribution its children are checked against and its correction or
+    bonus token samples from. Illegal logits go to -inf before anything
+    else: acceptance uses the masked-renormalized target, residuals
+    renormalize over the legal vocabulary, greedy rows take the
+    constrained argmax chain. All-ones rows pass through unchanged."""
     B, S1, V = logits.shape
+    logits = apply_mask(logits, mask_bits)
     dev = logits.device
     par = parents.long()
     node = torch.arange(S1, device=dev)

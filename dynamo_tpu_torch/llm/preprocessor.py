@@ -134,15 +134,21 @@ class OpenAIPreprocessor:
             min_tokens=int(req.min_tokens or 0),
             ignore_eos=req.ignore_eos,
         )
-        # Structured output needs grammar-constrained decoding on the
-        # device, which the port's engine does not have yet: refuse it at
-        # the frontend with a typed 400 rather than serve unconstrained text.
+        # Structured output: the wire shape was validated at parse time;
+        # deep-validate the schema HERE (compiles the constraint regex,
+        # no vocabulary needed) so unsupported constructs 400 at the
+        # frontend instead of erroring a worker stream mid-flight.
         response_format = getattr(req, "response_format", None)
         if response_format is not None:
-            raise OpenAIError(
-                "response_format is not supported by this server yet "
-                "(grammar-constrained decoding is not ported)"
+            from dynamo_tpu_torch.engine.grammar import (
+                GrammarError,
+                compile_response_format_regex,
             )
+
+            try:
+                compile_response_format_regex(response_format)
+            except GrammarError as e:
+                raise OpenAIError(f"invalid response_format: {e}") from e
         return PreprocessedRequest(
             model=self.card.name,
             token_ids=token_ids,

@@ -5,9 +5,11 @@ The whole LLM chain (preprocessor → detokenizing backend → engine) runs
 in this one process, on the card unless ``--device cpu`` is given. Batch
 mode prints one JSON line per prompt, as the JAX launcher does; ``--in
 http`` serves the OpenAI surface of the distributed frontend without a
-store or worker, after capturing the engine's decode-window graphs (and
-with ``--spec-tokens`` its verify graphs); the speculative-decoding flags
-are the worker's.
+store or worker, after capturing the engine's decode-window graphs, its
+single-step graphs, unmasked and masked (and with ``--spec-tokens`` its verify graphs,
+masked tree shapes included); the speculative-decoding flags are the
+worker's. ``response_format`` and /v1/embeddings are served by the
+in-process engine.
 ``--model-path`` serves a checkpoint (HF directory, .gguf file or cached
 hub name) with its own tokenizer unless ``--tokenizer`` names another, as
 the worker does.
@@ -30,7 +32,6 @@ from dynamo_tpu_torch.llm.protocols import CompletionRequest
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
-from dynamo_tpu_torch.runtime.push_router import NoInstancesError
 
 
 def parse_args(argv=None):
@@ -80,9 +81,7 @@ class LocalPipeline(ModelPipeline):
         self.backend = Backend(engine, tokenizer)
 
     async def embed(self, token_ids):
-        # The engine has no embedding pass yet: answer as a frontend does
-        # for a model whose workers serve no embed endpoint (501).
-        raise NoInstancesError("no embed endpoint for this model")
+        return await self.engine.embed(token_ids)
 
     async def clear_kv_blocks(self):
         return {"local": self.engine.clear_kv_blocks()}
@@ -128,7 +127,9 @@ async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> L
         model=model, block_size=args.block_size, num_kv_blocks=args.num_kv_blocks,
         max_num_seqs=args.max_num_seqs, max_model_len=args.max_model_len,
         dtype=args.dtype, decode_steps=args.decode_steps, device=args.device,
-        quant=quant, kv_quant=kv_quant, **spec_engine_args(args),
+        quant=quant, kv_quant=kv_quant,
+        # response_format masks compile over the serving tokenizer's vocabulary.
+        grammar_tokenizer=tok_spec, **spec_engine_args(args),
     ), params=params, seed=args.seed).start()
     tokenizer = load_tokenizer(tok_spec)
     card = ModelDeploymentCard(
@@ -199,10 +200,11 @@ async def run_batch(args, pipe: LocalPipeline, path: str) -> None:
 
 
 async def run_http(args, pipe: LocalPipeline) -> None:
-    # Capture the decode-window graphs before listening, so that no
-    # request waits for a capture (none on the CPU).
+    # Capture the decode-window, single-step and verify graphs before
+    # listening, so that no request waits for a capture (none on the CPU).
     await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
-    await asyncio.to_thread(pipe.engine.runner.warm_spec, ("greedy", "simple"))
+    await asyncio.to_thread(pipe.engine.runner.warm_steps, ("greedy", "simple"))
+    await asyncio.to_thread(pipe.engine.runner.warm_spec, ("greedy", "simple"), (0,), True)
     http = await HttpService(
         LocalManager(pipe), MetricsRegistry(), host=args.host, port=args.port
     ).start()

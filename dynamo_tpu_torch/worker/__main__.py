@@ -2,11 +2,14 @@
 ``dynamo_tpu/worker/__main__.py``, the aggregated serving path).
 
 Boots a ``TorchEngine`` (on the card unless ``--device cpu``), captures
-its decode-window CUDA graphs (and, with ``--spec-tokens``, one graph per
-speculative verify shape), serves the ``generate`` endpoint plus the
-KV-event, load-metrics and clear-KV endpoints, and registers the model
-card: a frontend of either package discovers the model through the
-store watch and routes to it over the runtime's wire.
+its decode-window CUDA graphs, the masked single-step graphs of
+grammar-constrained traffic (and, with ``--spec-tokens``, one graph per
+speculative verify shape, masked tree shapes included), serves the
+``generate`` endpoint plus the embed, KV-event, load-metrics and clear-KV
+endpoints, and registers the model card: a frontend of either package
+discovers the model through the store watch and routes to it over the
+runtime's wire. ``response_format`` masks compile over the served
+tokenizer's vocabulary.
 
 ``--model-path`` serves a checkpoint (an HF directory, a .gguf file or a
 hub name in the local hub cache) instead of a preset's random weights;
@@ -198,6 +201,10 @@ async def build_engine(args):
         quant=args.quant,
         kv_quant=args.kv_quant,
         device=args.device,
+        # Grammar token-mask FSMs compile over the serving tokenizer's
+        # vocabulary: response_format masks must legalize exactly the ids
+        # the detokenizer renders.
+        grammar_tokenizer=tok_spec,
         **spec_engine_args(args),
     ), params=params, seed=args.seed).start()
     card = ModelDeploymentCard(
@@ -251,6 +258,9 @@ def engine_counters(engine, disagg=None) -> dict:
         "spec_passes": engine.runner.verify_passes,
         "spec_forwards": engine.runner.verify_forwards,
         "eager_verifies": engine.runner.eager_verifies,
+        "eager_steps": engine.runner.eager_steps,
+        "grammar_seqs": engine.total_grammar_seqs,
+        "grammar_mask_s": round(engine.total_grammar_mask_s, 6),
         "phase_s": {k: round(v, 6) for k, v in engine.phase_s.items()},
         "inject_s": round(engine.inject_s, 6),
         "inject_bytes": engine.inject_bytes,
@@ -278,18 +288,31 @@ async def async_main(args) -> None:
     t_launch = time.perf_counter()
     rt = await DistributedRuntime.create(store_url=args.store_url, proc_label=lane)
     engine, card = await build_engine(args)
-    # Capture the decode-window graphs and, with --spec-tokens, the verify
-    # lattice before registering, so that no request waits for a capture
-    # (none on the CPU).
-    # A prefill worker never decodes: it captures nothing.
-    graphs = verify_graphs = 0
-    warm_s = verify_s = 0.0
+    # Capture the decode-window graphs, the single steps (unmasked for the
+    # end-of-life tail, masked for grammar-constrained traffic) and, with
+    # --spec-tokens, the verify lattice with its masked tree shapes before
+    # registering, so that no
+    # request waits for a capture (none on the CPU). Like the JAX worker,
+    # this one has no flag that turns grammar on: any request may carry a
+    # response_format. A prefill worker never decodes: it captures nothing.
+    graphs = verify_graphs = step_graphs = 0
+    warm_s = verify_s = step_s = 0.0
     if not args.is_prefill_worker:
+        runner = engine.runner
         t0 = time.perf_counter()
-        graphs = await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
+        graphs = await asyncio.to_thread(runner.warm_windows, ("greedy", "simple"))
         warm_s = time.perf_counter() - t0
-        verify_graphs = await asyncio.to_thread(engine.runner.warm_spec, ("greedy", "simple"))
-        verify_s = time.perf_counter() - t0 - warm_s
+        pool0 = runner.graphs.pool_bytes() if runner.graphs is not None else 0
+        step_graphs = await asyncio.to_thread(runner.warm_steps, ("greedy", "simple"))
+        step_s = time.perf_counter() - t0 - warm_s
+        verify_graphs = await asyncio.to_thread(runner.warm_spec, ("greedy", "simple"), (0,),
+                                                True)
+        verify_s = time.perf_counter() - t0 - warm_s - step_s
+        if runner.graphs is not None:
+            print(f"dynamo_tpu_torch worker: {step_graphs} single-step graphs (unmasked and "
+                  f"masked) and the masked verify shapes add "
+                  f"{(runner.graphs.pool_bytes() - pool0) / 2**20:.1f} MiB to the graph pool",
+                  flush=True)
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
     pa.launches = im.launches = im.prefill_launches = 0
@@ -344,6 +367,15 @@ async def async_main(args) -> None:
         await comp.endpoint(args.endpoint).serve(gen_handler)
         await serve_kv_endpoints(comp, broadcaster, engine.metrics)
 
+        async def embed_handler(payload, ctx):
+            try:
+                vec = await engine.embed((payload or {}).get("token_ids") or [])
+                yield {"embedding": vec}
+            except Exception as e:  # noqa: BLE001 — per-request failure
+                yield {"error": str(e)}
+
+        await comp.endpoint("embed").serve(embed_handler)
+
         async def clear_handler(payload, ctx):
             yield {"cleared": engine.clear_kv_blocks()}
 
@@ -353,8 +385,8 @@ async def async_main(args) -> None:
     print(
         f"dynamo_tpu_torch {role}: serving {card.name} as "
         f"{args.namespace}/{args.component}/{args.endpoint} on {args.device} "
-        f"({graphs} window graphs captured in {warm_s:.2f}s, {verify_graphs} verify "
-        f"graphs in {verify_s:.2f}s; registered "
+        f"({graphs} window graphs captured in {warm_s:.2f}s, {step_graphs} single-step "
+        f"graphs in {step_s:.2f}s, {verify_graphs} verify graphs in {verify_s:.2f}s; registered "
         f"{time.perf_counter() - t_launch:.2f}s after the runtime started)",
         flush=True,
     )

@@ -37,6 +37,7 @@ COPIED = [
     "llm/migration.py", "llm/pipeline.py", "llm/http_service.py", "llm/recorder.py",
     "block_manager/pool.py", "engine/hub.py", "engine/drafter.py",
     "runtime/queue.py", "transfer/__init__.py", "llm/disagg.py",
+    "engine/grammar.py", "llm/preprocessor.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -44,8 +45,6 @@ CHANGED = {
     "runtime/logging.py": "the handler goes on the port's logger namespace (dynamo_tpu_torch), "
                           "which its loggers use; on the JAX one it would double that package's "
                           "lines in a process holding both",
-    "llm/preprocessor.py": "response_format is refused with a typed 400: grammar decoding "
-                           "on the device is not ported (ROADMAP A15)",
     "runtime/http_server.py": "aiohttp is absent on the card's machine: an asyncio HTTP/1.1 "
                               "server core with aiohttp's web surface, under SystemHttpServer",
     "runtime/store_server.py": "SIGTERM closes the server and exits 0, as the worker and "
@@ -64,37 +63,6 @@ CHANGED = {
     "transfer/stream.py": "one docstring line drops a pointer into the JAX package's "
                           "planning history",
 }
-
-# The one block preprocessor.py changes: (JAX text, port text) after the rewrites.
-PREPROCESSOR_BLOCK = (
-    '''        # Structured output: the wire shape was validated at parse time;
-        # deep-validate the schema HERE (compiles the constraint regex,
-        # no vocabulary needed) so unsupported constructs 400 at the
-        # frontend instead of erroring a worker stream mid-flight.
-        response_format = getattr(req, "response_format", None)
-        if response_format is not None:
-            from dynamo_tpu_torch.engine.grammar import (
-                GrammarError,
-                compile_response_format_regex,
-            )
-
-            try:
-                compile_response_format_regex(response_format)
-            except GrammarError as e:
-                raise OpenAIError(f"invalid response_format: {e}") from e
-''',
-    '''        # Structured output needs grammar-constrained decoding on the
-        # device, which the port's engine does not have yet: refuse it at
-        # the frontend with a typed 400 rather than serve unconstrained text.
-        response_format = getattr(req, "response_format", None)
-        if response_format is not None:
-            raise OpenAIError(
-                "response_format is not supported by this server yet "
-                "(grammar-constrained decoding is not ported)"
-            )
-''',
-)
-
 
 def rewrite(src: str) -> str:
     src = re.sub(r"(?m)^([ \t]*)import msgpack$",
@@ -153,7 +121,6 @@ STREAM_JAX_LINE = re.search(r"(?m)^    it \([^;\n]*; docs/performance\.md has th
 ONE_BLOCK = {
     "runtime/framing.py": FRAMING_BLOCK,
     "transfer/stream.py": (STREAM_JAX_LINE, "    it (docs/performance.md has the budget math).\n"),
-    "llm/preprocessor.py": PREPROCESSOR_BLOCK,
     "runtime/logging.py": ('    root = logging.getLogger("dynamo_tpu")\n',
                            '    root = logging.getLogger("dynamo_tpu_torch")\n'),
 }

@@ -71,7 +71,8 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "engine.loader", "engine.safetensors_io", "engine.gguf", "engine.hub",
                 "engine.quant", "ops.int8_matmul", "llm.tokenizer_json", "llm.unicode_classes",
                 "engine.drafter", "engine.sampler", "engine.graphs", "engine.kv_transfer",
-                "transfer", "transfer.stream", "runtime.queue", "llm.disagg"):
+                "transfer", "transfer.stream", "runtime.queue", "llm.disagg",
+                "engine.grammar", "llm.preprocessor"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 

@@ -26,9 +26,9 @@ equal.
 
 Error paths give the same status and error type: unknown model 404, bad
 body 400, ``X-Request-Timeout`` 504, ``max_inflight`` 429 with
-Retry-After, draining 503, embeddings 501 (no worker serves ``embed``).
-The port answers ``response_format`` with a typed 400 until grammar
-decoding is ported. A client that
+Retry-After, draining 503, embeddings 501 (the workers here serve no
+``embed`` endpoint). A ``response_format`` whose schema the grammar
+compiler cannot express gets the same typed 400 from both. A client that
 disconnects mid-stream leaves the port's engine with no running row.
 """
 
@@ -398,14 +398,20 @@ def test_error_paths_match_the_jax_service(stacks, name):
 
 
 def test_response_format_is_refused_with_a_typed_400(stacks):
-    """The JAX service decodes under a grammar; the port has no grammar
-    decoding yet and refuses the request up front, before any engine
-    work, instead of serving unconstrained text."""
-    body = chat("json please", response_format={"type": "json_object"}, max_tokens=4)
-    status, _, out = stacks["run"](call(stacks["port"].base, "/v1/chat/completions", body,
-                                        False))
-    assert status == 400 and out["error"]["type"] == "invalid_request_error"
-    assert "response_format" in out["error"]["message"]
+    """A response_format the grammar compiler cannot express (an unknown
+    schema type) is refused up front by both services' preprocessors,
+    before any engine work, with the same typed 400 and message."""
+    rf = {"type": "json_schema", "json_schema": {"name": "x", "schema": {"type": "zzz"}}}
+    body = chat("json please", response_format=rf, max_tokens=4)
+
+    async def go():
+        return [await call(stacks[side].base, "/v1/chat/completions", body, False)
+                for side in ("jax", "port")]
+
+    (js, _, jb), (ts, _, tb) = stacks["run"](go())
+    assert js == ts == 400 and tb["error"]["type"] == "invalid_request_error"
+    assert "response_format" in tb["error"]["message"]
+    assert tb["error"] == jb["error"]
 
 
 @pytest.mark.parametrize("case", ["max_inflight_429", "draining_503"])
