@@ -25,7 +25,15 @@ Phases, in order; any failure raises and the run exits non-zero:
    wq in f32 and lm_head with a bf16 scale (`TOL_INT8`); every case called
    twice, bit-identical. Kernel, plain, library (one `torch.matmul` of the
    same x with a bf16 w of the same shape) and bound times, and their sums
-   over one substep's 225 products.
+   over one substep's 225 products. Then (since the tier slice) the
+   kernel's tied-head entry, for llama-1b and llama-3b, whose logits use
+   the int8 embedding [V, D] as emb.T: at their head shapes (llama-3b M 1,
+   8, 64; llama-1b M 8; f32 x), the same checks and times (library: bf16
+   `torch.matmul` on the dequantized head); and a 2-layer llama-3b-width
+   int8 engine serving the burst's prompts for a few windows, every count
+   zeroed before and read after: the tied head launches once per forward
+   (each prefill's last token, each decode substep), the prefill route
+   only for the prefills' layer products, and no window runs eagerly.
 4. Main path at full width: `run --in batch:`'s pipeline (preprocessor →
    Backend → TorchEngine) serving 8 concurrent llama-8b completions with
    random weights made on the card, at the default pipeline depth 2 with
@@ -202,10 +210,39 @@ Phases, in order; any failure raises and the run exits non-zero:
    and pool bytes, embedding ms and tokens/s, compiler build and lift
    seconds are printed beside the card's name and power limit.
 
+13. KV tiers and peer prefix fetch at full width, twice (bf16; int8
+   weights with int8 pages). 13a, in process (`tiers_phase`): one engine
+   with a 512-block G2 and a G3 directory serves the burst (64 tokens,
+   logprobs) with its tiers off (a disabled stack), cold with them on, on
+   its G1 hit (the reference of every onboarded stream), with them off
+   again, and, after clear_kv_blocks, onboarded from G2; engines on the
+   same weights with a 32-block G2 then serve it onboarded from G3, and
+   from G3 after a restart (a fresh engine on the directory). Every
+   onboarded pass must onboard every full prompt block (346), as many as
+   the tiers held before it (peek_run_len), prefill only the suffixes, and
+   give the G1-hit pass's 8 streams bit for bit (tokens and logprobs); the
+   onboarded pages read back bit-equal to the stored ones; no G2 page keeps
+   a view of a staging buffer; launches held per pass; no eager window.
+   13b (`tiers_worker_phase`): the store and two workers (`--disagg off`,
+   one shared `--fleet-kv-dir`; A `--host-kv-blocks 512`, B 32) over a
+   DIRECT router: A serves the burst cold and on its G1 hit; B serves it
+   one request at a time with `peer_prefix` hints naming A (8 peer
+   fetches, every block injected, the suffixes prefilled); A serves 8
+   other prompts (its G2 spills into the fleet directory); B, its cache
+   cleared, serves the burst from G2 + G4 (`tier_g4_hits_total` > 0, its
+   dedup counter counting its identical writes). Every stream equals 13a's
+   G1-hit pass bit for bit; every process exits 0 on SIGTERM. Offloaded
+   bytes, device→host MB/s, host ms per flush, tokens/s of the cold burst
+   with the tiers on and off, TTFT cold / G1 hit / G2 / G3 / restart /
+   after a peer fetch, G3 read and peer fetch MB/s, G2 host bytes, G3 and
+   G4 file bytes and peak device memory are printed beside the card's name
+   and power limit.
+
 The last lines are the kernels JSON line (the attention kernel's decode
-entry, the int8 product, and the attention kernel's linear and tree
-verify modes; the first two also carry phase 11's decode worker's
-launches, and the decode, tree and int8 entries phase 12's),
+entry, the int8 product, its tied-head entry, and the attention kernel's
+linear and tree verify modes; the first two also carry phase 11's decode
+worker's launches, the decode, tree and int8 entries phase 12's, and the
+first two phase 13's),
 nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -539,6 +576,10 @@ INT8_SHAPES = {"wq_wo": (4096, 4096, 64), "wk_wv": (4096, 1024, 64),
                "w_gate_up": (4096, 14336, 64), "w_down": (14336, 4096, 32),
                "lm_head": (4096, 128256, 1)}
 INT8_ODD = ("odd", 1000, 200)  # breaks every tile and 16-byte alignment
+# The tied heads (K, N) = (D, V) of llama-1b and llama-3b: the int8 embedding
+# [V, D] used as emb.T, read as stored by the kernel's tied-head entry.
+TIED_HEADS = {"llama-1b": (2048, 32000), "llama-3b": (3072, 128256)}
+TIED_REPLACES = "dynamo_tpu/engine/model.py:283"
 # The kernel is held against its plain version evaluated in float32 on the
 # same values (int8_matmul_ref on f32 x and scale), as |kernel - plain| <=
 # rtol * |plain| + c * (|x| @ |w|) * |scale|. The c term is the summation
@@ -562,6 +603,18 @@ def int8_case(M, K, N, xdt_name, seed, device, scale_dt="float32"):
     w = torch.randint(-127, 128, (K, N), generator=g, device=device, dtype=torch.int8)
     s = (torch.rand((N,), generator=g, device=device) * 0.02 + 1e-3).to(getattr(torch, scale_dt))
     return x, w, s
+
+
+def int8_tied_case(M, K, N, xdt_name, seed, device, scale_dt="float32"):
+    """``int8_case`` with the weight as a tied head: an [N, K] int8
+    embedding, returned as its transpose (a view, as ``_logits`` passes it)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=device).to(getattr(torch, xdt_name))
+    emb = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
+    s = (torch.rand((N,), generator=g, device=device) * 0.02 + 1e-3).to(getattr(torch, scale_dt))
+    return x, emb.T, s
 
 
 def int8_check(x, w, s, out_f32, label):
@@ -720,7 +773,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         after, once the engine has drained its queue."""
         steps0, phases0 = _counters(engine)
         replays0, eager0 = runner.graphs.replays, runner.eager_windows
-        pa.launches = im.launches = im.prefill_launches = 0
+        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
         t0 = time.perf_counter()
         outs = await asyncio.gather(*(one(i, p, t, 1000 + i)
                                       for i, (p, t) in enumerate(zip(prompts, temps))))
@@ -1883,7 +1936,7 @@ async def _checkpoint_reference(cfg, params, name, device, dtype):
                                kv_cache_block_size=16, eos_token_ids=[ByteTokenizer.EOS])
     pipe = LocalPipeline(card, engine, ByteTokenizer())
     await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
-    pa.launches = im.launches = im.prefill_launches = 0
+    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
     steps0 = engine.total_decode_steps
     prompts = burst_prompts()
 
@@ -2331,7 +2384,7 @@ async def _tok_reference(cfg, path, card, tok, bodies, prompt_tokens, num_kv_blo
     del params
     pipe = LocalPipeline(card, engine, tok)
     await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
-    pa.launches = im.launches = im.prefill_launches = 0
+    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
     steps0 = engine.total_decode_steps
 
     async def one(body):
@@ -2690,7 +2743,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
             "passes", "rows", "proposed", "accepted", "emitted", "tree_passes")}
         ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls)
         eager0 = (runner.eager_windows, runner.eager_verifies)
-        pa.launches = im.launches = im.prefill_launches = 0
+        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
         entered, gate = threading.Event(), threading.Event()
 
         def hold():
@@ -2728,7 +2781,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
                 raise RuntimeError(f"{tag}[{label}] request {i}: bad token/logprob stream")
             if not all(0 <= t < cfg.vocab_size for t in o["tokens"]):
                 raise RuntimeError(f"{tag}[{label}] request {i}: token id out of range")
-        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0)
+        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0, 0)
         if launches[0] != per_fwd[0] * (substeps + forwards):
             raise RuntimeError(f"{tag}[{label}]: paged_attention launches {launches[0]} != "
                                f"{L} x (dense substeps {substeps} + verify forwards {forwards})")
@@ -2736,7 +2789,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
             raise RuntimeError(f"{tag}[{label}]: verify passes made {dict(zip(COUNTERS, vcalls))} "
                                f"kernel calls for {forwards} forwards; want "
                                f"{tuple(n * forwards for n in per_fwd)} (attention, int8 kernel, "
-                               f"int8 prefill route)")
+                               f"int8 prefill route, int8 tied head)")
         if label != "dense" and passes == 0:
             raise RuntimeError(f"{tag}[{label}]: no verify pass was dispatched")
         eager = (runner.eager_windows - eager0[0], runner.eager_verifies - eager0[1])
@@ -3488,7 +3541,7 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
         spec0 = (engine.total_spec_tree_passes, engine.total_spec_proposed,
                  engine.total_spec_accepted)
         mask0, gen0 = engine.total_grammar_mask_s, engine.total_generated
-        pa.launches = im.launches = im.prefill_launches = 0
+        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
         entered, gate = threading.Event(), threading.Event()
 
         def hold():
@@ -3529,7 +3582,7 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
             fsm_legal(fsm, o["tokens"], eos)
             if not all(np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
                 raise RuntimeError(f"{tag}[{label}] request {i}: bad logprobs")
-        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0)
+        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0, 0)
         if launches[0] != per_fwd[0] * (substeps + forwards):
             raise RuntimeError(f"{tag}[{label}]: paged_attention launches {launches[0]} != "
                                f"{L} x (single steps {substeps} + verify forwards {forwards})")
@@ -3828,6 +3881,659 @@ def grammar_lift_phase(card_line: str, vocab: int = 128_256, n_bpe: int | None =
         shutil.rmtree(path, ignore_errors=True)
 
 
+# -- phase 3b's tied head: the int8 embedding used transposed -------------------
+
+
+def tied_head_phase(device, card_line: str) -> dict:
+    """The kernel's tied-head entry (w = emb.T of an int8 [V, D] embedding)
+    against its plain version at llama-3b's and llama-1b's heads (f32
+    logits; M 1, 8 and 64; bf16 and f32 x): TOL_INT8, bit-identical repeats,
+    kernel, plain, library (bf16 ``torch.matmul`` on the dequantized head)
+    and bound times. Then a 2-layer llama-3b-width int8 engine serves the
+    burst's prompts for a few windows with every count zeroed before and
+    read after: the tied head must launch once per forward (each prefill's
+    last token and each decode substep) and the prefill route only for the
+    prefills' layer products."""
+    import dataclasses
+
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    cases = [("llama-3b", 8, "bfloat16"), ("llama-3b", 1, "bfloat16"),
+             ("llama-3b", 64, "bfloat16"), ("llama-1b", 8, "bfloat16"), ("llama-3b", 8, "float32")]
+    results = []
+    for i, (name, M, xdt) in enumerate(cases):
+        K, N = TIED_HEADS[name]
+        x, wt, s = int8_tied_case(M, K, N, xdt, 700 + i, device)
+        t0 = im.tied_launches
+        err = int8_check(x, wt, s, True, f"tied {name} M={M} {xdt}")
+        if im.tied_launches != t0 + 2:
+            raise RuntimeError(f"tied {name}: emb.T did not reach the tied-head entry")
+        ms = time_ms(lambda: im.int8_matmul(x, wt, s, out_f32=True), flush)
+        plain_ms = time_ms(lambda: im.int8_matmul_ref(x, wt, s, out_f32=True), flush)
+        wb = wt.to(x.dtype)
+        lib_ms = time_ms(lambda: torch.matmul(x, wb), flush)
+        del wb
+        b_ms, b_by = int8_bound(M, K, N, x.element_size(), 4, 4, xdt)
+        r = {"case": f"tied_{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+             "bound_by": b_by}
+        log(f"int8 {r['case']} (emb [{N}, {K}] used as emb.T): max_abs_err={err:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) ({card_line})")
+        results.append(r)
+    del flush
+
+    cfg = dataclasses.replace(ModelConfig.preset("llama-3b"), num_layers=2)
+    engine = TorchEngine(EngineArgs(model=cfg, block_size=16, num_kv_blocks=512, max_num_seqs=8,
+                                    max_model_len=2048, decode_steps=8, quant="int8",
+                                    dtype="bfloat16", device=str(device)), seed=0)
+    max_tokens = 24
+    prompts = [list(p.encode()) for p in burst_prompts()]
+
+    async def go():
+        await engine.start()
+        try:
+            engine.runner.warm_windows(("greedy", "simple"), (0,))
+            steps0, eager0 = engine.total_decode_steps, engine.runner.eager_windows
+            pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+
+            async def one(i):
+                req = {"model": cfg.name, "token_ids": prompts[i],
+                       "sampling": {"temperature": BURST_TEMPS[i], "seed": 1000 + i},
+                       "stop": {"max_tokens": max_tokens, "ignore_eos": True}}
+                n = 0
+                async for item in engine.generate(req, Context()):
+                    n += len(item.get("token_ids") or ())
+                return n
+
+            got = await asyncio.gather(*(one(i) for i in range(len(prompts))))
+            while engine.busy():
+                await asyncio.sleep(0.001)
+            counts = (pa.launches, im.launches, im.prefill_launches, im.tied_launches)
+            return got, counts, engine.total_decode_steps - steps0, \
+                engine.runner.eager_windows - eager0
+        finally:
+            await engine.stop()
+
+    got, counts, substeps, eager = asyncio.run(go())
+    if got != [max_tokens] * len(prompts):
+        raise RuntimeError(f"tied-engine: tokens per request {got}")
+    kernel, prefill = int8_expected(cfg, BURST_LENS, substeps)
+    forwards = substeps + len(prompts)
+    want = (cfg.num_layers * substeps, kernel - forwards, prefill, forwards)
+    if counts != want or eager or substeps == 0:
+        raise RuntimeError(f"tied-engine: launches (attention, int8 kernel, int8 prefill route, "
+                           f"tied head) {counts} != {want} for {substeps} substeps and "
+                           f"{len(prompts)} prefills ({eager} eager windows)")
+    log(f"tied-engine: 2-layer llama-3b-width int8 engine, {len(prompts)} prompts x {max_tokens} "
+        f"tokens: {substeps} decode substeps; the tied head launched {counts[3]} times (one per "
+        f"forward: {substeps} substeps + {len(prompts)} prefills), the prefill route "
+        f"{counts[2]} (the prefills' layer products only), the int8 kernel {counts[1]}, "
+        f"attention {counts[0]}; no eager window ({card_line})")
+    del engine
+    torch.cuda.empty_cache()
+    return {"cases": results, "engine_launches": counts, "engine_substeps": substeps}
+
+
+# -- phase 13: KV tiers (G2 host, G3 disk, G4 fleet) and peer prefix fetch ------
+
+TIER_DIR = os.path.join(HERE, "build", "tiers")
+TIER_HOST_BLOCKS = 512   # 13a's G2: holds every block of the burst
+TIER_SMALL_HOST = 32     # a G2 too small for the burst: blocks spill to G3 / G4
+TIER_OFFLOAD_PROBE = 64  # blocks per timed device→host copy (MAX_OFFLOAD_PER_STEP)
+
+
+def tier_requests(model: str, max_tokens: int = BURST_TOKENS, prompts=None) -> list[dict]:
+    """The burst as engine requests (byte tokens, seeds 1000-1007, the
+    burst's temperatures, logprobs)."""
+    prompts = burst_prompts() if prompts is None else prompts
+    return [{"model": model, "token_ids": list(p.encode()),
+             "sampling": {"temperature": BURST_TEMPS[i], "seed": 1000 + i, "logprobs": True},
+             "stop": {"max_tokens": max_tokens, "ignore_eos": True}}
+            for i, p in enumerate(prompts)]
+
+
+def prompt_hashes(req: dict, bs: int) -> list[int]:
+    """A request's full prompt blocks' chained hashes (the matchable ones)."""
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    ids = req["token_ids"]
+    return compute_block_hashes(ids, bs)[: (len(ids) - 1) // bs]
+
+
+def _tier_bytes(pool) -> int:
+    return sum(int(a.nbytes) for pages in pool._pages.values() for a in pages)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+               if f.endswith(".npz"))
+
+
+def _same_streams(tag: str, got: list, ref: list) -> None:
+    """Token ids and logprobs bit for bit, request by request."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g["tokens"] != r["tokens"] or g["logprobs"] != r["logprobs"]:
+            k = next((j for j, (a, b) in enumerate(zip(g["tokens"], r["tokens"])) if a != b),
+                     None)
+            raise RuntimeError(f"{tag}: request {i} differs from the G1-hit stream (first token "
+                               f"difference at {k}; logprobs equal: "
+                               f"{g['logprobs'] == r['logprobs']})")
+
+
+async def _tier_pass(engine, reqs: list[dict], tag: str, cfg, device: str, quant: str,
+                     lens: list[int]) -> dict:
+    """One burst through the engine, every count zeroed just before and read
+    just after; attention and int8 launches held to the substeps and to
+    prefills of ``lens`` tokens; the scheduler thread's step finished."""
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    steps0, eager0 = engine.total_decode_steps, engine.runner.eager_windows
+    flush0 = (engine.offload_s, engine.offload_flushes, engine.offload_bytes)
+    onboard0 = (engine.onboard_s, engine.onboard_bytes)
+    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+    t0 = time.perf_counter()
+
+    async def one(r):
+        ts, first, toks, lps = time.perf_counter(), None, [], []
+        async for item in engine.generate(r, Context()):
+            if item.get("error"):
+                raise RuntimeError(f"{tag}: {item['error']}")
+            if first is None and item.get("token_ids"):
+                first = time.perf_counter() - ts
+            toks += item.get("token_ids") or []
+            lps += item.get("log_probs") or []
+        return {"tokens": toks, "logprobs": lps, "ttft_s": first}
+
+    outs = await asyncio.gather(*(one(r) for r in reqs))
+    wall = time.perf_counter() - t0
+    while engine.busy():
+        await asyncio.sleep(0.001)
+    await engine.run_on_engine_thread(lambda: None)  # the last step has finished
+    counts = (pa.launches, im.launches, im.prefill_launches)
+    substeps = engine.total_decode_steps - steps0
+    for r, o in zip(reqs, outs):
+        if len(o["tokens"]) != r["stop"]["max_tokens"] or len(o["logprobs"]) != len(o["tokens"]):
+            raise RuntimeError(f"{tag}: {len(o['tokens'])} tokens, {len(o['logprobs'])} logprobs")
+    want = _ckpt_counts(cfg, substeps, device, lens)
+    if quant != "int8":
+        want = (want[0], 0, 0)
+    if counts != want or substeps == 0 or engine.runner.eager_windows != eager0:
+        raise RuntimeError(f"{tag}: launches (attention, int8 kernel, int8 prefill route) "
+                           f"{counts} != {want} for {substeps} substeps, eager windows "
+                           f"{engine.runner.eager_windows - eager0}")
+    n_tok = sum(len(o["tokens"]) for o in outs)
+    flushes = engine.offload_flushes - flush0[1]
+    return {"outs": outs, "wall_s": wall, "tokens_per_s": n_tok / wall, "substeps": substeps,
+            "launches": counts, "ttft_s": [o["ttft_s"] for o in outs],
+            "flushes": flushes, "flush_ms": (engine.offload_s - flush0[0]) * 1e3 / max(1, flushes),
+            "offload_bytes": engine.offload_bytes - flush0[2],
+            "onboard_s": engine.onboard_s - onboard0[0],
+            "onboard_bytes": engine.onboard_bytes - onboard0[1]}
+
+
+def _coverage(engine, reqs, bs) -> list[int]:
+    """Per request, the leading run of its full prompt blocks the tiers
+    hold (peek_run_len: no copy, no promotion)."""
+    return [engine.tiers.peek_run_len(prompt_hashes(r, bs)) for r in reqs]
+
+
+def _onboard_checks(tag, engine, reqs, bs, before, cov, stats0, got, ref, full) -> dict:
+    """An onboarded pass: onboarded blocks = the coverage the tiers held
+    before it (and every full prompt block), the suffix alone prefilled,
+    streams bit-equal to the G1-hit pass."""
+    s = engine.tiers.stats()
+    onboarded = s["onboarded_blocks"] - stats0["onboarded_blocks"]
+    prefilled = engine.total_prefilled - before
+    want_prefilled = sum(len(r["token_ids"]) - bs * c for r, c in zip(reqs, cov))
+    if onboarded != sum(cov) or sum(cov) != full or prefilled != want_prefilled:
+        raise RuntimeError(f"{tag}: onboarded {onboarded} blocks, the tiers held {sum(cov)} "
+                           f"({cov}) of the prompts' {full}; prefilled {prefilled} tokens, "
+                           f"want {want_prefilled}")
+    _same_streams(tag, got["outs"], ref["outs"])
+    return {k: s[k] - stats0[k] for k in ("g2_hits", "g3_hits", "g4_hits")}
+
+
+def _pages_equal(tag, engine, reqs, bs) -> int:
+    """The onboarded pages, read back from G1, bit-equal to what the tiers
+    hold for the same hashes → blocks compared."""
+    from dynamo_tpu_torch.engine import kv_transfer
+
+    n = 0
+    for r in reqs:
+        hashes = prompt_hashes(r, bs)
+        ids = engine.pool.match_prefix(hashes)
+        stored = engine.tiers.read_run(hashes)
+        if len(ids) != len(hashes) or len(stored) != len(hashes):
+            raise RuntimeError(f"{tag}: {len(ids)} G1 blocks, {len(stored)} tier blocks for "
+                               f"{len(hashes)} hashes")
+        got = engine.runner.extract_pages(ids)
+        want = kv_transfer.concat_page_run(stored, quantized=engine.args.kv_quant == "int8",
+                                           num_kv_heads=engine.cfg.num_kv_heads,
+                                           dtype=engine.args.dtype)
+        if len(got) != len(want) or any(a.dtype != b.dtype or a.tobytes() != b.tobytes()
+                                        for a, b in zip(got, want)):
+            raise RuntimeError(f"{tag}: onboarded pages differ from the stored pages")
+        n += len(ids)
+    return n
+
+
+def _d2h_mb_per_s(engine, n_blocks: int, reps: int = 5) -> float:
+    """Device→host copy rate of one offload flush: the page gather of
+    ``n_blocks`` blocks and its host fetch, waited for, median of reps."""
+    from dynamo_tpu_torch.engine.runner import start_host_fetch
+
+    ids = list(range(1, n_blocks + 1))
+    rates = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        arrs, n = engine.runner.start_extract_pages(ids)
+        pages = engine.runner.finish_extract_pages(start_host_fetch(arrs), n)
+        rates.append(sum(int(a.nbytes) for a in pages) / (time.perf_counter() - t0) / 1e6)
+    return statistics.median(rates)
+
+
+def tiers_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
+                dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none") -> dict:
+    """Phase 13a, in process: one TorchEngine with G2 (TIER_HOST_BLOCKS)
+    and a G3 directory serves the burst cold with its tiers switched off
+    (a disabled stack), cold with them on, again (the G1-hit pass: the
+    reference of every onboarded stream), and, after clear_kv_blocks, with
+    the tiers off once more and then on: every block onboarded from G2.
+    Then engines on the same weights with a G2 of TIER_SMALL_HOST blocks:
+    one serves the burst cold (its G2 spills into a G3 directory), the
+    requests whose blocks the offload bounds dropped again alone, and,
+    after clear_kv_blocks, the burst onboarded from G3; a fresh one
+    opened on that directory (G3 kept across restarts) serves it once
+    more. → numbers and the G1-hit streams."""
+    import gc
+
+    import shutil
+
+    import torch
+
+    from dynamo_tpu_torch.block_manager.tiers import TierStack
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    tag = "tiers" if quant == "none" else f"tiers-int8-kv{kv_quant}"
+    cfg = ModelConfig.preset(preset)
+    bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
+    root = os.path.join(TIER_DIR, tag)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    reqs = tier_requests(cfg.name)
+    lens = [len(r["token_ids"]) for r in reqs]
+    sfx = [suffix_len(n, bs) for n in lens]
+    full = sum((n - 1) // bs for n in lens)
+    cuda = device == "cuda"
+
+    def make(host_blocks: int, g3: str, params=None):
+        args = EngineArgs(model=cfg, block_size=bs, num_kv_blocks=2048, max_num_seqs=8,
+                          max_model_len=2048, decode_steps=8, dtype=dtype, quant=quant,
+                          kv_quant=kv_quant, device=device, host_kv_blocks=host_blocks,
+                          disk_kv_dir=os.path.join(root, g3))
+        return TorchEngine(args, params=params, seed=0)
+
+    async def go_a():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        engine = await make(TIER_HOST_BLOCKS, "g3").start()
+        if engine.runner.graphs is not None:
+            engine.runner.warm_windows(("greedy", "simple"), (0,))
+        tiers, off = engine.tiers, TierStack(None, None, None)
+        out = {"params": engine.runner.params}
+        try:
+            engine.tiers = off
+            out["off_1"] = await _tier_pass(engine, reqs, f"{tag} off", cfg, device, quant, lens)
+            engine.clear_kv_blocks()
+            engine.tiers = tiers
+            cold = out["cold"] = await _tier_pass(engine, reqs, f"{tag} cold", cfg, device,
+                                                  quant, lens)
+            out["cov_cold"] = _coverage(engine, reqs, bs)
+            hit = out["hit"] = await _tier_pass(engine, reqs, f"{tag} G1 hit", cfg, device,
+                                                quant, sfx)
+            for i, (o, c) in enumerate(zip(hit["outs"], cold["outs"])):
+                o["cold_equal"] = o["tokens"] == c["tokens"]
+            out["cov_hit"] = cov = _coverage(engine, reqs, bs)
+            engine.clear_kv_blocks()
+            engine.tiers = off
+            out["off_2"] = await _tier_pass(engine, reqs, f"{tag} off", cfg, device, quant, lens)
+            engine.clear_kv_blocks()
+            engine.tiers = tiers
+            stats0, before = tiers.stats(), engine.total_prefilled
+            g2 = out["g2"] = await _tier_pass(engine, reqs, f"{tag} G2 onboard", cfg, device,
+                                              quant, sfx)
+            g2["hits"] = _onboard_checks(f"{tag} G2 onboard", engine, reqs, bs, before, cov,
+                                         stats0, g2, hit, full)
+            out["pages_compared"] = _pages_equal(f"{tag} G2 onboard", engine, reqs, bs)
+            out["g2_bytes"] = _tier_bytes(tiers.host)
+            out["g2_owned"] = all(a.base is None for pages in tiers.host._pages.values()
+                                  for a in pages)
+            out["stats"] = tiers.stats()
+            out["offload_bytes"] = engine.offload_bytes
+            out["d2h_mb_per_s"] = _d2h_mb_per_s(engine, TIER_OFFLOAD_PROBE)
+            out["max_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+            return out
+        finally:
+            engine.tiers = tiers
+            await engine.stop()
+
+    a = asyncio.run(go_a())
+    params = a.pop("params")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if not a["g2_owned"]:
+        raise RuntimeError(f"{tag}: a G2 page keeps a view of a staging buffer")
+    if a["cov_hit"] != [(n - 1) // bs for n in lens]:
+        raise RuntimeError(f"{tag}: after the G1-hit pass G2 holds {a['cov_hit']} of the "
+                           "prompts' blocks")
+
+    async def go_b():
+        engine = await make(TIER_SMALL_HOST, "g3_small", params).start()
+        out = {}
+        try:
+            await _tier_pass(engine, reqs, f"{tag} small-G2 cold", cfg, device, quant, lens)
+            # What the JAX bounds dropped (the 256 pending offloads of one
+            # wave) comes back on a G1 hit of the request alone: a G2 this
+            # small holds none of the other requests' blocks, so a hit pass
+            # of the whole burst would queue them all again first.
+            for i, c in enumerate(_coverage(engine, reqs, bs)):
+                if c < (lens[i] - 1) // bs:
+                    await _tier_pass(engine, [reqs[i]], f"{tag} small-G2 G1 hit {i}", cfg,
+                                     device, quant, [sfx[i]])
+            engine.clear_kv_blocks()
+            cov = out["cov"] = _coverage(engine, reqs, bs)
+            stats0, before = engine.tiers.stats(), engine.total_prefilled
+            g3 = out["g3"] = await _tier_pass(engine, reqs, f"{tag} G3 onboard", cfg, device,
+                                              quant, sfx)
+            g3["hits"] = _onboard_checks(f"{tag} G3 onboard", engine, reqs, bs, before, cov,
+                                         stats0, g3, a["hit"], full)
+            out["stats"] = engine.tiers.stats()
+            return out
+        finally:
+            await engine.stop()
+
+    b = asyncio.run(go_b())
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    g3_dir = os.path.join(root, "g3_small")
+    g3_bytes = _dir_bytes(g3_dir)
+
+    async def go_c():
+        engine = await make(TIER_SMALL_HOST, "g3_small", params).start()
+        out = {}
+        try:
+            cov = out["cov"] = _coverage(engine, reqs, bs)
+            # G3 read rate: every prompt block's file read once (np.load).
+            hashes = [h for r in reqs for h in prompt_hashes(r, bs)]
+            t0 = time.perf_counter()
+            nbytes = sum(sum(int(x.nbytes) for x in engine.tiers.disk.get(h)) for h in hashes)
+            out["g3_read_mb_per_s"] = nbytes / (time.perf_counter() - t0) / 1e6
+            stats0, before = engine.tiers.stats(), engine.total_prefilled
+            rs = out["restart"] = await _tier_pass(engine, reqs, f"{tag} restart", cfg, device,
+                                                   quant, sfx)
+            rs["hits"] = _onboard_checks(f"{tag} G3 after a restart", engine, reqs, bs, before,
+                                         cov, stats0, rs, a["hit"], full)
+            return out
+        finally:
+            await engine.stop()
+
+    c = asyncio.run(go_c())
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    if not b["g3"]["hits"]["g3_hits"] or c["restart"]["hits"]["g3_hits"] != full:
+        raise RuntimeError(f"{tag}: G3 hits {b['g3']['hits']} (small G2), "
+                           f"{c['restart']['hits']} (restart)")
+
+    def mean_ms(p):
+        return statistics.mean(p["ttft_s"]) * 1e3
+
+    cold_equal = sum(o["cold_equal"] for o in a["hit"]["outs"])
+    res = {
+        "blocks": full, "dropped_after_cold": full - sum(a["cov_cold"]),
+        "pages_compared": a["pages_compared"], "offload_bytes": a["offload_bytes"],
+        "d2h_mb_per_s": a["d2h_mb_per_s"], "flush_ms_cold": a["cold"]["flush_ms"],
+        "flushes_cold": a["cold"]["flushes"],
+        "tokens_per_s": {k: a[k]["tokens_per_s"] for k in ("off_1", "cold", "off_2")},
+        "ttft_ms": {"cold": mean_ms(a["cold"]), "g1_hit": mean_ms(a["hit"]),
+                    "g2": mean_ms(a["g2"]), "g3": mean_ms(b["g3"]),
+                    "restart": mean_ms(c["restart"])},
+        "ttft_ms_longest": {"cold": a["cold"]["ttft_s"][-1] * 1e3,
+                            "g1_hit": a["hit"]["ttft_s"][-1] * 1e3,
+                            "g2": a["g2"]["ttft_s"][-1] * 1e3,
+                            "g3": b["g3"]["ttft_s"][-1] * 1e3,
+                            "restart": c["restart"]["ttft_s"][-1] * 1e3},
+        "hits": {"g2": a["g2"]["hits"], "g3": b["g3"]["hits"], "restart": c["restart"]["hits"]},
+        "onboard_s": {"g2": a["g2"]["onboard_s"], "g3": b["g3"]["onboard_s"],
+                      "restart": c["restart"]["onboard_s"]},
+        "onboard_bytes": a["g2"]["onboard_bytes"],
+        "g3_read_mb_per_s": c["g3_read_mb_per_s"], "g2_bytes": a["g2_bytes"],
+        "g3_bytes": g3_bytes, "max_mem_gib": a["max_mem_gib"], "stats": a["stats"],
+        "hit_streams_equal_cold": cold_equal,
+        "launches": {k: a[k]["launches"] for k in ("cold", "hit", "g2")},
+        "hit_reference": [{"tokens": o["tokens"], "logprobs": o["logprobs"]}
+                          for o in a["hit"]["outs"]],
+    }
+    log(f"{tag}: {full} full prompt blocks; the JAX bounds (64 per flush, 256 pending) left "
+        f"{res['dropped_after_cold']} of them out of G2 after the cold pass, none after the G1 "
+        f"hit; {a['cold']['flushes']} flushes in the cold pass at {a['cold']['flush_ms']:.2f} "
+        f"host ms each, {a['offload_bytes']} bytes offloaded in all, device→host "
+        f"{a['d2h_mb_per_s']:.0f} MB/s ({TIER_OFFLOAD_PROBE}-block copies) ({card_line})")
+    log(f"{tag}: onboarded {full} blocks from G2 (hits {res['hits']['g2']}), from G3 with a "
+        f"{TIER_SMALL_HOST}-block G2 (hits {res['hits']['g3']}) and from G3 after a restart "
+        f"(hits {res['hits']['restart']}); each pass's 8 streams equal the G1-hit pass's bit for "
+        f"bit (tokens and logprobs), {a['pages_compared']} onboarded pages bit-equal to the "
+        f"stored ones; the G1-hit streams equal the cold ones for {cold_equal} of 8 requests")
+    log(f"{tag}: cold burst tokens/s tiers off {a['off_1']['tokens_per_s']:.1f}, on "
+        f"{a['cold']['tokens_per_s']:.1f}, off {a['off_2']['tokens_per_s']:.1f}; mean TTFT ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["ttft_ms"].items())
+        + "; the 1536-token request's " + ", ".join(
+            f"{k} {v:.1f}" for k, v in res["ttft_ms_longest"].items())
+        + "; onboard host s on the scheduler thread (lookup, concatenation, inject) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["onboard_s"].items())
+        + f" for {res['onboard_bytes']} bytes"
+        + f"; G3 read {c['g3_read_mb_per_s']:.0f} MB/s; G2 {a['g2_bytes']} bytes, G3 files "
+        f"{g3_bytes} bytes; peak device memory {a['max_mem_gib']:.2f} GiB ({card_line})")
+    return res
+
+
+def tiers_worker_phase(card_line: str, reference: list, preset: str = "llama-8b",
+                       device: str = "cuda", dtype: str = "bfloat16", quant: str = "none",
+                       kv_quant: str = "none") -> dict:
+    """Phase 13b: the store and two port workers on one card (the main
+    path's engine arguments, ``--disagg off``), both with one shared
+    ``--fleet-kv-dir``; A with ``--host-kv-blocks TIER_HOST_BLOCKS``, B with
+    a G2 of TIER_SMALL_HOST blocks; requests over a DIRECT router. A serves
+    the burst cold and again (its G1-hit pass); B gets the burst with a
+    ``peer_prefix`` hint naming A, one request at a time, fetches every
+    prompt's blocks from A's tiers and spills them into the fleet
+    directory; A serves 8 other
+    prompts, its G2 overflows and spills the burst's blocks there too; B,
+    its cache cleared, serves the burst again from G2 and G4. ``reference``:
+    13a's G1-hit streams, which every stream here must equal."""
+    import shutil
+
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.llm.peer_kv import KV_PREFIX_ENDPOINT
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import RouterMode
+    from dynamo_tpu_torch.transfer.stream import read_kv_payload_frames
+
+    tag = "tiers-workers" if quant == "none" else f"tiers-workers-int8-kv{kv_quant}"
+    cfg = ModelConfig.preset(preset)
+    bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
+    block_bytes = EngineArgs(model=cfg, block_size=bs, dtype=dtype,
+                             kv_quant=kv_quant).kv_bytes_per_block()
+    fleet = os.path.join(TIER_DIR, tag, "g4")
+    shutil.rmtree(os.path.dirname(fleet), ignore_errors=True)
+    os.makedirs(fleet)
+    reqs = tier_requests(cfg.name)
+    other = tier_requests(cfg.name, prompts=[p[::-1] for p in burst_prompts()])
+    argv = ["--preset", preset, "--dtype", dtype, "--device", device, "--quant", quant,
+            "--kv-quant", kv_quant, "--disagg", "off", "--fleet-kv-dir", fleet, *ENGINE_ARGV]
+    procs: list[Proc] = []
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+    sys_ports = {}
+    try:
+        store = Proc(f"{tag}-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                      "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        workers = {}
+        for name, host in (("a", TIER_HOST_BLOCKS), ("b", TIER_SMALL_HOST)):
+            sys_ports[name] = _free_port()
+            workers[name] = Proc(f"{tag}-{name}", [
+                "dynamo_tpu_torch.worker", "--store-url", store_url,
+                "--host-kv-blocks", str(host), *argv],
+                env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_ports[name])})
+            procs.append(workers[name])
+        for name, w in workers.items():
+            _, secs = w.wait_for(r"worker: serving .* window graphs captured", 600)
+            log(f"{tag}: worker {name} registered {secs:.2f}s after launch ({card_line})")
+
+        async def drive():
+            rt = await DistributedRuntime.create(store_url=store_url)
+            try:
+                comp = rt.namespace("dynamo").component("backend")
+                push = await comp.endpoint("generate").router(RouterMode.DIRECT)
+                await push.discovery.wait_for_instances(2)
+                fetch = await comp.endpoint(KV_PREFIX_ENDPOINT).router(RouterMode.DIRECT)
+                await fetch.discovery.wait_for_instances(2)
+
+                async def one(wid, r):
+                    ts, first, toks, lps = time.perf_counter(), None, [], []
+                    async for item in push.generate(r, Context(), instance_id=wid):
+                        if item.get("error"):
+                            raise RuntimeError(f"{tag}: {item['error']}")
+                        if first is None and item.get("token_ids"):
+                            first = time.perf_counter() - ts
+                        toks += item.get("token_ids") or []
+                        lps += item.get("log_probs") or []
+                    return {"tokens": toks, "logprobs": lps, "ttft_s": first}
+
+                async def burst(wid, rs):
+                    t0 = time.perf_counter()
+                    outs = await asyncio.gather(*(one(wid, r) for r in rs))
+                    return outs, time.perf_counter() - t0
+
+                ids = sorted(push.discovery.instance_ids())
+                # Which instance is A: a one-token probe to the first; B's
+                # counters are read as deltas from after the probes.
+                probe = dict(reqs[0], token_ids=[1], stop={"max_tokens": 1, "ignore_eos": True})
+                await one(ids[0], probe)
+                got = usr1_counters(workers["a"])["generated_tokens"]
+                wid_a, wid_b = (ids[0], ids[1]) if got else (ids[1], ids[0])
+                out = {"b_base": usr1_counters(workers["b"])}
+                out["cold"], _ = await burst(wid_a, reqs)
+                out["hit"], _ = await burst(wid_a, reqs)
+                await asyncio.sleep(1.0)  # A's last offloads land
+                # Peer fetch rate: the longest prompt's blocks from A's tiers.
+                t0 = time.perf_counter()
+                payload = await read_kv_payload_frames(fetch.generate(
+                    {"hashes": prompt_hashes(reqs[-1], bs)}, Context(), instance_id=wid_a))
+                secs = time.perf_counter() - t0
+                out["peer_fetch_bytes"] = sum(int(p.nbytes) for p in payload.pages())
+                out["peer_fetch_mb_per_s"] = out["peer_fetch_bytes"] / secs / 1e6
+                hinted = [dict(r, kv_transfer_params={"peer_prefix": {
+                    "instance_id": wid_a, "num_blocks": (len(r["token_ids"]) - 1) // bs}})
+                    for r in reqs]
+                # One request at a time: each wave's sealed blocks then fit the
+                # 256 pending offloads, so B's G2 and G4 end up holding them all.
+                out["peer"] = [await one(wid_b, r) for r in hinted]
+                await asyncio.sleep(1.0)
+                out["b_peer"] = usr1_counters(workers["b"])
+                out["other"], _ = await burst(wid_a, other)
+                await asyncio.sleep(1.0)
+                out["a_after_other"] = usr1_counters(workers["a"])
+                cleared = None
+                clear = await comp.endpoint("clear_kv").router(RouterMode.DIRECT)
+                await clear.discovery.wait_for_instances(2)
+                async for item in clear.generate({}, Context(), instance_id=wid_b):
+                    cleared = item
+                out["cleared"] = cleared
+                out["g4"], _ = await burst(wid_b, reqs)
+                await asyncio.sleep(1.0)
+                out["b_final"] = usr1_counters(workers["b"])
+                return out
+            finally:
+                await rt.shutdown()
+                await rt.store.close()
+
+        out = asyncio.run(drive())
+        _same_streams(f"{tag}: worker A's G1-hit pass", out["hit"], reference)
+        _same_streams(f"{tag}: worker B after peer fetches", out["peer"], reference)
+        _same_streams(f"{tag}: worker B from G2 + G4", out["g4"], reference)
+        b0, bp, bf, ao = out["b_base"], out["b_peer"], out["b_final"], out["a_after_other"]
+        full = sum((len(r["token_ids"]) - 1) // bs for r in reqs)
+        if bp["peer_fetches"] != len(reqs) or bp["peer_fetch_failures"]:
+            raise RuntimeError(f"{tag}: worker B peer fetches {bp['peer_fetches']}, failures "
+                               f"{bp['peer_fetch_failures']}, for {len(reqs)} prompts")
+        injected = bp["inject_bytes"] - b0["inject_bytes"]
+        prefilled = bp["prefilled_tokens"] - b0["prefilled_tokens"]
+        if injected != full * block_bytes or prefilled != sum(
+                len(r["token_ids"]) - bs * ((len(r["token_ids"]) - 1) // bs) for r in reqs):
+            raise RuntimeError(f"{tag}: worker B injected {injected} bytes (want {full} x "
+                               f"{block_bytes}), prefilled {prefilled}")
+        metrics = _get_text(sys_ports["b"], "/metrics")
+        g4_hits = _metric(metrics, "dynamo_tpu_tier_g4_hits_total") or 0.0
+        g4_dedup = _metric(metrics, "dynamo_tpu_tier_g4_dedup_blocks_total") or 0.0
+        tb = bf["tiers"]
+        if (g4_hits <= 0 or tb["g4_hits"] != g4_hits or tb["g4_dedup_blocks"] <= 0
+                or tb["g4_dedup_blocks"] != g4_dedup
+                or tb["onboarded_blocks"] - bp["tiers"]["onboarded_blocks"] != full):
+            raise RuntimeError(f"{tag}: worker B tiers {tb} (after the peer pass "
+                               f"{bp['tiers']}), /metrics g4 hits {g4_hits} dedup {g4_dedup}")
+        counts = {}
+        for name in ("a", "b"):
+            counts[name] = workers[name].stop()
+        counts["store"] = store.stop()
+        if set(counts.values()) != {0}:
+            raise RuntimeError(f"{tag}: exit codes {counts}")
+
+        def mean_ms(outs):
+            return statistics.mean(o["ttft_s"] for o in outs) * 1e3
+
+        res = {"peer_fetches": bp["peer_fetches"], "peer_inject_bytes": injected,
+               "peer_inject_s": bp["inject_s"] - b0["inject_s"], "peer_fetch_mb_per_s": out["peer_fetch_mb_per_s"],
+               "peer_fetch_bytes": out["peer_fetch_bytes"],
+               "ttft_ms": {"cold": mean_ms(out["cold"]), "g1_hit": mean_ms(out["hit"]),
+                           "peer": mean_ms(out["peer"]), "g2_g4": mean_ms(out["g4"])},
+               "b_tiers": tb, "a_tiers": ao["tiers"], "g4_files": len(os.listdir(fleet)),
+               "g4_bytes": _dir_bytes(fleet), "exit_codes": counts}
+        log(f"{tag}: worker B fetched all {len(reqs)} prompts' {full} blocks from A's tiers "
+            f"({injected} bytes injected in {res['peer_inject_s']:.3f}s on its scheduler "
+            f"thread), the longest prompt's {out['peer_fetch_bytes']} bytes over kv_prefix at "
+            f"{out['peer_fetch_mb_per_s']:.0f} MB/s; after A spilled the burst into the fleet "
+            f"directory, B served it from G2 + G4: tier_g4_hits_total {g4_hits:.0f}, "
+            f"tier_g4_dedup_blocks_total {g4_dedup:.0f} (A: {ao['tiers']['g4_dedup_blocks']} "
+            f"dedup, {ao['tiers']['g4_hits']} hits); {res['g4_files']} G4 files, "
+            f"{res['g4_bytes']} bytes; every stream equals 13a's G1-hit pass bit for bit; mean "
+            f"TTFT ms " + ", ".join(f"{k} {v:.1f}" for k, v in res["ttft_ms"].items())
+            + f"; exit codes {counts} ({card_line})")
+        return res
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(os.path.dirname(fleet), ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3860,6 +4566,7 @@ def main() -> int:
 
     cases = kernel_phase(device)
     int8_cases, int8_substep = int8_kernel_phase(device, card_line)
+    tied = tied_head_phase(device, card_line)
     stats, reference = asyncio.run(main_path(card_line))
     int8_runs, int8_refs = {}, {}
     for kv_quant in ("none", "int8"):
@@ -3929,6 +4636,13 @@ def main() -> int:
     grammar["http"] = grammar_http_phase(card_line, grammar_ref)
     grammar["lift"] = grammar_lift_phase(card_line)
 
+    torch.cuda.empty_cache()
+    tiers = {"bf16": tiers_phase(card_line)}
+    tiers["bf16_workers"] = tiers_worker_phase(card_line, tiers["bf16"].pop("hit_reference"))
+    tiers["int8"] = tiers_phase(card_line, quant="int8", kv_quant="int8")
+    tiers["int8_workers"] = tiers_worker_phase(card_line, tiers["int8"].pop("hit_reference"),
+                                               quant="int8", kv_quant="int8")
+
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = next(r for r in cases if r["case"] == "decode_bfloat16_burst")
     entry = {
@@ -3943,6 +4657,9 @@ def main() -> int:
         "launches_grammar_single_steps_int8": sum(
             grammar["int8"][b]["attention_launches"] for b in ("dense", "dense_repeat")),
         "launches_grammar_worker": grammar["http"]["counters"]["paged_attention_launches"],
+        "launches_tiers": sum(tiers["bf16"]["launches"][k][0] for k in ("cold", "hit", "g2")),
+        "launches_tiers_int8": sum(tiers["int8"]["launches"][k][0]
+                                   for k in ("cold", "hit", "g2")),
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -3959,6 +4676,7 @@ def main() -> int:
         "prefill_route_launches_disagg_prefill_worker": disagg["int8"]["prefill_launches"][2],
         "launches_grammar": sum(grammar["int8"][b]["int8_launches"]
                                 for b in ("dense", "tree", "dense_repeat")),
+        "launches_tiers": sum(tiers["int8"]["launches"][k][1] for k in ("cold", "hit", "g2")),
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
@@ -3988,6 +4706,14 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": r["case"],
         })
+    t8 = next(r for r in tied["cases"] if r["case"] == "tied_llama-3b_M8_bfloat16")
+    tied_entry = {
+        "name": "int8_matmul_tied_head", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": TIED_REPLACES, "launches": tied["engine_launches"][3],
+        "max_abs_err": t8["max_abs_err"], "ms": t8["ms"], "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
+        "library_ms": t8["library_ms"], "case": t8["case"], "cases": tied["cases"],
+    }
     log("main_path: " + json.dumps(stats))
     for kv_quant, st in int8_runs.items():
         log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
@@ -3997,8 +4723,9 @@ def main() -> int:
     log("spec_path: " + json.dumps(spec))
     log("disagg_path: " + json.dumps(disagg))
     log("grammar_path: " + json.dumps(grammar))
-    log(f"chip_smoke: phases 1-12 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
-    print(json.dumps({"kernels": [entry, int8_entry, *spec_entries]}), flush=True)
+    log("tiers_path: " + json.dumps(tiers))
+    log(f"chip_smoke: phases 1-13 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
+    print(json.dumps({"kernels": [entry, int8_entry, tied_entry, *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -160,6 +160,18 @@ class EngineArgs:
     admission_budget_tokens: int = 8192
     # Ranked alternatives returned to requests asking for top_logprobs.
     top_logprobs_max: int = 8
+    # KV tier stack (block_manager/tiers.py): G2 host-RAM blocks (0 = off)
+    # and optional G3 disk spill directory.
+    host_kv_blocks: int = 0
+    disk_kv_dir: str | None = None
+    disk_kv_blocks: int = 4096
+    # G4 fleet-SHARED pool: a directory mounted by EVERY engine (NFS,
+    # multi-engine-host tmpfs, fused object store). Blocks spill here
+    # from G3 keyed by the salted hash chain, so identical prefixes
+    # produced by different engines dedup to one file and any engine can
+    # onboard a peer's cold prefix without recompute or a live holder.
+    fleet_kv_dir: str | None = None
+    fleet_kv_blocks: int = 16384
     # Where params and the KV cache live: "cuda" unless the caller asks
     # for "cpu" (device.resolve_device; no silent fallback).
     device: str = "cuda"

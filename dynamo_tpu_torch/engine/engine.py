@@ -51,8 +51,19 @@ constrained verify pass is a tree pass with per-node masks.
 ``embed`` serves /v1/embeddings: mean-pooled final hidden states, one
 eager forward per ``max_prefill_tokens`` chunk on the scheduler thread.
 
-Omitted for now, each a ROADMAP item: LoRA, KV tiers and offload, live
-migration and tracing.
+The KV tiers are the JAX engine's too (the same names,
+``block_manager/tiers.py``): sealed blocks write through to G2 host RAM
+(spilling to a G3 disk directory and a G4 fleet-shared one), at most
+``MAX_OFFLOAD_PER_STEP`` per flush after each decode iteration and before
+each allocation, and a prefix that G1 lost is onboarded from the tiers at
+admission instead of recomputed (before a disagg or peer inject, which may
+start past the tiers' coverage). The JAX flush extracts synchronously; here
+a flush enqueues the page gather and its device→host copy and puts the
+blocks into the tiers once the copy has landed, so no flush waits for the
+windows in flight (on the CPU the copy has landed at once, and the tiers
+see every put where the JAX engine's do).
+
+Omitted for now, each a ROADMAP item: LoRA, live migration and tracing.
 """
 
 from __future__ import annotations
@@ -68,6 +79,12 @@ from typing import Any, AsyncIterator
 import numpy as np
 
 from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
+from dynamo_tpu_torch.block_manager.tiers import (
+    DiskBlockPool,
+    FleetBlockPool,
+    HostBlockPool,
+    TierStack,
+)
 from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.drafter import (
@@ -148,9 +165,10 @@ def register_engine_metrics(registry):
     quant flag, preemptions, spec proposed, spec accepted, spec accept
     rate, tokens per weight pass, spec tree passes, spec tree accept
     depth, spec budget reallocs, grammar active seqs, grammar mask
-    seconds). Names and help texts are the JAX package's
-    (``register_engine_metrics`` there); the series whose quantity this
-    engine does not have (tiers, LoRA) are left out."""
+    seconds, tier protected evictions, tier hit rate, G4 hits, G4
+    evictions, G4 dedup blocks). Names and help texts are the JAX
+    package's (``register_engine_metrics`` there); the LoRA series, whose
+    quantity this engine does not have, are left out."""
     return (
         registry.gauge(
             "engine_inflight_windows",
@@ -223,6 +241,34 @@ def register_engine_metrics(registry):
             "engine_grammar_mask_seconds",
             "Cumulative host seconds spent building/packing grammar "
             "token masks (FSM walks + bitset gathers per verify slot)",
+        ),
+        registry.counter(
+            "tier_protected_evictions_total",
+            "Host/disk KV tier eviction scans that SPARED a protected "
+            "block (high prefix fan-out or recent hits) and evicted a "
+            "colder one instead",
+        ),
+        registry.gauge(
+            "tier_hit_rate",
+            "Cumulative G2+G3 tier lookup hit rate (hits / (hits + "
+            "misses)) — the churn-resistance signal for the "
+            "frequency-aware eviction policy",
+        ),
+        registry.counter(
+            "tier_g4_hits_total",
+            "G4 fleet-shared pool lookups that found the block file "
+            "(possibly written by a PEER engine — the cross-engine "
+            "dedup payoff)",
+        ),
+        registry.counter(
+            "tier_g4_evictions_total",
+            "G4 fleet-pool files pruned by this engine's oldest-mtime "
+            "capacity sweep of the SHARED directory",
+        ),
+        registry.counter(
+            "tier_g4_dedup_blocks_total",
+            "G4 puts/spill-adoptions skipped because a peer engine "
+            "already wrote the identical salted-hash block file",
         ),
     )
 
@@ -388,6 +434,15 @@ class TorchEngine:
             args.num_kv_blocks, args.block_size, event_sink=event_sink,
             enable_prefix_caching=args.prefix_caching,
         )
+        # G2/G3/G4 KV tiers: sealed blocks write through to host (batched
+        # per flush); prefix misses in G1 onboard from the tiers instead of
+        # recomputing (block_manager/tiers.py). Queued (block_id, seq_hash)
+        # pairs, the flushes whose page copy is in flight (hashes, radix
+        # protection hints, HostFetch, n) and the hashes they carry.
+        self.tiers = self._build_tiers(args)
+        self._offload_pending: list[tuple[int, int]] = []
+        self._offload_fetches: collections.deque = collections.deque()
+        self._offload_inflight: set[int] = set()
         self._loop: asyncio.AbstractEventLoop | None = None
         self._thread: threading.Thread | None = None
         self._mutex = threading.Lock()
@@ -422,6 +477,7 @@ class TorchEngine:
         self._gauges = None
         self._preempt_pushed: dict[str, int] = {}
         self._spec_pushed = [0, 0, 0, 0]
+        self._tier_pushed = [0, 0, 0, 0]  # protected evictions, G4 hits/evictions/dedup
         # Speculative decoding: the host-side drafter and a draft length
         # that, like spec_budget_adaptive, may be changed on an idle engine
         # (read once per scheduler iteration).
@@ -466,6 +522,14 @@ class TorchEngine:
         self.inject_s = 0.0
         self.inject_bytes = 0
         self.export_s = 0.0
+        # Host seconds in _flush_offloads, the flushes that enqueued a page
+        # copy, and the page bytes put into the tiers; host seconds and
+        # bytes of the tier onboards at admission.
+        self.offload_s = 0.0
+        self.offload_flushes = 0
+        self.offload_bytes = 0
+        self.onboard_s = 0.0
+        self.onboard_bytes = 0
         # Grammar: the compiler over the serving tokenizer's vocabulary,
         # built once (under its lock, off the scheduler thread) and caching
         # compiled schemas; host seconds building masks, and the number of
@@ -504,7 +568,8 @@ class TorchEngine:
         if self._gauges is None:
             return
         (g_win, g_first, g_pad, g_kvb, g_kvq, c_preempt, c_prop, c_acc, g_rate, g_tpp,
-         c_tree, g_tree_depth, c_budget, g_gram_seqs, g_gram_mask) = self._gauges
+         c_tree, g_tree_depth, c_budget, g_gram_seqs, g_gram_mask,
+         c_tier_prot, g_tier_hit, c_g4_hit, c_g4_evict, c_g4_dedup) = self._gauges
         g_win.set(sum(1 for it in self._fetchq if isinstance(it, _Window)))
         g_first.set(sum(1 for it in self._fetchq if isinstance(it, _First)))
         g_pad.set(self.total_prefill_padded / max(1, self.total_prefilled))
@@ -526,6 +591,23 @@ class TorchEngine:
         g_tree_depth.set(self.total_spec_tree_depth / max(1, self.total_spec_tree_rows))
         g_gram_seqs.set(sum(1 for s in self._running if s.grammar is not None))
         g_gram_mask.set(self.total_grammar_mask_s)
+        g_tier_hit.set(self.tiers.hit_rate)
+        fl = self.tiers.fleet
+        for i, (ctr, total) in enumerate((
+                (c_tier_prot, self.tiers.protected_evictions),
+                (c_g4_hit, fl.hits if fl else 0), (c_g4_evict, fl.evictions if fl else 0),
+                (c_g4_dedup, fl.dedup_blocks if fl else 0))):
+            if total > self._tier_pushed[i]:
+                ctr.inc(total - self._tier_pushed[i])
+                self._tier_pushed[i] = total
+
+    @staticmethod
+    def _build_tiers(args: EngineArgs) -> TierStack:
+        host = HostBlockPool(args.host_kv_blocks) if args.host_kv_blocks > 0 else None
+        disk = DiskBlockPool(args.disk_kv_dir, args.disk_kv_blocks) if args.disk_kv_dir else None
+        fleet = (FleetBlockPool(args.fleet_kv_dir, args.fleet_kv_blocks)
+                 if args.fleet_kv_dir else None)
+        return TierStack(host, disk, fleet, unit_bytes=args.kv_bytes_per_block())
 
     @property
     def total_preemptions(self) -> int:
@@ -553,6 +635,52 @@ class TorchEngine:
     def clear_kv_blocks(self) -> int:
         """Drop every idle cached block (admin clear-KV) → count."""
         return self.pool.clear()
+
+    def _flush_offloads(self) -> None:
+        """Write queued sealed blocks through to the tiers: one batched page
+        gather per call (at most MAX_OFFLOAD_PER_STEP blocks) and its
+        device→host copy, started without waiting. The gather is enqueued
+        before any later dispatch, so it reads a block before a later
+        allocation can rewrite it. The blocks enter the tiers once their
+        copy has landed (``_drain_offload_fetches``, here and at later
+        flushes): at once on the CPU, where the tiers see each put at the
+        point where the JAX engine's synchronous flush makes it."""
+        if not self._offload_pending and not self._offload_fetches:
+            return
+        t0 = time.perf_counter()
+        self._drain_offload_fetches()
+        if self._offload_pending:
+            batch = self._offload_pending[: self.tiers.MAX_OFFLOAD_PER_STEP]
+            del self._offload_pending[: len(batch)]
+            arrs, n = self._runner.start_extract_pages([b for b, _ in batch])
+            hashes = [h for _, h in batch]
+            # Radix protection hint: branch points / live-shared blocks get
+            # eviction credit in the tiers so one-off prompt bursts can't
+            # flush the hot shared system-prefix blocks.
+            protected = [self.pool.hash_protected(h) for h in hashes]
+            self._offload_fetches.append((hashes, protected, start_host_fetch(arrs), n))
+            self._offload_inflight.update(hashes)
+            self.offload_flushes += 1
+            self._drain_offload_fetches()
+        self.offload_s += time.perf_counter() - t0
+
+    def _drain_offload_fetches(self, force: bool = False) -> None:
+        """Put the flushed blocks whose page copy has landed into the tiers,
+        in flush order (``force``: wait for every copy). HostBlockPool.put
+        copies each block's slice, so no tier keeps the pinned staging
+        buffer."""
+        while self._offload_fetches:
+            hashes, protected, fetch, n = self._offload_fetches[0]
+            if not force and not host_ready(fetch):
+                return
+            self._offload_fetches.popleft()
+            pages = self._runner.finish_extract_pages(fetch, n)
+            self.tiers.offload(
+                [(h, *(a[:, i : i + 1] for a in pages)) for i, h in enumerate(hashes)],
+                protected=protected,
+            )
+            self._offload_inflight.difference_update(hashes)
+            self.offload_bytes += sum(int(a.nbytes) for a in pages)
 
     @property
     def runner(self) -> LocalRunner:
@@ -930,10 +1058,16 @@ class TorchEngine:
             self._admit(allocated)
         if self._running:
             self._decode_iteration()
+            self._flush_offloads()
         elif self._fetchq:
             # Every owner of the queued fetches died during a drain: release
             # them (the idle wait in _run ignores _fetchq).
             self._drain_completed(force=True)
+        if self._offload_fetches and not self._running:
+            # Going idle: land the page copies still in flight, so the
+            # tiers hold every flushed block while nothing runs (the idle
+            # wait in _run ignores them too).
+            self._drain_offload_fetches(force=True)
         self._update_gauges()
 
     def _admit(self, allocated: list[tuple[_Seq, int]]) -> None:
@@ -999,7 +1133,11 @@ class TorchEngine:
         return best
 
     def _admit_alloc(self, seq: _Seq) -> int:
-        """Allocate KV blocks and resolve prefix hits → suffix start."""
+        """Allocate KV blocks and resolve prefix hits (local cache, tier
+        onboard, disagg or peer inject) → suffix start."""
+        # Flush queued offloads BEFORE allocating: allocation may evict and
+        # recycle exactly the pages still waiting to be copied out.
+        self._flush_offloads()
         bs = self.args.block_size
         prompt = seq.tokens
         plen = len(prompt)
@@ -1014,6 +1152,26 @@ class TorchEngine:
         seq.block_ids = block_ids
         seq.block_seq = TokenBlockSequence(prompt, bs)
         start = n_hit * bs
+        # G2/G3/G4 onboard: blocks evicted from G1 but still in a tier
+        # re-enter as a prefix hit instead of being recomputed, written in
+        # place like an inject. Runs BEFORE a remote inject: a peer payload
+        # may start past the tiers' coverage (llm/peer_kv.py delta fetch).
+        if self.tiers.enabled and n_hit < max_hit:
+            t0 = time.perf_counter()
+            run = self.tiers.lookup_run(hashes[n_hit:max_hit])
+            if run:
+                # Per-block page tuples → one batched inject; blocks a
+                # persistent tier directory stored in the other page format
+                # are bridged to this cache's.
+                pages = kv_transfer.concat_page_run(
+                    run, quantized=self.args.kv_quant == "int8",
+                    num_kv_heads=self.cfg.num_kv_heads, dtype=self.args.dtype)
+                n_onb = n_hit + len(run)
+                self._runner.inject_pages(seq.block_ids[n_hit:n_onb], *pages)
+                self.onboard_bytes += sum(int(a.nbytes) for a in pages)
+                n_hit = n_onb
+                start = n_hit * bs
+            self.onboard_s += time.perf_counter() - t0
         # Disagg: pre-load remotely prefilled pages as a materialized
         # prefix hit; the suffix (at least one token) is recomputed here,
         # which also gives the first token's logits.
@@ -1074,9 +1232,18 @@ class TorchEngine:
             and (seq.registered_blocks + 1) * bs <= seq.kv_written
         ):
             blk = seq.block_seq.blocks[seq.registered_blocks]
-            self.pool.register_block(
-                seq.block_ids[seq.registered_blocks], blk.sequence_hash, blk.parent_sequence_hash
-            )
+            bid = seq.block_ids[seq.registered_blocks]
+            self.pool.register_block(bid, blk.sequence_hash, blk.parent_sequence_hash)
+            # Write-through offload: queue the sealed block for the next
+            # flush (bounded; blocks G2 holds, or whose copy is in flight,
+            # are skipped).
+            if (
+                self.tiers.enabled
+                and len(self._offload_pending) < 256
+                and not (self.tiers.host and self.tiers.host.contains(blk.sequence_hash))
+                and blk.sequence_hash not in self._offload_inflight
+            ):
+                self._offload_pending.append((bid, blk.sequence_hash))
             seq.registered_blocks += 1
 
     # -- disaggregated export / inject -------------------------------------
@@ -1288,6 +1455,7 @@ class TorchEngine:
             seq.export_handle = None
             seq.export_pub_blocks = 0
             seq.export = False
+        self._purge_offloads(seq.block_ids)
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []
         seq.registered_blocks = 0
@@ -1956,11 +2124,22 @@ class TorchEngine:
         if seq.slot is not None:
             self._free_slots.append(seq.slot)
             seq.slot = None
+        self._purge_offloads(seq.block_ids)
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []
         if not already_posted:
             self._post(seq, LLMEngineOutput(finish_reason=reason, error=error).to_dict())
         self._post_done(seq)
+
+    def _purge_offloads(self, block_ids: list[int]) -> None:
+        """Drop queued offloads of blocks about to be freed: once freed they
+        can be recycled by any allocation before the next flush, and a late
+        gather would snapshot the NEW occupant's KV under the OLD sequence
+        hash, poisoning the tier. Flushed blocks need nothing: their gather
+        is already enqueued ahead of any rewrite."""
+        if self._offload_pending:
+            freed = set(block_ids)
+            self._offload_pending = [(b, h) for b, h in self._offload_pending if b not in freed]
 
     def _post(self, seq: _Seq, item: Any) -> None:
         if self._loop is not None:

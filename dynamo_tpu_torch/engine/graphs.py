@@ -24,7 +24,8 @@ static input buffer and replay it.
   enqueues the copy of a replay's outputs to the host right behind it,
   before any later replay.
 - The kernels' launch counters (``paged_attention.launches``,
-  ``int8_matmul.launches`` and its ``prefill_launches``) count in Python,
+  ``int8_matmul.launches``, its ``prefill_launches`` and its
+  ``tied_launches``) count in Python,
   so a capture records each call once; the warmup and capture counts are
   taken back, and each replay adds the calls its graph holds.
 """
@@ -42,7 +43,8 @@ from dynamo_tpu_torch.ops import paged_attention as pa
 
 WARMUP_RUNS = 2
 # (module, counter) of every kernel wrapper a window can call.
-COUNTERS = ((pa, "launches"), (im, "launches"), (im, "prefill_launches"))
+COUNTERS = ((pa, "launches"), (im, "launches"), (im, "prefill_launches"),
+            (im, "tied_launches"))
 
 
 def read_counts() -> tuple[int, ...]:

@@ -202,7 +202,9 @@ def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """→ f32 logits. int8 heads: ``x @ w`` rounded to x's dtype, then f32
-    times the scale leaf as it is (the JAX package's ``_logits``)."""
+    times the scale leaf as it is (the JAX package's ``_logits``). A tied
+    int8 embedding goes as ``emb.T``, a view: the kernel's tied-head entry
+    reads it as stored, and no transposed copy is made."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_embeddings:
         emb = params["embed"]

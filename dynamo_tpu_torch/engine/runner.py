@@ -236,7 +236,8 @@ class LocalRunner:
         self.eager_steps = 0  # single decode steps run eagerly on CUDA
         # Verify passes dispatched, the forwards over all layers they made
         # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
-        # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route).
+        # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route,
+        # int8 tied head).
         self.verify_passes = 0
         self.verify_forwards = 0
         self.verify_calls = (0,) * len(COUNTERS)

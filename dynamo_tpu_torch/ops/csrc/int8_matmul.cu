@@ -1,7 +1,8 @@
 // Weight-only int8 matrix product for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces: dynamo_tpu/engine/model.py `_dot_q` (:156) and the int8 branches
-// of `_logits` (:279-291). Those are not Pallas kernels: XLA fuses the
+// of `_logits` (:279-291), the tied one (:283-285) included. Those are not
+// Pallas kernels: XLA fuses the
 // int8 -> bf16 convert into the dot's operand read, so the TPU streams one
 // byte per weight. In PyTorch, `x @ w.to(bf16) * s` would write and read a
 // bf16 copy of every weight on every call (~5 bytes per weight); this kernel
@@ -47,8 +48,28 @@
 // - Shapes that break 16-byte alignment (K % 8 for bf16 x, K % 4 for f32,
 //   N % 16, or an unaligned pointer) stage the same tiles with plain loads.
 //
+// The tied head (dtpu_int8_matmul_t): llama-1b and llama-3b take their
+// logits from the int8 embedding [V, D] used transposed, so w arrives as
+// [N, K] contiguous along K, with the same scale [N], epilogue and rounding
+// points. Bound the same way (V*D bytes, 394 MB at llama-3b). Each warp owns
+// 32 rows of w (two m16n8k16 A tiles) and walks K in 64-byte steps: a thread
+// reads 16 contiguous bytes of each of its four rows per step (coalesced
+// 64-byte row segments), next step's loads in flight while this one's run.
+// The k order inside a step is permuted so that a 32-bit word of one row
+// feeds an A fragment's k pair directly (physical k 16tg + 4s + {0,1} and
+// {2,3} are logical k 2tg + {0,1} and 2tg + 8 + {0,1} of sub-step s): a dot
+// product does not depend on the order of its terms, as long as the x rows,
+// staged once per block in shared memory (rows padded to 8 bytes past a
+// multiple of 128, so a half-warp's 8-byte reads hit distinct banks), use
+// the same order. Blocks of 256 rows; every x row (up to 64, 8-row m tiles)
+// rides the block, staged in K chunks that fit 96 KB, so each weight is read
+// once and feeds every row. The warp's sum over K is its own, in order, so
+// repeats are bit-identical. f32 x: the same loads, FMAs on the CUDA cores,
+// 8 x rows per block (grid y for more), the four k lanes of a row added by
+// shuffles in a fixed tree. No copy of the embedding is made.
+//
 // Not taken here (ROADMAP): wgmma and TMA, fusing wq/wk/wv into one call,
-// a layout for the tied embedding used transposed, a prefill-shaped kernel.
+// a prefill-shaped kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -378,6 +399,220 @@ __global__ void __launch_bounds__(MERGE_THREADS) int8_matmul_merge_kernel(const 
   epilogue<XT>(p, static_cast<int>(idx / p.N), static_cast<int>(idx % p.N), v);
 }
 
+// ---- the tied head: w [N, K] int8, contiguous along K -------------------------
+
+constexpr int T_WARPS = 8;
+constexpr int T_THREADS = T_WARPS * 32;
+constexpr int T_GROUPS = 2;                      // 16-row A tiles per warp
+constexpr int T_ROWS = T_WARPS * 16 * T_GROUPS;  // rows of w per block
+constexpr int T_MROWS = 8;                       // x rows per block (grid y)
+constexpr int T_KSTEP = 64;                      // k per step (16 bytes a thread)
+constexpr int T_XBYTES = 96 * 1024;              // shared memory for x per chunk
+
+// Bytes 2h and 2h + 1 of w -> a packed bf16 pair (byte 2h in the low half),
+// exactly, as i8_pair_bf16 does.
+__device__ __forceinline__ uint32_t i8_adj_bf16(uint32_t w, int h) {
+  const uint32_t pair = __byte_perm(w, 0u, h ? 0x4342u : 0x4140u);
+  const uint32_t mag = (pair & 0x007F007Fu) | 0x43004300u;
+  const uint32_t off = (pair & 0x00800080u) | 0x43004300u;
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(mag), "r"(off));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int s) {
+  return s == 0 ? v.x : s == 1 ? v.y : s == 2 ? v.z : v.w;
+}
+
+// 16 bytes of row n of w from k (zeros past N or K).
+template <bool ALIGNED>
+__device__ __forceinline__ uint4 load_row16(const Params& p, int n, int k) {
+  if (n >= p.N) return make_uint4(0, 0, 0, 0);
+  const int8_t* src = p.w + static_cast<size_t>(n) * p.K + k;
+  if constexpr (ALIGNED) {
+    if (k >= p.K) return make_uint4(0, 0, 0, 0);
+    return __ldcs(reinterpret_cast<const uint4*>(src));
+  } else {
+    uint32_t wv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (k + 4 * q + b < p.K) v |= static_cast<uint32_t>(static_cast<uint8_t>(src[4 * q + b])) << (8 * b);
+      wv[q] = v;
+    }
+    return make_uint4(wv[0], wv[1], wv[2], wv[3]);
+  }
+}
+
+// x rows m0 .. m0 + rows - 1, k kc0 .. kc0 + kpad - 1, into xs [rows][xstride]
+// (zeros past M or K).
+template <typename XT>
+__device__ __forceinline__ void stage_x(const Params& p, XT* xs, int xstride, int m0, int rows,
+                                        int kc0, int kpad) {
+  const XT* x = static_cast<const XT*>(p.x);
+  for (int c = threadIdx.x; c < rows * kpad; c += T_THREADS) {
+    const int m = c / kpad, j = c % kpad;
+    const int k = kc0 + j;
+    xs[m * xstride + j] =
+        (m0 + m < p.M && k < p.K) ? x[static_cast<size_t>(m0 + m) * p.K + k] : from_f<XT>(0.f);
+  }
+}
+
+// bf16 x: MT tiles of 8 x rows, all in the block.
+template <int MT, bool ALIGNED>
+__global__ void __launch_bounds__(T_THREADS) int8_matmul_t_bf16_kernel(const Params p, int kc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  const int xstride = kc + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int nw = blockIdx.x * T_ROWS + warp * 16 * T_GROUPS;
+  float acc[MT][T_GROUPS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < T_GROUPS; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][r][e] = 0.f;
+
+  for (int kc0 = 0; kc0 < p.K; kc0 += kc) {
+    const int kpad = (min(kc, p.K - kc0) + T_KSTEP - 1) / T_KSTEP * T_KSTEP;
+    __syncthreads();  // the previous chunk's readers are done
+    stage_x<bf16>(p, xs, xstride, 0, MT * 8, kc0, kpad);
+    __syncthreads();
+    uint4 cur[T_GROUPS][2], nxt[T_GROUPS][2];
+#pragma unroll
+    for (int r = 0; r < T_GROUPS; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        cur[r][h] = load_row16<ALIGNED>(p, nw + 16 * r + 8 * h + g, kc0 + 16 * tg);
+    for (int ks = 0; ks < kpad; ks += T_KSTEP) {
+      if (ks + T_KSTEP < kpad) {
+#pragma unroll
+        for (int r = 0; r < T_GROUPS; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            nxt[r][h] = load_row16<ALIGNED>(p, nw + 16 * r + 8 * h + g,
+                                            kc0 + ks + T_KSTEP + 16 * tg);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t a[T_GROUPS][4];
+#pragma unroll
+        for (int r = 0; r < T_GROUPS; ++r) {
+          const uint32_t lo = word_of(cur[r][0], s), hi = word_of(cur[r][1], s);
+          a[r][0] = i8_adj_bf16(lo, 0);
+          a[r][1] = i8_adj_bf16(hi, 0);
+          a[r][2] = i8_adj_bf16(lo, 1);
+          a[r][3] = i8_adj_bf16(hi, 1);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint2 xv = *reinterpret_cast<const uint2*>(xs + (mt * 8 + g) * xstride + ks +
+                                                           16 * tg + 4 * s);
+#pragma unroll
+          for (int r = 0; r < T_GROUPS; ++r) mma_bf16(acc[mt][r], a[r], xv.x, xv.y);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < T_GROUPS; ++r) {
+        cur[r][0] = nxt[r][0];
+        cur[r][1] = nxt[r][1];
+      }
+    }
+  }
+  // C fragment: rows g, g + 8 of tile r are rows of w; columns 2tg, 2tg + 1
+  // are x rows of m tile mt.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < T_GROUPS; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = nw + 16 * r + g + 8 * (e >> 1), m = mt * 8 + 2 * tg + (e & 1);
+        if (n < p.N && m < p.M) epilogue<bf16>(p, m, n, acc[mt][r][e]);
+      }
+}
+
+template <bool ALIGNED>
+__global__ void __launch_bounds__(T_THREADS) int8_matmul_t_f32_kernel(const Params p, int kc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  const int xstride = kc + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int m0 = blockIdx.y * T_MROWS;
+  const int nw = blockIdx.x * T_ROWS + warp * 16 * T_GROUPS;
+  constexpr int R = T_GROUPS * 2;  // rows per thread: g + 8i
+  float acc[R][T_MROWS];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int m = 0; m < T_MROWS; ++m) acc[i][m] = 0.f;
+
+  for (int kc0 = 0; kc0 < p.K; kc0 += kc) {
+    const int kpad = (min(kc, p.K - kc0) + T_KSTEP - 1) / T_KSTEP * T_KSTEP;
+    __syncthreads();
+    stage_x<float>(p, xs, xstride, m0, T_MROWS, kc0, kpad);
+    __syncthreads();
+    for (int ks = 0; ks < kpad; ks += T_KSTEP) {
+      uint4 w[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) w[i] = load_row16<ALIGNED>(p, nw + 8 * i + g, kc0 + ks + 16 * tg);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float wf[R][4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const uint32_t biased = word_of(w[i], q) ^ 0x80808080u;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) wf[i][b] = i8_to_f32(biased, b);
+        }
+#pragma unroll
+        for (int m = 0; m < T_MROWS; ++m) {
+          const float4 xv =
+              *reinterpret_cast<const float4*>(xs + m * xstride + ks + 16 * tg + 4 * q);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            float a = acc[i][m];
+            a = fmaf(xv.x, wf[i][0], a);
+            a = fmaf(xv.y, wf[i][1], a);
+            a = fmaf(xv.z, wf[i][2], a);
+            a = fmaf(xv.w, wf[i][3], a);
+            acc[i][m] = a;
+          }
+        }
+      }
+    }
+  }
+  // The four k lanes (tg) of a row, added in a fixed tree; lane tg then
+  // writes x rows 2tg and 2tg + 1.
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int m = 0; m < T_MROWS; ++m) {
+      float v = acc[i][m];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      acc[i][m] = v;
+    }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = nw + 8 * i + g;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int mm = 2 * tg + j, m = m0 + mm;
+      float v = acc[i][0];
+#pragma unroll
+      for (int t = 1; t < T_MROWS; ++t)
+        if (t == mm) v = acc[i][t];
+      if (n < p.N && m < p.M) epilogue<float>(p, m, n, v);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem_bytes, cudaStream_t st, const Params& p) {
   if (smem_bytes > 48 * 1024) {
@@ -472,6 +707,67 @@ int dtpu_int8_matmul(const void* x, const void* w, const void* scale, void* out,
   }
   if (err != cudaSuccess || splits == 1) return err;
   return x_dtype == DT_BF16 ? launch_merge<bf16>(p, st) : launch_merge<float>(p, st);
+}
+
+// Launch y = epilogue(x @ w^T) on `stream` for w [N, K] int8 contiguous along
+// K (the tied embedding [V, D] as stored); x, scale, out and the dtypes as
+// for dtpu_int8_matmul. One kernel, no scratch; returns a cudaError_t.
+int dtpu_int8_matmul_t(const void* x, const void* w, const void* scale, void* out, int x_dtype,
+                       int scale_dtype, int out_f32, int M, int K, int N, void* stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (M < 0 || M > MAX_M || K <= 0 || N < 0 || (x_dtype != DT_F32 && x_dtype != DT_BF16) ||
+      (scale_dtype != DT_F32 && scale_dtype != DT_BF16))
+    return cudaErrorInvalidValue;
+  Params p = {};
+  p.x = x;
+  p.w = static_cast<const int8_t*>(w);
+  p.scale = scale;
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.scale_bf16 = scale_dtype == DT_BF16;
+  p.out_f32 = out_f32 != 0;
+  const bool bf16x = x_dtype == DT_BF16;
+  const int xsize = bf16x ? 2 : 4;
+  // bf16: every x row in the block (m tiles of 8: 1, 2, 4 or 8); f32: 8 rows
+  // per block, grid y over the rest.
+  const int mt = (M + 7) / 8;
+  const int mtiles = !bf16x ? 1 : mt <= 1 ? 1 : mt <= 2 ? 2 : mt <= 4 ? 4 : 8;
+  const int rows = mtiles * T_MROWS;
+  // x chunk width: all of K when it fits the budget, else the largest
+  // multiple of the k step that does.
+  const int kmax = (T_XBYTES / (rows * xsize) - 4) / T_KSTEP * T_KSTEP;
+  const int kc = min((K + T_KSTEP - 1) / T_KSTEP * T_KSTEP, kmax);
+  const int smem = rows * (kc + 4) * xsize;
+  const bool aligned = K % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((N + T_ROWS - 1) / T_ROWS, bf16x ? 1 : (M + T_MROWS - 1) / T_MROWS, 1);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel) -> cudaError_t {
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<grid, T_THREADS, smem, st>>>(p, kc);
+    return cudaGetLastError();
+  };
+  if (!bf16x)
+    return aligned ? go(int8_matmul_t_f32_kernel<true>) : go(int8_matmul_t_f32_kernel<false>);
+  switch (mtiles) {
+    case 1:
+      return aligned ? go(int8_matmul_t_bf16_kernel<1, true>)
+                     : go(int8_matmul_t_bf16_kernel<1, false>);
+    case 2:
+      return aligned ? go(int8_matmul_t_bf16_kernel<2, true>)
+                     : go(int8_matmul_t_bf16_kernel<2, false>);
+    case 4:
+      return aligned ? go(int8_matmul_t_bf16_kernel<4, true>)
+                     : go(int8_matmul_t_bf16_kernel<4, false>);
+    default:
+      return aligned ? go(int8_matmul_t_bf16_kernel<8, true>)
+                     : go(int8_matmul_t_bf16_kernel<8, false>);
+  }
 }
 
 const char* dtpu_cuda_error_string(int err) {

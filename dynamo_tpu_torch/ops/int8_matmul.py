@@ -18,11 +18,14 @@ Routes, chosen from shapes alone (never as a recovery from a failure):
 - CUDA, M ≤ ``MAX_M`` rows (every decode batch bucket) and w contiguous:
   the kernel. ``launches`` counts its calls (the split kernel and its merge
   count as one).
-- CUDA, more rows (prefill chunks), or w not contiguous (the tied
-  embedding ``[V, D]`` used transposed): the prefill route, which
-  dequantizes w into a scratch in x's dtype and calls ``torch.matmul``.
-  Such products are bound by operations, not weight bytes, at these row
-  counts. ``prefill_launches`` counts its calls.
+- CUDA, M ≤ ``MAX_M`` rows and w the transpose of a contiguous ``[N, K]``
+  (the tied embedding ``[V, D]`` used as ``emb.T`` by ``_logits``): the
+  kernel's tied-head entry, which reads w as stored, one byte per weight,
+  with the same epilogue. ``tied_launches`` counts its calls.
+- CUDA, more rows (prefill chunks), or any other w layout: the prefill
+  route, which dequantizes w into a scratch in x's dtype and calls
+  ``torch.matmul``. Such products are bound by operations, not weight
+  bytes, at these row counts. ``prefill_launches`` counts its calls.
 
 A CUDA call launches the kernel or raises; it never reaches the plain
 version.
@@ -40,10 +43,12 @@ MAX_M = 64         # the kernel's row limit: the largest decode batch bucket
 BN, BK = 128, 128  # the kernel's columns per block and k rows per tile
 RESIDENT_BLOCKS = 264  # blocks the H100's 132 SMs hold at once (2 each at M <= 8)
 
-# Calls that launched the kernel / took the prefill route (read and reset
-# by chip_smoke.py; CUDA-graph replays add the calls their graph holds).
+# Calls that launched the kernel / took the prefill route / launched the
+# tied-head entry (read and reset by chip_smoke.py; CUDA-graph replays add
+# the calls their graph holds).
 launches = 0
 prefill_launches = 0
+tied_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,21 +97,27 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     K, N = w.shape
     if x.shape[-1] != K:
         raise ValueError(f"x's last dim {x.shape[-1]} != K = {K}")
-    if route(x, w) == "prefill":
+    which = route(x, w)
+    if which == "prefill":
         return _prefill_route(x, w, scale, out_f32)
-    return _launch(x, w, scale, out_f32, x.numel() // K if K else 0, K, N)
+    return _launch(x, w, scale, out_f32, x.numel() // K if K else 0, K, N, which == "tied")
 
 
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The shape rule for a CUDA call: "kernel" for at most ``MAX_M`` rows
-    of x and a contiguous w, "prefill" otherwise."""
+    """The shape rule for a CUDA call: for at most ``MAX_M`` rows of x,
+    "kernel" for a contiguous w and "tied" for the transpose of a
+    contiguous [N, K] (its tied-head entry); "prefill" otherwise."""
     K = w.shape[0]
     M = x.numel() // K if K else 0
-    return "kernel" if M <= MAX_M and w.is_contiguous() else "prefill"
+    if M > MAX_M:
+        return "prefill"
+    if w.is_contiguous():
+        return "kernel"
+    return "tied" if w.T.is_contiguous() else "prefill"
 
 
-def _launch(x, w, scale, out_f32, M, K, N):
-    global launches
+def _launch(x, w, scale, out_f32, M, K, N, tied=False):
+    global launches, tied_launches
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if scale.dtype not in _DTYPE_CODES or tuple(scale.shape) != (N,):
@@ -121,6 +132,17 @@ def _launch(x, w, scale, out_f32, M, K, N):
         x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
     scale = scale.contiguous()
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
+    if tied:
+        fn = lib.dtpu_int8_matmul_t
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        err = fn(x2.data_ptr(), w.T.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], int(out_f32), M, K, N,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, err, "int8_matmul tied-head launch")
+        tied_launches += 1
+        return out.reshape(*lead, N)
     splits = split_k(K, N)
     part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = lib.dtpu_int8_matmul

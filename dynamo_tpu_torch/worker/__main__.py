@@ -29,16 +29,25 @@ prefill fleet, its pages streamed here and injected as a prefix hit;
 with no prefill fleet that costs one discovery lookup and the worker
 serves as an aggregated one. ``--disagg off`` serves the bare engine.
 
+KV tiers and cross-worker prefix reuse, as the JAX worker wires them:
+``--host-kv-blocks`` (G2 host RAM), ``--disk-kv-dir`` (G3) and
+``--fleet-kv-dir`` (G4, a directory shared by every worker) give the
+engine its tier stack. Every worker serves the ``kv_prefix`` endpoint (a
+peer's prefix fetch, answered from this worker's tiers), and every
+non-prefill worker puts ``PeerPrefixFetcher`` outside the disagg handler:
+a router ``peer_prefix`` hint becomes an inject before admission.
+
 SIGTERM drains: the endpoints deregister and finish their in-flight
 streams, then the engine stops. The last line the worker logs is one
 JSON object with its engine's counters (decode substeps dispatched, the
 kernels' launches, tokens generated, host seconds by phase, KV pages
-injected and exported, and the disagg handler's counts); SIGUSR1 logs
-the same line and serves on.
+injected and exported, the tiers' stats and the flush and onboard costs,
+the peer fetches, and the disagg handler's counts); SIGUSR1 logs the same
+line and serves on.
 
-Not ported yet (ROADMAP A): LoRA, peer KV fetch, live migration, the
-autoscaler role manager, the dp spawner, multi-host followers, trace
-export, the fleet prefix directory and ``--sla-profile``.
+Not ported yet (ROADMAP A): LoRA, live migration, the autoscaler role
+manager, the dp spawner, multi-host followers, trace export, the fleet
+prefix directory and ``--sla-profile``.
 """
 
 from __future__ import annotations
@@ -59,6 +68,11 @@ from dynamo_tpu_torch.llm.disagg import (
     PrefillPuller,
 )
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, register_model
+from dynamo_tpu_torch.llm.peer_kv import (
+    KV_PREFIX_ENDPOINT,
+    PeerPrefixFetcher,
+    make_kv_prefix_handler,
+)
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
 from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
@@ -155,6 +169,15 @@ def parse_args(argv=None):
                         "per-position-per-head scales)")
     p.add_argument("--quant", choices=["none", "int8"], default="none",
                    help="weight format (int8 = weight-only quantization, engine/quant.py)")
+    p.add_argument("--host-kv-blocks", type=int, default=0,
+                   help="G2 host-RAM KV tier capacity in blocks (0 = off)")
+    p.add_argument("--disk-kv-dir", default=None, help="G3 disk KV tier directory")
+    p.add_argument("--disk-kv-blocks", type=int, default=4096)
+    p.add_argument("--fleet-kv-dir", default=None,
+                   help="G4 fleet-SHARED KV pool directory (mounted by "
+                        "every engine; salted-hash-keyed files dedup "
+                        "across the fleet, block_manager/tiers.py)")
+    p.add_argument("--fleet-kv-blocks", type=int, default=16384)
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
@@ -200,6 +223,11 @@ async def build_engine(args):
         qos_scheduling=args.qos_sched == "on",
         quant=args.quant,
         kv_quant=args.kv_quant,
+        host_kv_blocks=args.host_kv_blocks,
+        disk_kv_dir=args.disk_kv_dir,
+        disk_kv_blocks=args.disk_kv_blocks,
+        fleet_kv_dir=args.fleet_kv_dir,
+        fleet_kv_blocks=args.fleet_kv_blocks,
         device=args.device,
         # Grammar token-mask FSMs compile over the serving tokenizer's
         # vocabulary: response_format masks must legalize exactly the ids
@@ -241,15 +269,17 @@ class RecordingDecodeHandler(DisaggDecodeHandler):
         return inject, why, attrs
 
 
-def engine_counters(engine, disagg=None) -> dict:
+def engine_counters(engine, disagg=None, fetcher=None) -> dict:
     """The engine's monotonic counters as one JSON-able dict, with the
-    disagg decode handler's when there is one."""
+    disagg decode handler's and the peer prefix fetcher's when there are
+    ones."""
     out = {
         "event": "engine_counters",
         "decode_substeps": engine.total_decode_steps,
         "paged_attention_launches": pa.launches,
         "int8_matmul_launches": im.launches,
         "int8_matmul_prefill_launches": im.prefill_launches,
+        "int8_matmul_tied_launches": im.tied_launches,
         "num_layers": engine.cfg.num_layers,
         "generated_tokens": engine.total_generated,
         "prefilled_tokens": engine.total_prefilled,
@@ -265,7 +295,16 @@ def engine_counters(engine, disagg=None) -> dict:
         "inject_s": round(engine.inject_s, 6),
         "inject_bytes": engine.inject_bytes,
         "export_s": round(engine.export_s, 6),
+        "tiers": engine.tiers.stats(),
+        "offload_s": round(engine.offload_s, 6),
+        "offload_flushes": engine.offload_flushes,
+        "offload_bytes": engine.offload_bytes,
+        "onboard_s": round(engine.onboard_s, 6),
+        "onboard_bytes": engine.onboard_bytes,
     }
+    if fetcher is not None:
+        out["peer_fetches"] = fetcher.peer_fetches
+        out["peer_fetch_failures"] = fetcher.peer_fetch_failures
     if disagg is not None:
         out["disagg"] = {
             "remote_prefills": disagg.remote_prefills,
@@ -315,14 +354,17 @@ async def async_main(args) -> None:
                   flush=True)
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
-    pa.launches = im.launches = im.prefill_launches = 0
+    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
     # Engine hot-loop series on this process's /metrics (system server).
     engine.bind_metrics(rt.metrics)
     broadcaster = KvEventBroadcaster(engine.pool)
     engine.pool.set_event_sink(broadcaster.publish)
 
     comp = rt.namespace(args.namespace).component(args.component)
-    disagg = puller = None
+    # Cross-worker reuse: every worker answers peer prefix fetches from its
+    # tiers (llm/peer_kv.py; declined without tiers).
+    await comp.endpoint(KV_PREFIX_ENDPOINT).serve(make_kv_prefix_handler(engine))
+    disagg = puller = fetcher = None
     if args.is_prefill_worker:
         dcfg = DisaggConfig()
         # Env-driven kill-mid-transfer faults (DYNTPU_CHAOS_TRANSFER_CUT_P)
@@ -359,6 +401,10 @@ async def async_main(args) -> None:
             # disagg_remote_prefill_total, disagg_fallback_total{reason} and
             # the transfer series on this process's /metrics.
             disagg.bind_metrics(rt.metrics)
+        # Resolve router peer_prefix hints ahead of disagg and admission.
+        handler = fetcher = PeerPrefixFetcher(
+            engine, await comp.endpoint(KV_PREFIX_ENDPOINT).router(RouterMode.DIRECT),
+            inner=handler)
 
         async def gen_handler(payload, ctx):
             async for item in handler.generate(payload, ctx):
@@ -398,7 +444,7 @@ async def async_main(args) -> None:
             loop.add_signal_handler(sig, stop.set)
     with contextlib.suppress(NotImplementedError):
         loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            json.dumps(engine_counters(engine, disagg)), flush=True))
+            json.dumps(engine_counters(engine, disagg, fetcher)), flush=True))
     await stop.wait()
     log.info("worker shutting down")
     if puller is not None:
@@ -409,7 +455,7 @@ async def async_main(args) -> None:
     # finish on the engine; then stop it.
     await rt.shutdown()
     await engine.stop()
-    print(json.dumps(engine_counters(engine, disagg)), flush=True)
+    print(json.dumps(engine_counters(engine, disagg, fetcher)), flush=True)
 
 
 def main(argv=None) -> int:

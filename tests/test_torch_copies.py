@@ -37,7 +37,7 @@ COPIED = [
     "llm/migration.py", "llm/pipeline.py", "llm/http_service.py", "llm/recorder.py",
     "block_manager/pool.py", "engine/hub.py", "engine/drafter.py",
     "runtime/queue.py", "transfer/__init__.py", "llm/disagg.py",
-    "engine/grammar.py", "llm/preprocessor.py",
+    "engine/grammar.py", "llm/preprocessor.py", "llm/peer_kv.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -62,6 +62,10 @@ CHANGED = {
                           "(the same bytes on the wire)",
     "transfer/stream.py": "one docstring line drops a pointer into the JAX package's "
                           "planning history",
+    "block_manager/tiers.py": "ml_dtypes is absent on the card's machine: host bf16 pages are "
+                              "uint16 bit patterns (engine/kv_transfer.py), which the npz codec "
+                              "writes as the JAX package writes bf16 (uint16 members, dtype "
+                              "\"bfloat16\") and reads back as uint16",
 }
 
 def rewrite(src: str) -> str:
@@ -117,8 +121,19 @@ STREAM_JAX_LINE = re.search(r"(?m)^    it \([^;\n]*; docs/performance\.md has th
                             (REPO / "dynamo_tpu" / "transfer" / "stream.py").read_text()).group(0)
 
 
+def _npz_codec(text: str) -> str:
+    """tiers.py's npz codec: the functions from ``_write_npz`` (the port's
+    ``_dtype_name`` before it) up to the first pool class."""
+    start = min(i for i in (text.find("def _dtype_name("), text.find("def _write_npz(")) if i >= 0)
+    return text[start:text.index("class HostBlockPool")]
+
+
 # One-block changes: module → (JAX text after the rewrites, port text).
 ONE_BLOCK = {
+    "block_manager/tiers.py": (_npz_codec((REPO / "dynamo_tpu" / "block_manager" /
+                                           "tiers.py").read_text()),
+                               _npz_codec((REPO / "dynamo_tpu_torch" / "block_manager" /
+                                           "tiers.py").read_text())),
     "runtime/framing.py": FRAMING_BLOCK,
     "transfer/stream.py": (STREAM_JAX_LINE, "    it (docs/performance.md has the budget math).\n"),
     "runtime/logging.py": ('    root = logging.getLogger("dynamo_tpu")\n',

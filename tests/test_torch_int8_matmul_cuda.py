@@ -16,7 +16,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from chip_smoke import INT8_SHAPES, int8_case, int8_check
+from chip_smoke import INT8_SHAPES, TIED_HEADS, int8_case, int8_check, int8_tied_case
 from dynamo_tpu_torch.ops import int8_matmul as im
 
 pytestmark = pytest.mark.cuda
@@ -105,9 +105,55 @@ def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
     y = im.int8_matmul(big, w, s)
     assert (im.launches, im.prefill_launches) == (k0 + 1, p0 + 1)
     assert y.shape == (65, 256)
+    t0 = im.tied_launches
     emb = torch.randint(-127, 128, (256, 512), device=dev, dtype=torch.int8)
-    im.int8_matmul(x, emb.T, s, out_f32=True)  # the tied [V, D] layout
-    assert (im.launches, im.prefill_launches) == (k0 + 1, p0 + 2)
+    im.int8_matmul(x, emb.T, s, out_f32=True)  # the tied [V, D] layout: its own entry
+    assert (im.launches, im.prefill_launches, im.tied_launches) == (k0 + 1, p0 + 1, t0 + 1)
+    im.int8_matmul(big, emb.T, s, out_f32=True)  # more than 64 rows: the prefill route
+    assert (im.prefill_launches, im.tied_launches) == (p0 + 2, t0 + 1)
     assert calls == []
     with pytest.raises(ValueError):
         im.int8_matmul(x, w.float(), s)
+
+
+# The tied head: w = emb.T of an [N, K] int8 embedding (llama-1b's and
+# llama-3b's heads, and odd shapes that break 16-byte rows and the 256-row
+# blocks), every decode row count, f32 logits and bf16 layer outputs.
+TIED = [(K, N) for K, N in TIED_HEADS.values()] + [(1000, 200), (64, 48), (4096, 1000)]
+
+
+@pytest.mark.parametrize("K,N", TIED)
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+def test_tied_head_matches_plain_over_m(dev, K, N, xdt):
+    for M in (1, 2, 7, 8, 9, 16, 33, 64):
+        x, wt, s = int8_tied_case(M, K, N, xdt, M, dev)
+        before = (im.launches, im.prefill_launches, im.tied_launches)
+        int8_check(x, wt, s, True, f"tied {K}x{N} M={M} {xdt}")
+        assert (im.launches, im.prefill_launches, im.tied_launches) == (
+            before[0], before[1], before[2] + 2)
+
+
+def test_tied_head_layer_epilogue_and_bf16_scale(dev):
+    x, wt, s = int8_tied_case(8, 512, 1000, "bfloat16", 11, dev, "bfloat16")
+    int8_check(x, wt, s, False, "tied layer epilogue, bf16 scale")
+    x = torch.randint(-8, 9, x.shape, device=dev).to(torch.bfloat16)  # exact f32 sums
+    ref = ((x.float() @ wt.float()).to(torch.bfloat16).float() * s.float()).to(torch.bfloat16)
+    assert torch.equal(im.int8_matmul(x, wt, s), ref)
+
+
+def test_tied_head_graph_replay_equals_eager(dev):
+    K, N = TIED_HEADS["llama-3b"]
+    x, wt, s = int8_tied_case(8, K, N, "bfloat16", 12, dev)
+    eager = im.int8_matmul(x, wt, s, out_f32=True)
+    static_x = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        im.int8_matmul(static_x, wt, s, out_f32=True)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = im.int8_matmul(static_x, wt, s, out_f32=True)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
