@@ -238,11 +238,45 @@ Phases, in order; any failure raises and the run exits non-zero:
    G4 file bytes and peak device memory are printed beside the card's name
    and power limit.
 
+14. Live migration and the worker role manager at full width, twice
+   (bf16; int8 weights with int8 pages; `migration_phase`). The store and
+   three `python -m dynamo_tpu_torch.worker --autoscaler on --disagg off`
+   workers (the main path's engine arguments, seed 0), C with the chaos
+   plan `cutover:dest` (the int8 pass runs A and B only: one chaos cell); 8 requests (`migration_requests`: prompts of
+   256-1,024 byte tokens, 1,000 tokens each, top-2 logprobs, six greedy and
+   two at temperature 0.7) through this process's Migration operator over
+   a KvPushRouter, the migrations through each worker's workerctl/admin
+   endpoint. The reference pass on A; the chaos cell on C (384 tokens a
+   stream), whose offer of a sampled row to A falls back at the cutover
+   with the typed reason while every stream stays bit-equal to the
+   reference's first 384 tokens, then C retires (B
+   meanwhile serves one top-2 request, capturing the window graph its
+   later streams use); the clean pass on A (its cache cleared): at 64
+   tokens four greedy rows migrate to B, two at a time, all ok with no
+   fallback and 4 markers consumed; B takes two new requests, then
+   `set_role prefill` relocates B's running streams to A and `set_role
+   decode` brings it back; every stream completes with 1,000 tokens
+   (`MIG_TOKENS`: ~10 s a row, so that no row ends while six relocations
+   run in turn), unmoved rows bit-equal to the reference and relocated
+   ones equal up to their first cutover and then token for token but
+   where the reference's top-2 gap is under `SPEC_GAP_TOL`
+   (`relocated_divergence`); a prefill-only export of each migrated row's
+   streamed tokens from A and from B, its last streamed block left out,
+   gives the same page bytes (the pages B injected are the pages A held);
+   B retires and only A's `autoscaler/<ns>/workers/` key remains; every
+   worker's attention launches are 32 x its substeps, no window eager,
+   every process exits 0, and no fallback fires outside the chaos cell.
+   Per migration its KV bytes, blocks, seconds, MB/s and cutover gap, the
+   client-visible stall of each relocated stream, host ms per
+   `_pump_migration`, tokens/s of A's unmoved rows against the reference
+   pass, the pool move's and the retirement's seconds and each worker's
+   peak device memory are printed beside the card's name and power limit.
+
 The last lines are the kernels JSON line (the attention kernel's decode
 entry, the int8 product, its tied-head entry, and the attention kernel's
 linear and tree verify modes; the first two also carry phase 11's decode
 worker's launches, the decode, tree and int8 entries phase 12's, and the
-first two phase 13's),
+first two phases 13's and 14's),
 nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -4534,6 +4568,489 @@ def tiers_worker_phase(card_line: str, reference: list, preset: str = "llama-8b"
         shutil.rmtree(os.path.dirname(fleet), ignore_errors=True)
 
 
+MIG_LENS = [256, 352, 448, 544, 640, 736, 832, 1024]  # prompt tokens of the 8 requests
+MIG_TEMPS = [0.0, 0.0, 0.0, 0.7, 0.0, 0.0, 0.7, 0.0]
+MIG_TOKENS = 1000        # ~10 s a row at ~100 tokens/s: room for six relocations in turn
+MIG_AT = 64              # tokens a row has emitted before it is migrated
+MIG_NEW_AT = 16          # tokens the new rows on B have emitted before its pool move
+MIG_ROWS = [0, 2, 5, 7]  # greedy rows migrated A → B, two at a time
+MIG_NEW = [1, 4]         # greedy rows sent to B before its pool move
+MIG_CHAOS_ROW = 6        # the sampled row the chaos cell offers for migration
+MIG_CHAOS_TOKENS = 384   # the chaos cell's streams: its fallback lands well before
+MIG_CHAOS_PLAN = "cutover:dest"
+
+
+def migration_requests(model: str, max_tokens: int = MIG_TOKENS) -> list[dict]:
+    """Phase 14's 8 requests: byte-token prompts of MIG_LENS, seeds
+    2000-2007, MIG_TEMPS, logprobs with the top 2 (the gap rule reads
+    them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2025)
+    return [{"model": model, "token_ids": [int(c) for c in rng.integers(32, 127, n)],
+             "sampling": {"temperature": MIG_TEMPS[i], "seed": 2000 + i, "logprobs": True,
+                          "top_logprobs": 2},
+             "stop": {"max_tokens": max_tokens, "ignore_eos": True}}
+            for i, n in enumerate(MIG_LENS)]
+
+
+class LegRecorder:
+    """The router under the Migration operator, recording each leg of each
+    request (by context id): the arrival times of its first and last token
+    frames, its token count and whether it ended in a handoff marker."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.legs: dict[str, list[dict]] = {}
+
+    async def generate(self, request, context):
+        leg = {"start": time.perf_counter(), "first": None, "last": None, "tokens": 0,
+               "marker": None}
+        self.legs.setdefault(context.id, []).append(leg)
+        async for item in self.inner.generate(request, context):
+            if isinstance(item, dict):
+                if item.get("token_ids"):
+                    now = time.perf_counter()
+                    leg["first"] = leg["first"] or now
+                    leg["last"] = now
+                    leg["tokens"] += len(item["token_ids"])
+                if item.get("migration") is not None:
+                    leg["marker"] = time.perf_counter()
+            yield item
+
+
+def relocated_divergence(got: dict, ref: dict, cut: int, tag: str) -> int | None:
+    """Hold a relocated stream to its reference: equal up to ``cut`` (the
+    first cutover; the source decoded that far), then token for token
+    except that the first difference may fall where the reference's top-2
+    logprob gap is under SPEC_GAP_TOL (the destination recomputed the
+    < 16-token suffix by prefill, not by decode) → that index or None."""
+    d = _first_divergence(got["tokens"], ref["tokens"])
+    if d is None and len(got["tokens"]) == len(ref["tokens"]):
+        return None
+    if d is None or d < cut:
+        raise RuntimeError(f"{tag}: differs from the reference at {d}, before the cutover at "
+                           f"{cut} (lengths {len(got['tokens'])} / {len(ref['tokens'])})")
+    if got["logprobs"][:cut] != ref["logprobs"][:cut]:
+        raise RuntimeError(f"{tag}: logprobs differ from the reference before the cutover")
+    top = ref["top"][d]
+    gap = top[0][1] - top[1][1]
+    if abs(gap) >= SPEC_GAP_TOL:
+        raise RuntimeError(f"{tag}: leaves the reference at {d} (cutover at {cut}) where its "
+                           f"top-2 gap is {gap:.4f} >= {SPEC_GAP_TOL}")
+    return d
+
+
+def _row_tps(leg: dict) -> float:
+    return (leg["tokens"] - 1) / (leg["last"] - leg["first"])
+
+
+def migration_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
+                    dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
+                    max_tokens: int = MIG_TOKENS, chaos: bool = True) -> dict:
+    """Phase 14: live migration between port workers on one card. The store
+    and three ``python -m dynamo_tpu_torch.worker --autoscaler on --disagg
+    off`` workers (the main path's engine arguments, seed 0: the same
+    weights); C runs with ``migration_cut_plan = MIG_CHAOS_PLAN``. Streams
+    go through this process's Migration operator over a KvPushRouter (each
+    first leg pinned by the router's resume pin, as resumed legs are),
+    migrations through each worker's workerctl/admin endpoint:
+
+    - reference: the 8 requests on A, no migration;
+    - chaos: the same on C, MIG_CHAOS_TOKENS each; at MIG_AT tokens C
+      offers MIG_CHAOS_ROW to A, the cutover falls back
+      (``chaos:cutover:dest``) and every stream equals the reference's
+      first MIG_CHAOS_TOKENS bit for bit; C retires. Meanwhile B serves one
+      greedy top-2 request, so the window graph its later streams replay
+      is captured before them (start-up captures windows without top-n);
+    - clean: the same on A, its cache cleared; at MIG_AT tokens the
+      MIG_ROWS migrate to B, two at a time: 4 ok, no fallback, 4 markers
+      consumed; the other rows equal the reference bit for bit, migrated
+      ones up to the cutover and then by the gap rule
+      (``relocated_divergence``);
+    - pool move: MIG_NEW sent to B; at MIG_AT tokens B's ``set_role
+      prefill`` relocates its running streams to A, and all complete
+      under the same rule; ``set_role decode``; the pages B injected equal
+      the pages A held for the same blocks (a prefill-only export of the
+      same tokens from each: a prefix hit on those blocks; the last
+      streamed block is left out, see below); B retires and no
+      ``autoscaler/<ns>/workers/`` key of B or C remains.
+
+    Each worker's attention launches equal num_layers x its decode
+    substeps, no window runs eagerly, and every process exits 0. Without
+    ``chaos`` there is no C and no chaos cell."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouterConfig
+    from dynamo_tpu_torch.llm.migration import Migration
+    from dynamo_tpu_torch.planner.actuate import read_pools, worker_key
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import RouterMode
+    from dynamo_tpu_torch.transfer.stream import read_kv_payload_frames
+
+    tag = "migration" if quant == "none" else f"migration-int8-kv{kv_quant}"
+    cfg = ModelConfig.preset(preset)
+    bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
+    reqs = migration_requests(cfg.name, max_tokens)
+    argv = ["dynamo_tpu_torch.worker", "--preset", preset, "--dtype", dtype, "--device", device,
+            "--quant", quant, "--kv-quant", kv_quant, "--disagg", "off", "--autoscaler", "on",
+            *ENGINE_ARGV]
+    procs: list[Proc] = []
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+    names = "abc" if chaos else "ab"
+    sys_ports = {name: _free_port() for name in names}
+    try:
+        store = Proc(f"{tag}-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                      "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        workers = {}
+        for name in names:
+            env = {"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_ports[name])}
+            if name == "c":
+                env.update(DYNTPU_CHAOS_ENABLED="1",
+                           DYNTPU_CHAOS_MIGRATION_CUT_PLAN=MIG_CHAOS_PLAN)
+            workers[name] = Proc(f"{tag}-{name}", [*argv, "--store-url", store_url], env=env)
+            procs.append(workers[name])
+        launch = {name: w.wait_for(r"autoscaled decode worker: serving .* window graphs", 600)[1]
+                  for name, w in workers.items()}
+        log(f"{tag}: workers registered " + ", ".join(f"{k} {v:.2f}s" for k, v in launch.items())
+            + f" after launch ({card_line})")
+
+        async def counters(name):
+            return await asyncio.to_thread(usr1_counters, workers[name])
+
+        async def metrics(name):
+            _, _, pieces, _ = await http_request(sys_ports[name], "/metrics", method="GET")
+            return b"".join(p for _, p in pieces).decode()
+
+        async def drive():
+            rt = await DistributedRuntime.create(store_url=store_url)
+            try:
+                ns = rt.namespace("dynamo")
+                push = await ns.component("backend").endpoint("generate").router(RouterMode.DIRECT)
+                fetch = await ns.component("backend").endpoint("kv_fetch").router(RouterMode.DIRECT)
+                clear = await ns.component("backend").endpoint("clear_kv").router(RouterMode.DIRECT)
+                admin = await ns.component("workerctl").endpoint("admin").router(RouterMode.DIRECT)
+                for r in (push, fetch, clear, admin):
+                    await r.discovery.wait_for_instances(len(names))
+                by_pid = {w.pid: w.instance_id
+                          for w in (await read_pools(rt.store, "dynamo"))["decode"]}
+                wid = {name: by_pid[w.proc.pid] for name, w in workers.items()}
+                rec = LegRecorder(await KvPushRouter(
+                    push, KvRouterConfig(block_size=bs, use_kv_events=False)).start())
+                op = Migration(rec, migration_limit=0)
+                loop = asyncio.get_running_loop()
+
+                async def rpc(name, payload):
+                    last = {}
+                    async for f in admin.generate(payload, Context(), instance_id=wid[name]):
+                        last = f
+                    return last
+
+                async def one(i, target, rid, n=None):
+                    r = dict(reqs[i], kv_transfer_params={
+                        "migration_resume": {"instance": wid[target]}})
+                    if n is not None:
+                        r["stop"] = dict(r["stop"], max_tokens=n)
+                    got = {"tokens": [], "logprobs": [], "top": [], "finish": None}
+                    async for item in op.generate(r, Context(rid)):
+                        if item.get("error"):
+                            raise RuntimeError(f"{tag}: request {rid}: {item['error']}")
+                        got["tokens"] += item.get("token_ids") or []
+                        got["logprobs"] += item.get("log_probs") or []
+                        got["top"] += item.get("top_log_probs") or []
+                        got["finish"] = item.get("finish_reason") or got["finish"]
+                    return got
+
+                def start(target, idx, label, n=None):
+                    return {i: loop.create_task(one(i, target, f"{label}-{i}", n)) for i in idx}
+
+                async def until(rid, n):
+                    while sum(g["tokens"] for g in rec.legs.get(rid, [])) < n:
+                        await asyncio.sleep(0.005)
+
+                out = {"wid": wid}
+                # Reference: A, no migration.
+                t0 = time.perf_counter()
+                tasks = start("a", range(8), "ref")
+                out["ref"] = [await tasks[i] for i in range(8)]
+                out["ref_wall_s"] = time.perf_counter() - t0
+                # Chaos: C offers MIG_CHAOS_ROW to A; the cutover falls back.
+                # Meanwhile B serves one greedy top-2 request: the worker
+                # captures its windows at start-up without top-n outputs, and
+                # the streams B takes later must not wait for that capture.
+                tasks = start("c", range(8), "chaos", MIG_CHAOS_TOKENS) if chaos else {}
+                warm = dict(reqs[0], sampling={"temperature": 0.0, "seed": 0, "logprobs": True,
+                                               "top_logprobs": 2},
+                            stop={"max_tokens": 32, "ignore_eos": True})
+                async for _ in push.generate(warm, Context(), instance_id=wid["b"]):
+                    pass
+                if chaos:
+                    await until(f"chaos-{MIG_CHAOS_ROW}", MIG_AT)
+                    out["chaos_reply"] = await rpc("c", {"cmd": "migrate_out",
+                                                         "request_id": f"chaos-{MIG_CHAOS_ROW}",
+                                                         "dest_instance": wid["a"]})
+                    out["chaos"] = [await tasks[i] for i in range(8)]
+                    out["c_counters"] = await counters("c")
+                    out["c_metrics"] = await metrics("c")
+                    out["c_retire"] = await rpc("c", {"cmd": "retire"})
+                # Clean migrations A → B, two at a time, from a cleared cache.
+                async for item in clear.generate({}, Context(), instance_id=wid["a"]):
+                    out["a_cleared"] = item
+                out["a_before"] = await counters("a")
+                out["b_before"] = await counters("b")
+                t0 = time.perf_counter()
+                tasks = start("a", range(8), "mig")
+                for i in MIG_ROWS:
+                    await until(f"mig-{i}", MIG_AT)
+
+                async def move(i):
+                    ts = time.perf_counter()
+                    rep = await rpc("a", {"cmd": "migrate_out", "request_id": f"mig-{i}",
+                                          "dest_instance": wid["b"]})
+                    return i, dict(rep, seconds=time.perf_counter() - ts)
+
+                out["moves"] = {}
+                for pair in (MIG_ROWS[:2], MIG_ROWS[2:]):
+                    out["moves"].update(await asyncio.gather(*(move(i) for i in pair)))
+                out["resumes_after_moves"] = op.counts.get("resume", 0)
+                # Pool move: B takes two new requests, then moves to prefill,
+                # relocating its running streams to A.
+                new = start("b", MIG_NEW, "new")
+                for i in MIG_NEW:
+                    await until(f"new-{i}", MIG_NEW_AT)
+                ts = time.perf_counter()
+                out["set_prefill"] = await rpc("b", {"cmd": "set_role", "role": "prefill"})
+                out["set_prefill_s"] = time.perf_counter() - ts
+                out["mig"] = [await tasks[i] for i in range(8)]
+                out["new"] = {i: await new[i] for i in MIG_NEW}
+                out["mig_wall_s"] = time.perf_counter() - t0
+                ts = time.perf_counter()
+                out["set_decode"] = await rpc("b", {"cmd": "set_role", "role": "decode"})
+                out["set_decode_s"] = time.perf_counter() - ts
+                # The pages B injected against the pages A held: a prefill-only
+                # export of each migrated row's streamed tokens from both, a
+                # prefix hit on them. The last streamed block is left out: the
+                # engine registers a block one drain after the window that
+                # sealed it, so a row frozen right after that window leaves it
+                # unregistered at the source, whose export would recompute it.
+                for r in (push, fetch):
+                    await r.discovery.wait_for_instances(2)
+                out["pages"] = {}
+                for i in MIG_ROWS:
+                    n = out["moves"][i]["kv_blocks"] - 1
+                    probe = {"model": cfg.name, "token_ids": (reqs[i]["token_ids"] + out["ref"][
+                        i]["tokens"])[: n * bs + 1],
+                        "sampling": {"temperature": 0.0, "seed": 0},
+                        "stop": {"max_tokens": 1, "ignore_eos": True},
+                        "kv_transfer_params": {"do_remote_decode": True}}
+                    got = {}
+                    for name in ("a", "b"):
+                        meta = None
+                        async for item in push.generate(dict(probe), Context(),
+                                                        instance_id=wid[name]):
+                            meta = item.get("kv_transfer_params") or meta
+                        if not meta or meta.get("num_blocks") != n:
+                            raise RuntimeError(f"{tag}: worker {name} exported {meta} for row "
+                                               f"{i} (want {n} blocks)")
+                        kv = await read_kv_payload_frames(fetch.generate(
+                            {"handle": meta["remote_handle"]}, Context(),
+                            instance_id=wid[name]))
+                        got[name] = [np.asarray(p) for p in kv.pages()]
+                    diff = [sorted({int(b) for b in np.nonzero(x != y)[1]})
+                            for x, y in zip(got["a"], got["b"])]
+                    out["pages"][i] = (all(not d for d in diff), sum(int(p.nbytes) for p in
+                                                                     got["b"]), diff)
+                out["a_counters"] = await counters("a")
+                out["b_counters"] = await counters("b")
+                out["a_metrics"] = await metrics("a")
+                out["b_metrics"] = await metrics("b")
+                ts = time.perf_counter()
+                out["b_retire"] = await rpc("b", {"cmd": "retire"})
+                while await rt.store.get(worker_key("dynamo", wid["b"])) is not None:
+                    await asyncio.sleep(0.01)
+                out["retire_s"] = time.perf_counter() - ts
+                out["keys_left"] = [e.key for e in
+                                    await rt.store.get_prefix("autoscaler/dynamo/workers/")]
+                out["legs"] = rec.legs
+                out["resumes"] = op.counts.get("resume", 0)
+                await rec.inner.close()
+                return out
+            finally:
+                await rt.shutdown()
+                await rt.store.close()
+
+        out = asyncio.run(drive())
+        try:
+            res = _check_migration(tag, cfg, out, device, max_tokens)
+        except Exception:
+            log(f"{tag}: what the failed pass recorded: " + json.dumps({
+                "moves": out["moves"], "legs": out["legs"], "chaos_reply": out.get("chaos_reply"),
+                "counters": {k: out.get(k) for k in ("a_before", "a_counters", "b_before",
+                                                     "b_counters", "c_counters")}}, default=str))
+            raise
+        codes = {name: workers[name].proc.wait(120) for name in names[1:]}
+        codes["a"] = workers["a"].stop()
+        codes["store"] = store.stop()
+        for name in names[1:]:
+            workers[name].stop()
+        if set(codes.values()) != {0}:
+            raise RuntimeError(f"{tag}: exit codes {codes}")
+        res["exit_codes"] = codes
+        res["launch_to_registered_s"] = launch
+        _log_migration(tag, res, card_line)
+        return res
+    finally:
+        for p in procs:
+            p.kill()
+
+
+def _labelled(text: str, name: str) -> dict[str, float]:
+    """One labelled series of a worker's /metrics → {label value: sample}."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        rf'^dynamo_tpu_{name}\{{[a-z_]+="([^"]*)"\}} ([0-9.eE+-]+)$', text, re.M)}
+
+
+def _check_migration(tag: str, cfg, out: dict, device: str, max_tokens: int) -> dict:
+    """Phase 14's checks on what ``migration_phase`` drove → its numbers.
+    Attention launches are num_layers x substeps on the card, none on the
+    CPU (the plain version runs)."""
+    ref, legs, moves = out["ref"], out["legs"], out["moves"]
+    if any(len(r["tokens"]) != max_tokens or r["finish"] != "length" for r in ref):
+        raise RuntimeError(f"{tag}: the reference pass did not finish every stream")
+    # The chaos cell: a typed fallback, in-place decode, bit-equal streams.
+    want = {"ok": False, "reason": f"chaos:{MIG_CHAOS_PLAN}"}
+    if "chaos" in out:
+        if out["chaos_reply"] != want:
+            raise RuntimeError(f"{tag}: chaos migrate_out answered {out['chaos_reply']}, "
+                               f"want {want}")
+        n = MIG_CHAOS_TOKENS
+        if any(len(g["tokens"]) != n or g["finish"] != "length" for g in out["chaos"]):
+            raise RuntimeError(f"{tag}: the chaos cell did not finish every stream")
+        _same_streams(f"{tag}: the chaos cell", out["chaos"],
+                      [{"tokens": r["tokens"][:n], "logprobs": r["logprobs"][:n]} for r in ref])
+        fb = _labelled(out["c_metrics"], "migration_fallback_total")
+        if fb != {f"chaos:{MIG_CHAOS_PLAN}": 1.0} or out["c_retire"] != {"ok": True,
+                                                                        "retiring": True}:
+            raise RuntimeError(f"{tag}: worker C fallbacks {fb}, retire {out['c_retire']}")
+    # Clean migrations: 4 ok, no fallback, 4 markers consumed.
+    if not all(m.get("ok") for m in moves.values()) or out["resumes_after_moves"] != 4:
+        raise RuntimeError(f"{tag}: migrations {moves}, markers {out['resumes_after_moves']}")
+    att = _labelled(out["a_metrics"], "migration_attempts_total")
+    fbs = {name: _labelled(out[f"{name}_metrics"], "migration_fallback_total")
+           for name in ("a", "b")}
+    if att.get("ok") != 4 or any(v for f in fbs.values() for v in f.values()):
+        raise RuntimeError(f"{tag}: worker A attempts {att}, fallbacks {fbs}")
+    divergence, cutover, stall = {}, {}, {}
+    for label, rows, got_of in (("mig", range(8), lambda i: out["mig"][i]),
+                                ("new", MIG_NEW, lambda i: out["new"][i])):
+        for i in rows:
+            rid, got = f"{label}-{i}", got_of(i)
+            lg = legs[rid]
+            if len(got["tokens"]) != max_tokens or got["finish"] != "length":
+                raise RuntimeError(f"{tag}: {rid} ended with {len(got['tokens'])} tokens, "
+                                   f"{got['finish']}")
+            if label == "mig" and (i in MIG_ROWS) != (len(lg) > 1
+                                                      and lg[0]["marker"] is not None):
+                raise RuntimeError(f"{tag}: {rid} ran {len(lg)} legs")
+            if len(lg) == 1:
+                _same_streams(f"{tag}: {rid}", [got], [ref[i]])
+                continue
+            cutover[rid] = lg[0]["tokens"]
+            # last source token → marker (cutover, commit, finish) → the
+            # resumed leg's dispatch → its first token.
+            stall[rid] = (lg[1]["first"] - lg[0]["last"], lg[0]["marker"] - lg[0]["last"],
+                          lg[1]["start"] - lg[0]["marker"], lg[1]["first"] - lg[1]["start"])
+            divergence[rid] = relocated_divergence(got, ref[i], lg[0]["tokens"], f"{tag}: {rid}")
+    # The pool move relocated B's streams; B went back to decode, retired.
+    b0, b1, a0, a1 = out["b_before"], out["b_counters"], out["a_before"], out["a_counters"]
+    relocated = (b1.get("migration") or {}).get("outcomes", {}).get("ok", 0)
+    if (out["set_prefill"].get("role") != "prefill" or out["set_decode"].get("role") != "decode"
+            or relocated < 1 or (b1.get("migration") or {}).get("fallback_reasons")):
+        raise RuntimeError(f"{tag}: pool move {out['set_prefill']} / {out['set_decode']}, "
+                           f"worker B migrations {b1.get('migration')}")
+    bad = {i: diff for i, (same, _, diff) in out["pages"].items() if not same}
+    if bad:
+        raise RuntimeError(f"{tag}: injected pages differ from the source's (row: blocks "
+                           f"differing in each page array) {bad}; kv_blocks "
+                           f"{ {i: m['kv_blocks'] for i, m in moves.items()} }, cutover "
+                           f"{cutover}, legs { {k: len(v) for k, v in legs.items()} }")
+    if out["keys_left"] != [out["keys_left"][0]] or not out["keys_left"][0].endswith(
+            f"{out['wid']['a']:x}"):
+        raise RuntimeError(f"{tag}: autoscaler keys left {out['keys_left']}")
+    counters = {"a": a1, "b": b1, **({"c": out["c_counters"]} if "chaos" in out else {})}
+    for name, c in counters.items():
+        want = cfg.num_layers * c["decode_substeps"] if device == "cuda" else 0
+        if (c["paged_attention_launches"] != want
+                or c["decode_substeps"] <= 0 or c["eager_windows"]):
+            raise RuntimeError(f"{tag}: worker {name} attention launches "
+                               f"{c['paged_attention_launches']} for {c['decode_substeps']} "
+                               f"substeps, {c['eager_windows']} eager windows")
+    unmoved = [i for i in range(8) if i not in MIG_ROWS]
+    pumps = {name: ((c1["migration_pump_s"] - c0["migration_pump_s"])
+                    / max(1, c1["migration_pumps"] - c0["migration_pumps"]) * 1e3,
+                    c1["migration_pumps"] - c0["migration_pumps"])
+             for name, c0, c1 in (("a", a0, a1), ("b", b0, b1))}
+    return {
+        "migrations": {i: {"kv_bytes": m["kv_bytes"], "kv_blocks": m["kv_blocks"],
+                           "seconds": m["seconds"],
+                           "mb_per_s": m["kv_bytes"] / m["seconds"] / 1e6,
+                           "cutover_gap_s": m["cutover_gap_s"]} for i, m in moves.items()},
+        "stall_s": stall, "cutover_tokens": cutover, "divergence": divergence,
+        "pump_ms": {k: v[0] for k, v in pumps.items()},
+        "pumps": {k: v[1] for k, v in pumps.items()},
+        "unmigrated_tps": statistics.mean(_row_tps(legs[f"mig-{i}"][0]) for i in unmoved),
+        "reference_tps": statistics.mean(_row_tps(legs[f"ref-{i}"][0]) for i in unmoved),
+        "ref_wall_s": out["ref_wall_s"], "mig_wall_s": out["mig_wall_s"],
+        "relocated_by_pool_move": relocated, "set_prefill_s": out["set_prefill_s"],
+        "set_decode_s": out["set_decode_s"], "retire_s": out["retire_s"],
+        "pages_compared_bytes": sum(n for _, n, _ in out["pages"].values()),
+        "peak_device_gib": {k: c["peak_device_bytes"] / 2**30 for k, c in counters.items()},
+        "launches": {k: c["paged_attention_launches"] for k, c in counters.items()},
+        "int8_launches": {k: c["int8_matmul_launches"] for k, c in counters.items()},
+        "substeps": {k: c["decode_substeps"] for k, c in counters.items()},
+        "chaos_reason": out["chaos_reply"]["reason"] if "chaos" in out else None,
+        "graphs_captured": {name: (c1["graphs_captured"] - c0["graphs_captured"],
+                                   c1["graph_capture_s"] - c0["graph_capture_s"])
+                            for name, c0, c1 in (("a", a0, a1), ("b", b0, b1))},
+        "b_phase_s": {k: v - b0["phase_s"].get(k, 0.0) for k, v in b1["phase_s"].items()},
+        "b_inject_s": b1["inject_s"] - b0["inject_s"],
+    }
+
+
+def _log_migration(tag: str, res: dict, card_line: str) -> None:
+    log(f"{tag}: 4 clean migrations A → B: " + "; ".join(
+        f"row {i}: {m['kv_blocks']} blocks, {m['kv_bytes']} bytes in {m['seconds']:.3f}s "
+        f"({m['mb_per_s']:.1f} MB/s), cutover gap {m['cutover_gap_s'] * 1e3:.1f} ms"
+        for i, m in res["migrations"].items())
+        + "; client-visible stall (last source token → marker, → resumed leg's dispatch, → "
+        "its first token) " + ", ".join(
+            f"{k} {v[0] * 1e3:.1f} ms ({v[1] * 1e3:.1f} + {v[2] * 1e3:.1f} + {v[3] * 1e3:.1f})"
+            for k, v in res["stall_s"].items())
+        + f"; first divergence after the cutover {res['divergence']} (cutover at "
+        f"{res['cutover_tokens']})")
+    log(f"{tag}: host ms per _pump_migration A {res['pump_ms']['a']:.3f} "
+        f"({res['pumps']['a']} pumps), B {res['pump_ms']['b']:.3f} ({res['pumps']['b']}); "
+        f"unmigrated rows {res['unmigrated_tps']:.2f} tokens/s each with migrations running vs "
+        f"{res['reference_tps']:.2f} in the reference pass; pool move (relocating "
+        f"{res['relocated_by_pool_move']} streams) {res['set_prefill_s']:.3f}s, back to decode "
+        f"{res['set_decode_s']:.3f}s, retirement {res['retire_s']:.3f}s; "
+        + (f"chaos cell {res['chaos_reason']} fell back, its streams bit-equal to the "
+           "reference; " if res["chaos_reason"] else "")
+        + f"{res['pages_compared_bytes']} injected page bytes equal to the source's; peak device "
+        + ", ".join(f"{k} {v:.2f}" for k, v in res["peak_device_gib"].items())
+        + " GiB; attention launches " + ", ".join(f"{k} {v}" for k, v in res["launches"].items())
+        + "; window graphs captured after start-up (count, s) " + ", ".join(
+            f"{k} {v[0]} in {v[1]:.2f}s" for k, v in res["graphs_captured"].items())
+        + f"; B's host seconds in the clean pass and pool move: inject {res['b_inject_s']:.3f}, "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["b_phase_s"].items())
+        + f"; exit codes {res['exit_codes']} ({card_line})")
+
+
 def main() -> int:
     try:
         import torch
@@ -4559,14 +5076,26 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"card: torch {torch.__version__} (CUDA {torch.version.cuda}), {kind}; nvidia-smi: {card_line}")
 
+    # Wall seconds of each phase, logged at the end: the script must finish
+    # within the chip run's limit, and these say where the time goes.
+    phase_s: dict[str, float] = {}
+    t_phase = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"build: {len(libs)} kernel source(s) built in {time.perf_counter() - t0:.1f}s → "
         f"{', '.join(str(v) for v in libs.values())}")
 
+    mark("1-2 build")
     cases = kernel_phase(device)
     int8_cases, int8_substep = int8_kernel_phase(device, card_line)
     tied = tied_head_phase(device, card_line)
+    mark("3 kernels")
     stats, reference = asyncio.run(main_path(card_line))
     int8_runs, int8_refs = {}, {}
     for kv_quant in ("none", "int8"):
@@ -4581,6 +5110,7 @@ def main() -> int:
             f"{st['max_mem_gib']:.2f} vs {stats['max_mem_gib']:.2f} GiB, graph pool "
             f"{st['graph_pool_bytes'] / 2**20:.1f} vs {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
             f"({card_line})")
+    mark("4 main path")
     small_reference(device)
     frames = msgpack_frame_us()
     log("wire: msgpack_lite pack+unpack per frame: " + ", ".join(
@@ -4589,8 +5119,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     http = http_phase(card_line, reference, stats["tokens_per_s"])
     http["msgpack_lite"] = frames
+    mark("5-7 http")
     ckpt = checkpoint_phase(card_line, keep=True)
+    mark("8 checkpoint")
     tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
+    mark("9 tokenizer")
     torch.cuda.empty_cache()
     spec = {"bf16": asyncio.run(spec_phase(card_line))}
     spec["int8"] = asyncio.run(spec_phase(card_line, quant="int8", kv_quant="int8"))
@@ -4604,6 +5137,7 @@ def main() -> int:
             f"{t['linear_S1_4_ms']:.3f} / S1=7 {t['linear_S1_7_ms']:.3f} ms (tree "
             f"{t['tree_S1_4_ms']:.3f} / {t['tree_S1_7_ms']:.3f}) against a dense substep "
             f"{t['dense_substep_ms']:.3f} ms ({card_line})")
+    mark("10 spec")
     torch.cuda.empty_cache()
     wire = kv_wire_timing()
     log(f"kv wire: one {wire['bytes']}-byte chunk (47 llama-8b bf16 blocks) in {wire['frames']} "
@@ -4619,6 +5153,7 @@ def main() -> int:
         card_line, int8_refs["int8"],
         ("in process", [r["ttft_s"] for r in int8_refs["int8"]["burst"]]),
         quant="int8", kv_quant="int8")
+    mark("11 disagg")
 
     torch.cuda.empty_cache()
     grammar, grammar_ref = {}, None
@@ -4635,6 +5170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     grammar["http"] = grammar_http_phase(card_line, grammar_ref)
     grammar["lift"] = grammar_lift_phase(card_line)
+    mark("12 grammar")
 
     torch.cuda.empty_cache()
     tiers = {"bf16": tiers_phase(card_line)}
@@ -4642,6 +5178,13 @@ def main() -> int:
     tiers["int8"] = tiers_phase(card_line, quant="int8", kv_quant="int8")
     tiers["int8_workers"] = tiers_worker_phase(card_line, tiers["int8"].pop("hit_reference"),
                                                quant="int8", kv_quant="int8")
+    mark("13 tiers")
+
+    torch.cuda.empty_cache()
+    migration = {"bf16": migration_phase(card_line)}
+    # One chaos cell: the int8 pass runs without C.
+    migration["int8"] = migration_phase(card_line, quant="int8", kv_quant="int8", chaos=False)
+    mark("14 migration")
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = next(r for r in cases if r["case"] == "decode_bfloat16_burst")
@@ -4660,6 +5203,8 @@ def main() -> int:
         "launches_tiers": sum(tiers["bf16"]["launches"][k][0] for k in ("cold", "hit", "g2")),
         "launches_tiers_int8": sum(tiers["int8"]["launches"][k][0]
                                    for k in ("cold", "hit", "g2")),
+        "launches_migration_workers": sum(migration["bf16"]["launches"].values()),
+        "launches_migration_workers_int8": sum(migration["int8"]["launches"].values()),
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -4677,6 +5222,7 @@ def main() -> int:
         "launches_grammar": sum(grammar["int8"][b]["int8_launches"]
                                 for b in ("dense", "tree", "dense_repeat")),
         "launches_tiers": sum(tiers["int8"]["launches"][k][1] for k in ("cold", "hit", "g2")),
+        "launches_migration_workers": sum(migration["int8"]["int8_launches"].values()),
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
@@ -4724,7 +5270,9 @@ def main() -> int:
     log("disagg_path: " + json.dumps(disagg))
     log("grammar_path: " + json.dumps(grammar))
     log("tiers_path: " + json.dumps(tiers))
-    log(f"chip_smoke: phases 1-13 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
+    log("migration_path: " + json.dumps(migration))
+    log("phase wall seconds: " + json.dumps(phase_s))
+    log(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
     print(json.dumps({"kernels": [entry, int8_entry, tied_entry, *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -205,6 +205,13 @@ class EngineArgs:
     # Batch-level draft budgets: hot rows may draft up to 2 x spec_tokens
     # under the fixed batch total rows x spec_tokens (False = uniform).
     spec_budget_adaptive: bool = True
+    # Proactive defrag: at this KV pool usage fraction the engine fires its
+    # migration-offer hook for the CHEAPEST running sequence, relocating it
+    # to a pool peer BEFORE allocation failure forces a recompute-
+    # preemption (the hook the preemption boundary already uses, fired
+    # ahead of pressure). 0 = off (the offer still fires at the preemption
+    # boundary).
+    kv_pressure_offer: float = 0.0
     # Tokenizer spec dict ({"type": "byte"} / {"type": "hf", ...}) the
     # engine compiles grammar token-mask FSMs over (engine/grammar.py).
     # None = byte tokenizer. Must match the serving tokenizer or masks
@@ -229,6 +236,10 @@ class EngineArgs:
             raise ValueError(
                 f"spec_tokens must be in [0, {63 // (2 if self.spec_budget_adaptive else 1)}] "
                 f"(at most 64 verify slots per row); got {self.spec_tokens}"
+            )
+        if not 0.0 <= self.kv_pressure_offer <= 1.0:
+            raise ValueError(
+                f"kv_pressure_offer must be in [0, 1]; got {self.kv_pressure_offer}"
             )
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}; got {self.attn_impl!r}")

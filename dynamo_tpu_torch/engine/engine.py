@@ -63,7 +63,20 @@ blocks into the tiers once the copy has landed, so no flush waits for the
 windows in flight (on the CPU the copy has landed at once, and the tiers
 see every put where the JAX engine's do).
 
-Omitted for now, each a ROADMAP item: LoRA, live migration and tracing.
+Live migration is the JAX engine's too (the same names, the protocol
+comment above ``migration_begin``): ``worker/migrate.py`` streams a
+running decode's sealed KV blocks to a peer while it keeps decoding, then
+freezes it for a bounded cutover, ships the block delta and the resume
+identity (tokens, sampler seed and step, spec EMA, grammar state,
+``next_write_pos``), and hands the client stream off with a
+``{"migration": marker}`` frame; a resumed leg continues sampling at the
+source's (seed, step). Each pump's page gather and its device→host copy
+are enqueued on the compute stream behind the windows in flight and
+published once landed, strictly in dispatch order, so a pump never waits
+for a window. QoS preemption and ``kv_pressure_offer`` first offer the
+victim for migration (``migration_offer``, wired by ``worker/roles.py``).
+
+Omitted for now, each a ROADMAP item: LoRA and tracing.
 """
 
 from __future__ import annotations
@@ -109,6 +122,7 @@ from dynamo_tpu_torch.llm.protocols import (
     coalesce_delta,
 )
 from dynamo_tpu_torch.runtime.engine import Context
+from dynamo_tpu_torch.runtime.logging import TraceContext
 from dynamo_tpu_torch.runtime.qos import DEFAULT_CLASS, QOS_CLASSES, qos_rank
 from dynamo_tpu_torch.tokens import TokenBlockSequence, adapter_hash_seed, compute_block_hashes
 from dynamo_tpu_torch.transfer.stream import KvChunk, KvStreamExport
@@ -285,6 +299,7 @@ class _Seq:
         "spec_ema", "spec_cool", "draft_state", "qos", "qos_rank", "arrival",
         "export", "export_meta", "inject", "export_handle", "export_stream",
         "export_pub_blocks", "grammar", "grammar_state", "grammar_eos_bits",
+        "step_base", "mig", "offer_deadline", "traceparent",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
@@ -353,17 +368,59 @@ class _Seq:
         self.grammar = None
         self.grammar_state = 0
         self.grammar_eos_bits = None
+        # Live migration: the sampler step offset (a resumed sequence keeps
+        # drawing the SOURCE's noise: same seed, steps continue at
+        # step_base + emitted) and the outbound migration state while this
+        # sequence is being relocated (scheduler-thread owned, via
+        # _migrations).
+        self.step_base = 0
+        self.mig = None
+        # W3C traceparent of the client request (stamped by generate() from
+        # the wire context); it rides the migration protocol so a resumed
+        # leg joins the original trace.
+        self.traceparent: str | None = None
+        # Preemption-offer grace: once the offer hook fired for this
+        # sequence as a preemption victim, the kill waits until this
+        # deadline for the relocation to free its blocks.
+        self.offer_deadline = 0.0
         # A resumed leg (migration re-dispatch) carries its original prompt
-        # boundary: penalties and the grammar replay key off it.
+        # boundary (penalties and the grammar replay key off it) and the
+        # source's seed, sampler step and spec EMA.
         resume = ktp.get("resume")
         if isinstance(resume, dict):
             pl = resume.get("prompt_len")
             if isinstance(pl, int) and 1 <= pl <= len(self.tokens):
                 self.prompt_len = pl
+            if resume.get("sample_seed") is not None:
+                self.sample_seed = int(resume["sample_seed"]) & 0x7FFFFFFF
+            self.step_base = int(resume.get("sample_step") or 0)
+            if resume.get("spec_ema") is not None:
+                self.spec_ema = float(resume["spec_ema"])
 
     @property
     def next_write_pos(self) -> int:
         return len(self.tokens) - 1
+
+
+class _MigSt:
+    """Scheduler-thread state of one outbound live migration: the sequence
+    keeps decoding while its sealed KV blocks publish as stream chunks
+    (``_pump_migration``), until the coordinator freezes it for the bounded
+    cutover window. ``fetches`` are this migration's page extracts in
+    flight (lo, hi, HostFetch, n), harvested strictly in dispatch order so
+    the consumer's chunk coverage stays contiguous."""
+
+    __slots__ = ("seq", "handle", "stream", "pub_blocks", "frozen",
+                 "freeze_deadline", "fetches")
+
+    def __init__(self, seq: _Seq, handle: str, stream: KvStreamExport):
+        self.seq = seq
+        self.handle = handle
+        self.stream = stream
+        self.pub_blocks = 0
+        self.frozen = False
+        self.freeze_deadline = 0.0
+        self.fetches: list = []
 
 
 class _Window:
@@ -541,6 +598,29 @@ class TorchEngine:
         # (token_ids, future, loop) embedding jobs, served on the
         # scheduler thread between steps.
         self._embed_jobs: collections.deque = collections.deque()
+        # Outbound live migrations: request_id → _MigSt. The scheduler pumps
+        # each unfrozen migration's KV delta once per step; a frozen one is
+        # unfrozen (and the migration aborted) when the coordinator misses
+        # the cutover deadline, so a dead coordinator never wedges a stream.
+        self._migrations: dict[str, _MigSt] = {}
+        self.migration_freeze_ttl_s = 10.0
+        # QoS defrag: when set (worker/roles.py wires it to the migration
+        # coordinator), preemption under KV pressure OFFERS the victim a
+        # relocation first (called on the scheduler thread with the
+        # victim's request id; must be thread-safe) and the kill waits a
+        # bounded grace for the offer to land.
+        self.migration_offer = None
+        self.preempt_offer_grace_s = 0.75
+        # Proactive defrag (args.kv_pressure_offer): past that pool usage
+        # the offer hook fires for the cheapest running sequence AHEAD of
+        # the preemption boundary, at most once per window.
+        self.kv_pressure_offer = args.kv_pressure_offer
+        self.kv_pressure_offer_window_s = 2.0
+        self._pressure_offer_next = 0.0
+        self.pressure_offers = 0  # proactive offers fired
+        # Host seconds the scheduler spent in _pump_migration and the pumps.
+        self.migration_pump_s = 0.0
+        self.migration_pumps = 0
 
     # -- lifecycle --------------------------------------------------------
 
@@ -872,6 +952,15 @@ class TorchEngine:
                 return
         queue: asyncio.Queue = asyncio.Queue()
         seq = _Seq(context.id, req, queue)
+        # Span lineage across relocation: a resumed leg that arrives without
+        # a trace re-anchors on the traceparent its cutover identity carried.
+        resume_tp = ((req.kv_transfer_params or {}).get("resume") or {}).get("traceparent")
+        if context.trace is None and resume_tp:
+            try:
+                context.trace = TraceContext.parse(str(resume_tp))
+            except Exception:  # noqa: BLE001 — a malformed carried traceparent must never fail the resumed leg
+                pass
+        seq.traceparent = context.trace.traceparent() if context.trace is not None else None
         if grammar is not None:
             seq.grammar = grammar
             seq.grammar_state = grammar.start
@@ -970,6 +1059,12 @@ class TorchEngine:
                     while (not self._stopping and not self._submissions
                            and not self._waiting and not self._running
                            and not self._embed_jobs and not self._host_jobs):
+                        if self._migrations:
+                            # A frozen cutover must still see its deadline
+                            # on an otherwise idle engine: a bounded sleep,
+                            # then a (cheap) step.
+                            self._wakeup.wait(timeout=0.02)
+                            break
                         self._wakeup.wait()
                     if self._stopping:
                         break
@@ -989,6 +1084,14 @@ class TorchEngine:
             with self._wakeup:
                 self._stopping = True
                 leftovers = list(self._running) + list(self._waiting) + list(self._submissions)
+                # Frozen mid-cutover sequences live in no queue: without a
+                # terminal post their client streams would hang.
+                leftovers += [m.seq for m in self._migrations.values()
+                              if m.frozen and not m.seq.dead]
+                for m in self._migrations.values():
+                    m.stream.abort("engine_stopped")
+                    m.seq.mig = None
+                self._migrations.clear()
                 self._running.clear()
                 self._waiting.clear()
                 self._submissions.clear()
@@ -1028,12 +1131,20 @@ class TorchEngine:
             self._serve_host_job(*self._host_jobs.popleft())
         if self._exports:
             self._reap_exports()
+        if self._migrations:
+            self._service_migrations()
+        if self.kv_pressure_offer > 0.0:
+            self._maybe_pressure_offer()
         t0 = time.perf_counter()
         allocated: list[tuple[_Seq, int]] = []  # (seq, suffix start)
         budget = self.args.admission_budget_tokens or (1 << 62)
+        # Frozen mid-cutover sequences are out of _running but keep their
+        # chain slot (and KV) until the handoff resolves: admission must not
+        # oversubscribe the slots past them.
+        frozen = sum(1 for m in self._migrations.values() if m.frozen)
         while (
             self._waiting
-            and len(self._running) + len(allocated) < self.args.max_num_seqs
+            and len(self._running) + len(allocated) + frozen < self.args.max_num_seqs
             and (budget > 0 or not allocated)
         ):
             seq = self._pop_next_waiting()
@@ -1045,8 +1156,10 @@ class TorchEngine:
                 start = self._admit_alloc(seq)
             except NoFreeBlocksError:
                 self._waiting.appendleft(seq)  # try again when blocks free up
-                if not self._running and not allocated:
-                    self._waiting.remove(seq)  # nothing will ever free: fail it
+                if not self._running and not allocated and not self._migrations:
+                    # Nothing will ever free: fail it. (A frozen migration
+                    # frees its blocks within the cutover window either way.)
+                    self._waiting.remove(seq)
                     self._finish(seq, FinishReason.ERROR, error="prompt does not fit in KV cache")
                 break
             except RequestValidationError as e:
@@ -1410,6 +1523,287 @@ class TorchEngine:
                 item.abort("expired")
                 item.ack(item.chunk_count())
 
+    # -- live migration (engine side) --------------------------------------
+    #
+    # Protocol (worker/migrate.py drives it; every entry point below runs on
+    # the scheduler thread via run_on_engine_thread), as in the JAX engine:
+    #   begin    — register a KvStreamExport for a RUNNING decode; it keeps
+    #              decoding while each step's newly sealed full blocks
+    #              publish as chunks (the disagg credit-flow plane serves
+    #              them to the destination, int8 scales riding along).
+    #   cutover  — drain every pending device token, FREEZE the sequence
+    #              (out of _running; slot and KV kept), publish the block
+    #              delta since the stream cursor, seal, and return the
+    #              resume identity (tokens, seed, sampler step, spec EMA,
+    #              grammar state, next_write_pos).
+    #   finish   — the destination committed: release this side's resources
+    #              and post a {"migration": marker} frame; the Migration
+    #              operator consumes it and re-dispatches the SAME client
+    #              stream pinned to the destination. After the drain
+    #              kv_written == len(tokens) - 1 (zombie substeps are never
+    #              counted), so the sealed full blocks equal the
+    #              destination's admission hit ceiling: it recomputes only
+    #              the < block_size suffix and samples on at (seed,
+    #              step_base).
+    #   abort    — any failure (or the freeze deadline passing with no
+    #              coordinator): unfreeze, re-enter _running where it left
+    #              off, and decode on locally. The client never notices.
+
+    def migration_begin(self, request_id: str) -> dict:
+        """Start streaming a running decode's KV. → {"ok", "handle",
+        "published"} or {"error"}. Scheduler thread only."""
+        seq = next((s for s in self._running if s.request_id == request_id), None)
+        if seq is None or seq.dead or seq.cancelled:
+            return {"error": "not_running"}
+        if seq.mig is not None:
+            return {"error": "already_migrating"}
+        if seq.export or seq.export_stream is not None:
+            return {"error": "exporting"}  # disagg export seqs finish at token 1
+        handle = f"mig-{request_id}-{self._step_no}"
+        stream = KvStreamExport(handle)
+        with self._mutex:
+            self._exports[handle] = (stream, time.monotonic() + self.export_ttl_s)
+        mig = _MigSt(seq, handle, stream)
+        seq.mig = mig
+        self._migrations[request_id] = mig
+        self._pump_migration(mig)
+        return {"ok": True, "handle": handle, "published": mig.pub_blocks,
+                "traceparent": seq.traceparent}
+
+    def migration_status(self, request_id: str) -> dict:
+        """Cutover-lag probe: how far the stream cursor trails the KV
+        actually written. Scheduler thread only."""
+        mig = self._migrations.get(request_id)
+        if mig is None:
+            return {"error": "no_migration"}
+        return {
+            "ok": True,
+            "published": mig.pub_blocks,
+            "written": mig.seq.kv_written // self.args.block_size,
+            "frozen": mig.frozen,
+            "sealed": mig.stream.sealed,
+            "aborted": mig.stream.abort_reason,
+        }
+
+    def migration_cutover(self, request_id: str) -> dict:
+        """Freeze the sequence, ship the delta, seal the stream, and return
+        the resume identity. Scheduler thread only."""
+        mig = self._migrations.get(request_id)
+        if mig is None:
+            return {"error": "no_migration"}
+        seq = mig.seq
+        if mig.stream.abort_reason is not None:
+            reason = mig.stream.abort_reason
+            self._abort_migration(mig, reason)
+            return {"error": f"stream_aborted:{reason}"}
+        # Every device-pending token must be host-visible before the
+        # identity is taken: the handoff carries exactly the tokens the
+        # client will have seen. The drain may FINISH the sequence (a stop
+        # in flight), or a preemption may have raced it: both tear the
+        # migration down through the _finish/_preempt hooks.
+        self._drain_completed(force=True)
+        if self._migrations.get(request_id) is not mig:
+            return {"error": "done" if seq.dead else "preempted"}
+        if seq.dead or seq not in self._running:
+            self._abort_migration(mig, "finished")
+            return {"error": "done"}
+        self._running.remove(seq)
+        mig.frozen = True
+        mig.freeze_deadline = time.monotonic() + self.migration_freeze_ttl_s
+        self._pump_migration(mig, force=True)
+        if mig.stream.abort_reason is not None:
+            reason = mig.stream.abort_reason
+            self._abort_migration(mig, reason)
+            return {"error": f"stream_aborted:{reason}"}
+        bs = self.args.block_size
+        mig.stream.seal(num_blocks=mig.pub_blocks, num_tokens=mig.pub_blocks * bs)
+        return {
+            "ok": True,
+            "handle": mig.handle,
+            "kv_blocks": mig.pub_blocks,
+            "emitted": seq.emitted,
+            "adapter_id": None,
+            "request": {
+                "token_ids": list(seq.tokens),
+                "resume": {
+                    "prompt_len": seq.prompt_len,
+                    "sample_seed": seq.sample_seed,
+                    "sample_step": seq.step_base + seq.emitted,
+                    "spec_ema": seq.spec_ema,
+                    "grammar_state": seq.grammar_state,
+                    "next_write_pos": seq.next_write_pos,
+                    "traceparent": seq.traceparent,
+                },
+            },
+        }
+
+    def migration_finish(self, request_id: str, marker: dict) -> dict:
+        """Destination committed: hand the client stream off by posting the
+        migration marker, then release this side's resources. The KV
+        already lives in the sealed stream's host pages (and the
+        destination's staged inject), so freeing the blocks is safe.
+        Scheduler thread only."""
+        mig = self._migrations.get(request_id)
+        if mig is None or not mig.frozen:
+            return {"error": "not_frozen"}
+        seq = mig.seq
+        self._migrations.pop(request_id, None)
+        seq.mig = None
+        seq.dead = True
+        if seq.slot is not None:
+            self._free_slots.append(seq.slot)
+            seq.slot = None
+        self._purge_offloads(seq.block_ids)
+        self.pool.free_sequence(seq.block_ids)
+        seq.block_ids = []
+        self._post(seq, {"token_ids": [], "migration": marker})
+        self._post_done(seq)
+        return {"ok": True}
+
+    def migration_abort(self, request_id: str, reason: str) -> dict:
+        """Coordinator-initiated teardown: the sequence resumes decoding
+        locally (if frozen) and the stream aborts. Scheduler thread only."""
+        mig = self._migrations.get(request_id)
+        if mig is None:
+            return {"error": "no_migration"}
+        self._abort_migration(mig, reason)
+        return {"ok": True}
+
+    def _abort_migration(self, mig: _MigSt, reason: str) -> None:
+        seq = mig.seq
+        self._migrations.pop(seq.request_id, None)
+        seq.mig = None
+        mig.fetches = []  # drop the extracts in flight (their buffers are released)
+        mig.stream.abort(reason)  # no-op when sealed
+        mig.stream.ack(mig.stream.chunk_count())  # free buffered host pages
+        with self._mutex:
+            self._exports.pop(mig.handle, None)
+        if mig.frozen and not seq.dead:
+            # Unfreeze: re-enter the running batch where it left off (slot
+            # and KV were kept, nothing is device-pending, so the next
+            # window feeds its last token from the host).
+            mig.frozen = False
+            self._running.append(seq)
+
+    def _service_migrations(self) -> None:
+        """Once per step: pump streaming migrations, reap finished ones and
+        hold the cutover freeze deadline (a dead coordinator must never
+        wedge a frozen stream)."""
+        now = time.monotonic()
+        for rid in list(self._migrations):
+            mig = self._migrations.get(rid)
+            if mig is None:
+                continue
+            seq = mig.seq
+            if seq.dead or seq.cancelled:
+                self._abort_migration(mig, "finished")
+                continue
+            if mig.stream.abort_reason is not None:
+                # Overrun (slow consumer) or TTL reap ("expired": the
+                # consumer or the store died): the source keeps the stream,
+                # unfreezes if needed and decodes on.
+                self._abort_migration(mig, mig.stream.abort_reason)
+                continue
+            if mig.frozen:
+                if now >= mig.freeze_deadline:
+                    log.warning("migration %s cutover deadline exceeded; resuming locally", rid)
+                    self._abort_migration(mig, "cutover_deadline")
+                continue
+            self._pump_migration(mig)
+
+    def _pump_migration(self, mig: _MigSt, force: bool = False) -> None:
+        """Publish the KV block delta written since the stream cursor. The
+        page gather and its device→host copy are enqueued on the compute
+        stream behind the windows in flight (never waiting for them) and
+        published once landed, strictly in dispatch order; ``force`` waits
+        for every one (the cutover's final delta, after its drain)."""
+        if mig.stream.abort_reason is not None:
+            return
+        t0 = time.perf_counter()
+        seq = mig.seq
+        bs = self.args.block_size
+        lo, hi = kv_transfer.delta_blocks(seq.kv_written, bs, mig.pub_blocks,
+                                          len(seq.block_ids))
+        if hi > lo:
+            arrs, n = self._runner.start_extract_pages(seq.block_ids[lo:hi])
+            mig.fetches.append((lo, hi, start_host_fetch(arrs), n))
+            mig.pub_blocks = hi
+        keep: list = []
+        for item in mig.fetches:
+            flo, fhi, fetch, n = item
+            if keep or (not force and not host_ready(fetch)):
+                keep.append(item)
+                continue
+            pages = self._runner.finish_extract_pages(fetch, n)
+            if not mig.stream.publish(KvChunk(block_offset=flo, pages=pages,
+                                              num_tokens=(fhi - flo) * bs)):
+                break  # overrun: the stream aborted; _service_migrations tears it down
+        mig.fetches = keep
+        self.migration_pumps += 1
+        self.migration_pump_s += time.perf_counter() - t0
+
+    def list_running(self) -> list[str]:
+        """Request ids in the running batch: the relocation candidates of
+        pool moves and retirement. Thread-safe snapshot."""
+        with self._wakeup:
+            return [s.request_id for s in self._running if not s.dead]
+
+    def _maybe_pressure_offer(self) -> None:
+        """Proactive defrag: when KV pool usage crosses
+        ``kv_pressure_offer``, fire the migration-offer hook for the
+        CHEAPEST victim (fewest resident blocks, so the relocation streams
+        the least KV) before allocation failure forces a recompute-
+        preemption. Advisory: the relocation either frees the blocks
+        (migration_finish) or nothing changes and the preemption boundary
+        still owns correctness. Scheduler thread only; at most one offer
+        per pressure window."""
+        cb = self.migration_offer
+        if cb is None or not self._running:
+            return
+        now = time.monotonic()
+        if now < self._pressure_offer_next:
+            return
+        if self.pool.usage < self.kv_pressure_offer:
+            return
+        victim: _Seq | None = None
+        for s in self._running:
+            if s.dead or s.mig is not None or s.export:
+                continue
+            if victim is None or len(s.block_ids) < len(victim.block_ids):
+                victim = s
+        if victim is None:
+            return
+        self._pressure_offer_next = now + self.kv_pressure_offer_window_s
+        self.pressure_offers += 1
+        # The preemption-offer grace stamp too: if pressure keeps climbing
+        # and this victim IS chosen for preemption inside the grace, the
+        # kill waits for the relocation already running.
+        victim.offer_deadline = now + self.preempt_offer_grace_s
+        try:
+            cb(victim.request_id)
+        except Exception:  # noqa: BLE001 — the proactive offer is advisory; a broken hook must never stall the scheduler
+            log.exception("kv-pressure migration offer hook failed")
+
+    def _offer_migration_grace(self, victim: _Seq) -> bool:
+        """QoS preemption offers migration before killing: with an offer
+        hook wired, fire it once for the chosen victim and grant a bounded
+        grace for the relocation to free its blocks. False (kill now) when
+        unwired, when the hook fails, or when the victim's grace expired.
+        Scheduler thread only."""
+        cb = self.migration_offer
+        if cb is None:
+            return False
+        now = time.monotonic()
+        if victim.offer_deadline == 0.0:
+            victim.offer_deadline = now + self.preempt_offer_grace_s
+            try:
+                cb(victim.request_id)
+            except Exception:  # noqa: BLE001 — a broken offer hook must never block the preemption fallback
+                log.exception("migration offer hook failed")
+                return False
+            return True
+        return now < victim.offer_deadline
+
     # -- decode ------------------------------------------------------------
 
     def _ensure_block(self, seq: _Seq, lookahead: int) -> bool:
@@ -1441,8 +1835,15 @@ class TorchEngine:
         self._drain_completed(force=True)  # pending tokens must be host-visible
         if seq.dead or seq not in self._running:
             return  # the drain finished it
+        # An outbound migration of the victim tears down first: its KV is
+        # about to be freed, so the stream can never complete. (Frozen
+        # sequences are not in _running, so the bounded cutover window is
+        # never preempted.)
+        if seq.mig is not None:
+            self._abort_migration(seq.mig, "preempted")
         log.warning("preempting request %s (KV pressure, class=%s)", seq.request_id, seq.qos)
         self.total_preemptions_by[seq.qos] += 1
+        seq.offer_deadline = 0.0  # a later re-admission can be offered again
         self._running.remove(seq)
         self._free_slots.append(seq.slot)
         seq.slot = None
@@ -1595,7 +1996,16 @@ class TorchEngine:
             if len(self._running) == 1:
                 self._finish(blocked, FinishReason.LENGTH)
             else:
-                self._preempt(self._preempt_victim())
+                victim = self._preempt_victim()
+                if self._offer_migration_grace(victim):
+                    # Bounded grace: plan nothing this step. Either the
+                    # offered relocation frees the victim's blocks
+                    # (migration_finish) or the deadline passes and a later
+                    # pass preempts for real.
+                    self._drain_completed(force=True)
+                    time.sleep(0.002)
+                    return
+                self._preempt(victim)
         if not self._running:
             self._drain_completed(force=True)
             return
@@ -1654,7 +2064,7 @@ class TorchEngine:
             s = seq.sampling
             temps[i] = s.temperature
             seeds[i] = seq.sample_seed
-            steps0[i] = seq.emitted + pend
+            steps0[i] = seq.step_base + seq.emitted + pend
             tks[i] = s.top_k or 0
             tps[i] = s.top_p if s.top_p is not None else 1.0
             freqs[i] = s.frequency_penalty
@@ -1898,7 +2308,7 @@ class TorchEngine:
             fold_slots[i] = seq.slot
             temps[i] = seq.sampling.temperature
             seeds[i] = seq.sample_seed
-            steps0[i] = seq.emitted
+            steps0[i] = seq.step_base + seq.emitted
         mode = "greedy" if all(t < GREEDY_EPS for t in temps[: len(batch)]) else "simple"
         top_n = self._top_n(batch)
         tree = self._build_tree_args(B, S1, node_parents) if any_tree else None
@@ -2056,7 +2466,7 @@ class TorchEngine:
             freqs[i] = s.sampling.frequency_penalty
             press[i] = s.sampling.presence_penalty
             seeds[i] = s.sample_seed
-            steps[i] = s.emitted
+            steps[i] = s.step_base + s.emitted
         mode = self._mode(seqs)
         pen = self._penalty_window(seqs, B) if mode == "full" else np.full((B, 1), -1, np.int32)
         return mode, temps, tks, tps, freqs, press, seeds, steps, pen
@@ -2114,6 +2524,11 @@ class TorchEngine:
 
     def _finish(self, seq: _Seq, reason: FinishReason, error: str | None = None,
                 already_posted: bool = False) -> None:
+        if seq.mig is not None:
+            # Finished (stop, cancel, error) while migrating out: the
+            # destination's pull sees the abort and the coordinator's
+            # cutover gets a typed "done" (the stream completed in place).
+            self._abort_migration(seq.mig, "finished")
         seq.dead = True
         if seq.export_stream is not None and not seq.export_stream.sealed:
             # Error or cancel before the prefill sealed the stream: the

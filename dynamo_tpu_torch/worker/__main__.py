@@ -37,17 +37,31 @@ peer's prefix fetch, answered from this worker's tiers), and every
 non-prefill worker puts ``PeerPrefixFetcher`` outside the disagg handler:
 a router ``peer_prefix`` hint becomes an inject before admission.
 
+``--autoscaler on`` hands the endpoints and the model card to the
+``WorkerRoleManager`` (``worker/roles.py``), as the JAX worker does: the
+worker registers under ``autoscaler/<ns>/workers/`` in its role
+(``--autoscaler-role``, decode by default, prefill with
+``--is-prefill-worker``) and serves the ``workerctl/admin`` endpoint:
+``set_role`` (a drain-ordered pool move), ``retire``, ``status``,
+``kv_adopt`` and live migration (``migrate_out``, ``migrate_in_start``,
+``migrate_in_commit``, ``migrate_in_abort``; ``worker/migrate.py``). A
+decode-role worker also serves ``kv_fetch``, from which a migration's
+destination pulls the source's KV stream. The worker exits once retired.
+``--kv-pressure-offer`` offers the cheapest running sequence for
+migration once the KV pool fills past that fraction.
+
 SIGTERM drains: the endpoints deregister and finish their in-flight
 streams, then the engine stops. The last line the worker logs is one
 JSON object with its engine's counters (decode substeps dispatched, the
 kernels' launches, tokens generated, host seconds by phase, KV pages
 injected and exported, the tiers' stats and the flush and onboard costs,
-the peer fetches, and the disagg handler's counts); SIGUSR1 logs the same
-line and serves on.
+the peer fetches, the migrations (outcomes, fallback reasons, the host
+cost of the KV pump, proactive offers), the graphs captured and their
+capture seconds, the peak device memory and the disagg handler's counts); SIGUSR1 logs the same line and serves on.
 
-Not ported yet (ROADMAP A): LoRA, live migration, the autoscaler role
-manager, the dp spawner, multi-host followers, trace export, the fleet
-prefix directory and ``--sla-profile``.
+Not ported yet (ROADMAP A): LoRA, the mocker engine, the dp spawner,
+multi-host followers, trace export, the fleet prefix directory and
+``--sla-profile``.
 """
 
 from __future__ import annotations
@@ -59,6 +73,8 @@ import json
 import os
 import signal
 import time
+
+import torch
 
 from dynamo_tpu_torch.kv_router.publisher import KvEventBroadcaster, serve_kv_endpoints
 from dynamo_tpu_torch.llm.disagg import (
@@ -88,6 +104,10 @@ log = get_logger("worker")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="dynamo_tpu_torch.worker")
     p.add_argument("--store-url", default=None)
+    # The JAX worker's engine choice; the port has one engine (TorchEngine,
+    # served under the JAX name of the real engine), the mocker is not
+    # ported.
+    p.add_argument("--engine", choices=["tpu"], default="tpu")
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
@@ -123,6 +143,18 @@ def parse_args(argv=None):
     p.add_argument("--prefill-dispatch", choices=["queue", "push"], default="queue",
                    help="queue = competing-consumer work queue; push = round-robin RPC to a "
                         "prefill worker")
+    # Closed-loop autoscaler: "on" hands endpoint and card wiring to the
+    # WorkerRoleManager, so the operator can MOVE this engine between the
+    # prefill and decode pools at runtime (admin RPC, drain-ordered),
+    # migrate its running decodes and retire it with zero downtime. "off"
+    # (default) is the plain wiring.
+    p.add_argument("--autoscaler", choices=["on", "off"], default="off",
+                   help="register with the closed-loop SLA autoscaler: "
+                        "live pool moves + zero-downtime retirement via "
+                        "the workerctl admin endpoint")
+    p.add_argument("--autoscaler-role", choices=["decode", "prefill"], default=None,
+                   help="initial pool under --autoscaler on (default: decode, "
+                        "or prefill when --is-prefill-worker is set)")
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--num-kv-blocks", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=16)
@@ -178,6 +210,13 @@ def parse_args(argv=None):
                         "every engine; salted-hash-keyed files dedup "
                         "across the fleet, block_manager/tiers.py)")
     p.add_argument("--fleet-kv-blocks", type=int, default=16384)
+    p.add_argument("--kv-pressure-offer", type=float, default=0.0,
+                   help="pool-usage fraction above which the engine "
+                        "proactively OFFERS its cheapest running sequence "
+                        "for migration before preemption is forced "
+                        "(0 = off; the offer reuses the same "
+                        "migration_offer hook as the preemption-boundary "
+                        "grace window, docs/autoscaler.md#fleet-balancer)")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
@@ -228,6 +267,7 @@ async def build_engine(args):
         disk_kv_blocks=args.disk_kv_blocks,
         fleet_kv_dir=args.fleet_kv_dir,
         fleet_kv_blocks=args.fleet_kv_blocks,
+        kv_pressure_offer=args.kv_pressure_offer,
         device=args.device,
         # Grammar token-mask FSMs compile over the serving tokenizer's
         # vocabulary: response_format masks must legalize exactly the ids
@@ -269,10 +309,11 @@ class RecordingDecodeHandler(DisaggDecodeHandler):
         return inject, why, attrs
 
 
-def engine_counters(engine, disagg=None, fetcher=None) -> dict:
+def engine_counters(engine, disagg=None, fetcher=None, manager=None) -> dict:
     """The engine's monotonic counters as one JSON-able dict, with the
-    disagg decode handler's and the peer prefix fetcher's when there are
-    ones."""
+    disagg decode handler's, the peer prefix fetcher's and the role
+    manager's migrations when there are ones."""
+    graphs = engine.runner.graphs
     out = {
         "event": "engine_counters",
         "decode_substeps": engine.total_decode_steps,
@@ -301,7 +342,18 @@ def engine_counters(engine, disagg=None, fetcher=None) -> dict:
         "offload_bytes": engine.offload_bytes,
         "onboard_s": round(engine.onboard_s, 6),
         "onboard_bytes": engine.onboard_bytes,
+        "graphs_captured": graphs.captured if graphs is not None else 0,
+        "graph_capture_s": round(graphs.capture_s, 6) if graphs is not None else 0.0,
+        "migration_pump_s": round(engine.migration_pump_s, 6),
+        "migration_pumps": engine.migration_pumps,
+        "pressure_offers": engine.pressure_offers,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                              if engine.runner.device.type == "cuda" else 0),
     }
+    migrator = getattr(manager, "migrator", None)
+    if migrator is not None:
+        out["migration"] = {"outcomes": dict(migrator.outcomes),
+                            "fallback_reasons": dict(migrator.fallback_reasons)}
     if fetcher is not None:
         out["peer_fetches"] = fetcher.peer_fetches
         out["peer_fetch_failures"] = fetcher.peer_fetch_failures
@@ -359,6 +411,15 @@ async def async_main(args) -> None:
     engine.bind_metrics(rt.metrics)
     broadcaster = KvEventBroadcaster(engine.pool)
     engine.pool.set_event_sink(broadcaster.publish)
+
+    if args.autoscaler == "on":
+        await serve_autoscaled(rt, engine, card, args, broadcaster,
+                               f"({graphs} window graphs captured in {warm_s:.2f}s, "
+                               f"{step_graphs} single-step graphs in {step_s:.2f}s, "
+                               f"{verify_graphs} verify graphs in {verify_s:.2f}s; registered "
+                               f"{time.perf_counter() - t_launch:.2f}s after the runtime "
+                               f"started)")
+        return
 
     comp = rt.namespace(args.namespace).component(args.component)
     # Cross-worker reuse: every worker answers peer prefix fetches from its
@@ -456,6 +517,45 @@ async def async_main(args) -> None:
     await rt.shutdown()
     await engine.stop()
     print(json.dumps(engine_counters(engine, disagg, fetcher)), flush=True)
+
+
+async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str) -> None:
+    """``--autoscaler on``: the role manager owns the endpoints and the card
+    (the JAX worker's wiring); serve until SIGTERM or retirement, then
+    retire (relocating running decodes to peers), stop the engine and
+    close the runtime."""
+    from dynamo_tpu_torch.planner.actions import POOL_DECODE, POOL_PREFILL
+    from dynamo_tpu_torch.worker.roles import WorkerRoleManager
+
+    role = (POOL_PREFILL if args.is_prefill_worker or args.autoscaler_role == "prefill"
+            else POOL_DECODE)
+    manager = await WorkerRoleManager(
+        rt, engine, [card], args, broadcaster,
+        chaos=ChaosInjector.from_config(rt.config.chaos),
+    ).start(role)
+    print(f"dynamo_tpu_torch autoscaled {manager.role} worker: serving {card.name} in "
+          f"namespace {args.namespace} (workerctl/admin live) on {args.device} {warm_note}",
+          flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        with contextlib.suppress(NotImplementedError):
+            loop.add_signal_handler(sig, stop.set)
+    with contextlib.suppress(NotImplementedError):
+        loop.add_signal_handler(signal.SIGUSR1, lambda: print(
+            json.dumps(engine_counters(engine, manager=manager)), flush=True))
+    stop_task = loop.create_task(stop.wait())
+    retired_task = loop.create_task(manager.retired.wait())
+    await asyncio.wait((stop_task, retired_task), return_when=asyncio.FIRST_COMPLETED)
+    for t in (stop_task, retired_task):
+        t.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await t
+    log.info("worker shutting down")
+    await manager.close()
+    await engine.stop()
+    await rt.shutdown()
+    print(json.dumps(engine_counters(engine, manager=manager)), flush=True)
 
 
 def main(argv=None) -> int:

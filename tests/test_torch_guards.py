@@ -72,7 +72,9 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "engine.quant", "ops.int8_matmul", "llm.tokenizer_json", "llm.unicode_classes",
                 "engine.drafter", "engine.sampler", "engine.graphs", "engine.kv_transfer",
                 "transfer", "transfer.stream", "runtime.queue", "llm.disagg",
-                "engine.grammar", "llm.preprocessor", "block_manager.tiers", "llm.peer_kv"):
+                "engine.grammar", "llm.preprocessor", "block_manager.tiers", "llm.peer_kv",
+                "worker.migrate", "worker.roles", "planner", "planner.actions",
+                "planner.actuate"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
