@@ -122,7 +122,16 @@ Phases, in order; any failure raises and the run exits non-zero:
    launch-to-registration seconds are printed as host numbers beside the
    card's name and power limit.
 
-10. Speculative decoding at full width, twice: bf16, and int8 weights
+Phases 10-14 run llama-8b's widths at CUT_LAYERS (8) layers, so that the
+script ends within its time: phases 10 and 12a make that model in process
+from seed 0 (`cut_config`), and the workers of phases 11, 12b, 13, 14 and
+15b load the same weights from a checkpoint of it written once here with
+phase 8's writer (`write_checkpoint`, bf16; `--quant int8` quantizes it as
+it loads). Every check of those phases holds at that depth: launch counts
+are layers x substeps, and every reference is an in-process engine on the
+same weights.
+
+10. Speculative decoding at the cut depth, twice: bf16, and int8 weights
    with int8 pages. `run`'s pipeline with `--spec-tokens 3` (spec_gate 0)
    serves the burst's 8 requests (top-2 logprobs each) in turn dense
    (spec_tokens 0: the reference), linear fused (twice: the repeat must
@@ -142,8 +151,8 @@ Phases, in order; any failure raises and the run exits non-zero:
    per pass and the verify graphs' count and pool bytes are printed beside
    the card's name and power limit.
 
-11. Disaggregated prefill/decode at full width, twice: bf16, and int8
-   weights with int8 pages. The store, one `python -m
+11. Disaggregated prefill/decode at the cut depth (the checkpoint), twice:
+   bf16, and int8 weights with int8 pages. The store, one `python -m
    dynamo_tpu_torch.worker --is-prefill-worker --component prefill` and
    one default worker (`--disagg auto`, `--max-local-prefill-length 512`),
    both with the main path's engine arguments (seed 0: the same weights),
@@ -154,10 +163,11 @@ Phases, in order; any failure raises and the run exits non-zero:
    other four locally: disagg_remote_prefill_total 4 and no fallback, on
    the decode worker's /metrics and counters line. Every remote response
    must equal the in-process engine's pass of the same request on its
-   cached prefix (main_path's `reference["repeats"]`: an injected prompt
-   is admitted as the same prefix hit), every local one the cold burst:
+   cached prefix (`checkpoint_reference` on the same checkpoint, made as
+   main_path makes its `reference["repeats"]`: an injected prompt is
+   admitted as the same prefix hit), every local one the cold burst:
    token texts and logprobs bit for bit. The decode worker's launches
-   (SIGUSR1) are held to 32 x its substeps and, with int8 weights, to the
+   (SIGUSR1) are held to layers x its substeps and, with int8 weights, to the
    shape rule over its prefills (the local prompts, and each remote
    prompt's 16-token suffix); the prefill worker decodes nothing. Request 7
    is then sent alone from an empty cache (one transfer with nothing else
@@ -174,7 +184,7 @@ Phases, in order; any failure raises and the run exits non-zero:
    and inject seconds, and the host cost of one 47-block chunk on the wire
    (`kv_wire_timing`) are printed beside the card's name and power limit.
 
-12. Structured output and embeddings at full width. 12a, twice (bf16;
+12. Structured output and embeddings at the cut depth. 12a, twice (bf16;
    int8 weights with int8 pages): `run`'s pipeline with `--spec-tokens 3
    --spec-ngram 1 --spec-tree-width 2` (spec_gate 0, unpipelined) serves
    the burst's 8 prompts as chat completions with a bounded json_schema
@@ -210,7 +220,7 @@ Phases, in order; any failure raises and the run exits non-zero:
    and pool bytes, embedding ms and tokens/s, compiler build and lift
    seconds are printed beside the card's name and power limit.
 
-13. KV tiers and peer prefix fetch at full width, twice (bf16; int8
+13. KV tiers and peer prefix fetch at the cut depth (the checkpoint), twice (bf16; int8
    weights with int8 pages). 13a, in process (`tiers_phase`): one engine
    with a 512-block G2 and a G3 directory serves the burst (64 tokens,
    logprobs) with its tiers off (a disabled stack), cold with them on, on
@@ -238,7 +248,8 @@ Phases, in order; any failure raises and the run exits non-zero:
    G4 file bytes and peak device memory are printed beside the card's name
    and power limit.
 
-14. Live migration and the worker role manager at full width, twice
+14. Live migration and the worker role manager at the cut depth (the
+   checkpoint), twice
    (bf16; int8 weights with int8 pages; `migration_phase`). The store and
    three `python -m dynamo_tpu_torch.worker --autoscaler on --disagg off`
    workers (the main path's engine arguments, seed 0), C with the chaos
@@ -272,11 +283,32 @@ Phases, in order; any failure raises and the run exits non-zero:
    pass, the pool move's and the retirement's seconds and each worker's
    peak device memory are printed beside the card's name and power limit.
 
+15. Multi-LoRA at full width and depth (llama-8b, 32 layers), twice (bf16;
+   int8 weights with int8 pages; `lora_phase`): a bank of 4 slots at rank
+   16, six adapters of ranks 16 and 8 (`LORA_ADAPTERS`) registered through
+   a 1,024-block G2, the burst with six rows under adapters and two base
+   rows sent at once (admissions wait for a slot, adapters page in from
+   G2): at depth 2 and 0 (identical streams), base-only (base rows
+   bit-identical), with tree speculation (verify passes carrying adapter
+   rows; the gap rule against the dense pass) and one adapter chat under
+   `GRAMMAR_RF`; launch counts exact in every pass, nothing eager; adapter
+   rows teacher-forced against merged q/k/v/o weights
+   (`lora_reference`); the LoRA window's replay against the pre-LoRA one.
+   15b (`lora_worker_phase`): a `--lora` worker on the cut checkpoint
+   behind a kv frontend, /v1/models listing the adapters, an adapter and a
+   base request aggregate and SSE equal to an in-process engine. Tokens/s
+   mixed against base-only, replay ms and kernels per substep with and
+   without the LoRA variant, graphs, capture seconds and pool bytes with
+   and without it, the bank's bytes, page-ins and their ms, the slot waits
+   and peak memory are printed beside the card's name and power limit.
+
+Each phase's seconds and the running total are logged as it ends.
+
 The last lines are the kernels JSON line (the attention kernel's decode
 entry, the int8 product, its tied-head entry, and the attention kernel's
 linear and tree verify modes; the first two also carry phase 11's decode
-worker's launches, the decode, tree and int8 entries phase 12's, and the
-first two phases 13's and 14's),
+worker's launches, the decode, tree and int8 entries phase 12's, the
+first two phases 13's and 14's, and all of them phase 15's),
 nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -288,6 +320,7 @@ import asyncio
 import json
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -326,6 +359,12 @@ CHAOS_REQUEST = REMOTE[-1]
 ENGINE_ARGV = ["--block-size", "16", "--num-kv-blocks", "2048", "--max-num-seqs", "8",
                "--max-model-len", "2048", "--decode-steps", "8", "--seed", "0"]
 HERE = os.path.dirname(os.path.abspath(__file__))
+# Depth of the llama-8b-width model that phases 10-14 and 15b serve (every
+# width as llama-8b's; the full 32 layers run in phases 3-9 and 15a): the
+# in-process engines of phases 10 and 12a make it from seed 0 (`cut_config`),
+# and phases 11, 12b, 13, 14 and 15b's workers load the same weights from a
+# checkpoint of it (`write_checkpoint`), so the script ends within its time.
+CUT_LAYERS = 8
 
 # The kernel is held against its plain PyTorch version evaluated in float32
 # on the same values (bf16 → f32 is exact; int8 pages are first dequantized
@@ -1816,35 +1855,17 @@ def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
     behind the store and a kv-mode frontend: 4 aggregate completions, each
     bit-equal (token texts and logprobs) to the in-process engine built
     from the port's ``load_model(<dir>, quant="int8")``."""
-    import dataclasses
-    import shutil
-
     import numpy as np
     import torch
 
-    from dynamo_tpu_torch.engine import model as M
-    from dynamo_tpu_torch.engine.config import ModelConfig
-    from dynamo_tpu_torch.engine.loader import load_model, save_checkpoint
+    from dynamo_tpu_torch.engine.loader import load_model
     from dynamo_tpu_torch.engine.quant import quantize_params_np
 
-    cfg = dataclasses.replace(ModelConfig.preset(preset), num_layers=layers,
-                              **({"vocab_size": vocab_size} if vocab_size else {}))
-    name = f"{preset}-{layers}layers" + (f"-v{vocab_size}" if vocab_size else "")
-    path = os.path.join(HERE, "build", "checkpoints", name)
-    tdt = getattr(torch, dtype)
-    shutil.rmtree(path, ignore_errors=True)
     procs: list[Proc] = []
+    path = None
     try:
-        t0 = time.perf_counter()
-        dev_tree = M.init_params(cfg, torch.device(device), tdt, seed=0)
-        host = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
-                for k, v in dev_tree.items()}
-        del dev_tree
-        save_checkpoint(path, cfg, host, shards=2)
-        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
-        write_s = time.perf_counter() - t0
-        log(f"ckpt: {name} written ({size / 1e9:.2f} GB, 2 shards + index + config.json) in "
-            f"{write_s:.1f}s")
+        path, name, host, size, write_s = write_checkpoint(preset, layers, device, dtype,
+                                                           vocab_size)
 
         t0 = time.perf_counter()
         lcfg, params = load_model(path, dtype=dtype, quant="int8", device=device)
@@ -1919,8 +1940,127 @@ def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
     finally:
         for p in procs:
             p.kill()
-        if not keep:
+        if not keep and path is not None:
             shutil.rmtree(path, ignore_errors=True)
+
+
+def model_source(preset: str, model_path: str | None):
+    """(ModelConfig, worker flags naming the weights) of a preset's random
+    weights or of a checkpoint, served with the byte tokenizer."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.loader import load_config
+
+    if model_path:
+        return load_config(model_path), ["--model-path", model_path, "--tokenizer", "byte"]
+    return ModelConfig.preset(preset), ["--preset", preset]
+
+
+async def checkpoint_reference(model_path: str, device: str = "cuda", dtype: str = "bfloat16",
+                               quant: str = "none", kv_quant: str = "none") -> dict:
+    """The burst in process on a checkpoint (``run``'s pipeline with the
+    main path's engine arguments, quantized as a worker loads it), then the
+    requests of REMOTE again on their cached prefixes → phase 11's
+    reference ("burst", "repeats"), as main_path makes it."""
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    pipe = await build_pipeline(parse_args(
+        ["--in", "batch:-", "--model-path", model_path, "--tokenizer", "byte", "--dtype", dtype,
+         "--device", device, *ENGINE_ARGV]), quant=quant, kv_quant=kv_quant)
+    await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
+    prompts = burst_prompts()
+
+    async def one(i):
+        req = CompletionRequest.parse({
+            "model": pipe.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+            "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True, "logprobs": 0})
+        gen, t0, ttft = None, time.perf_counter(), None
+        async for g, _chunk in pipe.run(req, Context()):
+            ttft = ttft if ttft is not None else time.perf_counter() - t0
+            gen = g
+        return reference_entry(gen, ttft)
+
+    try:
+        burst = list(await asyncio.gather(*(one(i) for i in range(8))))
+        while pipe.engine.busy():
+            await asyncio.sleep(0.001)
+        return {"burst": burst, "repeats": {i: await one(i) for i in
+                                            sorted(REMOTE, key=lambda i: i != 7)}}
+    finally:
+        await pipe.engine.stop()
+
+
+async def local_pipeline(args, quant: str = "none", kv_quant: str = "none", model=None,
+                         **engine_kw):
+    """The run launcher's in-process pipeline (``build_pipeline``), with
+    what the phases vary and the launcher has no flag for: ``model`` (a
+    ModelConfig, ``cut_config``) in place of ``--preset``'s, and further
+    EngineArgs fields (adapter slots, host tier) in ``engine_kw``."""
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
+    from dynamo_tpu_torch.run.__main__ import LocalPipeline
+
+    tok_spec, params = tokenizer_spec_for(args.model_path, args.tokenizer), None
+    if args.model_path:
+        from dynamo_tpu_torch.engine.loader import load_model
+
+        model, params = load_model(args.model_path, args.dtype, quant, device=args.device)
+    model = model or ModelConfig.preset(args.preset)
+    engine = await TorchEngine(EngineArgs(
+        model=model, block_size=args.block_size, num_kv_blocks=args.num_kv_blocks,
+        max_num_seqs=args.max_num_seqs, max_model_len=args.max_model_len, dtype=args.dtype,
+        decode_steps=args.decode_steps, device=args.device, quant=quant, kv_quant=kv_quant,
+        grammar_tokenizer=tok_spec, **spec_engine_args(args), **engine_kw,
+    ), params=params, seed=args.seed).start()
+    tokenizer = load_tokenizer(tok_spec)
+    card = ModelDeploymentCard(
+        name=model.name, tokenizer=tok_spec, context_length=args.max_model_len,
+        kv_cache_block_size=args.block_size,
+        eos_token_ids=list(tokenizer.eos_token_ids) or [ByteTokenizer.EOS])
+    return LocalPipeline(card, engine, tokenizer)
+
+
+def cut_config(preset: str, layers: int, vocab_size: int | None = None):
+    """``preset``'s widths with ``layers`` layers (and ``vocab_size`` if
+    given), named as the checkpoint ``write_checkpoint`` makes of it."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.config import ModelConfig
+
+    name = f"{preset}-{layers}layers" + (f"-v{vocab_size}" if vocab_size else "")
+    return dataclasses.replace(ModelConfig.preset(preset), num_layers=layers, name=name,
+                               **({"vocab_size": vocab_size} if vocab_size else {}))
+
+
+def write_checkpoint(preset: str, layers: int, device: str = "cuda", dtype: str = "bfloat16",
+                     vocab_size: int | None = None):
+    """The random weights of ``cut_config`` (``M.init_params``, seed 0, in
+    ``dtype`` on ``device``: the weights an in-process engine of that
+    config makes) as an HF checkpoint under build/checkpoints/<name> (two
+    safetensors shards, an index and config.json) → (path, name, the
+    written host tree, bytes, seconds)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import model as M
+    from dynamo_tpu_torch.engine.loader import save_checkpoint
+
+    cfg = cut_config(preset, layers, vocab_size)
+    path = os.path.join(HERE, "build", "checkpoints", cfg.name)
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    dev_tree = M.init_params(cfg, torch.device(device), getattr(torch, dtype), seed=0)
+    host = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in dev_tree.items()}
+    del dev_tree
+    save_checkpoint(path, cfg, host, shards=2)
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    write_s = time.perf_counter() - t0
+    log(f"ckpt: {cfg.name} written ({size / 1e9:.2f} GB, 2 shards + index + config.json) in "
+        f"{write_s:.1f}s")
+    return path, cfg.name, host, size, write_s
 
 
 def _flat(tree, prefix=()):
@@ -2251,7 +2391,6 @@ def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
     engine on the loaded weights fed the port tokenizer's ids, the launches
     held, one mixed-priority check with a preemption, and the tokenizer's
     host numbers."""
-    import shutil
 
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.llm.tokenizer import DecodeStream, HFTokenizer, load_tokenizer
@@ -2695,7 +2834,8 @@ def verify_timing(engine, card_line: str, tag: str) -> dict:
 
 
 async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
-                     dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none"):
+                     dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
+                     model=None):
     """Phase 10: the burst through ``run``'s pipeline with ``--spec-tokens
     3 --spec-ngram 1`` (spec_gate 0 on the engine), in turn dense
     (spec_tokens 0, the reference), linear fused (twice: the repeat must
@@ -2714,7 +2854,8 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     unpipelined (a row drafts on its whole history, not on what the host
     has fetched so far) and each burst's 8 requests are all queued before
     the scheduler admits any (it is held by ``run_on_engine_thread``
-    meanwhile), so they admit as one wave."""
+    meanwhile), so they admit as one wave. ``model``: a ModelConfig in
+    place of the preset's (``cut_config``)."""
     import numpy as np
     import torch
 
@@ -2722,7 +2863,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
     from dynamo_tpu_torch.ops import int8_matmul as im
     from dynamo_tpu_torch.ops import paged_attention as pa
-    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.run.__main__ import parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
     cuda = device == "cuda"
@@ -2731,7 +2872,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
                        "--device", device, *ENGINE_ARGV, "--spec-tokens", str(SPEC_TOKENS),
                        "--spec-ngram", str(SPEC_NGRAM)])
     t0 = time.perf_counter()
-    pipe = await build_pipeline(args, quant=quant, kv_quant=kv_quant)
+    pipe = await local_pipeline(args, quant=quant, kv_quant=kv_quant, model=model)
     engine, runner = pipe.engine, pipe.engine.runner
     cfg, L = engine.cfg, engine.cfg.num_layers
     engine.set_spec(spec_gate=0.0)
@@ -2740,7 +2881,8 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     # Every burst asks for each position's top-2 logprobs (the dense
     # burst's gaps are the reference of the comparisons): one ranked width.
     n_win = runner.warm_windows(("greedy", "simple"), (engine.args.top_logprobs_max,))
-    log(f"{tag}: {preset} pipeline up in {time.perf_counter() - t0:.1f}s, {n_win} window graphs")
+    log(f"{tag}: {cfg.name} ({L} layers) pipeline up in {time.perf_counter() - t0:.1f}s, "
+        f"{n_win} window graphs")
     prompts = burst_prompts()
     greedy_rows = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
 
@@ -2775,7 +2917,8 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
                                                      engine.total_row_tokens)
         spec0 = {k: getattr(engine, f"total_spec_{k}") for k in (
             "passes", "rows", "proposed", "accepted", "emitted", "tree_passes")}
-        ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls)
+        ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls,
+                runner.tree_verify_calls)
         eager0 = (runner.eager_windows, runner.eager_verifies)
         pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
         entered, gate = threading.Event(), threading.Event()
@@ -2806,6 +2949,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         passes = runner.verify_passes - ver0[0]
         forwards = runner.verify_forwards - ver0[1]
         vcalls = tuple(b - a for a, b in zip(ver0[2], runner.verify_calls))
+        tcalls = tuple(b - a for a, b in zip(ver0[3], runner.tree_verify_calls))
         spec = {k: getattr(engine, f"total_spec_{k}") - v for k, v in spec0.items()}
         row_passes = engine.total_row_passes - rows0[0]
         row_tokens = engine.total_row_tokens - rows0[1]
@@ -2824,6 +2968,9 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
                                f"kernel calls for {forwards} forwards; want "
                                f"{tuple(n * forwards for n in per_fwd)} (attention, int8 kernel, "
                                f"int8 prefill route, int8 tied head)")
+        if tcalls != tuple(n * spec["tree_passes"] for n in per_fwd):
+            raise RuntimeError(f"{tag}[{label}]: tree verify passes made {tcalls} kernel calls "
+                               f"for {spec['tree_passes']} passes")
         if label != "dense" and passes == 0:
             raise RuntimeError(f"{tag}[{label}]: no verify pass was dispatched")
         eager = (runner.eager_windows - eager0[0], runner.eager_verifies - eager0[1])
@@ -2834,6 +2981,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
               "substeps": substeps, "verify_passes": passes, "verify_forwards": forwards,
               "attention_launches": launches[0], "int8_launches": launches[1],
               "int8_prefill_launches": launches[2],
+              "verify_attention_launches": vcalls[0], "tree_verify_attention_launches": tcalls[0],
               "verify_calls_per_pass": [c / max(1, passes) for c in vcalls],
               "tokens_per_weight_pass": row_tokens / max(1, row_passes),
               "accept_rate": spec["accepted"] / max(1, spec["proposed"]), **spec}
@@ -2875,7 +3023,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
             f"{[round(x, 4) for x in gaps]}); max |logprob - dense| before that {drift:.4g}")
         return {"divergences": n_div, "gaps": gaps, "max_logprob_drift": drift}
 
-    result = {"window_graphs": n_win}
+    result = {"window_graphs": n_win, "layers": L}
     engine.set_spec(spec_tokens=0)
     dense, result["dense"] = await burst("dense")
     engine.set_spec(spec_tokens=SPEC_TOKENS)
@@ -2950,36 +3098,46 @@ def _disagg_sums(text: str) -> dict:
             "bytes": _metric(text, "dynamo_tpu_disagg_kv_transfer_bytes_total") or 0.0}
 
 
-def disagg_phase(card_line: str, reference: dict, agg_ttft: tuple | None = None,
+def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
                  preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16",
-                 quant: str = "none", kv_quant: str = "none") -> dict:
+                 quant: str = "none", kv_quant: str = "none",
+                 model_path: str | None = None) -> dict:
     """Phase 11: the port's store server, one ``--is-prefill-worker`` and
     one default worker (``--disagg auto``, ``--max-local-prefill-length
     512``) on the same weights, and a kv-mode frontend; the burst as 8
     aggregate /v1/completions. ``reference``: the in-process burst under
     "burst" (cold) and the requests of ``REMOTE`` served again on their
     cached prefixes under "repeats"; ``agg_ttft``: (label, per-request
-    TTFT) of an aggregated run to print beside this phase's."""
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    TTFT) of an aggregated run to print beside this phase's. With
+    ``model_path`` the workers serve that checkpoint (``checkpoint_reference``
+    makes the reference on it). ``reference`` may be a function that makes
+    it: it then runs while the workers start, and ``agg_ttft`` defaults to
+    its burst's TTFTs."""
+    from dynamo_tpu_torch.engine.config import EngineArgs
 
     tag = "disagg" if quant == "none" else f"disagg-int8-kv{kv_quant}"
-    cfg = ModelConfig.preset(preset)
+    cfg, weights = model_source(preset, model_path)
+    model = cfg.name
     bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
     block_bytes = EngineArgs(model=cfg, block_size=bs, dtype=dtype,
                              kv_quant=kv_quant).kv_bytes_per_block()
-    argv = ["--preset", preset, "--dtype", dtype, "--device", device, "--quant", quant,
+    argv = [*weights, "--dtype", dtype, "--device", device, "--quant", quant,
             "--kv-quant", kv_quant, *ENGINE_ARGV]
     procs: list[Proc] = []
     store_port = _free_port()
     store_url = f"tcp://127.0.0.1:{store_port}"
 
-    def prefill_worker(name: str, env: dict | None = None) -> Proc:
+    def prefill_worker(name: str, env: dict | None = None, wait: bool = True) -> Proc:
         p = Proc(name, ["dynamo_tpu_torch.worker", "--store-url", store_url,
                         "--is-prefill-worker", "--component", "prefill", *argv], env=env)
         procs.append(p)
-        _, secs = p.wait_for(r"prefill worker: serving", 600)
-        log(f"{tag}: {name} registered {secs:.2f}s after launch ({card_line})")
+        if wait:
+            registered(p)
         return p
+
+    def registered(p: Proc) -> None:
+        _, secs = p.wait_for(r"prefill worker: serving", 600)
+        log(f"{tag}: {p.name} registered {secs:.2f}s after launch ({card_line})")
 
     try:
         store = Proc(f"{tag}-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
@@ -2992,7 +3150,11 @@ def disagg_phase(card_line: str, reference: dict, agg_ttft: tuple | None = None,
             "--max-local-prefill-length", str(MAX_LOCAL_PREFILL), *argv],
             env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port)})
         procs.append(decode)
-        prefill = prefill_worker(f"{tag}-prefill")
+        prefill = prefill_worker(f"{tag}-prefill", wait=False)
+        if callable(reference):
+            reference = reference()
+            agg_ttft = agg_ttft or ("in process", [r["ttft_s"] for r in reference["burst"]])
+        registered(prefill)
         _, secs = decode.wait_for(r"worker: serving .* window graphs captured", 600)
         log(f"{tag}: decode worker registered {secs:.2f}s after launch ({card_line})")
         fe = Proc(f"{tag}-frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
@@ -3002,7 +3164,7 @@ def disagg_phase(card_line: str, reference: dict, agg_ttft: tuple | None = None,
         port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
 
         # The burst: 4 remote, 4 local; every response held to its reference.
-        rs, wall = asyncio.run(_disagg_burst(port, preset, list(range(8))))
+        rs, wall = asyncio.run(_disagg_burst(port, model, list(range(8))))
         for i, r in enumerate(rs):
             ref = reference["repeats"][i] if i in REMOTE else reference["burst"][i]
             _check_disagg(f"{tag} request {i} ({'remote' if i in REMOTE else 'local'})", r, ref)
@@ -3063,8 +3225,8 @@ def disagg_phase(card_line: str, reference: dict, agg_ttft: tuple | None = None,
 
         # The longest prompt alone, from an empty cache: one transfer with
         # nothing else on either worker, beside the burst's four.
-        asyncio.run(clear_kv(port, preset, workers=1))
-        (r,), _ = asyncio.run(_disagg_burst(port, preset, [CHAOS_REQUEST], "alone"))
+        asyncio.run(clear_kv(port, model, workers=1))
+        (r,), _ = asyncio.run(_disagg_burst(port, model, [CHAOS_REQUEST], "alone"))
         _check_disagg(f"{tag} request {CHAOS_REQUEST} alone", r,
                       reference["repeats"][CHAOS_REQUEST])
         alone_ttft = asyncio.run(routed(port, r["trace_id"]))[1]
@@ -3088,11 +3250,11 @@ def disagg_phase(card_line: str, reference: dict, agg_ttft: tuple | None = None,
         # first chunk; the decode worker's cache cleared so the request
         # goes remote again, falls back and prefills locally (cold).
         rcs = {prefill.name: prefill.stop()}
-        asyncio.run(clear_kv(port, preset, workers=1))
+        asyncio.run(clear_kv(port, model, workers=1))
         chaos = prefill_worker(f"{tag}-prefill-chaos", env={
             "DYNTPU_CHAOS_ENABLED": "1", "DYNTPU_CHAOS_TRANSFER_CUT_P": "1"})
         time.sleep(1.0)  # the decode worker's discovery sees the new instance
-        (r,), _ = asyncio.run(_disagg_burst(port, preset, [CHAOS_REQUEST], "chaos"))
+        (r,), _ = asyncio.run(_disagg_burst(port, model, [CHAOS_REQUEST], "chaos"))
         _check_disagg(f"{tag} chaos request {CHAOS_REQUEST}", r,
                       reference["burst"][CHAOS_REQUEST])
         time.sleep(1.0)
@@ -3492,7 +3654,8 @@ def grammar_timing(engine, card_line: str, tag: str) -> dict:
 
 
 async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
-                        dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none"):
+                        dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
+                        model=None):
     """Phase 12a: the burst's 8 prompts as chat completions with
     GRAMMAR_RF (max_tokens GRAMMAR_TOKENS, top-8 logprobs, seeds 1000-1007,
     rows 3 and 6 at temperature 0.7) through ``run``'s pipeline with
@@ -3506,7 +3669,8 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
     steps + verify forwards), int8 calls by ``int8_expected`` over those
     forwards, no eager window, step or verify pass on the card. Then
     ``grammar_timing``. The bf16 run also embeds EMBED_CUTS in process
-    (phase 12b's reference)."""
+    (phase 12b's reference). ``model``: a ModelConfig in place of the
+    preset's (``cut_config``)."""
     import numpy as np
     import torch
 
@@ -3514,7 +3678,7 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
     from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest
     from dynamo_tpu_torch.ops import int8_matmul as im
     from dynamo_tpu_torch.ops import paged_attention as pa
-    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.run.__main__ import parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
     cuda = device == "cuda"
@@ -3523,12 +3687,12 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
                        "--device", device, *ENGINE_ARGV, "--spec-tokens", str(SPEC_TOKENS),
                        "--spec-ngram", str(SPEC_NGRAM), "--spec-tree-width", "2"])
     t0 = time.perf_counter()
-    pipe = await build_pipeline(args, quant=quant, kv_quant=kv_quant)
+    pipe = await local_pipeline(args, quant=quant, kv_quant=kv_quant, model=model)
     engine, runner = pipe.engine, pipe.engine.runner
     cfg, L = engine.cfg, engine.cfg.num_layers
     engine.set_spec(spec_gate=0.0)
     engine.args.pipeline_depth = 0
-    log(f"{tag}: {preset} pipeline up in {time.perf_counter() - t0:.1f}s")
+    log(f"{tag}: {cfg.name} ({L} layers) pipeline up in {time.perf_counter() - t0:.1f}s")
     result: dict = {}
     g = runner.graphs
     if g is not None:
@@ -3707,7 +3871,8 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
 
 
 def grammar_http_phase(card_line: str, reference: dict, preset: str = "llama-8b",
-                       device: str = "cuda", dtype: str = "bfloat16") -> dict:
+                       device: str = "cuda", dtype: str = "bfloat16",
+                       model_path: str | None = None) -> dict:
     """Phase 12b: the store, one ``python -m dynamo_tpu_torch.worker`` with
     the main path's engine arguments (seed 0: 12a's weights) and a kv-mode
     frontend. Two schema chats (GRAMMAR_HTTP: one streamed, one aggregate)
@@ -3716,8 +3881,10 @@ def grammar_http_phase(card_line: str, reference: dict, preset: str = "llama-8b"
     /v1/responses request with text.format; /v1/embeddings with EMBED_CUTS
     in one request, each vector bit-equal to the in-process engine.embed of
     the same ids, and the same request again giving the same bytes. The
-    worker's launches (SIGUSR1) are held to 32 × its single steps; every
-    process exits 0 on SIGTERM."""
+    worker's launches (SIGUSR1) are held to layers × its single steps; every
+    process exits 0 on SIGTERM. With ``model_path`` the worker serves that
+    checkpoint (12a's weights when 12a ran ``cut_config`` of it)."""
+    cfg, weights = model_source(preset, model_path)
     procs: list[Proc] = []
     store_port = _free_port()
     store_url = f"tcp://127.0.0.1:{store_port}"
@@ -3727,7 +3894,7 @@ def grammar_http_phase(card_line: str, reference: dict, preset: str = "llama-8b"
         procs.append(store)
         store.wait_for(r"store server: tcp://", 60)
         worker = Proc("grammar-worker", [
-            "dynamo_tpu_torch.worker", "--store-url", store_url, "--preset", preset,
+            "dynamo_tpu_torch.worker", "--store-url", store_url, *weights,
             "--dtype", dtype, "--device", device, *ENGINE_ARGV])
         procs.append(worker)
         m, secs = worker.wait_for(r"serving .* \((\d+) window graphs captured in ([0-9.]+)s, "
@@ -3739,7 +3906,7 @@ def grammar_http_phase(card_line: str, reference: dict, preset: str = "llama-8b"
                                        "--router-mode", "kv"])
         procs.append(fe)
         port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
-        result = asyncio.run(_drive_grammar_http(port, preset, reference, card_line))
+        result = asyncio.run(_drive_grammar_http(port, cfg.name, reference, card_line))
         counters = usr1_counters(worker)
         want = counters["num_layers"] * (counters["decode_substeps"] + counters["spec_forwards"])
         if counters["paged_attention_launches"] != (want if device == "cuda" else 0):
@@ -3874,7 +4041,6 @@ def grammar_lift_phase(card_line: str, vocab: int = 128_256, n_bpe: int | None =
     (``build_compiler``: every id decoded to its bytes) and the schema's
     first GRAMMAR_LIFT_STATES states lifted along the smallest legal token,
     each lift a walk of the whole vocabulary, as on a scheduler thread."""
-    import shutil
 
     from dynamo_tpu_torch.engine.grammar import build_compiler
 
@@ -4177,7 +4343,8 @@ def _d2h_mb_per_s(engine, n_blocks: int, reps: int = 5) -> float:
 
 
 def tiers_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
-                dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none") -> dict:
+                dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
+                model_path: str | None = None) -> dict:
     """Phase 13a, in process: one TorchEngine with G2 (TIER_HOST_BLOCKS)
     and a G3 directory serves the burst cold with its tiers switched off
     (a disabled stack), cold with them on, again (the G1-hit pass: the
@@ -4188,19 +4355,20 @@ def tiers_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
     requests whose blocks the offload bounds dropped again alone, and,
     after clear_kv_blocks, the burst onboarded from G3; a fresh one
     opened on that directory (G3 kept across restarts) serves it once
-    more. → numbers and the G1-hit streams."""
+    more. With ``model_path`` every engine runs that checkpoint's weights
+    (quantized as a worker loads it). → numbers and the G1-hit streams."""
     import gc
-
-    import shutil
 
     import torch
 
     from dynamo_tpu_torch.block_manager.tiers import TierStack
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.config import EngineArgs
     from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.loader import load_model
 
     tag = "tiers" if quant == "none" else f"tiers-int8-kv{kv_quant}"
-    cfg = ModelConfig.preset(preset)
+    cfg, _ = model_source(preset, model_path)
+    loaded = load_model(model_path, dtype, quant, device)[1] if model_path else None
     bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
     root = os.path.join(TIER_DIR, tag)
     shutil.rmtree(root, ignore_errors=True)
@@ -4221,7 +4389,7 @@ def tiers_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
     async def go_a():
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        engine = await make(TIER_HOST_BLOCKS, "g3").start()
+        engine = await make(TIER_HOST_BLOCKS, "g3", loaded).start()
         if engine.runner.graphs is not None:
             engine.runner.warm_windows(("greedy", "simple"), (0,))
         tiers, off = engine.tiers, TierStack(None, None, None)
@@ -4388,7 +4556,7 @@ def tiers_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
 
 def tiers_worker_phase(card_line: str, reference: list, preset: str = "llama-8b",
                        device: str = "cuda", dtype: str = "bfloat16", quant: str = "none",
-                       kv_quant: str = "none") -> dict:
+                       kv_quant: str = "none", model_path: str | None = None) -> dict:
     """Phase 13b: the store and two port workers on one card (the main
     path's engine arguments, ``--disagg off``), both with one shared
     ``--fleet-kv-dir``; A with ``--host-kv-blocks TIER_HOST_BLOCKS``, B with
@@ -4399,10 +4567,10 @@ def tiers_worker_phase(card_line: str, reference: list, preset: str = "llama-8b"
     directory; A serves 8 other
     prompts, its G2 overflows and spills the burst's blocks there too; B,
     its cache cleared, serves the burst again from G2 and G4. ``reference``:
-    13a's G1-hit streams, which every stream here must equal."""
-    import shutil
+    13a's G1-hit streams, which every stream here must equal. With
+    ``model_path`` both workers serve that checkpoint (13a's weights)."""
 
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.config import EngineArgs
     from dynamo_tpu_torch.llm.peer_kv import KV_PREFIX_ENDPOINT
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.runtime.engine import Context
@@ -4410,7 +4578,7 @@ def tiers_worker_phase(card_line: str, reference: list, preset: str = "llama-8b"
     from dynamo_tpu_torch.transfer.stream import read_kv_payload_frames
 
     tag = "tiers-workers" if quant == "none" else f"tiers-workers-int8-kv{kv_quant}"
-    cfg = ModelConfig.preset(preset)
+    cfg, weights = model_source(preset, model_path)
     bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
     block_bytes = EngineArgs(model=cfg, block_size=bs, dtype=dtype,
                              kv_quant=kv_quant).kv_bytes_per_block()
@@ -4419,7 +4587,7 @@ def tiers_worker_phase(card_line: str, reference: list, preset: str = "llama-8b"
     os.makedirs(fleet)
     reqs = tier_requests(cfg.name)
     other = tier_requests(cfg.name, prompts=[p[::-1] for p in burst_prompts()])
-    argv = ["--preset", preset, "--dtype", dtype, "--device", device, "--quant", quant,
+    argv = [*weights, "--dtype", dtype, "--device", device, "--quant", quant,
             "--kv-quant", kv_quant, "--disagg", "off", "--fleet-kv-dir", fleet, *ENGINE_ARGV]
     procs: list[Proc] = []
     store_port = _free_port()
@@ -4647,7 +4815,8 @@ def _row_tps(leg: dict) -> float:
 
 def migration_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
                     dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
-                    max_tokens: int = MIG_TOKENS, chaos: bool = True) -> dict:
+                    max_tokens: int = MIG_TOKENS, chaos: bool = True,
+                    model_path: str | None = None) -> dict:
     """Phase 14: live migration between port workers on one card. The store
     and three ``python -m dynamo_tpu_torch.worker --autoscaler on --disagg
     off`` workers (the main path's engine arguments, seed 0: the same
@@ -4678,10 +4847,10 @@ def migration_phase(card_line: str, preset: str = "llama-8b", device: str = "cud
 
     Each worker's attention launches equal num_layers x its decode
     substeps, no window runs eagerly, and every process exits 0. Without
-    ``chaos`` there is no C and no chaos cell."""
+    ``chaos`` there is no C and no chaos cell. With ``model_path`` the
+    workers serve that checkpoint."""
     import numpy as np
 
-    from dynamo_tpu_torch.engine.config import ModelConfig
     from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouterConfig
     from dynamo_tpu_torch.llm.migration import Migration
     from dynamo_tpu_torch.planner.actuate import read_pools, worker_key
@@ -4691,10 +4860,10 @@ def migration_phase(card_line: str, preset: str = "llama-8b", device: str = "cud
     from dynamo_tpu_torch.transfer.stream import read_kv_payload_frames
 
     tag = "migration" if quant == "none" else f"migration-int8-kv{kv_quant}"
-    cfg = ModelConfig.preset(preset)
+    cfg, weights = model_source(preset, model_path)
     bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
     reqs = migration_requests(cfg.name, max_tokens)
-    argv = ["dynamo_tpu_torch.worker", "--preset", preset, "--dtype", dtype, "--device", device,
+    argv = ["dynamo_tpu_torch.worker", *weights, "--dtype", dtype, "--device", device,
             "--quant", quant, "--kv-quant", kv_quant, "--disagg", "off", "--autoscaler", "on",
             *ENGINE_ARGV]
     procs: list[Proc] = []
@@ -5051,6 +5220,618 @@ def _log_migration(tag: str, res: dict, card_line: str) -> None:
         + f"; exit codes {res['exit_codes']} ({card_line})")
 
 
+# -- phase 15: multi-LoRA serving at full width and depth -----------------------
+
+LORA_SLOTS = 4
+LORA_RANK = 16
+# (name, rank, seed) of the six adapters, ranks 16 and 8: more adapters than
+# bank slots, so a burst pages adapters in and evicts cold ones.
+LORA_ADAPTERS = [(f"tenant-{k}", 16 if k % 2 == 0 else 8, 31 + k) for k in range(6)]
+# The burst's rows that name an adapter (index into LORA_ADAPTERS); rows 0
+# and 4 stay on the base model.
+LORA_ROWS = {1: 0, 2: 1, 3: 2, 5: 3, 6: 4, 7: 5}
+LORA_BASE_ROWS = [0, 4]
+# Greedy adapter rows (rank 16 and rank 8) held to a forward whose q/k/v/o
+# weights carry their adapter merged in float32; row 0 is held to the
+# unmerged weights by the same harness, which prices the harness itself.
+LORA_CHECK_ROWS = [1, 2]
+# G2 blocks: the six adapters' factor pages (charged by their bytes in KV
+# block units) and the burst's KV blocks fit at once.
+LORA_HOST_BLOCKS = 1024
+# Teacher-forced |logprob(engine) - logprob(reference)| per generated token.
+# On an NVIDIA H100 80GB HBM3 at 700 W the sound rows read at most 0.0627
+# (bf16) and 0.1247 (int8 weights and pages), the controls (an adapter row
+# against the unmerged weights and against another adapter's merge) 4.6 to
+# 7.5; the controls must read above the bound.
+LORA_LP_TOL = {"float32": 1e-3, "bfloat16": 0.3}
+
+
+def lora_argv() -> list[str]:
+    """The worker flags of LORA_ADAPTERS."""
+    out = ["--lora-slots", str(LORA_SLOTS), "--lora-rank", str(LORA_RANK)]
+    for name, rank, seed in LORA_ADAPTERS:
+        out += ["--lora", f"{name}:{rank}:{seed}"]
+    return out
+
+
+async def lora_phase(card_line: str, preset: str = "llama-8b", device: str = "cuda",
+                     dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
+                     model=None) -> dict:
+    """Phase 15a: ``run``'s pipeline with an adapter bank of LORA_SLOTS
+    slots at rank LORA_RANK and a G2 of LORA_HOST_BLOCKS blocks, the six
+    LORA_ADAPTERS registered (written through to G2), one LocalPipeline per
+    adapter card beside the base one on the same engine. The burst's 8
+    prompts (top-2 logprobs): rows LORA_ROWS under their adapters, rows 0
+    and 4 base, all sent at once, so that admissions wait for a slot and
+    adapters page in from G2. Every pass starts from empty G1 and G2 KV
+    (the adapters' pages are put back into G2), so every prefill is cold:
+
+    - mixed at depth 2 and at depth 0: the 8 streams identical;
+    - base-only (every row base): rows 0 and 4 bit-identical to the mixed
+      pass's, every adapter row's logprobs different from its base run;
+    - mixed with tree speculation (``--spec-tokens 3``, width 2, depth 3,
+      unpipelined): verify passes carry adapter rows; a greedy stream
+      leaves the dense mixed one only where the dense top-2 gap is under
+      SPEC_GAP_TOL;
+    - one adapter chat under GRAMMAR_RF: finishes stop and validates.
+
+    Every pass holds attention launches to layers x (substeps + verify
+    forwards), int8 calls to ``int8_expected`` plus 7 x layers + 1 per
+    verify forward, and no window, step or verify pass eager on the card.
+    Then LORA_CHECK_ROWS teacher-forced through a plain forward whose
+    q/k/v/o weights carry the row's adapter merged in float32 (rounded to
+    the compute dtype), every token within SPEC_GAP_TOL of that forward's
+    top-1 and its logprob within LORA_LP_TOL; row 0 the same way on the
+    unmerged weights. On the card, the LoRA window's replay against the
+    pre-LoRA one (device ms and kernels per substep, graph == eager)."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.lora import adapter_bank_bytes, adapter_tier_hash
+    from dynamo_tpu_torch.engine.lora import LoraAdapterSpec, make_adapter_pages
+    from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest, CompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.run.__main__ import LocalPipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.worker.__main__ import adapter_cards
+
+    cuda = device == "cuda"
+    tag = "lora" if quant == "none" else f"lora-int8-kv{kv_quant}"
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype, "--device",
+                       device, *ENGINE_ARGV, "--spec-ngram", str(SPEC_NGRAM)])
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pipe = await local_pipeline(args, quant=quant, kv_quant=kv_quant, model=model,
+                                lora_slots=LORA_SLOTS, lora_rank=LORA_RANK,
+                                host_kv_blocks=LORA_HOST_BLOCKS)
+    engine, runner = pipe.engine, pipe.engine.runner
+    cfg, L = engine.cfg, engine.cfg.num_layers
+    pages = {}
+    for name, rank, seed in LORA_ADAPTERS:
+        engine.register_adapter(name, rank=rank, seed=seed)
+        pages[name] = make_adapter_pages(cfg, LoraAdapterSpec(name=name, rank=rank, seed=seed),
+                                         LORA_RANK)
+    cards = adapter_cards(pipe.card, LORA_ADAPTERS)
+    pipes = {i: LocalPipeline(cards[a], engine, ByteTokenizer()) for i, a in LORA_ROWS.items()}
+    itemsize = torch.empty((), dtype=runner.dtype).element_size()
+    result: dict = {"layers": L, "bank_bytes": adapter_bank_bytes(cfg, LORA_SLOTS, LORA_RANK,
+                                                                  itemsize),
+                    "adapter_page_bytes": sum(int(a.nbytes) for a in pages[LORA_ADAPTERS[0][0]]),
+                    "graphs": {}}
+    log(f"{tag}: {cfg.name} ({L} layers) pipeline up in {time.perf_counter() - t0:.1f}s, "
+        f"{len(LORA_ADAPTERS)} adapters registered (ranks "
+        f"{[r for _, r, _ in LORA_ADAPTERS]}, {result['adapter_page_bytes'] / 2**20:.1f} MiB of "
+        f"f32 pages each at rank {LORA_RANK}), bank of {LORA_SLOTS} slots "
+        f"{result['bank_bytes'] / 2**20:.1f} MiB ({card_line})")
+    g = runner.graphs
+    top = engine.args.top_logprobs_max
+    if g is not None:
+        # One warm-up, its new window graphs split by their key's LoRA flag.
+        before = set(g.shapes)
+        runner.warm_windows(("greedy", "simple"), (top,))
+        for variant in (False, True):
+            costs = [c for k, c in g.capture_costs().items()
+                     if k not in before and k[6] is variant]
+            result["graphs"]["lora" if variant else "base"] = {
+                "graphs": len(costs), "capture_s": sum(c[0] for c in costs),
+                "pool_bytes_added": sum(c[1] for c in costs)}
+        gb, gl = result["graphs"]["base"], result["graphs"]["lora"]
+        log(f"{tag}: window graphs without LoRA {gb['graphs']} in {gb['capture_s']:.2f}s "
+            f"(+{gb['pool_bytes_added'] / 2**20:.1f} MiB pool), with LoRA {gl['graphs']} in "
+            f"{gl['capture_s']:.2f}s (+{gl['pool_bytes_added'] / 2**20:.1f} MiB pool) "
+            f"({card_line})")
+    prompts = burst_prompts()
+    greedy_rows = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
+
+    def fresh() -> None:
+        """Empty G1 and G2 of KV (so every prefill is cold); the adapters'
+        pages go back into G2."""
+        engine.clear_kv_blocks()
+        engine._drain_offload_fetches(force=True)
+        engine.tiers.host.clear()
+        for name, _r, _s in LORA_ADAPTERS:
+            engine.tiers.put_object(adapter_tier_hash(name), *pages[name])
+
+    def view(gen, t_first):
+        return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values),
+                "tops": list(gen.lp_tops), "ttft_s": t_first, "resp": gen.final_response()}
+
+    async def one(i, adapters):
+        p = pipes[i] if adapters and i in pipes else pipe
+        req = CompletionRequest.parse({
+            "model": p.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+            "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True,
+            "logprobs": 2})
+        t_start, t_first, gen = time.perf_counter(), None, None
+        async for g_, _chunk in p.run(req, Context()):
+            t_first = t_first if t_first is not None else time.perf_counter() - t_start
+            gen = g_
+        return view(gen, t_first)
+
+    def counts0():
+        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+        return {"steps": engine.total_decode_steps, "prefilled": engine.total_prefilled,
+                "passes": runner.verify_passes, "forwards": runner.verify_forwards,
+                "eager": (runner.eager_windows, runner.eager_verifies, runner.eager_steps),
+                "lora": dict(engine.lora_stats()), "pagein_s": engine.lora_pagein_s,
+                "waits": (engine.lora_slot_waits, engine.lora_slot_wait_s),
+                "g2_hits": engine.tiers.stats().get("g2_hits", 0),
+                "tree": engine.total_spec_tree_passes,
+                "vcalls": (runner.verify_calls, runner.tree_verify_calls)}
+
+    def held_counts(label, c0, lens) -> dict:
+        """Hold the pass's launch counts to its substeps and forwards → the
+        pass's numbers."""
+        launches = (pa.launches, im.launches, im.prefill_launches)
+        substeps = engine.total_decode_steps - c0["steps"]
+        forwards = runner.verify_forwards - c0["forwards"]
+        want = (L * (substeps + forwards), 0, 0)
+        if quant == "int8":
+            k, p = int8_expected(cfg, lens, substeps)
+            want = (want[0], k + (7 * L + 1) * forwards, p)
+        if not cuda:
+            want = (0, 0, 0)
+        if launches != want or substeps + forwards == 0:
+            raise RuntimeError(f"{tag}[{label}]: launches (attention, int8 kernel, int8 prefill "
+                               f"route) {launches} != {want} for {substeps} substeps and "
+                               f"{forwards} verify forwards")
+        # The verify passes' counted kernel calls, all and tree alone (each
+        # pass one fused forward), held to their forwards: what the kernels
+        # line reports for linear and tree verify.
+        tree_passes = engine.total_spec_tree_passes - c0["tree"]
+        vcalls, tcalls = (tuple(b - a for a, b in zip(c, now)) for c, now in zip(
+            c0["vcalls"], (runner.verify_calls, runner.tree_verify_calls)))
+        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0, 0)
+        if (vcalls, tcalls) != (tuple(n * forwards for n in per_fwd),
+                                tuple(n * tree_passes for n in per_fwd)):
+            raise RuntimeError(f"{tag}[{label}]: verify passes made {vcalls} kernel calls "
+                               f"({tcalls} in tree passes) for {forwards} forwards, "
+                               f"{tree_passes} of them tree passes")
+        eager = tuple(b - a for a, b in zip(c0["eager"], (runner.eager_windows,
+                                                          runner.eager_verifies,
+                                                          runner.eager_steps)))
+        if cuda and any(eager):
+            raise RuntimeError(f"{tag}[{label}]: windows, verify passes and steps run eagerly "
+                               f"on the card: {eager}")
+        st = engine.lora_stats()
+        waits = engine.lora_slot_waits - c0["waits"][0]
+        return {"launches": launches, "substeps": substeps, "verify_forwards": forwards,
+                "verify_passes": runner.verify_passes - c0["passes"],
+                "tree_passes": tree_passes,
+                "verify_attention_launches": vcalls[0],
+                "tree_verify_attention_launches": tcalls[0],
+                "pageins": st["pageins"] - c0["lora"]["pageins"],
+                "evictions": st["evictions"] - c0["lora"]["evictions"],
+                "slot_hits": st["hits"] - c0["lora"]["hits"],
+                "g2_hits": engine.tiers.stats().get("g2_hits", 0) - c0["g2_hits"],
+                "pagein_s": engine.lora_pagein_s - c0["pagein_s"],
+                "slot_waits": waits,
+                "slot_wait_s": engine.lora_slot_wait_s - c0["waits"][1],
+                "prefilled": engine.total_prefilled - c0["prefilled"]}
+
+    async def burst(label, adapters=True):
+        fresh()
+        c0 = counts0()
+        t1 = time.perf_counter()
+        outs = await asyncio.gather(*(one(i, adapters) for i in range(len(prompts))))
+        wall = time.perf_counter() - t1
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        for i, o in enumerate(outs):
+            usage, choice = o["resp"]["usage"], o["resp"]["choices"][0]
+            if usage["completion_tokens"] != BURST_TOKENS or choice["finish_reason"] != "length":
+                raise RuntimeError(f"{tag}[{label}] request {i}: {usage['completion_tokens']} "
+                                   f"tokens, finish {choice['finish_reason']!r}")
+            if not all(np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]) or not all(
+                    0 <= t < cfg.vocab_size for t in o["tokens"]):
+                raise RuntimeError(f"{tag}[{label}] request {i}: bad token/logprob stream")
+        st = held_counts(label, c0, BURST_LENS)
+        if st["prefilled"] != sum(BURST_LENS):
+            raise RuntimeError(f"{tag}[{label}]: prefilled {st['prefilled']} tokens, not the "
+                               f"cold burst's {sum(BURST_LENS)}")
+        st.update(wall_s=wall, tokens_per_s=len(prompts) * BURST_TOKENS / wall,
+                  ttft_s=[o["ttft_s"] for o in outs])
+        log(f"{tag}[{label}]: 8 requests ({len(LORA_ROWS) if adapters else 0} under adapters) x "
+            f"{BURST_TOKENS} tokens in {wall:.3f}s → {st['tokens_per_s']:.1f} tokens/s; "
+            f"{st['substeps']} substeps, {st['verify_passes']} verify passes "
+            f"({st['tree_passes']} branched); page-ins {st['pageins']} ({st['g2_hits']} G2 hits, "
+            f"{1e3 * st['pagein_s'] / max(1, st['pageins']):.1f} ms each on the host), "
+            f"evictions {st['evictions']}, {st['slot_waits']} admissions waited for a slot "
+            f"{st['slot_wait_s']:.3f}s in all; launches (attention, int8 kernel, int8 prefill "
+            f"route) {st['launches']} ({card_line})")
+        return outs, st
+
+    def same(a, b) -> bool:
+        return a["tokens"] == b["tokens"] and a["logprobs"] == b["logprobs"] and \
+            a["tops"] == b["tops"]
+
+    mixed, result["mixed"] = await burst("mixed depth2")
+    if result["mixed"]["pageins"] < len(LORA_ADAPTERS) or result["mixed"]["evictions"] < 1:
+        raise RuntimeError(f"{tag}: the mixed burst paged in {result['mixed']['pageins']} "
+                           f"adapters and evicted {result['mixed']['evictions']}")
+    engine.args.pipeline_depth = 0
+    mixed0, result["mixed_depth0"] = await burst("mixed depth0")
+    engine.args.pipeline_depth = 2
+    for i, (a, b) in enumerate(zip(mixed, mixed0)):
+        if not same(a, b):
+            raise RuntimeError(f"{tag}: request {i}: depth 2 and depth 0 streams differ")
+    log(f"{tag}: all 8 streams (tokens, logprobs, top-2) identical at pipeline_depth 2 and 0")
+    base, result["base_only"] = await burst("base-only", adapters=False)
+    for i in LORA_BASE_ROWS:
+        if not same(base[i], mixed[i]):
+            raise RuntimeError(f"{tag}: base row {i} of the mixed burst differs from the "
+                               "base-only burst")
+    effect = {}
+    for i in LORA_ROWS:
+        if base[i]["logprobs"] == mixed[i]["logprobs"]:
+            raise RuntimeError(f"{tag}: adapter row {i} equals its base run")
+        p = _first_divergence(mixed[i]["tokens"], base[i]["tokens"])
+        n = BURST_TOKENS if p is None else p
+        effect[i] = {"first_token_divergence": p, "max_logprob_delta_before": max(
+            (abs(a - b) for a, b in zip(mixed[i]["logprobs"][:n], base[i]["logprobs"][:n])),
+            default=0.0)}
+    result["adapter_effect"] = effect
+    log(f"{tag}: base rows {LORA_BASE_ROWS} bit-identical between the mixed and base-only "
+        f"bursts; every adapter row differs from its base run (first token divergence "
+        f"{ {i: e['first_token_divergence'] for i, e in effect.items()} })")
+
+    engine.set_spec(spec_tokens=SPEC_TOKENS, spec_gate=0.0, **SPEC_TREE)
+    engine.args.pipeline_depth = 0
+    tree, result["tree"] = await burst("tree")
+    engine.set_spec(spec_tokens=0)
+    engine.args.pipeline_depth = 2
+    if result["tree"]["verify_passes"] == 0 or result["tree"]["tree_passes"] == 0:
+        raise RuntimeError(f"{tag}: the tree burst dispatched {result['tree']['verify_passes']} "
+                           f"verify passes, {result['tree']['tree_passes']} branched")
+    if g is not None and not any(k[0] == "verify" and k[8] for k in g.shapes):
+        raise RuntimeError(f"{tag}: no verify pass carried adapter rows")
+    n_div, gaps = 0, []
+    for i in greedy_rows:
+        p = _first_divergence(tree[i]["tokens"], mixed[i]["tokens"])
+        if p is None:
+            continue
+        tops = sorted((lp for _tok, lp in mixed[i]["tops"][p]), reverse=True)
+        if tops[0] - tops[1] >= SPEC_GAP_TOL:
+            raise RuntimeError(f"{tag}: tree greedy row {i} leaves the dense mixed stream at "
+                               f"token {p}, where its top-2 gap is {tops[0] - tops[1]:.4f}")
+        n_div += 1
+        gaps.append(tops[0] - tops[1])
+    result["tree"]["divergences"], result["tree"]["gaps"] = n_div, gaps
+    log(f"{tag}: tree burst: {n_div} of {len(greedy_rows)} greedy streams leave the dense "
+        f"mixed ones, each where the dense top-2 gap is under {SPEC_GAP_TOL} ({gaps})")
+
+    # One adapter chat under the schema: masked single steps with the LoRA
+    # rows' slots.
+    fresh()
+    c0 = counts0()
+    chat = ChatCompletionRequest.parse(grammar_chat(1, prompts, pipes[1].card.name))
+    gen = None
+    async for g_, _chunk in pipes[1].run(chat, Context()):
+        gen = g_
+    while engine.busy():
+        await asyncio.sleep(0.001)
+    body = gen.final_response()
+    choice = body["choices"][0]
+    if choice["finish_reason"] != "stop":
+        raise RuntimeError(f"{tag}: the adapter's schema chat finished "
+                           f"{choice['finish_reason']!r}")
+    obj = grammar_valid(choice["message"]["content"])
+    prefilled = engine.total_prefilled - c0["prefilled"]
+    result["grammar"] = held_counts("grammar", c0, [prefilled])
+    result["grammar"]["tokens"] = body["usage"]["completion_tokens"]
+    log(f"{tag}: a {LORA_ADAPTERS[LORA_ROWS[1]][0]} chat under the schema finished stop in "
+        f"{result['grammar']['tokens']} tokens and validates ({obj}); "
+        f"{result['grammar']['substeps']} masked single steps with the adapter's slot")
+
+    # The adapter rows against merged weights, row 0 against the unmerged.
+    result["reference"], result["reference_controls"] = lora_reference(engine, mixed, tag, dtype,
+                                                                       card_line)
+    if cuda:
+        result["timing"] = lora_timing(engine, card_line, tag)
+        result["max_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        result["graph_pool_bytes"] = g.pool_bytes()
+        log(f"{tag}: peak device memory {result['max_mem_gib']:.2f} GiB, graph pool "
+            f"{g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
+    result["lora_stats"] = engine.lora_stats()
+    await engine.stop()
+    del pipe, pipes, engine, runner
+    if cuda:
+        torch.cuda.empty_cache()
+    return result
+
+
+def lora_reference(engine, outs: list[dict], tag: str, dtype: str,
+                   card_line: str) -> tuple[dict, dict]:
+    """Teacher-forced references of the mixed burst's rows, op by op
+    outside the engine: the prompt's prefill, then one decode step per
+    generated token fed the engine's token. LORA_CHECK_ROWS run on the
+    engine's weights with their adapter merged into q/k/v/o in float32
+    (dequantized int8 weights included) and rounded to the compute dtype;
+    row 0 on the unmerged weights. Each emitted token must be within
+    SPEC_GAP_TOL of the reference's top-1 logprob and its logprob within
+    LORA_LP_TOL of the engine's. Controls: the first check row's stream
+    against the other check row's merge and against the unmerged weights
+    must leave LORA_LP_TOL, so the bound is shown to tell adapters apart.
+    → (readings by row, the controls' readings)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import model as M
+    from dynamo_tpu_torch.engine.lora import LoraAdapterSpec, make_adapter_pages
+
+    cfg, params = engine.cfg, engine.runner.params
+    dev, dt = engine.runner.device, engine.runner.dtype
+    bs = engine.args.block_size
+    prompts = burst_prompts()
+    tol = LORA_LP_TOL[dtype]
+
+    def merged(name: str, rank: int, seed: int) -> dict:
+        pages = make_adapter_pages(cfg, LoraAdapterSpec(name=name, rank=rank, seed=seed),
+                                   LORA_RANK)
+        layers = dict(params["layers"])
+        for j, key in enumerate(("wq", "wk", "wv", "wo")):
+            a = torch.from_numpy(pages[2 * j]).to(dev)
+            b = torch.from_numpy(pages[2 * j + 1]).to(dev)
+            w = layers[key].float()
+            if layers[key].dtype == torch.int8:
+                w = w * layers.pop(key + "_scale").float()[:, None, :]
+            layers[key] = (w + torch.bmm(a, b)).to(dt)
+        return dict(params, layers=layers)
+
+    def forced(p: dict, i: int) -> tuple[float, float]:
+        ids, gen = list(prompts[i].encode()), outs[i]["tokens"]
+        T = len(ids)
+        nb = -(-(T + len(gen)) // bs)
+        cache = M.init_kv_cache(cfg, nb + 1, bs, dt, dev, kv_quant=engine.args.kv_quant)
+        table = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
+        toks = torch.zeros((-(-T // bs) * bs,), dtype=torch.int32, device=dev)
+        toks[:T] = torch.tensor(ids, dtype=torch.int32, device=dev)
+        logits = M.prefill(cfg, p, cache, toks, table, 0, T)
+        drift, worst_gap = 0.0, 0.0
+        for k, t in enumerate(gen):
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            drift = max(drift, abs(float(lp[t]) - outs[i]["logprobs"][k]))
+            worst_gap = max(worst_gap, float(lp.max() - lp[t]))
+            if k + 1 < len(gen):
+                logits = M.decode_step(
+                    cfg, p, cache, torch.tensor([t], dtype=torch.int32, device=dev),
+                    torch.tensor([T + k], dtype=torch.int32, device=dev), table[None],
+                    torch.ones((1,), dtype=torch.bool, device=dev))[0]
+        return drift, worst_gap
+
+    out, controls = {}, {}
+    for i in [*LORA_CHECK_ROWS, 0]:
+        if i in LORA_ROWS:
+            name, rank, seed = LORA_ADAPTERS[LORA_ROWS[i]]
+            p, what = merged(name, rank, seed), f"{name} (rank {rank}) merged"
+        else:
+            p, what = params, "the unmerged weights"
+        drift, gap = forced(p, i)
+        out[i] = {"max_logprob_delta": drift, "worst_top1_gap": gap}
+        log(f"{tag}: row {i} teacher-forced on {what}: max |logprob - engine| {drift:.4g} "
+            f"(bound {tol}), every token within {gap:.4g} of the reference's top-1 (bound "
+            f"{SPEC_GAP_TOL}) ({card_line})")
+        if drift > tol or gap > SPEC_GAP_TOL:
+            raise RuntimeError(f"{tag}: row {i} against its reference on {what}: max |logprob "
+                               f"delta| {drift:.4g}, worst top-1 gap {gap:.4g}")
+        c = LORA_CHECK_ROWS[0]
+        if i != c:
+            cdrift, cgap = forced(p, c)
+            controls[f"row {c} on {what}"] = {
+                "max_logprob_delta": cdrift, "worst_top1_gap": cgap}
+            log(f"{tag}: control: row {c} teacher-forced on {what}: max |logprob - engine| "
+                f"{cdrift:.4g}, worst top-1 gap {cgap:.4g} (must leave the bound {tol}) "
+                f"({card_line})")
+            if cdrift <= tol:
+                raise RuntimeError(f"{tag}: control row {c} on {what} stays within the logprob "
+                                   f"bound ({cdrift:.4g} <= {tol}): the bound does not tell "
+                                   "adapters apart")
+        del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, controls
+
+
+def lora_timing(engine, card_line: str, tag: str) -> dict:
+    """The "simple" window at the burst's lengths on the engine's weights
+    and adapter bank (its own small cache), as the pre-LoRA and as the LoRA
+    graph (five adapter rows, one base): the LoRA replay bit-identical to
+    op by op, each replay's device time per substep and one profiled
+    replay of each by kernel family."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+
+    args = EngineArgs(model=engine.cfg, block_size=16, num_kv_blocks=256, max_num_seqs=8,
+                      max_model_len=2048, decode_steps=8, dtype="bfloat16", device="cuda",
+                      kv_quant=engine.args.kv_quant, lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
+    runner = LocalRunner(args, params=engine.runner.params)
+    runner.start()
+    runner.lora_bank = engine.runner.lora_bank  # the uploaded adapters, before any capture
+    kw = dict(window_inputs(runner, "simple", 61, lens=BURST_HIST[:6]), top_n=0)
+    kw_lora = dict(kw, adapter_slots=np.array([0, 1, 2, 3, -1, 0, -1, -1], np.int32))
+    graph_vs_eager(runner, kw_lora)
+    base_ms, lora_ms = replay_ms(runner, kw), replay_ms(runner, kw_lora)
+    pb, pl = profile_replay(runner, kw, card_line), profile_replay(runner, kw_lora, card_line)
+    runner.stop()
+    out = {"replay_ms_per_substep": {"base": base_ms, "lora": lora_ms},
+           "kernels_per_substep": {"base": pb["kernels_per_substep"],
+                                   "lora": pl["kernels_per_substep"]},
+           "profile": {"base": pb, "lora": pl}}
+    log(f"{tag}: simple window at the burst's lengths, graph replay == op by op with 5 adapter "
+        f"rows; device ms per substep {base_ms:.3f} without LoRA, {lora_ms:.3f} with "
+        f"({lora_ms - base_ms:+.3f}); kernels per substep {pb['kernels_per_substep']:.0f} → "
+        f"{pl['kernels_per_substep']:.0f} (+{pl['kernels_per_substep'] - pb['kernels_per_substep']:.0f}"
+        f" for the delta) ({card_line})")
+    return out
+
+
+def lora_worker_phase(card_line: str, model_path: str, device: str = "cuda",
+                      dtype: str = "bfloat16") -> dict:
+    """Phase 15b: the store, one ``python -m dynamo_tpu_torch.worker
+    --model-path <dir> --tokenizer byte --disagg off`` with LORA_ADAPTERS
+    (``lora_argv``) and a kv-mode frontend. /v1/models lists the base model
+    and every adapter with its lora metadata; row 1 under its adapter and
+    row 0 on the base model, each as an aggregate completion (token texts
+    and logprobs bit-equal to an in-process engine on the same checkpoint
+    with the same adapters) and, after /clear_kv_blocks, as an SSE stream
+    (the same text, [DONE]). The worker's attention launches are layers x
+    its substeps, it paged adapters in, and every process exits 0."""
+    from dynamo_tpu_torch.engine.loader import load_config
+
+    cfg = load_config(model_path)
+    model = cfg.name
+    procs: list[Proc] = []
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+    try:
+        store = Proc("lora-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                    "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        worker = Proc("lora-worker", [
+            "dynamo_tpu_torch.worker", "--store-url", store_url, "--model-path", model_path,
+            "--tokenizer", "byte", "--dtype", dtype, "--device", device, "--disagg", "off",
+            *lora_argv(), *ENGINE_ARGV])
+        procs.append(worker)
+        # The in-process reference runs while the worker starts.
+        ref = asyncio.run(_lora_worker_reference(model_path, device, dtype))
+        m, secs = worker.wait_for(r"worker: serving .* \((\d+) window graphs captured in "
+                                  r"([0-9.]+)s", 600)
+        log(f"lora-worker: registered {secs:.2f}s after launch, {m.group(1)} window graphs "
+            f"(with and without LoRA) in {m.group(2)}s ({card_line})")
+        fe = Proc("lora-frontend", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                                    "--host", "127.0.0.1", "--port", "0", "--router-mode", "kv"])
+        procs.append(fe)
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+        got = asyncio.run(_lora_http(port, model))
+        for label, i in (("adapter", 1), ("base", 0)):
+            _check_disagg(f"lora-worker {label} row {i} aggregate", got[label]["aggregate"],
+                          ref[i])
+            s = got[label]["sse"]
+            if s["status"] != 200 or s.get("error") or not s["done"] or s["text"] != ref[i]["text"]:
+                raise RuntimeError(f"lora-worker {label} row {i} SSE: status {s['status']} "
+                                   f"{s.get('error')}, [DONE] {s['done']}, text "
+                                   f"{'equal' if s.get('text') == ref[i]['text'] else 'differs'}")
+        c = usr1_counters(worker)
+        want = cfg.num_layers * c["decode_substeps"] if device == "cuda" else 0
+        if c["paged_attention_launches"] != want or c["eager_windows"] or \
+                c["lora"]["pageins"] < 1:
+            raise RuntimeError(f"lora-worker: attention launches {c['paged_attention_launches']} "
+                               f"(want {want}), eager windows {c['eager_windows']}, lora "
+                               f"{c['lora']}")
+        rcs = {p.name: p.stop() for p in [fe, worker, store]}
+        if any(rcs.values()):
+            raise RuntimeError(f"lora-worker: processes did not exit 0 on SIGTERM: {rcs}")
+        log(f"lora-worker: /v1/models lists {model} and {len(LORA_ADAPTERS)} adapters; the "
+            f"adapter and the base request, aggregate and SSE, equal the in-process engine on "
+            f"the same checkpoint (token texts and logprobs bit for bit); worker lora "
+            f"{c['lora']}, attention launches {c['paged_attention_launches']} = "
+            f"{cfg.num_layers} x {c['decode_substeps']} ({card_line})")
+        return {"models": got["models"], "counters_lora": c["lora"],
+                "launches": c["paged_attention_launches"],
+                "decode_substeps": c["decode_substeps"], "launch_to_registered_s": secs,
+                "exit_codes": rcs}
+    finally:
+        for p in procs:
+            p.kill()
+
+
+async def _lora_worker_reference(model_path: str, device: str, dtype: str) -> dict:
+    """Rows 1 (under its adapter) and 0 (base) in process on the checkpoint
+    with the worker's engine arguments and adapters, one at a time, cold →
+    reference entries by row."""
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.run.__main__ import LocalPipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.worker.__main__ import adapter_cards
+
+    args = parse_args(["--in", "batch:-", "--model-path", model_path, "--tokenizer", "byte",
+                       "--dtype", dtype, "--device", device, *ENGINE_ARGV])
+    pipe = await local_pipeline(args, lora_slots=LORA_SLOTS, lora_rank=LORA_RANK)
+    engine = pipe.engine
+    for name, rank, seed in LORA_ADAPTERS:
+        engine.register_adapter(name, rank=rank, seed=seed)
+    cards = adapter_cards(pipe.card, LORA_ADAPTERS)
+    await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
+    prompts = burst_prompts()
+    refs = {}
+    try:
+        for i in (1, 0):
+            p = LocalPipeline(cards[LORA_ROWS[i]], engine, ByteTokenizer()) if i in LORA_ROWS \
+                else pipe
+            req = CompletionRequest.parse({
+                "model": p.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+                "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True,
+                "logprobs": 0})
+            gen = None
+            async for g, _chunk in p.run(req, Context()):
+                gen = g
+            refs[i] = reference_entry(gen, 0.0)
+            engine.clear_kv_blocks()
+    finally:
+        await engine.stop()
+    return refs
+
+
+async def _lora_http(port: int, model: str) -> dict:
+    """/v1/models until the base model and every adapter are listed, then
+    rows 1 (adapter) and 0 (base), each aggregate and, after a cache
+    clear, as SSE."""
+    want = {model} | {name for name, _r, _s in LORA_ADAPTERS}
+    listed = {}
+    for _ in range(600):
+        _, _, pieces, _ = await http_request(port, "/v1/models", method="GET")
+        listed = {m["id"]: m for m in json.loads(b"".join(p for _, p in pieces))["data"]}
+        if set(listed) == want:
+            break
+        await asyncio.sleep(0.1)
+    else:
+        raise RuntimeError(f"lora-worker: the frontend lists {sorted(listed)}, not {sorted(want)}")
+    for name, rank, _seed in LORA_ADAPTERS:
+        if listed[name].get("lora") != {"adapter_id": name, "base": model, "rank": rank,
+                                        "resident_tier": "G2"}:
+            raise RuntimeError(f"lora-worker: /v1/models entry of {name}: {listed[name]}")
+    if "lora" in listed[model]:
+        raise RuntimeError(f"lora-worker: the base model's entry carries lora: {listed[model]}")
+    prompts = burst_prompts()
+    out = {"models": sorted(want)}
+    for label, i, name in (("adapter", 1, LORA_ADAPTERS[LORA_ROWS[1]][0]), ("base", 0, model)):
+        body = {"model": name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+                "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True,
+                "logprobs": 0}
+        agg = await http_completion(port, dict(body, stream=False), f"{0x1500 + 2 * i:032x}")
+        await clear_kv(port, model, workers=1)
+        sse = await http_completion(port, dict(body, stream=True), f"{0x1501 + 2 * i:032x}")
+        await clear_kv(port, model, workers=1)
+        out[label] = {"aggregate": agg, "sse": sse}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5085,6 +5866,7 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[name] = round(now - t_phase[0], 1)
         t_phase[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f}s (total {now - t_start:.1f}s)")
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -5125,8 +5907,14 @@ def main() -> int:
     tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
     mark("9 tokenizer")
     torch.cuda.empty_cache()
-    spec = {"bf16": asyncio.run(spec_phase(card_line))}
-    spec["int8"] = asyncio.run(spec_phase(card_line, quant="int8", kv_quant="int8"))
+    # Phases 10-14 and 15b at CUT_LAYERS layers of llama-8b's widths: in
+    # process from seed 0, and in workers from a checkpoint of the same
+    # weights.
+    cut = cut_config("llama-8b", CUT_LAYERS)
+    shallow, _, _, shallow_bytes, shallow_s = write_checkpoint("llama-8b", CUT_LAYERS)
+    mark("10- checkpoint of the cut model")
+    spec = {"bf16": asyncio.run(spec_phase(card_line, model=cut))}
+    spec["int8"] = asyncio.run(spec_phase(card_line, quant="int8", kv_quant="int8", model=cut))
     for name, st in spec.items():
         t = st["timing"]
         log(f"spec[{name}]: tokens/s dense {st['dense']['tokens_per_s']:.1f}, fused "
@@ -5147,18 +5935,19 @@ def main() -> int:
                                     ("to_wire", "to_wire_s"),
                                     ("endpoint → router over TCP", "runtime_s")))
         + f" (host CPU beside {card_line})")
-    disagg = {"kv_wire": wire,
-              "bf16": disagg_phase(card_line, reference, ("phase 7", http["ttft_s_pass2"]))}
-    disagg["int8"] = disagg_phase(
-        card_line, int8_refs["int8"],
-        ("in process", [r["ttft_s"] for r in int8_refs["int8"]["burst"]]),
-        quant="int8", kv_quant="int8")
+    disagg = {"kv_wire": wire}
+    for name, q in (("bf16", "none"), ("int8", "int8")):
+        disagg[name] = disagg_phase(
+            card_line, lambda q=q: asyncio.run(checkpoint_reference(shallow, quant=q, kv_quant=q)),
+            quant=q, kv_quant=q, model_path=shallow)
+        torch.cuda.empty_cache()
     mark("11 disagg")
 
     torch.cuda.empty_cache()
     grammar, grammar_ref = {}, None
-    grammar["bf16"], grammar_ref = asyncio.run(grammar_phase(card_line))
-    grammar["int8"], _ = asyncio.run(grammar_phase(card_line, quant="int8", kv_quant="int8"))
+    grammar["bf16"], grammar_ref = asyncio.run(grammar_phase(card_line, model=cut))
+    grammar["int8"], _ = asyncio.run(grammar_phase(card_line, quant="int8", kv_quant="int8",
+                                                   model=cut))
     for name, st in grammar.items():
         t = st["timing"]
         log(f"grammar[{name}]: constrained tokens/s dense {st['dense']['tokens_per_s']:.1f}, tree "
@@ -5168,23 +5957,46 @@ def main() -> int:
             f"substep {t['dense_substep_ms']:.3f}; engine_grammar_mask_seconds over the dense "
             f"burst {st['dense']['mask_s'] * 1e3:.2f} ms ({card_line})")
     torch.cuda.empty_cache()
-    grammar["http"] = grammar_http_phase(card_line, grammar_ref)
+    grammar["http"] = grammar_http_phase(card_line, grammar_ref, model_path=shallow)
     grammar["lift"] = grammar_lift_phase(card_line)
     mark("12 grammar")
 
     torch.cuda.empty_cache()
-    tiers = {"bf16": tiers_phase(card_line)}
-    tiers["bf16_workers"] = tiers_worker_phase(card_line, tiers["bf16"].pop("hit_reference"))
-    tiers["int8"] = tiers_phase(card_line, quant="int8", kv_quant="int8")
+    tiers = {"bf16": tiers_phase(card_line, model_path=shallow)}
+    tiers["bf16_workers"] = tiers_worker_phase(card_line, tiers["bf16"].pop("hit_reference"),
+                                               model_path=shallow)
+    tiers["int8"] = tiers_phase(card_line, quant="int8", kv_quant="int8", model_path=shallow)
     tiers["int8_workers"] = tiers_worker_phase(card_line, tiers["int8"].pop("hit_reference"),
-                                               quant="int8", kv_quant="int8")
+                                               quant="int8", kv_quant="int8", model_path=shallow)
     mark("13 tiers")
 
     torch.cuda.empty_cache()
-    migration = {"bf16": migration_phase(card_line)}
+    migration = {"bf16": migration_phase(card_line, model_path=shallow)}
     # One chaos cell: the int8 pass runs without C.
-    migration["int8"] = migration_phase(card_line, quant="int8", kv_quant="int8", chaos=False)
+    migration["int8"] = migration_phase(card_line, quant="int8", kv_quant="int8", chaos=False,
+                                        model_path=shallow)
     mark("14 migration")
+
+    torch.cuda.empty_cache()
+    lora = {"bf16": asyncio.run(lora_phase(card_line))}
+    torch.cuda.empty_cache()
+    lora["int8"] = asyncio.run(lora_phase(card_line, quant="int8", kv_quant="int8"))
+    torch.cuda.empty_cache()
+    lora["worker"] = lora_worker_phase(card_line, shallow)
+    for name in ("bf16", "int8"):
+        st, base = lora[name], (stats if name == "bf16" else int8_runs["int8"])
+        t = st["timing"]
+        log(f"lora[{name}]: tokens/s mixed {st['mixed']['tokens_per_s']:.1f} against base-only "
+            f"{st['base_only']['tokens_per_s']:.1f} (phase 4's burst {base['tokens_per_s']:.1f}); "
+            f"replay ms per substep {t['replay_ms_per_substep']['lora']:.3f} with the LoRA "
+            f"variant, {t['replay_ms_per_substep']['base']:.3f} without; kernels per substep "
+            f"+{t['kernels_per_substep']['lora'] - t['kernels_per_substep']['base']:.0f}; bank "
+            f"{st['bank_bytes'] / 2**20:.1f} MiB; page-ins {st['mixed']['pageins']} at "
+            f"{1e3 * st['mixed']['pagein_s'] / max(1, st['mixed']['pageins']):.1f} ms from G2; "
+            f"slot wait {st['mixed']['slot_wait_s']:.3f}s over {st['mixed']['slot_waits']} "
+            f"admissions; peak memory {st['max_mem_gib']:.2f} GiB ({card_line})")
+    shutil.rmtree(shallow, ignore_errors=True)
+    mark("15 lora")
 
     head = cases[0]  # decode on bf16 pages: the main path's mode
     burst = next(r for r in cases if r["case"] == "decode_bfloat16_burst")
@@ -5205,6 +6017,11 @@ def main() -> int:
                                    for k in ("cold", "hit", "g2")),
         "launches_migration_workers": sum(migration["bf16"]["launches"].values()),
         "launches_migration_workers_int8": sum(migration["int8"]["launches"].values()),
+        "launches_lora": sum(lora["bf16"][b]["launches"][0]
+                             for b in ("mixed", "mixed_depth0", "base_only", "grammar")),
+        "launches_lora_int8": sum(lora["int8"][b]["launches"][0]
+                                  for b in ("mixed", "mixed_depth0", "base_only", "grammar")),
+        "launches_lora_worker": lora["worker"]["launches"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -5223,6 +6040,8 @@ def main() -> int:
                                 for b in ("dense", "tree", "dense_repeat")),
         "launches_tiers": sum(tiers["int8"]["launches"][k][1] for k in ("cold", "hit", "g2")),
         "launches_migration_workers": sum(migration["int8"]["int8_launches"].values()),
+        "launches_lora": sum(lora["int8"][b]["launches"][1]
+                             for b in ("mixed", "mixed_depth0", "base_only", "tree", "grammar")),
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
@@ -5232,22 +6051,24 @@ def main() -> int:
     spec_entries = []
     for mode in ("linear", "tree"):
         r = next(c for c in cases if c["case"] == f"{mode}_T4_bfloat16_burst")
-        st = spec["bf16"]
-        fused = sum(st[b]["verify_passes"] for b in ("fused", "tree"))
-        tree_passes = sum(st[b]["tree_passes"] for b in ("fused", "tree"))
+        def counted(runs):
+            """Counted attention launches of this mode's verify passes."""
+            tree = sum(runs[b]["tree_verify_attention_launches"] for b in ("fused", "tree"))
+            return tree if mode == "tree" else sum(
+                runs[b]["verify_attention_launches"] for b in ("fused", "tree")) - tree
+
         grammar_tree = {
             "launches_grammar": grammar["bf16"]["tree"]["verify_attention_launches"],
             "launches_grammar_int8": grammar["int8"]["tree"]["verify_attention_launches"],
         } if mode == "tree" else {}
+        lt = lora["bf16"]["tree"]
+        grammar_tree["launches_lora"] = lt["tree_verify_attention_launches"] if mode == "tree" \
+            else lt["verify_attention_launches"] - lt["tree_verify_attention_launches"]
         spec_entries.append({
             **grammar_tree,
             "name": f"paged_attention_{mode}_verify", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION,
-            "launches": 32 * (tree_passes if mode == "tree" else fused - tree_passes),
-            "launches_int8_run": 32 * (
-                sum(spec["int8"][b]["tree_passes"] for b in ("fused", "tree")) if mode == "tree"
-                else sum(spec["int8"][b]["verify_passes"] - spec["int8"][b]["tree_passes"]
-                         for b in ("fused", "tree"))),
+            "launches": counted(spec["bf16"]), "launches_int8_run": counted(spec["int8"]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": r["case"],
@@ -5271,8 +6092,11 @@ def main() -> int:
     log("grammar_path: " + json.dumps(grammar))
     log("tiers_path: " + json.dumps(tiers))
     log("migration_path: " + json.dumps(migration))
+    log("lora_path: " + json.dumps(lora, default=str))
+    log(f"cut model: {cut.name}, checkpoint {shallow_bytes / 1e9:.2f} GB written in "
+        f"{shallow_s:.1f}s")
     log("phase wall seconds: " + json.dumps(phase_s))
-    log(f"chip_smoke: phases 1-14 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
+    log(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
     print(json.dumps({"kernels": [entry, int8_entry, tied_entry, *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -217,6 +217,13 @@ class EngineArgs:
     # None = byte tokenizer. Must match the serving tokenizer or masks
     # would legalize undecodable ids; the worker wires its own spec.
     grammar_tokenizer: dict | None = None
+    # Multi-LoRA (engine/lora.py, block_manager/adapters.py), the JAX
+    # package's knobs and defaults: device-resident adapter slots in the
+    # bank (0 = off: no bank, every dispatch the pre-LoRA one) and the
+    # bank's static rank (smaller adapters zero-pad). More adapters than
+    # slots may be registered; they page in through the KV tiers.
+    lora_slots: int = 0
+    lora_rank: int = 8
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):
@@ -237,9 +244,15 @@ class EngineArgs:
                 f"spec_tokens must be in [0, {63 // (2 if self.spec_budget_adaptive else 1)}] "
                 f"(at most 64 verify slots per row); got {self.spec_tokens}"
             )
+        if self.lora_slots < 0:
+            raise ValueError(f"lora_slots must be >= 0; got {self.lora_slots}")
         if not 0.0 <= self.kv_pressure_offer <= 1.0:
             raise ValueError(
                 f"kv_pressure_offer must be in [0, 1]; got {self.kv_pressure_offer}"
+            )
+        if self.lora_slots > 0 and self.lora_rank <= 0:
+            raise ValueError(
+                f"lora_rank must be positive when lora_slots > 0; got {self.lora_rank}"
             )
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}; got {self.attn_impl!r}")

@@ -76,7 +76,21 @@ published once landed, strictly in dispatch order, so a pump never waits
 for a window. QoS preemption and ``kv_pressure_offer`` first offer the
 victim for migration (``migration_offer``, wired by ``worker/roles.py``).
 
-Omitted for now, each a ROADMAP item: LoRA and tracing.
+Multi-LoRA is the JAX engine's too (the same names, ``engine/lora.py``
+and ``block_manager/adapters.py``): ``register_adapter`` writes an
+adapter's factor pages through to the tiers under ``adapter_tier_hash``;
+admission pins the request's adapter into a bank slot
+(``_acquire_adapter``), paging it in from G2/G3/G4 (or regenerating it
+from its seed) on a cold miss, and releases the pin on finish, preempt,
+abort and migration. Every dispatch whose batch has an adapter row
+carries the rows' slots (-1 = base) and replays the LoRA variant of its
+shape; a base-only batch runs the pre-LoRA one. An adapter request's KV
+is hashed in its own domain (``adapter_hash_seed``): prefix cache, KV
+events, tier keys, ``prefix_hit_length`` and the migration identity all
+carry it. A request that names an adapter this engine cannot serve ends
+its own stream with the JAX engine's typed error.
+
+Omitted for now, a ROADMAP item: tracing.
 """
 
 from __future__ import annotations
@@ -91,6 +105,7 @@ from typing import Any, AsyncIterator
 
 import numpy as np
 
+from dynamo_tpu_torch.block_manager.adapters import AdapterSlotPool, NoFreeAdapterSlotsError
 from dynamo_tpu_torch.block_manager.pool import BlockPool, NoFreeBlocksError
 from dynamo_tpu_torch.block_manager.tiers import (
     DiskBlockPool,
@@ -112,6 +127,7 @@ from dynamo_tpu_torch.engine.grammar import (
     mask_words,
     pack_token_ids,
 )
+from dynamo_tpu_torch.engine.lora import LoraAdapterSpec, adapter_tier_hash, make_adapter_pages
 from dynamo_tpu_torch.engine.runner import HostFetch, LocalRunner, host_ready, start_host_fetch
 from dynamo_tpu_torch.engine.sampler import GREEDY_EPS, row_needs_full
 from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
@@ -179,10 +195,10 @@ def register_engine_metrics(registry):
     quant flag, preemptions, spec proposed, spec accepted, spec accept
     rate, tokens per weight pass, spec tree passes, spec tree accept
     depth, spec budget reallocs, grammar active seqs, grammar mask
-    seconds, tier protected evictions, tier hit rate, G4 hits, G4
-    evictions, G4 dedup blocks). Names and help texts are the JAX
-    package's (``register_engine_metrics`` there); the LoRA series, whose
-    quantity this engine does not have, are left out."""
+    seconds, LoRA resident adapters, LoRA swaps, LoRA gather seconds, tier
+    protected evictions, tier hit rate, G4 hits, G4 evictions, G4 dedup
+    blocks). Names and help texts are the JAX package's
+    (``register_engine_metrics`` there)."""
     return (
         registry.gauge(
             "engine_inflight_windows",
@@ -256,6 +272,24 @@ def register_engine_metrics(registry):
             "Cumulative host seconds spent building/packing grammar "
             "token masks (FSM walks + bitset gathers per verify slot)",
         ),
+        registry.gauge(
+            "engine_lora_resident_adapters",
+            "LoRA adapters currently resident in the device (G1) bank "
+            "slots (engine/lora.py; 0 when lora_slots is 0)",
+        ),
+        registry.counter(
+            "engine_lora_swap_total",
+            "LoRA adapter page-ins: uploads of adapter factor pages into "
+            "a device bank slot (cold fetch through the G2/G3 tier "
+            "economy; when slots are full each one evicts a colder "
+            "resident)",
+        ),
+        registry.gauge(
+            "engine_lora_gather_seconds",
+            "Cumulative host seconds spent on LoRA multiplexing — "
+            "resolving adapter slots at admission, uploading factor "
+            "pages, and building per-dispatch adapter_slot operands",
+        ),
         registry.counter(
             "tier_protected_evictions_total",
             "Host/disk KV tier eviction scans that SPARED a protected "
@@ -299,6 +333,7 @@ class _Seq:
         "spec_ema", "spec_cool", "draft_state", "qos", "qos_rank", "arrival",
         "export", "export_meta", "inject", "export_handle", "export_stream",
         "export_pub_blocks", "grammar", "grammar_state", "grammar_eos_bits",
+        "adapter_id", "adapter_slot", "hash_seed", "adapter_wait_t0",
         "step_base", "mig", "offer_deadline", "traceparent",
     )
 
@@ -368,6 +403,16 @@ class _Seq:
         self.grammar = None
         self.grammar_state = 0
         self.grammar_eos_bits = None
+        # Multi-LoRA: the request's adapter (None = base), its pinned bank
+        # slot while admitted (-1 = none; released at finish, preempt and
+        # migration) and the adapter-salted hash seed of its KV identity:
+        # block hashes, tier keys, KV events and router stickiness all
+        # derive from it, so an adapter's KV never prefix-hits another
+        # identity's.
+        self.adapter_id = getattr(req, "adapter_id", None)
+        self.adapter_slot = -1
+        self.hash_seed = adapter_hash_seed(self.adapter_id)
+        self.adapter_wait_t0 = 0.0  # when admission first found every slot pinned
         # Live migration: the sampler step offset (a resumed sequence keeps
         # drawing the SOURCE's noise: same seed, steps continue at
         # step_base + emitted) and the outbound migration state while this
@@ -534,6 +579,7 @@ class TorchEngine:
         self._gauges = None
         self._preempt_pushed: dict[str, int] = {}
         self._spec_pushed = [0, 0, 0, 0]
+        self._lora_pushed = 0  # LoRA page-ins already added to the swap counter
         self._tier_pushed = [0, 0, 0, 0]  # protected evictions, G4 hits/evictions/dedup
         # Speculative decoding: the host-side drafter and a draft length
         # that, like spec_budget_adaptive, may be changed on an idle engine
@@ -621,6 +667,19 @@ class TorchEngine:
         # Host seconds the scheduler spent in _pump_migration and the pumps.
         self.migration_pump_s = 0.0
         self.migration_pumps = 0
+        # Multi-LoRA: the bank's slot pool (acquire/release on the scheduler
+        # thread), the adapter registry (name → (spec, pinned pages); written
+        # under _lora_lock from any thread, read at admission), the host
+        # seconds of the adapter work (engine_lora_gather_seconds) and of
+        # its page-ins (tier read and upload), and the admissions that
+        # waited for a slot and their seconds.
+        self._lora_pool = AdapterSlotPool(args.lora_slots) if args.lora_slots > 0 else None
+        self._lora_registry: dict[str, tuple[LoraAdapterSpec, tuple | None]] = {}
+        self._lora_lock = threading.Lock()
+        self.total_lora_s = 0.0
+        self.lora_pagein_s = 0.0
+        self.lora_slot_waits = 0
+        self.lora_slot_wait_s = 0.0
 
     # -- lifecycle --------------------------------------------------------
 
@@ -649,6 +708,7 @@ class TorchEngine:
             return
         (g_win, g_first, g_pad, g_kvb, g_kvq, c_preempt, c_prop, c_acc, g_rate, g_tpp,
          c_tree, g_tree_depth, c_budget, g_gram_seqs, g_gram_mask,
+         g_lora_res, c_lora_swap, g_lora_s,
          c_tier_prot, g_tier_hit, c_g4_hit, c_g4_evict, c_g4_dedup) = self._gauges
         g_win.set(sum(1 for it in self._fetchq if isinstance(it, _Window)))
         g_first.set(sum(1 for it in self._fetchq if isinstance(it, _First)))
@@ -671,6 +731,12 @@ class TorchEngine:
         g_tree_depth.set(self.total_spec_tree_depth / max(1, self.total_spec_tree_rows))
         g_gram_seqs.set(sum(1 for s in self._running if s.grammar is not None))
         g_gram_mask.set(self.total_grammar_mask_s)
+        if self._lora_pool is not None:
+            g_lora_res.set(self._lora_pool.resident)
+            if self._lora_pool.pageins > self._lora_pushed:
+                c_lora_swap.inc(self._lora_pool.pageins - self._lora_pushed)
+                self._lora_pushed = self._lora_pool.pageins
+        g_lora_s.set(self.total_lora_s)
         g_tier_hit.set(self.tiers.hit_rate)
         fl = self.tiers.fleet
         for i, (ctr, total) in enumerate((
@@ -920,6 +986,121 @@ class TorchEngine:
                 lambda: fut.set_exception(err) if not fut.cancelled() else None)
             return
         loop.call_soon_threadsafe(lambda: fut.set_result(vec) if not fut.cancelled() else None)
+
+    # -- multi-LoRA adapter multiplexing ------------------------------------
+    #
+    # The JAX engine's serving shape (Punica BGMV + S-LoRA unified paging,
+    # engine/lora.py): the bank holds args.lora_slots resident adapters and
+    # the registry may hold many more. A cold adapter pages in at admission
+    # (only that request's admission waits; the upload is ordered on the
+    # compute stream behind the windows in flight), its factor pages living
+    # in the same G2/G3/G4 pools as KV blocks under adapter_tier_hash keys,
+    # and a cold resident pages out under the slot pool's second-chance
+    # pressure. Rows carry adapter_slot (-1 = base) into every dispatch;
+    # base-only batches pass None and replay the pre-LoRA graphs.
+
+    def register_adapter(self, name: str, rank: int | None = None, seed: int = 0,
+                         scaling: float = 1.0, targets: str = "qkvo",
+                         pages: tuple | None = None) -> None:
+        """Register one servable adapter. ``pages``: its factor pages
+        (checkpoint loaders), else deterministic factors from (name, seed).
+        Write-through: the pages land in the tiers now, so a later slot
+        eviction is free and a cold page-in is a tier read. Thread-safe;
+        callable while serving."""
+        if self._lora_pool is None:
+            raise RequestValidationError("engine has no adapter bank (lora_slots=0)")
+        spec = LoraAdapterSpec(name=name, rank=rank if rank is not None else self.args.lora_rank,
+                               seed=seed, scaling=scaling, targets=targets)
+        if spec.rank > self.args.lora_rank:
+            raise RequestValidationError(
+                f"adapter {name!r} rank {spec.rank} exceeds lora_rank={self.args.lora_rank}")
+        if self.tiers.enabled:
+            tier_pages = (pages if pages is not None
+                          else make_adapter_pages(self.cfg, spec, self.args.lora_rank))
+            self.tiers.put_object(adapter_tier_hash(name), *tier_pages)
+        # Caller-provided pages cannot be made again from the spec, so they
+        # stay pinned in the registry: the tiers are a cache (adapter
+        # objects compete with KV blocks and can be evicted end to end),
+        # never the only copy. Seed-made adapters pin nothing.
+        with self._lora_lock:
+            self._lora_registry[name] = (spec, pages)
+
+    def adapters(self) -> list[str]:
+        """Registered adapter names (thread-safe)."""
+        with self._lora_lock:
+            return sorted(self._lora_registry)
+
+    def lora_stats(self) -> dict:
+        """Slot-pool residency and swap counters (a racy snapshot)."""
+        if self._lora_pool is None:
+            return {}
+        return self._lora_pool.stats()
+
+    def _adapter_pages(self, spec: LoraAdapterSpec, pinned: tuple | None) -> tuple:
+        """One adapter's factor pages: a tier hit (G2, or G3/G4 promoted to
+        G2), the registry's pinned pages (written back to the tiers), or
+        made again from the spec's seed and written back. Tier hits and
+        misses feed tier_hit_rate, as KV blocks do."""
+        h = adapter_tier_hash(spec.name)
+        if self.tiers.enabled:
+            pages = self.tiers.get_object(h)
+            if pages is not None:
+                return pages
+        if pinned is not None:
+            if self.tiers.enabled:
+                self.tiers.put_object(h, *pinned)
+            return pinned
+        pages = make_adapter_pages(self.cfg, spec, self.args.lora_rank)
+        if self.tiers.enabled:
+            self.tiers.put_object(h, *pages)
+        return pages
+
+    def _acquire_adapter(self, seq: _Seq) -> None:
+        """seq.adapter_id → a pinned bank slot, uploading on a cold miss.
+        Raises RequestValidationError (no bank, unknown adapter) or
+        NoFreeAdapterSlotsError (every slot pinned: admission requeues the
+        request and retries once running sequences release pins)."""
+        if self._lora_pool is None:
+            raise RequestValidationError(
+                f"request names adapter {seq.adapter_id!r} but this engine has no adapter "
+                "bank (lora_slots=0)")
+        with self._lora_lock:
+            entry = self._lora_registry.get(seq.adapter_id)
+        if entry is None:
+            raise RequestValidationError(f"unknown adapter {seq.adapter_id!r}")
+        spec, pinned = entry
+        t0 = time.perf_counter()
+        slot, needs_upload, _evicted = self._lora_pool.acquire(seq.adapter_id)
+        if needs_upload:
+            try:
+                self._runner.upload_adapter(slot, self._adapter_pages(spec, pinned))
+            except BaseException:
+                # The upload never landed: drop the residency, not just the
+                # pin, or the next acquire would skip the upload.
+                self._lora_pool.drop(seq.adapter_id)
+                raise
+            self.lora_pagein_s += time.perf_counter() - t0
+        seq.adapter_slot = slot
+        self.total_lora_s += time.perf_counter() - t0
+
+    def _release_adapter(self, seq: _Seq) -> None:
+        if seq.adapter_slot >= 0 and self._lora_pool is not None:
+            self._lora_pool.release(seq.adapter_id)
+        seq.adapter_slot = -1
+
+    def _adapter_row_slots(self, seqs: list[_Seq], B: int) -> np.ndarray | None:
+        """The per-row adapter slots of one dispatch → [B] int32 (-1 =
+        base), or None when no row carries an adapter: the pre-LoRA
+        variant, so base-only traffic pays nothing and matches a no-LoRA
+        engine byte for byte."""
+        if not any(s.adapter_slot >= 0 for s in seqs):
+            return None
+        t0 = time.perf_counter()
+        slots = np.full((B,), -1, np.int32)
+        for i, s in enumerate(seqs):
+            slots[i] = s.adapter_slot
+        self.total_lora_s += time.perf_counter() - t0
+        return slots
 
     # -- async API --------------------------------------------------------
 
@@ -1251,19 +1432,47 @@ class TorchEngine:
         # Flush queued offloads BEFORE allocating: allocation may evict and
         # recycle exactly the pages still waiting to be copied out.
         self._flush_offloads()
+        # Adapter residency first (before any block allocation, so a failure
+        # here has nothing to unwind): pin the request's adapter into a bank
+        # slot, paging it in on a cold miss. A request that finds every slot
+        # pinned requeues (NoFreeAdapterSlotsError is a NoFreeBlocksError);
+        # its wait for a slot is timed.
+        acquired = False
+        if seq.adapter_id is not None and seq.adapter_slot < 0:
+            try:
+                self._acquire_adapter(seq)
+            except NoFreeAdapterSlotsError:
+                seq.adapter_wait_t0 = seq.adapter_wait_t0 or time.perf_counter()
+                raise
+            if seq.adapter_wait_t0:
+                self.lora_slot_waits += 1
+                self.lora_slot_wait_s += time.perf_counter() - seq.adapter_wait_t0
+                seq.adapter_wait_t0 = 0.0
+            acquired = True
+        try:
+            return self._admit_alloc_blocks(seq)
+        except BaseException:
+            if acquired:
+                self._release_adapter(seq)
+            raise
+
+    def _admit_alloc_blocks(self, seq: _Seq) -> int:
         bs = self.args.block_size
         prompt = seq.tokens
         plen = len(prompt)
         if plen > self.args.max_model_len - 1:
             raise RequestValidationError("prompt exceeds max_model_len")
-        hashes = compute_block_hashes(prompt, bs)
+        # KV identity is (tokens, adapter): the hash seed is salted by the
+        # adapter id, so adapter KV never prefix-hits another identity's
+        # blocks, in G1, the tiers, KV events and peer fetches alike.
+        hashes = compute_block_hashes(prompt, bs, seq.hash_seed)
         # Never reuse the entire prompt: at least one token must be
         # computed to produce logits.
         max_hit = (plen - 1) // bs
         total_blocks = (plen + bs - 1) // bs
         block_ids, n_hit = self.pool.allocate_sequence(hashes[:max_hit], total_blocks)
         seq.block_ids = block_ids
-        seq.block_seq = TokenBlockSequence(prompt, bs)
+        seq.block_seq = TokenBlockSequence(prompt, bs, seq.hash_seed)
         start = n_hit * bs
         # G2/G3/G4 onboard: blocks evicted from G1 but still in a tier
         # re-enter as a prefix hit instead of being recomputed, written in
@@ -1317,7 +1526,8 @@ class TorchEngine:
             n = min(self.args.max_prefill_tokens, plen - pos)
             toks = np.zeros((-(-n // bs) * bs,), np.int32)
             toks[:n] = prompt[pos : pos + n]
-            logits = self._runner.prefill_chunk(toks, table, pos, pos + n)
+            logits = self._runner.prefill_chunk(
+                toks, table, pos, pos + n, seq.adapter_slot if seq.adapter_slot >= 0 else None)
             self.total_prefill_padded += len(toks)
             pos += n
             # Streaming export: the blocks this chunk completed ship while
@@ -1472,9 +1682,9 @@ class TorchEngine:
 
     def prefix_hit_length(self, token_ids: list[int], adapter_id: str | None = None) -> int:
         """Tokens of this prompt already resident in the local prefix cache
-        (whole blocks): a locally cached prompt is not prefilled remotely.
-        The port serves no adapters, so only ``adapter_id=None`` (the base
-        model's hash domain) can hit. Thread-safe."""
+        (whole blocks), probed in the request's (model, adapter) identity
+        domain: a locally cached prompt is not prefilled remotely.
+        Thread-safe."""
         bs = self.args.block_size
         max_hit = (len(token_ids) - 1) // bs
         hashes = compute_block_hashes(token_ids, bs, adapter_hash_seed(adapter_id))[:max_hit]
@@ -1622,7 +1832,7 @@ class TorchEngine:
             "handle": mig.handle,
             "kv_blocks": mig.pub_blocks,
             "emitted": seq.emitted,
-            "adapter_id": None,
+            "adapter_id": seq.adapter_id,
             "request": {
                 "token_ids": list(seq.tokens),
                 "resume": {
@@ -1653,6 +1863,7 @@ class TorchEngine:
         if seq.slot is not None:
             self._free_slots.append(seq.slot)
             seq.slot = None
+        self._release_adapter(seq)
         self._purge_offloads(seq.block_ids)
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []
@@ -1847,6 +2058,11 @@ class TorchEngine:
         self._running.remove(seq)
         self._free_slots.append(seq.slot)
         seq.slot = None
+        # Unpin the adapter: re-admission acquires it again (a resident
+        # adapter is a free hit, an evicted one pages back in); the compute
+        # stream orders any later upload into the slot after this
+        # sequence's dispatched work.
+        self._release_adapter(seq)
         # A preempted streaming export aborts (the decode worker falls back
         # to local prefill) and the re-admission exports nothing: its
         # handle is dropped with the stream.
@@ -2075,6 +2291,7 @@ class TorchEngine:
         ref = self._runner.multi_decode(
             K, mode, tokens, (dst, src) if dst else None, positions, tables, active,
             temps, seeds, steps0, tks, tps, freqs, press, pen, fold_slots, top_n,
+            self._adapter_row_slots(batch, B),
         )
         self.total_decode_steps += K
         w = _Window(batch, pos0, K, top_n, start_host_fetch(self._fetch_arrays(ref, top_n)))
@@ -2108,7 +2325,8 @@ class TorchEngine:
         top_n = self._top_n(batch)
         ref = self._runner.decode_sample(
             mode, tokens, positions, tables, active, temps, seeds, steps, tks, tps, freqs,
-            press, pen, fold_slots, top_n, self._grammar_row_masks(batch, B))
+            press, pen, fold_slots, top_n, self._grammar_row_masks(batch, B),
+            self._adapter_row_slots(batch, B))
         self.total_decode_steps += 1
         self.total_row_passes += len(batch)
         self.total_row_tokens += len(batch)
@@ -2315,7 +2533,8 @@ class TorchEngine:
         masks = (self._build_tree_masks(batch, B, S1, node_tokens, node_parents)
                  if any_gram else None)
         ref = self._runner.spec_verify(S1, mode, tokens, pos0_arr, dlen, tables, active, temps,
-                                       seeds, steps0, fold_slots, top_n, tree, masks)
+                                       seeds, steps0, fold_slots, top_n, tree, masks,
+                                       self._adapter_row_slots(batch, B))
         arrs = ref.arrs if top_n else ref.arrs[:4]
         self._fetchq.append(_Spec(batch, pos0, draft_lens, top_n, potentials, any_tree,
                                   node_tokens, node_parents, start_host_fetch(arrs)))
@@ -2539,6 +2758,7 @@ class TorchEngine:
         if seq.slot is not None:
             self._free_slots.append(seq.slot)
             seq.slot = None
+        self._release_adapter(seq)
         self._purge_offloads(seq.block_ids)
         self.pool.free_sequence(seq.block_ids)
         seq.block_ids = []

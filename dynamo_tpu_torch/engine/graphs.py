@@ -7,7 +7,8 @@ and per grammar-constrained single step (``decode_step`` then masked
 
 An eager window issues hundreds of small launches per substep and leaves
 the card idle while the host issues them. Here each window shape (B
-bucket, W bucket, penalty width, K, sampler mode, top_n) is captured once,
+bucket, W bucket, penalty width, K, sampler mode, top_n, and whether its
+rows carry adapter slots) is captured once,
 at first use, as one ``torch.cuda.CUDAGraph`` of the whole window:
 ``multi_decode`` plus the fold of its last tokens into ``last_toks``.
 Later windows of that shape copy their packed inputs into the graph's
@@ -58,20 +59,23 @@ def _set(values) -> None:
 
 
 class _Graph:
-    __slots__ = ("graph", "static_in", "outs", "calls")
+    __slots__ = ("graph", "static_in", "outs", "calls", "capture_s", "pool_bytes")
 
-    def __init__(self, graph, static_in, outs, calls):
+    def __init__(self, graph, static_in, outs, calls, capture_s, pool_bytes):
         self.graph = graph
         self.static_in = static_in
         self.outs = outs
         self.calls = calls  # per COUNTERS entry: calls one replay makes
+        self.capture_s = capture_s    # seconds its capture took, warmup runs included
+        self.pool_bytes = pool_bytes  # graph pool bytes its capture added
 
 
 class WindowGraphs:
     """The runner's captured windows, verify passes and single steps,
-    keyed by shape: (B, W, L, K, mode, top_n) for a window, ("verify", B,
-    W, S1, mode, top_n, tree, fused, masked) for a verify pass, ("step",
-    B, W, L, mode, top_n, masked) for a single step."""
+    keyed by shape: (B, W, L, K, mode, top_n, lora) for a window,
+    ("verify", B, W, S1, mode, top_n, tree, fused, lora, masked) for a
+    verify pass, ("step", B, W, L, mode, top_n, lora, masked) for a single
+    step; ``lora`` is the variant whose rows carry adapter slots."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -89,6 +93,10 @@ class WindowGraphs:
         """Captured shapes (the keys above)."""
         return list(self._graphs)
 
+    def capture_costs(self) -> dict[tuple, tuple[float, int]]:
+        """Captured shape → (capture seconds, graph pool bytes it added)."""
+        return {k: (g.capture_s, g.pool_bytes) for k, g in self._graphs.items()}
+
     def run(self, key: tuple, words: np.ndarray,
             make: Callable[[], tuple[Callable, np.ndarray]]) -> tuple[torch.Tensor, ...]:
         """Replay the graph of ``key`` on the packed inputs ``words``,
@@ -105,7 +113,7 @@ class WindowGraphs:
         return g.outs
 
     def _capture(self, fn: Callable, inert: np.ndarray) -> _Graph:
-        t0 = time.perf_counter()
+        t0, pool0 = time.perf_counter(), self.pool_bytes()
         static_in = torch.from_numpy(inert).to(self.device)
         base = read_counts()
         side = torch.cuda.Stream(self.device)
@@ -120,8 +128,9 @@ class WindowGraphs:
             outs = tuple(fn(static_in))
         calls = tuple(b - a for a, b in zip(mark, read_counts()))
         _set(base)
-        self.capture_s += time.perf_counter() - t0
-        return _Graph(graph, static_in, outs, calls)
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
+        return _Graph(graph, static_in, outs, calls, dt, self.pool_bytes() - pool0)
 
     def pool_bytes(self) -> int:
         """Device bytes reserved by the shared graph pool."""

@@ -7,9 +7,11 @@ leaf per projection). What differs:
 
 - Files are read by ``engine/safetensors_io.py`` (mmap, no safetensors
   package), into CPU tensors: torch has bfloat16, so no ml_dtypes.
-- ``finalize_params`` quantizes on the host before placement (int8 kept,
-  every other leaf, scales included, converted to the serving dtype, as
-  the JAX loader does) and moves each leaf to the device with one copy.
+- ``finalize_params`` quantizes before placement (int8 kept, every other
+  leaf, scales included, converted to the serving dtype, as the JAX
+  loader does) and moves each leaf to the device with one copy. It
+  quantizes on the device, one layer at a time, bit-equal to the host
+  quantizer.
 
 Weight-name mapping (HF → ours):
   model.embed_tokens.weight                  embed            [V, D]
@@ -43,7 +45,7 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.config import ModelConfig
-from dynamo_tpu_torch.engine.quant import quantize_params_np
+from dynamo_tpu_torch.engine.quant import quantize_params_device
 from dynamo_tpu_torch.engine.safetensors_io import SafeTensorsFile, save_file
 from dynamo_tpu_torch.runtime.logging import get_logger
 
@@ -198,26 +200,20 @@ def load_params(model_path: str, cfg: ModelConfig, dtype: Any = None, quant: str
     return finalize_params(params, dtype=dtype, quant=quant, device=device)
 
 
-def _host_f32(tree: Any) -> Any:
-    """CPU tensors → float32 numpy (exact for f16/bf16), int8 kept."""
-    if isinstance(tree, dict):
-        return {k: _host_f32(v) for k, v in tree.items()}
-    return tree.numpy() if tree.dtype == torch.int8 else tree.float().numpy()
-
-
 def finalize_params(params: dict, dtype: Any = None, quant: str = "none",
                     device: str | torch.device = "cuda"):
-    """Shared checkpoint tail (safetensors + GGUF): optional host-side
-    int8 quantization, then each leaf converted and placed on ``device``
-    with one copy. int8 weights keep their dtype; every other leaf goes to
-    the serving dtype, scales included, as the JAX loader does.
+    """Shared checkpoint tail (safetensors + GGUF): optional int8
+    quantization, then each leaf converted and placed on ``device`` with
+    one copy. int8 weights keep their dtype; every other leaf goes to the
+    serving dtype, scales included, as the JAX loader does.
 
-    Quantization happens on the host, before placement: a bf16 staging
-    copy of an 8B model on the device is what int8 exists to avoid."""
+    A bf16 staging copy of an 8B model on the device is what int8 exists
+    to avoid, so the device quantizes one layer slice at a time
+    (``quantize_params_device``, bit-equal to the host quantizer)."""
     dtype = _torch_dtype(dtype)
     device = resolve_device(device)
     if quant == "int8":
-        params = quantize_params_np(_host_f32(params))
+        params = quantize_params_device(params, device)
 
     def place(leaf: Any) -> Any:
         if isinstance(leaf, dict):

@@ -19,6 +19,14 @@ The JAX functions return an updated cache (the caller donates the old
 one); here every write updates the cache tensors in place and the
 functions return only the logits.
 
+Multi-LoRA (the JAX package's Punica BGMV): with an adapter bank ``lora``
+(``{qa..ob: [L, slots, ...]}``, engine/lora.py) and per-row
+``adapter_slots`` (-1 = base), the q/k/v/o projections add each row's
+low-rank delta (``_lora_apply``: a gather of the row's factors and two
+batched products in the activation dtype, as plain tensor ops). Base rows
+keep their projection values through a ``where``, never an add of zero,
+so a base row in a mixed batch is bit-identical to the no-LoRA forward.
+
 ``embed`` is the JAX package's ``embed_impl`` (/v1/embeddings): a
 cache-free causal forward, mean-pooled. Its attention, like prefill
 attention, is plain tensor code (XLA in the JAX package); decode
@@ -194,6 +202,60 @@ def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     return q, k, v
 
 
+def _lora_rows(lora: dict | None, adapter_slots: torch.Tensor | None):
+    """Each row's bank index and live mask, made once per forward and
+    shared by every projection of every layer (None: the exact base
+    path). ``adapter_slots`` [B] names each row's slot, -1 = base."""
+    if (lora is None) != (adapter_slots is None):
+        raise ValueError("an adapter bank and adapter_slots ride a dispatch together")
+    if adapter_slots is None:
+        return None
+    return adapter_slots.clamp(min=0).long(), adapter_slots >= 0
+
+
+def _lora_apply(y: torch.Tensor, h: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+                rows: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Batched gathered LoRA product (Punica's BGMV): per row b,
+    ``y[b] + (h[b] @ A[slot[b]]) @ B_[slot[b]]``. ``A`` [S, in, r] and
+    ``B_`` [S, r, out] are one layer's slice of the bank; ``rows`` is
+    ``_lora_rows``' (index, live). ``h`` is [B, in] (decode) or [B, T,
+    in] (prefill, verify). The products run in the activation dtype, as
+    the JAX einsums do. Base rows take a ``where`` on the original ``y``
+    (an add of zero could flip a -0.0), so they are bit-identical to the
+    no-LoRA projection; alpha/rank scaling is folded into B at upload."""
+    idx, live = rows
+    Ag = A.index_select(0, idx).to(h.dtype)                               # [B, in, r]
+    Bg = B_.index_select(0, idx).to(h.dtype)                              # [B, r, out]
+    h3 = h if h.dim() == 3 else h[:, None, :]
+    delta = torch.bmm(torch.bmm(h3, Ag), Bg).view(y.shape)                # [B, (T,) out]
+    mask = live.view(-1, *[1] * (y.dim() - 1))
+    return torch.where(mask, y + delta.to(y.dtype), y)
+
+
+def _lora_layer(lora: dict | None, layer: int) -> dict | None:
+    """One layer's slice of the adapter bank (None: the exact base path)."""
+    return None if lora is None else {k: v[layer] for k, v in lora.items()}
+
+
+def _qkv_lora(h: torch.Tensor, lp: dict, cfg: ModelConfig, ll: dict | None, rows):
+    """``_qkv`` plus the per-row adapter deltas when a bank layer slice
+    ``ll`` rides the dispatch."""
+    q, k, v = _qkv(h, lp, cfg)
+    if ll is not None:
+        q = _lora_apply(q, h, ll["qa"], ll["qb"], rows)
+        k = _lora_apply(k, h, ll["ka"], ll["kb"], rows)
+        v = _lora_apply(v, h, ll["va"], ll["vb"], rows)
+    return q, k, v
+
+
+def _wo_lora(o: torch.Tensor, lp: dict, ll: dict | None, rows) -> torch.Tensor:
+    """The o-projection with the optional per-row adapter delta."""
+    y = _dot_q(o, lp, "wo")
+    if ll is not None:
+        y = _lora_apply(y, o, ll["oa"], ll["ob"], rows)
+    return y
+
+
 def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
     g = _dot_q(x, lp, "w_gate")
     u = _dot_q(x, lp, "w_up")
@@ -247,6 +309,8 @@ def prefill_batch(
     block_tables: torch.Tensor,  # [Bp, W] int32 — blocks for each FULL sequence
     start_pos: torch.Tensor,     # [Bp] int32 — first suffix position (block-aligned)
     true_len: torch.Tensor,      # [Bp] int32 — true total length (0 = inactive row)
+    lora: dict | None = None,    # adapter bank {qa..ob: [L, S, ...]}
+    adapter_slots: torch.Tensor | None = None,  # [Bp] int32, -1 = base row
 ) -> torch.Tensor:
     """Prefill Bp sequences' suffixes, each attending its own cached
     prefix pages; writes the suffix KV into the cache and returns
@@ -255,6 +319,7 @@ def prefill_batch(
     Prefix caching contract per row: positions [0, start_pos) are already
     in the blocks ``block_tables`` names (whole blocks); suffix positions
     [start_pos, true_len) are computed here."""
+    lrows = _lora_rows(lora, adapter_slots)
     Bp, T = tokens.shape
     W = block_tables.shape[1]
     bs = cache.k.shape[2]
@@ -291,8 +356,9 @@ def prefill_batch(
 
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
+        ll = _lora_layer(lora, layer)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = _qkv_lora(h, lp, cfg, ll, lrows)
         q = _rope(q.reshape(Bp, T, cfg.num_heads, hd), rope)
         k = _rope(k.reshape(Bp, T, KVH, hd), rope)
         v = v.reshape(Bp, T, KVH, hd)
@@ -315,7 +381,7 @@ def prefill_batch(
         p_p, p_s = p[..., : W * bs], p[..., W * bs :]
         o = (torch.einsum("btkgc,bckh->btkgh", p_p, pv)
              + torch.einsum("btkgs,bskh->btkgh", p_s, v))
-        x = x + _dot_q(o.reshape(Bp, T, cfg.q_size), lp, "wo")
+        x = x + _wo_lora(o.reshape(Bp, T, cfg.q_size), lp, ll, lrows)
         x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
 
     last = torch.clamp(tlen - start - 1, 0, T - 1)
@@ -324,14 +390,18 @@ def prefill_batch(
 
 
 def prefill(cfg: ModelConfig, params: Params, cache: KVCache, tokens: torch.Tensor,
-            block_table: torch.Tensor, start_pos: int, true_len: int) -> torch.Tensor:
+            block_table: torch.Tensor, start_pos: int, true_len: int,
+            lora: dict | None = None, adapter_slot: int | None = None) -> torch.Tensor:
     """Single-sequence prefill (the chunked-prefill entry point): the
-    Bp=1 case of ``prefill_batch`` → logits [V]."""
+    Bp=1 case of ``prefill_batch`` → logits [V]; ``adapter_slot`` is the
+    row's bank slot (-1 = base) when ``lora`` rides."""
     dev = tokens.device
     return prefill_batch(
         cfg, params, cache, tokens[None, :], block_table[None, :],
         torch.tensor([start_pos], dtype=torch.int32, device=dev),
         torch.tensor([true_len], dtype=torch.int32, device=dev),
+        lora, None if adapter_slot is None
+        else torch.tensor([adapter_slot], dtype=torch.int32, device=dev),
     )[0]
 
 
@@ -349,9 +419,12 @@ def decode_step(
     block_tables: torch.Tensor,  # [B, W] int32
     active: torch.Tensor,        # [B] bool — padding rows are False
     attn_impl: str = "auto",
+    lora: dict | None = None,    # adapter bank {qa..ob: [L, S, ...]}
+    adapter_slots: torch.Tensor | None = None,  # [B] int32, -1 = base row
 ) -> torch.Tensor:
     """One decode step: write each sequence's new KV at its position, then
     attend over its pages ([0, position]) → logits [B, V] (f32)."""
+    lrows = _lora_rows(lora, adapter_slots)
     impl = pa.resolve_attn_impl(attn_impl, tokens.device)
     attend = pa.paged_decode_attention if impl == "cuda" else pa.paged_decode_attention_ref
     B = tokens.shape[0]
@@ -369,8 +442,9 @@ def decode_step(
     rope = _rope_table(pos, hd, cfg.rope_theta)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
+        ll = _lora_layer(lora, layer)
         h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = _qkv_lora(h, lp, cfg, ll, lrows)
         q = _rope(q.reshape(B, cfg.num_heads, hd), rope)
         k = _rope(k.reshape(B, KVH, hd), rope)
         v = v.reshape(B, KVH, hd)
@@ -379,7 +453,7 @@ def decode_step(
         _write_pages(cache, layer, (blk, off), k, v, (B, KVH * hd))
         o = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                    lengths, cache.k_scale, cache.v_scale)
-        x = x + _dot_q(o.reshape(B, cfg.q_size), lp, "wo")
+        x = x + _wo_lora(o.reshape(B, cfg.q_size), lp, ll, lrows)
         x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
     return _logits(cfg, params, x)
 
@@ -406,6 +480,9 @@ def multi_decode(
     chain_mask: torch.Tensor | None = None,      # [B] bool — row chains from last_toks
     chain_src: torch.Tensor | None = None,       # [B] int — its SLOT in last_toks
     last_toks: torch.Tensor | None = None,       # [slots+1] int32 per-slot latest token
+    lora: dict | None = None,                    # adapter bank {qa..ob: [L, S, ...]}
+    adapter_slots: torch.Tensor | None = None,   # [B] int32, -1 = base row
+    *,
     attn_impl: str = "auto",
 ):
     """``num_steps`` fused decode+sample substeps: sampled tokens feed back
@@ -438,7 +515,8 @@ def multi_decode(
     toks, logps, tvals, tids = [], [], [], []
     tok, pos = tokens, positions
     for i in range(num_steps):
-        logits = decode_step(cfg, params, cache, tok, pos, block_tables, active, attn_impl)
+        logits = decode_step(cfg, params, cache, tok, pos, block_tables, active, attn_impl,
+                             lora, adapter_slots)
         if mode == "greedy":
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         elif mode == "simple":
@@ -485,7 +563,8 @@ def spec_verify(
     tree_anc: torch.Tensor | None = None,      # [B, S1, S1] ancestor-or-self bits
     tree_depth: torch.Tensor | None = None,    # [B, S1] int per-node depth
     mask_bits: torch.Tensor | None = None,     # [B, S1, W32] int32 per-node grammar masks
-    lora: dict | None = None,                  # adapter bank: not ported (A16)
+    lora: dict | None = None,                  # adapter bank {qa..ob: [L, S, ...]}
+    adapter_slots: torch.Tensor | None = None,  # [B] int32, -1 = base row
     *,
     fused: bool = True,
     attn_impl: str = "auto",
@@ -526,8 +605,7 @@ def spec_verify(
     n_emit-1]), all on the device; the cache is updated in place."""
     if mask_bits is not None and tree_parents is None:
         raise ValueError("grammar masks ride tree verify passes only")
-    if lora is not None:
-        raise NotImplementedError("LoRA rows in verify are not ported (ROADMAP A16)")
+    lrows = _lora_rows(lora, adapter_slots)
     if mode not in ("greedy", "simple"):
         raise ValueError(f"unknown verify sampler mode {mode!r}")
     B, T = tokens.shape
@@ -571,8 +649,9 @@ def spec_verify(
         rope = _rope_table(pos, hd, cfg.rope_theta)
         for layer in range(cfg.num_layers):
             lp = _layer(params, layer)
+            ll = _lora_layer(lora, layer)
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-            q, k, v = _qkv(h, lp, cfg)
+            q, k, v = _qkv_lora(h, lp, cfg, ll, lrows)
             q = _rope(q.reshape(B, T, cfg.num_heads, hd), rope)
             k = _rope(k.reshape(B, T, KVH, hd), rope)
             v = v.reshape(B, T, KVH, hd)
@@ -582,7 +661,7 @@ def spec_verify(
             _write_pages(cache, layer, (blk, off), k, v, (B, T, KVH * hd))
             o = attend(q.reshape(B, T, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                        lengths, cache.k_scale, cache.v_scale, anc)
-            x = x + _dot_q(o.reshape(B, T, cfg.q_size), lp, "wo")
+            x = x + _wo_lora(o.reshape(B, T, cfg.q_size), lp, ll, lrows)
             x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
         logits = _logits(cfg, params, x)                                  # [B, T, V]
     else:
@@ -590,7 +669,7 @@ def spec_verify(
         tok32, pos32 = tokens.to(torch.int32), torch.where(use, pos, 0).to(torch.int32)
         step_logits = [
             decode_step(cfg, params, cache, tok32[:, j], pos32[:, j], block_tables, use[:, j],
-                        attn_impl)
+                        attn_impl, lora, adapter_slots)
             for j in range(T)
         ]
         logits = torch.stack(step_logits, dim=1)

@@ -68,6 +68,51 @@ def quantize_params_np(params: dict[str, Any]) -> dict[str, Any]:
     return out
 
 
+def quantize_to_device(w, reduce_dim: int, device: torch.device, slice_dim: int,
+                       rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_np``'s int8 weights and float32 scales of a host tensor
+    (scale per slice along every dim but ``reduce_dim``), computed on
+    ``device`` ``rows`` indices of ``slice_dim`` at a time: only one
+    slice's full-precision copy is ever there. Bit-equal to the host
+    function: float32 absmax, IEEE division, round half to even."""
+    w = torch.as_tensor(w)
+    q = torch.empty(w.shape, dtype=torch.int8, device=device)
+    scale = torch.empty([n for i, n in enumerate(w.shape) if i != reduce_dim],
+                        dtype=torch.float32, device=device)
+    scale_dim = slice_dim - (reduce_dim < slice_dim)
+    for a in range(0, w.shape[slice_dim], rows):
+        m = min(rows, w.shape[slice_dim] - a)
+        x = w.narrow(slice_dim, a, m).to(device).float()
+        absmax = x.abs().amax(dim=reduce_dim, keepdim=True)
+        # A tensor divisor: CUDA divides by a Python scalar as a product
+        # with its reciprocal, which is not IEEE division.
+        s = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                        torch.ones_like(absmax))
+        q.narrow(slice_dim, a, m).copy_(torch.round(x / s).clamp_(-127, 127))
+        scale.narrow(scale_dim, a, m).copy_(s.squeeze(reduce_dim))
+    return q, scale
+
+
+def quantize_params_device(params: dict[str, Any], device: torch.device) -> dict[str, Any]:
+    """``quantize_params_np`` of a host params tree, computed on ``device``
+    (layer by layer, the embedding and head in row chunks) → the tree with
+    int8 weights and float32 scales on ``device``, every other leaf as it
+    was. Quantizing on the card saves the host its passes over a float32
+    copy of the model."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in _LAYER_WEIGHTS:
+        if name in layers:
+            layers[name], layers[name + "_scale"] = quantize_to_device(layers[name], 1, device,
+                                                                       0, 1)
+    out["layers"] = layers
+    out["embed"], out["embed_scale"] = quantize_to_device(params["embed"], 1, device, 0, 8192)
+    if "lm_head" in params:
+        out["lm_head"], out["lm_head_scale"] = quantize_to_device(params["lm_head"], 0, device,
+                                                                  1, 8192)
+    return out
+
+
 def _int8_layer_specs(cfg) -> dict[str, tuple[tuple, int]]:
     """name → (stacked shape, fan_in) for the quantized layer matmuls."""
     d, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers

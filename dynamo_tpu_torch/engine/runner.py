@@ -28,12 +28,20 @@ device:
   batch; ``warm_steps``). Grammar masks ride the packed upload as 32-bit
   words. Prefill, admission sampling and embeddings run eagerly, as the
   JAX package dispatches them separately too.
+- Multi-LoRA: with ``lora_slots`` > 0 the adapter bank (``lora_bank``,
+  engine/lora.py ``bank_shapes``, in the compute dtype) is allocated once
+  and written in place by ``upload_adapter``, so captured graphs read what
+  was uploaded. A dispatch with adapter rows carries their bank slots
+  (``adapter_slots``, -1 = base) in its packed upload and replays the LoRA
+  variant of its shape; one without passes None and replays the pre-LoRA
+  graph, as the JAX runner's ``_lora_operands`` gives the pre-LoRA trace.
 
 Thread affinity: the engine's scheduler thread only.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import Any
 
@@ -46,6 +54,7 @@ from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.grammar import mask_words
 from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts
+from dynamo_tpu_torch.engine.lora import LORA_PAGE_KEYS, bank_shapes
 from dynamo_tpu_torch.engine.quant import quantize_params_np, random_int8_params_device
 from dynamo_tpu_torch.engine.sampler import (
     apply_mask,
@@ -103,23 +112,32 @@ class Layout:
         return out
 
 
-def window_layout(B: int, W: int, L: int) -> Layout:
+def _aslots(B: int, lora: bool) -> list:
+    """The per-row adapter slots field of a LoRA variant's layout."""
+    return [("aslots", (B,), "i")] if lora else []
+
+
+def window_layout(B: int, W: int, L: int, lora: bool = False) -> Layout:
     """Operands of one decode window: B rows, W-wide tables, L-wide penalty
-    windows (1 outside the "full" mode)."""
+    windows (1 outside the "full" mode), and with ``lora`` each row's
+    adapter slot."""
     return Layout(
         ("tokens", (B,), "i"), ("positions", (B,), "i"), ("tables", (B, W), "i"),
         ("active", (B,), "b"), ("temps", (B,), "f"), ("seeds", (B,), "i"),
         ("steps0", (B,), "i"), ("top_k", (B,), "i"), ("top_p", (B,), "f"),
         ("freq", (B,), "f"), ("pres", (B,), "f"), ("pen", (B, L), "i"),
         ("chain_mask", (B,), "b"), ("chain_src", (B,), "i"), ("fold_slots", (B,), "i"),
+        *_aslots(B, lora),
     )
 
 
-def verify_layout(B: int, W: int, S1: int, tree: bool, W32: int = 0) -> Layout:
+def verify_layout(B: int, W: int, S1: int, tree: bool, W32: int = 0,
+                  lora: bool = False) -> Layout:
     """Operands of one speculative verify pass: B rows of S1 slots, W-wide
     tables, for a draft tree its topology (parents, ancestor bits as one
-    word each, depths), and with ``W32`` > 0 per-node grammar masks of
-    W32 words each (tree passes only)."""
+    word each, depths), with ``W32`` > 0 per-node grammar masks of W32
+    words each (tree passes only), and with ``lora`` each row's adapter
+    slot."""
     fields = [
         ("tokens", (B, S1), "i"), ("positions0", (B,), "i"), ("draft_len", (B,), "i"),
         ("tables", (B, W), "i"), ("active", (B,), "b"), ("temps", (B,), "f"),
@@ -129,7 +147,7 @@ def verify_layout(B: int, W: int, S1: int, tree: bool, W32: int = 0) -> Layout:
         fields += [("parents", (B, S1), "i"), ("anc", (B, S1, S1), "i"), ("depth", (B, S1), "i")]
     if W32:
         fields.append(("masks", (B, S1, W32), "w"))
-    return Layout(*fields)
+    return Layout(*fields, *_aslots(B, lora))
 
 
 def sample_layout(B: int, L: int, W32: int = 0) -> Layout:
@@ -145,12 +163,12 @@ def sample_layout(B: int, L: int, W32: int = 0) -> Layout:
     return Layout(*fields)
 
 
-def step_layout(B: int, W: int, L: int, W32: int = 0) -> Layout:
+def step_layout(B: int, W: int, L: int, W32: int = 0, lora: bool = False) -> Layout:
     """Operands of one single decode step and its sampling: the step's
     tokens, positions, W-wide tables and active rows, then
-    ``sample_layout``'s."""
+    ``sample_layout``'s, and with ``lora`` each row's adapter slot."""
     return Layout(("tokens", (B,), "i"), ("positions", (B,), "i"), ("tables", (B, W), "i"),
-                  ("active", (B,), "b"), *sample_layout(B, L, W32).fields)
+                  ("active", (B,), "b"), *sample_layout(B, L, W32).fields, *_aslots(B, lora))
 
 
 class StepRef:
@@ -237,10 +255,18 @@ class LocalRunner:
         # Verify passes dispatched, the forwards over all layers they made
         # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
         # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route,
-        # int8 tied head).
+        # int8 tied head); ``tree_verify_calls`` the same for tree passes
+        # alone.
         self.verify_passes = 0
         self.verify_forwards = 0
         self.verify_calls = (0,) * len(COUNTERS)
+        self.tree_verify_calls = (0,) * len(COUNTERS)
+        # Multi-LoRA adapter bank {qa..ob: [L, lora_slots, ...]} on the
+        # device, allocated once at start (None when lora_slots is 0): the
+        # captured graphs hold its addresses, so uploads write in place.
+        self.lora_bank: dict[str, torch.Tensor] | None = None
+        self.adapter_uploads = 0
+        self.adapter_upload_s = 0.0
 
     def start(self) -> None:
         self.device = resolve_device(self.args.device)
@@ -255,7 +281,7 @@ class LocalRunner:
                                                    for a in leaves):
             if not on_host:
                 # Pulling float device params back to quantize them would
-                # defeat the memory saving: the loader quantizes on the host.
+                # defeat the memory saving: the loader quantizes as it loads.
                 raise ValueError(
                     "quant='int8' with unquantized device params — pass "
                     "quant='int8' to load_model/load_params instead"
@@ -271,6 +297,14 @@ class LocalRunner:
         )
         self.last_toks = torch.zeros((self.args.max_num_seqs + 1,), dtype=torch.int32,
                                       device=self.device)
+        if self.args.lora_slots > 0:
+            # Zeros: a slot is garbage until its first upload, and the engine
+            # never dispatches a row pointing at a slot it has not uploaded.
+            self.lora_bank = {
+                k: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                for k, shape in bank_shapes(self.cfg, self.args.lora_slots,
+                                            self.args.lora_rank).items()
+            }
         if self.device.type == "cuda":
             self.graphs = WindowGraphs(self.device)
 
@@ -306,37 +340,82 @@ class LocalRunner:
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
 
+    # -- adapters -----------------------------------------------------------
+
+    def upload_adapter(self, slot: int, pages) -> None:
+        """Write one adapter's factor pages (engine/lora.py LORA_PAGE_KEYS
+        order, float host arrays) into bank slot ``slot``, in place: the
+        bank keeps its addresses, which the captured graphs replay against.
+        On the card each page goes up from pinned staging in a non_blocking
+        copy on the compute stream, behind the windows already in flight
+        (they read the slot's old occupant, as in the JAX package); torch's
+        caching host allocator hands the staging out again only once its
+        copy has run."""
+        if self.lora_bank is None:
+            raise ValueError("upload_adapter on a runner without an adapter bank "
+                             "(lora_slots == 0)")
+        t0 = time.perf_counter()
+        for key, arr in zip(LORA_PAGE_KEYS, pages):
+            bank = self.lora_bank[key]
+            host = torch.from_numpy(np.ascontiguousarray(arr)).to(bank.dtype)
+            if bank.device.type == "cuda":
+                host = host.pin_memory()
+            bank[:, slot].copy_(host, non_blocking=True)
+        self.adapter_uploads += 1
+        self.adapter_upload_s += time.perf_counter() - t0
+
+    def _lora_operands(self, aslots):
+        """(bank, per-row slots) of a dispatch, or (None, None) for the
+        pre-LoRA variant."""
+        if aslots is None:
+            return None, None
+        if self.lora_bank is None:
+            raise ValueError("adapter_slots passed but lora_slots == 0")
+        return self.lora_bank, aslots
+
     # -- dispatches -------------------------------------------------------
 
-    def prefill_batch(self, toks, tables, starts, tlens) -> torch.Tensor:
+    def prefill_batch(self, toks, tables, starts, tlens, adapter_slots=None) -> torch.Tensor:
         """→ last-token logits [Bp, V] (device)."""
+        bank, aslots = self._lora_operands(
+            None if adapter_slots is None else self._t(adapter_slots, torch.int32))
         return M.prefill_batch(
             self.cfg, self.params, self.cache, self._t(toks, torch.int32),
             self._t(tables, torch.int32), self._t(starts, torch.int32),
-            self._t(tlens, torch.int32),
+            self._t(tlens, torch.int32), bank, aslots,
         )
 
-    def prefill_chunk(self, toks, table, pos: int, tlen: int) -> torch.Tensor:
+    def prefill_chunk(self, toks, table, pos: int, tlen: int,
+                      adapter_slot: int | None = None) -> torch.Tensor:
         """Positions [pos, tlen) of one sequence → last-token logits [V]
-        (device), dispatched without waiting for the device."""
+        (device), dispatched without waiting for the device. A row with an
+        adapter passes its bank slot (the JAX ``prefill_chunk``'s scalar
+        slot); None or -1 runs the pre-LoRA forward."""
         T, W = len(toks), len(table)
+        lora = adapter_slot is not None and adapter_slot >= 0
         lay = Layout(("toks", (1, T), "i"), ("table", (1, W), "i"),
-                     ("pos", (1,), "i"), ("tlen", (1,), "i"))
-        a = lay.unpack(self.upload(lay.pack(toks=toks, table=table, pos=pos, tlen=tlen)))
+                     ("pos", (1,), "i"), ("tlen", (1,), "i"), *_aslots(1, lora))
+        arrays = dict(toks=toks, table=table, pos=pos, tlen=tlen)
+        if lora:
+            arrays["aslots"] = adapter_slot
+        a = lay.unpack(self.upload(lay.pack(**arrays)))
+        bank, aslots = self._lora_operands(a.get("aslots"))
         return M.prefill_batch(self.cfg, self.params, self.cache, a["toks"], a["table"],
-                               a["pos"], a["tlen"])[0]
+                               a["pos"], a["tlen"], bank, aslots)[0]
 
-    def decode_step(self, tokens, positions, tables, active) -> torch.Tensor:
+    def decode_step(self, tokens, positions, tables, active, adapter_slots=None) -> torch.Tensor:
         """→ logits [B, V] (device)."""
+        bank, aslots = self._lora_operands(
+            None if adapter_slots is None else self._t(adapter_slots, torch.int32))
         return M.decode_step(
             self.cfg, self.params, self.cache, self._t(tokens, torch.int32),
             self._t(positions, torch.int32), self._t(tables, torch.int32),
-            self._t(active, torch.bool), self.attn_impl,
+            self._t(active, torch.bool), self.attn_impl, bank, aslots,
         )
 
     def multi_decode(self, K, mode, tokens, chain, positions, tables, active, temps,
                      seeds, steps0, tks, tps, freqs, press, pen, fold_slots=None,
-                     top_n=0, *, rid=None, eager=False) -> StepRef:
+                     top_n=0, adapter_slots=None, *, rid=None, eager=False) -> StepRef:
         """One fused K-step window → StepRef (tokens [K, B], logprobs [K, B],
         top_vals [K, B, n], top_ids [K, B, n]) on the device.
 
@@ -345,9 +424,11 @@ class LocalRunner:
         ``fold_slots`` [B] names each row's slot so the window's final
         tokens land back in ``last_toks`` (padding rows → the tail slot).
         ``pen`` [B, L] is the penalty window ("full" mode; [B, 1] of -1
-        otherwise). On CUDA a window replays its CUDA graph; ``eager=True``
-        runs it op by op instead (the parity checks' seam). The engine
-        dispatches K > 1 only: a K=1 plan is ``decode_sample``."""
+        otherwise). ``adapter_slots`` [B] (-1 = base) selects the LoRA
+        variant; None the pre-LoRA one. On CUDA a window replays its CUDA
+        graph; ``eager=True`` runs it op by op instead (the parity checks'
+        seam). The engine dispatches K > 1 only: a K=1 plan is
+        ``decode_sample``."""
         B, W = np.shape(tables)
         L = np.shape(pen)[1]
         mask = np.zeros((B,), bool)
@@ -358,11 +439,12 @@ class LocalRunner:
             srcmap[np.asarray(dst, np.int64)] = src
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
-        lay = window_layout(B, W, L)
+        lay = window_layout(B, W, L, adapter_slots is not None)
         words = lay.pack(
             tokens=tokens, positions=positions, tables=tables, active=active, temps=temps,
             seeds=seeds, steps0=steps0, top_k=tks, top_p=tps, freq=freqs, pres=press,
             pen=pen, chain_mask=mask, chain_src=srcmap, fold_slots=fold_slots,
+            aslots=adapter_slots,
         )
         if self.graphs is not None and not eager:
             outs = self._graph_window(lay, int(K), mode, int(top_n), words)
@@ -374,7 +456,7 @@ class LocalRunner:
 
     def _graph_window(self, lay: Layout, K: int, mode: str, top_n: int, words: np.ndarray):
         B, W = lay.slices["tables"][2]
-        key = (B, W, lay.slices["pen"][2][1], K, mode, top_n)
+        key = (B, W, lay.slices["pen"][2][1], K, mode, top_n, "aslots" in lay.slices)
         return self.graphs.run(
             key, words, lambda: (self._window_fn(K, mode, top_n, lay), self._inert_window(lay)))
 
@@ -384,19 +466,26 @@ class LocalRunner:
         table bucket at ``decode_steps``), so that no request waits for a
         capture; each is replayed once on inert inputs. → graphs newly
         captured (0 on the CPU, or with decode_steps 1, whose every plan is
-        a single step)."""
+        a single step). With an adapter bank, each shape's LoRA variant
+        too."""
         K = self.args.decode_steps
         if self.graphs is None or K < 2:
             return 0
         before = self.graphs.captured
-        for mode in modes:
-            L = self.args.max_model_len if mode == "full" else 1
-            for top_n in top_ns:
-                for B in self.args.decode_buckets:
-                    for W in self.args.table_buckets:
-                        lay = window_layout(B, W, L)
-                        self._graph_window(lay, K, mode, top_n, self._inert_window(lay))
+        for lora in self._lora_variants():
+            for mode in modes:
+                L = self.args.max_model_len if mode == "full" else 1
+                for top_n in top_ns:
+                    for B in self.args.decode_buckets:
+                        for W in self.args.table_buckets:
+                            lay = window_layout(B, W, L, lora)
+                            self._graph_window(lay, K, mode, top_n, self._inert_window(lay))
         return self.graphs.captured - before
+
+    def _lora_variants(self) -> tuple[bool, ...]:
+        """Graph variants warm-up captures: the pre-LoRA one, and the LoRA
+        one when the runner has an adapter bank."""
+        return (False, True) if self.lora_bank is not None else (False,)
 
     def _window_fn(self, K: int, mode: str, top_n: int, lay: Layout):
         """The window as one function of its packed inputs (what a graph
@@ -404,11 +493,13 @@ class LocalRunner:
 
         def window(words: torch.Tensor):
             a = lay.unpack(words)
+            bank, aslots = self._lora_operands(a.get("aslots"))
             out = M.multi_decode(
                 self.cfg, K, mode, top_n, self.params, self.cache, a["tokens"],
                 a["positions"], a["tables"], a["active"], a["temps"], a["seeds"],
                 a["steps0"], a["top_k"], a["top_p"], a["freq"], a["pres"], a["pen"],
-                a["chain_mask"], a["chain_src"], self.last_toks, self.attn_impl,
+                a["chain_mask"], a["chain_src"], self.last_toks, bank, aslots,
+                attn_impl=self.attn_impl,
             )
             self.last_toks[a["fold_slots"].long()] = out[0][-1]
             return out
@@ -426,12 +517,12 @@ class LocalRunner:
             active=z, temps=np.ones((B,), np.float32), seeds=z, steps0=z, top_k=z,
             top_p=np.ones((B,), np.float32), freq=z, pres=z,
             pen=np.full(lay.slices["pen"][2], -1, np.int32), chain_mask=z, chain_src=z,
-            fold_slots=np.full((B,), sink, np.int32),
+            fold_slots=np.full((B,), sink, np.int32), aslots=np.full((B,), -1, np.int32),
         )
 
     def spec_verify(self, S1, mode, tokens, positions0, draft_len, tables, active, temps,
-                    seeds, steps0, fold_slots=None, top_n=0, tree=None, masks=None, *,
-                    rid=None, eager=False) -> StepRef:
+                    seeds, steps0, fold_slots=None, top_n=0, tree=None, masks=None,
+                    adapter_slots=None, *, rid=None, eager=False) -> StepRef:
         """One speculative verify pass over ``S1`` slots per row (fused: one
         weight stream; ``spec_fused=False``: S1 decode steps), acceptance
         on the device → StepRef (out [B, S1], n_emit [B], logps [B, S1],
@@ -442,19 +533,19 @@ class LocalRunner:
         upgrades every constrained batch to the tree op); they ride the
         packed upload, so the masked pass is one more captured shape. The
         pass's last emitted token folds into ``last_toks`` at
-        ``fold_slots``, so the next window chains from it. On CUDA each
-        verify shape is one graph replay; ``eager=True`` runs it op by op
-        (the parity checks' seam). The JAX runner's adapter slots are not
-        ported (ROADMAP A16)."""
+        ``fold_slots``, so the next window chains from it.
+        ``adapter_slots`` [B] (-1 = base) selects the LoRA variant. On CUDA
+        each verify shape is one graph replay; ``eager=True`` runs it op by
+        op (the parity checks' seam)."""
         B, W = np.shape(tables)
         S1 = int(S1)
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
         W32 = 0 if masks is None else np.shape(masks)[-1]
-        lay = verify_layout(B, W, S1, tree is not None, W32)
+        lay = verify_layout(B, W, S1, tree is not None, W32, adapter_slots is not None)
         arrays = dict(tokens=tokens, positions0=positions0, draft_len=draft_len, tables=tables,
                       active=active, temps=temps, seeds=seeds, steps0=steps0,
-                      fold_slots=fold_slots)
+                      fold_slots=fold_slots, aslots=adapter_slots)
         if tree is not None:
             arrays.update(parents=tree[0], anc=tree[1], depth=tree[2])
         if masks is not None:
@@ -468,8 +559,10 @@ class LocalRunner:
             if self.device.type == "cuda":
                 self.eager_verifies += 1
             outs = self._verify_fn(S1, mode, int(top_n), fused, lay)(self.upload(words))
-        self.verify_calls = tuple(c + b - a for c, a, b in
-                                  zip(self.verify_calls, before, read_counts()))
+        calls = tuple(b - a for a, b in zip(before, read_counts()))
+        self.verify_calls = tuple(map(sum, zip(self.verify_calls, calls)))
+        if tree is not None:
+            self.tree_verify_calls = tuple(map(sum, zip(self.tree_verify_calls, calls)))
         self.verify_passes += 1
         self.verify_forwards += 1 if fused else S1
         return self._new_ref(tuple(outs), rid)
@@ -478,7 +571,7 @@ class LocalRunner:
                       words: np.ndarray):
         B, W = lay.slices["tables"][2]
         key = ("verify", B, W, S1, mode, top_n, "parents" in lay.slices, fused,
-               "masks" in lay.slices)
+               "aslots" in lay.slices, "masks" in lay.slices)
         return self.graphs.run(key, words, lambda: (
             self._verify_fn(S1, mode, top_n, fused, lay), self._inert_verify(lay)))
 
@@ -489,11 +582,12 @@ class LocalRunner:
 
         def verify(words: torch.Tensor):
             a = lay.unpack(words)
+            bank, aslots = self._lora_operands(a.get("aslots"))
             out = M.spec_verify(
                 self.cfg, S1, mode, top_n, self.params, self.cache, a["tokens"],
                 a["positions0"], a["draft_len"], a["tables"], a["active"], a["temps"],
                 a["seeds"], a["steps0"], a.get("parents"), a.get("anc"), a.get("depth"),
-                a.get("masks"), fused=fused, attn_impl=self.attn_impl,
+                a.get("masks"), bank, aslots, fused=fused, attn_impl=self.attn_impl,
             )
             self.last_toks[a["fold_slots"].long()] = out[6]
             return out[:6]
@@ -513,6 +607,7 @@ class LocalRunner:
             tables=np.zeros(lay.slices["tables"][2], np.int32), active=z,
             temps=np.ones((B,), np.float32), seeds=z, steps0=z,
             fold_slots=np.full((B,), self.args.max_num_seqs, np.int32),
+            aslots=np.full((B,), -1, np.int32),
         )
         if "parents" in lay.slices:
             arrays.update(
@@ -533,7 +628,8 @@ class LocalRunner:
         spec_tree_width > 1 or ``grammar``; ``grammar=True`` adds the
         masked tree shapes constrained traffic dispatches (JAX
         ``TpuEngine.warm_spec``). Each is replayed once on inert inputs. →
-        graphs newly captured (0 on the CPU or with spec_tokens 0)."""
+        graphs newly captured (0 on the CPU or with spec_tokens 0). With an
+        adapter bank, each shape's LoRA variant too."""
         S = self.args.spec_tokens
         if self.graphs is None or S <= 0:
             return 0
@@ -545,16 +641,18 @@ class LocalRunner:
             shapes.append((True, True))
         W32 = mask_words(self.cfg.vocab_size)
         before = self.graphs.captured
-        for S1 in s1s:
-            for tree, masked in shapes:
-                fused = self.args.spec_fused or tree
-                for mode in modes:
-                    for top_n in top_ns:
-                        for B in self.args.decode_buckets:
-                            for W in self.args.table_buckets:
-                                lay = verify_layout(B, W, S1, tree, W32 if masked else 0)
-                                self._graph_verify(lay, S1, mode, top_n, fused,
-                                                   self._inert_verify(lay))
+        for lora in self._lora_variants():
+            for S1 in s1s:
+                for tree, masked in shapes:
+                    fused = self.args.spec_fused or tree
+                    for mode in modes:
+                        for top_n in top_ns:
+                            for B in self.args.decode_buckets:
+                                for W in self.args.table_buckets:
+                                    lay = verify_layout(B, W, S1, tree, W32 if masked else 0,
+                                                        lora)
+                                    self._graph_verify(lay, S1, mode, top_n, fused,
+                                                       self._inert_verify(lay))
         return self.graphs.captured - before
 
     # -- KV page movement (disaggregated prefill/decode) -------------------
@@ -628,25 +726,26 @@ class LocalRunner:
     # -- single decode step (the JAX engine's _decode_single_step) ----------
 
     def decode_sample(self, mode, tokens, positions, tables, active, temps, seeds, steps, tks,
-                      tps, freqs, press, pen, fold_slots=None, top_n: int = 0, masks=None, *,
-                      rid=None, eager=False) -> StepRef:
+                      tps, freqs, press, pen, fold_slots=None, top_n: int = 0, masks=None,
+                      adapter_slots=None, *, rid=None, eager=False) -> StepRef:
         """One decode step and the sampling of its logits as one dispatch:
         ``decode_step`` then ``sample_rows`` on its rows (with their
         grammar ``masks``, [B, W32] uint32, or None) → StepRef (tokens
         [B], logprobs [B], top_vals [B, n], top_ids [B, n]). The engine's
         every K=1 plan: the end-of-life tail, ``decode_steps`` 1, and a
         batch with grammar rows, whose next mask needs this step's token
-        on the host. On CUDA it is one graph replay per shape (B, W, L,
-        mode, top_n, masked), ``eager=True`` runs it op by op (the parity
+        on the host. ``adapter_slots`` [B] (-1 = base) selects the LoRA
+        variant. On CUDA it is one graph replay per shape (B, W, L, mode,
+        top_n, lora, masked), ``eager=True`` runs it op by op (the parity
         checks' seam)."""
         B, W = np.shape(tables)
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
         W32 = 0 if masks is None else np.shape(masks)[-1]
-        lay = step_layout(B, W, np.shape(pen)[1], W32)
+        lay = step_layout(B, W, np.shape(pen)[1], W32, adapter_slots is not None)
         arrays = dict(tokens=tokens, positions=positions, tables=tables, active=active,
                       temps=temps, seeds=seeds, steps=steps, top_k=tks, top_p=tps, freq=freqs,
-                      pres=press, pen=pen, fold_slots=fold_slots)
+                      pres=press, pen=pen, fold_slots=fold_slots, aslots=adapter_slots)
         if masks is not None:
             arrays["masks"] = masks
         words = lay.pack(**arrays)
@@ -660,7 +759,8 @@ class LocalRunner:
 
     def _graph_step(self, lay: Layout, mode: str, top_n: int, words: np.ndarray):
         B, W = lay.slices["tables"][2]
-        key = ("step", B, W, lay.slices["pen"][2][1], mode, top_n, "masks" in lay.slices)
+        key = ("step", B, W, lay.slices["pen"][2][1], mode, top_n, "aslots" in lay.slices,
+               "masks" in lay.slices)
         return self.graphs.run(key, words, lambda: (self._step_fn(mode, top_n, lay),
                                                     self._inert_step(lay)))
 
@@ -670,8 +770,10 @@ class LocalRunner:
 
         def step(words: torch.Tensor):
             a = lay.unpack(words)
+            bank, aslots = self._lora_operands(a.get("aslots"))
             logits = M.decode_step(self.cfg, self.params, self.cache, a["tokens"],
-                                   a["positions"], a["tables"], a["active"], self.attn_impl)
+                                   a["positions"], a["tables"], a["active"], self.attn_impl,
+                                   bank, aslots)
             return self._sample(logits, mode, top_n, a)
 
         return step
@@ -687,6 +789,7 @@ class LocalRunner:
             top_p=np.ones((B,), np.float32), freq=z, pres=z,
             pen=np.full(lay.slices["pen"][2], -1, np.int32),
             fold_slots=np.full((B,), self.args.max_num_seqs, np.int32),
+            aslots=np.full((B,), -1, np.int32),
         )
         if "masks" in lay.slices:
             arrays["masks"] = np.full(lay.slices["masks"][2], 0xFFFFFFFF, np.uint32)
@@ -698,20 +801,22 @@ class LocalRunner:
         the engine can dispatch in these sampler modes and top_n values
         (each decode bucket × table bucket), unmasked (the end-of-life
         tail, ``decode_steps`` 1) and masked (grammar-constrained batches)
-        as ``masked`` lists, each replayed once on inert inputs. → graphs
-        newly captured (0 on the CPU)."""
+        as ``masked`` lists, each replayed once on inert inputs (with an
+        adapter bank, each shape's LoRA variant too). → graphs newly
+        captured (0 on the CPU)."""
         if self.graphs is None:
             return 0
         before = self.graphs.captured
-        for m in masked:
-            W32 = mask_words(self.cfg.vocab_size) if m else 0
-            for mode in modes:
-                L = self.args.max_model_len if mode == "full" else 1
-                for top_n in top_ns:
-                    for B in self.args.decode_buckets:
-                        for W in self.args.table_buckets:
-                            lay = step_layout(B, W, L, W32)
-                            self._graph_step(lay, mode, top_n, self._inert_step(lay))
+        for lora in self._lora_variants():
+            for m in masked:
+                W32 = mask_words(self.cfg.vocab_size) if m else 0
+                for mode in modes:
+                    L = self.args.max_model_len if mode == "full" else 1
+                    for top_n in top_ns:
+                        for B in self.args.decode_buckets:
+                            for W in self.args.table_buckets:
+                                lay = step_layout(B, W, L, W32, lora)
+                                self._graph_step(lay, mode, top_n, self._inert_step(lay))
         return self.graphs.captured - before
 
     # -- embeddings ---------------------------------------------------------

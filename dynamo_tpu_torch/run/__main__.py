@@ -104,8 +104,8 @@ class LocalManager:
 async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> LocalPipeline:
     """The CLI's pipeline. ``quant`` / ``kv_quant`` (no flags, as in the JAX
     launcher) set the engine's weight and KV page formats for callers that
-    drive the pipeline in process; ``--model-path`` checkpoints load as
-    they are stored."""
+    drive the pipeline in process (a ``--model-path`` checkpoint is
+    quantized as it loads, as the worker does)."""
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
@@ -120,7 +120,7 @@ async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> L
     if args.model_path:
         from dynamo_tpu_torch.engine.loader import load_model
 
-        model, params = load_model(args.model_path, args.dtype, device=args.device)
+        model, params = load_model(args.model_path, args.dtype, quant, device=args.device)
     else:
         model = ModelConfig.preset(args.preset)
     engine = await TorchEngine(EngineArgs(

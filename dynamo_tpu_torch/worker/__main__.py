@@ -50,16 +50,28 @@ destination pulls the source's KV stream. The worker exits once retired.
 ``--kv-pressure-offer`` offers the cheapest running sequence for
 migration once the KV pool fills past that fraction.
 
+Multi-LoRA, as the JAX worker wires it: ``--lora-slots`` sizes the
+engine's adapter bank, ``--lora-rank`` its static rank, and each ``--lora
+NAME[:RANK[:SEED]]`` registers one adapter (factors made from its name
+and seed, written through to the tiers), published as a model card of its
+own (``adapter_cards``): the frontend lists it in ``/v1/models`` and its
+requests carry ``adapter_id`` to this worker. Prefill workers register
+the adapters too (a remote prefill names its adapter); ``--autoscaler
+on`` hands the adapter cards to the role manager.
+
 SIGTERM drains: the endpoints deregister and finish their in-flight
 streams, then the engine stops. The last line the worker logs is one
 JSON object with its engine's counters (decode substeps dispatched, the
 kernels' launches, tokens generated, host seconds by phase, KV pages
 injected and exported, the tiers' stats and the flush and onboard costs,
 the peer fetches, the migrations (outcomes, fallback reasons, the host
-cost of the KV pump, proactive offers), the graphs captured and their
-capture seconds, the peak device memory and the disagg handler's counts); SIGUSR1 logs the same line and serves on.
+cost of the KV pump, proactive offers), the adapters (resident, page-ins,
+evictions, uploads and their host seconds, the gather seconds and the
+admissions' waits for a slot), the graphs captured and their capture
+seconds, the peak device memory and the disagg handler's counts); SIGUSR1
+logs the same line and serves on.
 
-Not ported yet (ROADMAP A): LoRA, the mocker engine, the dp spawner,
+Not ported yet (ROADMAP A): the mocker engine, the dp spawner,
 multi-host followers, trace export, the fleet prefix directory and
 ``--sla-profile``.
 """
@@ -217,12 +229,63 @@ def parse_args(argv=None):
                         "(0 = off; the offer reuses the same "
                         "migration_offer hook as the preemption-boundary "
                         "grace window, docs/autoscaler.md#fleet-balancer)")
+    # Multi-LoRA (engine/lora.py): serve many fine-tunes of the base model
+    # on this one engine. --lora-slots sizes the device adapter bank (0 =
+    # off); --lora registers adapters (repeatable), each served as its own
+    # model whose rows share every batch with the base rows. More adapters
+    # than slots page through the tiers on demand.
+    p.add_argument("--lora-slots", type=int, default=0,
+                   help="device-resident LoRA adapter slots (0 = LoRA off)")
+    p.add_argument("--lora-rank", type=int, default=8,
+                   help="static adapter bank rank (max over registered adapters)")
+    p.add_argument("--lora", action="append", default=[], metavar="NAME[:RANK[:SEED]]",
+                   help="register one adapter served as model NAME (repeatable)")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     if args.remote_prefill:
         args.disagg = "on"
+    if args.lora and args.lora_slots <= 0:
+        p.error("--lora requires --lora-slots > 0")
+    try:
+        # Parsed once here (argparse's error surface); consumers read
+        # args.lora_specs.
+        args.lora_specs = parse_lora_specs(args.lora, args.lora_rank)
+    except ValueError as e:
+        p.error(str(e))
     return args
+
+
+def parse_lora_specs(entries: list[str], default_rank: int) -> list[tuple[str, int, int]]:
+    """--lora NAME[:RANK[:SEED]] entries → [(name, rank, seed)] (the JAX
+    worker's parser and errors)."""
+    out = []
+    for e in entries:
+        parts = e.split(":")
+        name = parts[0]
+        if not name:
+            raise ValueError(f"--lora entry {e!r}: empty adapter name")
+        try:
+            rank = int(parts[1]) if len(parts) > 1 and parts[1] else default_rank
+            seed = int(parts[2]) if len(parts) > 2 and parts[2] else 0
+        except ValueError:
+            raise ValueError(f"--lora entry {e!r}: RANK and SEED must be integers") from None
+        out.append((name, rank, seed))
+    return out
+
+
+def adapter_cards(card, lora_specs) -> list:
+    """One ModelDeploymentCard per --lora adapter, derived from the base
+    card: the plain serving path and the role manager publish the same
+    adapter metadata."""
+    import dataclasses
+
+    return [
+        dataclasses.replace(card, name=lname,
+                            lora={"adapter_id": lname, "base": card.name, "rank": lrank,
+                                  "resident_tier": "G2"})
+        for lname, lrank, _lseed in lora_specs
+    ]
 
 
 async def build_engine(args):
@@ -268,6 +331,8 @@ async def build_engine(args):
         fleet_kv_dir=args.fleet_kv_dir,
         fleet_kv_blocks=args.fleet_kv_blocks,
         kv_pressure_offer=args.kv_pressure_offer,
+        lora_slots=args.lora_slots,
+        lora_rank=max([args.lora_rank] + [r for _, r, _ in args.lora_specs]),
         device=args.device,
         # Grammar token-mask FSMs compile over the serving tokenizer's
         # vocabulary: response_format masks must legalize exactly the ids
@@ -347,6 +412,12 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None) -> dict:
         "migration_pump_s": round(engine.migration_pump_s, 6),
         "migration_pumps": engine.migration_pumps,
         "pressure_offers": engine.pressure_offers,
+        "lora": {**engine.lora_stats(), "gather_s": round(engine.total_lora_s, 6),
+                 "pagein_s": round(engine.lora_pagein_s, 6),
+                 "uploads": engine.runner.adapter_uploads,
+                 "upload_s": round(engine.runner.adapter_upload_s, 6),
+                 "slot_waits": engine.lora_slot_waits,
+                 "slot_wait_s": round(engine.lora_slot_wait_s, 6)},
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if engine.runner.device.type == "cuda" else 0),
     }
@@ -379,6 +450,11 @@ async def async_main(args) -> None:
     t_launch = time.perf_counter()
     rt = await DistributedRuntime.create(store_url=args.store_url, proc_label=lane)
     engine, card = await build_engine(args)
+    # Multi-LoRA: register every --lora adapter (written through to the
+    # tiers now; bank slots fill on first request). Prefill workers register
+    # them too: a remote prefill names its request's adapter.
+    for lname, lrank, lseed in args.lora_specs:
+        engine.register_adapter(lname, rank=lrank, seed=lseed)
     # Capture the decode-window graphs, the single steps (unmasked for the
     # end-of-life tail, masked for grammar-constrained traffic) and, with
     # --spec-tokens, the verify lattice with its masked tree shapes before
@@ -488,6 +564,11 @@ async def async_main(args) -> None:
 
         await comp.endpoint("clear_kv").serve(clear_handler)
         await register_model(rt, args.namespace, card)
+        # One model card per adapter: the frontend lists each as a served
+        # model (/v1/models carries its lora metadata), the preprocessor
+        # stamps its adapter_id, and its requests route to this engine.
+        for acard in adapter_cards(card, args.lora_specs):
+            await register_model(rt, args.namespace, acard)
         role = "worker"
     print(
         f"dynamo_tpu_torch {role}: serving {card.name} as "
@@ -530,7 +611,7 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str) 
     role = (POOL_PREFILL if args.is_prefill_worker or args.autoscaler_role == "prefill"
             else POOL_DECODE)
     manager = await WorkerRoleManager(
-        rt, engine, [card], args, broadcaster,
+        rt, engine, [card] + adapter_cards(card, args.lora_specs), args, broadcaster,
         chaos=ChaosInjector.from_config(rt.config.chaos),
     ).start(role)
     print(f"dynamo_tpu_torch autoscaled {manager.role} worker: serving {card.name} in "

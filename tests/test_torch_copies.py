@@ -38,7 +38,7 @@ COPIED = [
     "block_manager/pool.py", "engine/hub.py", "engine/drafter.py",
     "runtime/queue.py", "transfer/__init__.py", "llm/disagg.py",
     "engine/grammar.py", "llm/preprocessor.py", "llm/peer_kv.py",
-    "planner/actions.py",
+    "planner/actions.py", "block_manager/adapters.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -74,6 +74,10 @@ CHANGED = {
     "planner/__init__.py": "re-exports the actions only: the JAX package's imports its "
                            "connector, core, interpolate, operator and predictors modules, "
                            "which are not ported (A19 brings the rest)",
+    "engine/lora.py": "xxhash is absent on the card's machine: adapter_tier_hash and the "
+                      "seed of make_adapter_pages use the port's pure-Python xxh3_64 "
+                      "(tokens.py), bit-exact, so hashes and pages equal the JAX ones byte "
+                      "for byte (LINE_EDITS; tests/test_torch_lora.py)",
     "planner/actuate.py": "httpx is absent on the card's machine: FleetHttpActuator's two "
                           "calls go through urllib.request on a worker thread (the same "
                           "requests, JSON bodies and ScaleActionError)",
@@ -177,6 +181,14 @@ LINE_EDITS = {
          "the disagg credit-flow transfer plane (the same ``kv_fetch`` windowed\n"),
         ("# Bandwidth pacing (ISSUE 19 tentpole (c)): at most this many outbound\n",
          "# Bandwidth pacing: at most this many outbound\n"),
+    ],
+    "engine/lora.py": [
+        ("from dynamo_tpu_torch.tokens import HASH_SEED\n\nimport xxhash\n",
+         "from dynamo_tpu_torch.tokens import HASH_SEED, xxh3_64\n"),
+        ('    return xxhash.xxh3_64_intdigest(b"lora:" + name.encode(), seed=HASH_SEED)\n',
+         '    return xxh3_64(b"lora:" + name.encode(), HASH_SEED)\n'),
+        ("        xxhash.xxh3_64_intdigest(spec.name.encode(), seed=spec.seed & 0x7FFFFFFF)\n",
+         "        xxh3_64(spec.name.encode(), spec.seed & 0x7FFFFFFF)\n"),
     ],
     "worker/roles.py": [
         ("PR 8 made disaggregated prefill/decode the default serving shape and\n"

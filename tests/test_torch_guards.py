@@ -74,7 +74,7 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "transfer", "transfer.stream", "runtime.queue", "llm.disagg",
                 "engine.grammar", "llm.preprocessor", "block_manager.tiers", "llm.peer_kv",
                 "worker.migrate", "worker.roles", "planner", "planner.actions",
-                "planner.actuate"):
+                "planner.actuate", "engine.lora", "block_manager.adapters"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 

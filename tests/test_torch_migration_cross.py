@@ -10,12 +10,15 @@ the destination package's ``pull_kv_stream`` from the source package's
 ``serve_kv_window`` (frames packed with the source's msgpack and read by
 the destination's), ``migration_finish`` with the marker, and the resumed
 leg built by the ``Migration`` operator's ``_resume_request`` with the
-pulled chunks as its inject. Four kinds of request: greedy, seeded at
-temperature 0.7, n-gram speculation (``spec_tokens`` 3, stepwise verify)
-and a ``response_format`` schema. In each, the source leg plus the
-resumed leg equal the unmigrated stream, which is the same on either
-engine, and the destination's cache holds the source's chunk pages byte
-for byte.
+pulled chunks as its inject. Five kinds of request: greedy, seeded at
+temperature 0.7, n-gram speculation (``spec_tokens`` 3, stepwise verify),
+a ``response_format`` schema, and a greedy one under a LoRA adapter
+registered on both engines. In each, the source leg plus the resumed leg
+equal the unmigrated stream, which is the same on either engine, and the
+destination's cache holds the source's chunk pages byte for byte, under
+the request's (adapter-salted) block hashes. The adapter request's resume
+identity names its adapter, and its stream differs from the base
+model's.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ KINDS = {
     "spec": (dict(spec_tokens=3, spec_gate=0.0, spec_fused=False, pipeline_depth=0,
                   pipeline_windows=False), dict(temperature=0.0, seed=0)),
     "grammar": ({}, dict(temperature=0.0, seed=0, rf=True)),
+    "adapter": (dict(lora_slots=2, lora_rank=4), dict(temperature=0.0, seed=0,
+                                                      adapter="tenant-a")),
 }
 N = 40
 
@@ -82,6 +87,9 @@ def engines(loop):
         j = TpuEngine(JArgs(model=JCfg(), attn_impl="xla", **{**BASE, **kw}), params=params)
         t = TorchEngine(TArgs(model=TCfg(), device="cpu", **{**BASE, **kw}),
                         params=params_from_numpy(params, "cpu", torch.float32))
+        if kw.get("lora_slots"):
+            for eng in (j, t):
+                eng.register_adapter("tenant-a", rank=4, seed=7)
         out[kind] = (loop.run_until_complete(j.start()), loop.run_until_complete(t.start()))
     yield out
     for j, t in out.values():
@@ -96,6 +104,8 @@ def request(kind: str, prompt: list[int]) -> dict:
            "stop": {"max_tokens": N, "ignore_eos": not s.get("rf")}, "eos_token_ids": [EOS]}
     if s.get("rf"):
         req["response_format"] = RF
+    if s.get("adapter"):
+        req["adapter_id"] = s["adapter"]
     return req
 
 
@@ -198,12 +208,15 @@ def test_migrated_stream_resumes_on_the_other_engine(loop, engines, kind, direct
         await asyncio.wait_for(leg2.task, 60)
         # The destination's cache holds the source's chunk pages byte for byte.
         bs = BASE["block_size"]
-        hashes = jtokens.compute_block_hashes(cut["request"]["token_ids"], bs)[: cut["kv_blocks"]]
+        hashes = jtokens.compute_block_hashes(
+            cut["request"]["token_ids"], bs,
+            jtokens.adapter_hash_seed(req.get("adapter_id")))[: cut["kv_blocks"]]
         ids = dst.pool.match_prefix(hashes)
         held = await dst.run_on_engine_thread(lambda: dst._runner.extract_pages(ids))
         sent = tuple(np.concatenate([np.asarray(c.pages[i]) for c in pulled.chunks], axis=1)
                      for i in range(len(pulled.chunks[0].pages)))
-        return {"ref_src": ref_src, "ref_dst": ref_dst, "delivered": delivered,
+        base = await solo(dst, dict(req, adapter_id=None)) if kind == "adapter" else None
+        return {"ref_src": ref_src, "ref_dst": ref_dst, "delivered": delivered, "base": base,
                 "leg2": leg2.tokens, "finish": leg2.items[-1].get("finish_reason"),
                 "cut": cut, "n_ids": len(ids), "held": held, "sent": sent,
                 "injected": None if inject_before is None else dst.inject_bytes - inject_before}
@@ -223,3 +236,5 @@ def test_migrated_stream_resumes_on_the_other_engine(loop, engines, kind, direct
         assert r["cut"]["request"]["resume"]["sample_seed"] == 7
     if kind == "spec":
         assert src.total_spec_passes > 0 and dst.total_spec_passes > 0
+    if kind == "adapter":
+        assert r["cut"]["adapter_id"] == "tenant-a" and r["base"] != r["ref_src"]

@@ -118,6 +118,37 @@ def test_quantizers_bit_equal_to_jax():
             np.testing.assert_array_equal(a, b)
 
 
+def awkward_tree(seed: int = 0) -> dict:
+    """An untied test-tiny params tree (numpy float32) whose layer stacks,
+    embedding and head carry half-way ties and all-zero channels."""
+    rng = np.random.default_rng(seed)
+    tree = _np_tree(JCfg(tie_embeddings=False, attn_bias=True), seed=seed)
+    for name in ("wq", "wk", "w_down"):
+        tree["layers"][name] = _awkward(rng, tree["layers"][name].shape)
+    tree["embed"] = _awkward(rng, tree["embed"].shape[::-1]).T.copy()  # ties along a vocab row
+    tree["lm_head"] = _awkward(rng, tree["lm_head"].shape)
+    return tree
+
+
+def test_device_quantizer_bit_equal_to_jax():
+    """quantize_params_device (the card's path, run here on the CPU device,
+    in row chunks smaller than the embedding) equals the JAX host
+    quantizer leaf for leaf; the leaves it does not quantize pass through."""
+    tree = awkward_tree()
+    want = JQ.quantize_params_np(tree)
+    host = jax.tree.map(torch.from_numpy, tree)
+    got = TQ.quantize_params_device(host, CPU)
+    assert jax.tree.structure(want) == jax.tree.structure(jax.tree.map(np.asarray, got))
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(want), jax.tree.leaves(got)):
+        b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(b, a, err_msg=str(path))
+    q, s = TQ.quantize_to_device(torch.from_numpy(tree["lm_head"]), 0, CPU, 1, 7)
+    jq, js = JQ.quantize_np(tree["lm_head"], axis=-1)
+    np.testing.assert_array_equal(q.numpy(), jq)
+    np.testing.assert_array_equal(s.numpy(), js)
+
+
 # -- the model's int8 pieces ----------------------------------------------------
 
 

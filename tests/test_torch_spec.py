@@ -440,8 +440,9 @@ def test_verify_pass_matches_jax(np_params, kind, mode, kv_quant):
 
 def test_verify_refuses_unported_operands(np_params):
     """Grammar masks on a linear pass (the engine sends them only with a
-    tree, as the JAX engine does) and LoRA rows (A16, not ported) raise
-    instead of being ignored."""
+    tree, as the JAX engine does) and an adapter bank without per-row
+    adapter slots (or slots without a bank) raise instead of being
+    ignored."""
     _, tparams, _, tcache, tables, first = _prefilled(np_params, "none")
     B, S1 = 4, 3
     args = [torch.zeros((B, S1), dtype=torch.int32), torch.zeros((B,), dtype=torch.int32),
@@ -451,5 +452,8 @@ def test_verify_refuses_unported_operands(np_params):
     with pytest.raises(ValueError, match="tree verify passes only"):
         TM.spec_verify(ModelConfig(), S1, "greedy", 0, tparams, tcache, *args,
                        mask_bits=torch.zeros((B, S1, 16), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="ride a dispatch together"):
         TM.spec_verify(ModelConfig(), S1, "greedy", 0, tparams, tcache, *args, lora={})
+    with pytest.raises(ValueError, match="ride a dispatch together"):
+        TM.spec_verify(ModelConfig(), S1, "greedy", 0, tparams, tcache, *args,
+                       adapter_slots=torch.zeros((B,), dtype=torch.int32))
