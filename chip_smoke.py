@@ -21,19 +21,25 @@ Phases, in order; any failure raises and the run exits non-zero:
 3b. The int8 weight product (`dynamo_tpu_torch/ops/csrc/int8_matmul.cu`)
    against its plain version evaluated in float32 on the same values, at
    every llama-8b decode shape (wq/wo, wk/wv, w_gate/w_up, w_down, lm_head
-   with f32 logits) for M = 1, 8 and 64 rows, an odd shape in bf16 and f32,
-   wq in f32 and lm_head with a bf16 scale (`TOL_INT8`); every case called
-   twice, bit-identical. Kernel, plain, library (one `torch.matmul` of the
-   same x with a bf16 w of the same shape) and bound times, and their sums
-   over one substep's 225 products. Then (since the tier slice) the
+   with f32 logits) for M = 1, 8, 16, 32, 64, 128 and 256 rows (the decode
+   kernel up to 8 rows, the wide entry above: decode buckets and verify
+   passes), w_gate/w_up and w_down at 512 and 2048 rows (prefill chunks),
+   an odd shape in bf16 and f32, wq in f32 and lm_head with a bf16 scale
+   (`TOL_INT8`); every case called twice, bit-identical, its route's
+   counter moved. First the wide entry's blocks per SM, as the built
+   kernel's occupancy gives them, held to its split plan's table. Kernel,
+   plain, library (one `torch.matmul` of the same x with a bf16 w of the
+   same shape), dequantize + `torch.matmul` (the prefill route, inline) and
+   bound times, and their sums over one substep's 225 products at each M.
+   Then (since the tier slice) the
    kernel's tied-head entry, for llama-1b and llama-3b, whose logits use
    the int8 embedding [V, D] as emb.T: at their head shapes (llama-3b M 1,
    8, 64; llama-1b M 8; f32 x), the same checks and times (library: bf16
    `torch.matmul` on the dequantized head); and a 2-layer llama-3b-width
    int8 engine serving the burst's prompts for a few windows, every count
    zeroed before and read after: the tied head launches once per forward
-   (each prefill's last token, each decode substep), the prefill route
-   only for the prefills' layer products, and no window runs eagerly.
+   (each prefill's last token, each decode substep), the wide entry only
+   for the prefills' layer products, and no window runs eagerly.
 4. Main path at full width: `run --in batch:`'s pipeline (preprocessor →
    Backend → TorchEngine) serving 8 concurrent llama-8b completions with
    random weights made on the card, at the default pipeline depth 2 with
@@ -51,11 +57,28 @@ Phases, in order; any failure raises and the run exits non-zero:
    twice: bf16 KV pages and int8 KV pages. Each serves the same burst at
    depth 2 and 0 (streams identical), holds the attention launches to 32 x
    substeps and the int8 launches to the shape rule (`int8_expected`: 225
-   per decode substep on the kernel; a prefill of more than 64 rows on the
-   prefill route, its last-token head on the kernel), and times and
-   profiles one "simple" window replay. Printed beside the bf16 burst's
-   numbers: tokens/s, host ms per substep, replay device ms per substep,
-   TTFT, peak memory and graph-pool bytes.
+   per decode substep on the decode kernel; a prefill's layer products on
+   the wide entry, its last-token head on the decode kernel), and times
+   and profiles one "simple" window replay. Printed beside the bf16
+   burst's numbers: tokens/s, host ms per substep, replay device ms per
+   substep, TTFT, peak memory and graph-pool bytes.
+4c. The wide entry on a serving path (`wide_phase`, after 4b's bf16-page
+   run, on its weights): an int8 engine of 128 sequences (bf16 pages,
+   max_model_len 2048, depth 2) serves 128 seeded completions at once
+   (`wide_requests`: prompts of 64-512 byte tokens, 64 tokens each, 8 at
+   temperature 0.7), so its decode runs buckets 32 and 128 (and 8 when the
+   last admissions leave a window to a few rows) as it fills and drains.
+   No window or step runs eagerly; the int8 launches are held to
+   `int8_expected` over the engine's substeps by bucket (225 per substep
+   on the bucket's route) and its prefills, the wide entry's exactly;
+   every greedy stream is held against the same request served by 4b's
+   engine of 8 sequences (the decode kernel at M=8), token for token
+   except where the reference's top-2 gap is under `SPEC_GAP_TOL`.
+   Then a window at buckets 32 and 128 as a graph replay bit-identical to
+   op by op, and at 8, 32 and 128 its replay device ms per substep, with
+   one profiled replay by kernel family at 32 and 128. Tokens/s, substeps
+   by bucket, host ms per substep and peak memory are printed beside the
+   card's name and power limit.
 5. Graph parity: one K=8 window at llama-8b shapes (all 32 layers, the
    engine's weights, its own small cache) as a CUDA-graph replay and op by
    op, in each sampler mode: tokens, logprobs, top-n, the written KV pages
@@ -143,8 +166,9 @@ same weights.
    printed); the tree burst must dispatch branched passes. Every burst
    holds attention launches to 32 × (dense substeps + verify forwards: 1
    per fused pass, S1 per stepwise pass), int8 calls to 225 per forward
-   with none on the prefill route from verify passes, and no eager window
-   or verify pass. Then verify passes at the burst's row lengths on a
+   (a fused or tree pass's B x S1 rows on the wide entry, a stepwise
+   pass's 8 on the decode kernel, none on the prefill route), and no
+   eager window or verify pass. Then verify passes at the burst's row lengths on a
    runner of their own: graph replay bit-identical to the op-by-op pass
    (linear, stepwise, tree; S1 = 4 and 7) and its device time against one
    dense substep. Tokens/s, tokens per weight pass, accept rates, launches
@@ -305,7 +329,7 @@ same weights.
 Each phase's seconds and the running total are logged as it ends.
 
 The last lines are the kernels JSON line (the attention kernel's decode
-entry, the int8 product, its tied-head entry, and the attention kernel's
+entry, the int8 product, its wide entry, its tied-head entry, and the attention kernel's
 linear and tree verify modes; the first two also carry phase 11's decode
 worker's launches, the decode, tree and int8 entries phase 12's, the
 first two phases 13's and 14's, and all of them phase 15's),
@@ -725,18 +749,42 @@ def int8_bound(M, K, N, x_bytes, out_bytes, scale_bytes, qdt_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+INT8_M = (1, 8, 16, 32, 64, 128, 256)  # rows at every llama-8b shape: decode buckets, verify
+INT8_PREFILL_M = (512, 2048)           # prefill chunks, at w_gate/w_up and w_down
+
+
+def int8_substep(by: dict, M: int) -> dict:
+    """One llama-8b substep's 225 products at M rows, summed from the cases'
+    times (calls per substep x each shape's time)."""
+    return {k: sum(by[f"{name}_M{M}_bfloat16"][k] * calls
+                   for name, (_, _, calls) in INT8_SHAPES.items())
+            for k in ("ms", "plain_ms", "library_ms", "dequant_ms", "bound_ms")}
+
+
 def int8_kernel_phase(device, card_line):
-    """The int8 kernel against its plain version at every llama-8b decode
-    shape for M in (1, 8, 64) (bf16 x; lm_head with f32 logits out), the
-    odd shape in bf16 and f32, and wq in f32: bit-identical repeats,
-    tolerance TOL_INT8, and kernel, plain, library and bound times."""
+    """The int8 product against its plain version at every llama-8b decode
+    shape for M in ``INT8_M`` (bf16 x; lm_head with f32 logits out; M <= 8
+    on the decode kernel, more rows on the wide entry), w_gate/w_up and
+    w_down at ``INT8_PREFILL_M``, the odd shape in bf16 and f32, and wq in
+    f32: bit-identical repeats, tolerance TOL_INT8, the route each call
+    takes, and kernel, plain, library (bf16 ``torch.matmul``), dequantize +
+    ``torch.matmul`` (the prefill route, inline) and bound times. First the
+    wide entry's blocks per SM, held to the wrapper's split plan's table."""
     import torch
 
     from dynamo_tpu_torch.ops import int8_matmul as im
 
+    got = {tile: im.wide_blocks_per_sm(tile) for tile in im.WIDE_ROW_TILES}
+    if set(got.values()) != {im.WIDE_BLOCKS_PER_SM}:
+        raise RuntimeError(f"int8 wide entry: blocks per SM by row tile {got}, the split plan "
+                           f"assumes {im.WIDE_BLOCKS_PER_SM}")
+    log(f"int8 wide entry: blocks per SM by row tile {got} (occupancy of the built kernel, as "
+        f"the split plan assumes)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     cases = [(name, M, K, N, "bfloat16", name == "lm_head")
-             for name, (K, N, _) in INT8_SHAPES.items() for M in (1, 8, 64)]
+             for name, (K, N, _) in INT8_SHAPES.items() for M in INT8_M]
+    cases += [(name, M, *INT8_SHAPES[name][:2], "bfloat16", False)
+              for name in ("w_gate_up", "w_down") for M in INT8_PREFILL_M]
     cases += [(INT8_ODD[0], M, INT8_ODD[1], INT8_ODD[2], dt, False)
               for M in (5, 64) for dt in ("bfloat16", "float32")]
     cases += [("wq_wo", 8, 4096, 4096, "float32", False),
@@ -745,62 +793,108 @@ def int8_kernel_phase(device, card_line):
     for i, (name, M, K, N, xdt, out_f32) in enumerate(cases):
         x, w, s = int8_case(M, K, N, xdt, 500 + i, device,
                             "bfloat16" if name.endswith("bf16_scale") else "float32")
+        which = im.route(x, w)
+        before = im.wide_launches
         err = int8_check(x, w, s, out_f32, f"{name} M={M} {xdt}")
+        if im.wide_launches - before != (2 if which == "wide" else 0):
+            raise RuntimeError(f"int8 {name} M={M}: route {which!r} but the wide entry counted "
+                               f"{im.wide_launches - before} launches for two calls")
         ms = time_ms(lambda: im.int8_matmul(x, w, s, out_f32=out_f32), flush)
         plain_ms = time_ms(lambda: im.int8_matmul_ref(x, w, s, out_f32=out_f32), flush)
+        dq = (lambda: torch.matmul(x, w.to(x.dtype)).float() * s) if out_f32 else (
+            lambda: torch.matmul(x, w.to(x.dtype)) * s.to(x.dtype))
+        dequant_ms = time_ms(dq, flush)
         wb = w.to(x.dtype)
         lib_ms = time_ms(lambda: torch.matmul(x, wb), flush)
         del wb
         xb = x.element_size()
         b_ms, b_by = int8_bound(M, K, N, xb, 4 if out_f32 else xb, s.element_size(), xdt)
-        r = {"case": f"{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "splits": im.split_k(K, N)}
-        log(f"int8 {r['case']} ({K}x{N}): max_abs_err={err:.3e} (tol {TOL_INT8[xdt]}) "
+        plan = im.wide_plan(M, K, N) if which == "wide" else im.split_k(K, N)
+        r = {"case": f"{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "route": which,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+             "dequant_ms": dequant_ms, "bound_ms": b_ms, "bound_by": b_by, "plan": plan}
+        log(f"int8 {r['case']} ({K}x{N}, {which}): max_abs_err={err:.3e} (tol {TOL_INT8[xdt]}) "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) splits={r['splits']} ({card_line})")
+            f"dequant_ms={dequant_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plan={plan} ({card_line})")
         results.append(r)
+        del x, w, s
+    torch.cuda.empty_cache()
     by = {r["case"]: r for r in results}
-    substep = {k: sum(by[f"{name}_M8_bfloat16"][k] * calls
-                      for name, (_, _, calls) in INT8_SHAPES.items())
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"int8: the 225 products of one llama-8b substep at M=8, from the cases above: kernel "
-        f"{substep['ms']:.3f} ms, plain {substep['plain_ms']:.3f}, library (bf16 weights) "
-        f"{substep['library_ms']:.3f}, bound {substep['bound_ms']:.3f} ({card_line})")
+    substep = {M: int8_substep(by, M) for M in INT8_M if M > 1}
+    for M, t in substep.items():
+        log(f"int8: the 225 products of one llama-8b substep at M={M}, from the cases above: "
+            f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, library (bf16 weights) "
+            f"{t['library_ms']:.3f}, dequantize + torch.matmul {t['dequant_ms']:.3f}, bound "
+            f"{t['bound_ms']:.3f} ({card_line})")
     return results, substep
 
 
 DECODE_PHASES = ("decode_dispatch", "drain_sync", "drain_ready", "emit")
 
 
-def int8_expected(cfg, lens, substeps: int, bs: int = 16) -> tuple[int, int]:
-    """int8 calls a burst makes on each route (kernel, prefill): 7 per layer
-    plus lm_head per forward pass; every decode substep has 8 rows (the
-    kernel); each cold single-row prefill of a prompt padded to T tokens
-    runs its layer products on the kernel when T <= MAX_M rows and on the
-    prefill route otherwise, and its last-token head (1 row) on the kernel."""
-    from dynamo_tpu_torch.ops.int8_matmul import MAX_M
+def int8_rows_route(M: int) -> str:
+    """The route of a bf16 int8 product of M rows at the presets' widths
+    (K % 8 == 0, N % 16 == 0, weights 16-byte aligned): ``route``'s rule."""
+    from dynamo_tpu_torch.ops.int8_matmul import SMALL_M
 
+    return "kernel" if M <= SMALL_M else "wide"
+
+
+def int8_expected(cfg, lens, substeps: int, bs: int = 16,
+                  buckets: dict | None = None) -> tuple[int, int, int]:
+    """int8 calls a burst makes on each route (decode kernel, prefill route,
+    wide entry): 7 per layer plus lm_head per forward pass. Decode substeps
+    run at batch bucket 8 (the decode kernel), or at the buckets of
+    ``buckets`` ({bucket rows: substeps}); each cold single-row prefill of a
+    prompt padded to T tokens runs its layer products on T's route and its
+    last-token head (1 row) on the decode kernel."""
     per_pass = 7 * cfg.num_layers
-    kernel, prefill = (per_pass + 1) * substeps, 0
-    for n in lens:
-        T = -(-n // bs) * bs
-        kernel += 1 + (per_pass if T <= MAX_M else 0)
-        prefill += per_pass if T > MAX_M else 0
-    return kernel, prefill
+    n = {"kernel": 0, "prefill": 0, "wide": 0}
+    for rows, steps in (buckets or {8: substeps}).items():
+        n[int8_rows_route(rows)] += (per_pass + 1) * steps
+    for length in lens:
+        n[int8_rows_route(-(-length // bs) * bs)] += per_pass
+        n["kernel"] += 1
+    return n["kernel"], n["prefill"], n["wide"]
+
+
+def verify_per_forward(layers: int, cuda: bool, int8: bool, stepwise: bool = False) -> tuple:
+    """Kernel-wrapper calls of one verify forward, in graphs.COUNTERS order
+    (attention, int8 kernel, int8 prefill route, int8 tied head, int8 wide
+    entry). A fused or tree pass's forward runs B x S1 > 8 rows (the wide
+    entry); a stepwise pass's forwards run B = 8 rows (the decode kernel)."""
+    i8 = (7 * layers + 1) if cuda and int8 else 0
+    return (layers if cuda else 0, i8 if stepwise else 0, 0, 0, 0 if stepwise else i8)
+
+
+def int8_counts() -> tuple[int, int, int, int]:
+    """(attention, int8 kernel, int8 prefill route, int8 wide entry) launches
+    so far."""
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    return pa.launches, im.launches, im.prefill_launches, im.wide_launches
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
 
 
 async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cuda",
-                    quant: str = "none", kv_quant: str = "none"):
+                    quant: str = "none", kv_quant: str = "none", wide: bool = False):
     """The burst through ``run --in batch:``'s pipeline. The bf16 run
     (quant "none") also serves the prefix-hit repeat, the profiled pass and
-    the graph phase; an int8 run times one replay and profiles it."""
+    the graph phase; an int8 run times one replay and profiles it, and with
+    ``wide`` then runs phase 4c (``wide_phase``) on its weights, its engine
+    the reference."""
     import numpy as np
     import torch
 
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -846,14 +940,14 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         after, once the engine has drained its queue."""
         steps0, phases0 = _counters(engine)
         replays0, eager0 = runner.graphs.replays, runner.eager_windows
-        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         outs = await asyncio.gather(*(one(i, p, t, 1000 + i)
                                       for i, (p, t) in enumerate(zip(prompts, temps))))
         wall = time.perf_counter() - t0
         while engine.busy():
             await asyncio.sleep(0.001)
-        launches, i8, i8_prefill = pa.launches, im.launches, im.prefill_launches
+        launches, i8, i8_prefill, i8_wide = int8_counts()
         steps1, phases1 = _counters(engine)
         substeps = steps1 - steps0
         phase = {k: v - phases0.get(k, 0.0) for k, v in phases1.items()}
@@ -870,17 +964,18 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         if launches != cfg.num_layers * substeps or substeps == 0:
             raise RuntimeError(f"{label}: kernel launches {launches} != layers "
                                f"{cfg.num_layers} x substeps {substeps}")
-        want_i8 = int8_expected(cfg, lens, substeps) if quant == "int8" else (0, 0)
-        if (i8, i8_prefill) != want_i8:
-            raise RuntimeError(f"{label}: int8_matmul launches (kernel, prefill route) "
-                               f"{(i8, i8_prefill)} != {want_i8} for {substeps} substeps")
+        want_i8 = int8_expected(cfg, lens, substeps) if quant == "int8" else (0, 0, 0)
+        if (i8, i8_prefill, i8_wide) != want_i8:
+            raise RuntimeError(f"{label}: int8_matmul launches (kernel, prefill route, wide "
+                               f"entry) {(i8, i8_prefill, i8_wide)} != {want_i8} for {substeps} "
+                               "substeps")
         eager = runner.eager_windows - eager0
         if eager:
             raise RuntimeError(f"{label}: {eager} K-step windows ran eagerly on the card")
         decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
         total_tokens = sum(o["resp"]["usage"]["completion_tokens"] for o in outs)
         st = {"launches": launches, "int8_launches": i8, "int8_prefill_launches": i8_prefill,
-              "substeps": substeps, "wall_s": wall,
+              "int8_wide_launches": i8_wide, "substeps": substeps, "wall_s": wall,
               "tokens_per_s": total_tokens / wall, "substep_ms": decode_s / substeps * 1e3,
               "decode_s": decode_s, "host_blocked": phase.get("drain_sync", 0.0) / decode_s,
               "prefill_dispatch_s": phase.get("prefill", 0.0),
@@ -897,8 +992,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
             f"({card_line})")
         log(f"{tag}[{label}]: phases " + json.dumps({k: round(v, 4) for k, v in phase.items()}))
         log(f"{tag}[{label}]: paged_attention launches {launches} = {cfg.num_layers} layers x "
-            f"{substeps} substeps; int8_matmul launches {i8} on the kernel, {i8_prefill} on the "
-            f"prefill route")
+            f"{substeps} substeps; int8_matmul launches {i8} on the decode kernel, {i8_wide} on "
+            f"the wide entry, {i8_prefill} on the prefill route")
         return outs, st
 
     first, st2 = await burst("depth2")
@@ -921,7 +1016,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
             raise RuntimeError(f"{tag} request {a['i']}: depth 2 and depth 0 streams differ")
     log(f"{tag}: all 8 token and logprob streams identical at pipeline_depth 2 and 0")
     stats = {"launches": st2["launches"], "int8_launches": st2["int8_launches"],
-             "int8_prefill_launches": st2["int8_prefill_launches"], "substeps": st2["substeps"],
+             "int8_prefill_launches": st2["int8_prefill_launches"],
+             "int8_wide_launches": st2["int8_wide_launches"], "substeps": st2["substeps"],
              "tokens_per_s": st2["tokens_per_s"], "substep_ms": st2["substep_ms"],
              "host_blocked": st2["host_blocked"], "ttft_s": st2["ttft_s"],
              "depth0": {k: st0[k] for k in ("substeps", "tokens_per_s", "substep_ms",
@@ -953,10 +1049,201 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         stats.update(window_phase(engine, card_line))
     else:
         stats.update(replay_phase(engine, card_line, tag))
+    if wide:
+        t1 = time.perf_counter()
+        stats["wide"] = await wide_phase(card_line, pipe, device)
+        log(f"phase 4c (wide): {time.perf_counter() - t1:.1f}s")
     await engine.stop()
     del pipe, engine, runner
     torch.cuda.empty_cache()
     return stats, reference
+
+
+# -- phase 4c: the wide int8 entry on a serving path --------------------------
+
+WIDE_SEQS = 128                        # max_num_seqs: decode buckets 8, 32 and 128
+WIDE_SAMPLED = range(7, WIDE_SEQS, 16)  # 8 rows at temperature 0.7, the rest greedy
+WIDE_KV_BLOCKS = 4800                  # 128 rows of up to 512 + 64 tokens, and margin
+WIDE_WINDOW_LENS = (64, 96, 128)       # prompt tokens of the timing runner's rows
+
+
+def wide_requests() -> list[dict]:
+    """128 seeded completions: byte-token prompts of 64-512 tokens, 64
+    tokens each, 8 of them at temperature 0.7 and the rest greedy."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    lens = rng.integers(64, 513, WIDE_SEQS)
+    return [{"prompt": "".join(chr(c) for c in rng.integers(32, 127, n)),
+             "temperature": 0.7 if i in WIDE_SAMPLED else 0.0, "seed": 2000 + i, "len": int(n)}
+            for i, n in enumerate(lens)]
+
+
+async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
+                     max_tokens: int = BURST_TOKENS) -> dict:
+    """Phase 4c: 4b's int8 weights (bf16 pages) in an engine of 128
+    sequences at depth 2, serving ``wide_requests`` at once, so that its
+    decode runs buckets 32 and 128 (8 too, when the last admissions leave
+    a window to a few rows) as it fills and drains and every product above
+    8 rows takes the wide entry. Holds: no eager window or
+    step; int8 launches to ``int8_expected`` over the engine's substeps by
+    bucket and its prefills (the wide entry's count exact); every greedy
+    stream against the same request served by ``ref_pipe`` (4b's engine of
+    8 sequences: the decode kernel at M=8), token for token except where
+    the reference's top-2 gap is under ``SPEC_GAP_TOL``. Then, on a runner
+    of its own, one window at buckets 32 and 128 as a graph replay
+    bit-identical to op by op, its device ms per substep (bucket 8 too) and
+    one profiled replay by kernel family. ``max_tokens`` per request (64 on
+    the card). → the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.run.__main__ import parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    tag = "wide"
+    ref_engine = ref_pipe.engine
+    cfg, params = ref_engine.cfg, ref_engine.runner.params
+    cuda = device == "cuda"
+    args = parse_args(["--in", "batch:-", "--preset", cfg.name, "--dtype", ref_engine.args.dtype,
+                       "--device", device, "--block-size", "16", "--num-kv-blocks",
+                       str(WIDE_KV_BLOCKS), "--max-num-seqs", str(WIDE_SEQS),
+                       "--max-model-len", "2048", "--decode-steps", "8"])
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pipe = await local_pipeline(args, quant="int8", model=cfg, params=params)
+    engine, runner = pipe.engine, pipe.engine.runner
+    L = cfg.num_layers
+    log(f"{tag}: {cfg.name} int8 engine of {WIDE_SEQS} sequences on phase 4b's weights up in "
+        f"{time.perf_counter() - t0:.1f}s, decode buckets {engine.args.decode_buckets}, "
+        f"pipeline_depth {engine.args.effective_pipeline_depth}")
+    reqs = wide_requests()
+
+    async def one(p, r, top):
+        req = CompletionRequest.parse({
+            "model": p.card.name, "prompt": r["prompt"], "max_tokens": max_tokens,
+            "temperature": r["temperature"], "seed": r["seed"], "ignore_eos": True,
+            "logprobs": top})
+        gen = None
+        async for g_, _chunk in p.run(req, Context()):
+            gen = g_
+        return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values),
+                "tops": list(gen.lp_tops)}
+
+    buckets0 = dict(engine.decode_steps_by_bucket)
+    eager0 = (runner.eager_windows, runner.eager_steps)
+    cap0 = (runner.graphs.captured, runner.graphs.capture_s) if runner.graphs else (0, 0.0)
+    _, phases0 = _counters(engine)
+    zero_counts()
+    t1 = time.perf_counter()
+    outs = await asyncio.gather(*(one(pipe, r, 0) for r in reqs))
+    wall = time.perf_counter() - t1
+    while engine.busy():
+        await asyncio.sleep(0.001)
+    counts = int8_counts()
+    by_bucket = {b: n - buckets0.get(b, 0) for b, n in engine.decode_steps_by_bucket.items()
+                 if n != buckets0.get(b, 0)}
+    substeps = sum(by_bucket.values())
+    eager = (runner.eager_windows - eager0[0], runner.eager_steps - eager0[1])
+    captured = ((runner.graphs.captured - cap0[0], runner.graphs.capture_s - cap0[1])
+                if runner.graphs else (0, 0.0))
+    phase = {k: v - phases0.get(k, 0.0) for k, v in _counters(engine)[1].items()}
+    for i, o in enumerate(outs):
+        if len(o["tokens"]) != max_tokens or not all(
+                np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
+            raise RuntimeError(f"{tag} request {i}: bad token/logprob stream")
+    want = (L * substeps, *int8_expected(cfg, [r["len"] for r in reqs], substeps,
+                                         buckets=by_bucket)) if cuda else (0, 0, 0, 0)
+    if counts != want:
+        raise RuntimeError(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 "
+                           f"wide entry) {counts} != {want} for substeps by bucket {by_bucket}")
+    if cuda and eager != (0, 0):
+        raise RuntimeError(f"{tag}: {eager[0]} windows and {eager[1]} single steps ran eagerly")
+    if cuda and not {32, WIDE_SEQS} <= set(by_bucket):
+        raise RuntimeError(f"{tag}: decode ran buckets {sorted(by_bucket)}, not 32 and "
+                           f"{WIDE_SEQS}")
+    tokens = len(reqs) * max_tokens
+    decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
+    st = {"tokens_per_s": tokens / wall, "wall_s": wall, "substeps": substeps,
+          "substeps_by_bucket": by_bucket, "launches": counts,
+          "host_ms_per_substep": decode_s / max(1, substeps) * 1e3,
+          "prefill_s": phase.get("prefill", 0.0),
+          "graphs_captured": captured[0], "capture_s": captured[1],
+          "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"{tag}: {len(reqs)} requests ({len(WIDE_SAMPLED)} at temperature 0.7), {tokens} "
+        f"tokens in {wall:.3f}s → {st['tokens_per_s']:.1f} tokens/s; decode substeps by bucket "
+        f"{by_bucket}; host ms per substep {st['host_ms_per_substep']:.3f}; prefill "
+        f"{st['prefill_s']:.2f}s of host time; {captured[0]} window graphs captured at first use "
+        f"in {captured[1]:.2f}s; peak memory {st['max_mem_gib']:.2f} GiB ({card_line})")
+    log(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 wide entry) "
+        f"{counts} = layers x substeps, 225 per substep on each bucket's route, prefills by "
+        f"their rows")
+    await engine.stop()
+
+    # The reference: the greedy requests through 4b's engine of 8 sequences
+    # (every decode product on the decode kernel), cold, with their top-2.
+    ref_engine.clear_kv_blocks()
+    greedy = [i for i in range(len(reqs)) if i not in WIDE_SAMPLED]
+    t1 = time.perf_counter()
+    refs = await asyncio.gather(*(one(ref_pipe, reqs[i], 2) for i in greedy))
+    ref_wall = time.perf_counter() - t1
+    n_div, gaps, drift, where = 0, [], 0.0, []
+    for i, ref in zip(greedy, refs):
+        o = outs[i]
+        p = _first_divergence(o["tokens"], ref["tokens"])
+        end = max_tokens if p is None else p
+        if end:
+            drift = max(drift, max(abs(a - b) for a, b in
+                                   zip(o["logprobs"][:end], ref["logprobs"][:end])))
+        if p is None:
+            continue
+        tops = sorted((lp for _tok, lp in ref["tops"][p]), reverse=True)
+        gap = tops[0] - tops[1]
+        if gap >= SPEC_GAP_TOL:
+            raise RuntimeError(f"{tag} request {i}: its stream leaves the 8-sequence engine's at "
+                               f"token {p}, where the reference's top-2 gap is {gap:.4f} >= "
+                               f"{SPEC_GAP_TOL}")
+        n_div += 1
+        gaps.append(gap)
+        where.append(p)
+    st.update({"divergences": n_div, "gaps": gaps, "divergence_tokens": where,
+               "max_logprob_drift": drift, "reference_wall_s": ref_wall})
+    log(f"{tag}: {len(greedy)} greedy streams against the 8-sequence engine (decode kernel at "
+        f"M=8, {ref_wall:.1f}s): {n_div} leave it, each where the reference's top-2 gap is "
+        f"under {SPEC_GAP_TOL} (largest {max(gaps, default=0.0):.4f}, {gaps.count(0.0)} exact "
+        f"ties), at tokens {sorted(where)}; max |logprob - reference| before that {drift:.4g}")
+
+    if cuda:
+        # Windows at buckets 8, 32 and 128 on a runner of their own.
+        rargs = EngineArgs(model=cfg, block_size=16, num_kv_blocks=1400, max_num_seqs=WIDE_SEQS,
+                           max_model_len=2048, decode_steps=8, dtype="bfloat16", device="cuda",
+                           quant="int8")
+        trunner = LocalRunner(rargs, params=params)
+        trunner.start()
+        st["replay_ms_per_substep"], st["replay_profile"] = {}, {}
+        for live in (6, 32, 100):
+            B = rargs.bucket_decode(live)
+            kw = dict(window_inputs(trunner, "simple", 70 + live, lens=WIDE_WINDOW_LENS,
+                                    live=live), top_n=0)
+            if B > 8:
+                graph_vs_eager(trunner, kw)
+                log(f"{tag}: bucket {B} ({live} live rows) window: graph replay bit-identical to "
+                    f"op by op (tokens, logprobs, KV pages, chain)")
+            st["replay_ms_per_substep"][B] = replay_ms(trunner, kw)
+            log(f"{tag}: bucket {B}: {st['replay_ms_per_substep'][B]:.3f} ms device time per "
+                f"substep as one graph replay ({card_line})")
+            if B > 8:
+                st["replay_profile"][B] = profile_replay(trunner, kw, card_line,
+                                                         f"bucket {B}, {live} live rows")
+        trunner.stop()
+        del trunner
+    del pipe, engine, runner
+    torch.cuda.empty_cache()
+    return st
 
 
 async def busy_pass(engine, one, prompts, temps, first, card_line):
@@ -993,9 +1280,9 @@ async def busy_pass(engine, one, prompts, temps, first, card_line):
     return busy_share
 
 
-def window_inputs(runner, mode, seed, K=8, lens=None):
-    """Prefill six rows of random prompts (of lengths ``lens``, else random
-    5..39) on ``runner`` (disjoint blocks, room for two K-step windows),
+def window_inputs(runner, mode, seed, K=8, lens=None, live=6):
+    """Prefill ``live`` rows of random prompts (of lengths ``lens``, else
+    random 5..39) on ``runner`` (disjoint blocks, room for two K-step windows),
     sample their first tokens in
     ``mode`` with the fold into ``last_toks``, and return the operands of
     the next K-step window over them, chained from the folds and padded to
@@ -1003,11 +1290,10 @@ def window_inputs(runner, mode, seed, K=8, lens=None):
     "full" mode they also carry top-k, top-p and both penalties."""
     import numpy as np
 
-    live = 6
     args, V = runner.args, runner.cfg.vocab_size
     bs, B, sink = args.block_size, args.bucket_decode(live), args.max_num_seqs
     rng = np.random.default_rng(seed)
-    lens = rng.integers(5, 40, live) if lens is None else np.asarray(lens)
+    lens = rng.integers(5, 40, live) if lens is None else np.resize(np.asarray(lens), live)
     tables, logits, nxt = [], [], 1
     for n in lens:
         nblk = -(-(int(n) + 2 * K + 1) // bs)
@@ -1020,7 +1306,9 @@ def window_inputs(runner, mode, seed, K=8, lens=None):
     tab = np.zeros((B, W), np.int32)
     for i, t in enumerate(tables):
         tab[i, : len(t)] = t
-    f = lambda v, dt=np.float32: np.asarray(v + [0] * (B - live), dt)  # noqa: E731
+    def f(v, dt=np.float32):  # six rows' values, repeated over the live rows, then padding
+        return np.asarray((v * -(-live // len(v)))[:live] + [0] * (B - live), dt)
+
     temps = f([0.0, 0.8, 0.0, 1.1, 0.6, 0.9])
     if mode == "greedy":
         temps[:] = 0.0
@@ -1111,9 +1399,10 @@ def chained_vs_drained(runner, kw):
             raise RuntimeError(f"{kw['mode']}: chained windows differ from drained ones")
 
 
-def profile_replay(runner, kw, card_line: str) -> dict:
-    """torch.profiler over one graph replay of the window ``kw``: its
-    kernels by family, device time per substep."""
+def profile_replay(runner, kw, card_line: str, label: str = "burst lengths") -> dict:
+    """torch.profiler over one graph replay of the window ``kw`` (its rows
+    named by ``label`` in the log): its kernels by family, device time per
+    substep."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1138,7 +1427,7 @@ def profile_replay(runner, kw, card_line: str) -> dict:
         fam[name][1] += n / K
     total = sum(v[0] for v in fam.values())
     kernels = sum(v[1] for v in fam.values())
-    log(f"graphs: profiled replay ({kw['mode']}, burst lengths): {total:.3f} ms device time "
+    log(f"graphs: profiled replay ({kw['mode']}, {label}): {total:.3f} ms device time "
         f"and {kernels:.0f} kernels per substep ({card_line})")
     for name, (ms, n) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
         log(f"graphs:   {ms:7.3f} ms {n:6.0f} kernels per substep  {name}")
@@ -1920,17 +2209,17 @@ def checkpoint_phase(card_line: str, preset: str = "llama-8b", layers: int = 2,
             raise RuntimeError(f"ckpt: processes did not exit 0 on SIGTERM: {rcs}")
         counters = next(json.loads(line) for line in reversed(worker.lines)
                         if line.startswith('{"event": "engine_counters"'))
-        got_counts = (counters["paged_attention_launches"], counters["int8_matmul_launches"],
-                      counters["int8_matmul_prefill_launches"])
+        got_counts = worker_counts(counters)
         want_counts = _ckpt_counts(lcfg, counters["decode_substeps"], device)
         if got_counts != want_counts:
-            raise RuntimeError(f"ckpt: worker launches (attention, int8 kernel, int8 prefill) "
-                               f"{got_counts} != {want_counts}")
+            raise RuntimeError(f"ckpt: worker launches (attention, int8 kernel, int8 prefill, "
+                               f"int8 wide) {got_counts} != {want_counts}")
         wall = max(r["latency_s"] for r in got)
         log(f"ckpt: {CKPT_REQUESTS} aggregate completions through worker --model-path --quant "
             f"int8 --kv-quant int8, each bit-equal to the in-process engine on the same "
             f"checkpoint (token texts and logprobs); worker launches {got_counts} (attention, "
-            f"int8 kernel, int8 prefill route) for {counters['decode_substeps']} substeps; "
+            f"int8 kernel, int8 prefill route, int8 wide entry) for "
+            f"{counters['decode_substeps']} substeps; "
             f"in-process {ref_counts}; slowest request {wall:.2f}s ({card_line})")
         return {"name": name, "path": path, "cfg": lcfg, "bytes": size, "write_s": write_s,
                 "load_s": load_s,
@@ -1992,18 +2281,19 @@ async def checkpoint_reference(model_path: str, device: str = "cuda", dtype: str
 
 
 async def local_pipeline(args, quant: str = "none", kv_quant: str = "none", model=None,
-                         **engine_kw):
+                         params=None, **engine_kw):
     """The run launcher's in-process pipeline (``build_pipeline``), with
     what the phases vary and the launcher has no flag for: ``model`` (a
-    ModelConfig, ``cut_config``) in place of ``--preset``'s, and further
-    EngineArgs fields (adapter slots, host tier) in ``engine_kw``."""
+    ModelConfig, ``cut_config``) in place of ``--preset``'s, ``params``
+    (another engine's weights, shared) and further EngineArgs fields
+    (adapter slots, host tier) in ``engine_kw``."""
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
     from dynamo_tpu_torch.run.__main__ import LocalPipeline
 
-    tok_spec, params = tokenizer_spec_for(args.model_path, args.tokenizer), None
+    tok_spec = tokenizer_spec_for(args.model_path, args.tokenizer)
     if args.model_path:
         from dynamo_tpu_torch.engine.loader import load_model
 
@@ -2036,19 +2326,19 @@ def cut_config(preset: str, layers: int, vocab_size: int | None = None):
 
 
 def write_checkpoint(preset: str, layers: int, device: str = "cuda", dtype: str = "bfloat16",
-                     vocab_size: int | None = None):
+                     vocab_size: int | None = None, root: str | None = None):
     """The random weights of ``cut_config`` (``M.init_params``, seed 0, in
     ``dtype`` on ``device``: the weights an in-process engine of that
-    config makes) as an HF checkpoint under build/checkpoints/<name> (two
-    safetensors shards, an index and config.json) → (path, name, the
-    written host tree, bytes, seconds)."""
+    config makes) as an HF checkpoint under <root>/<name> (root
+    build/checkpoints by default; two safetensors shards, an index and
+    config.json) → (path, name, the written host tree, bytes, seconds)."""
     import torch
 
     from dynamo_tpu_torch.engine import model as M
     from dynamo_tpu_torch.engine.loader import save_checkpoint
 
     cfg = cut_config(preset, layers, vocab_size)
-    path = os.path.join(HERE, "build", "checkpoints", cfg.name)
+    path = os.path.join(root or os.path.join(HERE, "build", "checkpoints"), cfg.name)
     shutil.rmtree(path, ignore_errors=True)
     t0 = time.perf_counter()
     dev_tree = M.init_params(cfg, torch.device(device), getattr(torch, dtype), seed=0)
@@ -2077,15 +2367,21 @@ def _get(tree, key):
     return tree
 
 
+def worker_counts(c: dict) -> tuple[int, int, int, int]:
+    """(attention, int8 kernel, int8 prefill route, int8 wide entry) from a
+    worker's engine_counters line."""
+    return (c["paged_attention_launches"], c["int8_matmul_launches"],
+            c["int8_matmul_prefill_launches"], c["int8_matmul_wide_launches"])
+
+
 def _ckpt_counts(cfg, substeps: int, device: str,
-                 lens=tuple(BURST_LENS[:CKPT_REQUESTS])) -> tuple[int, int, int]:
-    """(attention, int8 kernel, int8 prefill route) launches of the phase's
-    requests (cold prompts of ``lens`` tokens); all 0 on the CPU, where the
-    plain versions run."""
+                 lens=tuple(BURST_LENS[:CKPT_REQUESTS])) -> tuple[int, int, int, int]:
+    """(attention, int8 kernel, int8 prefill route, int8 wide entry)
+    launches of the phase's requests (cold prompts of ``lens`` tokens); all
+    0 on the CPU, where the plain versions run."""
     if device != "cuda":
-        return 0, 0, 0
-    kernel, prefill = int8_expected(cfg, lens, substeps)
-    return cfg.num_layers * substeps, kernel, prefill
+        return 0, 0, 0, 0
+    return (cfg.num_layers * substeps, *int8_expected(cfg, lens, substeps))
 
 
 async def _checkpoint_reference(cfg, params, name, device, dtype):
@@ -2097,8 +2393,6 @@ async def _checkpoint_reference(cfg, params, name, device, dtype):
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import LocalPipeline
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -2110,7 +2404,7 @@ async def _checkpoint_reference(cfg, params, name, device, dtype):
                                kv_cache_block_size=16, eos_token_ids=[ByteTokenizer.EOS])
     pipe = LocalPipeline(card, engine, ByteTokenizer())
     await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
-    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+    zero_counts()
     steps0 = engine.total_decode_steps
     prompts = burst_prompts()
 
@@ -2127,7 +2421,7 @@ async def _checkpoint_reference(cfg, params, name, device, dtype):
         refs = await asyncio.gather(*(one(i) for i in range(CKPT_REQUESTS)))
         while engine.busy():
             await asyncio.sleep(0.001)
-        counts = (pa.launches, im.launches, im.prefill_launches)
+        counts = int8_counts()
         want = _ckpt_counts(cfg, engine.total_decode_steps - steps0, device)
         if counts != want:
             raise RuntimeError(f"ckpt in process: launches {counts} != {want}")
@@ -2487,16 +2781,12 @@ def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
             if r["usage"]["prompt_tokens"] != prompt_tokens[i]:
                 raise RuntimeError(f"tok request {i}: usage.prompt_tokens "
                                    f"{r['usage']['prompt_tokens']} != {prompt_tokens[i]}")
-        time.sleep(1.0)  # the burst's last in-flight windows drain
-        worker.proc.send_signal(signal.SIGUSR1)
-        m, _ = worker.wait_for(r'^(\{"event": "engine_counters".*\})$', 60)
-        counters = json.loads(m.group(1))
-        got_counts = (counters["paged_attention_launches"], counters["int8_matmul_launches"],
-                      counters["int8_matmul_prefill_launches"])
+        counters = settled_counters(worker)
+        got_counts = worker_counts(counters)
         want_counts = _ckpt_counts(cfg, counters["decode_substeps"], device, prompt_tokens)
         if got_counts != want_counts:
-            raise RuntimeError(f"tok: worker launches (attention, int8 kernel, int8 prefill) "
-                               f"{got_counts} != {want_counts}")
+            raise RuntimeError(f"tok: worker launches (attention, int8 kernel, int8 prefill, "
+                               f"int8 wide) {got_counts} != {want_counts}")
         mixed = asyncio.run(_tok_mixed(port, sys_port, name, batch_prompts, inter_prompt,
                                        geo["batch_max_tokens"]))
         rcs = {p.name: p.stop() for p in [fe, worker, store]}
@@ -2511,7 +2801,8 @@ def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
             f"--model-path --quant int8 --kv-quant int8 with no --tokenizer, each bit-equal to "
             f"the in-process engine on the port tokenizer's ids (token texts and logprobs), "
             f"prompt tokens {prompt_tokens}; worker launches {got_counts} (attention, int8 "
-            f"kernel, int8 prefill route) for {counters['decode_substeps']} substeps; "
+            f"kernel, int8 prefill route, int8 wide entry) for {counters['decode_substeps']} "
+            f"substeps; "
             f"in-process {ref_counts}; mixed priority: {mixed['preempted_batch']} batch "
             f"preemption(s), the interactive stream equal to its solo run ({card_line})")
         log(f"tok: host CPU beside {card_line}: tokenizer load {fe_load:.3f}s in the frontend, "
@@ -2544,8 +2835,6 @@ async def _tok_reference(cfg, path, card, tok, bodies, prompt_tokens, num_kv_blo
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.engine.loader import load_model
     from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest, CompletionRequest
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import LocalPipeline
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -2557,7 +2846,7 @@ async def _tok_reference(cfg, path, card, tok, bodies, prompt_tokens, num_kv_blo
     del params
     pipe = LocalPipeline(card, engine, tok)
     await asyncio.to_thread(engine.runner.warm_windows, ("greedy", "simple"))
-    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+    zero_counts()
     steps0 = engine.total_decode_steps
 
     async def one(body):
@@ -2573,7 +2862,7 @@ async def _tok_reference(cfg, path, card, tok, bodies, prompt_tokens, num_kv_blo
         out = await asyncio.gather(*(one(b) for b in bodies))
         while engine.busy():
             await asyncio.sleep(0.001)
-        counts = (pa.launches, im.launches, im.prefill_launches)
+        counts = int8_counts()
         want = _ckpt_counts(cfg, engine.total_decode_steps - steps0, device, prompt_tokens)
         if counts != want:
             raise RuntimeError(f"tok in process: launches {counts} != {want}")
@@ -2844,9 +3133,10 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     logprobs and every verify shape captured ahead of its burst. Each
     speculating burst must dispatch verify passes and holds the launch
     counts: attention = layers × (dense substeps + verify forwards: 1 per
-    fused pass, S1 per stepwise pass), int8 = 225 per forward on the
-    kernel and none on the prefill route from verify passes, no eager
-    window or verify pass on the card.
+    fused pass, S1 per stepwise pass), int8 = 225 per forward (the wide
+    entry for fused and tree passes, the decode kernel for stepwise ones,
+    none on the prefill route), no eager window or verify pass on the
+    card.
 
     Which tokens a verify pass computes (and so their rounding in bf16,
     and a sampled row's noise keys) depends on when passes happen, so the
@@ -2861,8 +3151,6 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
 
     from dynamo_tpu_torch.engine.graphs import COUNTERS
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -2920,7 +3208,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls,
                 runner.tree_verify_calls)
         eager0 = (runner.eager_windows, runner.eager_verifies)
-        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+        zero_counts()
         entered, gate = threading.Event(), threading.Event()
 
         def hold():
@@ -2944,7 +3232,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         wall = time.perf_counter() - t1
         while engine.busy():
             await asyncio.sleep(0.001)
-        launches = (pa.launches, im.launches, im.prefill_launches)
+        launches = int8_counts()
         substeps = engine.total_decode_steps - steps0
         passes = runner.verify_passes - ver0[0]
         forwards = runner.verify_forwards - ver0[1]
@@ -2959,7 +3247,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
                 raise RuntimeError(f"{tag}[{label}] request {i}: bad token/logprob stream")
             if not all(0 <= t < cfg.vocab_size for t in o["tokens"]):
                 raise RuntimeError(f"{tag}[{label}] request {i}: token id out of range")
-        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0, 0)
+        per_fwd = verify_per_forward(L, cuda, quant == "int8", stepwise=label == "stepwise")
         if launches[0] != per_fwd[0] * (substeps + forwards):
             raise RuntimeError(f"{tag}[{label}]: paged_attention launches {launches[0]} != "
                                f"{L} x (dense substeps {substeps} + verify forwards {forwards})")
@@ -2967,7 +3255,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
             raise RuntimeError(f"{tag}[{label}]: verify passes made {dict(zip(COUNTERS, vcalls))} "
                                f"kernel calls for {forwards} forwards; want "
                                f"{tuple(n * forwards for n in per_fwd)} (attention, int8 kernel, "
-                               f"int8 prefill route, int8 tied head)")
+                               f"int8 prefill route, int8 tied head, int8 wide entry)")
         if tcalls != tuple(n * spec["tree_passes"] for n in per_fwd):
             raise RuntimeError(f"{tag}[{label}]: tree verify passes made {tcalls} kernel calls "
                                f"for {spec['tree_passes']} passes")
@@ -2980,7 +3268,7 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         st = {"wall_s": wall, "tokens_per_s": len(prompts) * BURST_TOKENS / wall,
               "substeps": substeps, "verify_passes": passes, "verify_forwards": forwards,
               "attention_launches": launches[0], "int8_launches": launches[1],
-              "int8_prefill_launches": launches[2],
+              "int8_prefill_launches": launches[2], "int8_wide_launches": launches[3],
               "verify_attention_launches": vcalls[0], "tree_verify_attention_launches": tcalls[0],
               "verify_calls_per_pass": [c / max(1, passes) for c in vcalls],
               "tokens_per_weight_pass": row_tokens / max(1, row_passes),
@@ -2993,7 +3281,8 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         log(f"{tag}[{label}]: paged_attention launches {launches[0]} = {L} x ({substeps} + "
             f"{forwards}); per verify pass: attention {st['verify_calls_per_pass'][0]:.1f}, "
             f"int8 kernel {st['verify_calls_per_pass'][1]:.1f}, int8 prefill route "
-            f"{st['verify_calls_per_pass'][2]:.1f}")
+            f"{st['verify_calls_per_pass'][2]:.1f}, int8 wide entry "
+            f"{st['verify_calls_per_pass'][4]:.1f}")
         return outs, st
 
     def against_dense(label, outs, dense):
@@ -3088,6 +3377,29 @@ def usr1_counters(proc: Proc, timeout: float = 60.0) -> dict:
     raise RuntimeError(f"{proc.name}: no engine_counters line after SIGUSR1")
 
 
+DRAIN_KEYS = ("decode_substeps", "prefilled_tokens", "paged_attention_launches",
+              "int8_matmul_launches", "int8_matmul_wide_launches",
+              "int8_matmul_prefill_launches")
+
+
+def settled_counters(proc: Proc, keys=DRAIN_KEYS, timeout: float = 60.0,
+                     interval: float = 0.25) -> dict:
+    """SIGUSR1 ``proc`` until two readings ``interval`` apart agree on
+    ``keys`` (the windows and prefills it had in flight have drained) → the
+    last reading. Past ``timeout`` it raises with both readings."""
+    deadline = time.monotonic() + timeout
+    last = usr1_counters(proc)
+    while True:
+        time.sleep(interval)
+        now = usr1_counters(proc)
+        if all(now[k] == last[k] for k in keys):
+            return now
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{proc.name}: counters still moving after {timeout:.0f}s: "
+                               f"{ {k: last[k] for k in keys} } then { {k: now[k] for k in keys} }")
+        last = now
+
+
 def _disagg_sums(text: str) -> dict:
     """Disagg series of a worker's /metrics: remote prefills, fallbacks by
     reason, transfer bytes."""
@@ -3168,9 +3480,8 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
         for i, r in enumerate(rs):
             ref = reference["repeats"][i] if i in REMOTE else reference["burst"][i]
             _check_disagg(f"{tag} request {i} ({'remote' if i in REMOTE else 'local'})", r, ref)
-        time.sleep(1.0)  # the burst's last in-flight windows drain
-        dc = usr1_counters(decode)
-        pc = usr1_counters(prefill)
+        dc = settled_counters(decode)
+        pc = settled_counters(prefill)
         metrics = _disagg_sums(_get_text(sys_port, "/metrics"))
         dg = dc["disagg"]
         transfers = sorted(dg["transfers"], key=lambda t: t["prompt_tokens"])
@@ -3216,7 +3527,8 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
             f"{100 * drain_sync_share:.1f}% of its decode-phase host time, inject "
             f"{dc['inject_s']:.3f}s on the scheduler thread for {dc['inject_bytes']} bytes; "
             f"prefill worker: export {pc['export_s']:.3f}s on its scheduler thread; launches "
-            f"(attention, int8 kernel, int8 prefill route) decode {counts}, prefill {p_counts} "
+            f"(attention, int8 kernel, int8 prefill route, int8 wide entry) decode {counts}, "
+            f"prefill {p_counts} "
             f"({card_line})")
         log(f"{tag}: routing exact: requests {REMOTE} remote ({remote_lens} tokens), the rest "
             f"local; disagg_remote_prefill_total {metrics['remote']:.0f}, fallbacks "
@@ -3230,15 +3542,12 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
         _check_disagg(f"{tag} request {CHAOS_REQUEST} alone", r,
                       reference["repeats"][CHAOS_REQUEST])
         alone_ttft = asyncio.run(routed(port, r["trace_id"]))[1]
-        time.sleep(1.0)
-        dc1 = usr1_counters(decode)
+        dc1 = settled_counters(decode)
         alone = dc1["disagg"]["transfers"][-1]
         if dc1["disagg"]["remote_prefills"] != len(REMOTE) + 1 or alone["outcome"] != "remote":
             raise RuntimeError(f"{tag}: request {CHAOS_REQUEST} alone: {dc1['disagg']}")
         alone["mb_per_s"] = alone["bytes"] / alone["seconds"] / 1e6
-        delta = {k: dc1[k] - dc[k] for k in ("decode_substeps", "paged_attention_launches",
-                                              "int8_matmul_launches",
-                                              "int8_matmul_prefill_launches")}
+        delta = {k: dc1[k] - dc[k] for k in DRAIN_KEYS}
         _held_counts(tag, "decode worker (request alone)", delta, cfg,
                      [suffix_len(BURST_LENS[CHAOS_REQUEST], bs)], device, quant)
         log(f"{tag}: request {CHAOS_REQUEST} alone ({BURST_LENS[CHAOS_REQUEST]} tokens, remote): "
@@ -3257,16 +3566,13 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
         (r,), _ = asyncio.run(_disagg_burst(port, model, [CHAOS_REQUEST], "chaos"))
         _check_disagg(f"{tag} chaos request {CHAOS_REQUEST}", r,
                       reference["burst"][CHAOS_REQUEST])
-        time.sleep(1.0)
-        dc2 = usr1_counters(decode)
+        dc2 = settled_counters(decode)
         metrics2 = _disagg_sums(_get_text(sys_port, "/metrics"))
         if (dc2["disagg"]["fallback_reasons"] != {"transfer": 1}
                 or dc2["disagg"]["remote_prefills"] != len(REMOTE) + 1
                 or metrics2["fallbacks"] != {"transfer": 1.0}):
             raise RuntimeError(f"{tag}: chaos: handler {dc2['disagg']}, /metrics {metrics2}")
-        delta = {k: dc2[k] - dc1[k] for k in ("decode_substeps", "paged_attention_launches",
-                                              "int8_matmul_launches",
-                                              "int8_matmul_prefill_launches")}
+        delta = {k: dc2[k] - dc1[k] for k in DRAIN_KEYS}
         _held_counts(tag, "decode worker (chaos rerun)", delta, cfg,
                      [BURST_LENS[CHAOS_REQUEST]], device, quant)
         log(f"{tag}: chaos: DYNTPU_CHAOS_TRANSFER_CUT_P=1 on the prefill worker cut request "
@@ -3291,17 +3597,18 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
             p.kill()
 
 
-def _held_counts(tag, who, c, cfg, lens, device, quant) -> tuple[int, int, int]:
+def _held_counts(tag, who, c, cfg, lens, device, quant) -> tuple[int, int, int, int]:
     """Hold a worker's launch counters to the count its substeps and
-    prefills give → (attention, int8 kernel, int8 prefill route)."""
-    got = (c["paged_attention_launches"], c["int8_matmul_launches"],
-           c["int8_matmul_prefill_launches"])
+    prefills give → (attention, int8 kernel, int8 prefill route, int8 wide
+    entry)."""
+    got = worker_counts(c)
     want = _ckpt_counts(cfg, c["decode_substeps"], device, lens)
     if quant != "int8":
-        want = (want[0], 0, 0)
+        want = (want[0], 0, 0, 0)
     if got != want:
         raise RuntimeError(f"{tag}: {who} launches (attention, int8 kernel, int8 prefill "
-                           f"route) {got} != {want} for {c['decode_substeps']} substeps")
+                           f"route, int8 wide entry) {got} != {want} for "
+                           f"{c['decode_substeps']} substeps")
     return got
 
 
@@ -3676,8 +3983,6 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
 
     from dynamo_tpu_torch.engine.grammar import build_compiler
     from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -3739,7 +4044,7 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
         spec0 = (engine.total_spec_tree_passes, engine.total_spec_proposed,
                  engine.total_spec_accepted)
         mask0, gen0 = engine.total_grammar_mask_s, engine.total_generated
-        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+        zero_counts()
         entered, gate = threading.Event(), threading.Event()
 
         def hold():
@@ -3763,7 +4068,7 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
         wall = time.perf_counter() - t1
         while engine.busy():
             await asyncio.sleep(0.001)
-        launches = (pa.launches, im.launches, im.prefill_launches)
+        launches = int8_counts()
         substeps = engine.total_decode_steps - steps0
         passes = runner.verify_passes - ver0[0]
         forwards = runner.verify_forwards - ver0[1]
@@ -3780,18 +4085,20 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
             fsm_legal(fsm, o["tokens"], eos)
             if not all(np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
                 raise RuntimeError(f"{tag}[{label}] request {i}: bad logprobs")
-        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0, 0)
+        per_fwd = verify_per_forward(L, cuda, quant == "int8")
         if launches[0] != per_fwd[0] * (substeps + forwards):
             raise RuntimeError(f"{tag}[{label}]: paged_attention launches {launches[0]} != "
                                f"{L} x (single steps {substeps} + verify forwards {forwards})")
         if tuple(vcalls) != tuple(n * forwards for n in per_fwd):
             raise RuntimeError(f"{tag}[{label}]: verify passes made {vcalls} kernel calls for "
                                f"{forwards} forwards")
-        want_i8 = (int8_expected(cfg, prompt_lens, substeps + forwards)
-                   if cuda and quant == "int8" else (0, 0))
+        want_i8 = (0, 0, 0)
+        if cuda and quant == "int8":
+            k, p, w = int8_expected(cfg, prompt_lens, substeps)
+            want_i8 = (k, p, w + per_fwd[4] * forwards)
         if launches[1:] != want_i8:
-            raise RuntimeError(f"{tag}[{label}]: int8_matmul launches (kernel, prefill route) "
-                               f"{launches[1:]} != {want_i8}")
+            raise RuntimeError(f"{tag}[{label}]: int8_matmul launches (kernel, prefill route, "
+                               f"wide entry) {launches[1:]} != {want_i8}")
         if cuda and eager != (0, 0, 0):
             raise RuntimeError(f"{tag}[{label}]: {eager} windows, verify passes and single steps "
                                "ran eagerly on the card")
@@ -3804,7 +4111,8 @@ async def grammar_phase(card_line: str, preset: str = "llama-8b", device: str = 
         st = {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
               "single_steps": substeps, "verify_passes": passes, "verify_forwards": forwards,
               "attention_launches": launches[0], "int8_launches": launches[1],
-              "int8_prefill_launches": launches[2], "verify_attention_launches": vcalls[0],
+              "int8_prefill_launches": launches[2], "int8_wide_launches": launches[3],
+              "verify_attention_launches": vcalls[0],
               "mask_s": engine.total_grammar_mask_s - mask0,
               "accepted": engine.total_spec_accepted - spec0[2],
               "proposed": engine.total_spec_proposed - spec0[1],
@@ -4092,7 +4400,7 @@ def tied_head_phase(device, card_line: str) -> dict:
     and bound times. Then a 2-layer llama-3b-width int8 engine serves the
     burst's prompts for a few windows with every count zeroed before and
     read after: the tied head must launch once per forward (each prefill's
-    last token and each decode substep) and the prefill route only for the
+    last token and each decode substep) and the wide entry only for the
     prefills' layer products."""
     import dataclasses
 
@@ -4101,7 +4409,6 @@ def tied_head_phase(device, card_line: str) -> dict:
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.runtime.engine import Context
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
@@ -4142,7 +4449,7 @@ def tied_head_phase(device, card_line: str) -> dict:
         try:
             engine.runner.warm_windows(("greedy", "simple"), (0,))
             steps0, eager0 = engine.total_decode_steps, engine.runner.eager_windows
-            pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+            zero_counts()
 
             async def one(i):
                 req = {"model": cfg.name, "token_ids": prompts[i],
@@ -4156,7 +4463,7 @@ def tied_head_phase(device, card_line: str) -> dict:
             got = await asyncio.gather(*(one(i) for i in range(len(prompts))))
             while engine.busy():
                 await asyncio.sleep(0.001)
-            counts = (pa.launches, im.launches, im.prefill_launches, im.tied_launches)
+            counts = (*int8_counts(), im.tied_launches)
             return got, counts, engine.total_decode_steps - steps0, \
                 engine.runner.eager_windows - eager0
         finally:
@@ -4165,18 +4472,18 @@ def tied_head_phase(device, card_line: str) -> dict:
     got, counts, substeps, eager = asyncio.run(go())
     if got != [max_tokens] * len(prompts):
         raise RuntimeError(f"tied-engine: tokens per request {got}")
-    kernel, prefill = int8_expected(cfg, BURST_LENS, substeps)
+    kernel, prefill, wide = int8_expected(cfg, BURST_LENS, substeps)
     forwards = substeps + len(prompts)
-    want = (cfg.num_layers * substeps, kernel - forwards, prefill, forwards)
+    want = (cfg.num_layers * substeps, kernel - forwards, prefill, wide, forwards)
     if counts != want or eager or substeps == 0:
         raise RuntimeError(f"tied-engine: launches (attention, int8 kernel, int8 prefill route, "
-                           f"tied head) {counts} != {want} for {substeps} substeps and "
-                           f"{len(prompts)} prefills ({eager} eager windows)")
+                           f"int8 wide entry, tied head) {counts} != {want} for {substeps} "
+                           f"substeps and {len(prompts)} prefills ({eager} eager windows)")
     log(f"tied-engine: 2-layer llama-3b-width int8 engine, {len(prompts)} prompts x {max_tokens} "
-        f"tokens: {substeps} decode substeps; the tied head launched {counts[3]} times (one per "
-        f"forward: {substeps} substeps + {len(prompts)} prefills), the prefill route "
-        f"{counts[2]} (the prefills' layer products only), the int8 kernel {counts[1]}, "
-        f"attention {counts[0]}; no eager window ({card_line})")
+        f"tokens: {substeps} decode substeps; the tied head launched {counts[4]} times (one per "
+        f"forward: {substeps} substeps + {len(prompts)} prefills), the wide entry {counts[3]} "
+        f"(the prefills' layer products), the prefill route {counts[2]}, the int8 kernel "
+        f"{counts[1]}, attention {counts[0]}; no eager window ({card_line})")
     del engine
     torch.cuda.empty_cache()
     return {"cases": results, "engine_launches": counts, "engine_substeps": substeps}
@@ -4233,14 +4540,12 @@ async def _tier_pass(engine, reqs: list[dict], tag: str, cfg, device: str, quant
     """One burst through the engine, every count zeroed just before and read
     just after; attention and int8 launches held to the substeps and to
     prefills of ``lens`` tokens; the scheduler thread's step finished."""
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.runtime.engine import Context
 
     steps0, eager0 = engine.total_decode_steps, engine.runner.eager_windows
     flush0 = (engine.offload_s, engine.offload_flushes, engine.offload_bytes)
     onboard0 = (engine.onboard_s, engine.onboard_bytes)
-    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
 
     async def one(r):
@@ -4259,16 +4564,17 @@ async def _tier_pass(engine, reqs: list[dict], tag: str, cfg, device: str, quant
     while engine.busy():
         await asyncio.sleep(0.001)
     await engine.run_on_engine_thread(lambda: None)  # the last step has finished
-    counts = (pa.launches, im.launches, im.prefill_launches)
+    counts = int8_counts()
     substeps = engine.total_decode_steps - steps0
     for r, o in zip(reqs, outs):
         if len(o["tokens"]) != r["stop"]["max_tokens"] or len(o["logprobs"]) != len(o["tokens"]):
             raise RuntimeError(f"{tag}: {len(o['tokens'])} tokens, {len(o['logprobs'])} logprobs")
     want = _ckpt_counts(cfg, substeps, device, lens)
     if quant != "int8":
-        want = (want[0], 0, 0)
+        want = (want[0], 0, 0, 0)
     if counts != want or substeps == 0 or engine.runner.eager_windows != eager0:
-        raise RuntimeError(f"{tag}: launches (attention, int8 kernel, int8 prefill route) "
+        raise RuntimeError(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 "
+                           f"wide entry) "
                            f"{counts} != {want} for {substeps} substeps, eager windows "
                            f"{engine.runner.eager_windows - eager0}")
     n_tok = sum(len(o["tokens"]) for o in outs)
@@ -5181,6 +5487,7 @@ def _check_migration(tag: str, cfg, out: dict, device: str, max_tokens: int) -> 
         "peak_device_gib": {k: c["peak_device_bytes"] / 2**30 for k, c in counters.items()},
         "launches": {k: c["paged_attention_launches"] for k, c in counters.items()},
         "int8_launches": {k: c["int8_matmul_launches"] for k, c in counters.items()},
+        "int8_wide_launches": {k: c["int8_matmul_wide_launches"] for k, c in counters.items()},
         "substeps": {k: c["decode_substeps"] for k, c in counters.items()},
         "chaos_reason": out["chaos_reply"]["reason"] if "chaos" in out else None,
         "graphs_captured": {name: (c1["graphs_captured"] - c0["graphs_captured"],
@@ -5291,8 +5598,6 @@ async def lora_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     from dynamo_tpu_torch.engine.lora import LoraAdapterSpec, make_adapter_pages
     from dynamo_tpu_torch.llm.protocols import ChatCompletionRequest, CompletionRequest
     from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
-    from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.run.__main__ import LocalPipeline, parse_args
     from dynamo_tpu_torch.runtime.engine import Context
     from dynamo_tpu_torch.worker.__main__ import adapter_cards
@@ -5372,7 +5677,7 @@ async def lora_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         return view(gen, t_first)
 
     def counts0():
-        pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+        zero_counts()
         return {"steps": engine.total_decode_steps, "prefilled": engine.total_prefilled,
                 "passes": runner.verify_passes, "forwards": runner.verify_forwards,
                 "eager": (runner.eager_windows, runner.eager_verifies, runner.eager_steps),
@@ -5385,26 +5690,26 @@ async def lora_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     def held_counts(label, c0, lens) -> dict:
         """Hold the pass's launch counts to its substeps and forwards → the
         pass's numbers."""
-        launches = (pa.launches, im.launches, im.prefill_launches)
+        launches = int8_counts()
         substeps = engine.total_decode_steps - c0["steps"]
         forwards = runner.verify_forwards - c0["forwards"]
-        want = (L * (substeps + forwards), 0, 0)
+        per_fwd = verify_per_forward(L, cuda, quant == "int8")
+        want = (L * (substeps + forwards), 0, 0, 0)
         if quant == "int8":
-            k, p = int8_expected(cfg, lens, substeps)
-            want = (want[0], k + (7 * L + 1) * forwards, p)
+            k, p, w = int8_expected(cfg, lens, substeps)
+            want = (want[0], k, p, w + per_fwd[4] * forwards)
         if not cuda:
-            want = (0, 0, 0)
+            want = (0, 0, 0, 0)
         if launches != want or substeps + forwards == 0:
             raise RuntimeError(f"{tag}[{label}]: launches (attention, int8 kernel, int8 prefill "
-                               f"route) {launches} != {want} for {substeps} substeps and "
-                               f"{forwards} verify forwards")
+                               f"route, int8 wide entry) {launches} != {want} for {substeps} "
+                               f"substeps and {forwards} verify forwards")
         # The verify passes' counted kernel calls, all and tree alone (each
         # pass one fused forward), held to their forwards: what the kernels
         # line reports for linear and tree verify.
         tree_passes = engine.total_spec_tree_passes - c0["tree"]
         vcalls, tcalls = (tuple(b - a for a, b in zip(c, now)) for c, now in zip(
             c0["vcalls"], (runner.verify_calls, runner.tree_verify_calls)))
-        per_fwd = (L if cuda else 0, (7 * L + 1) if cuda and quant == "int8" else 0, 0, 0)
         if (vcalls, tcalls) != (tuple(n * forwards for n in per_fwd),
                                 tuple(n * tree_passes for n in per_fwd)):
             raise RuntimeError(f"{tag}[{label}]: verify passes made {vcalls} kernel calls "
@@ -5875,14 +6180,14 @@ def main() -> int:
 
     mark("1-2 build")
     cases = kernel_phase(device)
-    int8_cases, int8_substep = int8_kernel_phase(device, card_line)
+    int8_cases, int8_substeps = int8_kernel_phase(device, card_line)
     tied = tied_head_phase(device, card_line)
     mark("3 kernels")
     stats, reference = asyncio.run(main_path(card_line))
     int8_runs, int8_refs = {}, {}
     for kv_quant in ("none", "int8"):
         int8_runs[kv_quant], int8_refs[kv_quant] = asyncio.run(
-            main_path(card_line, quant="int8", kv_quant=kv_quant))
+            main_path(card_line, quant="int8", kv_quant=kv_quant, wide=kv_quant == "none"))
         torch.cuda.empty_cache()
     for kv_quant, st in int8_runs.items():
         log(f"int8 vs bf16 ({kv_quant} KV pages for int8): tokens/s {st['tokens_per_s']:.1f} vs "
@@ -6044,7 +6349,31 @@ def main() -> int:
                              for b in ("mixed", "mixed_depth0", "base_only", "tree", "grammar")),
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
-        "case": i8["case"], "substep_225_calls": int8_substep, "cases": int8_cases,
+        "case": i8["case"], "substep_225_calls": int8_substeps, "cases": int8_cases,
+    }
+    wide = int8_runs["none"]["wide"]
+    w32 = next(r for r in int8_cases if r["case"] == "w_gate_up_M32_bfloat16")
+    wide_entry = {
+        "name": "int8_matmul_wide", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES, "launches": wide["launches"][3],
+        "launches_main_path_int8": int8_runs["none"]["int8_wide_launches"],
+        "launches_kv_int8": int8_runs["int8"]["int8_wide_launches"],
+        "launches_checkpoint_worker": ckpt["launches"][3],
+        "launches_tokenizer_worker": tok["launches"][3],
+        "launches_spec_int8": sum(spec["int8"][b]["int8_wide_launches"]
+                                  for b in ("dense", "fused", "stepwise", "tree")),
+        "launches_disagg_workers": disagg["int8"]["launches"][3]
+        + disagg["int8"]["prefill_launches"][3],
+        "launches_grammar": sum(grammar["int8"][b]["int8_wide_launches"]
+                                for b in ("dense", "tree", "dense_repeat")),
+        "launches_tiers": sum(tiers["int8"]["launches"][k][3] for k in ("cold", "hit", "g2")),
+        "launches_migration_workers": sum(migration["int8"]["int8_wide_launches"].values()),
+        "launches_lora": sum(lora["int8"][b]["launches"][3]
+                             for b in ("mixed", "mixed_depth0", "base_only", "tree", "grammar")),
+        "max_abs_err": w32["max_abs_err"], "ms": w32["ms"], "plain_ms": w32["plain_ms"],
+        "bound_ms": w32["bound_ms"], "bound_by": w32["bound_by"],
+        "library_ms": w32["library_ms"], "dequant_ms": w32["dequant_ms"], "case": w32["case"],
+        "substeps_by_bucket": wide["substeps_by_bucket"],
     }
     # Modes 3 and 4 on the path: the speculative verify passes of phase 10
     # (bf16 run); times from phase 3's cases at the burst's lengths, T=4.
@@ -6076,7 +6405,7 @@ def main() -> int:
     t8 = next(r for r in tied["cases"] if r["case"] == "tied_llama-3b_M8_bfloat16")
     tied_entry = {
         "name": "int8_matmul_tied_head", "route": "cuda", "source": INT8_SOURCE,
-        "replaces": TIED_REPLACES, "launches": tied["engine_launches"][3],
+        "replaces": TIED_REPLACES, "launches": tied["engine_launches"][4],
         "max_abs_err": t8["max_abs_err"], "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
         "library_ms": t8["library_ms"], "case": t8["case"], "cases": tied["cases"],
@@ -6097,7 +6426,8 @@ def main() -> int:
         f"{shallow_s:.1f}s")
     log("phase wall seconds: " + json.dumps(phase_s))
     log(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
-    print(json.dumps({"kernels": [entry, int8_entry, tied_entry, *spec_entries]}), flush=True)
+    print(json.dumps({"kernels": [entry, int8_entry, wide_entry, tied_entry, *spec_entries]}),
+          flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -565,6 +565,9 @@ class TorchEngine:
         self.total_prefilled = 0
         self.total_prefill_padded = 0  # prefill tokens dispatched, block padding included
         self.total_decode_steps = 0   # device substeps dispatched, padded rows included
+        # The same by decode batch bucket (rows per substep: what picks the
+        # int8 product's route).
+        self.decode_steps_by_bucket: collections.Counter = collections.Counter()
         self.total_preemptions_by: collections.Counter = collections.Counter()  # victim class
         self._arrival_no = 0
         # Host seconds per phase: admission, prefill, first_dispatch,
@@ -2294,6 +2297,7 @@ class TorchEngine:
             self._adapter_row_slots(batch, B),
         )
         self.total_decode_steps += K
+        self.decode_steps_by_bucket[B] += K
         w = _Window(batch, pos0, K, top_n, start_host_fetch(self._fetch_arrays(ref, top_n)))
         self._phase("decode_dispatch", t0)
         return w
@@ -2328,6 +2332,7 @@ class TorchEngine:
             press, pen, fold_slots, top_n, self._grammar_row_masks(batch, B),
             self._adapter_row_slots(batch, B))
         self.total_decode_steps += 1
+        self.decode_steps_by_bucket[B] += 1
         self.total_row_passes += len(batch)
         self.total_row_tokens += len(batch)
         fetch = start_host_fetch(self._fetch_arrays(ref, top_n))

@@ -255,7 +255,7 @@ class LocalRunner:
         # Verify passes dispatched, the forwards over all layers they made
         # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
         # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route,
-        # int8 tied head); ``tree_verify_calls`` the same for tree passes
+        # int8 tied head, int8 wide entry); ``tree_verify_calls`` the same for tree passes
         # alone.
         self.verify_passes = 0
         self.verify_forwards = 0

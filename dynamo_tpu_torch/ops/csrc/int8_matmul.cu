@@ -8,18 +8,24 @@
 // bf16 copy of every weight on every call (~5 bytes per weight); this kernel
 // keeps the TPU's one byte.
 //
-// It computes, for x [M, K] (bf16 or f32, M <= 64), w [K, N] int8 in the JAX
-// layout (contiguous along N) and scale [N] (f32 or bf16):
+// It computes, for x [M, K] (bf16 or f32), w [K, N] int8 in the JAX layout
+// (contiguous along N) and scale [N] (f32 or bf16):
 //   acc[m, n] = sum_k x[m, k] * w[k, n]          (f32 accumulation)
 //   layers (out in x's dtype):  y = rx( rx(acc) * rx(scale[n]) )
 //   logits (out f32):           y = f32( rx(acc) ) * f32(scale[n])
 // where rx rounds to x's dtype (round to nearest even; identity for f32):
 // the rounding points of the JAX functions.
 //
-// Bound on this card (H100 SXM, 3.35 TB/s HBM): at decode batch sizes the
-// product does 2*M operations per weight byte, far below the ~295 operations
-// per byte the tensor cores need to be the limit, so it is bound by reading
-// K*N weight bytes once. The design streams them once:
+// Three entries, chosen by the wrapper from shapes alone (ops/int8_matmul.py
+// `route`): the decode kernel (dtpu_int8_matmul: M <= 8 rows of bf16 x, and
+// f32 x or unaligned shapes up to 64 rows), the wide entry
+// (dtpu_int8_matmul_wide: bf16 x of more than 8 rows, any count) and the
+// tied head (dtpu_int8_matmul_t).
+//
+// The decode kernel. Bound on this card (H100 SXM, 3.35 TB/s HBM): at decode
+// batch sizes the product does 2*M operations per weight byte, far below the
+// ~295 operations per byte the tensor cores need to be the limit, so it is
+// bound by reading K*N weight bytes once. The design streams them once:
 // - Each block owns 128 output columns (128-byte row segments) and a
 //   contiguous range of K (split-K), walked in 128-row tiles through a
 //   4-stage ring in shared memory filled by 16-byte cp.async copies,
@@ -46,7 +52,9 @@
 //   split order and applies the epilogue. No float atomics: a repeat gives
 //   the same bits, inside CUDA graphs too.
 // - Shapes that break 16-byte alignment (K % 8 for bf16 x, K % 4 for f32,
-//   N % 16, or an unaligned pointer) stage the same tiles with plain loads.
+//   N % 16, or an unaligned pointer) stage the same tiles with plain loads,
+//   and so do bf16 calls of more than 8 rows (aligned ones take the wide
+//   entry).
 //
 // The tied head (dtpu_int8_matmul_t): llama-1b and llama-3b take their
 // logits from the int8 embedding [V, D] used transposed, so w arrives as
@@ -68,9 +76,50 @@
 // 8 x rows per block (grid y for more), the four k lanes of a row added by
 // shuffles in a fixed tree. No copy of the embedding is made.
 //
-// Not taken here (ROADMAP): wgmma and TMA, fusing wq/wk/wv into one call,
-// a prefill-shaped kernel.
+// The wide entry (int8_matmul_wide_kernel): bf16 x of more than 8 rows,
+// decode buckets of 32-256 rows, verify passes (B x S1 rows) and prefill
+// chunks. Bytes bound up to ~148 rows (2*M operations per weight byte), then
+// operations bound, so it needs both the weight stream of the decode kernel
+// and the tensor cores' full rate, which on Hopper only wgmma gives:
+// - It computes y^T = w^T x^T: the weights are wgmma's A (64 output
+//   columns per warpgroup, wgmma's M), x's rows its N, in row tiles of 16,
+//   32, 64, 128 or 256 chosen by the wrapper from M (grid z walks tiles of
+//   256 past that), K in steps of 16.
+// - A comes from registers: each thread converts the int8 bytes of its A
+//   fragment to bf16 with the byte permute above (exact), straight into the
+//   m16n8k16 A layout wgmma takes per warp. One conversion feeds every row
+//   of the tile; no bf16 copy of w exists anywhere. A warp's rows g and g + 8
+//   are made adjacent columns (2g, 2g + 1), so one 32-bit shared-memory word
+//   per k row holds both, and the two warps' 16-byte chunks sit in distinct
+//   banks under the swizzle below.
+// - B (x's tile, K-major) is read by wgmma from shared memory through a
+//   descriptor of the 128-byte swizzle.
+// - A block is two consumer warpgroups (128 columns) and one producer warp,
+//   one block per SM. The producer's one thread keeps a ring of 5-16
+//   stages (64 k rows: 8 KB of weights and the x tile; deeper for small
+//   row tiles, about 200 KB in all) full with two TMA tensor copies per stage
+//   (tensor maps encoded per call on the host, passed __grid_constant__;
+//   the 128-byte swizzle on both; the hardware zero-fills past M, K and N),
+//   completed on a "full" mbarrier; each consumer warp arrives on the
+//   stage's "empty" mbarrier when its wgmmas are done with it. The two
+//   warpgroups overlap each other's conversions and products.
+// - Stages and blocks per SM are fixed at compile time (WideCfg's shared
+//   memory, __launch_bounds__), and the wrapper's split plan reads the
+//   same number (its WIDE_BLOCKS_PER_SM; dtpu_int8_wide_blocks_per_sm
+//   reports the built kernel's occupancy). Splits of K keep a call within
+//   one wave of one block per SM, which the card ran faster than two per
+//   SM (PERF.md): a split's f32 partials cost bytes. The partials go
+//   through the ordered merge kernel below, no atomics, so a repeat gives
+//   the same bits, inside CUDA graphs too.
+// - x is staged by TMA too (the swizzle wgmma's descriptor reads is TMA's),
+//   and the weight tile takes TMA's 128-byte swizzle rather than padded
+//   rows (a TMA box cannot pad); a thread's reads hit distinct banks all
+//   the same.
+//
+// Not taken here (ROADMAP): fusing wq/wk/wv into one call, a persistent
+// grid, the tied head on wgmma.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -613,6 +662,342 @@ __global__ void __launch_bounds__(T_THREADS) int8_matmul_t_f32_kernel(const Para
   }
 }
 
+// ---- the wide entry: bf16 x, more than 8 rows; wgmma, TMA, mbarriers -------------
+
+constexpr int W_BN = 128;                       // output columns per block
+constexpr int W_BK = 64;                        // k rows per stage (128 bytes of an x row)
+constexpr int W_CONSUMERS = 2;                  // warpgroups, 64 columns each
+constexpr int W_THREADS = W_CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int W_WBYTES = W_BK * W_BN;           // a stage's weight tile
+
+// Stages per row tile (wgmma's N): a stage is 8 KB of weights and NR x 128
+// bytes of x, and each row tile's ring fills most of an SM's shared memory,
+// so one block runs per SM (W_BLOCKS_PER_SM; __launch_bounds__ gives it
+// the registers it wants). On the card one deep ring per SM streams the
+// weights faster than two shallow ones, and the split plan then keeps a
+// call's blocks to one per SM (the wrapper's WIDE_BLOCKS_PER_SM mirrors
+// this; dtpu_int8_wide_blocks_per_sm reads the built kernel's occupancy).
+constexpr int W_BLOCKS_PER_SM = 1;
+template <int NR> struct WideCfg;
+template <> struct WideCfg<16> { static constexpr int STAGES = 16; };
+template <> struct WideCfg<32> { static constexpr int STAGES = 16; };
+template <> struct WideCfg<64> { static constexpr int STAGES = 12; };
+template <> struct WideCfg<128> { static constexpr int STAGES = 8; };
+template <> struct WideCfg<256> { static constexpr int STAGES = 5; };
+
+template <int NR>
+__host__ __device__ constexpr int wide_stage_bytes() {
+  return W_WBYTES + NR * W_BK * 2;
+}
+// Stages, their mbarriers (full and empty per stage) and the slack that
+// aligns the ring to 1024 bytes (the 128-byte swizzle's period).
+template <int NR>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return WideCfg<NR>::STAGES * (wide_stage_bytes<NR>() + 16) + 1024;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// One TMA box of `tm` at element coordinates (c0 innermost, c1) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major bf16 tile of 128-byte rows
+// written by TMA with the 128-byte swizzle (1024-byte aligned): 8-row groups
+// 1024 bytes apart. Adding 2 advances it by one k16 step (32 bytes).
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of `d` across an asynchronous
+// wgmma's issue or its wait, and from computing a wgmma's register inputs
+// (A fragments, descriptors) after the wgmmas start: ptxas serializes
+// wgmmas whose inputs are defined inside their pipeline stage.
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) asm volatile("" : "+f"(d[r])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t* d) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) asm volatile("" : "+r"(d[r])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint64_t* d) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) asm volatile("" : "+l"(d[r])::"memory");
+}
+
+// d[64 x NR] += a (bf16, registers; the m16n8k16 A layout per warp) . b
+// (bf16, shared memory through the descriptor), f32 accumulators.
+template <int NR>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+template <> __device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Layers (out in bf16) or logits (out f32) for x rows m and columns n, n + 1.
+__device__ __forceinline__ void epilogue_pair(const Params& p, int m, int n, float v0,
+                                              float v1) {
+  float s0, s1;
+  if (p.scale_bf16) {
+    const __nv_bfloat162 s = *reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const bf16*>(p.scale) + n);
+    s0 = __low2float(s);
+    s1 = __high2float(s);
+  } else {
+    const float2 s = *reinterpret_cast<const float2*>(static_cast<const float*>(p.scale) + n);
+    s0 = s.x;
+    s1 = s.y;
+  }
+  const float r0 = round_x<bf16>(v0), r1 = round_x<bf16>(v1);
+  const size_t o = static_cast<size_t>(m) * p.N + n;
+  if (p.out_f32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(r0 * s0, r1 * s1);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + o) = __floats2bfloat162_rn(
+        r0 * round_x<bf16>(s0), r1 * round_x<bf16>(s1));
+  }
+}
+
+// Block (column block x, split y, row tile z): 128 columns from n0, x rows
+// m0 .. m0 + NR - 1, the split's k tiles. Warps 0-7 are two consumer
+// warpgroups (64 columns each), warp 8 the producer.
+template <int NR>
+__global__ void __launch_bounds__(W_THREADS, W_BLOCKS_PER_SM)
+    int8_matmul_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
+                            const __grid_constant__ CUtensorMap tm_w, const Params p) {
+  constexpr int STAGES = WideCfg<NR>::STAGES;
+  constexpr int STAGE = wide_stage_bytes<NR>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int n0 = blockIdx.x * W_BN, s = blockIdx.y, m0 = blockIdx.z * NR;
+  const int t0 = s * p.tiles_per_split;
+  const int nt = min(p.tiles_per_split, p.k_tiles - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, W_CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == W_CONSUMERS * 4) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + st, (i / STAGES - 1) & 1);
+        mbar_expect_tx(full + st, STAGE);
+        const int k0 = (t0 + i) * W_BK;
+        tma_load_2d(smem + st * STAGE, &tm_w, n0, k0, full + st);
+        tma_load_2d(smem + st * STAGE + W_WBYTES, &tm_x, k0, m0, full + st);
+      }
+    }
+    return;
+  }
+
+  // A row 16 wq + g of warpgroup q (rows g and g + 8 of the warp's m16
+  // slice) is column 64 q + 16 wq + 2 g, and row 16 wq + g + 8 the column
+  // after it: a thread's two columns are adjacent bytes of one 32-bit word
+  // of each weight row, in the warp's 16-byte chunk 4 q + wq. TMA's swizzle
+  // stores chunk j of row r at chunk j ^ (r & 7); a thread's k rows are
+  // 16 ks + 2 tg (+1, +8, +9), so r & 7 is 2 tg or 2 tg + 1 at every step.
+  const int q = warp >> 2, wq = warp & 3, g = lane >> 2, tg = lane & 3;
+  const int chunk = 4 * q + wq;
+  const int off_e = ((chunk ^ (2 * tg)) << 4) + (g >> 1) * 4;
+  const int off_o = ((chunk ^ (2 * tg + 1)) << 4) + (g >> 1) * 4;
+  const int b = 2 * (g & 1);  // byte of the first column in the word
+
+  float acc[NR / 2];
+#pragma unroll
+  for (int r = 0; r < NR / 2; ++r) acc[r] = 0.f;
+
+  // Per k tile: convert its weights into A fragments, issue its four
+  // wgmmas and wait for them, then hand the stage back to the producer.
+  // The two warpgroups overlap each other's conversions and products. (A
+  // warpgroup converting its next tile while its wgmmas run needs a
+  // second set of A registers written inside their pipeline stage, and
+  // ptxas then serializes every wgmma: slower on the card.)
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(full + st, (i / STAGES) & 1);
+    const uint8_t* wt = smem + st * STAGE;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint8_t* rb = wt + (16 * ks + 2 * tg) * W_BN;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(rb + off_e);             // k r
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(rb + W_BN + off_o);      // r + 1
+      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(rb + 8 * W_BN + off_e);  // r + 8
+      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(rb + 9 * W_BN + off_o);  // r + 9
+      a[ks][0] = i8_pair_bf16(w0, w1, b);      // A row g,     k r, r + 1
+      a[ks][1] = i8_pair_bf16(w0, w1, b + 1);  // A row g + 8, k r, r + 1
+      a[ks][2] = i8_pair_bf16(w2, w3, b);      // A row g,     k r + 8, r + 9
+      a[ks][3] = i8_pair_bf16(w2, w3, b + 1);  // A row g + 8, k r + 8, r + 9
+    }
+    uint64_t desc[4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) desc[ks] = desc_sw128(wt + W_WBYTES) + 2 * ks;
+    fence_regs<16>(&a[0][0]);
+    fence_regs<4>(desc);
+    fence_regs<NR / 2>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs<NR>(acc, a[ks], desc[ks]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NR / 2>(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+  }
+
+  // D fragment: rows g and g + 8 of the warp's slice are columns c and
+  // c + 1; value 4 j + h (+ 2) is x row 8 j + 2 tg + h.
+  const int c = n0 + 64 * q + 16 * wq + 2 * g;
+  if (c >= p.N) return;
+#pragma unroll
+  for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * j + 2 * tg + h;
+      if (m >= p.M) continue;
+      const float v0 = acc[4 * j + h], v1 = acc[4 * j + 2 + h];
+      if (p.splits == 1)
+        epilogue_pair(p, m, c, v0, v1);
+      else
+        *reinterpret_cast<float2*>(p.part + (static_cast<size_t>(s) * p.M + m) * p.N + c) =
+            make_float2(v0, v1);
+    }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem_bytes, cudaStream_t st, const Params& p) {
   if (smem_bytes > 48 * 1024) {
@@ -643,8 +1028,79 @@ cudaError_t launch_merge(const Params& p, cudaStream_t st) {
 template <int MT>
 cudaError_t launch_bf16(const Params& p, dim3 grid, bool aligned, cudaStream_t st) {
   const int smem = STAGES * stage_bytes<bf16, MT * 8>();
-  return aligned ? launch(int8_matmul_bf16_kernel<MT, true>, grid, smem, st, p)
-                 : launch(int8_matmul_bf16_kernel<MT, false>, grid, smem, st, p);
+  // More than 8 rows of aligned bf16 x take the wide entry (the wrapper's
+  // route): the tiles of 16-64 rows serve shapes that break its alignment,
+  // and take any other call through the plain loads.
+  if constexpr (MT == 1)
+    if (aligned) return launch(int8_matmul_bf16_kernel<1, true>, grid, smem, st, p);
+  return launch(int8_matmul_bf16_kernel<MT, false>, grid, smem, st, p);
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(f)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D row-major tensor [rows, cols] of `elem`-byte values, boxes of
+// [box_rows, box_cols] with the 128-byte swizzle; zeros outside it.
+bool tensor_map(CUtensorMap* tm, CUtensorMapDataType type, const void* base, int rows, int cols,
+                int elem, int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(tm, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NR>
+cudaError_t wide_attr() {
+  return cudaFuncSetAttribute(int8_matmul_wide_kernel<NR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, wide_smem_bytes<NR>());
+}
+
+template <int NR>
+cudaError_t launch_wide(const Params& p, const void* x, int row_tiles, cudaStream_t st) {
+  CUtensorMap tm_x, tm_w;
+  if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, p.M, p.K, 2, NR, W_BK) ||
+      !tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, p.K, p.N, 1, W_BK, W_BN))
+    return cudaErrorNotSupported;
+  const cudaError_t e = wide_attr<NR>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.N + W_BN - 1) / W_BN, p.splits, row_tiles);
+  int8_matmul_wide_kernel<NR><<<grid, W_THREADS, wide_smem_bytes<NR>(), st>>>(tm_x, tm_w, p);
+  return cudaGetLastError();
+}
+
+template <int NR>
+int wide_occupancy() {
+  if (wide_attr<NR>() != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_matmul_wide_kernel<NR>, W_THREADS,
+                                                    wide_smem_bytes<NR>()) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
@@ -767,6 +1223,69 @@ int dtpu_int8_matmul_t(const void* x, const void* w, const void* scale, void* ou
     default:
       return aligned ? go(int8_matmul_t_bf16_kernel<8, true>)
                      : go(int8_matmul_t_bf16_kernel<8, false>);
+  }
+}
+
+// Launch y = epilogue(x @ w) for bf16 x [M, K] (M > 0 rows, any count) on
+// `stream` through the wgmma entry: row tiles of `row_tile` rows (16, 32,
+// 64, 128 or 256; grid z walks ceil(M / row_tile) of them), `splits`
+// contiguous ranges of K's 64-row tiles (none empty), then the merge kernel
+// when splits > 1. w [K, N] int8, scale [N] (scale_dtype 0 f32, 1 bf16),
+// out [M, N] (f32 when out_f32, else bf16), part f32 [splits, M, N]
+// scratch. Needs K % 8 == 0, N % 16 == 0 and 16-byte aligned x, w and
+// scale (TMA's strides and the paired epilogue); returns a cudaError_t.
+int dtpu_int8_matmul_wide(const void* x, const void* w, const void* scale, void* out, void* part,
+                          int scale_dtype, int out_f32, int M, int K, int N, int row_tile,
+                          int splits, void* stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  const int k_tiles = (K + W_BK - 1) / W_BK;
+  const int row_tiles = row_tile > 0 ? (M + row_tile - 1) / row_tile : 0;
+  if (M < 0 || K <= 0 || N < 0 || K % 8 != 0 || N % 16 != 0 || splits < 1 ||
+      splits > k_tiles || splits > 65535 || row_tiles > 65535 ||
+      (scale_dtype != DT_F32 && scale_dtype != DT_BF16) || (splits > 1 && part == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(scale) % 16)
+    return cudaErrorInvalidValue;
+  const int tps = (k_tiles + splits - 1) / splits;
+  if ((splits - 1) * tps >= k_tiles) return cudaErrorInvalidValue;  // an empty split
+  Params p = {};
+  p.x = x;
+  p.w = static_cast<const int8_t*>(w);
+  p.scale = scale;
+  p.out = out;
+  p.part = static_cast<float*>(part);
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.scale_bf16 = scale_dtype == DT_BF16;
+  p.out_f32 = out_f32 != 0;
+  p.splits = splits;
+  p.tiles_per_split = tps;
+  p.k_tiles = k_tiles;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (row_tile) {
+    case 16: err = launch_wide<16>(p, x, row_tiles, st); break;
+    case 32: err = launch_wide<32>(p, x, row_tiles, st); break;
+    case 64: err = launch_wide<64>(p, x, row_tiles, st); break;
+    case 128: err = launch_wide<128>(p, x, row_tiles, st); break;
+    case 256: err = launch_wide<256>(p, x, row_tiles, st); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_merge<bf16>(p, st);
+}
+
+// Blocks of the wide entry one SM holds at `row_tile` (the occupancy the
+// CUDA runtime computes from its shared memory and registers), or -1.
+int dtpu_int8_wide_blocks_per_sm(int row_tile) {
+  switch (row_tile) {
+    case 16: return wide_occupancy<16>();
+    case 32: return wide_occupancy<32>();
+    case 64: return wide_occupancy<64>();
+    case 128: return wide_occupancy<128>();
+    case 256: return wide_occupancy<256>();
+    default: return -1;
   }
 }
 

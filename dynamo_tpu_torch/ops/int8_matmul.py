@@ -15,19 +15,27 @@ scale as it is.
 Routes, chosen from shapes alone (never as a recovery from a failure):
 
 - CPU tensors: ``int8_matmul_ref``, the plain version (the tests' oracle).
-- CUDA, M ≤ ``MAX_M`` rows (every decode batch bucket) and w contiguous:
-  the kernel. ``launches`` counts its calls (the split kernel and its merge
-  count as one).
+- CUDA, M ≤ ``SMALL_M`` rows and w contiguous: the decode kernel, the
+  only route of a batch bucket of 8. ``launches`` counts its calls (the
+  split kernel and its merge count as one).
+- CUDA, more than ``SMALL_M`` rows of bf16 x, w contiguous, K % 8 == 0,
+  N % 16 == 0 and w 16-byte aligned: the wide entry (wgmma with the
+  weights dequantized in registers): decode buckets of 32 to 256 rows,
+  verify passes and prefill chunks of any length. ``wide_launches``
+  counts its calls. It has no row limit: on the H100 it beats the prefill
+  route at 512 and 2048 rows too (PERF.md).
+- CUDA, f32 x or a shape the wide entry refuses, at most ``MAX_M`` rows,
+  w contiguous: the decode kernel.
 - CUDA, M ≤ ``MAX_M`` rows and w the transpose of a contiguous ``[N, K]``
   (the tied embedding ``[V, D]`` used as ``emb.T`` by ``_logits``): the
   kernel's tied-head entry, which reads w as stored, one byte per weight,
   with the same epilogue. ``tied_launches`` counts its calls.
-- CUDA, more rows (prefill chunks), or any other w layout: the prefill
-  route, which dequantizes w into a scratch in x's dtype and calls
-  ``torch.matmul``. Such products are bound by operations, not weight
-  bytes, at these row counts. ``prefill_launches`` counts its calls.
+- CUDA, any other call (more than ``MAX_M`` rows that the wide entry does
+  not take, or another w layout): the prefill route, which dequantizes w
+  into a scratch in x's dtype and calls ``torch.matmul``.
+  ``prefill_launches`` counts its calls.
 
-A CUDA call launches the kernel or raises; it never reaches the plain
+A CUDA call launches a kernel or raises; it never reaches the plain
 version.
 """
 
@@ -39,14 +47,26 @@ import torch
 
 from dynamo_tpu_torch.ops import _build
 
-MAX_M = 64         # the kernel's row limit: the largest decode batch bucket
+MAX_M = 64         # the decode kernel's row limit
+SMALL_M = 8        # rows of bf16 x the decode kernel keeps: a batch bucket of 8
 BN, BK = 128, 128  # the kernel's columns per block and k rows per tile
 RESIDENT_BLOCKS = 264  # blocks the H100's 132 SMs hold at once (2 each at M <= 8)
 
-# Calls that launched the kernel / took the prefill route / launched the
-# tied-head entry (read and reset by chip_smoke.py; CUDA-graph replays add
-# the calls their graph holds).
+# The wide entry (csrc/int8_matmul.cu ``int8_matmul_wide_kernel``): columns
+# per block, k rows per stage, its row tiles (wgmma's N) and the blocks one
+# SM holds at every row tile (the source's W_BLOCKS_PER_SM, fixed at
+# compile time by its shared memory and launch bounds; the card tests read
+# the occupancy back through dtpu_int8_wide_blocks_per_sm).
+WIDE_BN, WIDE_BK = 128, 64
+WIDE_ROW_TILES = (16, 32, 64, 128, 256)
+WIDE_BLOCKS_PER_SM = 1
+SMS = 132          # the H100 SXM's streaming multiprocessors
+
+# Calls that launched the kernel / the wide entry / took the prefill route /
+# launched the tied-head entry (read and reset by chip_smoke.py; CUDA-graph
+# replays add the calls their graph holds).
 launches = 0
+wide_launches = 0
 prefill_launches = 0
 tied_launches = 0
 
@@ -64,6 +84,22 @@ def split_k(K: int, N: int) -> int:
     want = min(tiles, max(1, RESIDENT_BLOCKS // groups))
     per = -(-tiles // want)
     return -(-tiles // per)
+
+
+def wide_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
+    """The wide entry's plan for an [M, K] x [K, N] product, from the shapes
+    alone → (row tile, row tiles, splits). The row tile is the smallest of
+    ``WIDE_ROW_TILES`` that holds M (256 past that: grid z walks
+    ceil(M / 256) tiles). K's ``WIDE_BK``-row tiles are split into as many
+    contiguous runs, each of ceil(tiles / splits) tiles and none empty, as
+    keep the call's blocks within one wave of the SMs."""
+    tile = next((t for t in WIDE_ROW_TILES if t >= M), WIDE_ROW_TILES[-1])
+    row_tiles = -(-M // tile)
+    blocks = -(-N // WIDE_BN) * row_tiles
+    tiles = -(-K // WIDE_BK)
+    want = min(tiles, max(1, SMS * WIDE_BLOCKS_PER_SM // blocks))
+    per = -(-tiles // want)
+    return tile, row_tiles, -(-tiles // per)
 
 
 def _epilogue(y: torch.Tensor, scale: torch.Tensor, out_f32: bool) -> torch.Tensor:
@@ -100,24 +136,31 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     which = route(x, w)
     if which == "prefill":
         return _prefill_route(x, w, scale, out_f32)
+    if which == "wide":
+        return _launch_wide(x, w, scale, out_f32, x.numel() // K, K, N)
     return _launch(x, w, scale, out_f32, x.numel() // K if K else 0, K, N, which == "tied")
 
 
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The shape rule for a CUDA call: for at most ``MAX_M`` rows of x,
-    "kernel" for a contiguous w and "tied" for the transpose of a
-    contiguous [N, K] (its tied-head entry); "prefill" otherwise."""
-    K = w.shape[0]
+    """The shape rule for a CUDA call (module docstring): "kernel", "wide",
+    "tied" or "prefill"."""
+    K, N = w.shape
     M = x.numel() // K if K else 0
-    if M > MAX_M:
-        return "prefill"
     if w.is_contiguous():
-        return "kernel"
-    return "tied" if w.T.is_contiguous() else "prefill"
+        if M <= SMALL_M:
+            return "kernel"
+        if (x.dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0
+                and w.data_ptr() % 16 == 0):
+            return "wide"
+        return "kernel" if M <= MAX_M else "prefill"
+    if M <= MAX_M and w.T.is_contiguous():
+        return "tied"
+    return "prefill"
 
 
-def _launch(x, w, scale, out_f32, M, K, N, tied=False):
-    global launches, tied_launches
+def _operands(x, w, scale, M, K, N):
+    """Check the operands → (library, x as a 16-byte aligned contiguous
+    [M, K], a contiguous scale)."""
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if scale.dtype not in _DTYPE_CODES or tuple(scale.shape) != (N,):
@@ -126,11 +169,45 @@ def _launch(x, w, scale, out_f32, M, K, N, tied=False):
         if t.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, found {t.device}")
     lib = _build.library("int8_matmul")
-    lead = x.shape[:-1]
     x2 = x.reshape(M, K)
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
-    scale = scale.contiguous()
+    return lib, x2, scale.contiguous()
+
+
+def _launch_wide(x, w, scale, out_f32, M, K, N):
+    global wide_launches
+    lib, x2, scale = _operands(x, w, scale, M, K, N)
+    if scale.data_ptr() % 16:
+        scale = scale.clone()
+    tile, _row_tiles, splits = wide_plan(M, K, N)
+    out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+    fn = lib.dtpu_int8_matmul_wide
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+             part.data_ptr() if part is not None else None,
+             _DTYPE_CODES[scale.dtype], int(out_f32), M, K, N, tile, splits,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "int8_matmul wide launch")
+    wide_launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+def wide_blocks_per_sm(row_tile: int) -> int:
+    """Blocks of the wide entry one SM holds at ``row_tile``, as the CUDA
+    runtime computes it from the built kernel (needs the card)."""
+    fn = _build.library("int8_matmul").dtpu_int8_wide_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(row_tile)
+
+
+def _launch(x, w, scale, out_f32, M, K, N, tied=False):
+    global launches, tied_launches
+    lib, x2, scale = _operands(x, w, scale, M, K, N)
+    lead = x.shape[:-1]
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
     if tied:
         fn = lib.dtpu_int8_matmul_t

@@ -1,6 +1,7 @@
 """Where the int8 weight product's time goes, on the card.
 
     python -m dynamo_tpu_torch.ops.profile_int8_matmul [--sweep] [--m 8]
+    python -m dynamo_tpu_torch.ops.profile_int8_matmul --substeps 8,32,64,128,256
 
 Run from the repository root (inputs come from chip_smoke.py's
 ``int8_case``). For each llama-8b decode shape it prints the call's
@@ -8,9 +9,13 @@ CUDA-event time (L2 flushed first, as chip_smoke.py times it) with the
 wrapper's split plan, and with ``--sweep`` with every other split count
 too. Then one decode substep's 225 products (7 per layer over 32 layers
 of distinct llama-8b-sized int8 weights, then lm_head with f32 out), all
-captured in one CUDA graph: the device time of a replay, against the same
-products with bf16 weights through ``torch.matmul`` (the library
-yardstick) and against the weight-byte bound at 3.35 TB/s. ``--window``
+captured in one CUDA graph: the device time of a replay through the
+wrapper (the decode kernel at M <= 8, the wide entry above), its plain
+version, dequantize + ``torch.matmul`` (the prefill route, inline), the
+same products with bf16 weights through ``torch.matmul`` (the library
+yardstick), and the bound (weight bytes at 3.35 TB/s or operations at 989
+TFLOP/s, whichever is larger). ``--substeps`` runs only that graph, at
+each row count given. ``--window``
 instead times one "simple" decode window of llama-8b (all 32 layers,
 random weights made on the card, chip_smoke.py's window at the burst's
 row lengths) with bf16 and with int8 weights in turns (bf16, int8, int8,
@@ -33,12 +38,15 @@ LAYERS = 32
 
 
 def _with_splits(splits: int, fn):
-    keep = im.split_k
+    """``fn()`` with every split plan (the decode kernel's and the wide
+    entry's) forced to ``splits``."""
+    keep = im.split_k, im.wide_plan
     im.split_k = lambda K, N: splits
+    im.wide_plan = lambda M, K, N: (*keep[1](M, K, N)[:2], splits)
     try:
         return fn()
     finally:
-        im.split_k = keep
+        im.split_k, im.wide_plan = keep
 
 
 def _graph_ms(calls, reps: int = 20) -> float:
@@ -68,12 +76,14 @@ def _graph_ms(calls, reps: int = 20) -> float:
 
 
 def substep(dev, M: int, card: str) -> dict:
-    """The 225 products of one substep as one graph: int8 kernel, bf16
-    library, bound."""
+    """The 225 products of one substep at M rows as one graph, four ways:
+    the int8 wrapper (the decode kernel at M <= 8, the wide entry above),
+    its plain version, dequantize + ``torch.matmul`` (the prefill route,
+    inline) and bf16 ``torch.matmul`` (the library); and the bound."""
     xs = {K: torch.randn((M, K), device=dev).to(torch.bfloat16)
           for K, _, _ in cs.INT8_SHAPES.values()}
     out = {}
-    for kind in ("int8", "bf16"):
+    for kind in ("int8", "plain", "dequant", "bf16"):
         weights = []
         g = torch.Generator(device=dev).manual_seed(1)
         for _layer in range(LAYERS):
@@ -83,14 +93,22 @@ def substep(dev, M: int, card: str) -> dict:
                 reps = 2 if name in ("wq_wo", "wk_wv", "w_gate_up") else 1
                 for _ in range(reps):
                     w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
-                    weights.append((w if kind == "int8" else w.to(torch.bfloat16), K, N, False))
+                    weights.append((w if kind != "bf16" else w.to(torch.bfloat16), K, N, False))
         K, N, _ = cs.INT8_SHAPES["lm_head"]
         w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
-        weights.append((w if kind == "int8" else w.to(torch.bfloat16), K, N, True))
+        weights.append((w if kind != "bf16" else w.to(torch.bfloat16), K, N, True))
         scales = {N: torch.rand((N,), device=dev) * 0.01 for _, _, N, _ in weights}
         if kind == "int8":
             calls = [lambda w=w, K=K, N=N, f=f: im.int8_matmul(xs[K], w, scales[N], out_f32=f)
                      for w, K, N, f in weights]
+        elif kind == "plain":
+            calls = [lambda w=w, K=K, N=N, f=f: im.int8_matmul_ref(xs[K], w, scales[N], out_f32=f)
+                     for w, K, N, f in weights]
+        elif kind == "dequant":
+            calls = [lambda w=w, K=K, N=N, f=f: (
+                torch.matmul(xs[K], w.to(torch.bfloat16)).float() * scales[N] if f else
+                torch.matmul(xs[K], w.to(torch.bfloat16)) * scales[N].to(torch.bfloat16))
+                for w, K, N, f in weights]
         else:
             calls = [lambda w=w, K=K: torch.matmul(xs[K], w) for w, K, _, _ in weights]
         assert len(calls) == 7 * LAYERS + 1
@@ -98,9 +116,14 @@ def substep(dev, M: int, card: str) -> dict:
         del weights, calls
         torch.cuda.empty_cache()
     nbytes = sum(K * N * calls for K, N, calls in cs.INT8_SHAPES.values())
-    out["bound"] = nbytes / cs.HBM_BYTES_PER_S * 1e3
-    print(f"substep (M={M}, 225 products in one graph): int8 kernel {out['int8']:.3f} ms, "
-          f"bf16 torch.matmul {out['bf16']:.3f} ms, weight-byte bound {out['bound']:.3f} ms "
+    flops = sum(2 * M * K * N * calls for K, N, calls in cs.INT8_SHAPES.values())
+    t_bytes = nbytes / cs.HBM_BYTES_PER_S * 1e3
+    t_ops = flops / cs.PEAK_OPS["bfloat16"] * 1e3
+    out["bound"], out["bound_by"] = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+    print(f"substep (M={M}, 225 products in one graph): int8 wrapper {out['int8']:.3f} ms, "
+          f"plain {out['plain']:.3f}, dequantize + torch.matmul {out['dequant']:.3f}, bf16 "
+          f"torch.matmul {out['bf16']:.3f}, bound {out['bound']:.3f} ({out['bound_by']}) "
           f"({card})", flush=True)
     return out
 
@@ -138,6 +161,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", action="store_true", help="time every split count too")
     ap.add_argument("--m", type=int, default=8, help="rows of x (the decode batch bucket)")
+    ap.add_argument("--substeps", default="",
+                    help="comma-separated row counts: only the 225-product graph at each")
     ap.add_argument("--window", action="store_true",
                     help="bf16 vs int8 weights: one llama-8b decode window, in turns")
     args = ap.parse_args()
@@ -147,19 +172,24 @@ def main() -> None:
     if args.window:
         window(card)
         return
+    if args.substeps:
+        for M in (int(m) for m in args.substeps.split(",")):
+            substep(dev, M, card)
+        return
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for name, (K, N, _) in cs.INT8_SHAPES.items():
         x, w, s = cs.int8_case(args.m, K, N, "bfloat16", 1, dev)
         f = name == "lm_head"
-        plan = im.split_k(K, N)
-        tiles = -(-K // im.BK)
+        wide = im.route(x, w) == "wide"
+        plan = im.wide_plan(args.m, K, N)[2] if wide else im.split_k(K, N)
+        tiles = -(-K // (im.WIDE_BK if wide else im.BK))
         options = sorted({plan} | ({s_ for s_ in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48)
                                     if s_ <= tiles and (s_ - 1) * -(-tiles // s_) < tiles}
                                    if args.sweep else set()))
         for splits in options:
             ms = _with_splits(splits, lambda: cs.time_ms(lambda: im.int8_matmul(x, w, s, out_f32=f),
                                                          flush))
-            blocks = -(-N // im.BN) * splits
+            blocks = -(-N // im.BN) * splits * (im.wide_plan(args.m, K, N)[1] if wide else 1)
             print(f"{name} {K}x{N} M={args.m}: splits {splits:2d} ({blocks} blocks) "
                   f"{ms:.4f} ms{' (plan)' if splits == plan else ''} ({card})", flush=True)
     del flush

@@ -386,6 +386,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None) -> dict:
         "int8_matmul_launches": im.launches,
         "int8_matmul_prefill_launches": im.prefill_launches,
         "int8_matmul_tied_launches": im.tied_launches,
+        "int8_matmul_wide_launches": im.wide_launches,
         "num_layers": engine.cfg.num_layers,
         "generated_tokens": engine.total_generated,
         "prefilled_tokens": engine.total_prefilled,
@@ -482,7 +483,7 @@ async def async_main(args) -> None:
                   flush=True)
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
-    pa.launches = im.launches = im.prefill_launches = im.tied_launches = 0
+    pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
     # Engine hot-loop series on this process's /metrics (system server).
     engine.bind_metrics(rt.metrics)
     broadcaster = KvEventBroadcaster(engine.pool)

@@ -32,12 +32,14 @@ from dynamo_tpu_torch.ops import int8_matmul as im
 @pytest.mark.e2e
 def test_checkpoint_phase_on_the_cpu():
     res = C.checkpoint_phase("CPU", preset="test-tiny", device="cpu", dtype="float32")
-    assert res["launches"] == (0, 0, 0) and res["decode_substeps"] > 0
+    assert res["launches"] == (0, 0, 0, 0) and res["decode_substeps"] > 0
     assert res["name"] == "test-tiny-2layers" and len(res["latency_s"]) == C.CKPT_REQUESTS
 
 
 def test_int8_expected_counts_the_engines_calls(monkeypatch):
-    routes = {"kernel": 0, "prefill": 0}
+    """In bf16, as on the card: prefills of more than 8 rows take the wide
+    entry's route, decode substeps (8 rows) the decode kernel's."""
+    routes = {"kernel": 0, "prefill": 0, "wide": 0}
     real = im.int8_matmul
 
     def counting(x, w, scale, out_f32=False):
@@ -46,7 +48,7 @@ def test_int8_expected_counts_the_engines_calls(monkeypatch):
 
     monkeypatch.setattr(TM.im, "int8_matmul", counting)
     cfg = ModelConfig(tie_embeddings=False)
-    eng = TorchEngine(EngineArgs(model=cfg, device="cpu", quant="int8", dtype="float32",
+    eng = TorchEngine(EngineArgs(model=cfg, device="cpu", quant="int8", dtype="bfloat16",
                                  block_size=16, num_kv_blocks=512, max_num_seqs=8,
                                  max_model_len=2048, decode_steps=8))
     prompts = C.burst_prompts()
@@ -71,5 +73,5 @@ def test_int8_expected_counts_the_engines_calls(monkeypatch):
     finally:
         torch.set_num_threads(n)
     want = C.int8_expected(cfg, C.BURST_LENS, eng.total_decode_steps)
-    assert (routes["kernel"], routes["prefill"]) == want
-    assert want[1] > 0  # both routes taken
+    assert (routes["kernel"], routes["prefill"], routes["wide"]) == want
+    assert want[0] > 0 and want[2] > 0  # the decode kernel and the wide entry

@@ -87,7 +87,7 @@ def test_disagg_phase_on_the_cpu():
     reference = asyncio.run(in_process_reference())
     res = C.disagg_phase("CPU", reference, ("in process", [r["ttft_s"] for r in reference["burst"]]),
                          preset="test-tiny", device="cpu", dtype="float32")
-    assert res["launches"] == (0, 0, 0) and res["prefill_launches"] == (0, 0, 0)
+    assert res["launches"] == (0, 0, 0, 0) and res["prefill_launches"] == (0, 0, 0, 0)
     assert set(res["exit_codes"].values()) == {0} and len(res["exit_codes"]) == 5
     assert [t["prompt_tokens"] for t in res["transfers"]] == [768, 1024, 1280, 1536]
     assert all(t["chunks"] >= 1 and t["mb_per_s"] > 0 for t in res["transfers"])

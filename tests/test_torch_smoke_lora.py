@@ -43,9 +43,13 @@ def _one_thread_everywhere():
 
 
 @pytest.fixture(scope="module")
-def checkpoint():
-    path, name, _host, size, _s = C.write_checkpoint("test-tiny", 2, device="cpu",
-                                                     dtype="float32")
+def checkpoint(tmp_path_factory):
+    """The cut checkpoint in a directory of this module's own:
+    test_torch_smoke_checkpoint.py writes and removes one of the same name
+    under build/checkpoints, and the two files may run at once."""
+    path, name, _host, size, _s = C.write_checkpoint(
+        "test-tiny", 2, device="cpu", dtype="float32",
+        root=str(tmp_path_factory.mktemp("checkpoints")))
     assert name == C.cut_config("test-tiny", 2).name == os.path.basename(path) and size > 0
     yield path
     shutil.rmtree(path, ignore_errors=True)
@@ -54,7 +58,7 @@ def checkpoint():
 def test_lora_phase_on_the_cpu():
     res = asyncio.run(C.lora_phase("CPU", preset="test-tiny", device="cpu", dtype="float32"))
     for name in ("mixed", "mixed_depth0", "base_only", "tree", "grammar"):
-        assert res[name]["launches"] == (0, 0, 0)
+        assert res[name]["launches"] == (0, 0, 0, 0)
     assert res["mixed"]["pageins"] >= len(C.LORA_ADAPTERS) and res["mixed"]["evictions"] >= 1
     assert res["mixed"]["slot_waits"] >= 1 and res["mixed"]["slot_wait_s"] > 0
     assert res["mixed"]["g2_hits"] >= len(C.LORA_ADAPTERS)
@@ -90,6 +94,6 @@ def test_disagg_phase_on_a_checkpoint(checkpoint):
     res = C.disagg_phase("CPU", reference, device="cpu", dtype="float32",
                          model_path=checkpoint)
     assert sorted(made[0]["repeats"]) == C.REMOTE and len(made[0]["burst"]) == 8
-    assert res["launches"] == (0, 0, 0)
+    assert res["launches"] == (0, 0, 0, 0)
     assert [t["prompt_tokens"] for t in res["transfers"]] == [768, 1024, 1280, 1536]
     assert set(res["exit_codes"].values()) == {0}

@@ -55,7 +55,7 @@ def test_tier_phases_on_the_cpu():
     assert res["blocks"] == res["pages_compared"] == 346
     assert res["hits"]["g2"]["g2_hits"] == 346
     assert res["hits"]["g3"]["g3_hits"] > 0 and res["hits"]["restart"]["g3_hits"] == 346
-    assert all(v == (0, 0, 0) for v in res["launches"].values())
+    assert all(v == (0, 0, 0, 0) for v in res["launches"].values())
     assert res["offload_bytes"] > 0 and res["g2_bytes"] > 0 and res["g3_bytes"] > 0
     assert res["flushes_cold"] > 0 and res["d2h_mb_per_s"] > 0 and res["g3_read_mb_per_s"] > 0
     assert not os.path.exists(os.path.join(C.TIER_DIR, "tiers-workers"))

@@ -80,7 +80,7 @@ def test_phase_prompt_tokens_counts_and_geometry(written):
     cfg = ModelConfig.preset("llama-8b")
     counts = C._ckpt_counts(cfg, 88, "cuda", got)
     assert counts == (32 * 88, *C.int8_expected(cfg, got, 88))
-    assert C._ckpt_counts(cfg, 88, "cpu", got) == (0, 0, 0)
+    assert C._ckpt_counts(cfg, 88, "cpu", got) == (0, 0, 0, 0)
     batch, inter = C.tok_mixed_prompts()
     lens = [len(ttok.encode(p)) for p in batch]
     geo = C.tok_geometry(got, lens)
@@ -96,5 +96,5 @@ def test_tokenizer_phase_on_the_cpu():
     ckpt = C.checkpoint_phase("CPU", preset="test-tiny", device="cpu", dtype="float32",
                               keep=True, vocab_size=1280)
     res = C.tokenizer_phase("CPU", ckpt["path"], ckpt["cfg"], device="cpu", dtype="float32")
-    assert res["ids"] == 1280 and res["launches"] == (0, 0, 0) and res["name"].endswith("-v1280")
+    assert res["ids"] == 1280 and res["launches"] == (0, 0, 0, 0) and res["name"].endswith("-v1280")
     assert res["mixed"]["preempted_batch"] >= 1 and len(res["prompt_tokens"]) == 8
