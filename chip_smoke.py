@@ -31,15 +31,16 @@ Phases, in order; any failure raises and the run exits non-zero:
    plain, library (one `torch.matmul` of the same x with a bf16 w of the
    same shape), dequantize + `torch.matmul` (the prefill route, inline) and
    bound times, and their sums over one substep's 225 products at each M.
-   Then (since the tier slice) the
-   kernel's tied-head entry, for llama-1b and llama-3b, whose logits use
-   the int8 embedding [V, D] as emb.T: at their head shapes (llama-3b M 1,
-   8, 64; llama-1b M 8; f32 x), the same checks and times (library: bf16
-   `torch.matmul` on the dequantized head); and a 2-layer llama-3b-width
-   int8 engine serving the burst's prompts for a few windows, every count
-   zeroed before and read after: the tied head launches once per forward
-   (each prefill's last token, each decode substep), the wide entry only
-   for the prefills' layer products, and no window runs eagerly.
+   Then the
+   kernel's tied-head entries, for llama-1b and llama-3b, whose logits use
+   the int8 embedding [V, D] as emb.T (`tied_head_phase`): first the tied
+   wgmma entry's blocks per SM, held to its plan's table; at llama-3b's
+   head for M = 1, 8, 16, 32, 64, 128 and 256 and llama-1b's for M = 8
+   (bf16 x: the tied wgmma entry), and llama-3b's at M = 8 with f32 x (the
+   first tied entry), the same checks and kernel, plain, library (bf16
+   `torch.matmul` on the dequantized head), dequantize + `torch.matmul`
+   (the prefill route, which took bf16 heads of more than 64 rows before
+   the wgmma entry) and bound times.
 4. Main path at full width: `run --in batch:`'s pipeline (preprocessor →
    Backend → TorchEngine) serving 8 concurrent llama-8b completions with
    random weights made on the card, at the default pipeline depth 2 with
@@ -79,6 +80,23 @@ Phases, in order; any failure raises and the run exits non-zero:
    one profiled replay by kernel family at 32 and 128. Tokens/s, substeps
    by bucket, host ms per substep and peak memory are printed beside the
    card's name and power limit.
+4d. A full-depth tied model on a serving path (`tied_phase`, after 4b):
+   llama-3b at all 28 layers, int8 weights from seed 0 quantized on the
+   card, bf16 pages, block 16, max_model_len 2048, an engine of 128
+   sequences at depth 2, serving 128 seeded completions at once
+   (`tied_requests`: prompts of 64-256 byte tokens, 32 tokens each, 8 at
+   temperature 0.7), so its decode runs buckets 8, 32 and 128. No window
+   or step runs eagerly; the tied head launches exactly once per forward
+   (substeps + prefills), the prefill route never, the layer products as
+   `int8_expected` says by bucket. Then on a runner of its own: a
+   bucket-128 window op by op, its first substep's head x through the tied
+   entry within `TOL_INT8` of `int8_matmul_ref` on the card; the same
+   window as a graph replay bit-identical to op by op; replay device ms
+   per substep at buckets 8, 32 and 128 with one profiled replay each (the
+   head's share); and bucket 128's window captured alone with the head on
+   the tied entry and on the prefill route, in turns: replay ms and graph
+   pool bytes. Tokens/s, substeps by bucket, peak memory and graph-pool
+   bytes are printed beside the card's name and power limit.
 5. Graph parity: one K=8 window at llama-8b shapes (all 32 layers, the
    engine's weights, its own small cache) as a CUDA-graph replay and op by
    op, in each sampler mode: tokens, logprobs, top-n, the written KV pages
@@ -329,7 +347,8 @@ same weights.
 Each phase's seconds and the running total are logged as it ends.
 
 The last lines are the kernels JSON line (the attention kernel's decode
-entry, the int8 product, its wide entry, its tied-head entry, and the attention kernel's
+entry, the int8 product, its wide entry, its tied-head entries with phase
+4d's launches, and the attention kernel's
 linear and tree verify modes; the first two also carry phase 11's decode
 worker's launches, the decode, tree and int8 entries phase 12's, the
 first two phases 13's and 14's, and all of them phase 15's),
@@ -847,14 +866,17 @@ def int8_expected(cfg, lens, substeps: int, bs: int = 16,
     run at batch bucket 8 (the decode kernel), or at the buckets of
     ``buckets`` ({bucket rows: substeps}); each cold single-row prefill of a
     prompt padded to T tokens runs its layer products on T's route and its
-    last-token head (1 row) on the decode kernel."""
+    last-token head (1 row) on the decode kernel. A tied head (the int8
+    embedding as ``emb.T``) is none of these: it launches the tied entry
+    once per forward (``tied_launches``)."""
     per_pass = 7 * cfg.num_layers
+    head = 0 if cfg.tie_embeddings else 1
     n = {"kernel": 0, "prefill": 0, "wide": 0}
     for rows, steps in (buckets or {8: substeps}).items():
-        n[int8_rows_route(rows)] += (per_pass + 1) * steps
+        n[int8_rows_route(rows)] += (per_pass + head) * steps
     for length in lens:
         n[int8_rows_route(-(-length // bs) * bs)] += per_pass
-        n["kernel"] += 1
+        n["kernel"] += head
     return n["kernel"], n["prefill"], n["wide"]
 
 
@@ -1414,7 +1436,8 @@ def profile_replay(runner, kw, card_line: str, label: str = "burst lengths") -> 
     K = kw["K"]
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.self_device_time_total > 0]
-    families = {"int8_matmul": ("int8_matmul",),
+    families = {"int8 tied head": ("int8_matmul_tied", "int8_tied", "int8_matmul_t_"),
+                "int8_matmul": ("int8_matmul",),
                 "gemm (nvjet/cutlass/gemv)": ("nvjet", "gemm", "gemv", "cutlass", "splitK"),
                 "paged_attention": ("paged_attention",), "copy": ("copy",),
                 "reduce": ("reduce",), "index/scatter/gather": ("index", "scatter", "gather"),
@@ -4391,102 +4414,281 @@ def grammar_lift_phase(card_line: str, vocab: int = 128_256, n_bpe: int | None =
 
 # -- phase 3b's tied head: the int8 embedding used transposed -------------------
 
+# The tied head's cases: llama-3b's head at every decode bucket and verify
+# row count up to 256 (bf16 x: the tied wgmma entry), llama-1b's at 8 rows,
+# and llama-3b's with f32 x (the first tied entry, CUDA cores).
+TIED_CASES = ([("llama-3b", M, "bfloat16") for M in (1, 8, 16, 32, 64, 128, 256)]
+              + [("llama-1b", 8, "bfloat16"), ("llama-3b", 8, "float32")])
 
-def tied_head_phase(device, card_line: str) -> dict:
-    """The kernel's tied-head entry (w = emb.T of an int8 [V, D] embedding)
-    against its plain version at llama-3b's and llama-1b's heads (f32
-    logits; M 1, 8 and 64; bf16 and f32 x): TOL_INT8, bit-identical repeats,
-    kernel, plain, library (bf16 ``torch.matmul`` on the dequantized head)
-    and bound times. Then a 2-layer llama-3b-width int8 engine serves the
-    burst's prompts for a few windows with every count zeroed before and
-    read after: the tied head must launch once per forward (each prefill's
-    last token and each decode substep) and the wide entry only for the
-    prefills' layer products."""
-    import dataclasses
 
+def tied_head_phase(device, card_line: str) -> list[dict]:
+    """The kernel's tied-head entries (w = emb.T of an int8 [V, D]
+    embedding) against their plain version at ``TIED_CASES`` (f32 logits):
+    TOL_INT8, bit-identical repeats, the route each call takes (bf16 x the
+    tied wgmma entry at every row count, f32 x the first tied entry), and
+    kernel, plain, library (bf16 ``torch.matmul`` on the dequantized head),
+    dequantize + ``torch.matmul`` (the prefill route, which took bf16 heads
+    of more than 64 rows before the wgmma entry) and bound times."""
     import torch
 
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
-    from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.ops import int8_matmul as im
-    from dynamo_tpu_torch.runtime.engine import Context
 
+    got = {tile: im.tied_blocks_per_sm(tile) for tile in im.TIED_ROW_TILES}
+    if set(got.values()) != {im.TIED_BLOCKS_PER_SM}:
+        raise RuntimeError(f"int8 tied wgmma entry: blocks per SM by row tile {got}, its plan "
+                           f"assumes {im.TIED_BLOCKS_PER_SM}")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    cases = [("llama-3b", 8, "bfloat16"), ("llama-3b", 1, "bfloat16"),
-             ("llama-3b", 64, "bfloat16"), ("llama-1b", 8, "bfloat16"), ("llama-3b", 8, "float32")]
     results = []
-    for i, (name, M, xdt) in enumerate(cases):
+    for i, (name, M, xdt) in enumerate(TIED_CASES):
         K, N = TIED_HEADS[name]
         x, wt, s = int8_tied_case(M, K, N, xdt, 700 + i, device)
+        which = im.route(x, wt)
+        if which != ("tied_wide" if xdt == "bfloat16" else "tied"):
+            raise RuntimeError(f"tied {name} M={M} {xdt}: route {which!r}")
         t0 = im.tied_launches
         err = int8_check(x, wt, s, True, f"tied {name} M={M} {xdt}")
         if im.tied_launches != t0 + 2:
-            raise RuntimeError(f"tied {name}: emb.T did not reach the tied-head entry")
+            raise RuntimeError(f"tied {name}: emb.T did not reach a tied-head entry")
         ms = time_ms(lambda: im.int8_matmul(x, wt, s, out_f32=True), flush)
         plain_ms = time_ms(lambda: im.int8_matmul_ref(x, wt, s, out_f32=True), flush)
+        dequant_ms = time_ms(lambda: torch.matmul(x, wt.to(x.dtype)).float() * s, flush)
         wb = wt.to(x.dtype)
         lib_ms = time_ms(lambda: torch.matmul(x, wb), flush)
         del wb
         b_ms, b_by = int8_bound(M, K, N, x.element_size(), 4, 4, xdt)
-        r = {"case": f"tied_{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-             "bound_by": b_by}
-        log(f"int8 {r['case']} (emb [{N}, {K}] used as emb.T): max_abs_err={err:.3e} "
+        plan = im.tied_plan(M, N) if which == "tied_wide" else None
+        r = {"case": f"tied_{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "route": which,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+             "dequant_ms": dequant_ms, "bound_ms": b_ms, "bound_by": b_by, "plan": plan}
+        log(f"int8 {r['case']} (emb [{N}, {K}] used as emb.T, {which}): max_abs_err={err:.3e} "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) ({card_line})")
+            f"dequant_ms={dequant_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plan={plan} "
+            f"({card_line})")
         results.append(r)
+        del x, wt, s
     del flush
-
-    cfg = dataclasses.replace(ModelConfig.preset("llama-3b"), num_layers=2)
-    engine = TorchEngine(EngineArgs(model=cfg, block_size=16, num_kv_blocks=512, max_num_seqs=8,
-                                    max_model_len=2048, decode_steps=8, quant="int8",
-                                    dtype="bfloat16", device=str(device)), seed=0)
-    max_tokens = 24
-    prompts = [list(p.encode()) for p in burst_prompts()]
-
-    async def go():
-        await engine.start()
-        try:
-            engine.runner.warm_windows(("greedy", "simple"), (0,))
-            steps0, eager0 = engine.total_decode_steps, engine.runner.eager_windows
-            zero_counts()
-
-            async def one(i):
-                req = {"model": cfg.name, "token_ids": prompts[i],
-                       "sampling": {"temperature": BURST_TEMPS[i], "seed": 1000 + i},
-                       "stop": {"max_tokens": max_tokens, "ignore_eos": True}}
-                n = 0
-                async for item in engine.generate(req, Context()):
-                    n += len(item.get("token_ids") or ())
-                return n
-
-            got = await asyncio.gather(*(one(i) for i in range(len(prompts))))
-            while engine.busy():
-                await asyncio.sleep(0.001)
-            counts = (*int8_counts(), im.tied_launches)
-            return got, counts, engine.total_decode_steps - steps0, \
-                engine.runner.eager_windows - eager0
-        finally:
-            await engine.stop()
-
-    got, counts, substeps, eager = asyncio.run(go())
-    if got != [max_tokens] * len(prompts):
-        raise RuntimeError(f"tied-engine: tokens per request {got}")
-    kernel, prefill, wide = int8_expected(cfg, BURST_LENS, substeps)
-    forwards = substeps + len(prompts)
-    want = (cfg.num_layers * substeps, kernel - forwards, prefill, wide, forwards)
-    if counts != want or eager or substeps == 0:
-        raise RuntimeError(f"tied-engine: launches (attention, int8 kernel, int8 prefill route, "
-                           f"int8 wide entry, tied head) {counts} != {want} for {substeps} "
-                           f"substeps and {len(prompts)} prefills ({eager} eager windows)")
-    log(f"tied-engine: 2-layer llama-3b-width int8 engine, {len(prompts)} prompts x {max_tokens} "
-        f"tokens: {substeps} decode substeps; the tied head launched {counts[4]} times (one per "
-        f"forward: {substeps} substeps + {len(prompts)} prefills), the wide entry {counts[3]} "
-        f"(the prefills' layer products), the prefill route {counts[2]}, the int8 kernel "
-        f"{counts[1]}, attention {counts[0]}; no eager window ({card_line})")
-    del engine
     torch.cuda.empty_cache()
-    return {"cases": results, "engine_launches": counts, "engine_substeps": substeps}
+    return results
+
+
+# -- phase 4d: a full-depth tied int8 model on a serving path -------------------
+
+TIED_SEQS = 128                          # max_num_seqs: decode buckets 8, 32 and 128
+TIED_SAMPLED = range(7, TIED_SEQS, 16)   # 8 rows at temperature 0.7, the rest greedy
+TIED_TOKENS = 32
+TIED_KV_BLOCKS = 2800                    # 128 rows of up to 256 + 32 tokens, and margin
+TIED_WINDOW_LENS = (64, 128, 256)        # prompt tokens of the timing runner's rows
+
+
+def tied_requests() -> list[dict]:
+    """128 seeded completions: byte-token prompts of 64-256 tokens, 8 of
+    them at temperature 0.7 and the rest greedy."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    lens = rng.integers(64, 257, TIED_SEQS)
+    return [{"prompt": "".join(chr(c) for c in rng.integers(32, 127, n)),
+             "temperature": 0.7 if i in TIED_SAMPLED else 0.0, "seed": 3000 + i, "len": int(n)}
+            for i, n in enumerate(lens)]
+
+
+async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cuda",
+                     dtype: str = "bfloat16", max_tokens: int = TIED_TOKENS) -> dict:
+    """Phase 4d: ``preset`` (a tied model: its logits are the int8 embedding
+    used as emb.T) at its full depth, int8 weights made from seed 0 and
+    quantized on the card, bf16 pages, in an engine of 128 sequences at
+    depth 2, serving ``tied_requests`` at once, so that its decode runs
+    buckets 8, 32 and 128 as it fills and drains. Holds: no eager window or
+    step; the tied head launched once per forward (substeps + prefills) and
+    the prefill route never; the layer products to ``int8_expected`` by
+    bucket. Then, on a runner of its own: a bucket-128 window run op by op,
+    its head's x (as it reached the head at the first substep) through the
+    tied entry within TOL_INT8 of the plain version on the card; the same
+    window as a graph replay bit-identical to op by op; at buckets 8, 32 and
+    128 the replay's device ms per substep and one profiled replay by kernel
+    family (the head's share); and bucket 128's graph with the head on the
+    prefill route (dequantize + ``torch.matmul``, its route before the
+    wgmma entry) beside it, captured alone each: replay ms and pool bytes.
+    ``max_tokens`` per request (32 on the card). → the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.graphs import WindowGraphs
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.run.__main__ import parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    tag = "tied"
+    cuda = device == "cuda"
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype, "--device", device,
+                       "--block-size", "16", "--num-kv-blocks", str(TIED_KV_BLOCKS),
+                       "--max-num-seqs", str(TIED_SEQS), "--max-model-len", "2048",
+                       "--decode-steps", "8"])
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pipe = await local_pipeline(args, quant="int8")
+    engine, runner = pipe.engine, pipe.engine.runner
+    cfg, params = engine.cfg, runner.params
+    if not cfg.tie_embeddings or params["embed"].dtype != torch.int8:
+        raise RuntimeError(f"{tag}: {cfg.name} does not tie an int8 head")
+    L = cfg.num_layers
+    log(f"{tag}: {cfg.name} ({L} layers) int8 engine of {TIED_SEQS} sequences up in "
+        f"{time.perf_counter() - t0:.1f}s (random weights from seed 0 quantized on the "
+        f"{'card' if cuda else 'CPU'}), decode buckets {engine.args.decode_buckets}, "
+        f"pipeline_depth {engine.args.effective_pipeline_depth}")
+    reqs = tied_requests()
+
+    async def one(r):
+        req = CompletionRequest.parse({
+            "model": pipe.card.name, "prompt": r["prompt"], "max_tokens": max_tokens,
+            "temperature": r["temperature"], "seed": r["seed"], "ignore_eos": True,
+            "logprobs": 0})
+        gen = None
+        async for g_, _chunk in pipe.run(req, Context()):
+            gen = g_
+        return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
+
+    buckets0 = dict(engine.decode_steps_by_bucket)
+    eager0 = (runner.eager_windows, runner.eager_steps)
+    cap0 = (runner.graphs.captured, runner.graphs.capture_s) if runner.graphs else (0, 0.0)
+    _, phases0 = _counters(engine)
+    zero_counts()
+    t1 = time.perf_counter()
+    outs = await asyncio.gather(*(one(r) for r in reqs))
+    wall = time.perf_counter() - t1
+    while engine.busy():
+        await asyncio.sleep(0.001)
+    counts = (*int8_counts(), im.tied_launches)
+    by_bucket = {b: n - buckets0.get(b, 0) for b, n in engine.decode_steps_by_bucket.items()
+                 if n != buckets0.get(b, 0)}
+    substeps = sum(by_bucket.values())
+    eager = (runner.eager_windows - eager0[0], runner.eager_steps - eager0[1])
+    captured = ((runner.graphs.captured - cap0[0], runner.graphs.capture_s - cap0[1])
+                if runner.graphs else (0, 0.0))
+    phase = {k: v - phases0.get(k, 0.0) for k, v in _counters(engine)[1].items()}
+    for i, o in enumerate(outs):
+        if len(o["tokens"]) != max_tokens or not all(
+                np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]) or not all(
+                0 <= t < cfg.vocab_size for t in o["tokens"]):
+            raise RuntimeError(f"{tag} request {i}: bad token/logprob stream")
+    forwards = substeps + len(reqs)
+    want = ((L * substeps, *int8_expected(cfg, [r["len"] for r in reqs], substeps,
+                                          buckets=by_bucket), forwards)
+            if cuda else (0, 0, 0, 0, 0))
+    if counts != want or substeps == 0:
+        raise RuntimeError(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 "
+                           f"wide entry, tied head) {counts} != {want} for substeps by bucket "
+                           f"{by_bucket} and {len(reqs)} prefills")
+    if cuda and eager != (0, 0):
+        raise RuntimeError(f"{tag}: {eager[0]} windows and {eager[1]} single steps ran eagerly")
+    if cuda and not {32, TIED_SEQS} <= set(by_bucket):
+        raise RuntimeError(f"{tag}: decode ran buckets {sorted(by_bucket)}, not 32 and "
+                           f"{TIED_SEQS}")
+    tokens = len(reqs) * max_tokens
+    decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
+    st = {"model": cfg.name, "layers": L, "tokens_per_s": tokens / wall, "wall_s": wall,
+          "substeps": substeps, "substeps_by_bucket": by_bucket, "forwards": forwards,
+          "launches": counts, "host_ms_per_substep": decode_s / max(1, substeps) * 1e3,
+          "prefill_s": phase.get("prefill", 0.0), "graphs_captured": captured[0],
+          "capture_s": captured[1],
+          "graph_pool_bytes": runner.graphs.pool_bytes() if runner.graphs else 0,
+          "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0}
+    log(f"{tag}: {len(reqs)} requests ({len(TIED_SAMPLED)} at temperature 0.7), {tokens} tokens "
+        f"in {wall:.3f}s → {st['tokens_per_s']:.1f} tokens/s; decode substeps by bucket "
+        f"{by_bucket}; host ms per substep {st['host_ms_per_substep']:.3f}; prefill "
+        f"{st['prefill_s']:.2f}s of host time; {captured[0]} window graphs captured at first use "
+        f"in {captured[1]:.2f}s, graph pool {st['graph_pool_bytes'] / 2**20:.1f} MiB; peak memory "
+        f"{st['max_mem_gib']:.2f} GiB ({card_line})")
+    log(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 wide entry, tied "
+        f"head) {counts}: the tied head once per forward ({substeps} substeps + {len(reqs)} "
+        f"prefills), the layer products 7 x {L} per forward on their rows' routes")
+    await engine.stop()
+    del pipe, engine, runner
+
+    if cuda:
+        rargs = EngineArgs(model=cfg, block_size=16, num_kv_blocks=1400, max_num_seqs=TIED_SEQS,
+                           max_model_len=2048, decode_steps=8, dtype=dtype, device="cuda",
+                           quant="int8")
+        trunner = LocalRunner(rargs, params=params)
+        trunner.start()
+        st["replay_ms_per_substep"], st["replay_profile"] = {}, {}
+        for live in (100, 32, 6):
+            B = rargs.bucket_decode(live)
+            kw = dict(window_inputs(trunner, "simple", 80 + live, lens=TIED_WINDOW_LENS,
+                                    live=live), top_n=0)
+            if B == TIED_SEQS:
+                # Record the (x, w, scale) of every tied-head call (emb.T).
+                heads, real = [], im.int8_matmul
+
+                def recording(x, w, scale, out_f32=False):
+                    if not w.is_contiguous() and w.T.is_contiguous():
+                        heads.append((x.detach().clone(), w, scale))
+                    return real(x, w, scale, out_f32)
+
+                state = _device_state(trunner)
+                im.int8_matmul = recording
+                try:
+                    trunner.multi_decode(**kw, eager=True)
+                finally:
+                    im.int8_matmul = real
+                _restore(trunner, state)
+                if len(heads) != kw["K"] or heads[0][0].numel() != B * cfg.hidden_size:
+                    raise RuntimeError(f"{tag}: {len(heads)} tied-head calls in a {kw['K']}-step "
+                                       f"window of {B} rows")
+                x, w, s = heads[0]
+                x = x.reshape(-1, x.shape[-1])
+                st["head_max_abs_err"] = int8_check(x, w, s, True, f"{tag} head at bucket {B}")
+                log(f"{tag}: bucket {B}, first substep of an op-by-op window: the head's x "
+                    f"[{x.shape[0]}, {x.shape[1]}] through the tied entry ({im.route(x, w)}) "
+                    f"within TOL_INT8 of int8_matmul_ref, max |err| "
+                    f"{st['head_max_abs_err']:.3e}, repeat bit-identical")
+                del heads, x, w, s, state
+                graph_vs_eager(trunner, kw)
+                log(f"{tag}: bucket {B} ({live} live rows) window: graph replay bit-identical to "
+                    f"op by op (tokens, logprobs, KV pages, chain)")
+                kw128 = kw
+            st["replay_ms_per_substep"][B] = replay_ms(trunner, kw)
+            prof = profile_replay(trunner, kw, card_line, f"{cfg.name}, bucket {B}, {live} live "
+                                                         "rows")
+            head = prof["families"]["int8 tied head"]["ms"]
+            st["replay_profile"][B] = prof
+            log(f"{tag}: bucket {B}: {st['replay_ms_per_substep'][B]:.3f} ms device time per "
+                f"substep as one graph replay; the tied head {head:.3f} ms of "
+                f"{prof['ms_per_substep']:.3f} profiled ({100 * head / prof['ms_per_substep']:.1f}%)"
+                f" ({card_line})")
+        # Bucket 128's window captured alone, the head on the tied entry and
+        # on the prefill route (its route before the wgmma entry), in turns.
+        real_route, alone = im.route, {}
+
+        def prefill_head(x, w):
+            which = real_route(x, w)
+            return "prefill" if which == "tied_wide" else which
+
+        for variant in ("tied_wide", "prefill", "prefill", "tied_wide"):
+            trunner.graphs = WindowGraphs(trunner.device)
+            im.route = prefill_head if variant == "prefill" else real_route
+            try:
+                ms = replay_ms(trunner, kw128)
+            finally:
+                im.route = real_route
+            alone.setdefault(variant, []).append((ms, trunner.graphs.pool_bytes()))
+        trunner.graphs = None
+        st["bucket128_alone"] = {v: {"replay_ms": [m for m, _ in r], "pool_bytes": r[0][1]}
+                                 for v, r in alone.items()}
+        for v, r in st["bucket128_alone"].items():
+            log(f"{tag}: bucket 128's window captured alone, head on {v}: replay "
+                f"{' / '.join(f'{m:.3f}' for m in r['replay_ms'])} ms per substep, graph pool "
+                f"{r['pool_bytes'] / 2**20:.1f} MiB ({card_line})")
+        trunner.stop()
+        del trunner, kw128
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    return st
 
 
 # -- phase 13: KV tiers (G2 host, G3 disk, G4 fleet) and peer prefix fetch ------
@@ -6181,7 +6383,7 @@ def main() -> int:
     mark("1-2 build")
     cases = kernel_phase(device)
     int8_cases, int8_substeps = int8_kernel_phase(device, card_line)
-    tied = tied_head_phase(device, card_line)
+    tied_cases = tied_head_phase(device, card_line)
     mark("3 kernels")
     stats, reference = asyncio.run(main_path(card_line))
     int8_runs, int8_refs = {}, {}
@@ -6198,6 +6400,9 @@ def main() -> int:
             f"{st['graph_pool_bytes'] / 2**20:.1f} vs {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
             f"({card_line})")
     mark("4 main path")
+    tied = asyncio.run(tied_phase(card_line))
+    torch.cuda.empty_cache()
+    mark("4d tied")
     small_reference(device)
     frames = msgpack_frame_us()
     log("wire: msgpack_lite pack+unpack per frame: " + ", ".join(
@@ -6402,17 +6607,21 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": r["case"],
         })
-    t8 = next(r for r in tied["cases"] if r["case"] == "tied_llama-3b_M8_bfloat16")
+    t8 = next(r for r in tied_cases if r["case"] == "tied_llama-3b_M8_bfloat16")
     tied_entry = {
         "name": "int8_matmul_tied_head", "route": "cuda", "source": INT8_SOURCE,
-        "replaces": TIED_REPLACES, "launches": tied["engine_launches"][4],
+        "replaces": TIED_REPLACES, "launches": tied["launches"][4],
+        "launches_substeps": tied["substeps"], "launches_prefills": tied["forwards"]
+        - tied["substeps"], "substeps_by_bucket": tied["substeps_by_bucket"],
         "max_abs_err": t8["max_abs_err"], "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
-        "library_ms": t8["library_ms"], "case": t8["case"], "cases": tied["cases"],
+        "library_ms": t8["library_ms"], "dequant_ms": t8["dequant_ms"], "case": t8["case"],
+        "cases": tied_cases,
     }
     log("main_path: " + json.dumps(stats))
     for kv_quant, st in int8_runs.items():
         log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
+    log("tied_path: " + json.dumps(tied, default=str))
     log("http_path: " + json.dumps(http))
     log("checkpoint_path: " + json.dumps(ckpt))
     log("tokenizer_path: " + json.dumps(tok))

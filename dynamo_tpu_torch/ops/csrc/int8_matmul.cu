@@ -16,11 +16,13 @@
 // where rx rounds to x's dtype (round to nearest even; identity for f32):
 // the rounding points of the JAX functions.
 //
-// Three entries, chosen by the wrapper from shapes alone (ops/int8_matmul.py
+// Four entries, chosen by the wrapper from shapes alone (ops/int8_matmul.py
 // `route`): the decode kernel (dtpu_int8_matmul: M <= 8 rows of bf16 x, and
 // f32 x or unaligned shapes up to 64 rows), the wide entry
-// (dtpu_int8_matmul_wide: bf16 x of more than 8 rows, any count) and the
-// tied head (dtpu_int8_matmul_t).
+// (dtpu_int8_matmul_wide: bf16 x of more than 8 rows, any count), and for
+// the tied head the tied wgmma entry (dtpu_int8_matmul_tw: bf16 x, any
+// count) and the first tied entry (dtpu_int8_matmul_t: f32 x, and bf16
+// shapes the wgmma entry refuses, up to 64 rows).
 //
 // The decode kernel. Bound on this card (H100 SXM, 3.35 TB/s HBM): at decode
 // batch sizes the product does 2*M operations per weight byte, far below the
@@ -56,10 +58,12 @@
 //   and so do bf16 calls of more than 8 rows (aligned ones take the wide
 //   entry).
 //
-// The tied head (dtpu_int8_matmul_t): llama-1b and llama-3b take their
-// logits from the int8 embedding [V, D] used transposed, so w arrives as
-// [N, K] contiguous along K, with the same scale [N], epilogue and rounding
-// points. Bound the same way (V*D bytes, 394 MB at llama-3b). Each warp owns
+// The first tied entry (dtpu_int8_matmul_t): llama-1b and llama-3b take
+// their logits from the int8 embedding [V, D] used transposed, so w arrives
+// as [N, K] contiguous along K, with the same scale [N], epilogue and
+// rounding points. Bound the same way (V*D bytes, 394 MB at llama-3b). It
+// serves f32 x, and bf16 x whose K or embedding address TMA refuses (plain
+// loads), up to 64 rows; the tied wgmma entry below takes the rest. Each warp owns
 // 32 rows of w (two m16n8k16 A tiles) and walks K in 64-byte steps: a thread
 // reads 16 contiguous bytes of each of its four rows per step (coalesced
 // 64-byte row segments), next step's loads in flight while this one's run.
@@ -116,8 +120,46 @@
 //   rows (a TMA box cannot pad); a thread's reads hit distinct banks all
 //   the same.
 //
+// The tied wgmma entry (int8_matmul_tied_wide_kernel): bf16 x of any row
+// count against the [N, K] embedding as stored: the logits of every decode
+// bucket, verify pass and prefill. Bytes bound up to ~148 rows, then
+// operations bound, as the wide entry is, and built the same way: y^T =
+// emb . x^T, the embedding wgmma's A (converted in registers), x's rows its
+// N (row tiles of 8, 16, 32, 64, 128 or 256; past 256 rows, of 128 or 256,
+// whichever pads fewer: the wrapper's tied_plan), one producer warp keeping a
+// ring of 5-16 stages of TMA copies full, two consumer warpgroups of 64
+// embedding rows each. What differs:
+// - The embedding is K-major as stored, so a stage's weight tile is a
+//   [128 rows x 64 bytes] TMA box with no swizzle: a quarter-warp's 16-byte
+//   reads cover two adjacent 64-byte rows, every bank once. A thread reads
+//   16 contiguous bytes of each of its two rows per stage.
+// - An A fragment wants k pairs 2tg (+1) and 2tg + 8 (+9) of a k16 step,
+//   which in a K-major int8 row are not one 32-bit word. Of the two ways
+//   out (consumers reading 16-bit halves, or x written once in a matching
+//   k order) this entry takes the second: a small kernel first writes x
+//   into a scratch xp [Mp, Kp] in the first tied entry's permuted order
+//   (inside each 64-wide k block, position 16 s + 8 h + 2 c + l holds
+//   k = 16 c + 4 s + 2 h + l), so thread tg's 16 bytes hold its fragments
+//   for all four k16 steps of the stage, two 16-byte shared-memory reads
+//   per stage in place of sixteen 2-byte ones. A dot product does not
+//   depend on the order of its terms. The copy is about M x K x 2 bytes
+//   (0.8 MB at 128 rows of llama-3b, against a 394 MB embedding); the main
+//   kernel is a programmatic dependent launch behind it, its producer
+//   waiting on griddepcontrol before its first x copy. xp's rows run to a
+//   whole row tile, zeros past M, so no x box reaches out of bounds (on the
+//   H100, boxes half out of bounds made the call slower).
+// - The grid is persistent: one block per SM walks column tiles (and row
+//   tiles past 256 rows, all row tiles of a column tile in turn, so the
+//   embedding's tile is read once from HBM and again from L2), and the
+//   producer's ring runs on across tiles, so a tile's epilogue overlaps the
+//   next tile's loads. No split of K: each output is one thread's sum over
+//   K in a fixed order, so repeats are bit-identical, inside CUDA graphs
+//   too, with no partials and no merge.
+// - Outputs are written straight from the accumulators with the epilogue
+//   above, masked past N and M (TMA zero-fills the embedding past N and K).
+//
 // Not taken here (ROADMAP): fusing wq/wk/wv into one call, a persistent
-// grid, the tied head on wgmma.
+// grid for the wide entry.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -205,16 +247,25 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ float scale_at(const Params& p, int n) {
+  return p.scale_bf16 ? __bfloat162float(static_cast<const bf16*>(p.scale)[n])
+                      : static_cast<const float*>(p.scale)[n];
+}
+
+// y[m, n] from the f32 sum and column n's scale s.
 template <typename XT>
-__device__ __forceinline__ void epilogue(const Params& p, int m, int n, float acc) {
-  const float s = p.scale_bf16 ? __bfloat162float(static_cast<const bf16*>(p.scale)[n])
-                               : static_cast<const float*>(p.scale)[n];
+__device__ __forceinline__ void store_scaled(const Params& p, int m, int n, float acc, float s) {
   const float r = round_x<XT>(acc);
   const size_t o = static_cast<size_t>(m) * p.N + n;
   if (p.out_f32)
     static_cast<float*>(p.out)[o] = r * s;
   else
     static_cast<XT*>(p.out)[o] = from_f<XT>(r * round_x<XT>(s));
+}
+
+template <typename XT>
+__device__ __forceinline__ void epilogue(const Params& p, int m, int n, float acc) {
+  store_scaled<XT>(p, m, n, acc, scale_at(p, n));
 }
 
 // Stage k tile `tile` of the block's 64 columns (from n0) and of x's rows
@@ -509,8 +560,10 @@ __device__ __forceinline__ void stage_x(const Params& p, XT* xs, int xstride, in
   }
 }
 
-// bf16 x: MT tiles of 8 x rows, all in the block.
-template <int MT, bool ALIGNED>
+// bf16 x: MT tiles of 8 x rows, all in the block. Only shapes the tied
+// wgmma entry refuses come here (K % 16 or the embedding's address), so the
+// weights come through plain loads.
+template <int MT>
 __global__ void __launch_bounds__(T_THREADS) int8_matmul_t_bf16_kernel(const Params p, int kc) {
   extern __shared__ __align__(16) uint8_t smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
@@ -536,15 +589,15 @@ __global__ void __launch_bounds__(T_THREADS) int8_matmul_t_bf16_kernel(const Par
     for (int r = 0; r < T_GROUPS; ++r)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        cur[r][h] = load_row16<ALIGNED>(p, nw + 16 * r + 8 * h + g, kc0 + 16 * tg);
+        cur[r][h] = load_row16<false>(p, nw + 16 * r + 8 * h + g, kc0 + 16 * tg);
     for (int ks = 0; ks < kpad; ks += T_KSTEP) {
       if (ks + T_KSTEP < kpad) {
 #pragma unroll
         for (int r = 0; r < T_GROUPS; ++r)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            nxt[r][h] = load_row16<ALIGNED>(p, nw + 16 * r + 8 * h + g,
-                                            kc0 + ks + T_KSTEP + 16 * tg);
+            nxt[r][h] = load_row16<false>(p, nw + 16 * r + 8 * h + g,
+                                          kc0 + ks + T_KSTEP + 16 * tg);
       }
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
@@ -772,6 +825,16 @@ __device__ __forceinline__ void fence_regs(uint64_t* d) {
 // (bf16, shared memory through the descriptor), f32 accumulators.
 template <int NR>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+template <> __device__ __forceinline__ void wgmma_rs<8>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <> __device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -998,6 +1061,164 @@ __global__ void __launch_bounds__(W_THREADS, W_BLOCKS_PER_SM)
     }
 }
 
+// ---- the tied head on wgmma: w [N, K] int8 as stored (K-major), bf16 x, any rows ----
+
+constexpr int TW_BN = 128;              // embedding rows (output columns) per tile
+constexpr int TW_BK = 64;               // k per stage: 64 bytes of each embedding row
+constexpr int TW_WBYTES = TW_BN * TW_BK;  // a stage's weight tile
+constexpr int TW_BLOCKS_PER_SM = 1;
+
+// Stages per row tile (wgmma's N): a stage is 8 KB of weights and NR x 128
+// bytes of x; each ring fills most of an SM's shared memory, one block per
+// SM (the wrapper's TIED_BLOCKS_PER_SM; dtpu_int8_tied_blocks_per_sm reads
+// the built kernel's occupancy).
+template <int NR> struct TiedCfg;
+template <> struct TiedCfg<8> { static constexpr int STAGES = 16; };
+template <> struct TiedCfg<16> { static constexpr int STAGES = 16; };
+template <> struct TiedCfg<32> { static constexpr int STAGES = 16; };
+template <> struct TiedCfg<64> { static constexpr int STAGES = 12; };
+template <> struct TiedCfg<128> { static constexpr int STAGES = 8; };
+template <> struct TiedCfg<256> { static constexpr int STAGES = 5; };
+
+template <int NR>
+__host__ __device__ constexpr int tied_stage_bytes() {
+  return TW_WBYTES + NR * TW_BK * 2;
+}
+template <int NR>
+__host__ __device__ constexpr int tied_smem_bytes() {
+  return TiedCfg<NR>::STAGES * (tied_stage_bytes<NR>() + 16) + 1024;
+}
+
+// x [M, K] -> xp [Mp, Kp] (Mp = M rounded up to the row tile, Kp = K to
+// TW_BK) in the k order the tied entry's A fragments take the embedding's
+// bytes in: inside each 64-wide k block, position 16 s + 8 h + 2 c + l
+// holds x at k = 16 c + 4 s + 2 h + l (zeros past K and M, so no x box
+// reaches out of bounds). One thread per 16 bytes of xp.
+__global__ void __launch_bounds__(256) int8_tied_permute_x_kernel(const uint16_t* x, uint16_t* xp,
+                                                                  int M, int Mp, int K, int Kp) {
+  const size_t v = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  const int per_row = Kp / 8;
+  if (v >= static_cast<size_t>(Mp) * per_row) return;
+  const int m = static_cast<int>(v / per_row), c0 = static_cast<int>(v % per_row) * 8;
+  const int k0 = (c0 & ~(TW_BK - 1)) + 4 * ((c0 >> 4) & 3) + 2 * ((c0 >> 3) & 1);
+  const uint16_t* xr = x + static_cast<size_t>(m) * K;
+  uint32_t w[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int k = k0 + 16 * c;
+    const uint32_t lo = m < M && k < K ? xr[k] : 0u, hi = m < M && k + 1 < K ? xr[k + 1] : 0u;
+    w[c] = lo | hi << 16;
+  }
+  *reinterpret_cast<uint4*>(xp + static_cast<size_t>(m) * Kp + c0) =
+      make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A persistent block walks tiles t = blockIdx.x, + gridDim.x, ...: tile t is
+// embedding rows n0 = (t / row_tiles) * 128 on, x rows m0 = (t % row_tiles) *
+// NR on, all of K. Warps 0-7 are two consumer warpgroups (64 rows each),
+// warp 8 the producer, whose ring runs on across tile boundaries.
+template <int NR>
+__global__ void __launch_bounds__(W_THREADS, TW_BLOCKS_PER_SM)
+    int8_matmul_tied_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
+                                 const __grid_constant__ CUtensorMap tm_w, const Params p,
+                                 int row_tiles) {
+  constexpr int STAGES = TiedCfg<NR>::STAGES;
+  constexpr int STAGE = tied_stage_bytes<NR>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tiles = (p.N + TW_BN - 1) / TW_BN * row_tiles;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, W_CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == W_CONSUMERS * 4) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");  // xp is written
+      int i = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int n0 = t / row_tiles * TW_BN, m0 = t % row_tiles * NR;
+        for (int kt = 0; kt < p.k_tiles; ++kt, ++i) {
+          const int st = i % STAGES;
+          if (i >= STAGES) mbar_wait(empty + st, (i / STAGES - 1) & 1);
+          mbar_expect_tx(full + st, STAGE);
+          tma_load_2d(smem + st * STAGE, &tm_w, kt * TW_BK, n0, full + st);
+          tma_load_2d(smem + st * STAGE + TW_WBYTES, &tm_x, kt * TW_BK, m0, full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  // A rows g and g + 8 of warp wq in warpgroup q are embedding rows `row`
+  // and row + 8 of the tile. A stage holds 64 contiguous bytes of each row
+  // (no swizzle: a quarter-warp's two rows are 128 contiguous bytes, every
+  // bank once); thread tg takes bytes 16 tg .. 16 tg + 15 of both rows, and
+  // word s of them feeds k16 step s: bytes 4 s + {0, 1} are the fragment's
+  // k pair 2 tg (+1), bytes 4 s + {2, 3} its pair 2 tg + 8 (+9). xp holds x
+  // in that order, so wgmma's B reads it through the plain descriptor.
+  const int q = warp >> 2, wq = warp & 3, g = lane >> 2, tg = lane & 3;
+  const int row = 64 * q + 16 * wq + g;
+  float acc[NR / 2];
+  int i = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n0 = t / row_tiles * TW_BN, m0 = t % row_tiles * NR;
+#pragma unroll
+    for (int r = 0; r < NR / 2; ++r) acc[r] = 0.f;
+    for (int kt = 0; kt < p.k_tiles; ++kt, ++i) {
+      const int st = i % STAGES;
+      mbar_wait(full + st, (i / STAGES) & 1);
+      const uint8_t* wt = smem + st * STAGE;
+      const uint4 lo = *reinterpret_cast<const uint4*>(wt + row * TW_BK + 16 * tg);
+      const uint4 hi = *reinterpret_cast<const uint4*>(wt + (row + 8) * TW_BK + 16 * tg);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t lw = word_of(lo, s), hw = word_of(hi, s);
+        a[s][0] = i8_adj_bf16(lw, 0);  // A row g,     k 2tg, 2tg + 1
+        a[s][1] = i8_adj_bf16(hw, 0);  // A row g + 8, k 2tg, 2tg + 1
+        a[s][2] = i8_adj_bf16(lw, 1);  // A row g,     k 2tg + 8, 2tg + 9
+        a[s][3] = i8_adj_bf16(hw, 1);  // A row g + 8, k 2tg + 8, 2tg + 9
+      }
+      uint64_t desc[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) desc[s] = desc_sw128(wt + TW_WBYTES) + 2 * s;
+      fence_regs<16>(&a[0][0]);
+      fence_regs<4>(desc);
+      fence_regs<NR / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) wgmma_rs<NR>(acc, a[s], desc[s]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NR / 2>(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    }
+    // D fragment: value 4 j + h is (A row g, x row 8 j + 2 tg + h), value
+    // 4 j + 2 + h (A row g + 8, the same x row).
+    const int n = n0 + row;
+    const float s0 = n < p.N ? scale_at(p, n) : 0.f, s1 = n + 8 < p.N ? scale_at(p, n + 8) : 0.f;
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 8 * j + 2 * tg + h;
+        if (m >= p.M) continue;
+        if (n < p.N) store_scaled<bf16>(p, m, n, acc[4 * j + h], s0);
+        if (n + 8 < p.N) store_scaled<bf16>(p, m, n + 8, acc[4 * j + 2 + h], s1);
+      }
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem_bytes, cudaStream_t st, const Params& p) {
   if (smem_bytes > 48 * 1024) {
@@ -1060,9 +1281,11 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 2-D row-major tensor [rows, cols] of `elem`-byte values, boxes of
-// [box_rows, box_cols] with the 128-byte swizzle; zeros outside it.
+// [box_rows, box_cols] with `swizzle` (the 128-byte one unless named); zeros
+// outside it.
 bool tensor_map(CUtensorMap* tm, CUtensorMapDataType type, const void* base, int rows, int cols,
-                int elem, int box_rows, int box_cols) {
+                int elem, int box_rows, int box_cols,
+                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -1070,7 +1293,7 @@ bool tensor_map(CUtensorMap* tm, CUtensorMapDataType type, const void* base, int
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estr[2] = {1, 1};
   return fn(tm, type, 2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1099,6 +1322,48 @@ int wide_occupancy() {
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_matmul_wide_kernel<NR>, W_THREADS,
                                                     wide_smem_bytes<NR>()) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int NR>
+cudaError_t tied_attr() {
+  return cudaFuncSetAttribute(int8_matmul_tied_wide_kernel<NR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, tied_smem_bytes<NR>());
+}
+
+// The tied wgmma kernel on `blocks` persistent blocks, as a programmatic
+// dependent launch behind the permute kernel (its producer waits for xp).
+template <int NR>
+cudaError_t launch_tied(const Params& p, const void* xp, int kp, int row_tiles, int blocks,
+                        cudaStream_t st) {
+  CUtensorMap tm_x, tm_w;
+  if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xp, row_tiles * NR, kp, 2, NR,
+                  TW_BK) ||
+      !tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, p.N, p.K, 1, TW_BN, TW_BK,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorNotSupported;
+  const cudaError_t e = tied_attr<NR>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(W_THREADS);
+  cfg.dynamicSmemBytes = tied_smem_bytes<NR>();
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_matmul_tied_wide_kernel<NR>, tm_x, tm_w, p, row_tiles);
+}
+
+template <int NR>
+int tied_occupancy() {
+  if (tied_attr<NR>() != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_matmul_tied_wide_kernel<NR>,
+                                                    W_THREADS, tied_smem_bytes<NR>()) != cudaSuccess)
     return -1;
   return n;
 }
@@ -1167,7 +1432,8 @@ int dtpu_int8_matmul(const void* x, const void* w, const void* scale, void* out,
 
 // Launch y = epilogue(x @ w^T) on `stream` for w [N, K] int8 contiguous along
 // K (the tied embedding [V, D] as stored); x, scale, out and the dtypes as
-// for dtpu_int8_matmul. One kernel, no scratch; returns a cudaError_t.
+// for dtpu_int8_matmul. One kernel, no scratch; returns a cudaError_t. bf16
+// x always takes plain loads here (aligned shapes take dtpu_int8_matmul_tw).
 int dtpu_int8_matmul_t(const void* x, const void* w, const void* scale, void* out, int x_dtype,
                        int scale_dtype, int out_f32, int M, int K, int N, void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
@@ -1211,18 +1477,10 @@ int dtpu_int8_matmul_t(const void* x, const void* w, const void* scale, void* ou
   if (!bf16x)
     return aligned ? go(int8_matmul_t_f32_kernel<true>) : go(int8_matmul_t_f32_kernel<false>);
   switch (mtiles) {
-    case 1:
-      return aligned ? go(int8_matmul_t_bf16_kernel<1, true>)
-                     : go(int8_matmul_t_bf16_kernel<1, false>);
-    case 2:
-      return aligned ? go(int8_matmul_t_bf16_kernel<2, true>)
-                     : go(int8_matmul_t_bf16_kernel<2, false>);
-    case 4:
-      return aligned ? go(int8_matmul_t_bf16_kernel<4, true>)
-                     : go(int8_matmul_t_bf16_kernel<4, false>);
-    default:
-      return aligned ? go(int8_matmul_t_bf16_kernel<8, true>)
-                     : go(int8_matmul_t_bf16_kernel<8, false>);
+    case 1: return go(int8_matmul_t_bf16_kernel<1>);
+    case 2: return go(int8_matmul_t_bf16_kernel<2>);
+    case 4: return go(int8_matmul_t_bf16_kernel<4>);
+    default: return go(int8_matmul_t_bf16_kernel<8>);
   }
 }
 
@@ -1274,6 +1532,70 @@ int dtpu_int8_matmul_wide(const void* x, const void* w, const void* scale, void*
   }
   if (err != cudaSuccess || splits == 1) return err;
   return launch_merge<bf16>(p, st);
+}
+
+// Launch y = epilogue(x @ w^T) for bf16 x [M, K] (M > 0 rows, any count) and
+// w [N, K] int8 contiguous along K (the tied embedding [V, D] as stored) on
+// `stream` through the tied wgmma entry: first x into xp [Mp, Kp] (bf16
+// scratch; Mp = M rounded up to row_tile, Kp = K to 64) in the entry's k
+// order, then `blocks`
+// persistent blocks over ceil(N / 128) x ceil(M / row_tile) tiles (row_tile
+// 8, 16, 32, 64, 128 or 256). scale [N] (scale_dtype 0 f32, 1 bf16), out
+// [M, N] (f32 when out_f32, else bf16). Needs K % 16 == 0 and 16-byte
+// aligned w and xp (TMA's strides); N and x take any value. Returns a
+// cudaError_t.
+int dtpu_int8_matmul_tw(const void* x, const void* w, const void* scale, void* out, void* xp,
+                        int scale_dtype, int out_f32, int M, int K, int N, int row_tile, int blocks,
+                        void* stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  const int k_tiles = (K + TW_BK - 1) / TW_BK;
+  const int kp = k_tiles * TW_BK;
+  const int row_tiles = row_tile > 0 ? (M + row_tile - 1) / row_tile : 0;
+  if (M < 0 || K <= 0 || N < 0 || K % 16 != 0 || blocks < 1 || blocks > 65535 ||
+      (scale_dtype != DT_F32 && scale_dtype != DT_BF16) || xp == nullptr ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(xp) % 16 ||
+      static_cast<long long>(row_tiles) * ((N + TW_BN - 1) / TW_BN) > INT32_MAX)
+    return cudaErrorInvalidValue;
+  Params p = {};
+  p.x = x;
+  p.w = static_cast<const int8_t*>(w);
+  p.scale = scale;
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.scale_bf16 = scale_dtype == DT_BF16;
+  p.out_f32 = out_f32 != 0;
+  p.k_tiles = k_tiles;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t vecs = static_cast<size_t>(row_tiles) * row_tile * (kp / 8);
+  int8_tied_permute_x_kernel<<<static_cast<unsigned>((vecs + 255) / 256), 256, 0, st>>>(
+      static_cast<const uint16_t*>(x), static_cast<uint16_t*>(xp), M, row_tiles * row_tile, K,
+      kp);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (row_tile) {
+    case 8: return launch_tied<8>(p, xp, kp, row_tiles, blocks, st);
+    case 16: return launch_tied<16>(p, xp, kp, row_tiles, blocks, st);
+    case 32: return launch_tied<32>(p, xp, kp, row_tiles, blocks, st);
+    case 64: return launch_tied<64>(p, xp, kp, row_tiles, blocks, st);
+    case 128: return launch_tied<128>(p, xp, kp, row_tiles, blocks, st);
+    case 256: return launch_tied<256>(p, xp, kp, row_tiles, blocks, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of the tied wgmma entry one SM holds at `row_tile`, or -1.
+int dtpu_int8_tied_blocks_per_sm(int row_tile) {
+  switch (row_tile) {
+    case 8: return tied_occupancy<8>();
+    case 16: return tied_occupancy<16>();
+    case 32: return tied_occupancy<32>();
+    case 64: return tied_occupancy<64>();
+    case 128: return tied_occupancy<128>();
+    case 256: return tied_occupancy<256>();
+    default: return -1;
+  }
 }
 
 // Blocks of the wide entry one SM holds at `row_tile` (the occupancy the

@@ -26,14 +26,18 @@ Routes, chosen from shapes alone (never as a recovery from a failure):
   route at 512 and 2048 rows too (PERF.md).
 - CUDA, f32 x or a shape the wide entry refuses, at most ``MAX_M`` rows,
   w contiguous: the decode kernel.
-- CUDA, M ≤ ``MAX_M`` rows and w the transpose of a contiguous ``[N, K]``
-  (the tied embedding ``[V, D]`` used as ``emb.T`` by ``_logits``): the
-  kernel's tied-head entry, which reads w as stored, one byte per weight,
-  with the same epilogue. ``tied_launches`` counts its calls.
-- CUDA, any other call (more than ``MAX_M`` rows that the wide entry does
-  not take, or another w layout): the prefill route, which dequantizes w
-  into a scratch in x's dtype and calls ``torch.matmul``.
-  ``prefill_launches`` counts its calls.
+- CUDA, bf16 x and w the transpose of a contiguous ``[N, K]`` (the tied
+  embedding ``[V, D]`` used as ``emb.T`` by ``_logits``) with K % 16 == 0
+  and a 16-byte aligned base: the tied wgmma entry ("tied_wide"), which
+  reads the embedding as stored, one byte per weight, at any row count,
+  with the same epilogue; its plan is ``tied_plan``.
+- CUDA, f32 x or a tied shape that entry refuses, at most ``MAX_M`` rows:
+  the kernel's first tied entry ("tied", CUDA cores for f32 x, mma.sync
+  for bf16). ``tied_launches`` counts the calls of both tied entries.
+- CUDA, any other call (more than ``MAX_M`` rows that neither the wide
+  nor the tied wgmma entry takes, or another w layout): the prefill
+  route, which dequantizes w into a scratch in x's dtype and calls
+  ``torch.matmul``. ``prefill_launches`` counts its calls.
 
 A CUDA call launches a kernel or raises; it never reaches the plain
 version.
@@ -62,8 +66,15 @@ WIDE_ROW_TILES = (16, 32, 64, 128, 256)
 WIDE_BLOCKS_PER_SM = 1
 SMS = 132          # the H100 SXM's streaming multiprocessors
 
+# The tied wgmma entry (``int8_matmul_tied_wide_kernel``): embedding rows per
+# tile, k per stage, its row tiles and its blocks per SM (the source's
+# TW_BN, TW_BK, TiedCfg and TW_BLOCKS_PER_SM).
+TIED_BN, TIED_BK = 128, 64
+TIED_ROW_TILES = (8, 16, 32, 64, 128, 256)
+TIED_BLOCKS_PER_SM = 1
+
 # Calls that launched the kernel / the wide entry / took the prefill route /
-# launched the tied-head entry (read and reset by chip_smoke.py; CUDA-graph
+# launched either tied-head entry (read and reset by chip_smoke.py; CUDA-graph
 # replays add the calls their graph holds).
 launches = 0
 wide_launches = 0
@@ -102,6 +113,24 @@ def wide_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
     return tile, row_tiles, -(-tiles // per)
 
 
+def tied_plan(M: int, N: int) -> tuple[int, int, int, int]:
+    """The tied wgmma entry's plan for x [M, K] against an [N, K] embedding,
+    from the shapes alone → (row tile, row tiles, blocks, tiles per block).
+    The row tile is the smallest of ``TIED_ROW_TILES`` that holds M; past
+    256 rows, 256 or 128, whichever pads fewer rows, 256 on a tie
+    (``profile_int8_matmul --tied`` times both on the card).
+    The tiles are ``TIED_BN`` embedding rows by one row tile, all of K each
+    (no split, no partials); one persistent block per SM, at most one per
+    tile, walks ceil(tiles / blocks) of them."""
+    tile = next((t for t in TIED_ROW_TILES if t >= M), None)
+    if tile is None:
+        tile = 128 if -(-M // 128) * 128 < -(-M // 256) * 256 else 256
+    row_tiles = -(-M // tile)
+    tiles = -(-N // TIED_BN) * row_tiles
+    blocks = min(tiles, SMS * TIED_BLOCKS_PER_SM)
+    return tile, row_tiles, blocks, -(-tiles // blocks)
+
+
 def _epilogue(y: torch.Tensor, scale: torch.Tensor, out_f32: bool) -> torch.Tensor:
     if out_f32:
         return y.float() * scale
@@ -138,12 +167,14 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return _prefill_route(x, w, scale, out_f32)
     if which == "wide":
         return _launch_wide(x, w, scale, out_f32, x.numel() // K, K, N)
+    if which == "tied_wide":
+        return _launch_tied_wide(x, w, scale, out_f32, x.numel() // K, K, N)
     return _launch(x, w, scale, out_f32, x.numel() // K if K else 0, K, N, which == "tied")
 
 
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
     """The shape rule for a CUDA call (module docstring): "kernel", "wide",
-    "tied" or "prefill"."""
+    "tied_wide", "tied" or "prefill"."""
     K, N = w.shape
     M = x.numel() // K if K else 0
     if w.is_contiguous():
@@ -153,8 +184,11 @@ def route(x: torch.Tensor, w: torch.Tensor) -> str:
                 and w.data_ptr() % 16 == 0):
             return "wide"
         return "kernel" if M <= MAX_M else "prefill"
-    if M <= MAX_M and w.T.is_contiguous():
-        return "tied"
+    if w.T.is_contiguous():
+        if x.dtype == torch.bfloat16 and K % 16 == 0 and w.data_ptr() % 16 == 0:
+            return "tied_wide"
+        if M <= MAX_M:
+            return "tied"
     return "prefill"
 
 
@@ -194,6 +228,33 @@ def _launch_wide(x, w, scale, out_f32, M, K, N):
     _build.check(lib, err, "int8_matmul wide launch")
     wide_launches += 1
     return out.reshape(*x.shape[:-1], N)
+
+
+def _launch_tied_wide(x, w, scale, out_f32, M, K, N):
+    global tied_launches
+    lib, x2, scale = _operands(x, w, scale, M, K, N)
+    tile, row_tiles, blocks, _per_block = tied_plan(M, N)
+    out = torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
+    xp = torch.empty((row_tiles * tile, -(-K // TIED_BK) * TIED_BK), dtype=x.dtype,
+                     device=x.device)
+    fn = lib.dtpu_int8_matmul_tw
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(x2.data_ptr(), w.T.data_ptr(), scale.data_ptr(), out.data_ptr(), xp.data_ptr(),
+             _DTYPE_CODES[scale.dtype], int(out_f32), M, K, N, tile, blocks,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "int8_matmul tied wgmma launch")
+    tied_launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+def tied_blocks_per_sm(row_tile: int) -> int:
+    """Blocks of the tied wgmma entry one SM holds at ``row_tile``, as the
+    CUDA runtime computes it from the built kernel (needs the card)."""
+    fn = _build.library("int8_matmul").dtpu_int8_tied_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(row_tile)
 
 
 def wide_blocks_per_sm(row_tile: int) -> int:

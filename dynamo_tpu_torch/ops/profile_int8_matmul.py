@@ -2,6 +2,7 @@
 
     python -m dynamo_tpu_torch.ops.profile_int8_matmul [--sweep] [--m 8]
     python -m dynamo_tpu_torch.ops.profile_int8_matmul --substeps 8,32,64,128,256
+    python -m dynamo_tpu_torch.ops.profile_int8_matmul --tied
 
 Run from the repository root (inputs come from chip_smoke.py's
 ``int8_case``). For each llama-8b decode shape it prints the call's
@@ -21,7 +22,15 @@ random weights made on the card, chip_smoke.py's window at the burst's
 row lengths) with bf16 and with int8 weights in turns (bf16, int8, int8,
 bf16; 20 CUDA-event replays each), and profiles one replay of each by
 kernel family: the substep's device time with and without the int8
-product, within one call. Needs a CUDA device.
+product, within one call. ``--tied`` times the tied head (the int8
+embedding [V, D] used as emb.T, f32 logits) at chip_smoke.py's
+``TIED_CASES`` (llama-3b at 1-256 rows, llama-1b at 8, f32 x at 8), in
+turns (kernel, library, library, kernel): the wrapper (the tied wgmma
+entry for bf16 x), its plain version, dequantize + ``torch.matmul`` (the
+prefill route), bf16 ``torch.matmul`` on the dequantized head (the library
+yardstick) and the bound; then, past 256 rows, the tied wgmma entry with
+row tiles of 128 and of 256 in turns (the choice ``tied_plan`` makes from
+the rows each pads). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -157,6 +166,59 @@ def window(card: str) -> None:
         cs.profile_replay(runners[quant], kws[quant], card)
 
 
+def _with_tied_tile(tile: int, fn):
+    """``fn()`` with the tied wgmma entry's row tile forced to ``tile``."""
+    keep = im.tied_plan
+
+    def plan(M, N):
+        row_tiles = -(-M // tile)
+        tiles = -(-N // im.TIED_BN) * row_tiles
+        blocks = min(tiles, im.SMS * im.TIED_BLOCKS_PER_SM)
+        return tile, row_tiles, blocks, -(-tiles // blocks)
+
+    im.tied_plan = plan
+    try:
+        return fn()
+    finally:
+        im.tied_plan = keep
+
+
+def tied(dev, card: str) -> None:
+    """The tied head at chip_smoke.py's cases: kernel and library in turns
+    (the medians of two timings each), plain, dequantize + matmul, bound;
+    then row tiles of 128 and 256 past 256 rows, in turns."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for i, (name, M, xdt) in enumerate(cs.TIED_CASES):
+        K, N = cs.TIED_HEADS[name]
+        x, wt, s = cs.int8_tied_case(M, K, N, xdt, 700 + i, dev)
+        wb = wt.to(x.dtype)
+        kernel = lambda: im.int8_matmul(x, wt, s, out_f32=True)  # noqa: E731
+        library = lambda: torch.matmul(x, wb)  # noqa: E731
+        t = {"kernel": [], "library": []}
+        for which in ("kernel", "library", "library", "kernel"):
+            t[which].append(cs.time_ms(kernel if which == "kernel" else library, flush))
+        plain = cs.time_ms(lambda: im.int8_matmul_ref(x, wt, s, out_f32=True), flush)
+        dequant = cs.time_ms(lambda: torch.matmul(x, wt.to(x.dtype)).float() * s, flush)
+        b_ms, b_by = cs.int8_bound(M, K, N, x.element_size(), 4, 4, xdt)
+        print(f"tied {name} [{N}, {K}] M={M} {xdt} ({im.route(x, wt)}, plan "
+              f"{im.tied_plan(M, N) if im.route(x, wt) == 'tied_wide' else None}): kernel "
+              f"{' / '.join(f'{v:.4f}' for v in t['kernel'])} ms, library "
+              f"{' / '.join(f'{v:.4f}' for v in t['library'])}, plain {plain:.4f}, dequantize + "
+              f"torch.matmul {dequant:.4f}, bound {b_ms:.4f} ({b_by}) ({card})", flush=True)
+        del x, wt, s, wb
+    K, N = cs.TIED_HEADS["llama-3b"]
+    for M in (129, 257, 384, 512):
+        x, wt, s = cs.int8_tied_case(M, K, N, "bfloat16", 900 + M, dev)
+        t = {128: [], 256: []}
+        for tile in (128, 256, 256, 128):
+            t[tile].append(_with_tied_tile(tile, lambda: cs.time_ms(
+                lambda: im.int8_matmul(x, wt, s, out_f32=True), flush)))
+        print(f"tied llama-3b M={M}: row tile 128 {' / '.join(f'{v:.4f}' for v in t[128])} ms, "
+              f"256 {' / '.join(f'{v:.4f}' for v in t[256])} (the plan's: "
+              f"{im.tied_plan(M, N)[0]}) ({card})", flush=True)
+        del x, wt, s
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", action="store_true", help="time every split count too")
@@ -165,12 +227,17 @@ def main() -> None:
                     help="comma-separated row counts: only the 225-product graph at each")
     ap.add_argument("--window", action="store_true",
                     help="bf16 vs int8 weights: one llama-8b decode window, in turns")
+    ap.add_argument("--tied", action="store_true",
+                    help="the tied head (llama-3b, llama-1b) at chip_smoke.py's cases")
     args = ap.parse_args()
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     if args.window:
         window(card)
+        return
+    if args.tied:
+        tied(dev, card)
         return
     if args.substeps:
         for M in (int(m) for m in args.substeps.split(",")):

@@ -10,7 +10,8 @@ Inputs and tolerances are chip_smoke.py's (``int8_case``, ``int8_check``,
 ``TOL_INT8``): unit normals for x, uniform int8 weights, positive scales,
 the plain version evaluated in float32 on the same values. bf16 x of more
 than 8 rows (aligned shapes) takes the wide entry, the rest the decode
-kernel (``route``); each test counts the launches of the route it expects.
+kernel (``route``); a tied ``emb.T`` of bf16 x takes the tied wgmma entry
+at every row count; each test counts the launches of the route it expects.
 """
 
 from __future__ import annotations
@@ -195,8 +196,9 @@ def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
     im.int8_matmul(x64, emb.T, s, out_f32=True)  # the tied [V, D] layout: its own entry
     assert _counts() == _want(c0, "tied", 1)
     big, _, _ = int8_case(65, 512, 256, "bfloat16", 13, dev)
-    im.int8_matmul(big, emb.T, s, out_f32=True)  # more than 64 rows: the prefill route
-    assert _counts() == (c0[0], c0[1], c0[2] + 1, c0[3] + 1)
+    im.int8_matmul(big, emb.T, s, out_f32=True)  # more than 64 rows: the tied wgmma entry
+    assert im.route(big, emb.T) == "tied_wide"
+    assert _counts() == _want(c0, "tied", 2)
     assert calls == []
     with pytest.raises(ValueError):
         im.int8_matmul(x, w.float(), s)
@@ -242,3 +244,69 @@ def test_tied_head_graph_replay_equals_eager(dev):
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+# The tied wgmma entry: llama-3b's and llama-1b's heads and an embedding
+# whose rows end mid-tile, every row tile and the edges between them, rows
+# past 256 (several row tiles of 128 or 256 per column tile) and 513.
+TIED_WIDE = [TIED_HEADS["llama-3b"], TIED_HEADS["llama-1b"], (4096, 1000)]
+TIED_WIDE_M = (1, 8, 9, 16, 17, 63, 64, 65, 128, 129, 256, 257, 512, 513)
+
+
+@pytest.mark.parametrize("K,N", TIED_WIDE)
+def test_tied_wide_entry_matches_plain_over_m(dev, K, N):
+    for M in TIED_WIDE_M:
+        x, wt, s = int8_tied_case(M, K, N, "bfloat16", M, dev)
+        assert im.route(x, wt) == "tied_wide"
+        for out_f32 in (True, False) if N < 100_000 or M in (8, 128) else (True,):
+            before = _counts()
+            int8_check(x, wt, s, out_f32, f"tied wgmma {K}x{N} M={M} f32 out {out_f32}")
+            assert _counts() == _want(before, "tied")  # twice, bit-identical
+
+
+@pytest.mark.parametrize("scale_dt", ["float32", "bfloat16"])
+def test_tied_wide_epilogues_and_scales(dev, scale_dt):
+    """Both epilogues with an f32 and a bf16 scale; with exact f32 sums
+    (small K, small integers) bit-equal to the plain version's rounding
+    points."""
+    for M in (5, 40, 300):
+        x, wt, s = int8_tied_case(M, 2048, 1000, "bfloat16", 20 + M, dev, scale_dt)
+        for out_f32 in (True, False):
+            int8_check(x, wt, s, out_f32, f"tied wgmma M={M} scale {scale_dt} f32 out {out_f32}")
+        x, wt, s = int8_tied_case(M, 64, 200, "bfloat16", 30 + M, dev, scale_dt)
+        x = torch.randint(-8, 9, x.shape, device=dev).to(torch.bfloat16)
+        acc = (x.float() @ wt.float()).to(torch.bfloat16).float()
+        assert torch.equal(im.int8_matmul(x, wt, s),
+                           (acc * s.to(torch.bfloat16).float()).to(torch.bfloat16))
+        assert torch.equal(im.int8_matmul(x, wt, s, out_f32=True), acc * s.float())
+
+
+def test_tied_blocks_per_sm_are_the_plans(dev):
+    for tile in im.TIED_ROW_TILES:
+        assert im.tied_blocks_per_sm(tile) == im.TIED_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("M", [8, 128, 257])
+def test_tied_wide_graph_replay_equals_eager(dev, M):
+    K, N = TIED_HEADS["llama-3b"]
+    x, wt, s = int8_tied_case(M, K, N, "bfloat16", 40 + M, dev)
+    eager = im.int8_matmul(x, wt, s, out_f32=True)
+    for _ in range(2):
+        assert torch.equal(im.int8_matmul(x, wt, s, out_f32=True), eager)
+    static_x = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        im.int8_matmul(static_x, wt, s, out_f32=True)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = im.int8_matmul(static_x, wt, s, out_f32=True)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2, _, _ = int8_tied_case(M, K, N, "bfloat16", 50 + M, dev)
+    static_x.copy_(x2)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, im.int8_matmul(x2, wt, s, out_f32=True))

@@ -5,7 +5,14 @@ JAX package, on the CPU.
   with w contiguous, K % 8 == 0, N % 16 == 0 and w 16-byte aligned take
   the wide entry, at any row count; f32 x and shapes the wide entry
   refuses take the decode kernel up to 64 rows and the prefill route
-  above; the tied ``emb.T`` layout takes its entry up to 64 rows.
+  above; the tied ``emb.T`` layout of bf16 x takes the tied wgmma entry at
+  any row count (K % 16 == 0, a 16-byte aligned embedding), f32 x and the
+  shapes it refuses the first tied entry up to 64 rows.
+- ``tied_plan`` is a pure function of the shapes: the row tile is the
+  smallest that holds M (past 256, 128 or 256, whichever pads fewer
+  rows), the tiles cover the embedding's
+  rows and x's rows exactly, one persistent block per SM at most walks
+  them, and the tiles and blocks per SM are the source's ``TiedCfg``.
 - ``wide_plan`` is a pure function of the shapes: the row tile is the
   smallest that holds M (256 past that), the row tiles cover M exactly,
   no split is empty, a split plan stays within one wave of the SMs at the
@@ -85,13 +92,58 @@ def test_f32_and_unaligned_shapes_keep_todays_routes(M):
     assert im.route(bf(4096), _w(4096, 1024, misalign=1)) == want  # w's address
 
 
-@pytest.mark.parametrize("M", [8, 9, 64, 65])
+@pytest.mark.parametrize("M", [8, 9, 64, 65, 128, 257])
 def test_tied_head_and_other_layouts(M):
     emb = torch.zeros((1000, 256), dtype=torch.int8)
     x = torch.zeros((M, 256), dtype=torch.bfloat16)
-    assert im.route(x, emb.T) == ("tied" if M <= im.MAX_M else "prefill")
+    assert im.route(x, emb.T) == "tied_wide"
+    # f32 x, K % 16, a misaligned embedding: the first tied entry up to 64 rows
+    small = "tied" if M <= im.MAX_M else "prefill"
+    assert im.route(x.float(), emb.T) == small
+    assert im.route(torch.zeros((M, 200), dtype=torch.bfloat16),
+                    torch.zeros((1000, 200), dtype=torch.int8).T) == small  # K % 16
+    misaligned = torch.zeros(1000 * 256 + 1, dtype=torch.int8)[1:].view(1000, 256)
+    assert im.route(x, misaligned.T) == small
     # any other layout: the prefill route at every row count
     assert im.route(x, torch.zeros((256, 64), dtype=torch.int8)[:, ::2]) == "prefill"
+
+
+TIED_SHAPES = [tuple(C.TIED_HEADS[h]) for h in sorted(C.TIED_HEADS)] + [(4096, 1000), (64, 48)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 63, 64, 65, 128, 129, 256, 257, 513, 2048])
+@pytest.mark.parametrize("K,N", TIED_SHAPES)
+def test_tied_plan_covers_the_rows_and_the_embedding(M, K, N):
+    tile, row_tiles, blocks, per_block = im.tied_plan(M, N)
+    assert tile in im.TIED_ROW_TILES
+    if M <= im.TIED_ROW_TILES[-1]:
+        assert tile == min(t for t in im.TIED_ROW_TILES if t >= M) and row_tiles == 1
+    else:  # 256 or 128 past 256 rows, whichever pads fewer
+        pad = {t: -(-M // t) * t - M for t in (128, 256)}
+        assert tile == (128 if pad[128] < pad[256] else 256)
+    assert (row_tiles - 1) * tile < M <= row_tiles * tile
+    tiles = -(-N // im.TIED_BN) * row_tiles
+    assert 1 <= blocks <= min(tiles, im.SMS * im.TIED_BLOCKS_PER_SM)
+    assert (per_block - 1) * blocks < tiles <= per_block * blocks  # every tile walked once
+    assert im.tied_plan(M, N) == (tile, row_tiles, blocks, per_block)
+
+
+def test_tied_plan_follows_the_source():
+    src = (Path(im.__file__).parent / "csrc" / "int8_matmul.cu").read_text()
+    tiles = tuple(sorted(int(nr) for nr in re.findall(
+        r"struct TiedCfg<(\d+)> \{ static constexpr int STAGES = \d+; \};", src)))
+    assert tiles == im.TIED_ROW_TILES
+    consts = dict(re.findall(r"constexpr int (TW_BN|TW_BK|TW_BLOCKS_PER_SM) = (\d+);", src))
+    assert (int(consts["TW_BN"]), int(consts["TW_BK"]), int(consts["TW_BLOCKS_PER_SM"])) == (
+        im.TIED_BN, im.TIED_BK, im.TIED_BLOCKS_PER_SM)
+    # llama-3b's head: 1,002 tiles of 128 rows on 132 persistent blocks
+    assert im.tied_plan(8, 128256) == (8, 1, 132, 8)
+    assert im.tied_plan(128, 128256) == (128, 1, 132, 8)
+    assert im.tied_plan(257, 128256) == (128, 3, 132, 23)
+    assert im.tied_plan(384, 128256) == (128, 3, 132, 23)
+    assert im.tied_plan(512, 128256) == (256, 2, 132, 16)
+    assert im.tied_plan(8, 32000) == (8, 1, 132, 2)
+    assert im.tied_plan(1, 48) == (8, 1, 1, 1)
 
 
 # -- the wide entry's plan ----------------------------------------------------------

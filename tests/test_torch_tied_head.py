@@ -1,9 +1,10 @@
 """The int8 tied head on the CPU: its route and its plain version.
 
 llama-1b and llama-3b tie the logits to the int8 embedding [V, D], which
-``_logits`` passes as the view ``emb.T``. On the card that view goes to the
-int8 kernel's tied-head entry (``route`` → "tied"), which reads the
-embedding as stored; only more than ``MAX_M`` rows take the prefill route.
+``_logits`` passes as the view ``emb.T``. On the card that view goes, with
+bf16 x, to the int8 kernel's tied wgmma entry (``route`` → "tied_wide") at
+every row count, and with f32 x to its first tied entry ("tied") up to
+``MAX_M`` rows; both read the embedding as stored.
 Fake CUDA tensors show the routing here (the kernel itself runs only on
 the card, tests/test_torch_int8_matmul_cuda.py). On the CPU ``_logits`` of a
 tied int8 model is the plain version, which must equal the JAX package's
@@ -38,9 +39,11 @@ def test_route_sends_the_transposed_embedding_to_the_tied_entry():
         emb = torch.empty((1000, 256), dtype=torch.int8, device="cuda")
         x8 = torch.empty((8, 256), dtype=torch.bfloat16, device="cuda")
         x65 = torch.empty((65, 256), dtype=torch.bfloat16, device="cuda")
-        assert im.route(x8, emb.T) == "tied"
-        assert im.route(x8.reshape(2, 4, 256), emb.T) == "tied"
-        assert im.route(x65, emb.T) == "prefill"
+        assert im.route(x8, emb.T) == "tied_wide"
+        assert im.route(x8.reshape(2, 4, 256), emb.T) == "tied_wide"
+        assert im.route(x65, emb.T) == "tied_wide"
+        assert im.route(x8.float(), emb.T) == "tied"
+        assert im.route(x65.float(), emb.T) == "prefill"
         # Fake CUDA tensors take no indexing or copies here: build each layout.
         dense = torch.empty_strided((256, 1000), (1000, 1), dtype=torch.int8, device="cuda")
         strided = torch.empty_strided((256, 1000), (2000, 2), dtype=torch.int8, device="cuda")
@@ -64,8 +67,10 @@ def test_tied_cuda_call_launches_or_raises(monkeypatch):
     with FakeTensorMode():
         emb = torch.empty((1000, 256), dtype=torch.int8, device="cuda")
         s = torch.empty((1000,), device="cuda")
-        with pytest.raises(RuntimeError, match="kernel library absent"):
-            im.int8_matmul(torch.empty((8, 256), device="cuda"), emb.T, s, out_f32=True)
+        for x in (torch.empty((8, 256), device="cuda"),  # f32: the first tied entry
+                  torch.empty((300, 256), dtype=torch.bfloat16, device="cuda")):  # wgmma
+            with pytest.raises(RuntimeError, match="kernel library absent"):
+                im.int8_matmul(x, emb.T, s, out_f32=True)
     assert plain == [] and (im.launches, im.prefill_launches, im.tied_launches) == before
 
 
@@ -97,5 +102,25 @@ def test_tied_int8_logits_equal_the_jax_package(dtype):
                                           cfg.rms_norm_eps),
                              tp["embed"].T, tp["embed_scale"], out_f32=True).numpy()
     assert np.array_equal(got, ref)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tied_int8_logits_equal_the_jax_package_at_128_rows(dtype):
+    """A decode bucket of 128 rows (the tied wgmma entry's N of 128 on the
+    card): ``_logits`` through the plain version against the JAX
+    ``_logits`` on the same int8 parameters, at the tolerances above."""
+    cfg = JCfg()
+    np_params = jquantize(jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(5),
+                                                                  jnp.float32)))
+    x = np.random.default_rng(128).standard_normal((128, cfg.hidden_size)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jp = jax.tree.map(lambda a: a if a.dtype == jnp.int8 else a.astype(jdt),
+                      jax.tree.map(jnp.asarray, np_params))
+    want = np.asarray(JM._logits(cfg, jp, jnp.asarray(x, jdt)), np.float32)
+    tp = params_from_numpy(np_params, "cpu", getattr(torch, dtype))
+    got = TM._logits(ModelConfig(), tp, torch.from_numpy(x).to(getattr(torch, dtype))).numpy()
+    assert got.shape == (128, cfg.vocab_size) and got.dtype == np.float32
     tol = 1e-4 if dtype == "float32" else 2.0 ** -7
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max())
