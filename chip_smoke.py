@@ -97,6 +97,30 @@ Phases, in order; any failure raises and the run exits non-zero:
    the tied entry and on the prefill route, in turns: replay ms and graph
    pool bytes. Tokens/s, substeps by bucket, peak memory and graph-pool
    bytes are printed beside the card's name and power limit.
+4e. A mixture-of-experts model on the main path (`moe_phase`, after 4d):
+   moe-wide at its full 12 layers (d 2048, 64 experts, top 8, expert
+   width 1024, a tied 32,000-row head), bf16 weights from seed 0 made on
+   the card, bf16 pages, the main path's engine (`run`'s
+   `build_pipeline`: 8 sequences, depth 2, 8-step windows, every window
+   shape captured first) serving the burst, then its greedy requests
+   again at depth 0: the same streams. No window or step runs eagerly,
+   the attention launches 12 x substeps, the int8 entries never. Then on
+   a runner of its own (128 sequences): a bucket-8 window op by op, each
+   layer's MoE input as it reached the FFN at its first substep recorded;
+   the same window as a graph replay bit-identical to op by op; the
+   port's `_moe` on the card on one layer's recorded input against a
+   float64 loop over each row's chosen experts on the host: the same
+   experts and outputs within `MOE_TOL` wherever the reference's k-th and
+   (k+1)-th probabilities are more than `MOE_GAP` apart (the rows left out
+   counted), and no copy of an expert stack in the call; replay device ms
+   per substep at buckets 8, 32 and 128 with one profiled replay each;
+   and the MoE alone, 12 layers as one graph, at 8, 32 and 128 rows and
+   a 1,536-token prefill chunk: device ms per layer, kernels, bound and
+   its share of the replay, by family (expert products, router softmax,
+   sort, scatter). Printed beside the card's name and power limit:
+   tokens/s, host ms per substep, prefill host seconds, peak memory,
+   graph-pool bytes, and the dense and routed byte bounds per substep
+   (the routed one from the experts the recorded rows chose).
 5. Graph parity: one K=8 window at llama-8b shapes (all 32 layers, the
    engine's weights, its own small cache) as a CUDA-graph replay and op by
    op, in each sampler mode: tokens, logprobs, top-n, the written KV pages
@@ -325,7 +349,8 @@ same weights.
    pass, the pool move's and the retirement's seconds and each worker's
    peak device memory are printed beside the card's name and power limit.
 
-15. Multi-LoRA at full width and depth (llama-8b, 32 layers), twice (bf16;
+15. Multi-LoRA at llama-8b's widths and CUT_LAYERS layers (the depth of
+   phases 10-14, so that the script ends within its time), twice (bf16;
    int8 weights with int8 pages; `lora_phase`): a bank of 4 slots at rank
    16, six adapters of ranks 16 and 8 (`LORA_ADAPTERS`) registered through
    a 1,024-block G2, the burst with six rows under adapters and two base
@@ -402,11 +427,11 @@ CHAOS_REQUEST = REMOTE[-1]
 ENGINE_ARGV = ["--block-size", "16", "--num-kv-blocks", "2048", "--max-num-seqs", "8",
                "--max-model-len", "2048", "--decode-steps", "8", "--seed", "0"]
 HERE = os.path.dirname(os.path.abspath(__file__))
-# Depth of the llama-8b-width model that phases 10-14 and 15b serve (every
-# width as llama-8b's; the full 32 layers run in phases 3-9 and 15a): the
-# in-process engines of phases 10 and 12a make it from seed 0 (`cut_config`),
-# and phases 11, 12b, 13, 14 and 15b's workers load the same weights from a
-# checkpoint of it (`write_checkpoint`), so the script ends within its time.
+# Depth of the llama-8b-width model that phases 10-15 serve (every width as
+# llama-8b's; the full 32 layers run in phases 3-9): the in-process engines
+# of phases 10, 12a and 15a make it from seed 0 (`cut_config`), and phases
+# 11, 12b, 13, 14 and 15b's workers load the same weights from a checkpoint
+# of it (`write_checkpoint`), so the script ends within its time.
 CUT_LAYERS = 8
 
 # The kernel is held against its plain PyTorch version evaluated in float32
@@ -1137,12 +1162,9 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
     t0 = time.perf_counter()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    pipe = await local_pipeline(args, quant="int8", model=cfg, params=params)
+    pipe = await local_pipeline(args, quant="int8", model=cfg, params=params, start=False)
     engine, runner = pipe.engine, pipe.engine.runner
     L = cfg.num_layers
-    log(f"{tag}: {cfg.name} int8 engine of {WIDE_SEQS} sequences on phase 4b's weights up in "
-        f"{time.perf_counter() - t0:.1f}s, decode buckets {engine.args.decode_buckets}, "
-        f"pipeline_depth {engine.args.effective_pipeline_depth}")
     reqs = wide_requests()
 
     async def one(p, r, top):
@@ -1156,24 +1178,25 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
         return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values),
                 "tops": list(gen.lp_tops)}
 
-    buckets0 = dict(engine.decode_steps_by_bucket)
-    eager0 = (runner.eager_windows, runner.eager_steps)
-    cap0 = (runner.graphs.captured, runner.graphs.capture_s) if runner.graphs else (0, 0.0)
-    _, phases0 = _counters(engine)
+    # Every request reaches the engine before its scheduler starts, so the
+    # admission waves (and the buckets they fill) are the same on any host.
     zero_counts()
+    tasks = await submit_then_start(engine, (one(pipe, r, 0) for r in reqs))
     t1 = time.perf_counter()
-    outs = await asyncio.gather(*(one(pipe, r, 0) for r in reqs))
+    log(f"{tag}: {cfg.name} int8 engine of {WIDE_SEQS} sequences on phase 4b's weights up in "
+        f"{t1 - t0:.1f}s, decode buckets {engine.args.decode_buckets}, pipeline_depth "
+        f"{engine.args.effective_pipeline_depth}, {len(reqs)} requests submitted before its "
+        "scheduler started")
+    outs = await asyncio.gather(*tasks)
     wall = time.perf_counter() - t1
     while engine.busy():
         await asyncio.sleep(0.001)
     counts = int8_counts()
-    by_bucket = {b: n - buckets0.get(b, 0) for b, n in engine.decode_steps_by_bucket.items()
-                 if n != buckets0.get(b, 0)}
+    by_bucket = dict(engine.decode_steps_by_bucket)
     substeps = sum(by_bucket.values())
-    eager = (runner.eager_windows - eager0[0], runner.eager_steps - eager0[1])
-    captured = ((runner.graphs.captured - cap0[0], runner.graphs.capture_s - cap0[1])
-                if runner.graphs else (0, 0.0))
-    phase = {k: v - phases0.get(k, 0.0) for k, v in _counters(engine)[1].items()}
+    eager = (runner.eager_windows, runner.eager_steps)
+    captured = (runner.graphs.captured, runner.graphs.capture_s) if runner.graphs else (0, 0.0)
+    phase = _counters(engine)[1]
     for i, o in enumerate(outs):
         if len(o["tokens"]) != max_tokens or not all(
                 np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
@@ -2304,12 +2327,13 @@ async def checkpoint_reference(model_path: str, device: str = "cuda", dtype: str
 
 
 async def local_pipeline(args, quant: str = "none", kv_quant: str = "none", model=None,
-                         params=None, **engine_kw):
+                         params=None, start: bool = True, **engine_kw):
     """The run launcher's in-process pipeline (``build_pipeline``), with
     what the phases vary and the launcher has no flag for: ``model`` (a
     ModelConfig, ``cut_config``) in place of ``--preset``'s, ``params``
     (another engine's weights, shared) and further EngineArgs fields
-    (adapter slots, host tier) in ``engine_kw``."""
+    (adapter slots, host tier) in ``engine_kw``. ``start=False`` leaves
+    the engine unstarted (``submit_then_start``)."""
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -2322,18 +2346,38 @@ async def local_pipeline(args, quant: str = "none", kv_quant: str = "none", mode
 
         model, params = load_model(args.model_path, args.dtype, quant, device=args.device)
     model = model or ModelConfig.preset(args.preset)
-    engine = await TorchEngine(EngineArgs(
+    engine = TorchEngine(EngineArgs(
         model=model, block_size=args.block_size, num_kv_blocks=args.num_kv_blocks,
         max_num_seqs=args.max_num_seqs, max_model_len=args.max_model_len, dtype=args.dtype,
         decode_steps=args.decode_steps, device=args.device, quant=quant, kv_quant=kv_quant,
         grammar_tokenizer=tok_spec, **spec_engine_args(args), **engine_kw,
-    ), params=params, seed=args.seed).start()
+    ), params=params, seed=args.seed)
+    if start:
+        await engine.start()
     tokenizer = load_tokenizer(tok_spec)
     card = ModelDeploymentCard(
         name=model.name, tokenizer=tok_spec, context_length=args.max_model_len,
         kv_cache_block_size=args.block_size,
         eos_token_ids=list(tokenizer.eos_token_ids) or [ByteTokenizer.EOS])
     return LocalPipeline(card, engine, tokenizer)
+
+
+async def submit_then_start(engine, coros) -> list:
+    """Run ``coros`` (requests through an unstarted engine's pipeline) as
+    tasks, wait until the engine holds every one of them, then start it →
+    the tasks. Its first admission wave then takes the requests in order
+    up to ``admission_budget_tokens``, and so does every later one: the
+    waves, and so the decode buckets they fill, do not depend on how fast
+    the host submits."""
+    tasks = [asyncio.ensure_future(c) for c in coros]
+    while engine.metrics().worker.num_requests_waiting < len(tasks):
+        done = [t for t in tasks if t.done()]
+        if done:
+            done[0].result()  # a request that failed before reaching the engine
+            raise RuntimeError("a request finished before its engine started")
+        await asyncio.sleep(0.001)
+    await engine.start()
+    return tasks
 
 
 def cut_config(preset: str, layers: int, vocab_size: int | None = None):
@@ -4530,16 +4574,10 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
     t0 = time.perf_counter()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    pipe = await local_pipeline(args, quant="int8")
+    pipe = await local_pipeline(args, quant="int8", start=False)
     engine, runner = pipe.engine, pipe.engine.runner
-    cfg, params = engine.cfg, runner.params
-    if not cfg.tie_embeddings or params["embed"].dtype != torch.int8:
-        raise RuntimeError(f"{tag}: {cfg.name} does not tie an int8 head")
+    cfg = engine.cfg
     L = cfg.num_layers
-    log(f"{tag}: {cfg.name} ({L} layers) int8 engine of {TIED_SEQS} sequences up in "
-        f"{time.perf_counter() - t0:.1f}s (random weights from seed 0 quantized on the "
-        f"{'card' if cuda else 'CPU'}), decode buckets {engine.args.decode_buckets}, "
-        f"pipeline_depth {engine.args.effective_pipeline_depth}")
     reqs = tied_requests()
 
     async def one(r):
@@ -4552,24 +4590,29 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
             gen = g_
         return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
 
-    buckets0 = dict(engine.decode_steps_by_bucket)
-    eager0 = (runner.eager_windows, runner.eager_steps)
-    cap0 = (runner.graphs.captured, runner.graphs.capture_s) if runner.graphs else (0, 0.0)
-    _, phases0 = _counters(engine)
+    # Every request reaches the engine before its scheduler starts, so the
+    # admission waves (and the buckets they fill) are the same on any host.
     zero_counts()
+    tasks = await submit_then_start(engine, (one(r) for r in reqs))
     t1 = time.perf_counter()
-    outs = await asyncio.gather(*(one(r) for r in reqs))
+    params = runner.params
+    if not cfg.tie_embeddings or params["embed"].dtype != torch.int8:
+        raise RuntimeError(f"{tag}: {cfg.name} does not tie an int8 head")
+    log(f"{tag}: {cfg.name} ({L} layers) int8 engine of {TIED_SEQS} sequences up in "
+        f"{t1 - t0:.1f}s (random weights from seed 0 quantized on the "
+        f"{'card' if cuda else 'CPU'}), decode buckets {engine.args.decode_buckets}, "
+        f"pipeline_depth {engine.args.effective_pipeline_depth}, {len(reqs)} requests "
+        f"submitted before its scheduler started")
+    outs = await asyncio.gather(*tasks)
     wall = time.perf_counter() - t1
     while engine.busy():
         await asyncio.sleep(0.001)
     counts = (*int8_counts(), im.tied_launches)
-    by_bucket = {b: n - buckets0.get(b, 0) for b, n in engine.decode_steps_by_bucket.items()
-                 if n != buckets0.get(b, 0)}
+    by_bucket = dict(engine.decode_steps_by_bucket)
     substeps = sum(by_bucket.values())
-    eager = (runner.eager_windows - eager0[0], runner.eager_steps - eager0[1])
-    captured = ((runner.graphs.captured - cap0[0], runner.graphs.capture_s - cap0[1])
-                if runner.graphs else (0, 0.0))
-    phase = {k: v - phases0.get(k, 0.0) for k, v in _counters(engine)[1].items()}
+    eager = (runner.eager_windows, runner.eager_steps)
+    captured = (runner.graphs.captured, runner.graphs.capture_s) if runner.graphs else (0, 0.0)
+    phase = _counters(engine)[1]
     for i, o in enumerate(outs):
         if len(o["tokens"]) != max_tokens or not all(
                 np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]) or not all(
@@ -4686,6 +4729,364 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
         trunner.stop()
         del trunner, kw128
     del params
+    if cuda:
+        torch.cuda.empty_cache()
+    return st
+
+
+# -- phase 4e: a mixture-of-experts model on the main path ---------------------
+
+MOE_LEAVES = ("w_router", "moe_gate", "moe_up", "moe_down")
+MOE_SEQS = 128                       # the timing runner's max_num_seqs: buckets 8, 32 and 128
+MOE_WINDOW_LENS = (64, 128, 256)     # prompt tokens of the timing runner's rows
+MOE_PREFILL_ROWS = 1536              # a prefill chunk: the burst's longest prompt
+# bf16 router logits are each within 2^-9 of their magnitude of the exact
+# ones (under 0.008 below 4), so two of them cannot trade places across a
+# gap of 0.02: rows whose reference k-th and (k+1)-th log-probabilities
+# are closer than that are left out of the expert and output checks.
+MOE_GAP = 0.02
+# |port - float64 loop| <= atol + rtol * |loop| on the combined output. In
+# bf16 the output is rounded once, and h and its weighted copy per element,
+# over 8 experts x 1024 terms summed in f32: 0.0075 at most at moe-wide's
+# widths on the CPU's bf16 products, against 0.02 here.
+MOE_TOL = {"bfloat16": (0.02, 2.0 ** -7), "float32": (1e-4, 1e-4)}
+MOE_FAMILIES = {"expert and router products": ("gemm", "nvjet", "gemv", "cutlass", "splitK",
+                                               "xmma"),
+                "router softmax": ("softmax",), "router sort": ("sort", "Sort", "radix"),
+                "router scatter": ("scatter",), "copy": ("copy",)}
+
+
+def moe_against_reference(x, lp, cfg, dtype: str) -> dict:
+    """The port's ``_moe`` on ``x`` [T, D] (one layer's recorded input, on
+    its device) against a float64 loop over each row's chosen experts on
+    the host: for every row whose reference k-th and (k+1)-th
+    log-probabilities are more than ``MOE_GAP`` apart, the same set of
+    experts as the port's router chose and outputs within ``MOE_TOL``;
+    raises otherwise. → rows checked and left out, max |error|."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine import model as M
+
+    k = cfg.num_experts_per_token
+    y = M._moe(x, lp, cfg).double().cpu().numpy()
+    topi = M._moe_route(x, lp["w_router"], k)[2].cpu().numpy()
+    xd = x.double().cpu().numpy()
+    logits = xd @ lp["w_router"].double().cpu().numpy()
+    atol, rtol = MOE_TOL[dtype]
+    experts: dict[int, tuple] = {}
+    checked, left_out, err = 0, 0, 0.0
+    for t in range(xd.shape[0]):
+        order = np.argsort(-logits[t], kind="stable")
+        if logits[t, order[k - 1]] - logits[t, order[k]] <= MOE_GAP:
+            left_out += 1
+            continue
+        idx = order[:k]
+        if set(idx.tolist()) != set(topi[t].tolist()):
+            raise RuntimeError(f"moe: row {t} routed to experts {sorted(topi[t].tolist())}, the "
+                               f"float64 reference to {sorted(idx.tolist())}")
+        w = np.exp(logits[t, idx] - logits[t, idx].max())
+        w /= w.sum()
+        ref = np.zeros(xd.shape[1])
+        for e, wi in zip(idx.tolist(), w):
+            if e not in experts:
+                experts[e] = tuple(lp[n][e].double().cpu().numpy()
+                                   for n in ("moe_gate", "moe_up", "moe_down"))
+            gate, up, down = experts[e]
+            g, u = xd[t] @ gate, xd[t] @ up
+            ref += wi * (((g / (1 + np.exp(-g))) * u) @ down)
+        diff = np.abs(y[t] - ref)
+        if (diff > atol + rtol * np.abs(ref)).any():
+            raise RuntimeError(f"moe: row {t} output off the float64 reference by "
+                               f"{diff.max():.4g} (tolerance {atol} + {rtol:.4g} x |ref|)")
+        checked += 1
+        err = max(err, float(diff.max()))
+    return {"rows_checked": checked, "rows_left_out": left_out, "max_abs_err": err}
+
+
+def moe_bounds(cfg, routed: list[int], rows: int, elem: int) -> dict:
+    """Byte bounds of one decode substep (every weight read once) at 3.35
+    TB/s: the dense form's (every expert, as ``_moe`` computes) and the
+    routed form's (only the ``routed[layer]`` experts that the rows chose),
+    and the expert products' FLOPs per token, dense and routed."""
+    d, E, k, L = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_token, cfg.num_layers
+    ie = cfg.moe_intermediate_size or cfg.intermediate_size
+    expert = 3 * d * ie
+    dense = cfg.param_count() * elem
+    routed_bytes = (cfg.active_param_count() - L * k * expert + sum(routed) * expert) * elem
+    return {"dense_bytes": dense, "dense_bound_ms": dense / HBM_BYTES_PER_S * 1e3,
+            "routed_rows": rows, "routed_experts_per_layer": routed,
+            "routed_bytes": routed_bytes,
+            "routed_bound_ms": routed_bytes / HBM_BYTES_PER_S * 1e3,
+            "one_row_bound_ms": cfg.active_param_count() * elem / HBM_BYTES_PER_S * 1e3,
+            "expert_gflop_per_token_dense": 2 * L * E * expert / 1e9,
+            "expert_gflop_per_token_routed": 2 * L * k * expert / 1e9}
+
+
+def moe_alone(params, cfg, rows: int, card_line: str, seed: int = 0) -> dict:
+    """The MoE FFN of every layer on ``rows`` unit-scale rows, captured as
+    one CUDA graph: device ms per layer (the median of 5 replays over the
+    layers), the bound per layer (every expert's weights read once against
+    the products' operations at the bf16 peak) and one profiled replay by
+    family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.engine import model as M
+
+    L, d, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
+    layers = params["layers"]
+    dtype = layers["moe_gate"].dtype
+    lps = [{n: layers[n][i] for n in MOE_LEAVES} for i in range(L)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for lp in lps:
+            M._moe(x, lp, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = [M._moe(x, lp, cfg) for lp in lps]
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    fam = {k: [0.0, 0.0] for k in [*MOE_FAMILIES, "other elementwise"]}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        name = next((f for f, pats in MOE_FAMILIES.items() if any(p in e.key for p in pats)),
+                    "other elementwise")
+        fam[name][0] += e.self_device_time_total / 1e3 / L
+        fam[name][1] += e.count / L
+    del graph, ys
+    weights = sum(layers[n][0].numel() for n in MOE_LEAVES)
+    elem = layers["moe_gate"].element_size()
+    b_ms = max((weights + 2 * rows * d) * elem / HBM_BYTES_PER_S,
+               2 * rows * weights / PEAK_OPS[str(dtype).replace("torch.", "")]) * 1e3
+    ms = statistics.median(times) / L
+    out = {"rows": rows, "ms_per_layer": ms, "bound_ms_per_layer": b_ms,
+           "bound_by": "bytes" if (weights + 2 * rows * d) * elem / HBM_BYTES_PER_S
+           >= 2 * rows * weights / PEAK_OPS[str(dtype).replace("torch.", "")] else "operations",
+           "kernels_per_layer": sum(v[1] for v in fam.values()),
+           "families_ms_per_layer": {k: v[0] for k, v in fam.items()}}
+    log(f"moe alone: {rows} rows, {L} layers as one graph: {ms:.4f} ms per layer (bound "
+        f"{b_ms:.4f}, {out['bound_by']}), {out['kernels_per_layer']:.0f} kernels per layer; "
+        + ", ".join(f"{k} {v[0]:.4f}" for k, v in fam.items()) + f" ms per layer ({card_line})")
+    return out
+
+
+async def moe_phase(card_line: str, preset: str = "moe-wide", device: str = "cuda",
+                    dtype: str = "bfloat16", max_tokens: int = BURST_TOKENS) -> dict:
+    """Phase 4e: ``preset`` (a mixture-of-experts model) at its full depth
+    through ``run``'s pipeline with the main path's engine arguments, bf16
+    weights made from seed 0 on the card and bf16 pages, every window shape
+    captured first; the burst at depth 2, then its greedy requests at
+    depth 0 (the same streams). Holds: no eager window or step; attention
+    launches L x substeps and no int8 launch; every token in the
+    vocabulary and every logprob finite and <= 0. Then, on a runner of its
+    own with 128 sequences: a bucket-8 window op by op with every layer's
+    MoE input at its first substep recorded, one layer's through the port's
+    ``_moe`` against the float64 loop (``moe_against_reference``); the
+    routed byte bound from the experts the rows chose; on the card the
+    same window as a graph replay bit-identical to op by op, no copy of an
+    expert stack in a ``_moe`` call, replay device ms per substep and one
+    profiled replay at buckets 8, 32 and 128, and the MoE alone
+    (``moe_alone``) at those rows and a prefill chunk, with its share of
+    each replay. ``max_tokens`` per request (64 on the card). → the
+    phase's numbers."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import model as M
+    from dynamo_tpu_torch.engine.config import EngineArgs
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
+    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    tag = "moe"
+    cuda = device == "cuda"
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype, "--device",
+                       device, *ENGINE_ARGV])
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    pipe = await build_pipeline(args)
+    engine, runner = pipe.engine, pipe.engine.runner
+    cfg, params = engine.cfg, runner.params
+    if not cfg.num_experts or "moe_gate" not in params["layers"]:
+        raise RuntimeError(f"{tag}: {cfg.name} is not a mixture-of-experts model")
+    L, k = cfg.num_layers, cfg.num_experts_per_token
+    g = runner.graphs
+    n_warm = runner.warm_windows(("greedy", "simple"), (0,))
+    log(f"{tag}: {cfg.name} ({L} layers, {cfg.num_experts} experts, top {k}, expert width "
+        f"{cfg.moe_intermediate_size}) pipeline up in {time.perf_counter() - t0:.1f}s (random "
+        f"{dtype} weights from seed 0 made on the {'card' if cuda else 'CPU'}), pipeline_depth "
+        f"{engine.args.effective_pipeline_depth}; {n_warm} window graphs captured ahead of "
+        f"traffic in {g.capture_s if g else 0.0:.2f}s ({card_line})")
+    prompts = burst_prompts()
+
+    async def one(i):
+        req = CompletionRequest.parse({
+            "model": pipe.card.name, "prompt": prompts[i], "max_tokens": max_tokens,
+            "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True, "logprobs": 0})
+        gen = None
+        async for g_, _chunk in pipe.run(req, Context()):
+            gen = g_
+        return {"tokens": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
+
+    async def burst(idx, label):
+        """Requests ``idx`` at once; every count zeroed just before, read
+        just after the engine has drained."""
+        steps0, phases0 = _counters(engine)
+        eager0 = (runner.eager_windows, runner.eager_steps)
+        zero_counts()
+        t1 = time.perf_counter()
+        outs = await asyncio.gather(*(one(i) for i in idx))
+        wall = time.perf_counter() - t1
+        while engine.busy():
+            await asyncio.sleep(0.001)
+        counts = (*int8_counts(), im.tied_launches)
+        steps1, phases1 = _counters(engine)
+        substeps = steps1 - steps0
+        phase = {key: v - phases0.get(key, 0.0) for key, v in phases1.items()}
+        eager = (runner.eager_windows - eager0[0], runner.eager_steps - eager0[1])
+        for i, o in zip(idx, outs):
+            if len(o["tokens"]) != max_tokens or not all(
+                    np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]) or not all(
+                    0 <= t < cfg.vocab_size for t in o["tokens"]):
+                raise RuntimeError(f"{tag}[{label}] request {i}: bad token/logprob stream")
+        want = (L * substeps if cuda else 0, 0, 0, 0, 0)
+        if counts != want or substeps == 0:
+            raise RuntimeError(f"{tag}[{label}]: launches (attention, int8 kernel, int8 prefill "
+                               f"route, int8 wide entry, int8 tied head) {counts} != {want} for "
+                               f"{substeps} substeps")
+        if cuda and eager != (0, 0):
+            raise RuntimeError(f"{tag}[{label}]: {eager[0]} windows and {eager[1]} single steps "
+                               "ran eagerly")
+        decode_s = sum(phase.get(key, 0.0) for key in DECODE_PHASES)
+        st = {"requests": len(idx), "tokens_per_s": len(idx) * max_tokens / wall, "wall_s": wall,
+              "substeps": substeps, "launches": counts,
+              "host_ms_per_substep": decode_s / substeps * 1e3,
+              "prefill_s": phase.get("prefill", 0.0)}
+        log(f"{tag}[{label}]: {len(idx)} requests, {len(idx) * max_tokens} tokens in {wall:.3f}s "
+            f"→ {st['tokens_per_s']:.1f} tokens/s; {substeps} substeps, host ms per substep "
+            f"{st['host_ms_per_substep']:.3f}; prefill {st['prefill_s']:.2f}s of host time; "
+            f"launches (attention, int8 kernel, int8 prefill route, int8 wide entry, int8 tied "
+            f"head) {counts} ({card_line})")
+        return outs, st
+
+    outs2, st = await burst(range(len(prompts)), "depth2")
+    st.update({"model": cfg.name, "layers": L, "experts": cfg.num_experts, "top_k": k,
+               "graphs": g.captured if g else 0, "capture_s": g.capture_s if g else 0.0,
+               "graph_pool_bytes": g.pool_bytes() if g else 0,
+               "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0})
+    engine.clear_kv_blocks()
+    engine.args.pipeline_depth = 0
+    greedy = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
+    outs0, st0 = await burst(greedy, "depth0")
+    engine.args.pipeline_depth = 2
+    for i, o in zip(greedy, outs0):
+        if o != outs2[i]:
+            raise RuntimeError(f"{tag} request {i}: greedy streams differ at depth 2 and 0")
+    st["depth0"] = st0
+    log(f"{tag}: the {len(greedy)} greedy streams identical at pipeline_depth 2 and 0; "
+        f"{st['graphs']} window graphs, graph pool {st['graph_pool_bytes'] / 2**20:.1f} MiB, "
+        f"peak memory {st['max_mem_gib']:.2f} GiB ({card_line})")
+    await engine.stop()
+    del pipe, engine, runner
+
+    rargs = EngineArgs(model=cfg, block_size=16, num_kv_blocks=1400, max_num_seqs=MOE_SEQS,
+                       max_model_len=2048, decode_steps=8, dtype=dtype, device=device)
+    trunner = LocalRunner(rargs, params=params)
+    trunner.start()
+    kw = dict(window_inputs(trunner, "simple", 90, lens=MOE_WINDOW_LENS, live=6), top_n=0)
+    B = rargs.bucket_decode(6)
+    # The window op by op, every layer's MoE input at its first substep recorded.
+    xs, real = [], M._moe
+
+    def recording(x, lp, cfg_):
+        if len(xs) < L:
+            xs.append(x.detach().reshape(-1, x.shape[-1]).clone())
+        return real(x, lp, cfg_)
+
+    state = _device_state(trunner)
+    M._moe = recording
+    try:
+        trunner.multi_decode(**kw, eager=True)
+    finally:
+        M._moe = real
+    _restore(trunner, state)
+    del state
+    if len(xs) != L or xs[0].shape != (B, cfg.hidden_size):
+        raise RuntimeError(f"{tag}: recorded {len(xs)} MoE inputs of shape "
+                           f"{tuple(xs[0].shape) if xs else None} in a bucket-{B} window")
+    mid = L // 2
+    lp = {n: params["layers"][n][mid] for n in MOE_LEAVES}
+    st["check"] = {"layer": mid, **moe_against_reference(xs[mid], lp, cfg, dtype)}
+    log(f"{tag}: bucket {B}, first substep of an op-by-op window: layer {mid}'s MoE input "
+        f"[{B}, {cfg.hidden_size}] through _moe against the float64 loop: "
+        f"{st['check']['rows_checked']} rows with the same experts and within {MOE_TOL[dtype]}, "
+        f"max |err| {st['check']['max_abs_err']:.3e}; {st['check']['rows_left_out']} rows left "
+        f"out by the gap rule (k-th and (k+1)-th log-probabilities within {MOE_GAP})")
+    routed = [len(set(M._moe_route(x[:6], params["layers"]["w_router"][i], k)[2].flatten()
+                      .tolist())) for i, x in enumerate(xs)]
+    st.update(moe_bounds(cfg, routed, 6, params["layers"]["moe_gate"].element_size()))
+    log(f"{tag}: byte bound per substep: dense (every expert, as _moe reads them) "
+        f"{st['dense_bytes'] / 1e9:.3f} GB, {st['dense_bound_ms']:.3f} ms; routed (the experts "
+        f"6 live rows chose, {routed} of {cfg.num_experts} per layer) "
+        f"{st['routed_bytes'] / 1e9:.3f} GB, {st['routed_bound_ms']:.3f} ms; one row "
+        f"{st['one_row_bound_ms']:.3f} ms at 3.35 TB/s; expert products "
+        f"{st['expert_gflop_per_token_dense']:.2f} GFLOP a token dense against "
+        f"{st['expert_gflop_per_token_routed']:.2f} routed ({card_line})")
+    if cuda:
+        graph_vs_eager(trunner, kw)
+        log(f"{tag}: bucket {B} (6 live rows) window: graph replay bit-identical to op by op "
+            "(tokens, logprobs, KV pages, chain)")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        M._moe(xs[mid], lp, cfg)
+        torch.cuda.synchronize()
+        st["moe_call_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        stack = lp["moe_gate"].numel() * lp["moe_gate"].element_size()
+        if st["moe_call_peak_bytes"] >= stack // 4:
+            raise RuntimeError(f"{tag}: a _moe call at {B} rows took "
+                               f"{st['moe_call_peak_bytes'] / 2**20:.1f} MiB beside its inputs, "
+                               f"against {stack / 2**20:.1f} MiB for one expert stack")
+        log(f"{tag}: one _moe call at {B} rows allocates "
+            f"{st['moe_call_peak_bytes'] / 2**20:.2f} MiB at its peak (an expert stack is "
+            f"{stack / 2**20:.1f} MiB): no stack is copied")
+        st["replay_ms_per_substep"], st["replay_profile"], st["alone"] = {}, {}, {}
+        for live in (6, 32, 100):
+            Bl = rargs.bucket_decode(live)
+            kwl = kw if live == 6 else dict(window_inputs(trunner, "simple", 90 + live,
+                                                          lens=MOE_WINDOW_LENS, live=live),
+                                            top_n=0)
+            st["replay_ms_per_substep"][Bl] = replay_ms(trunner, kwl)
+            st["replay_profile"][Bl] = profile_replay(trunner, kwl, card_line,
+                                                      f"{cfg.name}, bucket {Bl}, {live} live rows")
+            st["alone"][Bl] = moe_alone(params, cfg, Bl, card_line, seed=Bl)
+            share = L * st["alone"][Bl]["ms_per_layer"] / st["replay_ms_per_substep"][Bl]
+            st["alone"][Bl]["share_of_replay"] = share
+            log(f"{tag}: bucket {Bl}: {st['replay_ms_per_substep'][Bl]:.3f} ms device time per "
+                f"substep as one graph replay; the MoE of {L} layers alone "
+                f"{L * st['alone'][Bl]['ms_per_layer']:.3f} ms of it ({100 * share:.1f}%) "
+                f"({card_line})")
+        st["alone"]["prefill"] = moe_alone(params, cfg, MOE_PREFILL_ROWS, card_line, seed=1)
+    trunner.stop()
+    del trunner, params, xs
     if cuda:
         torch.cuda.empty_cache()
     return st
@@ -5729,7 +6130,7 @@ def _log_migration(tag: str, res: dict, card_line: str) -> None:
         + f"; exit codes {res['exit_codes']} ({card_line})")
 
 
-# -- phase 15: multi-LoRA serving at full width and depth -----------------------
+# -- phase 15: multi-LoRA serving at llama-8b's widths --------------------------
 
 LORA_SLOTS = 4
 LORA_RANK = 16
@@ -6403,6 +6804,9 @@ def main() -> int:
     tied = asyncio.run(tied_phase(card_line))
     torch.cuda.empty_cache()
     mark("4d tied")
+    moe = asyncio.run(moe_phase(card_line))
+    torch.cuda.empty_cache()
+    mark("4e moe")
     small_reference(device)
     frames = msgpack_frame_us()
     log("wire: msgpack_lite pack+unpack per frame: " + ", ".join(
@@ -6417,9 +6821,8 @@ def main() -> int:
     tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
     mark("9 tokenizer")
     torch.cuda.empty_cache()
-    # Phases 10-14 and 15b at CUT_LAYERS layers of llama-8b's widths: in
-    # process from seed 0, and in workers from a checkpoint of the same
-    # weights.
+    # Phases 10-15 at CUT_LAYERS layers of llama-8b's widths: in process
+    # from seed 0, and in workers from a checkpoint of the same weights.
     cut = cut_config("llama-8b", CUT_LAYERS)
     shallow, _, _, shallow_bytes, shallow_s = write_checkpoint("llama-8b", CUT_LAYERS)
     mark("10- checkpoint of the cut model")
@@ -6488,16 +6891,17 @@ def main() -> int:
     mark("14 migration")
 
     torch.cuda.empty_cache()
-    lora = {"bf16": asyncio.run(lora_phase(card_line))}
+    lora = {"bf16": asyncio.run(lora_phase(card_line, model=cut))}
     torch.cuda.empty_cache()
-    lora["int8"] = asyncio.run(lora_phase(card_line, quant="int8", kv_quant="int8"))
+    lora["int8"] = asyncio.run(lora_phase(card_line, quant="int8", kv_quant="int8", model=cut))
     torch.cuda.empty_cache()
     lora["worker"] = lora_worker_phase(card_line, shallow)
     for name in ("bf16", "int8"):
-        st, base = lora[name], (stats if name == "bf16" else int8_runs["int8"])
+        st = lora[name]
         t = st["timing"]
-        log(f"lora[{name}]: tokens/s mixed {st['mixed']['tokens_per_s']:.1f} against base-only "
-            f"{st['base_only']['tokens_per_s']:.1f} (phase 4's burst {base['tokens_per_s']:.1f}); "
+        log(f"lora[{name}]: {st['layers']} layers: tokens/s mixed "
+            f"{st['mixed']['tokens_per_s']:.1f} against base-only "
+            f"{st['base_only']['tokens_per_s']:.1f}; "
             f"replay ms per substep {t['replay_ms_per_substep']['lora']:.3f} with the LoRA "
             f"variant, {t['replay_ms_per_substep']['base']:.3f} without; kernels per substep "
             f"+{t['kernels_per_substep']['lora'] - t['kernels_per_substep']['base']:.0f}; bank "
@@ -6532,6 +6936,7 @@ def main() -> int:
         "launches_lora_int8": sum(lora["int8"][b]["launches"][0]
                                   for b in ("mixed", "mixed_depth0", "base_only", "grammar")),
         "launches_lora_worker": lora["worker"]["launches"],
+        "launches_moe": moe["launches"][0] + moe["depth0"]["launches"][0],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -6622,6 +7027,7 @@ def main() -> int:
     for kv_quant, st in int8_runs.items():
         log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
     log("tied_path: " + json.dumps(tied, default=str))
+    log("moe_path: " + json.dumps(moe, default=str))
     log("http_path: " + json.dumps(http))
     log("checkpoint_path: " + json.dumps(ckpt))
     log("tokenizer_path: " + json.dumps(tok))
@@ -6634,6 +7040,16 @@ def main() -> int:
     log(f"cut model: {cut.name}, checkpoint {shallow_bytes / 1e9:.2f} GB written in "
         f"{shallow_s:.1f}s")
     log("phase wall seconds: " + json.dumps(phase_s))
+    log("moe: " + json.dumps({
+        "model": moe["model"], "tokens_per_s": moe["tokens_per_s"],
+        "host_ms_per_substep": moe["host_ms_per_substep"], "prefill_s": moe["prefill_s"],
+        "replay_ms_per_substep": moe["replay_ms_per_substep"],
+        "moe_ms_per_layer": {b: a["ms_per_layer"] for b, a in moe["alone"].items()},
+        "moe_share_of_replay": {b: a["share_of_replay"] for b, a in moe["alone"].items()
+                                if "share_of_replay" in a},
+        "dense_bound_ms": moe["dense_bound_ms"], "routed_bound_ms": moe["routed_bound_ms"],
+        "check": moe["check"], "max_mem_gib": moe["max_mem_gib"],
+        "graph_pool_bytes": moe["graph_pool_bytes"], "card": card_line}))
     log(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
     print(json.dumps({"kernels": [entry, int8_entry, wide_entry, tied_entry, *spec_entries]}),
           flush=True)

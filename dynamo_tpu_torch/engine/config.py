@@ -41,11 +41,11 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # QKV projection bias (Qwen2-family). o_proj stays bias-free.
     attn_bias: bool = False
-    # Mixture-of-experts (0 = dense FFN). The port's forward pass does not
-    # run MoE yet (model.py raises NotImplementedError).
+    # Mixture-of-experts (0 = dense FFN): top-k routed experts on one
+    # device (model._moe); expert parallelism is not ported.
     num_experts: int = 0
     num_experts_per_token: int = 2
-    moe_intermediate_size: int | None = None
+    moe_intermediate_size: int | None = None  # per-expert FFN width (default: intermediate_size)
 
     @property
     def q_size(self) -> int:
@@ -54,6 +54,37 @@ class ModelConfig:
     @property
     def kv_size(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        d, i, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        if self.num_experts:
+            ie = self.moe_intermediate_size or i
+            ffn = self.num_experts * 3 * d * ie + d * self.num_experts  # experts + router
+        else:
+            ffn = 3 * d * i
+        per_layer = (
+            d * self.q_size + 2 * d * self.kv_size + self.q_size * d  # attn
+            + ffn
+            + 2 * d                                                   # norms
+        )
+        if self.attn_bias:
+            per_layer += self.q_size + 2 * self.kv_size
+        head = 0 if self.tie_embeddings else d * v
+        return v * d + self.num_layers * per_layer + d + head
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the top-k experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, v = self.hidden_size, self.vocab_size
+        ie = self.moe_intermediate_size or self.intermediate_size
+        per_layer = (
+            d * self.q_size + 2 * d * self.kv_size + self.q_size * d
+            + self.num_experts_per_token * 3 * d * ie + d * self.num_experts
+            + 2 * d
+        )
+        head = 0 if self.tie_embeddings else d * v
+        return v * d + self.num_layers * per_layer + d + head
 
     @staticmethod
     def preset(name: str) -> "ModelConfig":

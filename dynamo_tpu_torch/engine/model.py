@@ -27,6 +27,13 @@ batched products in the activation dtype, as plain tensor ops). Base rows
 keep their projection values through a ``where``, never an add of zero,
 so a base row in a mixed batch is bit-identical to the no-LoRA forward.
 
+Mixture of experts (``cfg.num_experts`` > 0): every forward's FFN is
+``_moe``, the JAX package's dense formulation (every expert for every
+token, Mixtral's renormalised top-k weights in the combine) as plain
+tensor products, the reference's being XLA einsums, not a Pallas kernel.
+Expert stacks stay in the compute dtype under ``quant="int8"``, as in the
+JAX package.
+
 ``embed`` is the JAX package's ``embed_impl`` (/v1/embeddings): a
 cache-free causal forward, mean-pooled. Its attention, like prefill
 attention, is plain tensor code (XLA in the JAX package); decode
@@ -100,11 +107,12 @@ def init_params(cfg: ModelConfig, device: torch.device, dtype: torch.dtype = tor
                 seed: int = 0) -> Params:
     """Random-init params on ``device`` from a seeded ``torch.Generator``
     there: normal(0, 1/fan_in) weights, unit norms, 0.02-scale biases —
-    the JAX package's distribution (not its random bits). Each layer's
-    tensors are drawn in f32 and cast one at a time, so the f32
-    temporaries stay one tensor large."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE models are not ported yet")
+    the JAX package's leaves, shapes and distribution (not its random
+    bits). A MoE config has the router ``w_router [L, d, E]`` and the
+    expert stacks ``moe_gate``/``moe_up [L, E, d, ie]``, ``moe_down [L, E,
+    ie, d]`` in place of the dense FFN. Each layer's tensors are drawn in
+    f32 and cast one at a time, so the f32 temporaries stay one layer's
+    tensor large."""
     g = torch.Generator(device=device).manual_seed(seed)
     d, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
@@ -115,8 +123,13 @@ def init_params(cfg: ModelConfig, device: torch.device, dtype: torch.dtype = tor
     shapes = {
         "wq": ((d, cfg.q_size), d), "wk": ((d, cfg.kv_size), d),
         "wv": ((d, cfg.kv_size), d), "wo": ((cfg.q_size, d), cfg.q_size),
-        "w_gate": ((d, i), d), "w_up": ((d, i), d), "w_down": ((i, d), i),
     }
+    if cfg.num_experts:
+        E, ie = cfg.num_experts, cfg.moe_intermediate_size or i
+        shapes.update({"w_router": ((d, E), d), "moe_gate": ((E, d, ie), d),
+                       "moe_up": ((E, d, ie), d), "moe_down": ((E, ie, d), ie)})
+    else:
+        shapes.update({"w_gate": ((d, i), d), "w_up": ((d, i), d), "w_down": ((i, d), i)})
     if cfg.attn_bias:
         shapes.update({"bq": ((cfg.q_size,), None), "bk": ((cfg.kv_size,), None),
                        "bv": ((cfg.kv_size,), None)})
@@ -262,6 +275,54 @@ def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
     return _dot_q(torch.nn.functional.silu(g.float()).to(x.dtype) * u, lp, "w_down")
 
 
+def _moe_route(xt: torch.Tensor, w_router: torch.Tensor, k: int):
+    """The router of ``_moe``: xt [T, D] → (probs [T, E] f32, the top-k
+    weights renormalised to sum 1 [T, k] f32, their experts [T, k]), in
+    ``lax.top_k``'s order (descending, lower index first among ties)."""
+    probs = torch.softmax((xt @ w_router).float(), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    return probs, topv / topv.sum(dim=-1, keepdim=True), topi
+
+
+def _moe(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k routed mixture of experts over the FFN (Mixtral's
+    renormalised top-k), computed as the JAX package's ``_moe`` computes
+    it: every expert's FFN for every token, the products in the activation
+    dtype, then one weighted combine. x: [..., D].
+
+    - The router product runs in the activation dtype and only its result
+      goes to f32 (bf16-valued logits, then an f32 softmax).
+    - Top-k by a stable descending sort: among equal probabilities the
+      lower expert index comes first, as ``lax.top_k`` takes it (bf16
+      logits tie often among many experts).
+    - The gate and up products read each expert's [d, ie] slice as stored
+      (``x @ moe_gate`` broadcasts x over the expert axis: no copy of a
+      stack); the combine is one product over the flattened (expert, ie)
+      axis against ``moe_down`` viewed as [E·ie, d], so it accumulates as
+      the reference's single einsum does.
+
+    No host synchronisation and no data-dependent shape: a decode window
+    with MoE layers is captured as one CUDA graph like any other."""
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])                                          # [T, D]
+    T, E = xt.shape[0], cfg.num_experts
+    probs, topv, topi = _moe_route(xt, lp["w_router"], cfg.num_experts_per_token)
+    weights = torch.zeros_like(probs).scatter_(1, topi, topv).to(xt.dtype)  # [T, E]
+    g = torch.matmul(xt, lp["moe_gate"])                                   # [E, T, ie]
+    u = torch.matmul(xt, lp["moe_up"])
+    h = torch.nn.functional.silu(g.float()).to(xt.dtype) * u
+    hw = (h * weights.T[:, :, None]).transpose(0, 1).reshape(T, -1)        # [T, E·ie]
+    down = lp["moe_down"]
+    y = hw @ down.reshape(E * down.shape[1], down.shape[2])                # [T, D]
+    return y.reshape(shape)
+
+
+def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN: routed experts for a MoE config, else the MLP."""
+    return _moe(x, lp, cfg) if cfg.num_experts else _mlp(x, lp)
+
+
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """→ f32 logits. int8 heads: ``x @ w`` rounded to x's dtype, then f32
     times the scale leaf as it is (the JAX package's ``_logits``). A tied
@@ -382,7 +443,7 @@ def prefill_batch(
         o = (torch.einsum("btkgc,bckh->btkgh", p_p, pv)
              + torch.einsum("btkgs,bskh->btkgh", p_s, v))
         x = x + _wo_lora(o.reshape(Bp, T, cfg.q_size), lp, ll, lrows)
-        x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
 
     last = torch.clamp(tlen - start - 1, 0, T - 1)
     x_last = x[torch.arange(Bp, device=dev), last]                         # [Bp, D]
@@ -454,7 +515,7 @@ def decode_step(
         o = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                    lengths, cache.k_scale, cache.v_scale)
         x = x + _wo_lora(o.reshape(B, cfg.q_size), lp, ll, lrows)
-        x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
     return _logits(cfg, params, x)
 
 
@@ -662,7 +723,7 @@ def spec_verify(
             o = attend(q.reshape(B, T, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                        lengths, cache.k_scale, cache.v_scale, anc)
             x = x + _wo_lora(o.reshape(B, T, cfg.q_size), lp, ll, lrows)
-            x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+            x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
         logits = _logits(cfg, params, x)                                  # [B, T, V]
     else:
         # Dead slots step at position 0 (their rows are inactive there).
@@ -763,7 +824,7 @@ def embed(
         p = torch.softmax(s, dim=-1).to(x.dtype)
         o = torch.einsum("tkgs,skh->tkgh", p, v).reshape(T, cfg.q_size)
         x = x + _dot_q(o, lp, "wo")
-        x = x + _mlp(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float()
     w = valid.float()[:, None]
     return (x * w).sum(dim=0) / max(float(true_len), 1.0)

@@ -5,7 +5,9 @@ int8 with per-output-channel scales halves its bytes. The format is the
 JAX package's: ``w_int8 [in, out]`` plus ``<name>_scale [out]`` leaves in
 the same tree; the embedding table carries a scale per vocabulary row
 (``embed_scale [V]``), the untied head one per output (``lm_head_scale
-[V]``). Norms and biases stay in the compute dtype.
+[V]``). Norms and biases stay in the compute dtype, and so do a MoE
+model's router and expert stacks, as in the JAX package (its random int8
+init refuses MoE, as the JAX ones do).
 
 The host functions are numpy and bit-exact with the JAX package's (round
 half to even, all-zero channels get scale 1.0, clip to ±127). The

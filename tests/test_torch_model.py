@@ -227,9 +227,17 @@ def test_bf16_within_bound(models):
     assert terr <= 2 * jerr + 0.02, (terr, jerr)
 
 
-def test_moe_raises():
+def test_random_int8_init_refuses_moe():
+    """The random int8 init has no expert stacks, in either package: both
+    refuse a MoE config (int8 MoE trees come from quantize_params_np,
+    with float experts; tests/test_torch_moe.py)."""
+    from dynamo_tpu.engine import quant as JQ
+    from dynamo_tpu_torch.engine import quant as TQ
+
     with pytest.raises(NotImplementedError):
-        TM.init_params(TCfg.preset("moe-tiny"), CPU, torch.float32)
+        TQ.random_int8_params_device(TCfg.preset("moe-tiny"), CPU)
+    with pytest.raises(NotImplementedError):
+        JQ.random_int8_params(JCfg.preset("moe-tiny"))
 
 
 def test_local_runner_dispatches_match_model(models):
