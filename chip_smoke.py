@@ -153,7 +153,31 @@ Phases, in order; any failure raises and the run exits non-zero:
    requests, each pass's tokens/s against the in-process burst, each
    worker's start-up and graph warm-up seconds and msgpack_lite's
    microseconds per frame are printed beside the card's
-   name and power limit.
+   name and power limit. The workers run with `--kv-directory on` and
+   export their spans to the store (`DYNTPU_TRACE_EXPORT=1`).
+
+   7b. The frontend fleet (`fleet_phase`), after phase 7's frontend has
+   exited 0: `python -m dynamo_tpu_torch.frontend --fleet 2
+   --global-max-inflight 16 --router-mode kv` over the same store and
+   workers, with trace export. From cleared caches, through the port's
+   `OpenAIClient` (one connection a request, a traceparent each): the
+   burst's 8 completions aggregated, phase 7's chat streamed
+   (`chat_stream`) and aggregated, and request 7 again. Both children
+   must be registered on the one port and serve; every burst response's
+   token texts and logprobs must equal phase 7's reference bit for bit and
+   the repeat its prefix-hit reference, on the worker that served request
+   7; each request's stitched trace (`/debug/fleet/traces/<id>`) must hold
+   a frontend and a worker lane with engine.queue, engine.prefill
+   (`prompt_tokens` the prompt's length, `cached_blocks` 0 cold and above
+   0 on the repeat) and engine.decode (`tokens` 64); every aggregated
+   `/debug/requests` record must carry the engine phases; each worker's
+   `/metrics` must count one engine.decode span per request it served; the
+   prefix directory must list each burst request's prompt blocks under the
+   instance that served it; each worker's attention launches over the
+   phase must equal 32 x its substeps; the supervisor must exit 0 on
+   SIGTERM. The fleet's tokens/s and ledger TTFTs beside phase 7's, and
+   the workers' host µs per request for recording the engine spans and for
+   the exporter, are printed beside the card's name and power limit.
 
 8. A checkpoint on disk through the worker: llama-8b widths with 2 layers
    (seed 0, bf16, two safetensors shards, an index and config.json, ~3 GB)
@@ -376,8 +400,8 @@ entry, the int8 product, its wide entry, its tied-head entries with phase
 4d's launches, and the attention kernel's
 linear and tree verify modes; the first two also carry phase 11's decode
 worker's launches, the decode, tree and int8 entries phase 12's, the
-first two phases 13's and 14's, and all of them phase 15's),
-nvidia-smi's name/power line, and {"ok": true, "device":
+first two phases 13's and 14's, and all of them phase 15's; the decode
+entry's `launches_fleet` counts phase 7b's), nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -1846,6 +1870,40 @@ def msgpack_frame_us(reps: int = 2000) -> dict:
     return out
 
 
+def span_record_us(reps: int = 2000) -> float:
+    """Microseconds to record one request's engine spans as TorchEngine
+    does (engine.queue and engine.prefill as intervals, engine.decode
+    started, then ended with its tokens) through a recorder with the
+    phase-histogram sink and a trace exporter's sink: the cost per request
+    on a host thread that waits for no lock (a worker's event loop also
+    waits for the scheduler thread's interpreter lock)."""
+    from dynamo_tpu_torch.runtime import tracing
+    from dynamo_tpu_torch.runtime.logging import TraceContext
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+    from dynamo_tpu_torch.runtime.trace_export import TraceExporter
+
+    rec = tracing.SpanRecorder(capacity=4096, ledger_capacity=16)
+    prev = tracing.set_recorder(rec)
+    try:
+        handle = tracing.install_metrics_sink(MetricsRegistry())
+        rec.add_sink(TraceExporter(None, "timing", recorder=rec, max_buffer=4096)._on_span)
+        parent = TraceContext.parse("00-" + "1" * 32 + "-" + "2" * 16 + "-01")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            now = time.perf_counter()
+            tracing.record_interval("engine.queue", parent, start=now, end=now)
+            tracing.record_interval("engine.prefill", parent, start=now, end=now,
+                                    prompt_tokens=1536, cached_blocks=0)
+            span = tracing.start_span("engine.decode", parent=parent)
+            span.set_attrs(tokens=BURST_TOKENS)
+            span.end()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        tracing.remove_metrics_sink(handle)
+        return us
+    finally:
+        tracing.set_recorder(prev)
+
+
 def kv_wire_timing(n_blocks: int = 47, reps: int = 3) -> dict:
     """Host seconds to move one streamed KV chunk of ``n_blocks`` llama-8b
     bf16 blocks (the 768-token prompt's export) through the wire, best of
@@ -1933,11 +1991,15 @@ def _metric(text: str, name: str) -> float | None:
 
 
 def http_phase(card_line: str, reference: dict, inproc_tps: float,
-               preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16") -> dict:
+               preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16",
+               fleet: bool = False) -> dict:
     """Phase 7: store + two workers + kv frontend as separate processes,
     the main path's burst over HTTP. ``reference``: the in-process burst's
     requests (``reference_entry``) under "burst", and request 7 served
-    again on its cached prefix under "repeat"."""
+    again on its cached prefix under "repeat". The workers publish their
+    KV residency to the prefix directory and export their spans. With
+    ``fleet``, phase 7b (``fleet_phase``) follows, after the single
+    frontend has exited, in front of the same workers."""
     procs: list[Proc] = []
     store_port = _free_port()
     store_url = f"tcp://127.0.0.1:{store_port}"
@@ -1951,8 +2013,9 @@ def http_phase(card_line: str, reference: dict, inproc_tps: float,
             sys_port = _free_port()
             w = Proc(f"worker{i}", [
                 "dynamo_tpu_torch.worker", "--store-url", store_url, "--preset", preset,
-                "--dtype", dtype, "--device", device, *ENGINE_ARGV],
-                env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port)})
+                "--dtype", dtype, "--device", device, "--kv-directory", "on", *ENGINE_ARGV],
+                env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port),
+                     "DYNTPU_TRACE_EXPORT": "1", "DYNTPU_FLEET_ID": FLEET_ID})
             w.sys_port = sys_port
             procs.append(w)
             workers.append(w)
@@ -1968,6 +2031,11 @@ def http_phase(card_line: str, reference: dict, inproc_tps: float,
         procs.append(fe)
         port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
         result = asyncio.run(_drive_http(port, preset, reference, inproc_tps, card_line))
+        rcs = {"frontend": fe.stop()}
+        if fleet:
+            result["fleet"] = fleet_phase(card_line, store_url, workers, reference, result,
+                                          preset=preset, device=device)
+            rcs["fleet"] = result["fleet"]["exit_code"]
 
         for w in workers:
             _, _, pieces, _ = asyncio.run(http_request(w.sys_port, "/metrics", method="GET"))
@@ -1977,7 +2045,7 @@ def http_phase(card_line: str, reference: dict, inproc_tps: float,
                 "engine_kv_quant_enabled")}
             if w.metrics["engine_kv_cache_bytes"] is None:
                 raise RuntimeError(f"http: {w.name}'s /metrics has no engine series")
-        rcs = {p.name: p.stop() for p in [fe, *workers, store]}
+        rcs.update({p.name: p.stop() for p in [*workers, store]})
         if any(rcs.values()):
             raise RuntimeError(f"http: processes did not exit 0 on SIGTERM: {rcs}")
         per_worker, total = [], 0
@@ -2165,6 +2233,326 @@ async def _drive_http(port: int, model: str, reference: dict, inproc_tps: float,
             "cleared_blocks": cleared,
             "chat_first_event_s": chats[0]["first_event_s"], "repeat_ttft_s": again_ttft,
             "repeat_latency_s": again["latency_s"], "repeat_logprob_drift": drift}
+
+
+# -- phase 7b: a frontend fleet in front of phase 7's workers ------------------
+
+FLEET_ID = "chip-smoke"
+NAMESPACE = "dynamo"
+# Phase 7's SSE/aggregate requests and the fleet's are all BURST_TOKENS
+# long, so a worker's requests are its generated tokens / BURST_TOKENS.
+EARLIER_HTTP_TPS = "206.7-220.9"  # phase 7's tokens/s in PERF.md's earlier chip runs
+
+
+def _phase_count(text: str, phase: str) -> float:
+    """``phase_duration_seconds_count{phase=...}`` from a /metrics text (0 if absent)."""
+    m = re.search(r'^dynamo_tpu_phase_duration_seconds_count\{[^}]*phase="'
+                  + re.escape(phase) + r'"[^}]*\} ([0-9.eE+-]+)$', text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def fleet_phase(card_line: str, store_url: str, workers: list, reference: dict,
+                phase7: dict, preset: str = "llama-8b", device: str = "cuda") -> dict:
+    """Phase 7b: phase 7's single frontend is gone; a fleet of two port
+    frontends (``--fleet 2``, one shared port, a global budget of 16, the
+    kv router, trace export on) serves phase 7's burst, its two chats and
+    its repeat of request 7 through the port's ``OpenAIClient``, in front
+    of the same store and workers (started with ``--kv-directory on`` and
+    trace export). ``workers``: phase 7's worker ``Proc``s, each with its
+    ``sys_port``."""
+    t_phase = time.perf_counter()
+    before = {w.name: settled_counters(w) for w in workers}
+    admin_port = _free_port()
+    fleet = Proc("fleet", ["dynamo_tpu_torch.frontend", "--store-url", store_url,
+                           "--host", "127.0.0.1", "--port", "0", "--router-mode", "kv",
+                           "--fleet", "2", "--fleet-id", FLEET_ID,
+                           "--fleet-admin-port", str(admin_port),
+                           "--global-max-inflight", "16"],
+                 env={"DYNTPU_TRACE_EXPORT": "1"})
+    try:
+        m, _ = fleet.wait_for(r"fleet: http://127\.0\.0\.1:(\d+) admin http://127\.0\.0\.1:(\d+)",
+                              120)
+        port, admin = int(m.group(1)), int(m.group(2))
+        _, ready_s = fleet.wait_for(r"fleet ready", 120)
+        log(f"fleet: two frontends registered and serving on port {port} {ready_s:.2f}s after "
+            f"launch, admin on {admin}")
+        res = asyncio.run(_drive_fleet(port, admin, store_url, preset, reference, card_line))
+        res["ready_s"] = ready_s
+        after = {w.name: settled_counters(w) for w in workers}
+        per_worker, launches = {}, 0
+        for w in workers:
+            text = _get_text(w.sys_port, "/metrics")
+            decodes = _phase_count(text, "engine.decode")
+            b, a = before[w.name], after[w.name]
+            served = a["generated_tokens"] // BURST_TOKENS
+            if a["generated_tokens"] % BURST_TOKENS or decodes != served:
+                raise RuntimeError(f"fleet: {w.name}'s /metrics counts {decodes:.0f} engine.decode "
+                                   f"spans for {a['generated_tokens']} generated tokens "
+                                   f"({BURST_TOKENS} a request)")
+            d_launch = a["paged_attention_launches"] - b["paged_attention_launches"]
+            d_sub = a["decode_substeps"] - b["decode_substeps"]
+            want = a["num_layers"] * d_sub if device == "cuda" else 0
+            if d_launch != want:
+                raise RuntimeError(f"fleet: {w.name} launched attention {d_launch} times over "
+                                   f"{d_sub} substeps of {a['num_layers']} layers")
+            launches += d_launch
+            tr = a["trace"]
+            per_worker[w.name] = {"engine_decode_spans": decodes, "requests": served,
+                                  "fleet_requests": served - b["generated_tokens"] // BURST_TOKENS,
+                                  "launches": d_launch, "substeps": d_sub, "trace": tr}
+        if sum(v["fleet_requests"] for v in per_worker.values()) != res["requests"]:
+            raise RuntimeError(f"fleet: the workers served {per_worker} of {res['requests']} "
+                               "fleet requests")
+        if device == "cuda" and launches <= 0:
+            raise RuntimeError("fleet: no worker launched the kernel")
+        # Host cost of tracing in the workers, per request: the event loop's
+        # wall time recording the engine spans and in the exporter's sink (a
+        # wait for the interpreter lock included: the serving path waits it
+        # too); the exporter's store flushes (awaited) apart.
+        reqs = sum(v["trace"]["requests"] for v in per_worker.values())
+        span_us = 1e6 * sum(v["trace"]["span_s"] for v in per_worker.values()) / reqs
+        sink_us = 1e6 * sum(v["trace"]["export_sink_s"] for v in per_worker.values()) / reqs
+        flush_us = 1e6 * sum(v["trace"]["export_flush_s"] for v in per_worker.values()) / reqs
+        rc = fleet.stop()
+        if rc != 0:
+            raise RuntimeError(f"fleet: the supervisor exited {rc} on SIGTERM")
+        res.update(workers=per_worker, launches=launches, exit_code=rc,
+                   phase_s=time.perf_counter() - t_phase,
+                   trace_us_per_request={"spans": span_us, "export_sink": sink_us,
+                                         "export_flush_wall": flush_us, "requests": reqs})
+        log(f"fleet: burst {res['tokens_per_s']:.1f} tokens/s through two frontends against phase "
+            f"7's {phase7['tokens_per_s']:.1f} through one (phase 7 in PERF.md's earlier runs: "
+            f"{EARLIER_HTTP_TPS}); ledger TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms, max "
+            f"{res['ttft_max_s'] * 1e3:.1f} ms against phase 7's {phase7['ttft_p50_s'] * 1e3:.1f} / "
+            f"{phase7['ttft_max_s'] * 1e3:.1f} ms ({card_line})")
+        log(f"fleet: tracing in the workers over {reqs} traced requests, event-loop wall time "
+            f"per request: recording the engine spans {span_us:.1f} us (their recorder sinks "
+            f"included, the exporter's among them); the exporter's sink over all of a worker's "
+            f"spans {sink_us:.1f} us; its store flushes {flush_us:.1f} us, awaited (host CPU "
+            f"beside {card_line})")
+        log(f"fleet: attention launches {launches} over the fleet's requests (= layers x "
+            f"substeps on each worker); the supervisor exited 0 on SIGTERM; phase 7b took "
+            f"{res['phase_s']:.1f}s")
+        return res
+    finally:
+        if fleet.proc.poll() is None:
+            # SIGTERM first: the supervisor stops its children; a SIGKILL
+            # would leave them serving.
+            try:
+                fleet.stop(60)
+            except subprocess.TimeoutExpired:
+                fleet.kill()
+
+
+async def _drive_fleet(port: int, admin: int, store_url: str, model: str, reference: dict,
+                       card_line: str) -> dict:
+    from dynamo_tpu_torch.fleet.directory import kvdir_prefix
+    from dynamo_tpu_torch.llm.client import OpenAIClient
+    from dynamo_tpu_torch.runtime.store import connect_store
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    base, admin_url = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{admin}"
+    prompts = burst_prompts()
+    sent: list[dict] = []  # every request the fleet served: trace id, prompt tokens
+
+    def client(trace_id: str) -> OpenAIClient:
+        return OpenAIClient(base, timeout=300.0, max_retries=0, default_model=model,
+                            headers={"traceparent": f"00-{trace_id}-{'2' * 16}-01"})
+
+    async def completion(i: int, trace_id: str) -> dict:
+        async with client(trace_id) as c:
+            resp = await c.completion(prompts[i], max_tokens=BURST_TOKENS,
+                                      temperature=BURST_TEMPS[i], seed=1000 + i,
+                                      ignore_eos=True, logprobs=0)
+        out = {**choice_view("completion", resp["choices"][0]), "usage": resp["usage"],
+               "trace_id": trace_id}
+        sent.append({"trace_id": trace_id, "prompt_tokens": len(prompts[i]), "index": i})
+        return out
+
+    def hold(label: str, r: dict, ref: dict) -> None:
+        if (r["usage"] or {}).get("completion_tokens") != BURST_TOKENS or r["finish"] != "length":
+            raise RuntimeError(f"fleet {label}: usage {r['usage']}, finish {r['finish']!r}")
+        if (r["text"], r["logprobs"], r["lp_tokens"]) != (ref["text"], ref["logprobs"],
+                                                           ref["lp_tokens"]):
+            raise RuntimeError(f"fleet {label}: text, token texts or logprobs differ from phase "
+                               "7's reference")
+
+    async with OpenAIClient(base, timeout=30.0, default_model=model) as c:
+        for _ in range(600):
+            if await c.models() == [model]:
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise RuntimeError(f"fleet: the children never listed {model}")
+    async def directory() -> dict[int, set]:
+        """The prefix directory's holdings: instance → block hashes."""
+        store = await connect_store(store_url)
+        try:
+            return {int(v["w"]): {int(h, 16) for h in v["h"]}
+                    for v in (json.loads(e.value)
+                              for e in await store.get_prefix(kvdir_prefix(NAMESPACE)))}
+        finally:
+            await store.close()
+
+    def hashes_of(i: int) -> list[int]:
+        ids = list(prompts[i].encode())
+        return compute_block_hashes(ids, 16)[: (len(ids) - 1) // 16]
+
+    # Cold caches: phase 7 holds its cold burst bit for bit, so this one is
+    # served cold too (a bf16 prefix hit is not bit-identical to a cold
+    # prefill).
+    cleared = await clear_kv(port, model)
+    listed_after_clear = {w: len(hs) for w, hs in (await directory()).items()}
+
+    t0 = time.perf_counter()
+    burst = await asyncio.gather(*(completion(i, f"{0xF00 + i:032x}") for i in range(8)))
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(burst):
+        hold(f"burst request {i}", r, reference["burst"][i])
+
+    # Phase 7's chat, streamed (SSE through chat_stream) and aggregated.
+    chat = [{"role": "system", "content": "You are a helpful assistant."},
+            {"role": "user", "content": prompts[2]}]
+    kw = {"max_tokens": BURST_TOKENS, "temperature": 0.0, "seed": 42, "ignore_eos": True}
+    t0 = time.perf_counter()
+    first_chunk_s, pieces = None, []
+    async with client(f"{0xFC0:032x}") as c:
+        async for ch in c.chat_stream(chat, **kw):
+            first_chunk_s = first_chunk_s if first_chunk_s is not None else time.perf_counter() - t0
+            if ch.get("choices"):
+                pieces.append((ch["choices"][0].get("delta") or {}).get("content") or "")
+    async with client(f"{0xFC1:032x}") as c:
+        agg = await c.chat(chat, **kw)
+    for tid in (f"{0xFC0:032x}", f"{0xFC1:032x}"):
+        sent.append({"trace_id": tid, "prompt_tokens": None, "index": None})
+    if "".join(pieces) != agg["choices"][0]["message"]["content"]:
+        raise RuntimeError("fleet: the streamed and aggregated chats differ")
+    if agg["usage"]["completion_tokens"] != BURST_TOKENS:
+        raise RuntimeError(f"fleet: the chat's usage is {agg['usage']}")
+
+    # Request 7 again, on its cached prefix.
+    again = await completion(7, f"{0xFD7:032x}")
+    hold("repeated request 7", again, reference["repeat"])
+
+    # The stitched traces: the supervisor's view of every request.
+    async def fleet_trace(tid: str) -> dict:
+        """Poll until the workers' exported engine spans have arrived."""
+        async with OpenAIClient(admin_url, timeout=30.0) as a:
+            for _ in range(100):
+                r = await a.get(f"/debug/fleet/traces/{tid}")
+                body = r.json() if r.status == 200 else {}
+                names = {d["name"] for d in body.get("spans", ())}
+                if {"engine.queue", "engine.prefill", "engine.decode"} <= names:
+                    return body
+                await asyncio.sleep(0.1)
+        raise RuntimeError(f"fleet: trace {tid} never held the engine spans: {sorted(names)}")
+
+    instances = {}
+    for s in sent:
+        spans = (await fleet_trace(s["trace_id"]))["spans"]
+        by = {}
+        for d in spans:
+            by.setdefault(d["name"], []).append(d)
+        lanes = {d["proc"] for d in spans}
+        if not any("frontend-" in ln for ln in lanes) or not any("worker-" in ln for ln in lanes):
+            raise RuntimeError(f"fleet: trace {s['trace_id']} lanes {sorted(lanes)}")
+        s["worker_lane"] = next(d["proc"] for d in by["engine.decode"])
+        # Each hop of the request, for a failure's message: the router's
+        # attempts, the wire calls' addresses and the serving lanes.
+        s["hops"] = [(d["name"], d["proc"], d["attrs"].get("instance") or d["attrs"].get("addr"),
+                      d.get("status")) for d in spans
+                     if d["name"] in ("router.attempt", "wire.call", "wire.serve",
+                                      "engine.prefill", "engine.decode")]
+        pre, dec = by["engine.prefill"][0]["attrs"], by["engine.decode"][0]["attrs"]
+        if s["prompt_tokens"] is not None and pre["prompt_tokens"] != s["prompt_tokens"]:
+            raise RuntimeError(f"fleet: engine.prefill prompt_tokens {pre['prompt_tokens']} != "
+                               f"{s['prompt_tokens']}")
+        if dec.get("tokens") != BURST_TOKENS:
+            raise RuntimeError(f"fleet: engine.decode tokens {dec.get('tokens')}")
+        s["cached_blocks"] = pre["cached_blocks"]
+        # The frontend's placement (a worker's own router.attempt spans are
+        # its peer prefix fetches: the directory may name another holder).
+        served = [d["attrs"]["instance"] for d in by.get("router.attempt", ())
+                  if "frontend-" in d["proc"] and d.get("status", "ok") == "ok"]
+        if not served:
+            raise RuntimeError(f"fleet: trace {s['trace_id']} has no frontend router.attempt span")
+        instances[s["trace_id"]] = int(served[-1], 16)
+    cold = [s["cached_blocks"] for s in sent[:8]]
+    if any(cold) or sent[-1]["cached_blocks"] <= 0:
+        raise RuntimeError(f"fleet: cached_blocks {cold} on the cold burst, "
+                           f"{sent[-1]['cached_blocks']} on the repeat")
+    if instances[f"{0xFD7:032x}"] != instances[f"{0xF07:032x}"]:
+        seven = set(hashes_of(7))
+        raise RuntimeError(
+            f"fleet: the repeat of request 7 went to instance {instances[f'{0xFD7:032x}']:x} "
+            f"({sent[-1]['cached_blocks']} cached blocks), not to {instances[f'{0xF07:032x}']:x} "
+            f"which served it in the burst; the directory listed {listed_after_clear} blocks "
+            f"by instance after the clear ({cleared} cleared) and now lists request 7's "
+            f"{ {w: len(hs & seven) for w, hs in (await directory()).items()} }; by request "
+            + str([(s["index"], f"{instances[s['trace_id']]:x}", s["cached_blocks"],
+                    s["worker_lane"], s["hops"]) for s in sent]))
+
+    # The aggregated ledger: every request's record carries the engine phases.
+    async with OpenAIClient(admin_url, timeout=30.0) as a:
+        records = {r["trace_id"]: r for r in (await a.get("/debug/requests")).json()["requests"]}
+        status = (await a.get("/fleet")).json()
+        metrics = (await a.get("/metrics")).text
+    ttfts = []
+    for s in sent:
+        rec = records.get(s["trace_id"])
+        if rec is None or rec["status"] != "200":
+            raise RuntimeError(f"fleet: no 200 ledger record for {s['trace_id']}")
+        if not all(rec["phases"].get(p, 0) > 0 for p in ("queue_wait", "prefill", "decode",
+                                                         "route", "wire")):
+            raise RuntimeError(f"fleet: ledger phases {rec['phases']}")
+        if s["index"] is not None and s["trace_id"] != f"{0xFD7:032x}":
+            ttfts.append(rec["ttft_s"])
+
+    # Both children registered on the one port and served.
+    served_by = {}
+    for line in metrics.splitlines():
+        if line.startswith("dynamo_tpu_http_requests_total{") and 'status="200"' in line:
+            wid = line.split('fleet_worker_id="')[1].split('"')[0]
+            served_by[wid] = served_by.get(wid, 0) + float(line.rsplit(" ", 1)[1])
+    ws = status["workers"]
+    if [(w["alive"], w["registered"]) for w in ws] != [(True, True)] * 2 or status["port"] != port:
+        raise RuntimeError(f"fleet: /fleet says {status}")
+    if set(served_by) != {"0", "1"}:
+        raise RuntimeError(f"fleet: the children served {served_by}")
+
+    # The directory: each burst request's full prompt blocks under the
+    # instance that served it.
+    want: dict[int, set] = {}
+    for s in sent[:8]:
+        want.setdefault(instances[s["trace_id"]], set()).update(hashes_of(s["index"]))
+    for _ in range(100):
+        held = await directory()
+        missing = {inst: len(hs - held.get(inst, set())) for inst, hs in want.items()}
+        if not any(missing.values()):
+            break
+        await asyncio.sleep(0.1)
+    else:
+        where = {s["index"]: {"instance": f"{instances[s['trace_id']]:x}",
+                              "lane": s["worker_lane"], "cached": s["cached_blocks"],
+                              "listed_by": {f"{w:x}": len(set(hashes_of(s["index"])) & hs)
+                                            for w, hs in held.items()}} for s in sent[:8]}
+        raise RuntimeError(f"fleet: the directory lacks burst blocks by instance: {missing}; "
+                           f"entries {({f'{k:x}': len(v) for k, v in held.items()})}, after the "
+                           f"clear {listed_after_clear}; by request {where}; hops "
+                           + str({s["index"]: s["hops"] for s in sent[:8]}))
+    log(f"fleet: 8 burst completions, 2 chats (SSE through chat_stream, aggregate) and the repeat "
+        f"of request 7 through OpenAIClient; every burst response's 64 token texts and logprobs "
+        f"equal phase 7's reference bit for bit, the repeat ({sent[-1]['cached_blocks']} cached "
+        f"blocks) on its prefix holder {instances[f'{0xFD7:032x}']}; every stitched trace holds a "
+        f"frontend and a worker lane with engine.queue/prefill/decode; children served "
+        f"{served_by}; the directory lists {sum(len(v) for v in want.values())} burst blocks "
+        f"under {len(want)} instance(s) ({card_line})")
+    return {"requests": len(sent), "wall_s": wall, "tokens_per_s": 8 * BURST_TOKENS / wall,
+            "ttft_s": ttfts, "ttft_p50_s": statistics.median(ttfts), "ttft_max_s": max(ttfts),
+            "chat_first_chunk_s": first_chunk_s, "cleared_blocks": cleared,
+            "instances": [instances[s["trace_id"]] for s in sent],
+            "cached_blocks_repeat": sent[-1]["cached_blocks"], "served_by_child": served_by,
+            "directory_blocks": sum(len(v) for v in want.values())}
 
 
 # -- a checkpoint on disk, served int8 through the worker -----------------------
@@ -6812,10 +7200,14 @@ def main() -> int:
     log("wire: msgpack_lite pack+unpack per frame: " + ", ".join(
         f"{k} {v['us']:.1f} us ({v['bytes']} bytes)" for k, v in frames.items())
         + f" (host CPU beside {card_line})")
+    spans_us = span_record_us()
+    log(f"tracing: one request's three engine spans through the histogram and exporter sinks "
+        f"{spans_us:.1f} us on an uncontended thread (host CPU beside {card_line})")
     torch.cuda.empty_cache()
-    http = http_phase(card_line, reference, stats["tokens_per_s"])
+    http = http_phase(card_line, reference, stats["tokens_per_s"], fleet=True)
     http["msgpack_lite"] = frames
-    mark("5-7 http")
+    http["span_record_us"] = spans_us
+    mark("5-7b http and fleet")
     ckpt = checkpoint_phase(card_line, keep=True)
     mark("8 checkpoint")
     tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
@@ -6918,6 +7310,7 @@ def main() -> int:
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
         "launches": stats["launches"], "launches_http": http["launches"],
+        "launches_fleet": http["fleet"]["launches"],
         "launches_tokenizer_worker": tok["launches"][0],
         "launches_disagg_decode_worker": disagg["bf16"]["launches"][0],
         "launches_disagg_decode_worker_int8": disagg["int8"]["launches"][0],

@@ -90,7 +90,16 @@ events, tier keys, ``prefix_hit_length`` and the migration identity all
 carry it. A request that names an adapter this engine cannot serve ends
 its own stream with the JAX engine's typed error.
 
-Omitted for now, a ROADMAP item: tracing.
+Tracing is the JAX engine's too: a traced request (one whose ``Context``
+carries a trace) records ``engine.queue`` (submission to admission) and
+``engine.prefill`` (admission to the first delta, with ``prompt_tokens``
+and ``cached_blocks``) at its first delta and keeps ``engine.decode``
+open until its stream ends (with ``tokens``; status ``cancelled`` on a
+cancelled stream). The spans are per request: the scheduler thread only
+stamps ``t_admit`` and ``prefix_hit_blocks``, and the request's coroutine
+records them. ``trace_s`` (wall seconds on the event loop, a wait for
+the interpreter lock included) and ``traced_requests`` count what
+recording them cost.
 """
 
 from __future__ import annotations
@@ -137,6 +146,7 @@ from dynamo_tpu_torch.llm.protocols import (
     PreprocessedRequest,
     coalesce_delta,
 )
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.logging import TraceContext
 from dynamo_tpu_torch.runtime.qos import DEFAULT_CLASS, QOS_CLASSES, qos_rank
@@ -334,7 +344,8 @@ class _Seq:
         "export", "export_meta", "inject", "export_handle", "export_stream",
         "export_pub_blocks", "grammar", "grammar_state", "grammar_eos_bits",
         "adapter_id", "adapter_slot", "hash_seed", "adapter_wait_t0",
-        "step_base", "mig", "offer_deadline", "traceparent",
+        "step_base", "mig", "offer_deadline", "traceparent", "t_admit",
+        "prefix_hit_blocks",
     )
 
     def __init__(self, request_id: str, req: PreprocessedRequest, queue: asyncio.Queue):
@@ -424,6 +435,11 @@ class _Seq:
         # the wire context); it rides the migration protocol so a resumed
         # leg joins the original trace.
         self.traceparent: str | None = None
+        # Tracing: when admission last succeeded (perf_counter, stamped by
+        # the scheduler thread) and the prompt blocks it found cached (G1
+        # hit, tier onboard or inject); engine.queue/engine.prefill read both.
+        self.t_admit: float | None = None
+        self.prefix_hit_blocks = 0
         # Preemption-offer grace: once the offer hook fired for this
         # sequence as a preemption victim, the kill waits until this
         # deadline for the relocation to free its blocks.
@@ -644,6 +660,10 @@ class TorchEngine:
         self._grammar_lock = threading.Lock()
         self.total_grammar_mask_s = 0.0
         self.total_grammar_seqs = 0
+        # Wall seconds the event loop spent recording the per-request spans,
+        # and the requests that recorded them (the worker's counters line).
+        self.trace_s = 0.0
+        self.traced_requests = 0
         # (token_ids, future, loop) embedding jobs, served on the
         # scheduler thread between steps.
         self._embed_jobs: collections.deque = collections.deque()
@@ -1135,6 +1155,7 @@ class TorchEngine:
                                       error=f"invalid response_format: {e}").to_dict()
                 return
         queue: asyncio.Queue = asyncio.Queue()
+        t_submit = time.perf_counter()
         seq = _Seq(context.id, req, queue)
         # Span lineage across relocation: a resumed leg that arrives without
         # a trace re-anchors on the traceparent its cutover identity carried.
@@ -1180,6 +1201,7 @@ class TorchEngine:
                 self._wakeup.notify()
 
         watcher = asyncio.get_running_loop().create_task(watch_cancel())
+        dspan = tracing.NOOP_SPAN
         first = True
         # Emit coalescing: merge the backlog of deltas already sitting in the
         # queue into one frame (bounded by delta_max_tokens; optional
@@ -1224,11 +1246,31 @@ class TorchEngine:
                         item = merged
                 if item is _SENTINEL_DONE:
                     return
+                if first and tracing.enabled() and context.trace is not None:
+                    # Queue and prefill from the scheduler thread's admission
+                    # stamp, recorded at the first delta; decode is live from
+                    # here.
+                    t0 = now = time.perf_counter()
+                    t_admit = seq.t_admit or now
+                    tracing.record_interval("engine.queue", context.trace,
+                                            start=t_submit, end=t_admit)
+                    tracing.record_interval("engine.prefill", context.trace,
+                                            start=t_admit, end=now,
+                                            prompt_tokens=seq.prompt_len,
+                                            cached_blocks=seq.prefix_hit_blocks)
+                    dspan = tracing.start_span("engine.decode", parent=context.trace)
+                    self.traced_requests += 1
+                    self.trace_s += time.perf_counter() - t0
                 first = False
                 yield item
                 if item.get("finish_reason"):
                     return
         finally:
+            if dspan.recording:
+                t0 = time.perf_counter()
+                dspan.set_attrs(tokens=seq.emitted)
+                dspan.end(status="cancelled" if seq.cancelled else None)
+                self.trace_s += time.perf_counter() - t0
             watcher.cancel()
             with self._wakeup:
                 seq.cancelled = True  # no-op if already finished
@@ -1349,6 +1391,7 @@ class TorchEngine:
             except RequestValidationError as e:
                 self._finish(seq, FinishReason.ERROR, error=str(e))
                 continue
+            seq.t_admit = time.perf_counter()
             allocated.append((seq, start))
         t0 = self._phase("admission", t0)
         if allocated:
@@ -1475,6 +1518,7 @@ class TorchEngine:
         total_blocks = (plen + bs - 1) // bs
         block_ids, n_hit = self.pool.allocate_sequence(hashes[:max_hit], total_blocks)
         seq.block_ids = block_ids
+        seq.prefix_hit_blocks = n_hit
         seq.block_seq = TokenBlockSequence(prompt, bs, seq.hash_seed)
         start = n_hit * bs
         # G2/G3/G4 onboard: blocks evicted from G1 but still in a tier
@@ -1496,12 +1540,14 @@ class TorchEngine:
                 self.onboard_bytes += sum(int(a.nbytes) for a in pages)
                 n_hit = n_onb
                 start = n_hit * bs
+                seq.prefix_hit_blocks = n_hit
             self.onboard_s += time.perf_counter() - t0
         # Disagg: pre-load remotely prefilled pages as a materialized
         # prefix hit; the suffix (at least one token) is recomputed here,
         # which also gives the first token's logits.
         if seq.inject is not None:
             start, n_hit = self._inject_kv(seq, n_hit, max_hit)
+            seq.prefix_hit_blocks = n_hit
         # Streaming export: register the stream at admission, so the
         # decode worker's kv_fetch can pull while the prefill runs; blocks
         # already in the cache (a prefix hit) publish as chunk 0 now.

@@ -12,7 +12,9 @@ worker's. ``response_format`` and /v1/embeddings are served by the
 in-process engine.
 ``--model-path`` serves a checkpoint (HF directory, .gguf file or cached
 hub name) with its own tokenizer unless ``--tokenizer`` names another, as
-the worker does.
+the worker does. ``--engine mocker`` serves the mocker
+(``mocker/engine.py``, its default timing) as ``mock-model`` with the byte
+tokenizer, as the JAX launcher does; it touches no device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="dynamo_tpu_torch.run")
     p.add_argument("--in", dest="input", default="text",
                    help="text | http | batch:<jsonl path>")
+    p.add_argument("--engine", choices=["tpu", "mocker"], default="tpu",
+                   help="tpu = the engine (TorchEngine), mocker = the simulated one")
     p.add_argument("--preset", default="test-tiny")
     p.add_argument("--model-path", default=None)
     p.add_argument("--tokenizer", default=None,
@@ -109,6 +113,16 @@ async def build_pipeline(args, quant: str = "none", kv_quant: str = "none") -> L
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
+    if args.engine == "mocker":
+        from dynamo_tpu_torch.mocker.engine import MockerArgs, MockerEngine
+
+        engine = MockerEngine(MockerArgs(block_size=args.block_size,
+                                         num_kv_blocks=args.num_kv_blocks))
+        card = ModelDeploymentCard(name="mock-model", tokenizer={"type": "byte"},
+                                   context_length=args.max_model_len,
+                                   kv_cache_block_size=args.block_size,
+                                   eos_token_ids=[ByteTokenizer.EOS])
+        return LocalPipeline(card, engine, ByteTokenizer())
     if args.dtype is None:
         args.dtype = "float32" if args.device == "cpu" else "bfloat16"
     params = None
@@ -201,10 +215,13 @@ async def run_batch(args, pipe: LocalPipeline, path: str) -> None:
 
 async def run_http(args, pipe: LocalPipeline) -> None:
     # Capture the decode-window, single-step and verify graphs before
-    # listening, so that no request waits for a capture (none on the CPU).
-    await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
-    await asyncio.to_thread(pipe.engine.runner.warm_steps, ("greedy", "simple"))
-    await asyncio.to_thread(pipe.engine.runner.warm_spec, ("greedy", "simple"), (0,), True)
+    # listening, so that no request waits for a capture (none on the CPU
+    # or the mocker).
+    if args.engine != "mocker":
+        runner = pipe.engine.runner
+        await asyncio.to_thread(runner.warm_windows, ("greedy", "simple"))
+        await asyncio.to_thread(runner.warm_steps, ("greedy", "simple"))
+        await asyncio.to_thread(runner.warm_spec, ("greedy", "simple"), (0,), True)
     http = await HttpService(
         LocalManager(pipe), MetricsRegistry(), host=args.host, port=args.port
     ).start()
@@ -237,7 +254,9 @@ async def async_main(args) -> None:
         else:
             raise SystemExit(f"unknown --in {args.input!r} (text | http | batch:<path>)")
     finally:
-        await pipe.engine.stop()
+        stop = getattr(pipe.engine, "stop", None)  # the mocker has no thread to stop
+        if stop is not None:
+            await stop()
 
 
 def main(argv=None) -> int:

@@ -290,3 +290,7 @@ class TokenBlockSequence:
         block = TokenBlock(toks, local, chain_hash(parent, local, self.seed), parent)
         self.blocks.append(block)
         return block
+
+    @property
+    def total_tokens(self) -> int:
+        return len(self.blocks) * self.block_size + len(self._partial)

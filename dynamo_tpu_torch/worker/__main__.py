@@ -50,6 +50,21 @@ destination pulls the source's KV stream. The worker exits once retired.
 ``--kv-pressure-offer`` offers the cheapest running sequence for
 migration once the KV pool fills past that fraction.
 
+``--engine mocker`` serves the mocker (``mocker/engine.py``) in place of
+the engine, as the JAX worker does: deterministic echo tokens on a
+simulated timing model (``--mocker-ttft-ms``, ``--mocker-itl-ms``,
+``--mocker-speedup``, ``--mocker-delta-tokens``) over a real ``BlockPool``,
+so KV events, load metrics and prefix hits are the engine's. It touches no
+device (``--device`` is ignored) and serves no disagg, peer-fetch, embed or
+LoRA path.
+
+``--kv-directory on`` publishes this engine's block residency to the
+global prefix directory (``fleet/directory.py``): G1 from the pool's event
+stream, beside the KV-event broadcaster, and G2–G4 from the tiers' event
+sink. With tracing on, ``DYNTPU_TRACE_EXPORT=1`` exports this process's
+spans to the store under ``DYNTPU_FLEET_ID`` (a fleet supervisor stitches
+them into one trace per request) and flushes them once more at shutdown.
+
 Multi-LoRA, as the JAX worker wires it: ``--lora-slots`` sizes the
 engine's adapter bank, ``--lora-rank`` its static rank, and each ``--lora
 NAME[:RANK[:SEED]]`` registers one adapter (factors made from its name
@@ -71,8 +86,11 @@ admissions' waits for a slot), the graphs captured and their capture
 seconds, the peak device memory and the disagg handler's counts); SIGUSR1
 logs the same line and serves on.
 
-Not ported yet (ROADMAP A): the mocker engine, the dp spawner,
-multi-host followers, trace export, the fleet prefix directory and
+The counters line also carries ``trace``: the requests that recorded
+engine spans, the wall seconds recording them took on the event loop, and
+the exporter's sink and flush seconds.
+
+Not ported yet (ROADMAP A): the dp spawner, multi-host followers and
 ``--sla-profile``.
 """
 
@@ -109,6 +127,7 @@ from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
 from dynamo_tpu_torch.runtime.push_router import RouterMode
 from dynamo_tpu_torch.runtime.queue import WorkQueue
+from dynamo_tpu_torch.runtime.trace_export import TraceExporter
 
 log = get_logger("worker")
 
@@ -116,10 +135,9 @@ log = get_logger("worker")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="dynamo_tpu_torch.worker")
     p.add_argument("--store-url", default=None)
-    # The JAX worker's engine choice; the port has one engine (TorchEngine,
-    # served under the JAX name of the real engine), the mocker is not
-    # ported.
-    p.add_argument("--engine", choices=["tpu"], default="tpu")
+    # The JAX worker's engine choice: "tpu" names the real engine
+    # (TorchEngine here), "mocker" the simulated one.
+    p.add_argument("--engine", choices=["tpu", "mocker"], default="tpu")
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--component", default="backend")
     p.add_argument("--endpoint", default="generate")
@@ -240,13 +258,30 @@ def parse_args(argv=None):
                    help="static adapter bank rank (max over registered adapters)")
     p.add_argument("--lora", action="append", default=[], metavar="NAME[:RANK[:SEED]]",
                    help="register one adapter served as model NAME (repeatable)")
+    p.add_argument("--kv-directory", choices=["on", "off"], default="off",
+                   help="publish this engine's KV block residency to the "
+                        "global prefix directory (fleet/directory.py) so "
+                        "frontends can price transfer-vs-recompute and "
+                        "the autoscaler sees cache heat")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0)
+    # Mocker timing (--engine mocker).
+    p.add_argument("--mocker-ttft-ms", type=float, default=20.0)
+    p.add_argument("--mocker-itl-ms", type=float, default=5.0)
+    p.add_argument("--mocker-speedup", type=float, default=1.0)
+    p.add_argument("--mocker-delta-tokens", type=int, default=1,
+                   help="tokens per simulated decode window (mirror engine decode_steps)")
     args = p.parse_args(argv)
     if args.remote_prefill:
         args.disagg = "on"
     if args.lora and args.lora_slots <= 0:
         p.error("--lora requires --lora-slots > 0")
+    if args.lora and args.engine == "mocker":
+        p.error("--lora requires --engine tpu (the mocker has no adapter bank)")
+    if args.engine == "mocker" and (args.disagg == "on" or args.is_prefill_worker):
+        # The disagg handlers drive the real engine's KV extract/inject
+        # surface; the mocker has neither (--disagg auto stays aggregated).
+        p.error("--engine mocker cannot combine with --disagg on/--is-prefill-worker")
     try:
         # Parsed once here (argparse's error surface); consumers read
         # args.lora_specs.
@@ -286,6 +321,42 @@ def adapter_cards(card, lora_specs) -> list:
                                   "resident_tier": "G2"})
         for lname, lrank, _lseed in lora_specs
     ]
+
+
+def build_mocker(args, config):
+    """``--engine mocker`` → (MockerEngine, model_card), the JAX worker's
+    mocker and card."""
+    from dynamo_tpu_torch.mocker.engine import MockerArgs, MockerEngine
+
+    tok_spec = tokenizer_spec_for(args.model_path, args.tokenizer)
+    tokenizer = load_tokenizer(tok_spec)
+    engine = MockerEngine(MockerArgs(
+        block_size=args.block_size,
+        num_kv_blocks=args.num_kv_blocks,
+        max_num_seqs=args.max_num_seqs,
+        ttft_ms=args.mocker_ttft_ms,
+        itl_ms=args.mocker_itl_ms,
+        speedup=args.mocker_speedup,
+        delta_tokens=args.mocker_delta_tokens,
+        delta_max_tokens=args.delta_max_tokens,
+        delta_max_ms=args.delta_max_ms,
+        # Env-driven fault injection (DYNTPU_CHAOS_*): engine-level kill
+        # draws; the messaging layer reads the same section.
+        chaos=ChaosInjector.from_config(config.chaos),
+    ))
+    card = ModelDeploymentCard(
+        name=args.model_name or "mock-model",
+        tokenizer=tok_spec,
+        context_length=args.context_length or args.max_model_len,
+        kv_cache_block_size=args.block_size,
+        migration_limit=args.migration_limit,
+        eos_token_ids=list(tokenizer.eos_token_ids) or [ByteTokenizer.EOS],
+        component=args.component,
+        endpoint=args.endpoint,
+        max_batch_size=args.max_num_seqs,
+        total_kv_blocks=args.num_kv_blocks,
+    )
+    return engine, card
 
 
 async def build_engine(args):
@@ -374,10 +445,46 @@ class RecordingDecodeHandler(DisaggDecodeHandler):
         return inject, why, attrs
 
 
-def engine_counters(engine, disagg=None, fetcher=None, manager=None) -> dict:
+class TimedTraceExporter(TraceExporter):
+    """Span export that also counts its spans, the wall seconds of its
+    recorder sink and of its store flushes (which await the store), for the
+    counters line."""
+
+    spans = 0
+    sink_s = flush_s = 0.0
+
+    def _on_span(self, span) -> None:
+        t0 = time.perf_counter()
+        super()._on_span(span)
+        self.spans += 1
+        self.sink_s += time.perf_counter() - t0
+
+    async def flush(self) -> int:
+        t0 = time.perf_counter()
+        try:
+            return await super().flush()
+        finally:
+            self.flush_s += time.perf_counter() - t0
+
+
+def trace_counters(engine, exporter) -> dict:
+    """The engine spans' recording cost and the exporter's, by request."""
+    out = {"requests": getattr(engine, "traced_requests", 0),
+           "span_s": round(getattr(engine, "trace_s", 0.0), 6)}
+    if exporter is not None:
+        out.update(exported_spans=exporter.spans, export_sink_s=round(exporter.sink_s, 6),
+                   export_flush_s=round(exporter.flush_s, 6))
+    return out
+
+
+def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=None) -> dict:
     """The engine's monotonic counters as one JSON-able dict, with the
     disagg decode handler's, the peer prefix fetcher's and the role
-    manager's migrations when there are ones."""
+    manager's migrations when there are ones, and the tracing costs."""
+    if not hasattr(engine, "runner"):  # the mocker: no device, no kernels
+        return {"event": "engine_counters", "engine": "mocker",
+                "generated_tokens": engine.total_generated,
+                "trace": trace_counters(engine, exporter)}
     graphs = engine.runner.graphs
     out = {
         "event": "engine_counters",
@@ -421,6 +528,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None) -> dict:
                  "slot_wait_s": round(engine.lora_slot_wait_s, 6)},
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if engine.runner.device.type == "cuda" else 0),
+        "trace": trace_counters(engine, exporter),
     }
     migrator = getattr(manager, "migrator", None)
     if migrator is not None:
@@ -450,7 +558,12 @@ async def async_main(args) -> None:
         tracing.set_default_lane(lane)
     t_launch = time.perf_counter()
     rt = await DistributedRuntime.create(store_url=args.store_url, proc_label=lane)
-    engine, card = await build_engine(args)
+    exporter = None
+    if tracing.enabled() and os.environ.get("DYNTPU_TRACE_EXPORT", "") not in ("", "0"):
+        exporter = await TimedTraceExporter(
+            rt.store, os.environ.get("DYNTPU_FLEET_ID", "default"), lane=lane).start()
+    mocker = args.engine == "mocker"
+    engine, card = build_mocker(args, rt.config) if mocker else await build_engine(args)
     # Multi-LoRA: register every --lora adapter (written through to the
     # tiers now; bank slots fill on first request). Prefill workers register
     # them too: a remote prefill names its request's adapter.
@@ -465,7 +578,7 @@ async def async_main(args) -> None:
     # response_format. A prefill worker never decodes: it captures nothing.
     graphs = verify_graphs = step_graphs = 0
     warm_s = verify_s = step_s = 0.0
-    if not args.is_prefill_worker:
+    if not args.is_prefill_worker and not mocker:
         runner = engine.runner
         t0 = time.perf_counter()
         graphs = await asyncio.to_thread(runner.warm_windows, ("greedy", "simple"))
@@ -484,10 +597,30 @@ async def async_main(args) -> None:
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
     pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
-    # Engine hot-loop series on this process's /metrics (system server).
-    engine.bind_metrics(rt.metrics)
+    if mocker:
+        # The mocker's engine-level chaos draws count on this process's
+        # /metrics beside the messaging layer's.
+        if engine.args.chaos is not None:
+            engine.args.chaos.bind_metrics(rt.metrics)
+    else:
+        # Engine hot-loop series on this process's /metrics (system server).
+        engine.bind_metrics(rt.metrics)
     broadcaster = KvEventBroadcaster(engine.pool)
-    engine.pool.set_event_sink(broadcaster.publish)
+    publisher = None
+    if args.kv_directory == "on":
+        # Global prefix directory: mirror this engine's block residency, G1
+        # from the pool's event stream beside the broadcaster, G2–G4 from
+        # the tiers' sink, so frontends price transfer-vs-recompute and the
+        # autoscaler sees cache heat.
+        from dynamo_tpu_torch.fleet.directory import DirectoryPublisher
+
+        publisher = await DirectoryPublisher(rt.store, args.namespace,
+                                             await rt.primary_lease()).start()
+        engine.pool.set_event_sink(lambda ev: (broadcaster.publish(ev), publisher.pool_sink(ev)))
+        if not mocker:
+            engine.tiers.set_event_sink(publisher.tier_sink)
+    else:
+        engine.pool.set_event_sink(broadcaster.publish)
 
     if args.autoscaler == "on":
         await serve_autoscaled(rt, engine, card, args, broadcaster,
@@ -495,13 +628,14 @@ async def async_main(args) -> None:
                                f"{step_graphs} single-step graphs in {step_s:.2f}s, "
                                f"{verify_graphs} verify graphs in {verify_s:.2f}s; registered "
                                f"{time.perf_counter() - t_launch:.2f}s after the runtime "
-                               f"started)")
+                               f"started)", publisher, exporter)
         return
 
     comp = rt.namespace(args.namespace).component(args.component)
-    # Cross-worker reuse: every worker answers peer prefix fetches from its
-    # tiers (llm/peer_kv.py; declined without tiers).
-    await comp.endpoint(KV_PREFIX_ENDPOINT).serve(make_kv_prefix_handler(engine))
+    if not mocker:
+        # Cross-worker reuse: every engine answers peer prefix fetches from
+        # its tiers (llm/peer_kv.py; declined without tiers).
+        await comp.endpoint(KV_PREFIX_ENDPOINT).serve(make_kv_prefix_handler(engine))
     disagg = puller = fetcher = None
     if args.is_prefill_worker:
         dcfg = DisaggConfig()
@@ -520,7 +654,7 @@ async def async_main(args) -> None:
         role = "prefill worker"
     else:
         handler = engine
-        if args.disagg != "off":
+        if args.disagg != "off" and not mocker:
             pcomp = rt.namespace(args.namespace).component(args.prefill_component)
             dcfg = DisaggConfig(
                 max_local_prefill_length=args.max_local_prefill_length,
@@ -539,10 +673,11 @@ async def async_main(args) -> None:
             # disagg_remote_prefill_total, disagg_fallback_total{reason} and
             # the transfer series on this process's /metrics.
             disagg.bind_metrics(rt.metrics)
-        # Resolve router peer_prefix hints ahead of disagg and admission.
-        handler = fetcher = PeerPrefixFetcher(
-            engine, await comp.endpoint(KV_PREFIX_ENDPOINT).router(RouterMode.DIRECT),
-            inner=handler)
+        if not mocker:
+            # Resolve router peer_prefix hints ahead of disagg and admission.
+            handler = fetcher = PeerPrefixFetcher(
+                engine, await comp.endpoint(KV_PREFIX_ENDPOINT).router(RouterMode.DIRECT),
+                inner=handler)
 
         async def gen_handler(payload, ctx):
             async for item in handler.generate(payload, ctx):
@@ -550,20 +685,20 @@ async def async_main(args) -> None:
 
         await comp.endpoint(args.endpoint).serve(gen_handler)
         await serve_kv_endpoints(comp, broadcaster, engine.metrics)
+        if not mocker:
+            async def embed_handler(payload, ctx):
+                try:
+                    vec = await engine.embed((payload or {}).get("token_ids") or [])
+                    yield {"embedding": vec}
+                except Exception as e:  # noqa: BLE001 — per-request failure
+                    yield {"error": str(e)}
 
-        async def embed_handler(payload, ctx):
-            try:
-                vec = await engine.embed((payload or {}).get("token_ids") or [])
-                yield {"embedding": vec}
-            except Exception as e:  # noqa: BLE001 — per-request failure
-                yield {"error": str(e)}
+            await comp.endpoint("embed").serve(embed_handler)
 
-        await comp.endpoint("embed").serve(embed_handler)
+            async def clear_handler(payload, ctx):
+                yield {"cleared": engine.clear_kv_blocks()}
 
-        async def clear_handler(payload, ctx):
-            yield {"cleared": engine.clear_kv_blocks()}
-
-        await comp.endpoint("clear_kv").serve(clear_handler)
+            await comp.endpoint("clear_kv").serve(clear_handler)
         await register_model(rt, args.namespace, card)
         # One model card per adapter: the frontend lists each as a served
         # model (/v1/models carries its lora metadata), the preprocessor
@@ -573,7 +708,8 @@ async def async_main(args) -> None:
         role = "worker"
     print(
         f"dynamo_tpu_torch {role}: serving {card.name} as "
-        f"{args.namespace}/{args.component}/{args.endpoint} on {args.device} "
+        f"{args.namespace}/{args.component}/{args.endpoint} on "
+        f"{'no device (mocker)' if mocker else args.device} "
         f"({graphs} window graphs captured in {warm_s:.2f}s, {step_graphs} single-step "
         f"graphs in {step_s:.2f}s, {verify_graphs} verify graphs in {verify_s:.2f}s; registered "
         f"{time.perf_counter() - t_launch:.2f}s after the runtime started)",
@@ -587,7 +723,7 @@ async def async_main(args) -> None:
             loop.add_signal_handler(sig, stop.set)
     with contextlib.suppress(NotImplementedError):
         loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            json.dumps(engine_counters(engine, disagg, fetcher)), flush=True))
+            json.dumps(engine_counters(engine, disagg, fetcher, exporter=exporter)), flush=True))
     await stop.wait()
     log.info("worker shutting down")
     if puller is not None:
@@ -595,13 +731,32 @@ async def async_main(args) -> None:
         # watch is cancelled on the store), then drain as any worker does.
         await puller.stop()
     # Deregister and drain the endpoints first, so in-flight streams
-    # finish on the engine; then stop it.
+    # finish on the engine (their spans end there); then stop it.
     await rt.shutdown()
-    await engine.stop()
-    print(json.dumps(engine_counters(engine, disagg, fetcher)), flush=True)
+    await close_fleet_planes(publisher, exporter)
+    await stop_engine(engine)
+    print(json.dumps(engine_counters(engine, disagg, fetcher, exporter=exporter)), flush=True)
 
 
-async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str) -> None:
+async def close_fleet_planes(publisher, exporter) -> None:
+    """Withdraw the directory entry and flush the spans once more (the
+    store client outlives the runtime's shutdown)."""
+    if publisher is not None:
+        with contextlib.suppress(Exception):
+            await publisher.close()
+    if exporter is not None:
+        with contextlib.suppress(Exception):
+            await exporter.close()
+
+
+async def stop_engine(engine) -> None:
+    stop = getattr(engine, "stop", None)  # the mocker has no thread to stop
+    if stop is not None:
+        await stop()
+
+
+async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str,
+                           publisher=None, exporter=None) -> None:
     """``--autoscaler on``: the role manager owns the endpoints and the card
     (the JAX worker's wiring); serve until SIGTERM or retirement, then
     retire (relocating running decodes to peers), stop the engine and
@@ -615,8 +770,9 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str) 
         rt, engine, [card] + adapter_cards(card, args.lora_specs), args, broadcaster,
         chaos=ChaosInjector.from_config(rt.config.chaos),
     ).start(role)
+    where = "no device (mocker)" if args.engine == "mocker" else args.device
     print(f"dynamo_tpu_torch autoscaled {manager.role} worker: serving {card.name} in "
-          f"namespace {args.namespace} (workerctl/admin live) on {args.device} {warm_note}",
+          f"namespace {args.namespace} (workerctl/admin live) on {where} {warm_note}",
           flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -625,7 +781,7 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str) 
             loop.add_signal_handler(sig, stop.set)
     with contextlib.suppress(NotImplementedError):
         loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            json.dumps(engine_counters(engine, manager=manager)), flush=True))
+            json.dumps(engine_counters(engine, manager=manager, exporter=exporter)), flush=True))
     stop_task = loop.create_task(stop.wait())
     retired_task = loop.create_task(manager.retired.wait())
     await asyncio.wait((stop_task, retired_task), return_when=asyncio.FIRST_COMPLETED)
@@ -635,9 +791,10 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str) 
             await t
     log.info("worker shutting down")
     await manager.close()
-    await engine.stop()
+    await close_fleet_planes(publisher, exporter)
+    await stop_engine(engine)
     await rt.shutdown()
-    print(json.dumps(engine_counters(engine, manager=manager)), flush=True)
+    print(json.dumps(engine_counters(engine, manager=manager, exporter=exporter)), flush=True)
 
 
 def main(argv=None) -> int:

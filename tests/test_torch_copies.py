@@ -39,6 +39,10 @@ COPIED = [
     "runtime/queue.py", "transfer/__init__.py", "llm/disagg.py",
     "engine/grammar.py", "llm/preprocessor.py", "llm/peer_kv.py",
     "planner/actions.py", "block_manager/adapters.py",
+    "runtime/barrier.py", "runtime/trace_export.py", "llm/logprobs.py",
+    "mocker/__init__.py", "mocker/engine.py", "mocker/__main__.py",
+    "fleet/__init__.py", "fleet/__main__.py", "fleet/backoff.py", "fleet/aggregate.py",
+    "fleet/decisions.py", "fleet/budget.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -81,6 +85,17 @@ CHANGED = {
     "planner/actuate.py": "httpx is absent on the card's machine: FleetHttpActuator's two "
                           "calls go through urllib.request on a worker thread (the same "
                           "requests, JSON bodies and ScaleActionError)",
+    "llm/client.py": "httpx is absent on the card's machine: OpenAIClient speaks HTTP/1.1 on "
+                     "asyncio streams, one connection a request, with the same methods, retries "
+                     "and OpenAIClientError surface, plus a raw request()/get() and optional "
+                     "per-client headers (tests/test_torch_client.py)",
+    "fleet/supervisor.py": "aiohttp is absent on the card's machine: the admin site runs on "
+                           "the port's http_server and scrapes children with the port's client; "
+                           "and the aggregated /debug/requests joins each record with the phases "
+                           "its trace's exported spans carry (a worker process's engine phases, "
+                           "which a child frontend's own ledger cannot see)",
+    "fleet/directory.py": "one docstring line drops a pointer into the JAX package's planning "
+                          "history (LINE_EDITS)",
 }
 
 def rewrite(src: str) -> str:
@@ -173,6 +188,13 @@ def test_one_block_changes_are_the_only_difference(rel):
     assert port(rel) == expected.replace(jax_block, port_block)
 
 
+# The docstring line directory.py rewords, as the JAX file has it (a
+# pointer into the JAX package's planning history).
+DIRECTORY_JAX_LINE = re.search(
+    r"(?m)^[^\n]*'s decision cache \(fleet/decisions\.py\) remembers \*where a\n",
+    (REPO / "dynamo_tpu" / "fleet" / "directory.py").read_text()).group(0)
+
+
 # Lines reworded in otherwise verbatim copies: module → [(JAX text after the
 # rewrites, port text)], each JAX text occurring once.
 LINE_EDITS = {
@@ -189,6 +211,9 @@ LINE_EDITS = {
          '    return xxh3_64(b"lora:" + name.encode(), HASH_SEED)\n'),
         ("        xxhash.xxh3_64_intdigest(spec.name.encode(), seed=spec.seed & 0x7FFFFFFF)\n",
          "        xxh3_64(spec.name.encode(), spec.seed & 0x7FFFFFFF)\n"),
+    ],
+    "fleet/directory.py": [
+        (DIRECTORY_JAX_LINE, "The decision cache (fleet/decisions.py) remembers *where a\n"),
     ],
     "worker/roles.py": [
         ("PR 8 made disaggregated prefill/decode the default serving shape and\n"

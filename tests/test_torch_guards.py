@@ -74,7 +74,11 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "transfer", "transfer.stream", "runtime.queue", "llm.disagg",
                 "engine.grammar", "llm.preprocessor", "block_manager.tiers", "llm.peer_kv",
                 "worker.migrate", "worker.roles", "planner", "planner.actions",
-                "planner.actuate", "engine.lora", "block_manager.adapters"):
+                "planner.actuate", "engine.lora", "block_manager.adapters",
+                "runtime.barrier", "runtime.trace_export", "llm.logprobs", "llm.client",
+                "mocker", "mocker.engine", "mocker.__main__", "fleet", "fleet.__main__",
+                "fleet.backoff", "fleet.aggregate", "fleet.decisions", "fleet.directory",
+                "fleet.budget", "fleet.supervisor"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
