@@ -121,6 +121,15 @@ Phases, in order; any failure raises and the run exits non-zero:
    tokens/s, host ms per substep, prefill host seconds, peak memory,
    graph-pool bytes, and the dense and routed byte bounds per substep
    (the routed one from the experts the recorded rows chose).
+4s. The SLA profile (`sweep_phase`, at the end of phase 4's bf16 run, on
+   its engine: llama-8b, 32 layers, 8 sequences): `planner.profile_sweep.
+   sweep` at batches 1, 2, 4, 8 (each warmed, then B concurrent greedy
+   requests of a 64-token random prompt and 96 tokens: ITL = 1000·B /
+   tokens/s) and prompt lengths 64-1,024 (TTFT of one request alone).
+   Every sample finite and positive, tokens/s at B=8 above B=1, no window
+   eager, attention launches 32 x the sweep's substeps. The npz goes to a
+   temporary directory for phase 7's workers; both curves are printed
+   beside the card's name and power limit.
 5. Graph parity: one K=8 window at llama-8b shapes (all 32 layers, the
    engine's weights, its own small cache) as a CUDA-graph replay and op by
    op, in each sampler mode: tokens, logprobs, top-n, the written KV pages
@@ -178,6 +187,41 @@ Phases, in order; any failure raises and the run exits non-zero:
    SIGTERM. The fleet's tokens/s and ledger TTFTs beside phase 7's, and
    the workers' host µs per request for recording the engine spans and for
    the exporter, are printed beside the card's name and power limit.
+
+   7c. The control plane (`control_phase`), after 7b, over the same
+   workers, which run `--autoscaler on --sla-profile` phase 4s's npz: a
+   `--qos --record-dir` kv frontend adopts the profile from their model
+   card (its log line) and `discover_card_profile` finds the npz's arrays;
+   the router service's `route` for request 7 names the worker the
+   frontend places it on with the overlap the frontend's router counts,
+   its `generate` streams request 7 with the prefix-hit reference's
+   logprobs bit for bit; the metrics exporter lists both workers, its
+   per-worker gauges equal each worker's own load_metrics and
+   fleet_workers_live counts them. Reference passes (six
+   completions of 256-576 tokens, 1,000 tokens each, top-2, through the
+   frontend; seven 576-token rows pinned on one worker) from empty
+   caches, then `python -m dynamo_tpu_torch.planner --operate
+   --profile-from-discovery --balance on --decision-log` with a TTFT SLA
+   of half the smallest profile TTFT over the leg's prompt lengths
+   (256-576 tokens) and an ITL SLA of 10x its ITL
+   at B=8 (a fresh ControlLaw predicts the first action: a pool move
+   decode → prefill). The completions run again: the planner moves one
+   worker to the prefill pool (journal entry ok, pools 1/1, its metric
+   counted), the moved worker's streams relocate (one ok migration each,
+   no fallback) and each equals its reference up to its cutover (read
+   from the frontend's recorded legs) and then by the gap rule, every
+   other stream bit for bit. The worker goes back to decode (admin RPC;
+   the law's cooldown holds it there), the pinned rows run again, the
+   balancer's migrate_out moves one of them to the idle worker (the gap
+   rule again, the rest bit for bit), the exporter shows the busy
+   worker's active slots above 0, pools and journal unchanged. The
+   decision log replays through a fresh ControlLaw to the same decisions
+   (one action: the pool move); each worker's attention launches over 7c
+   equal 32 x its substeps; every process exits 0. Decision lag, the
+   move's KV MB/s (the KV the destination received over the moved
+   worker's migration.out span time), client-visible stalls and
+   divergences are printed
+   beside the card's name and power limit.
 
 8. A checkpoint on disk through the worker: llama-8b widths with 2 layers
    (seed 0, bf16, two safetensors shards, an index and config.json, ~3 GB)
@@ -401,7 +445,8 @@ entry, the int8 product, its wide entry, its tied-head entries with phase
 linear and tree verify modes; the first two also carry phase 11's decode
 worker's launches, the decode, tree and int8 entries phase 12's, the
 first two phases 13's and 14's, and all of them phase 15's; the decode
-entry's `launches_fleet` counts phase 7b's), nvidia-smi's name/power line, and {"ok": true, "device":
+entry's `launches_fleet` counts phase 7b's, `launches_sweep` phase 4s's and
+`launches_planner` phase 7c's), nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -1118,6 +1163,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         stats["device_busy_share"] = await busy_pass(engine, one, prompts, temps, first,
                                                      card_line)
         stats.update(window_phase(engine, card_line))
+        stats["sweep"] = await sweep_phase(engine, card_line, device)
     else:
         stats.update(replay_phase(engine, card_line, tag))
     if wide:
@@ -1128,6 +1174,74 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     del pipe, engine, runner
     torch.cuda.empty_cache()
     return stats, reference
+
+
+# -- phase 4s: the SLA profile swept on the main path's engine -----------------
+
+SWEEP_BATCHES = (1, 2, 4, 8)                  # concurrent sequences, up to max_num_seqs
+SWEEP_PROMPT_LENS = (64, 128, 256, 512, 1024)  # prompt tokens of the TTFT samples
+SWEEP_GEN = 96  # tokens a decode sample generates: the JAX tool's default
+
+
+async def sweep_phase(engine, card_line: str, device: str = "cuda") -> dict:
+    """Phase 4s: ``planner.profile_sweep.sweep`` over the main path's engine
+    (its windows captured, its cache cleared) → the batch → ITL / tokens/s
+    and prompt length → TTFT curves, saved as the npz phase 7's workers
+    ship in their model cards (``--sla-profile``). Every sample finite and
+    positive, tokens/s at the largest batch above that at 1, no window
+    eager, attention launches num_layers x the sweep's substeps (0 on the
+    CPU, where the plain version runs)."""
+    import tempfile
+
+    import numpy as np
+
+    from dynamo_tpu_torch.planner.interpolate import save_profile
+    from dynamo_tpu_torch.planner.profile_sweep import card_meta, sweep
+
+    runner = engine.runner
+    engine.clear_kv_blocks()
+    steps0, _ = _counters(engine)
+    eager0 = runner.eager_windows
+    zero_counts()
+    t0 = time.perf_counter()
+    decode, prefill = await sweep(engine, SWEEP_BATCHES, SWEEP_PROMPT_LENS, SWEEP_GEN,
+                                  log=lambda m: log(f"sweep: {m} ({card_line})"))
+    wall = time.perf_counter() - t0
+    while engine.busy():
+        await asyncio.sleep(0.001)
+    launches = int8_counts()[0]
+    substeps = _counters(engine)[0] - steps0
+    cfg = engine.cfg
+    samples = np.concatenate([decode.itl_ms, decode.tok_s, prefill.ttft_ms, prefill.tok_s])
+    if not (np.all(np.isfinite(samples)) and np.all(samples > 0)):
+        raise RuntimeError(f"sweep: non-finite or non-positive samples {samples.tolist()}")
+    lo, hi = min(SWEEP_BATCHES), max(SWEEP_BATCHES)
+    if not decode.throughput_at(hi) > decode.throughput_at(lo):
+        raise RuntimeError(f"sweep: tokens/s at B={hi} {decode.throughput_at(hi):.1f} is not "
+                           f"above B={lo}'s {decode.throughput_at(lo):.1f}")
+    if runner.eager_windows != eager0:
+        raise RuntimeError(f"sweep: {runner.eager_windows - eager0} windows ran eagerly")
+    want = cfg.num_layers * substeps if device == "cuda" else 0
+    if launches != want or substeps <= 0:
+        raise RuntimeError(f"sweep: attention launches {launches} != {want} "
+                           f"({cfg.num_layers} layers x {substeps} substeps)")
+    path = os.path.join(tempfile.mkdtemp(prefix="sla-profile-"), "profile.npz")
+    save_profile(path, decode=decode, prefill=prefill,
+                 meta={"model": cfg.name, "device": device, "dtype": engine.args.dtype,
+                       "decode_steps": engine.args.decode_steps, "gen_len": SWEEP_GEN,
+                       **card_meta()})
+    log("sweep: decode curve (batch: tokens/s, ITL ms) " + ", ".join(
+        f"{b:.0f}: {t:.1f}, {i:.2f}" for b, t, i in zip(decode.batch, decode.tok_s,
+                                                        decode.itl_ms)) + f" ({card_line})")
+    log("sweep: prefill curve (prompt tokens: TTFT ms) " + ", ".join(
+        f"{n:.0f}: {t:.2f}" for n, t in zip(prefill.prompt_len, prefill.ttft_ms))
+        + f" ({card_line})")
+    log(f"sweep: {substeps} substeps, attention launches {launches} (= {want}), no eager "
+        f"window, {wall:.1f}s; profile written to {path}")
+    return {"path": path, "wall_s": wall, "substeps": substeps, "launches": launches,
+            "batch": decode.batch.tolist(), "tok_s": decode.tok_s.tolist(),
+            "itl_ms": decode.itl_ms.tolist(), "prompt_len": prefill.prompt_len.tolist(),
+            "ttft_ms": prefill.ttft_ms.tolist(), "gen_len": SWEEP_GEN}
 
 
 # -- phase 4c: the wide int8 entry on a serving path --------------------------
@@ -1992,14 +2106,18 @@ def _metric(text: str, name: str) -> float | None:
 
 def http_phase(card_line: str, reference: dict, inproc_tps: float,
                preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16",
-               fleet: bool = False) -> dict:
+               fleet: bool = False, sla_profile: str | None = None,
+               control: dict | None = None) -> dict:
     """Phase 7: store + two workers + kv frontend as separate processes,
     the main path's burst over HTTP. ``reference``: the in-process burst's
     requests (``reference_entry``) under "burst", and request 7 served
     again on its cached prefix under "repeat". The workers publish their
     KV residency to the prefix directory and export their spans. With
     ``fleet``, phase 7b (``fleet_phase``) follows, after the single
-    frontend has exited, in front of the same workers."""
+    frontend has exited, in front of the same workers. With
+    ``sla_profile`` (phase 4s's npz) the workers run ``--autoscaler on
+    --sla-profile`` it, and with ``control`` (``control_phase``'s keyword
+    arguments) phase 7c follows 7b over the same workers."""
     procs: list[Proc] = []
     store_port = _free_port()
     store_url = f"tcp://127.0.0.1:{store_port}"
@@ -2013,7 +2131,8 @@ def http_phase(card_line: str, reference: dict, inproc_tps: float,
             sys_port = _free_port()
             w = Proc(f"worker{i}", [
                 "dynamo_tpu_torch.worker", "--store-url", store_url, "--preset", preset,
-                "--dtype", dtype, "--device", device, "--kv-directory", "on", *ENGINE_ARGV],
+                "--dtype", dtype, "--device", device, "--kv-directory", "on", *ENGINE_ARGV,
+                *(["--autoscaler", "on", "--sla-profile", sla_profile] if sla_profile else [])],
                 env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port),
                      "DYNTPU_TRACE_EXPORT": "1", "DYNTPU_FLEET_ID": FLEET_ID})
             w.sys_port = sys_port
@@ -2036,6 +2155,11 @@ def http_phase(card_line: str, reference: dict, inproc_tps: float,
             result["fleet"] = fleet_phase(card_line, store_url, workers, reference, result,
                                           preset=preset, device=device)
             rcs["fleet"] = result["fleet"]["exit_code"]
+        if control is not None:
+            result["control"] = control_phase(card_line, store_url, workers, reference,
+                                              sla_profile, preset=preset, device=device,
+                                              **control)
+            rcs.update(result["control"]["exit_codes"])
 
         for w in workers:
             _, _, pieces, _ = asyncio.run(http_request(w.sys_port, "/metrics", method="GET"))
@@ -2244,9 +2368,10 @@ NAMESPACE = "dynamo"
 EARLIER_HTTP_TPS = "206.7-220.9"  # phase 7's tokens/s in PERF.md's earlier chip runs
 
 
-def _phase_count(text: str, phase: str) -> float:
-    """``phase_duration_seconds_count{phase=...}`` from a /metrics text (0 if absent)."""
-    m = re.search(r'^dynamo_tpu_phase_duration_seconds_count\{[^}]*phase="'
+def _phase_count(text: str, phase: str, field: str = "count") -> float:
+    """``phase_duration_seconds_<field>{phase=...}`` from a /metrics text,
+    the span count or (``field="sum"``) their seconds; 0 if absent."""
+    m = re.search(rf'^dynamo_tpu_phase_duration_seconds_{field}\{{[^}}]*phase="'
                   + re.escape(phase) + r'"[^}]*\} ([0-9.eE+-]+)$', text, re.M)
     return float(m.group(1)) if m else 0.0
 
@@ -2553,6 +2678,620 @@ async def _drive_fleet(port: int, admin: int, store_url: str, model: str, refere
             "instances": [instances[s["trace_id"]] for s in sent],
             "cached_blocks_repeat": sent[-1]["cached_blocks"], "served_by_child": served_by,
             "directory_blocks": sum(len(v) for v in want.values())}
+
+
+# -- phase 7c: the control plane over phase 7's workers -------------------------
+
+PLANNER_ID = "chip-smoke"
+# The planner leg: completions through the --qos frontend, greedy, top-2
+# logprobs (the gap rule reads them), long enough to outlast the pool move
+# and the relocation of the moved worker's streams.
+PLAN_LENS = [256, 320, 384, 448, 512, 576]
+PLAN_TOKENS = 1000  # ~10 s a stream at ~100 tokens/s: the move and relocations run inside
+# The balancer leg: rows pinned on one worker, the other idle; the
+# balancer moves one of them. Distinct prompts: every row's prefill is
+# cold in both passes (a prefix hit is not bit-identical to a cold
+# prefill, and which rows of a wave hit depends on admission timing).
+BAL_ROWS = 7
+BAL_LEN = 576
+BAL_TOKENS = 768
+BAL_SATURATION = 0.35  # 7 of 8 slots score ~0.45 (batch 0.5 x 7/8 + KV); 3 of 8 under 0.25
+BAL_IDLE = 0.20
+PLAN_COOLDOWN = 600.0  # one pool move, one balancer move per phase
+
+
+def plan_prompts() -> list[str]:
+    import numpy as np
+
+    rng = np.random.default_rng(2026)
+    return ["".join(chr(c) for c in rng.integers(32, 127, n)) for n in PLAN_LENS]
+
+
+def balance_requests(model: str, max_tokens: int = BAL_TOKENS) -> list[dict]:
+    """The balancer leg's rows: BAL_LEN-token byte prompts, greedy, top-2
+    logprobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(2027)
+    return [{"model": model, "token_ids": [int(c) for c in rng.integers(32, 127, BAL_LEN)],
+             "sampling": {"temperature": 0.0, "seed": 4000 + i, "logprobs": True,
+                          "top_logprobs": 2},
+             "stop": {"max_tokens": max_tokens, "ignore_eos": True}}
+            for i in range(BAL_ROWS)]
+
+
+def planner_argv(store_url: str, fe_port: int, ttft_sla_ms: float, itl_sla_ms: float,
+                 interval: float, decision_log: str) -> list[str]:
+    """The closed loop's CLI: the card's profile from discovery, one pool
+    move and one balancer move at most (the cooldowns outlast the phase)."""
+    return ["--operate", "--profile-from-discovery", "--store-url", store_url,
+            "--metrics-url", f"http://127.0.0.1:{fe_port}/metrics", "--namespace", NAMESPACE,
+            "--operator-id", PLANNER_ID, "--adjustment-interval", str(interval),
+            "--hysteresis-cycles", "2", "--cooldown", str(PLAN_COOLDOWN),
+            "--ttft-sla-ms", f"{ttft_sla_ms:.6f}", "--itl-sla-ms", f"{itl_sla_ms:.6f}",
+            "--balance", "on", "--balance-saturation", str(BAL_SATURATION),
+            "--balance-idle", str(BAL_IDLE), "--balance-cooldown", str(PLAN_COOLDOWN),
+            "--decision-log", decision_log]
+
+
+def recorded_streams(path: str) -> dict[str, dict]:
+    """A frontend's ``--record-dir`` file → per request (context id) its
+    prompt ids and its legs: token ids, logprobs, top-2 pairs and the
+    arrival time of each leg's first and last token frame; a leg ends at
+    a migration marker frame."""
+    out: dict[str, dict] = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            rid = rec.get("rid")
+            if rid is None:
+                continue
+            r = out.setdefault(rid, {"prompt": None, "legs": []})
+            if rec["kind"] == "request":
+                if r["prompt"] is None:
+                    r["prompt"] = (rec.get("request") or {}).get("token_ids")
+                r["legs"].append({"tokens": [], "logprobs": [], "top": [], "first": None,
+                                  "last": None, "marker": None, "finish": None})
+                continue
+            item = rec.get("item") or {}
+            leg = r["legs"][-1]
+            if item.get("token_ids"):
+                leg["tokens"] += item["token_ids"]
+                leg["logprobs"] += item.get("log_probs") or []
+                leg["top"] += item.get("top_log_probs") or []
+                leg["first"] = leg["first"] if leg["first"] is not None else rec["t"]
+                leg["last"] = rec["t"]
+            if item.get("migration") is not None:
+                leg["marker"] = rec["t"]
+            leg["finish"] = item.get("finish_reason") or leg["finish"]
+    for r in out.values():
+        legs = r["legs"]
+        r["tokens"] = [t for lg in legs for t in lg["tokens"]]
+        r["logprobs"] = [x for lg in legs for x in lg["logprobs"]]
+        r["top"] = [x for lg in legs for x in lg["top"]]
+        r["finish"] = legs[-1]["finish"] if legs else None
+    return out
+
+
+def control_phase(card_line: str, store_url: str, workers: list, reference: dict,
+                  profile_path: str, preset: str = "llama-8b", device: str = "cuda",
+                  plan_tokens: int = PLAN_TOKENS, bal_tokens: int = BAL_TOKENS,
+                  interval: float = 0.5) -> dict:
+    """Phase 7c: the control plane over phase 7's workers (``--autoscaler
+    on --sla-profile``, the profile phase 4s swept), after phase 7b's fleet
+    has exited:
+
+    - a ``--qos`` kv frontend (``--record-dir``) adopts the profile from the
+      workers' model card (its log line), ``planner.__main__.
+      discover_card_profile`` finds the npz's arrays, the standalone router
+      service (``python -m dynamo_tpu_torch.router``) and the exporter
+      (``python -m dynamo_tpu_torch.metrics_exporter``) come up;
+    - router service: ``route`` for request 7 names the worker the
+      frontend's router places it on, with the overlap the frontend's router
+      counted; ``generate`` streams request 7 with the logprobs of the
+      in-process prefix-hit reference, bit for bit (both are hits);
+    - exporter: both workers' instance ids, each per-worker gauge equal
+      to the worker's own load_metrics, ``fleet_workers_live`` 2;
+    - reference passes: the planner leg's completions through the frontend,
+      the balancer leg's rows pinned on one worker, from empty caches;
+    - planner leg: ``python -m dynamo_tpu_torch.planner --operate
+      --profile-from-discovery --balance on`` with a TTFT SLA under the
+      profile's TTFT at the leg's prompt lengths and an ITL SLA of 10x its
+      ITL at the largest batch; a fresh ``ControlLaw`` first predicts its
+      first action (a pool move decode → prefill: the law wants a prefill
+      pool); the leg's completions run while the planner moves one worker,
+      whose streams relocate to the other. The journal holds the move and
+      its ok outcome, the pools moved, each relocated stream equals its
+      reference up to its cutover and then by the gap rule
+      (``relocated_divergence``), each other one bit for bit;
+    - the moved worker back to decode (admin RPC), the balancer leg: the
+      rows pinned on one worker, the other idle; the balancer's
+      ``migrate_out`` moves one (``balancer_moves_total{outcome="ok"}``),
+      the exporter shows the busy worker's active slots above 0, the moved
+      stream holds the gap rule, the others bit for bit, the pools and the
+      journal unchanged (the scale law held by its cooldown);
+    - the planner's decision log replays through a fresh law to the same
+      decisions; every process the phase started exits 0; each worker's
+      attention launches over the phase equal num_layers x its substeps
+      (0 on the CPU)."""
+    t_phase = time.perf_counter()
+    import tempfile
+
+    from dynamo_tpu_torch.planner.__main__ import operator_config
+    from dynamo_tpu_torch.planner.__main__ import parse_args as planner_args
+    from dynamo_tpu_torch.planner.core import PlannerObservation
+    from dynamo_tpu_torch.planner.interpolate import load_profile
+    from dynamo_tpu_torch.planner.operator import ControlLaw, replay_law
+
+    work = tempfile.mkdtemp(prefix="control-phase-")
+    record_dir = os.path.join(work, "record")
+    decision_log = os.path.join(work, "decisions.jsonl")
+    decode, prefill = load_profile(profile_path)
+    ttft_sla = 0.5 * min(prefill.ttft_at(n) for n in PLAN_LENS)
+    itl_sla = 10.0 * decode.itl_at(decode.batch[-1])
+    before = {w.name: settled_counters(w) for w in workers}
+    procs: list[Proc] = []
+    rcs: dict[str, int] = {}
+    try:
+        fe = Proc("control-frontend", [
+            "dynamo_tpu_torch.frontend", "--store-url", store_url, "--host", "127.0.0.1",
+            "--port", "0", "--router-mode", "kv", "--qos", "--record-dir", record_dir])
+        exporter = Proc("control-exporter", [
+            "dynamo_tpu_torch.metrics_exporter", "--store-url", store_url, "--namespace",
+            NAMESPACE, "--host", "127.0.0.1", "--port", "0", "--interval", "0.25"])
+        router = Proc("control-router", ["dynamo_tpu_torch.router", "--store-url", store_url,
+                                         "--namespace", NAMESPACE, "--block-size", "16"])
+        procs += [fe, exporter, router]
+        port = int(fe.wait_for(r"frontend: http://127\.0\.0\.1:(\d+)", 120)[0].group(1))
+        _, adopted_s = fe.wait_for(r"qos: SLA profile adopted from model card " + re.escape(preset),
+                                   120)
+        exp_port = int(exporter.wait_for(r"metrics exporter: http://127\.0\.0\.1:(\d+)/metrics",
+                                         120)[0].group(1))
+        router.wait_for(r"router: dynamo/router routing over backend/generate", 120)
+        log(f"control: the --qos frontend adopted the SLA profile from {preset}'s model card "
+            f"{adopted_s:.2f}s after launch; router service and exporter up")
+        # The law's first action, known before the run: with no prefill
+        # engine the law wants one, and the ITL SLA leaves the decode pool
+        # a donor.
+        pargv = planner_argv(store_url, port, ttft_sla, itl_sla, interval, decision_log)
+        cfg = operator_config(planner_args(pargv))
+        law = ControlLaw(cfg, decode, prefill)
+        predicted = [law.decide(PlannerObservation(empty_window=True), 0, 2, now=0.0)]
+        mean_len = statistics.mean(PLAN_LENS)
+        for k in (1, 2):
+            predicted.append(law.decide(PlannerObservation(ttft_ms=prefill.ttft_at(mean_len)),
+                                        0, 2, now=float(k)))
+        first = [d for d in predicted[-1] if d.kind != "hold"]
+        if [(d.kind, d.src, d.dst) for d in first] != [("pool_move", "decode", "prefill")]:
+            raise RuntimeError(f"control: the law's predicted first action is {predicted}")
+        log(f"control: SLAs TTFT {ttft_sla:.2f} ms (half the smallest profile TTFT over "
+            f"the leg's prompt lengths, {min(PLAN_LENS)}-{max(PLAN_LENS)} tokens), ITL "
+            f"{itl_sla:.2f} ms (10x the profile's at B="
+            f"{decode.batch[-1]:.0f}); a fresh ControlLaw predicts its first action: "
+            f"{first[0].kind} {first[0].src} → {first[0].dst}")
+        res = asyncio.run(_drive_control(
+            card_line, store_url, port, exp_port, workers, reference, profile_path, preset,
+            pargv, plan_tokens, bal_tokens, record_dir, procs, rcs))
+        # The decision log replayed through a fresh law.
+        with open(decision_log) as f:
+            records = [json.loads(line) for line in f]
+        replayed = replay_law(ControlLaw(cfg, decode, prefill), records)
+        if replayed != [r["decisions"] for r in records]:
+            bad = next(i for i, (a, r) in enumerate(zip(replayed, records))
+                       if a != r["decisions"])
+            raise RuntimeError(f"control: the law replayed cycle {bad} as {replayed[bad]}, "
+                               f"the planner decided {records[bad]['decisions']}")
+        acted = [(i, d) for i, r in enumerate(records) for d in r["decisions"]
+                 if d["kind"] != "hold"]
+        if [(d["kind"], d["src"], d["dst"]) for _, d in acted] != [
+                ("pool_move", "decode", "prefill")]:
+            raise RuntimeError(f"control: the planner's decisions {acted}")
+        log(f"control: the decision log's {len(records)} cycles replay through a fresh "
+            f"ControlLaw to the same decisions; its one action {acted[0][1]['kind']} "
+            f"decode → prefill at cycle {acted[0][0]}")
+        for p in (fe, exporter, router):
+            rcs[p.name] = p.stop()
+        after = {w.name: settled_counters(w) for w in workers}
+        launches = {}
+        for w in workers:
+            b, a = before[w.name], after[w.name]
+            d_launch = a["paged_attention_launches"] - b["paged_attention_launches"]
+            d_sub = a["decode_substeps"] - b["decode_substeps"]
+            want = a["num_layers"] * d_sub if device == "cuda" else 0
+            if d_launch != want or d_sub <= 0 or a["eager_windows"] != b["eager_windows"]:
+                raise RuntimeError(f"control: {w.name} launched attention {d_launch} times "
+                                   f"over {d_sub} substeps of {a['num_layers']} layers, eager "
+                                   f"windows {a['eager_windows'] - b['eager_windows']}")
+            launches[w.name] = {"launches": d_launch, "substeps": d_sub}
+        if any(rcs.values()):
+            raise RuntimeError(f"control: processes did not exit 0: {rcs}")
+        total = sum(v["launches"] for v in launches.values())
+        if device == "cuda" and total <= 0:
+            raise RuntimeError("control: no worker launched the kernel")
+        res.update(cycles=len(records), launches=total, workers=launches, exit_codes=rcs,
+                   ttft_sla_ms=ttft_sla, itl_sla_ms=itl_sla,
+                   phase_s=time.perf_counter() - t_phase)
+        log(f"control: attention launches {total} over the phase "
+            + ", ".join(f"{k} {v['launches']} = layers x {v['substeps']}"
+                        for k, v in launches.items())
+            + f" (0 on the CPU); every process exited 0 ({rcs}); phase 7c took "
+            f"{res['phase_s']:.1f}s ({card_line})")
+        return res
+    finally:
+        for p in procs:
+            if p.proc.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+async def _drive_control(card_line, store_url, port, exp_port, workers, reference,
+                         profile_path, preset, pargv, plan_tokens, bal_tokens, record_dir,
+                         procs, rcs) -> dict:
+    import numpy as np
+
+    from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouterConfig
+    from dynamo_tpu_torch.llm.migration import Migration
+    from dynamo_tpu_torch.llm.model_card import slugify
+    from dynamo_tpu_torch.planner.__main__ import discover_card_profile
+    from dynamo_tpu_torch.planner.actions import actions_prefix
+    from dynamo_tpu_torch.planner.actuate import read_pools
+    from dynamo_tpu_torch.planner.interpolate import load_profile
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import RouterMode
+
+    out: dict = {}
+    rt = await DistributedRuntime.create(store_url=store_url)
+    try:
+        ns = rt.namespace(NAMESPACE)
+        # Profile discovery: the card's arrays are the npz's.
+        (fd, fp), (wd, wp) = (await discover_card_profile(rt.store, NAMESPACE),
+                              load_profile(profile_path))
+        for a, b in ((fd.batch, wd.batch), (fd.itl_ms, wd.itl_ms), (fd.tok_s, wd.tok_s),
+                     (fp.prompt_len, wp.prompt_len), (fp.ttft_ms, wp.ttft_ms),
+                     (fp.tok_s, wp.tok_s)):
+            if not np.array_equal(a, b):
+                raise RuntimeError("control: the card's discovered profile differs from the npz")
+        pools = await read_pools(rt.store, NAMESPACE)
+        by_pid = {w.pid: w.instance_id for w in pools["decode"]}
+        if len(by_pid) != 2 or pools["prefill"]:
+            raise RuntimeError(f"control: pools before the phase {pools}")
+        wid = {w.name: by_pid[w.proc.pid] for w in workers}
+        gen_ep = ns.component("backend").endpoint("generate")
+        push = await gen_ep.router(RouterMode.DIRECT)
+        route = await ns.component("router").endpoint("route").router()
+        rgen = await ns.component("router").endpoint("generate").router()
+        admin = await ns.component("workerctl").endpoint("admin").router(RouterMode.DIRECT)
+        for r, n in ((push, 2), (route, 1), (rgen, 1), (admin, 2)):
+            await r.discovery.wait_for_instances(n)
+
+        async def frontend_metric(name: str) -> float:
+            _, _, pieces, _ = await http_request(port, "/metrics", method="GET")
+            text = b"".join(p for _, p in pieces).decode()
+            return sum(float(m.group(1)) for m in re.finditer(
+                rf"^dynamo_tpu_{name}(?:{{[^}}]*}})? ([0-9.eE+-]+)$", text, re.M))
+
+        async def worker_metrics(name: str) -> str:
+            w = next(w for w in workers if w.name == name)
+            _, _, pieces, _ = await http_request(w.sys_port, "/metrics", method="GET")
+            return b"".join(p for _, p in pieces).decode()
+
+        async def exporter_gauges() -> dict:
+            _, _, pieces, _ = await http_request(exp_port, "/metrics", method="GET")
+            text = b"".join(p for _, p in pieces).decode()
+            return {m.group(1) + m.group(2): float(m.group(3)) for m in re.finditer(
+                r"^dynamo_tpu_(fleet_[a-z_]+)(\{[^}]*\}) ([0-9.eE+-]+)$", text, re.M)}
+
+        # -- the router service and the exporter ------------------------------
+        prompts = burst_prompts()
+        ids7 = list(prompts[7].encode())
+        routed7 = [f async for f in route.generate({"token_ids": ids7}, Context())][-1]
+        overlap0 = await frontend_metric("router_overlap_blocks_total")
+        body7 = {"model": preset, "prompt": prompts[7], "max_tokens": BURST_TOKENS,
+                 "temperature": BURST_TEMPS[7], "seed": 1007, "ignore_eos": True, "logprobs": 0}
+        fe7 = await http_completion(port, body7, f"{0x7C7:032x}")
+        overlap = await frontend_metric("router_overlap_blocks_total") - overlap0
+        placed, _ = await routed(port, fe7["trace_id"])
+        ref = reference["repeat"]
+        if (fe7["status"], fe7.get("logprobs"), fe7.get("lp_tokens")) != (
+                200, ref["logprobs"], ref["lp_tokens"]):
+            raise RuntimeError(f"control: request 7 through the frontend: {fe7.get('status')}, "
+                               "not the prefix-hit reference")
+        if (routed7.get("worker_instance_id") != int(placed, 16)
+                or routed7.get("overlap_blocks") != overlap or overlap <= 0):
+            raise RuntimeError(f"control: route(request 7) answered {routed7}; the frontend "
+                               f"placed it on {placed} with overlap {overlap}")
+        req7 = {"model": preset, "token_ids": ids7,
+                "sampling": {"temperature": BURST_TEMPS[7], "seed": 1007, "logprobs": True},
+                "stop": {"max_tokens": BURST_TOKENS, "ignore_eos": True}}
+        frames = [f async for f in rgen.generate(req7, Context())]
+        lps = [x for f in frames for x in f.get("log_probs") or []]
+        ntok = sum(len(f.get("token_ids") or []) for f in frames)
+        if ntok != BURST_TOKENS or lps != ref["logprobs"]:
+            raise RuntimeError(f"control: the router service's generate streamed {ntok} tokens, "
+                               "logprobs not the prefix-hit reference's")
+        log(f"control: router service route(request 7) → instance {placed} with "
+            f"{overlap:.0f} overlap blocks, as the frontend's router placed and counted it; its "
+            f"generate streamed request 7's {ntok} tokens with the prefix-hit reference's "
+            f"logprobs bit for bit, as the frontend's repeat did ({card_line})")
+        out["route"] = {"instance": placed, "overlap_blocks": overlap}
+        for _ in range(100):
+            g = await exporter_gauges()
+            if g.get(f'fleet_workers_live{{component="backend"}}') == 2 and all(
+                    f'fleet_worker_total_slots{{component="backend",worker="{w:x}"}}' in g
+                    for w in wid.values()):
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise RuntimeError(f"control: the exporter never listed both workers: {g}")
+        # Idle workers: the exporter's gauges are what each worker's own
+        # load_metrics reports, and fleet_workers_live counts the workers.
+        load = await ns.component("backend").endpoint("load_metrics").router(RouterMode.DIRECT)
+        await load.discovery.wait_for_instances(2)
+        for _ in range(100):
+            want = {}
+            for w in wid.values():
+                snap = [f async for f in load.generate({}, Context(), instance_id=w)][-1]
+                want.update(_exporter_view(w, snap))
+            g = await exporter_gauges()
+            if {k: g.get(k) for k in want} == want:
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise RuntimeError(f"control: the exporter's gauges {g} are not the workers' own "
+                               f"load_metrics {want}")
+        if g.get('fleet_workers_live{component="backend"}') != 2:
+            raise RuntimeError(f"control: fleet_workers_live {g}")
+        log(f"control: exporter lists instances {sorted(f'{w:x}' for w in wid.values())}, "
+            f"fleet_workers_live 2, each worker's {len(want) // 2} gauges equal to its own "
+            f"load_metrics")
+
+        # -- reference passes ---------------------------------------------------
+        plan = plan_prompts()
+
+        def plan_body(i):
+            return {"model": preset, "prompt": plan[i], "max_tokens": plan_tokens,
+                    "temperature": 0.0, "seed": 3000 + i, "ignore_eos": True, "logprobs": 2}
+
+        async def plan_pass(label: str) -> list[dict]:
+            rs = await asyncio.gather(*(http_completion(port, plan_body(i),
+                                                        f"{0x7D00 + i:032x}")
+                                        for i in range(len(plan))))
+            for i, r in enumerate(rs):
+                if r["status"] != 200 or (r.get("usage") or {}).get(
+                        "completion_tokens") != plan_tokens:
+                    raise RuntimeError(f"control {label} request {i}: {r.get('status')} "
+                                       f"{r.get('error')} {r.get('usage')}")
+            return rs
+
+        bal = balance_requests(preset, bal_tokens)
+        rec = LegRecorder(await KvPushRouter(
+            push, KvRouterConfig(block_size=16, use_kv_events=False)).start())
+        op = Migration(rec, migration_limit=0)
+
+        async def bal_one(i, target, rid):
+            r = dict(bal[i], kv_transfer_params={"migration_resume": {"instance": target}})
+            got = {"tokens": [], "logprobs": [], "top": [], "finish": None}
+            async for item in op.generate(r, Context(rid)):
+                if item.get("error"):
+                    raise RuntimeError(f"control: balancer leg {rid}: {item['error']}")
+                got["tokens"] += item.get("token_ids") or []
+                got["logprobs"] += item.get("log_probs") or []
+                got["top"] += item.get("top_log_probs") or []
+                got["finish"] = item.get("finish_reason") or got["finish"]
+            return got
+
+        await clear_kv(port, preset)
+        await plan_pass("reference")
+        await clear_kv(port, preset)
+        busy = workers[0].name
+        bal_ref = await asyncio.gather(*(bal_one(i, wid[busy], f"balref-{i}")
+                                         for i in range(BAL_ROWS)))
+        await clear_kv(port, preset)
+
+        # -- the planner leg ------------------------------------------------------
+        # Each worker's migration.out spans (source side) and the KV its
+        # migrations received (destination side) before the leg.
+        mig0 = {}
+        for name in wid:
+            text = await worker_metrics(name)
+            mig0[name] = (_phase_count(text, "migration.out"),
+                          _phase_count(text, "migration.out", "sum"),
+                          _metric(text, "dynamo_tpu_migration_kv_bytes_total") or 0.0)
+        sys_port = _free_port()
+        planner = Proc("control-planner", ["dynamo_tpu_torch.planner", *pargv],
+                       env={"DYNTPU_SYSTEM_ENABLED": "1", "DYNTPU_SYSTEM_PORT": str(sys_port)})
+        procs.append(planner)
+        planner.wait_for(r"card profile discovered \(decode=True prefill=True\)", 120)
+        planner.wait_for(r"planner \(closed loop\): watching", 120)
+        t_plan = time.perf_counter()
+        plan_task = asyncio.ensure_future(plan_pass("planner leg"))
+        journal = []
+        for _ in range(int(120 / 0.05)):
+            journal = [json.loads(e.value) for e in sorted(
+                await rt.store.get_prefix(actions_prefix(PLANNER_ID)), key=lambda e: e.key)]
+            if any(e["phase"] != "started" for e in journal):
+                break
+            await asyncio.sleep(0.05)
+        t_moved = time.perf_counter() - t_plan
+        await plan_task
+        plan_wall = time.perf_counter() - t_plan
+        pools = await read_pools(rt.store, NAMESPACE)
+        if ([(e["kind"], e["phase"], e["src"], e["dst"]) for e in journal]
+                != [("pool_move", "ok", "decode", "prefill")]):
+            raise RuntimeError(f"control: the journal holds {journal}")
+        if len(pools["prefill"]) != 1 or len(pools["decode"]) != 1:
+            raise RuntimeError(f"control: pools after the move {pools}")
+        moved_iid = pools["prefill"][0].instance_id
+        moved = next(n for n, i in wid.items() if i == moved_iid)
+        stayed = next(n for n in wid if n != moved)
+        psys = await http_request(sys_port, "/metrics", method="GET")
+        ptext = b"".join(p for _, p in psys[2]).decode()
+        lag = _metric(ptext, "dynamo_tpu_planner_decision_lag_seconds")
+        acts = _labelled_pair(ptext, "planner_scale_actions_total")
+        if acts != {("pool_move", "ok"): 1.0} or lag is None:
+            raise RuntimeError(f"control: planner metrics actions {acts}, lag {lag}")
+        streams = recorded_streams(os.path.join(record_dir, f"{slugify(preset)}.jsonl"))
+        by_prompt = {}
+        for rid, s in streams.items():
+            for i, p in enumerate(plan):
+                if s["prompt"] == list(p.encode()):
+                    by_prompt.setdefault(i, []).append(s)
+        if any(len(by_prompt.get(i, ())) != 2 for i in range(len(plan))):
+            raise RuntimeError(f"control: recorded streams per prompt "
+                               f"{ {i: len(v) for i, v in by_prompt.items()} }")
+        relocated, stall, divergence = {}, {}, {}
+        for i in range(len(plan)):
+            r0, got = by_prompt[i]
+            for s in (r0, got):
+                if len(s["tokens"]) != plan_tokens or s["finish"] != "length":
+                    raise RuntimeError(f"control: planner leg request {i} recorded "
+                                       f"{len(s['tokens'])} tokens, {s['finish']}")
+            if len(r0["legs"]) != 1:
+                raise RuntimeError(f"control: reference request {i} ran {len(r0['legs'])} legs")
+            legs = got["legs"]
+            if len(legs) == 1:
+                _same_streams(f"control: planner leg request {i}", [got], [r0])
+                continue
+            if len(legs) != 2 or legs[0]["marker"] is None:
+                raise RuntimeError(f"control: planner leg request {i} ran {len(legs)} legs")
+            cut = len(legs[0]["tokens"])
+            relocated[i] = cut
+            stall[i] = legs[1]["first"] - legs[0]["last"]
+            divergence[i] = relocated_divergence(got, r0, cut, f"control: relocated {i}")
+        if not relocated:
+            raise RuntimeError("control: the pool move relocated no stream")
+        # Every relocated stream one ok migration, none fell back (a balancer
+        # move in this leg would be one of them too).
+        migs = {w.name: (await asyncio.to_thread(usr1_counters, w)).get("migration") or {}
+                for w in workers}
+        if (sum(m.get("outcomes", {}).get("ok", 0) for m in migs.values()) != len(relocated)
+                or any(m.get("fallback_reasons") for m in migs.values())):
+            raise RuntimeError(f"control: the workers' migrations {migs} for {len(relocated)} "
+                               "relocated streams")
+        # The move's rate: the KV the destination received over the time
+        # the source's migrations took (its migration.out spans, begin to
+        # commit), not the decision lag, which also holds the scrape and
+        # the pool bookkeeping.
+        src_text, dest_text = await worker_metrics(moved), await worker_metrics(stayed)
+        spans = _phase_count(src_text, "migration.out") - mig0[moved][0]
+        mig_s = _phase_count(src_text, "migration.out", "sum") - mig0[moved][1]
+        kv_bytes = (_metric(dest_text, "dynamo_tpu_migration_kv_bytes_total") or 0.0
+                    ) - mig0[stayed][2]
+        if spans != len(relocated) or mig_s <= 0 or kv_bytes <= 0:
+            raise RuntimeError(f"control: {moved} recorded {spans:.0f} migration.out spans "
+                               f"({mig_s:.3f}s) for {len(relocated)} relocated streams, "
+                               f"{stayed} received {kv_bytes:.0f} KV bytes")
+        out["planner"] = {"moved": moved, "relocated": relocated, "stall_s": stall,
+                          "divergence": divergence, "decision_lag_s": lag,
+                          "move_seen_s": t_moved, "wall_s": plan_wall, "kv_bytes": kv_bytes,
+                          "migration_s": mig_s, "mb_per_s": kv_bytes / mig_s / 1e6}
+        log(f"control: the planner moved {moved} ({moved_iid:x}) decode → prefill, journal "
+            f"pool_move ok, pools 1 prefill / 1 decode; decision lag (observation → move done) "
+            f"{lag * 1e3:.1f} ms, the move seen {t_moved:.2f}s into the leg; {len(relocated)} "
+            f"relocated stream(s) at tokens {relocated}, {kv_bytes / 1e6:.1f} MB of KV to "
+            f"{stayed} over {mig_s:.3f}s of migration.out spans, "
+            f"{out['planner']['mb_per_s']:.1f} MB/s; client-visible "
+            f"stall " + ", ".join(f"{i}: {v * 1e3:.1f} ms" for i, v in stall.items())
+            + f"; divergences {divergence} (the gap rule), every other stream bit for bit "
+            f"({card_line})")
+
+        # -- the balancer leg -----------------------------------------------------
+        back = [f async for f in admin.generate({"cmd": "set_role", "role": "decode"},
+                                                Context(), instance_id=moved_iid)]
+        for _ in range(600):
+            pools = await read_pools(rt.store, NAMESPACE)
+            if len(pools["decode"]) == 2 and not pools["prefill"]:
+                break
+            await asyncio.sleep(0.1)
+        else:
+            raise RuntimeError(f"control: {moved} back to decode: {back}, pools {pools}")
+        await push.discovery.wait_for_instances(2)
+        for attempt in range(50):  # the frontend rediscovers the worker's clear_kv
+            try:
+                await clear_kv(port, preset)
+                break
+            except RuntimeError:
+                if attempt == 49:
+                    raise
+                await asyncio.sleep(0.2)
+        ctext0 = b"".join(p for _, p in (await http_request(
+            sys_port, "/metrics", method="GET"))[2]).decode()
+        moves0 = _labelled_pair(ctext0, "balancer_moves_total")
+        t_bal = time.perf_counter()
+        bal_tasks = [asyncio.ensure_future(bal_one(i, wid[busy], f"bal-{i}"))
+                     for i in range(BAL_ROWS)]
+        busy_gauge = 0.0
+        key = f'fleet_worker_active_slots{{component="backend",worker="{wid[busy]:x}"}}'
+        while not all(t.done() for t in bal_tasks):
+            busy_gauge = max(busy_gauge, (await exporter_gauges()).get(key, 0.0))
+            await asyncio.sleep(0.1)
+        bal_got = [await t for t in bal_tasks]
+        bal_wall = time.perf_counter() - t_bal
+        ctext = b"".join(p for _, p in (await http_request(
+            sys_port, "/metrics", method="GET"))[2]).decode()
+        moves = _labelled_pair(ctext, "balancer_moves_total")
+        ok_moves = sum(v for (outcome, _), v in moves.items() if outcome == "ok") - sum(
+            v for (outcome, _), v in moves0.items() if outcome == "ok")
+        if ok_moves < 1 or busy_gauge <= 0:
+            raise RuntimeError(f"control: balancer moves {moves} (before {moves0}), the busy "
+                               f"worker's active-slots gauge peaked at {busy_gauge}")
+        bal_moved, bal_div = {}, {}
+        for i, (got, r0) in enumerate(zip(bal_got, bal_ref)):
+            legs = rec.legs[f"bal-{i}"]
+            if len(got["tokens"]) != bal_tokens or got["finish"] != "length":
+                raise RuntimeError(f"control: balancer leg row {i}: {len(got['tokens'])} tokens")
+            if len(legs) == 1:
+                _same_streams(f"control: balancer leg row {i}", [got], [r0])
+                continue
+            bal_moved[i] = legs[0]["tokens"]
+            bal_div[i] = relocated_divergence(got, r0, legs[0]["tokens"],
+                                              f"control: balanced row {i}")
+        journal2 = [json.loads(e.value) for e in
+                    await rt.store.get_prefix(actions_prefix(PLANNER_ID))]
+        pools = await read_pools(rt.store, NAMESPACE)
+        if not bal_moved or len(journal2) != 1 or len(pools["decode"]) != 2:
+            raise RuntimeError(f"control: balancer-moved rows {bal_moved}, journal {journal2}, "
+                               f"pools {pools}")
+        out["balancer"] = {"moves": ok_moves, "moved_rows": bal_moved, "divergence": bal_div,
+                           "busy_active_slots_peak": busy_gauge, "wall_s": bal_wall,
+                           "stall_s": {i: rec.legs[f"bal-{i}"][1]["first"]
+                                       - rec.legs[f"bal-{i}"][0]["last"] for i in bal_moved}}
+        log(f"control: the balancer moved row(s) {bal_moved} (cutover token) from {busy} to the "
+            f"idle worker ({ok_moves:.0f} migrate_out ok), divergences {bal_div} (the gap rule), "
+            f"the others bit for bit; the exporter's active slots of {busy} peaked at "
+            f"{busy_gauge:.0f}; pools and journal unchanged ({card_line})")
+        rcs[planner.name] = planner.stop()
+        return out
+    finally:
+        await rt.shutdown()
+        await rt.store.close()
+
+
+def _labelled_pair(text: str, name: str) -> dict[tuple[str, str], float]:
+    """A counter with two labels (beside any constant ones) of a /metrics
+    text → {(first, second) label values, by label name order: value}."""
+    out = {}
+    for m in re.finditer(rf"^dynamo_tpu_{name}\{{([^}}]*)\}} ([0-9.eE+-]+)$", text, re.M):
+        labels = dict(re.findall(r'([a-z_]+)="([^"]*)"', m.group(1)))
+        keys = {"planner_scale_actions_total": ("kind", "outcome"),
+                "balancer_moves_total": ("outcome", "reason")}[name]
+        out[tuple(labels.get(k) for k in keys)] = float(m.group(2))
+    return out
+
+
+def _exporter_view(instance_id: int, snap: dict) -> dict:
+    """One worker's load_metrics snapshot → the exporter's per-worker
+    gauges it should read as ({series: value})."""
+    lbl = f'{{component="backend",worker="{instance_id:x}"}}'
+    w, kv = snap["worker"], snap["kv"]
+    return {f"fleet_worker_active_slots{lbl}": float(w["request_active_slots"]),
+            f"fleet_worker_total_slots{lbl}": float(w["request_total_slots"]),
+            f"fleet_worker_waiting{lbl}": float(w["num_requests_waiting"]),
+            f"fleet_worker_kv_active_blocks{lbl}": float(kv["kv_active_blocks"]),
+            f"fleet_worker_kv_total_blocks{lbl}": float(kv["kv_total_blocks"]),
+            f"fleet_worker_kv_usage{lbl}": float(kv["gpu_cache_usage_perc"]),
+            f"fleet_worker_prefix_hit_rate{lbl}": float(kv["gpu_prefix_cache_hit_rate"])}
 
 
 # -- a checkpoint on disk, served int8 through the worker -----------------------
@@ -7204,10 +7943,14 @@ def main() -> int:
     log(f"tracing: one request's three engine spans through the histogram and exporter sinks "
         f"{spans_us:.1f} us on an uncontended thread (host CPU beside {card_line})")
     torch.cuda.empty_cache()
-    http = http_phase(card_line, reference, stats["tokens_per_s"], fleet=True)
+    try:
+        http = http_phase(card_line, reference, stats["tokens_per_s"], fleet=True,
+                          sla_profile=stats["sweep"]["path"], control={})
+    finally:
+        shutil.rmtree(os.path.dirname(stats["sweep"]["path"]), ignore_errors=True)
     http["msgpack_lite"] = frames
     http["span_record_us"] = spans_us
-    mark("5-7b http and fleet")
+    mark("5-7c http, fleet and control plane")
     ckpt = checkpoint_phase(card_line, keep=True)
     mark("8 checkpoint")
     tok = tokenizer_phase(card_line, ckpt.pop("path"), ckpt.pop("cfg"))
@@ -7311,6 +8054,8 @@ def main() -> int:
         "replaces": KERNEL_REPLACES, "version": KERNEL_VERSION, "splits": burst["splits"],
         "launches": stats["launches"], "launches_http": http["launches"],
         "launches_fleet": http["fleet"]["launches"],
+        "launches_sweep": stats["sweep"]["launches"],
+        "launches_planner": http["control"]["launches"],
         "launches_tokenizer_worker": tok["launches"][0],
         "launches_disagg_decode_worker": disagg["bf16"]["launches"][0],
         "launches_disagg_decode_worker_int8": disagg["int8"]["launches"][0],

@@ -24,9 +24,12 @@ streams run to completion, then the planes are torn down (a fleet child
 first leaves the shared port and hands its budget and decision leases
 back).
 
-Not ported yet (ROADMAP A19): ``--qos-profile`` and the SLA profile a
-model card carries, which need ``planner/interpolate.py``; without them
-the QoS early rejection works from the observed drain rate alone.
+With ``--qos``, the early rejection's TTFT predictor takes its
+model-based term from ``--qos-profile p.npz`` or, without it, from the SLA
+profile a worker ships in its model card (``--sla-profile``): the first
+such card discovered fills whatever the flag left empty, and the frontend
+logs ``qos: SLA profile adopted from model card <name>``. Without either
+it works from the observed drain rate alone.
 """
 
 from __future__ import annotations
@@ -91,9 +94,12 @@ def parse_args(argv=None):
                    help="enable priority classes (interactive/standard/batch via body "
                         "'priority' or x-priority header): weighted fair-share admission, "
                         "class-aware fleet budget pools, early rejection from the observed "
-                        "drain rate (also DYNTPU_QOS_ENABLED). The SLA profile that adds a "
-                        "model-based TTFT term (--qos-profile, or one shipped in a model "
-                        "card) is not ported yet: it needs planner/interpolate.py")
+                        "drain rate (also DYNTPU_QOS_ENABLED), and a model-based TTFT term "
+                        "from an SLA profile (--qos-profile, or one shipped in a model card)")
+    p.add_argument("--qos-profile", default=None,
+                   help="profiled SLA npz (python -m dynamo_tpu_torch.planner.profile_sweep) "
+                        "powering admission-time TTFT prediction; without it early "
+                        "rejection falls back to the observed drain rate")
     # Frontend fleet. --fleet N supervises N child copies of this CLI
     # sharing one port; the remaining flags configure fleet-wide behaviour
     # and are inherited by the children.
@@ -193,10 +199,37 @@ async def async_main(args) -> None:
         from dynamo_tpu_torch.runtime.qos import QosPolicy, TtftPredictor
 
         policy = QosPolicy.from_config(qcfg)
-        # Early rejection from the observed drain rate (no SLA profile).
-        predictor = TtftPredictor()
+        prefill = decode = None
+        if args.qos_profile:
+            from dynamo_tpu_torch.planner.interpolate import load_profile
 
-    manager = ModelManager(rt, settings)
+            decode, prefill = load_profile(args.qos_profile)
+            log.info("qos: loaded SLA profile %s (prefill=%s decode=%s)",
+                     args.qos_profile, prefill is not None, decode is not None)
+        # Early rejection works from the observed drain rate alone when
+        # no profile is loaded; the profile adds the model-based term.
+        predictor = TtftPredictor(prefill=prefill, decode=decode)
+
+    def on_card(card) -> None:
+        # Card-shipped SLA profile: a worker that was profiled publishes
+        # its latency curves in its model card, so the admission-time TTFT
+        # predictor self-configures from discovery — an explicit
+        # --qos-profile still wins.
+        if predictor is None or not card.sla_profile:
+            return
+        if predictor.prefill is not None and predictor.decode is not None:
+            return
+        from dynamo_tpu_torch.planner.interpolate import interpolators_from_card_dict
+
+        decode, prefill = interpolators_from_card_dict(card.sla_profile)
+        if predictor.prefill is None and prefill is not None:
+            predictor.prefill = prefill
+        if predictor.decode is None and decode is not None:
+            predictor.decode = decode
+        if prefill is not None or decode is not None:
+            log.info("qos: SLA profile adopted from model card %s", card.name)
+
+    manager = ModelManager(rt, settings, on_card=on_card)
     watcher = await ModelWatcher(rt, manager, namespace=args.namespace).start()
     global_budget = (fcfg.global_max_inflight if args.global_max_inflight is None
                      else args.global_max_inflight)

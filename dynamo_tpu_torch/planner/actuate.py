@@ -322,8 +322,8 @@ class FleetHttpActuator:
     """Frontend-fleet actuation over the supervisor's admin endpoint:
     ``GET /fleet`` for the live child count, ``POST /fleet/resize`` to
     grow/shrink through the rolling zero-failure drain. Plain HTTP/1.1
-    through the standard library (httpx is absent on the card's machine),
-    one request per call on a worker thread."""
+    through the standard library (``runtime/urlfetch.py``: httpx is absent
+    on the card's machine), one request per call on a worker thread."""
 
     def __init__(self, admin_url: str, timeout_s: float = 120.0):
         self.admin_url = admin_url.rstrip("/")
@@ -331,14 +331,13 @@ class FleetHttpActuator:
 
     @staticmethod
     def _request(method: str, url: str, body: dict | None, timeout: float) -> dict:
-        import urllib.request
+        from dynamo_tpu_torch.runtime import urlfetch
 
-        data = None if body is None else json.dumps(body).encode()
-        req = urllib.request.Request(url, data=data, method=method,
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=timeout) as r:  # raises on 4xx/5xx
-            raw = r.read()
-        return json.loads(raw) if raw else {}
+        r = urlfetch.request(method, url, timeout=timeout,
+                             body=None if body is None else json.dumps(body).encode(),
+                             headers={"Content-Type": "application/json"})
+        r.raise_for_status()
+        return r.json() if r.content else {}
 
     async def fleet_size(self) -> int:
         d = await asyncio.to_thread(self._request, "GET", f"{self.admin_url}/fleet", None, 10.0)

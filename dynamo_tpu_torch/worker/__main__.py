@@ -90,8 +90,11 @@ The counters line also carries ``trace``: the requests that recorded
 engine spans, the wall seconds recording them took on the event loop, and
 the exporter's sink and flush seconds.
 
-Not ported yet (ROADMAP A): the dp spawner, multi-host followers and
-``--sla-profile``.
+``--sla-profile p.npz`` ships a profiled SLA curve (``python -m
+dynamo_tpu_torch.planner.profile_sweep``) inside the model card, so
+frontends and the planner discover it.
+
+Not ported yet (ROADMAP A): the dp spawner and multi-host followers.
 """
 
 from __future__ import annotations
@@ -185,6 +188,11 @@ def parse_args(argv=None):
     p.add_argument("--autoscaler-role", choices=["decode", "prefill"], default=None,
                    help="initial pool under --autoscaler on (default: decode, "
                         "or prefill when --is-prefill-worker is set)")
+    p.add_argument("--sla-profile", default=None,
+                   help="profiled SLA npz (python -m dynamo_tpu_torch.planner.profile_sweep) "
+                        "shipped inside this worker's model card so frontends and "
+                        "the planner discover the latency curves instead of "
+                        "needing a --qos-profile path")
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--num-kv-blocks", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=16)
@@ -323,6 +331,20 @@ def adapter_cards(card, lora_specs) -> list:
     ]
 
 
+def embed_sla_profile(card, args) -> None:
+    """``--sla-profile``: ship the profiled latency curves inside the model
+    card, so frontends (admission-time TTFT prediction) and the planner
+    pick them up through discovery instead of a --qos-profile path copied
+    to every box."""
+    if not getattr(args, "sla_profile", None):
+        return
+    from dynamo_tpu_torch.planner.interpolate import load_profile, profile_as_card_dict
+
+    prof_decode, prof_prefill = load_profile(args.sla_profile)
+    card.sla_profile = profile_as_card_dict(decode=prof_decode, prefill=prof_prefill)
+    log.info("sla profile %s embedded in model card", args.sla_profile)
+
+
 def build_mocker(args, config):
     """``--engine mocker`` → (MockerEngine, model_card), the JAX worker's
     mocker and card."""
@@ -356,6 +378,7 @@ def build_mocker(args, config):
         max_batch_size=args.max_num_seqs,
         total_kv_blocks=args.num_kv_blocks,
     )
+    embed_sla_profile(card, args)
     return engine, card
 
 
@@ -423,6 +446,7 @@ async def build_engine(args):
         max_batch_size=args.max_num_seqs,
         total_kv_blocks=args.num_kv_blocks,
     )
+    embed_sla_profile(card, args)
     return engine, card
 
 

@@ -43,6 +43,8 @@ COPIED = [
     "mocker/__init__.py", "mocker/engine.py", "mocker/__main__.py",
     "fleet/__init__.py", "fleet/__main__.py", "fleet/backoff.py", "fleet/aggregate.py",
     "fleet/decisions.py", "fleet/budget.py",
+    "planner/predictors.py", "router/__init__.py", "router/__main__.py",
+    "metrics_exporter/__init__.py", "operator/__init__.py", "operator/controller.py",
 ]
 
 # Changed on purpose, one line each on why.
@@ -75,16 +77,39 @@ CHANGED = {
                          "history (LINE_EDITS)",
     "worker/roles.py": "two docstring lines drop pointers into the JAX package's planning "
                        "history (LINE_EDITS)",
-    "planner/__init__.py": "re-exports the actions only: the JAX package's imports its "
-                           "connector, core, interpolate, operator and predictors modules, "
-                           "which are not ported (A19 brings the rest)",
     "engine/lora.py": "xxhash is absent on the card's machine: adapter_tier_hash and the "
                       "seed of make_adapter_pages use the port's pure-Python xxh3_64 "
                       "(tokens.py), bit-exact, so hashes and pages equal the JAX ones byte "
                       "for byte (LINE_EDITS; tests/test_torch_lora.py)",
     "planner/actuate.py": "httpx is absent on the card's machine: FleetHttpActuator's two "
-                          "calls go through urllib.request on a worker thread (the same "
+                          "calls go through runtime/urlfetch.py on a worker thread (the same "
                           "requests, JSON bodies and ScaleActionError)",
+    "planner/core.py": "httpx is absent on the card's machine: HttpMetricsSource's two GETs go "
+                       "through runtime/urlfetch.py on a worker thread (the same parsing, "
+                       "rates and degraded admission scrape; tests/test_torch_planner.py)",
+    "planner/connector.py": "httpx is absent on the card's machine: KubernetesConnector's GET "
+                            "and merge PATCH go through runtime/urlfetch.py (the same calls "
+                            "against a fake API server; tests/test_torch_operator.py)",
+    "planner/operator.py": "the cycle record: SlaAutoscaler(recorder=...) is fed each cycle's "
+                           "inputs, decisions and actuations, and replay_law drives a fresh law "
+                           "through them (chip_smoke phase 7c replays the planner's run); the "
+                           "law itself is unchanged (tests/test_torch_planner.py)",
+    "planner/__main__.py": "--decision-log (the cycle record as JSON lines) and "
+                           "operator_config(args), which chip_smoke reuses to build the "
+                           "planner's law; every JAX flag with its default "
+                           "(tests/test_torch_planner.py)",
+    "metrics_exporter/__main__.py": "aiohttp is absent on the card's machine: /metrics on the "
+                                    "port's http_server (inside async_main, where the rewrite "
+                                    "does not reach), and --port 0 printed as bound "
+                                    "(tests/test_torch_router_service.py)",
+    "operator/graph.py": "PyYAML is absent on the card's machine: load_graph_file reads with "
+                         "operator/yaml_lite.py; the manifests equal the JAX ones but for the "
+                         "module prefix (tests/test_torch_operator.py)",
+    "operator/kube.py": "httpx is absent on the card's machine: KubeApi's requests go through "
+                        "runtime/urlfetch.py (the same calls against a fake API server; "
+                        "tests/test_torch_operator.py)",
+    "operator/__main__.py": "PyYAML is absent on the card's machine: --render writes with "
+                            "operator/yaml_lite.py",
     "llm/client.py": "httpx is absent on the card's machine: OpenAIClient speaks HTTP/1.1 on "
                      "asyncio streams, one connection a request, with the same methods, retries "
                      "and OpenAIClientError surface, plus a raw request()/get() and optional "
@@ -214,6 +239,28 @@ LINE_EDITS = {
     ],
     "fleet/directory.py": [
         (DIRECTORY_JAX_LINE, "The decision cache (fleet/decisions.py) remembers *where a\n"),
+    ],
+    "planner/__init__.py": [
+        ('actually drives the fleet."""\n',
+         "actually drives the fleet. Port of ``dynamo_tpu/planner/``; the port\n"
+         "adds ``profile_sweep.py``, which sweeps a ``TorchEngine`` into the\n"
+         'profile the interpolators read."""\n'),
+    ],
+    "planner/interpolate.py": [
+        ("profile is produced by tools/profile_sweep.py on the serving chip and\n",
+         "profile is produced by planner/profile_sweep.py on the serving card and\n"),
+        ("on a fixed mesh; mesh-shape sweeps add a file per mesh.\n",
+         "on a fixed mesh; mesh-shape sweeps add a file per mesh.\n\n"
+         "Port of ``dynamo_tpu/planner/interpolate.py``: the same numpy code and\n"
+         "the same npz keys, so either package reads the other's profile file.\n"),
+    ],
+    "planner/balancer.py": [
+        ("PR 16 built the migration mechanism (worker/migrate.py: streamed KV +\n"
+         "bounded cutover, byte-identical under chaos) but relocation only fired\n",
+         "The migration mechanism (worker/migrate.py: streamed KV + bounded\n"
+         "cutover, byte-identical under chaos) relocated only\n"),
+        ("        # One root span per move (the PR 17 planner convention): the\n",
+         "        # One root span per move (as the planner's actions have): the\n"),
     ],
     "worker/roles.py": [
         ("PR 8 made disaggregated prefill/decode the default serving shape and\n"

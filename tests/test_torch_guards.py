@@ -38,7 +38,7 @@ from dynamo_tpu_torch.ops import paged_attention as pa
 REPO = Path(__file__).resolve().parents[1]
 ABSENT_ON_CARD = ("xxhash", "msgpack", "jinja2", "aiohttp", "httpx", "tokenizers",
                   "transformers", "safetensors", "ml_dtypes", "huggingface_hub", "regex",
-                  "sentencepiece")
+                  "sentencepiece", "yaml")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -78,7 +78,13 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "runtime.barrier", "runtime.trace_export", "llm.logprobs", "llm.client",
                 "mocker", "mocker.engine", "mocker.__main__", "fleet", "fleet.__main__",
                 "fleet.backoff", "fleet.aggregate", "fleet.decisions", "fleet.directory",
-                "fleet.budget", "fleet.supervisor"):
+                "fleet.budget", "fleet.supervisor", "planner.predictors",
+                "planner.interpolate", "planner.profile_sweep", "planner.core",
+                "planner.connector", "planner.operator", "planner.balancer",
+                "planner.__main__", "router.__main__", "metrics_exporter",
+                "metrics_exporter.__main__", "operator.yaml_lite", "operator.graph",
+                "operator.kube", "operator.controller", "operator.__main__",
+                "runtime.urlfetch"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 
