@@ -31,7 +31,12 @@ Phases, in order; any failure raises and the run exits non-zero:
    plain, library (one `torch.matmul` of the same x with a bf16 w of the
    same shape), dequantize + `torch.matmul` (the prefill route, inline) and
    bound times, and their sums over one substep's 225 products at each M.
-   Then the
+   Since the tensor-parallel slice also one tp=2 rank's shards of those
+   products (`INT8_TP_SHAPES`: wq [4096, 2048], wk/wv [4096, 512], wo
+   [2048, 4096], w_gate/w_up [4096, 7168], w_down [7168, 4096], lm_head
+   [4096, 64128]) at M = 8 and 32, the same checks and times, summed over
+   a rank's substep; and phase 3 the attention decode case at the burst's
+   lengths with a rank's 4 kv heads (`decode_bfloat16_burst_kvh4`). Then the
    kernel's tied-head entries, for llama-1b and llama-3b, whose logits use
    the int8 embedding [V, D] as emb.T (`tied_head_phase`): first the tied
    wgmma entry's blocks per SM, held to its plan's table; at llama-3b's
@@ -121,6 +126,26 @@ Phases, in order; any failure raises and the run exits non-zero:
    tokens/s, host ms per substep, prefill host seconds, peak memory,
    graph-pool bytes, and the dense and routed byte bounds per substep
    (the routed one from the experts the recorded rows chose).
+4t. Tensor parallelism (`tp_phase`, after phase 4): the store and
+   `python -m dynamo_tpu_torch.worker --tp 2` with llama-8b at full width
+   (32 layers, bf16, random weights from seed 0: each rank draws every
+   leaf whole and keeps its shard, so the ranks hold phase 4's weights),
+   block 16, 8 sequences, max_model_len 2048. The worker is rank 0 and
+   spawns rank 1; the two share the one card and meet over gloo, so their
+   windows run eagerly. Phase 4's burst goes through the worker's
+   `generate` endpoint over the runtime: every greedy stream equals phase
+   4's except where the two passes' chosen tokens are within
+   `SPEC_GAP_TOL` nats (the rule `tree_vs_dense_gaps` applies); the
+   follower's sampled-token digest equals the leader's bit for bit, the
+   two made the same collectives, and each launched the attention kernel
+   32 x substeps. After phase 10's checkpoint is written, the int8 leg:
+   int8 weights and pages at `CUT_LAYERS` layers from that checkpoint
+   (each rank keeps its shards as it loads), held the same way against
+   the burst in process at tp 1 on the same checkpoint
+   (`burst_reference`, run while the worker starts). Printed beside the
+   card's name and power limit: the backend, tokens/s, host ms per
+   substep, collectives and bytes per substep, host seconds in
+   collectives, peak memory per rank.
 4s. The SLA profile (`sweep_phase`, at the end of phase 4's bf16 run, on
    its engine: llama-8b, 32 layers, 8 sequences): `planner.profile_sweep.
    sweep` at batches 1, 2, 4, 8 (each warmed, then B concurrent greedy
@@ -439,6 +464,11 @@ same weights.
 
 Each phase's seconds and the running total are logged as it ends.
 
+`python3 chip_smoke.py --tp-nccl`, on a host of two or more cards, runs
+only phase 4t's bf16 leg with each rank on a card of its own (NCCL,
+windows captured with their collectives inside): at tp 2, and at tp 4
+when four cards are visible (`tp_nccl_main`).
+
 The last lines are the kernels JSON line (the attention kernel's decode
 entry, the int8 product, its wide entry, its tied-head entries with phase
 4d's launches, and the attention kernel's
@@ -446,7 +476,8 @@ linear and tree verify modes; the first two also carry phase 11's decode
 worker's launches, the decode, tree and int8 entries phase 12's, the
 first two phases 13's and 14's, and all of them phase 15's; the decode
 entry's `launches_fleet` counts phase 7b's, `launches_sweep` phase 4s's and
-`launches_planner` phase 7c's), nvidia-smi's name/power line, and {"ok": true, "device":
+`launches_planner` phase 7c's; `launches_tp_ranks` on the decode, int8 and
+wide entries phase 4t's, rank by rank), nvidia-smi's name/power line, and {"ok": true, "device":
 {...}}. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -522,7 +553,8 @@ def reference_entry(gen, ttft_s: float) -> dict:
     carries them."""
     choice = gen.final_response()["choices"][0]
     return {"text": choice["text"], "logprobs": list(gen.lp_values),
-            "lp_tokens": choice["logprobs"]["tokens"], "ttft_s": ttft_s}
+            "lp_tokens": choice["logprobs"]["tokens"], "ids": list(gen.lp_tokens),
+            "ttft_s": ttft_s}
 
 
 def burst_prompts() -> list[str]:
@@ -733,13 +765,18 @@ def kernel_phase(device):
     # slots) at the burst's row lengths, bf16 and int8 pages.
     cases += [(mode, "bfloat16", quant, BURST_HIST, T) for mode in ("linear", "tree")
               for T in (4, 7) for quant in (False, True)]
+    # A tp=2 rank of llama-8b (phase 4t): 4 of the 8 kv heads, G = 4 each.
+    cases += [("decode", "bfloat16", False, BURST_HIST, 5, TP_KV_HEADS)]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     results = []
-    for i, (mode, qdt_name, quant, rows, T) in enumerate(cases):
+    for i, (mode, qdt_name, quant, rows, T, *kvh) in enumerate(cases):
+        KVH = kvh[0] if kvh else 8
         name = (f"{mode}{'' if T == 5 or mode == 'decode' else f'_T{T}'}_"
-                f"{'int8' if quant else qdt_name}" + ("_burst" if rows is BURST_HIST else ""))
+                f"{'int8' if quant else qdt_name}" + ("_burst" if rows is BURST_HIST else "")
+                + (f"_kvh{KVH}" if kvh else ""))
         no_live = (len(rows) - 1,) if rows is tree_hist else ()
-        case = make_case(mode, qdt_name, quant, 100 + i, device, rows, T=T, no_live=no_live)
+        case = make_case(mode, qdt_name, quant, 100 + i, device, rows, T=T, no_live=no_live,
+                         KVH=KVH)
         args = case["args"]
         out = pa.paged_spec_attention(*args)
         ref = plain_f32(args)
@@ -785,6 +822,13 @@ INT8_REPLACES = "dynamo_tpu/engine/model.py:156"
 INT8_SHAPES = {"wq_wo": (4096, 4096, 64), "wk_wv": (4096, 1024, 64),
                "w_gate_up": (4096, 14336, 64), "w_down": (14336, 4096, 32),
                "lm_head": (4096, 128256, 1)}
+# One rank's shards of those products at tp=2 (phase 4t): columns of wq,
+# wk/wv, w_gate/w_up and the vocabulary, rows of wo and w_down.
+INT8_TP_SHAPES = {"tp2_wq": (4096, 2048, 32), "tp2_wk_wv": (4096, 512, 64),
+                  "tp2_wo": (2048, 4096, 32), "tp2_w_gate_up": (4096, 7168, 64),
+                  "tp2_w_down": (7168, 4096, 32), "tp2_lm_head": (4096, 64128, 1)}
+INT8_TP_M = (8, 32)
+TP_KV_HEADS = 4  # llama-8b's 8 kv heads over tp_kv = 2
 INT8_ODD = ("odd", 1000, 200)  # breaks every tile and 16-byte alignment
 # The tied heads (K, N) = (D, V) of llama-1b and llama-3b: the int8 embedding
 # [V, D] used as emb.T, read as stored by the kernel's tied-head entry.
@@ -866,11 +910,12 @@ INT8_M = (1, 8, 16, 32, 64, 128, 256)  # rows at every llama-8b shape: decode bu
 INT8_PREFILL_M = (512, 2048)           # prefill chunks, at w_gate/w_up and w_down
 
 
-def int8_substep(by: dict, M: int) -> dict:
-    """One llama-8b substep's 225 products at M rows, summed from the cases'
-    times (calls per substep x each shape's time)."""
+def int8_substep(by: dict, M: int, shapes: dict = INT8_SHAPES) -> dict:
+    """One llama-8b substep's 225 products at M rows (of ``shapes``: the
+    whole model's, or a tp rank's shards), summed from the cases' times
+    (calls per substep x each shape's time)."""
     return {k: sum(by[f"{name}_M{M}_bfloat16"][k] * calls
-                   for name, (_, _, calls) in INT8_SHAPES.items())
+                   for name, (_, _, calls) in shapes.items())
             for k in ("ms", "plain_ms", "library_ms", "dequant_ms", "bound_ms")}
 
 
@@ -902,6 +947,8 @@ def int8_kernel_phase(device, card_line):
               for M in (5, 64) for dt in ("bfloat16", "float32")]
     cases += [("wq_wo", 8, 4096, 4096, "float32", False),
               ("lm_head_bf16_scale", 8, 4096, 128256, "bfloat16", True)]
+    cases += [(name, M, K, N, "bfloat16", name.endswith("lm_head"))
+              for name, (K, N, _) in INT8_TP_SHAPES.items() for M in INT8_TP_M]
     results = []
     for i, (name, M, K, N, xdt, out_f32) in enumerate(cases):
         x, w, s = int8_case(M, K, N, xdt, 500 + i, device,
@@ -936,6 +983,13 @@ def int8_kernel_phase(device, card_line):
     substep = {M: int8_substep(by, M) for M in INT8_M if M > 1}
     for M, t in substep.items():
         log(f"int8: the 225 products of one llama-8b substep at M={M}, from the cases above: "
+            f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, library (bf16 weights) "
+            f"{t['library_ms']:.3f}, dequantize + torch.matmul {t['dequant_ms']:.3f}, bound "
+            f"{t['bound_ms']:.3f} ({card_line})")
+    for M in INT8_TP_M:
+        t = int8_substep(by, M, INT8_TP_SHAPES)
+        substep[f"tp2_M{M}"] = t
+        log(f"int8: one tp=2 rank's 225 products of a llama-8b substep at M={M} (its shards): "
             f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, library (bf16 weights) "
             f"{t['library_ms']:.3f}, dequantize + torch.matmul {t['dequant_ms']:.3f}, bound "
             f"{t['bound_ms']:.3f} ({card_line})")
@@ -1427,6 +1481,267 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
     del pipe, engine, runner
     torch.cuda.empty_cache()
     return st
+
+
+# -- phase 4t: tensor parallelism, two rank processes on the card ----------------
+
+TP_RANKS = 2
+
+
+async def burst_reference(weights: list[str], device: str = "cuda", dtype: str = "bfloat16",
+                          quant: str = "none", kv_quant: str = "none") -> list[dict]:
+    """The burst in process at tp 1 (``run``'s pipeline with the main path's
+    engine arguments, on the weights ``weights`` names: ``--preset`` or
+    ``--model-path``) → each request's token ids and logprobs, as phase 4
+    makes them."""
+    from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    pipe = await build_pipeline(parse_args(["--in", "batch:-", *weights, "--dtype", dtype,
+                                            "--device", device, *ENGINE_ARGV]),
+                                quant=quant, kv_quant=kv_quant)
+    await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
+    prompts = burst_prompts()
+
+    async def one(i):
+        req = CompletionRequest.parse({
+            "model": pipe.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+            "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True, "logprobs": 0})
+        gen = None
+        async for g, _chunk in pipe.run(req, Context()):
+            gen = g
+        return {"ids": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
+
+    try:
+        return list(await asyncio.gather(*(one(i) for i in range(len(prompts)))))
+    finally:
+        await pipe.engine.stop()
+
+
+def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = "cuda",
+             dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
+             model_path: str | None = None, tp: int = TP_RANKS) -> dict:
+    """Phase 4t: ``python -m dynamo_tpu_torch.worker --tp 2`` (this worker is
+    rank 0, the leader; it spawns rank 1, and both share the one card over
+    gloo) behind the port's store; phase 4's burst sent through the
+    worker's ``generate`` endpoint over the runtime. ``reference``: each
+    request's tp 1 token ids and logprobs (phase 4's, or a function that
+    makes them, run while the worker starts). Holds: every greedy stream
+    equal to its reference except where the two passes' chosen tokens are
+    within ``SPEC_GAP_TOL`` nats (``tree_vs_dense_gaps``' rule), the
+    follower's sampled-token digest equal to the leader's, attention
+    launches = layers x substeps on each rank, the windows eager under gloo
+    (its collectives cannot be captured) and all graph replays under NCCL
+    (``tp`` ranks on as many cards of their own), every exit 0. → the
+    phase's numbers."""
+    import numpy as np
+
+    tag = ("tp" if quant == "none" else f"tp-int8-kv{kv_quant}") + ("" if tp == TP_RANKS
+                                                                   else str(tp))
+    cfg, weights = model_source(preset, model_path)
+    L = cfg.num_layers
+    store_port = _free_port()
+    store_url = f"tcp://127.0.0.1:{store_port}"
+    procs: list[Proc] = []
+    try:
+        store = Proc(f"{tag}-store", ["dynamo_tpu_torch.runtime.store_server", "--host",
+                                      "127.0.0.1", "--port", str(store_port)])
+        procs.append(store)
+        store.wait_for(r"store server: tcp://", 60)
+        worker = Proc(f"{tag}-worker", [
+            "dynamo_tpu_torch.worker", "--store-url", store_url, "--tp", str(tp),
+            *weights, "--dtype", dtype, "--device", device, "--quant", quant,
+            "--kv-quant", kv_quant, "--disagg", "off", *ENGINE_ARGV])
+        procs.append(worker)
+        if callable(reference):
+            reference = reference()
+        m, _ = worker.wait_for(r"worker: (tp \d+ over \w+ \([^)]*\))", 120)
+        backend = m.group(1)
+        m, up_s = worker.wait_for(r"dynamo_tpu_torch worker: serving .*\((\d+) window graphs", 900)
+        graphs = int(m.group(1))
+        log(f"{tag}: {cfg.name} ({L} layers, {quant} weights, {kv_quant} KV pages) served by a "
+            f"--tp {tp} worker, {backend}, registered {up_s:.1f}s after launch "
+            f"({card_line})")
+        outs, wall = asyncio.run(_tp_burst(store_url, cfg.name))
+        settled_counters(worker)
+        rc = worker.stop(120)
+        if rc != 0:
+            raise RuntimeError(f"{tag}: the leader exited rc={rc}: "
+                               + " | ".join(worker.lines[-15:]))
+    finally:
+        for p in reversed(procs):
+            p.kill()
+    lead = next(json.loads(ln) for ln in reversed(worker.lines)
+                if ln.startswith('{"event": "engine_counters"'))
+    fols = sorted((json.loads(ln) for ln in worker.lines
+                   if ln.startswith('{"event": "follower_counters"')), key=lambda c: c["rank"])
+    if [c["rank"] for c in fols] != list(range(1, tp)):
+        raise RuntimeError(f"{tag}: follower counters of ranks {[c['rank'] for c in fols]}")
+    substeps = lead["decode_substeps"]
+    cuda = device == "cuda"
+    want = L * substeps if cuda else 0
+    nccl = lead["tp"]["backend"] == "nccl"
+    for who, c in (("leader", lead), *((f"follower {c['rank']}", c) for c in fols)):
+        if c["paged_attention_launches"] != want or substeps == 0:
+            raise RuntimeError(f"{tag}: {who} attention launches {c['paged_attention_launches']}"
+                               f" != {L} layers x {substeps} substeps")
+        if cuda and (c["eager_windows"] == 0) != nccl:
+            raise RuntimeError(f"{tag}: {who} ran {c['eager_windows']} windows eagerly under "
+                               f"{lead['tp']['backend']}: gloo windows run eagerly, NCCL ones "
+                               "replay their graphs")
+    for c in fols:
+        if lead["tp"]["token_digest"] != c["token_digest"]:
+            raise RuntimeError(f"{tag}: follower {c['rank']}'s sampled-token digest "
+                               f"{c['token_digest']} != the leader's {lead['tp']['token_digest']}")
+        if lead["tp"]["calls"] != c["collectives"]["calls"]:
+            raise RuntimeError(f"{tag}: collectives differ: leader {lead['tp']['calls']}, "
+                               f"follower {c['rank']} {c['collectives']['calls']}")
+    fol = fols[0]
+    for i, o in enumerate(outs):
+        if len(o["ids"]) != BURST_TOKENS or not all(
+                np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
+            raise RuntimeError(f"{tag} request {i}: bad token/logprob stream")
+        if not all(0 <= t < cfg.vocab_size for t in o["ids"]):
+            raise RuntimeError(f"{tag} request {i}: token id out of range")
+    greedy = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
+    dense = [{"tokens": r["ids"], "logprobs": r["logprobs"]} for r in reference]
+    got = [{"tokens": o["ids"], "logprobs": o["logprobs"]} for o in outs]
+    gaps = tree_vs_dense_gaps(dense, got, greedy, tag)
+    equal = [i for i in greedy if got[i]["tokens"] == dense[i]["tokens"]]
+    # Logprob drift up to each greedy stream's first divergence (past it the
+    # two continue different texts).
+    drift = max(abs(a - b) for i in greedy for a, b in zip(
+        got[i]["logprobs"][:_first_divergence(got[i]["tokens"], dense[i]["tokens"])],
+        dense[i]["logprobs"]))
+    sampled_equal = [i for i in range(len(outs)) if i not in greedy
+                     and got[i]["tokens"] == dense[i]["tokens"]]
+    tokens = sum(len(o["ids"]) for o in outs)
+    decode_s = sum(lead["phase_s"].get(k, 0.0) for k in DECODE_PHASES)
+    calls = lead["tp"]["calls"]
+    # Each prefill chunk (one per prompt here) makes 2L + 1 all-reduces of
+    # its rows' hidden states and one all-gather of one row's logit slice;
+    # each decode substep as many, over the batch's 8 rows.
+    per_forward = 2 * L + 2
+    prefill_calls = len(outs) * per_forward
+    elt = 2 if dtype == "bfloat16" else 4
+    bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
+    rows = int(ENGINE_ARGV[ENGINE_ARGV.index("--max-num-seqs") + 1])
+    vocab_slice = cfg.vocab_size // tp * 4
+    prefill_bytes = sum((-(-n // bs) * bs) * cfg.hidden_size * elt * (2 * L + 1) + vocab_slice
+                        for n in BURST_LENS)
+    want_bytes = rows * (cfg.hidden_size * elt * (2 * L + 1) + vocab_slice)
+    # The groups count the collectives Python calls: every one under gloo,
+    # where windows run eagerly; under NCCL a captured window's collectives
+    # replay inside its graph, uncounted, so no per-substep figure comes
+    # from the counts there.
+    per_substep = (None, None) if nccl else (
+        (sum(calls.values()) - prefill_calls) / substeps,
+        (lead["tp"]["bytes"] - prefill_bytes) / substeps)
+    st = {"backend": backend, "tokens_per_s": tokens / wall, "wall_s": wall,
+          "substeps": substeps, "ms_per_substep": decode_s / substeps * 1e3,
+          "launches": [c["paged_attention_launches"] for c in (lead, *fols)],
+          "int8_launches": [[c[k] for k in ("int8_matmul_launches", "int8_matmul_wide_launches",
+                                            "int8_matmul_prefill_launches")]
+                            for c in (lead, *fols)],
+          "graphs_captured": graphs,
+          "collectives": calls, "collective_bytes": lead["tp"]["bytes"],
+          "collectives_per_substep": per_substep[0],
+          "expected_per_substep": per_forward, "bytes_per_substep": per_substep[1],
+          "expected_bytes_per_substep": want_bytes,
+          "collective_host_s": [lead["tp"]["host_s"], *(c["collectives"]["host_s"] for c in fols)],
+          "peak_gib": [c["peak_device_bytes"] / 2**30 for c in (lead, *fols)],
+          "eager_windows": [c["eager_windows"] for c in (lead, *fols)],
+          "token_digest": fol["token_digest"], "frames": lead["tp"]["frames"],
+          "frame_bytes": lead["tp"]["frame_bytes"], "greedy_equal": equal, "gaps": gaps,
+          "max_logprob_drift": drift, "sampled_equal": sampled_equal, "registered_s": up_s}
+    log(f"{tag}: {len(outs)} requests, {tokens} tokens in {wall:.3f}s → "
+        f"{st['tokens_per_s']:.1f} tokens/s; {substeps} substeps, "
+        f"{st['ms_per_substep']:.3f} host ms per substep; attention launches by rank "
+        f"{st['launches']} = {L} x {substeps}; eager windows {st['eager_windows']}, "
+        f"{st['graphs_captured']} window graphs captured ({card_line})")
+    log(f"{tag}: greedy rows {equal} equal to tp 1's stream token for token; "
+        f"{len(gaps)} leave it where the two chosen tokens are {[round(g, 4) for g in gaps]} "
+        f"nats apart (|gap| < {SPEC_GAP_TOL}); max |logprob - tp 1| on equal tokens "
+        f"{drift:.4g}; sampled rows equal: {sampled_equal}; follower digest "
+        f"{fol['token_digest']} == leader's")
+    mib = lead["tp"]["bytes"] / 2**20
+    counted = (f"{per_substep[0]:.1f} per substep past the prefills, {per_forward} a forward; "
+               f"{mib:.1f} MiB in them, {per_substep[1] / 2**20:.3f} MiB per substep past the "
+               f"prefills" if not nccl else
+               f"the calls from Python; a captured window's {per_forward} a substep replay "
+               f"uncounted; {mib:.1f} MiB in those calls")
+    log(f"{tag}: {backend}: tokens/s {st['tokens_per_s']:.1f}, ms per substep "
+        f"{st['ms_per_substep']:.3f}, collectives {calls} ({counted}; "
+        f"{want_bytes / 2**20:.3f} MiB a forward of {rows} rows), host ms in collectives "
+        f"{' / '.join(f'{1e3 * h:.1f}' for h in st['collective_host_s'])}, peak memory per rank "
+        f"{' / '.join(f'{g:.2f}' for g in st['peak_gib'])} GiB, {st['frames']} frames of "
+        f"{st['frame_bytes'] / 2**10:.1f} KiB to the follower ({card_line})")
+    return st
+
+
+def tp_nccl_main(card_line: str) -> int:
+    """``python3 chip_smoke.py --tp-nccl`` on a host of two or more cards:
+    phase 4t's bf16 leg with each rank on a card of its own, so the ranks
+    meet over NCCL and every window is a CUDA graph with its collectives
+    inside; at tp 2, and at tp 4 on four cards. Held as phase 4t holds the
+    one-card run, against the burst in process at tp 1 on card 0. Prints
+    the results and the card line before the last line, as the one-card run
+    does."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --tp-nccl: {n} card(s) visible; the NCCL path needs two",
+              file=sys.stderr)
+        return 2
+    ref = asyncio.run(burst_reference(["--preset", "llama-8b"]))
+    out = {tp: tp_phase(card_line, ref, tp=tp) for tp in (2, 4) if tp <= n}
+    log("tp_nccl_path: " + json.dumps(out))
+    print(json.dumps({"tp_nccl": {tp: {k: st[k] for k in (
+        "backend", "tokens_per_s", "ms_per_substep", "substeps", "launches", "graphs_captured",
+        "eager_windows", "greedy_equal", "gaps", "peak_gib")} for tp, st in out.items()}}),
+        flush=True)
+    print(card_line, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": n}}), flush=True)
+    return 0
+
+
+async def _tp_burst(store_url: str, model: str):
+    """Phase 4's burst through the worker's generate endpoint → (each
+    request's token ids and logprobs, wall seconds)."""
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.push_router import RouterMode
+
+    rt = await DistributedRuntime.create(store_url=store_url)
+    try:
+        router = await rt.namespace("dynamo").component("backend").endpoint(
+            "generate").router(RouterMode.ROUND_ROBIN)
+        await router.discovery.wait_for_instances(1)
+
+        async def one(i, prompt):
+            req = PreprocessedRequest(model=model, token_ids=list(prompt.encode()),
+                                      eos_token_ids=[257])
+            req.sampling.temperature = BURST_TEMPS[i]
+            req.sampling.seed = 1000 + i
+            req.sampling.logprobs = True
+            req.stop.max_tokens = BURST_TOKENS
+            req.stop.ignore_eos = True
+            ids, lps = [], []
+            async for item in router.generate(req.to_dict(), Context()):
+                ids += item.get("token_ids") or []
+                lps += item.get("log_probs") or []
+            return {"ids": ids, "logprobs": lps}
+
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*(one(i, p) for i, p in enumerate(burst_prompts())))
+        return list(outs), time.perf_counter() - t0
+    finally:
+        await rt.shutdown()
 
 
 async def busy_pass(engine, one, prompts, temps, first, card_line):
@@ -7907,6 +8222,8 @@ def main() -> int:
     libs = _build.build_all()
     log(f"build: {len(libs)} kernel source(s) built in {time.perf_counter() - t0:.1f}s → "
         f"{', '.join(str(v) for v in libs.values())}")
+    if sys.argv[1:] == ["--tp-nccl"]:
+        return tp_nccl_main(card_line)
 
     mark("1-2 build")
     cases = kernel_phase(device)
@@ -7928,6 +8245,9 @@ def main() -> int:
             f"{st['graph_pool_bytes'] / 2**20:.1f} vs {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
             f"({card_line})")
     mark("4 main path")
+    tp = {"bf16": tp_phase(card_line, reference["burst"])}
+    torch.cuda.empty_cache()
+    mark("4t tensor parallel")
     tied = asyncio.run(tied_phase(card_line))
     torch.cuda.empty_cache()
     mark("4d tied")
@@ -7961,6 +8281,12 @@ def main() -> int:
     cut = cut_config("llama-8b", CUT_LAYERS)
     shallow, _, _, shallow_bytes, shallow_s = write_checkpoint("llama-8b", CUT_LAYERS)
     mark("10- checkpoint of the cut model")
+    shallow_weights = ["--model-path", shallow, "--tokenizer", "byte"]
+    tp["int8"] = tp_phase(card_line, lambda: asyncio.run(burst_reference(
+        shallow_weights, quant="int8", kv_quant="int8")), quant="int8", kv_quant="int8",
+        model_path=shallow)
+    torch.cuda.empty_cache()
+    mark("4t int8 leg")
     spec = {"bf16": asyncio.run(spec_phase(card_line, model=cut))}
     spec["int8"] = asyncio.run(spec_phase(card_line, quant="int8", kv_quant="int8", model=cut))
     for name, st in spec.items():
@@ -8075,6 +8401,8 @@ def main() -> int:
                                   for b in ("mixed", "mixed_depth0", "base_only", "grammar")),
         "launches_lora_worker": lora["worker"]["launches"],
         "launches_moe": moe["launches"][0] + moe["depth0"]["launches"][0],
+        "launches_tp_ranks": tp["bf16"]["launches"],
+        "launches_tp_ranks_int8": tp["int8"]["launches"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -8095,6 +8423,7 @@ def main() -> int:
         "launches_migration_workers": sum(migration["int8"]["int8_launches"].values()),
         "launches_lora": sum(lora["int8"][b]["launches"][1]
                              for b in ("mixed", "mixed_depth0", "base_only", "tree", "grammar")),
+        "launches_tp_ranks": [r[0] for r in tp["int8"]["int8_launches"]],
         "max_abs_err": i8["max_abs_err"], "ms": i8["ms"], "plain_ms": i8["plain_ms"],
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substeps, "cases": int8_cases,
@@ -8118,6 +8447,7 @@ def main() -> int:
         "launches_migration_workers": sum(migration["int8"]["int8_wide_launches"].values()),
         "launches_lora": sum(lora["int8"][b]["launches"][3]
                              for b in ("mixed", "mixed_depth0", "base_only", "tree", "grammar")),
+        "launches_tp_ranks": [r[1] for r in tp["int8"]["int8_launches"]],
         "max_abs_err": w32["max_abs_err"], "ms": w32["ms"], "plain_ms": w32["plain_ms"],
         "bound_ms": w32["bound_ms"], "bound_by": w32["bound_by"],
         "library_ms": w32["library_ms"], "dequant_ms": w32["dequant_ms"], "case": w32["case"],
@@ -8166,6 +8496,7 @@ def main() -> int:
         log(f"main_path_int8_kv{kv_quant}: " + json.dumps(st))
     log("tied_path: " + json.dumps(tied, default=str))
     log("moe_path: " + json.dumps(moe, default=str))
+    log("tp_path: " + json.dumps(tp))
     log("http_path: " + json.dumps(http))
     log("checkpoint_path: " + json.dumps(ckpt))
     log("tokenizer_path: " + json.dumps(tok))

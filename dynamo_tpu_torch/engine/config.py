@@ -206,6 +206,9 @@ class EngineArgs:
     # Where params and the KV cache live: "cuda" unless the caller asks
     # for "cpu" (device.resolve_device; no silent fallback).
     device: str = "cuda"
+    # Tensor parallelism: ranks, one process each (parallel/; the runner
+    # holds the rank's shards and its TpGroup). 1 = one card.
+    tp: int = 1
     # Speculative decoding (engine/drafter.py + model.spec_verify), the
     # JAX package's knobs and defaults: max draft tokens verified per pass
     # (0 = off). One verify pass streams the weights once for up to
@@ -277,6 +280,8 @@ class EngineArgs:
             )
         if self.lora_slots < 0:
             raise ValueError(f"lora_slots must be >= 0; got {self.lora_slots}")
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1; got {self.tp}")
         if not 0.0 <= self.kv_pressure_offer <= 1.0:
             raise ValueError(
                 f"kv_pressure_offer must be in [0, 1]; got {self.kv_pressure_offer}"

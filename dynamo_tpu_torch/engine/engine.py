@@ -544,10 +544,13 @@ class _Spec:
 
 class TorchEngine:
     def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0,
-                 event_sink=None):
+                 event_sink=None, runner: LocalRunner | None = None):
         self.args = args
         self.cfg = args.model
-        self._runner = LocalRunner(args, params=params, seed=seed)
+        # ``runner``: a LeaderRunner when the model spans tp rank processes
+        # (its followers replay this engine's dispatches); the scheduler
+        # runs here alone.
+        self._runner = runner or LocalRunner(args, params=params, seed=seed)
         self.pool = BlockPool(
             args.num_kv_blocks, args.block_size, event_sink=event_sink,
             enable_prefix_caching=args.prefix_caching,

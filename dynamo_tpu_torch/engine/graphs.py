@@ -53,7 +53,7 @@ def read_counts() -> tuple[int, ...]:
     return tuple(getattr(mod, name) for mod, name in COUNTERS)
 
 
-def _set(values) -> None:
+def set_counts(values) -> None:
     for (mod, name), v in zip(COUNTERS, values):
         setattr(mod, name, v)
 
@@ -108,7 +108,7 @@ class WindowGraphs:
             g = self._graphs[key] = self._capture(*make())
         g.static_in.copy_(torch.from_numpy(words).pin_memory(), non_blocking=True)
         g.graph.replay()
-        _set(a + b for a, b in zip(read_counts(), g.calls))
+        set_counts(a + b for a, b in zip(read_counts(), g.calls))
         self.replays += 1
         return g.outs
 
@@ -127,7 +127,7 @@ class WindowGraphs:
         with torch.cuda.graph(graph, pool=self.pool):
             outs = tuple(fn(static_in))
         calls = tuple(b - a for a, b in zip(mark, read_counts()))
-        _set(base)
+        set_counts(base)
         dt = time.perf_counter() - t0
         self.capture_s += dt
         return _Graph(graph, static_in, outs, calls, dt, self.pool_bytes() - pool0)

@@ -47,6 +47,7 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.quant import quantize_params_device
 from dynamo_tpu_torch.engine.safetensors_io import SafeTensorsFile, save_file
+from dynamo_tpu_torch.parallel.mesh import ModelSharding
 from dynamo_tpu_torch.runtime.logging import get_logger
 
 log = get_logger("loader")
@@ -140,11 +141,34 @@ def _read_all_tensors(model_path: str) -> dict[str, torch.Tensor]:
 
 
 def load_params(model_path: str, cfg: ModelConfig, dtype: Any = None, quant: str = "none",
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda", shard=None):
     """safetensors → the engine params tree on ``device``: per-layer
-    tensors stacked into [L, ...] leaves, then ``finalize_params``."""
+    tensors stacked into [L, ...] leaves, then ``finalize_params``. With
+    ``shard`` (a ``parallel.mesh.ModelSharding``) each leaf is cut to the
+    rank's shard as it is read, so the host holds one whole leaf at a time;
+    under int8 the row-split wo and w_down stay whole until quantized
+    (their per-column scales reduce over every row), then are cut."""
     device = resolve_device(device)
     raw = _read_all_tensors(model_path)
+    expect = {
+        ("embed",): (cfg.vocab_size, cfg.hidden_size),
+        ("layers", "wq"): (cfg.num_layers, cfg.hidden_size, cfg.q_size),
+        ("layers", "wk"): (cfg.num_layers, cfg.hidden_size, cfg.kv_size),
+        ("layers", "wv"): (cfg.num_layers, cfg.hidden_size, cfg.kv_size),
+        ("layers", "wo"): (cfg.num_layers, cfg.q_size, cfg.hidden_size),
+        ("layers", "w_gate"): (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size),
+        ("layers", "w_up"): (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size),
+        ("layers", "w_down"): (cfg.num_layers, cfg.intermediate_size, cfg.hidden_size),
+    }
+
+    def keep(path: tuple, t: torch.Tensor) -> torch.Tensor:
+        """Shape check, then the rank's shard (the whole leaf at tp=1)."""
+        if path in expect and tuple(t.shape) != expect[path]:
+            raise ValueError(f"{path[-1] if len(path) == 1 else path}: checkpoint shape "
+                             f"{tuple(t.shape)} != expected {expect[path]}")
+        if shard is None or (quant == "int8" and path[-1] in ("wo", "w_down")):
+            return t
+        return shard.shard_leaf(path, t)
 
     def take(name: str) -> torch.Tensor:
         try:
@@ -158,15 +182,16 @@ def load_params(model_path: str, cfg: ModelConfig, dtype: Any = None, quant: str
 
     L = "model.layers.{i}"
     params: dict[str, Any] = {
-        "embed": take("model.embed_tokens.weight"),
-        "layers": {ours: stack(f"{L}.{hf}", tr) for ours, (hf, tr) in _LAYER_NAMES.items()},
+        "embed": keep(("embed",), take("model.embed_tokens.weight")),
+        "layers": {ours: keep(("layers", ours), stack(f"{L}.{hf}", tr))
+                   for ours, (hf, tr) in _LAYER_NAMES.items()},
         "final_norm": take("model.norm.weight"),
     }
     if cfg.attn_bias:
         for ours, hf in _BIAS_NAMES.items():
-            params["layers"][ours] = stack(f"{L}.{hf}", False)
+            params["layers"][ours] = keep(("layers", ours), stack(f"{L}.{hf}", False))
     if not cfg.tie_embeddings:
-        params["lm_head"] = take("lm_head.weight").T
+        params["lm_head"] = keep(("lm_head",), take("lm_head.weight").T)
     else:
         raw.pop("lm_head.weight", None)  # some tied checkpoints still store it
     leftovers = [k for k in raw if not k.endswith("rotary_emb.inv_freq")]
@@ -180,28 +205,11 @@ def load_params(model_path: str, cfg: ModelConfig, dtype: Any = None, quant: str
         )
     if leftovers:
         log.warning("ignoring %d unexpected tensors (e.g. %s)", len(leftovers), leftovers[:3])
-
-    # Shape validation before any device transfer.
-    expect = {
-        "embed": (cfg.vocab_size, cfg.hidden_size),
-        ("layers", "wq"): (cfg.num_layers, cfg.hidden_size, cfg.q_size),
-        ("layers", "wk"): (cfg.num_layers, cfg.hidden_size, cfg.kv_size),
-        ("layers", "wv"): (cfg.num_layers, cfg.hidden_size, cfg.kv_size),
-        ("layers", "wo"): (cfg.num_layers, cfg.q_size, cfg.hidden_size),
-        ("layers", "w_gate"): (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size),
-        ("layers", "w_up"): (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size),
-        ("layers", "w_down"): (cfg.num_layers, cfg.intermediate_size, cfg.hidden_size),
-    }
-    for key, shape in expect.items():
-        leaf = params[key] if isinstance(key, str) else params[key[0]][key[1]]
-        if tuple(leaf.shape) != shape:
-            raise ValueError(f"{key}: checkpoint shape {tuple(leaf.shape)} != expected {shape}")
-
-    return finalize_params(params, dtype=dtype, quant=quant, device=device)
+    return finalize_params(params, dtype=dtype, quant=quant, device=device, shard=shard)
 
 
 def finalize_params(params: dict, dtype: Any = None, quant: str = "none",
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda", shard=None):
     """Shared checkpoint tail (safetensors + GGUF): optional int8
     quantization, then each leaf converted and placed on ``device`` with
     one copy. int8 weights keep their dtype; every other leaf goes to the
@@ -209,7 +217,9 @@ def finalize_params(params: dict, dtype: Any = None, quant: str = "none",
 
     A bf16 staging copy of an 8B model on the device is what int8 exists
     to avoid, so the device quantizes one layer slice at a time
-    (``quantize_params_device``, bit-equal to the host quantizer)."""
+    (``quantize_params_device``, bit-equal to the host quantizer). With
+    ``shard`` the leaves still whole are cut to the rank's shard after
+    quantizing and placing, as the JAX package shards the loaded tree."""
     dtype = _torch_dtype(dtype)
     device = resolve_device(device)
     if quant == "int8":
@@ -223,7 +233,8 @@ def finalize_params(params: dict, dtype: Any = None, quant: str = "none",
             t = t.to(dtype)
         return t.contiguous().to(device)
 
-    return place(params)
+    params = place(params)
+    return params if shard is None else shard.shard_params(params)
 
 
 def load_config(name_or_path: str) -> ModelConfig:
@@ -239,19 +250,22 @@ def load_config(name_or_path: str) -> ModelConfig:
 
 
 def load_model(name_or_path: str, dtype: Any = None, quant: str = "none",
-               device: str | torch.device = "cuda"):
+               device: str | torch.device = "cuda", tp: int = 1, rank: int = 0):
     """→ (ModelConfig, params on ``device``). Accepts a local HF checkpoint
     directory, a .gguf file, or an `org/repo` hub name resolved through the
-    HF hub cache (engine/hub.py)."""
+    HF hub cache (engine/hub.py). With ``tp`` > 1 the params are ``rank``'s
+    shards (``parallel.mesh.ModelSharding``)."""
     from dynamo_tpu_torch.engine.hub import is_gguf, resolve_model
 
     model_path = resolve_model(name_or_path)
     if is_gguf(model_path):
         from dynamo_tpu_torch.engine.gguf import load_gguf_model
 
-        return load_gguf_model(model_path, dtype=dtype, quant=quant, device=device)
+        cfg, params = load_gguf_model(model_path, dtype=dtype, quant=quant, device=device)
+        return cfg, params if tp == 1 else ModelSharding(cfg, tp, rank).shard_params(params)
     cfg = config_from_hf(model_path)
-    params = load_params(model_path, cfg, dtype=dtype, quant=quant, device=device)
+    params = load_params(model_path, cfg, dtype=dtype, quant=quant, device=device,
+                         shard=None if tp == 1 else ModelSharding(cfg, tp, rank))
     log.info("loaded %s: %.2f GB of weights from %s", cfg.name, _nbytes(params) / 1e9, model_path)
     return cfg, params
 

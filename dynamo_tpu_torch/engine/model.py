@@ -34,6 +34,16 @@ tensor products, the reference's being XLA einsums, not a Pallas kernel.
 Expert stacks stay in the compute dtype under ``quant="int8"``, as in the
 JAX package.
 
+Tensor parallelism: every forward takes ``tp``, the rank's
+``parallel.mesh.ModelSharding`` (None at tp=1, where no collective is
+called and the code path is unchanged). The rank computes with its local
+view of the model (its query and kv heads, its FFN width) on its shards;
+the partial sums of wo and of w_down (or the MoE combine) are summed over
+the ranks (``_reduce``), a vocabulary-split embedding is a masked lookup
+then a sum, and vocabulary-split logits are gathered, so every rank holds
+the full logits and samples the same token from the same bits. The XLA
+reference derives the same collectives from its shardings.
+
 ``embed`` is the JAX package's ``embed_impl`` (/v1/embeddings): a
 cache-free causal forward, mean-pooled. Its attention, like prefill
 attention, is plain tensor code (XLA in the JAX package); decode
@@ -104,7 +114,7 @@ def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def init_params(cfg: ModelConfig, device: torch.device, dtype: torch.dtype = torch.bfloat16,
-                seed: int = 0) -> Params:
+                seed: int = 0, shard=None) -> Params:
     """Random-init params on ``device`` from a seeded ``torch.Generator``
     there: normal(0, 1/fan_in) weights, unit norms, 0.02-scale biases —
     the JAX package's leaves, shapes and distribution (not its random
@@ -112,13 +122,20 @@ def init_params(cfg: ModelConfig, device: torch.device, dtype: torch.dtype = tor
     expert stacks ``moe_gate``/``moe_up [L, E, d, ie]``, ``moe_down [L, E,
     ie, d]`` in place of the dense FFN. Each layer's tensors are drawn in
     f32 and cast one at a time, so the f32 temporaries stay one layer's
-    tensor large."""
+    tensor large. With ``shard`` (a ``parallel.mesh.ModelSharding``) every
+    leaf is drawn whole, in the same order, and only the rank's shard is
+    kept: the ranks of a tensor-parallel group hold the tp=1 weights."""
     g = torch.Generator(device=device).manual_seed(seed)
     d, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
-    def normal(shape, fan_in, std=None):
+    def normal(shape, fan_in, std=None, path=None):
         w = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
-        return (w * (std if std is not None else fan_in ** -0.5)).to(dtype)
+        w = (w * (std if std is not None else fan_in ** -0.5)).to(dtype)
+        if shard is None or path is None:
+            return w
+        if path[0] == "layers":  # one layer's slice: the rules count the layer axis
+            return shard.shard_leaf(path, w[None])[0]
+        return shard.shard_leaf(path, w)
 
     shapes = {
         "wq": ((d, cfg.q_size), d), "wk": ((d, cfg.kv_size), d),
@@ -133,22 +150,22 @@ def init_params(cfg: ModelConfig, device: torch.device, dtype: torch.dtype = tor
     if cfg.attn_bias:
         shapes.update({"bq": ((cfg.q_size,), None), "bk": ((cfg.kv_size,), None),
                        "bv": ((cfg.kv_size,), None)})
-    layers: dict[str, torch.Tensor] = {
-        name: torch.empty((L, *shape), dtype=dtype, device=device)
-        for name, (shape, _) in shapes.items()
-    }
+    layers: dict[str, torch.Tensor] = {}
     for layer in range(L):
         for name, (shape, fan_in) in shapes.items():
-            layers[name][layer] = normal(shape, fan_in, None if fan_in else 0.02)
+            w = normal(shape, fan_in, None if fan_in else 0.02, ("layers", name))
+            if name not in layers:
+                layers[name] = torch.empty((L, *w.shape), dtype=dtype, device=device)
+            layers[name][layer] = w
     layers["attn_norm"] = torch.ones((L, d), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, d), dtype=dtype, device=device)
     params: Params = {
-        "embed": normal((cfg.vocab_size, d), d),
+        "embed": normal((cfg.vocab_size, d), d, path=("embed",)),
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), d)
+        params["lm_head"] = normal((d, cfg.vocab_size), d, path=("lm_head",))
     return params
 
 
@@ -196,12 +213,35 @@ def _dot_q(x: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
     return x @ w
 
 
-def _embed_rows(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _local(cfg: ModelConfig, tp) -> ModelConfig:
+    """The model as one tensor-parallel rank holds it (its heads and FFN
+    width; ``parallel.mesh.ModelSharding.local``), or ``cfg`` at tp=1."""
+    return cfg if tp is None else tp.local
+
+
+def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
+    """Sum a row-split product's partial ``y`` over the tp ranks (nothing at
+    tp=1)."""
+    return y if tp is None else tp.group.all_reduce_(y)
+
+
+def _embed_rows(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
+                tp=None) -> torch.Tensor:
+    """Embedding rows of ``tokens``. With a vocabulary-split table each rank
+    looks up the rows it holds, zeroes the rest, and the sum over the ranks
+    is the full lookup (exact: one term per row is nonzero)."""
     idx = tokens.long()
+    own = None
+    if tp is not None and tp.vocab_sharded:
+        local = idx - tp.vocab_lo
+        own = (local >= 0) & (local < tp.vocab_hi - tp.vocab_lo)
+        idx = torch.where(own, local, 0)
     e = params["embed"][idx]
     if e.dtype == torch.int8:
         scale = params["embed_scale"][idx].to(dtype)
-        return e.to(dtype) * scale[..., None]
+        e = e.to(dtype) * scale[..., None]
+    if own is not None:
+        e = tp.group.all_reduce_(torch.where(own[..., None], e, torch.zeros_like(e)))
     return e
 
 
@@ -323,21 +363,29 @@ def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     return _moe(x, lp, cfg) if cfg.num_experts else _mlp(x, lp)
 
 
-def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
     """→ f32 logits. int8 heads: ``x @ w`` rounded to x's dtype, then f32
     times the scale leaf as it is (the JAX package's ``_logits``). A tied
     int8 embedding goes as ``emb.T``, a view: the kernel's tied-head entry
-    reads it as stored, and no transposed copy is made."""
+    reads it as stored, and no transposed copy is made. A vocabulary-split
+    head computes the rank's slice, then gathers every rank's: each rank
+    holds the same full logits, so each samples the same token."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_embeddings:
         emb = params["embed"]
         if emb.dtype == torch.int8:
-            return im.int8_matmul(x, emb.T, params["embed_scale"], out_f32=True)
-        return (x @ emb.T).float()
-    head = params["lm_head"]
-    if head.dtype == torch.int8:
-        return im.int8_matmul(x, head, params["lm_head_scale"], out_f32=True)
-    return (x @ head).float()
+            out = im.int8_matmul(x, emb.T, params["embed_scale"], out_f32=True)
+        else:
+            out = (x @ emb.T).float()
+    else:
+        head = params["lm_head"]
+        if head.dtype == torch.int8:
+            out = im.int8_matmul(x, head, params["lm_head_scale"], out_f32=True)
+        else:
+            out = (x @ head).float()
+    if tp is not None and tp.vocab_sharded:
+        out = tp.group.all_gather(out)
+    return out
 
 
 def _write_pages(cache: KVCache, layer: int, idx: tuple, k: torch.Tensor, v: torch.Tensor,
@@ -372,6 +420,7 @@ def prefill_batch(
     true_len: torch.Tensor,      # [Bp] int32 — true total length (0 = inactive row)
     lora: dict | None = None,    # adapter bank {qa..ob: [L, S, ...]}
     adapter_slots: torch.Tensor | None = None,  # [Bp] int32, -1 = base row
+    tp=None,                     # parallel.mesh.ModelSharding of this rank (None: tp=1)
 ) -> torch.Tensor:
     """Prefill Bp sequences' suffixes, each attending its own cached
     prefix pages; writes the suffix KV into the cache and returns
@@ -380,6 +429,7 @@ def prefill_batch(
     Prefix caching contract per row: positions [0, start_pos) are already
     in the blocks ``block_tables`` names (whole blocks); suffix positions
     [start_pos, true_len) are computed here."""
+    cfg = _local(cfg, tp)
     lrows = _lora_rows(lora, adapter_slots)
     Bp, T = tokens.shape
     W = block_tables.shape[1]
@@ -392,7 +442,7 @@ def prefill_batch(
     sfx = torch.arange(T, device=dev)
     suffix_positions = start[:, None] + sfx[None, :]                       # [Bp, T]
 
-    x = _embed_rows(params, tokens, _compute_dtype(params))                # [Bp, T, D]
+    x = _embed_rows(params, tokens, _compute_dtype(params), tp)            # [Bp, T, D]
 
     # Additive f32 masks, fixed for all layers.
     neg = -1e9
@@ -442,17 +492,18 @@ def prefill_batch(
         p_p, p_s = p[..., : W * bs], p[..., W * bs :]
         o = (torch.einsum("btkgc,bckh->btkgh", p_p, pv)
              + torch.einsum("btkgs,bskh->btkgh", p_s, v))
-        x = x + _wo_lora(o.reshape(Bp, T, cfg.q_size), lp, ll, lrows)
-        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
+        x = x + _reduce(_wo_lora(o.reshape(Bp, T, cfg.q_size), lp, ll, lrows), tp)
+        x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
 
     last = torch.clamp(tlen - start - 1, 0, T - 1)
     x_last = x[torch.arange(Bp, device=dev), last]                         # [Bp, D]
-    return _logits(cfg, params, x_last)
+    return _logits(cfg, params, x_last, tp)
 
 
 def prefill(cfg: ModelConfig, params: Params, cache: KVCache, tokens: torch.Tensor,
             block_table: torch.Tensor, start_pos: int, true_len: int,
-            lora: dict | None = None, adapter_slot: int | None = None) -> torch.Tensor:
+            lora: dict | None = None, adapter_slot: int | None = None,
+            tp=None) -> torch.Tensor:
     """Single-sequence prefill (the chunked-prefill entry point): the
     Bp=1 case of ``prefill_batch`` → logits [V]; ``adapter_slot`` is the
     row's bank slot (-1 = base) when ``lora`` rides."""
@@ -462,7 +513,7 @@ def prefill(cfg: ModelConfig, params: Params, cache: KVCache, tokens: torch.Tens
         torch.tensor([start_pos], dtype=torch.int32, device=dev),
         torch.tensor([true_len], dtype=torch.int32, device=dev),
         lora, None if adapter_slot is None
-        else torch.tensor([adapter_slot], dtype=torch.int32, device=dev),
+        else torch.tensor([adapter_slot], dtype=torch.int32, device=dev), tp,
     )[0]
 
 
@@ -482,9 +533,13 @@ def decode_step(
     attn_impl: str = "auto",
     lora: dict | None = None,    # adapter bank {qa..ob: [L, S, ...]}
     adapter_slots: torch.Tensor | None = None,  # [B] int32, -1 = base row
+    tp=None,                     # parallel.mesh.ModelSharding of this rank (None: tp=1)
 ) -> torch.Tensor:
     """One decode step: write each sequence's new KV at its position, then
-    attend over its pages ([0, position]) → logits [B, V] (f32)."""
+    attend over its pages ([0, position]) → logits [B, V] (f32). Under tp
+    the attention kernel runs on the rank's kv heads and their query
+    heads."""
+    cfg = _local(cfg, tp)
     lrows = _lora_rows(lora, adapter_slots)
     impl = pa.resolve_attn_impl(attn_impl, tokens.device)
     attend = pa.paged_decode_attention if impl == "cuda" else pa.paged_decode_attention_ref
@@ -499,7 +554,7 @@ def decode_step(
     # token at `positions` attends [0, positions]; inactive rows attend nothing
     lengths = torch.where(active, pos + 1, 0).to(torch.int32)
 
-    x = _embed_rows(params, tokens, _compute_dtype(params))                # [B, D]
+    x = _embed_rows(params, tokens, _compute_dtype(params), tp)            # [B, D]
     rope = _rope_table(pos, hd, cfg.rope_theta)
     for layer in range(cfg.num_layers):
         lp = _layer(params, layer)
@@ -514,9 +569,9 @@ def decode_step(
         _write_pages(cache, layer, (blk, off), k, v, (B, KVH * hd))
         o = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                    lengths, cache.k_scale, cache.v_scale)
-        x = x + _wo_lora(o.reshape(B, cfg.q_size), lp, ll, lrows)
-        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
-    return _logits(cfg, params, x)
+        x = x + _reduce(_wo_lora(o.reshape(B, cfg.q_size), lp, ll, lrows), tp)
+        x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
+    return _logits(cfg, params, x, tp)
 
 
 def multi_decode(
@@ -545,6 +600,7 @@ def multi_decode(
     adapter_slots: torch.Tensor | None = None,   # [B] int32, -1 = base row
     *,
     attn_impl: str = "auto",
+    tp=None,                                     # parallel.mesh.ModelSharding (None: tp=1)
 ):
     """``num_steps`` fused decode+sample substeps: sampled tokens feed back
     on the device, so the caller fetches once per window. → (tokens
@@ -577,7 +633,7 @@ def multi_decode(
     tok, pos = tokens, positions
     for i in range(num_steps):
         logits = decode_step(cfg, params, cache, tok, pos, block_tables, active, attn_impl,
-                             lora, adapter_slots)
+                             lora, adapter_slots, tp)
         if mode == "greedy":
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         elif mode == "simple":
@@ -629,6 +685,7 @@ def spec_verify(
     *,
     fused: bool = True,
     attn_impl: str = "auto",
+    tp=None,                                   # parallel.mesh.ModelSharding (None: tp=1)
 ) -> tuple[torch.Tensor, ...]:
     """Speculative verify (the JAX package's ``spec_verify_impl``): score S1
     consecutive positions per row in one dispatch. Input j writes its KV at
@@ -666,6 +723,7 @@ def spec_verify(
     n_emit-1]), all on the device; the cache is updated in place."""
     if mask_bits is not None and tree_parents is None:
         raise ValueError("grammar masks ride tree verify passes only")
+    cfg = _local(cfg, tp)
     lrows = _lora_rows(lora, adapter_slots)
     if mode not in ("greedy", "simple"):
         raise ValueError(f"unknown verify sampler mode {mode!r}")
@@ -696,7 +754,7 @@ def spec_verify(
     if fused or tree:
         impl = pa.resolve_attn_impl(attn_impl, dev)
         attend = pa.paged_spec_attention if impl == "cuda" else pa.paged_spec_attention_ref
-        x = _embed_rows(params, tokens, _compute_dtype(params))           # [B, T, D]
+        x = _embed_rows(params, tokens, _compute_dtype(params), tp)       # [B, T, D]
         blk = torch.where(use, table_at(wpos), 0)
         off = torch.where(use, wpos % bs, 0)
         if tree:
@@ -722,15 +780,15 @@ def spec_verify(
             _write_pages(cache, layer, (blk, off), k, v, (B, T, KVH * hd))
             o = attend(q.reshape(B, T, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                        lengths, cache.k_scale, cache.v_scale, anc)
-            x = x + _wo_lora(o.reshape(B, T, cfg.q_size), lp, ll, lrows)
-            x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
-        logits = _logits(cfg, params, x)                                  # [B, T, V]
+            x = x + _reduce(_wo_lora(o.reshape(B, T, cfg.q_size), lp, ll, lrows), tp)
+            x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
+        logits = _logits(cfg, params, x, tp)                              # [B, T, V]
     else:
         # Dead slots step at position 0 (their rows are inactive there).
         tok32, pos32 = tokens.to(torch.int32), torch.where(use, pos, 0).to(torch.int32)
         step_logits = [
             decode_step(cfg, params, cache, tok32[:, j], pos32[:, j], block_tables, use[:, j],
-                        attn_impl, lora, adapter_slots)
+                        attn_impl, lora, adapter_slots, tp)
             for j in range(T)
         ]
         logits = torch.stack(step_logits, dim=1)
@@ -793,6 +851,7 @@ def embed(
     params: Params,
     tokens: torch.Tensor,  # [T_pad] int32
     true_len: int,         # tokens that count; the rest is padding
+    tp=None,               # parallel.mesh.ModelSharding of this rank (None: tp=1)
 ) -> torch.Tensor:
     """Mean-pooled final-norm hidden state over the true tokens → [D] f32
     (the JAX package's ``embed_impl``; serves /v1/embeddings). A cache-free
@@ -800,11 +859,12 @@ def embed(
     in f32, a -1e9 additive mask over future and padded keys, softmax in
     f32. Padded positions attend the true ones but are left out of the
     mean, so the vector does not depend on the padding beyond rounding."""
+    cfg = _local(cfg, tp)
     T = tokens.shape[0]
     KVH, hd = cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KVH
     dev = tokens.device
-    x = _embed_rows(params, tokens, _compute_dtype(params))               # [T, D]
+    x = _embed_rows(params, tokens, _compute_dtype(params), tp)           # [T, D]
     pos = torch.arange(T, device=dev)
     valid = pos < true_len
     allowed = (pos[None, :] <= pos[:, None]) & valid[None, :]
@@ -823,8 +883,8 @@ def embed(
         s = s + mask[:, None, None, :]
         p = torch.softmax(s, dim=-1).to(x.dtype)
         o = torch.einsum("tkgs,skh->tkgh", p, v).reshape(T, cfg.q_size)
-        x = x + _dot_q(o, lp, "wo")
-        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
+        x = x + _reduce(_dot_q(o, lp, "wo"), tp)
+        x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float()
     w = valid.float()[:, None]
     return (x * w).sum(dim=0) / max(float(true_len), 1.0)

@@ -126,7 +126,7 @@ def _int8_layer_specs(cfg) -> dict[str, tuple[tuple, int]]:
 
 
 def random_int8_params_device(cfg, device: torch.device, seed: int = 0,
-                              dtype: torch.dtype = torch.bfloat16) -> dict[str, Any]:
+                              dtype: torch.dtype = torch.bfloat16, shard=None) -> dict[str, Any]:
     """Random int8 params made on ``device`` (no host upload), from a
     ``torch.Generator`` there seeded with ``seed``. The tree has the JAX
     package's ``random_int8_params_device`` leaves, shapes and dtypes:
@@ -134,11 +134,17 @@ def random_int8_params_device(cfg, device: torch.device, seed: int = 0,
     ``lm_head_scale [V]``, norms (and biases) in ``dtype``, which makes it
     the forward's compute dtype. The values are torch's draws, not jax's
     threefry bits: nothing compares them across packages, and decode time
-    does not depend on weight values."""
+    does not depend on weight values. With ``shard`` (a
+    ``parallel.mesh.ModelSharding``) each leaf is drawn whole, in the same
+    order, and only the rank's shard is kept: tp ranks hold tp=1's
+    weights."""
     if getattr(cfg, "num_experts", 0):
         raise NotImplementedError("int8 random init not wired for MoE configs")
     g = torch.Generator(device=device).manual_seed(seed)
     d, L = cfg.hidden_size, cfg.num_layers
+
+    def keep(path, a):
+        return a if shard is None else shard.shard_leaf(path, a)
 
     def q(shape, fan_in):
         w = torch.randint(-127, 128, shape, generator=g, device=device, dtype=torch.int8)
@@ -148,24 +154,26 @@ def random_int8_params_device(cfg, device: torch.device, seed: int = 0,
     layers: dict[str, torch.Tensor] = {}
     for name, (shape, fan) in _int8_layer_specs(cfg).items():
         w, s = q(shape, fan)
-        layers[name] = w
-        layers[name + "_scale"] = s.expand(L, shape[-1]).contiguous()
+        layers[name] = keep(("layers", name), w)
+        layers[name + "_scale"] = keep(("layers", name + "_scale"),
+                                       s.expand(L, shape[-1]).contiguous())
+        del w
     layers["attn_norm"] = torch.ones((L, d), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, d), dtype=dtype, device=device)
     if cfg.attn_bias:
         for name, width in (("bq", cfg.q_size), ("bk", cfg.kv_size), ("bv", cfg.kv_size)):
             b = torch.randn((L, width), generator=g, device=device, dtype=torch.float32)
-            layers[name] = (b * 0.02).to(dtype)
+            layers[name] = keep(("layers", name), (b * 0.02).to(dtype))
     params: dict[str, Any] = {
-        "embed": torch.randint(-127, 128, (cfg.vocab_size, d), generator=g, device=device,
-                               dtype=torch.int8),
-        "embed_scale": torch.full((cfg.vocab_size,), (d ** -0.5) / 64.0, dtype=torch.float32,
-                                  device=device),
+        "embed": keep(("embed",), torch.randint(-127, 128, (cfg.vocab_size, d), generator=g,
+                                                device=device, dtype=torch.int8)),
+        "embed_scale": keep(("embed_scale",), torch.full(
+            (cfg.vocab_size,), (d ** -0.5) / 64.0, dtype=torch.float32, device=device)),
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
         w, s = q((d, cfg.vocab_size), d)
-        params["lm_head"] = w
-        params["lm_head_scale"] = s
+        params["lm_head"] = keep(("lm_head",), w)
+        params["lm_head_scale"] = keep(("lm_head_scale",), s)
     return params

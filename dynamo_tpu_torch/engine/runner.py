@@ -1,5 +1,6 @@
 """LocalRunner: every device dispatch the engine makes, behind one seam
-(port of ``dynamo_tpu/engine/runner.py`` ``LocalRunner``).
+(port of ``dynamo_tpu/engine/runner.py`` ``LocalRunner``, ``LeaderRunner``
+and ``follower_loop``).
 
 Owns the device state (params, KV cache, the per-slot chain buffer) and
 turns the engine's host arrays into device calls that never wait for the
@@ -36,11 +37,20 @@ device:
   variant of its shape; one without passes None and replays the pre-LoRA
   graph, as the JAX runner's ``_lora_operands`` gives the pre-LoRA trace.
 
+- Tensor parallelism (``args.tp`` > 1): the runner holds one rank's
+  shards and cache lanes (``parallel/``), and ``LeaderRunner`` mirrors
+  every dispatch to follower processes, which replay them in
+  ``follower_loop`` (the JAX package's multi-host design: one scheduler,
+  one dispatch stream, every rank making the same calls).
+
 Thread affinity: the engine's scheduler thread only.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import socket
+import struct
 import time
 from collections import OrderedDict
 from typing import Any
@@ -53,7 +63,7 @@ from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.grammar import mask_words
-from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts
+from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts, set_counts
 from dynamo_tpu_torch.engine.lora import LORA_PAGE_KEYS, bank_shapes
 from dynamo_tpu_torch.engine.quant import quantize_params_np, random_int8_params_device
 from dynamo_tpu_torch.engine.sampler import (
@@ -66,6 +76,8 @@ from dynamo_tpu_torch.engine.sampler import (
 )
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.ops.paged_attention import resolve_attn_impl
+from dynamo_tpu_torch.parallel.mesh import ModelSharding
+from dynamo_tpu_torch.runtime import msgpack_lite
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -231,13 +243,38 @@ class LocalRunner:
     """``params``: a tree of tensors on the device, a tree of numpy arrays
     (moved there by ``params_from_numpy``; with ``quant="int8"`` float ones
     are quantized on the host first), or None (random weights made on the
-    device, int8 ones with ``quant="int8"``)."""
+    device, int8 ones with ``quant="int8"``).
 
-    def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0):
+    Tensor parallelism (``args.tp`` > 1): ``group`` is this rank's
+    ``parallel.comm.TpGroup``. The runner keeps the rank's shards of the
+    params (a full tree is cut, random weights are drawn whole and cut, so
+    every tp holds tp=1's weights) and the rank's kv-head lanes of the
+    cache, and every forward runs with the rank's ``ModelSharding``.
+    Captured windows need collectives a CUDA graph can hold: under NCCL
+    they are captured as at tp=1; under gloo (ranks sharing a card) they
+    run eagerly and count in ``eager_windows``. ``extract_pages`` gathers
+    every rank's lanes into the JAX layout ``[L, n, bs, KVH·hd]`` and
+    ``inject_pages`` takes the rank's lanes of such pages, so tier files,
+    disagg payloads and migrations read the same at any tp. Each rank
+    folds the tokens it samples into ``token_digest`` on the device, so
+    ranks can be shown to sample alike without a fetch per dispatch. LoRA
+    under tp is not ported and is refused."""
+
+    def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0,
+                 group=None):
         self.args = args
         self.cfg = args.model
         self._seed = seed
         self.params = params
+        self.group = group
+        self.sharding = None
+        if args.tp > 1:
+            if group is None or group.size != args.tp:
+                raise ValueError(f"tp={args.tp} needs a TpGroup of {args.tp} ranks")
+            if args.lora_slots > 0:
+                raise ValueError("LoRA under tp > 1 is not ported (lora_slots must be 0)")
+            self.sharding = ModelSharding(self.cfg, args.tp, group.rank, group)
+        self.token_digest: torch.Tensor | None = None
         self.cache: M.KVCache | None = None
         self.device: torch.device | None = None
         self.dtype = DTYPES[args.dtype]
@@ -276,7 +313,7 @@ class LocalRunner:
         if self.args.quant == "int8" and self.params is None:
             # Made on the card: int8 from birth, no weight upload.
             self.params = random_int8_params_device(self.cfg, self.device, self._seed,
-                                                    self.dtype)
+                                                    self.dtype, shard=self.sharding)
         elif self.args.quant == "int8" and not any(a.dtype == np.int8 or a.dtype == torch.int8
                                                    for a in leaves):
             if not on_host:
@@ -288,13 +325,20 @@ class LocalRunner:
                 )
             self.params = quantize_params_np(self.params)
         if self.params is None:
-            self.params = M.init_params(self.cfg, self.device, self.dtype, self._seed)
-        elif on_host:
-            self.params = params_from_numpy(self.params, self.device, self.dtype)
+            self.params = M.init_params(self.cfg, self.device, self.dtype, self._seed,
+                                        shard=self.sharding)
+        else:
+            if self.sharding is not None:
+                self.params = self.sharding.shard_params(self.params)
+            if on_host:
+                self.params = params_from_numpy(self.params, self.device, self.dtype)
         self.cache = M.init_kv_cache(
-            self.cfg, self.args.num_kv_blocks, self.args.block_size, self.dtype,
+            self.cfg if self.sharding is None else self.sharding.local,
+            self.args.num_kv_blocks, self.args.block_size, self.dtype,
             self.device, kv_quant=self.args.kv_quant,
         )
+        if self.sharding is not None:
+            self.token_digest = torch.zeros((), dtype=torch.int64, device=self.device)
         self.last_toks = torch.zeros((self.args.max_num_seqs + 1,), dtype=torch.int32,
                                       device=self.device)
         if self.args.lora_slots > 0:
@@ -305,7 +349,7 @@ class LocalRunner:
                 for k, shape in bank_shapes(self.cfg, self.args.lora_slots,
                                             self.args.lora_rank).items()
             }
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and (self.group is None or self.group.backend == "nccl"):
             self.graphs = WindowGraphs(self.device)
 
     def stop(self) -> None:
@@ -382,7 +426,7 @@ class LocalRunner:
         return M.prefill_batch(
             self.cfg, self.params, self.cache, self._t(toks, torch.int32),
             self._t(tables, torch.int32), self._t(starts, torch.int32),
-            self._t(tlens, torch.int32), bank, aslots,
+            self._t(tlens, torch.int32), bank, aslots, self.sharding,
         )
 
     def prefill_chunk(self, toks, table, pos: int, tlen: int,
@@ -401,7 +445,7 @@ class LocalRunner:
         a = lay.unpack(self.upload(lay.pack(**arrays)))
         bank, aslots = self._lora_operands(a.get("aslots"))
         return M.prefill_batch(self.cfg, self.params, self.cache, a["toks"], a["table"],
-                               a["pos"], a["tlen"], bank, aslots)[0]
+                               a["pos"], a["tlen"], bank, aslots, self.sharding)[0]
 
     def decode_step(self, tokens, positions, tables, active, adapter_slots=None) -> torch.Tensor:
         """→ logits [B, V] (device)."""
@@ -410,7 +454,7 @@ class LocalRunner:
         return M.decode_step(
             self.cfg, self.params, self.cache, self._t(tokens, torch.int32),
             self._t(positions, torch.int32), self._t(tables, torch.int32),
-            self._t(active, torch.bool), self.attn_impl, bank, aslots,
+            self._t(active, torch.bool), self.attn_impl, bank, aslots, self.sharding,
         )
 
     def multi_decode(self, K, mode, tokens, chain, positions, tables, active, temps,
@@ -452,6 +496,7 @@ class LocalRunner:
             if self.device.type == "cuda":
                 self.eager_windows += 1
             outs = self._window_fn(int(K), mode, int(top_n), lay)(self.upload(words))
+        self._digest(outs[0])
         return self._new_ref(tuple(outs), rid)
 
     def _graph_window(self, lay: Layout, K: int, mode: str, top_n: int, words: np.ndarray):
@@ -499,7 +544,7 @@ class LocalRunner:
                 a["positions"], a["tables"], a["active"], a["temps"], a["seeds"],
                 a["steps0"], a["top_k"], a["top_p"], a["freq"], a["pres"], a["pen"],
                 a["chain_mask"], a["chain_src"], self.last_toks, bank, aslots,
-                attn_impl=self.attn_impl,
+                attn_impl=self.attn_impl, tp=self.sharding,
             )
             self.last_toks[a["fold_slots"].long()] = out[0][-1]
             return out
@@ -565,6 +610,7 @@ class LocalRunner:
             self.tree_verify_calls = tuple(map(sum, zip(self.tree_verify_calls, calls)))
         self.verify_passes += 1
         self.verify_forwards += 1 if fused else S1
+        self._digest(outs[0], outs[1])
         return self._new_ref(tuple(outs), rid)
 
     def _graph_verify(self, lay: Layout, S1: int, mode: str, top_n: int, fused: bool,
@@ -588,6 +634,7 @@ class LocalRunner:
                 a["positions0"], a["draft_len"], a["tables"], a["active"], a["temps"],
                 a["seeds"], a["steps0"], a.get("parents"), a.get("anc"), a.get("depth"),
                 a.get("masks"), bank, aslots, fused=fused, attn_impl=self.attn_impl,
+                tp=self.sharding,
             )
             self.last_toks[a["fold_slots"].long()] = out[6]
             return out[:6]
@@ -660,14 +707,22 @@ class LocalRunner:
     def extract_pages(self, block_ids: list[int]) -> tuple:
         """→ (k, v) host page arrays, plus (k_scale, v_scale) under int8 KV
         (synchronous)."""
-        return kv_transfer.extract_pages(self.cache, block_ids)
+        if self.sharding is None:
+            return kv_transfer.extract_pages(self.cache, block_ids)
+        arrs, n = LocalRunner.start_extract_pages(self, block_ids)  # one dispatch, not two
+        return kv_transfer.finish_extract([t.cpu().numpy() for t in arrs], n)
 
     def start_extract_pages(self, block_ids: list[int]) -> tuple:
         """Enqueue a page gather without waiting → (device tensors, n). The
         streaming KV exporter starts their device→host copy
         (start_host_fetch) and harvests it with ``finish_extract_pages``
-        once ready, so page copies overlap the remaining prefill chunks."""
-        return kv_transfer.start_extract(self.cache, block_ids)
+        once ready, so page copies overlap the remaining prefill chunks.
+        Under tp every rank's lanes are gathered (a collective every rank
+        makes) into the JAX layout."""
+        arrs, n = kv_transfer.start_extract(self.cache, block_ids)
+        if self.sharding is not None:
+            arrs = tuple(self.sharding.merge_lanes(self.group.all_gather(a)) for a in arrs)
+        return arrs, n
 
     @staticmethod
     def finish_extract_pages(fetch: HostFetch, n: int) -> tuple:
@@ -678,6 +733,8 @@ class LocalRunner:
         tensors keep their addresses, which the captured graphs replay
         against."""
         pages = kv_transfer.adapt_pages(pages, self.cache, self.cfg.num_kv_heads)
+        if self.sharding is not None:
+            pages = self.sharding.shard_pages(pages)
         kv_transfer.inject_pages(self.cache, block_ids, *pages)
 
     def sample_rows(self, logits: list[torch.Tensor], mode: str, temps, tks, tps, pen, freqs,
@@ -700,7 +757,9 @@ class LocalRunner:
         if masks is not None:
             arrays["masks"] = masks
         a = lay.unpack(self.upload(lay.pack(**arrays)))
-        return self._new_ref(self._sample(x, mode, top_n, a))
+        outs = self._sample(x, mode, top_n, a)
+        self._digest(outs[0])
+        return self._new_ref(outs)
 
     def _sample(self, x: torch.Tensor, mode: str, top_n: int, a: dict) -> tuple:
         """Sample ``x`` [B, V] in ``mode`` from the unpacked sampling
@@ -755,6 +814,7 @@ class LocalRunner:
             if self.device.type == "cuda":
                 self.eager_steps += 1
             outs = self._step_fn(mode, int(top_n), lay)(self.upload(words))
+        self._digest(outs[0])
         return self._new_ref(tuple(outs), rid)
 
     def _graph_step(self, lay: Layout, mode: str, top_n: int, words: np.ndarray):
@@ -773,7 +833,7 @@ class LocalRunner:
             bank, aslots = self._lora_operands(a.get("aslots"))
             logits = M.decode_step(self.cfg, self.params, self.cache, a["tokens"],
                                    a["positions"], a["tables"], a["active"], self.attn_impl,
-                                   bank, aslots)
+                                   bank, aslots, self.sharding)
             return self._sample(logits, mode, top_n, a)
 
         return step
@@ -819,9 +879,248 @@ class LocalRunner:
                                 self._graph_step(lay, mode, top_n, self._inert_step(lay))
         return self.graphs.captured - before
 
+    # -- the sampled-token digest (tp ranks) ---------------------------------
+
+    def _digest(self, *tensors: torch.Tensor) -> None:
+        """Fold sampled tokens into ``token_digest`` on the device (tp > 1
+        only): an order-dependent sum modulo 2^31 - 1 that two ranks agree
+        on exactly when they sampled the same tokens in the same order."""
+        if self.token_digest is None:
+            return
+        for t in tensors:
+            flat = t.reshape(-1).long()
+            w = torch.arange(1, flat.numel() + 1, device=flat.device)
+            self.token_digest = (self.token_digest * 1_000_003 + (flat * w).sum()) % 2147483647
+
+    def digest(self) -> int | None:
+        """The sampled-token digest so far (waits for the device), None at tp=1."""
+        return None if self.token_digest is None else int(self.token_digest)
+
     # -- embeddings ---------------------------------------------------------
 
     def embed(self, toks, tlen: int) -> torch.Tensor:
         """Mean-pooled final hidden state of ``toks[:tlen]`` (``toks``
         padded) → [D] f32 on the device; eager, one forward."""
-        return M.embed(self.cfg, self.params, self._t(toks, torch.int32), int(tlen))
+        return M.embed(self.cfg, self.params, self._t(toks, torch.int32), int(tlen),
+                       self.sharding)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism across processes: leader broadcast + follower replay
+# ---------------------------------------------------------------------------
+
+# Every dispatch the leader mirrors, in the order the JAX LeaderRunner lists
+# its own (prefill_batch … inject_pages), then the port's: the single step
+# and its sampling, and the graph captures ahead of traffic (under NCCL
+# every rank captures the same windows in the same order, collectives
+# inside). Each dispatch's host operands travel with it, so a follower
+# packs and uploads the same words the leader does.
+MIRRORED = ("prefill_batch", "prefill_chunk", "upload_adapter", "multi_decode", "decode_step",
+            "spec_verify", "sample_rows", "embed", "extract_pages", "start_extract_pages",
+            "inject_pages", "decode_sample", "warm_windows", "warm_spec", "warm_steps")
+# How long the leader waits for its followers to connect, and a follower
+# retries while the leader starts up (it may load a checkpoint first).
+CONNECT_TIMEOUT_S = 600.0
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes | None:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(n - len(buf), 1 << 20))
+        if not chunk:
+            return None
+        buf += chunk
+    return bytes(buf)
+
+
+def _recv_msg(sock: socket.socket) -> dict | None:
+    hdr = _recv_exact(sock, 4)
+    if hdr is None:
+        return None
+    (n,) = struct.unpack(">I", hdr)
+    body = _recv_exact(sock, n)
+    return None if body is None else msgpack_lite.unpackb(body, raw=False)
+
+
+def _encode(x, rid_of):
+    """A dispatch operand → msgpack-able: numpy arrays as {"nd": [dtype,
+    shape, bytes]}, tensors (logits another dispatch made) as {"ref": rid}
+    through ``rid_of``, tuples as lists."""
+    if isinstance(x, torch.Tensor):
+        return {"ref": rid_of(x)}
+    if isinstance(x, np.ndarray):
+        a = np.ascontiguousarray(x)
+        return {"nd": [a.dtype.str, list(a.shape), a.tobytes()]}
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (list, tuple)):
+        return [_encode(v, rid_of) for v in x]
+    if isinstance(x, dict):
+        return {"map": {k: _encode(v, rid_of) for k, v in x.items()}}
+    return x
+
+
+def _decode(x, runner: LocalRunner):
+    if isinstance(x, list):
+        return [_decode(v, runner) for v in x]
+    if isinstance(x, dict):
+        if "nd" in x:
+            dt, shape, raw = x["nd"]
+            return np.frombuffer(raw, np.dtype(dt)).reshape(shape)
+        if "ref" in x:
+            return runner.ref_by_id(x["ref"]).arrs[0]
+        return {k: _decode(v, runner) for k, v in x["map"].items()}
+    return x
+
+
+class LeaderRunner(LocalRunner):
+    """A LocalRunner that mirrors every dispatch to its follower processes
+    (port of the JAX ``LeaderRunner``): ``start`` accepts
+    ``num_followers`` TCP connections on ``listen_addr``, and each
+    dispatch in ``MIRRORED`` is sent to every follower (framed
+    ``runtime/msgpack_lite``, in dispatch order) before it runs here.
+    Dispatch ids (rids) travel with each frame, so a tensor one dispatch
+    returned (prefill logits) can be named by a later one (``sample_rows``).
+    The scheduler exists only here; a follower never fetches a result."""
+
+    def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0, group=None,
+                 *, listen_addr: str = "0.0.0.0:7411", num_followers: int = 0):
+        super().__init__(args, params, seed, group)
+        self.num_followers = num_followers
+        self._listen_addr = listen_addr
+        self._socks: list[socket.socket] = []
+        self._tensor_rids: dict[int, int] = {}
+        self.frames = 0
+        self.frame_bytes = 0
+
+    def start(self) -> None:
+        host, port = self._listen_addr.rsplit(":", 1)
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((host, int(port)))
+        srv.listen(self.num_followers)
+        srv.settimeout(CONNECT_TIMEOUT_S)
+        try:
+            for _ in range(self.num_followers):
+                s, _peer = srv.accept()
+                s.settimeout(None)
+                s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                self._socks.append(s)
+        finally:
+            srv.close()
+        self._cast({"op": "start"})
+        super().start()
+
+    def stop(self) -> None:
+        if self._socks:
+            self._cast({"op": "stop"})
+        for s in self._socks:
+            s.close()
+        self._socks.clear()
+        super().stop()
+
+    def _cast(self, desc: dict) -> None:
+        body = msgpack_lite.packb(desc, use_bin_type=True)
+        frame = struct.pack(">I", len(body)) + body
+        for s in self._socks:
+            s.sendall(frame)
+        self.frames += 1
+        self.frame_bytes += len(frame)
+
+    def _rid_of(self, t: torch.Tensor) -> int:
+        rid = self._tensor_rids.get(id(t))
+        ref = None if rid is None else self._refs.get(rid)
+        if ref is None or ref.arrs[0] is not t:
+            raise RuntimeError("a dispatch operand is a tensor no mirrored dispatch returned")
+        return rid
+
+    def _mirror(self, op: str, a: tuple, kw: dict):
+        rid = self._rid
+        desc = {"op": op, "rid": rid, "a": _encode(a, self._rid_of),
+                "kw": _encode(kw, self._rid_of)}
+        if op in _SPEC_OPS:
+            # The engine may change its speculation knobs between bursts
+            # (TorchEngine.set_spec): the verify ops carry the leader's.
+            desc["spec"] = spec_knobs(self.args)
+        self._cast(desc)
+        out = getattr(LocalRunner, op)(self, *a, **kw)
+        if isinstance(out, torch.Tensor):
+            self._new_ref((out,), rid)
+            self._tensor_rids = {k: v for k, v in self._tensor_rids.items() if v in self._refs}
+            self._tensor_rids[id(out)] = rid
+        return out
+
+
+_SPEC_OPS = ("spec_verify", "warm_spec")
+
+
+def spec_knobs(args: EngineArgs) -> dict:
+    """The speculative-decoding fields of ``args`` (what a verify dispatch
+    reads besides its operands)."""
+    return {f.name: getattr(args, f.name) for f in dataclasses.fields(args)
+            if f.name.startswith("spec_")}
+
+
+def _mirrored(op: str):
+    def dispatch(self, *a, **kw):
+        return self._mirror(op, a, kw)
+
+    dispatch.__name__ = dispatch.__qualname__ = op
+    dispatch.__doc__ = f"``LocalRunner.{op}``, sent to the followers first."
+    return dispatch
+
+
+for _op in MIRRORED:
+    setattr(LeaderRunner, _op, _mirrored(_op))
+
+
+def follower_loop(args: EngineArgs, leader_addr: str, params: Any | None = None, seed: int = 0,
+                  group=None) -> LocalRunner:
+    """Replay the leader's dispatch stream on this rank until the leader
+    stops (or its connection closes) → the rank's runner, started and not
+    yet stopped (its counters and digest are the caller's to read).
+
+    Every dispatch the leader's engine makes runs here in the same order
+    with the same host operands, so the collectives of both ranks meet and
+    the ranks sample the same tokens; nothing is fetched."""
+    host, port = leader_addr.rsplit(":", 1)
+    deadline = time.monotonic() + CONNECT_TIMEOUT_S
+    while True:  # the leader may still be starting up
+        try:
+            sock = socket.create_connection((host, int(port)), timeout=5.0)
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+    sock.settimeout(None)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    runner = LocalRunner(args, params=params, seed=seed, group=group)
+    try:
+        while True:
+            desc = _recv_msg(sock)
+            if desc is None or desc["op"] == "stop":
+                return runner
+            op = desc["op"]
+            if op == "start":
+                runner.start()
+                continue
+            if op not in MIRRORED:
+                raise RuntimeError(f"unknown dispatch op {op!r}")
+            a, kw = _decode(desc["a"], runner), _decode(desc["kw"], runner)
+            if op == "extract_pages":
+                # The gather is the collective; its host copy is the leader's.
+                op = "start_extract_pages"
+            for name, value in desc.get("spec", {}).items():
+                setattr(runner.args, name, value)
+            runner._rid = desc["rid"]
+            before = read_counts()
+            out = getattr(runner, op)(*a, **kw)
+            if op.startswith("warm_"):
+                # The leader's worker zeroes its launch counts after the
+                # captures; their replays on inert inputs count here neither.
+                set_counts(before)
+            if isinstance(out, torch.Tensor):
+                runner._new_ref((out,), desc["rid"])
+    finally:
+        sock.close()

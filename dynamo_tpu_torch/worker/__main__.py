@@ -94,7 +94,29 @@ the exporter's sink and flush seconds.
 dynamo_tpu_torch.planner.profile_sweep``) inside the model card, so
 frontends and the planner discover it.
 
-Not ported yet (ROADMAP A): the dp spawner and multi-host followers.
+Tensor parallelism: ``--tp N`` serves the model split over N rank
+processes (``parallel/``). The JAX worker drives N local devices from one
+process; the port takes N processes, one per rank: ``--tp N`` with
+``--dist-num-processes 1`` (the default) makes this process rank 0, the
+leader, and spawns N−1 local follower ranks of the same command (rank r
+on card r mod the visible cards). Across hosts, start one process per
+rank with ``--dist-num-processes N --dist-process-id r`` and the same
+``--dist-coordinator`` (the ``torch.distributed`` store rank 0 serves;
+``--dist-step-addr``, by default its port + 1, carries the leader's
+dispatch stream). Only the leader schedules, registers and serves; a
+follower replays every dispatch (``engine/runner.py`` ``follower_loop``)
+and at its end prints one ``{"event": "follower_counters", ...}`` line,
+its sampled-token digest included. Ranks meet over NCCL when each has a
+card of its own and over gloo otherwise (ranks sharing a card, the CPU);
+the worker prints which, and under gloo its windows run eagerly. LoRA
+(``--lora-slots``/``--lora``) with ``--tp`` > 1 is refused at start-up.
+
+``--dp-size N`` spawns and supervises N independent worker processes of
+the same model, one per dp rank (``--dp-rank r`` marks one; the rank's
+system port comes from ``dp_rank_ports``; ``--dp-chips-per-rank k`` gives
+rank r the cards [r·k, (r+1)·k) through ``CUDA_VISIBLE_DEVICES``;
+``--dp-restart`` respawns a crashed rank after a jittered backoff), as the
+JAX worker's spawner does; the router balances across them.
 """
 
 from __future__ import annotations
@@ -105,6 +127,9 @@ import contextlib
 import json
 import os
 import signal
+import socket
+import subprocess
+import sys
 import time
 
 import torch
@@ -125,6 +150,7 @@ from dynamo_tpu_torch.llm.peer_kv import (
 from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer, tokenizer_spec_for
 from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
+from dynamo_tpu_torch.parallel.comm import TpGroup, rank_device
 from dynamo_tpu_torch.runtime.chaos import ChaosInjector
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.logging import get_logger
@@ -272,7 +298,29 @@ def parse_args(argv=None):
                         "frontends can price transfer-vs-recompute and "
                         "the autoscaler sees cache heat")
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks, one process each (the leader spawns the "
+                        "rest unless --dist-num-processes says otherwise)")
     p.add_argument("--seed", type=int, default=0)
+    # DP-attention: one worker PROCESS per dp rank, all serving the same model
+    # behind the router (the JAX worker's flags and defaults).
+    p.add_argument("--dp-size", type=int, default=1)
+    p.add_argument("--dp-rank", type=int, default=None)
+    p.add_argument("--dp-base-port", type=int, default=29600,
+                   help="first port of the per-rank port blocks (dp_rank_ports)")
+    p.add_argument("--dp-chips-per-rank", type=int, default=0,
+                   help="pin CUDA_VISIBLE_DEVICES=[r*k, (r+1)*k) per rank (0 = no pinning)")
+    p.add_argument("--dp-restart", action="store_true",
+                   help="restart a crashed dp rank with jittered exponential backoff "
+                        "instead of letting the slot stay down until the spawner exits")
+    # One tensor-parallel worker spanning several processes (hosts): process 0
+    # serves, the rest replay its dispatch stream (engine/runner.py).
+    p.add_argument("--dist-num-processes", type=int, default=1)
+    p.add_argument("--dist-process-id", type=int, default=0)
+    p.add_argument("--dist-coordinator", default="127.0.0.1:29500",
+                   help="torch.distributed store host:port (process 0's host)")
+    p.add_argument("--dist-step-addr", default=None,
+                   help="leader step-stream addr (default: coordinator host, port+1)")
     # Mocker timing (--engine mocker).
     p.add_argument("--mocker-ttft-ms", type=float, default=20.0)
     p.add_argument("--mocker-itl-ms", type=float, default=5.0)
@@ -296,6 +344,18 @@ def parse_args(argv=None):
         args.lora_specs = parse_lora_specs(args.lora, args.lora_rank)
     except ValueError as e:
         p.error(str(e))
+    if (args.dp_rank is not None or args.dp_size > 1) and args.dist_num_processes > 1:
+        # A dp rank is a self-contained world; spanning hosts within a rank
+        # would need per-rank coordinator port blocks. Checked for the
+        # spawner too, so the parent fails fast instead of every child.
+        p.error("--dp-size/--dp-rank cannot combine with --dist-num-processes > 1")
+    if args.dp_rank is not None and not 0 <= args.dp_rank < args.dp_size:
+        p.error("--dp-rank must be in [0, --dp-size)")
+    if args.dist_num_processes > 1 and args.dist_num_processes != args.tp:
+        p.error("--dist-num-processes must equal --tp: each process is one tensor-parallel "
+                "rank")
+    if args.tp > 1 and (args.lora_slots > 0 or args.lora):
+        p.error("LoRA with --tp > 1 is not ported (--lora-slots/--lora need --tp 1)")
     return args
 
 
@@ -382,29 +442,12 @@ def build_mocker(args, config):
     return engine, card
 
 
-async def build_engine(args):
-    """→ (engine, model_card)."""
-    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig, spec_engine_args
-    from dynamo_tpu_torch.engine.engine import TorchEngine
+def engine_args(args, model, tok_spec, device: str | None = None):
+    """The worker flags → EngineArgs (the leader's and every follower's);
+    ``device`` names a tp rank's own card."""
+    from dynamo_tpu_torch.engine.config import EngineArgs, spec_engine_args
 
-    params = None
-    if args.model_path:
-        from dynamo_tpu_torch.engine.hub import resolve_model
-
-        args.model_path = resolve_model(args.model_path)
-    tok_spec = tokenizer_spec_for(args.model_path, args.tokenizer)
-    tokenizer = load_tokenizer(tok_spec)
-    if args.model_path:
-        from dynamo_tpu_torch.engine.loader import load_model
-
-        t0 = time.perf_counter()
-        model, params = await asyncio.to_thread(
-            load_model, args.model_path, args.dtype, args.quant, args.device)
-        print(f"dynamo_tpu_torch worker: loaded {args.model_path} (quant {args.quant}) in "
-              f"{time.perf_counter() - t0:.2f}s", flush=True)
-    else:
-        model = ModelConfig.preset(args.preset)
-    engine = await TorchEngine(EngineArgs(
+    return EngineArgs(
         model=model,
         block_size=args.block_size,
         num_kv_blocks=args.num_kv_blocks,
@@ -427,13 +470,78 @@ async def build_engine(args):
         kv_pressure_offer=args.kv_pressure_offer,
         lora_slots=args.lora_slots,
         lora_rank=max([args.lora_rank] + [r for _, r, _ in args.lora_specs]),
-        device=args.device,
+        device=device or args.device,
+        tp=args.tp,
         # Grammar token-mask FSMs compile over the serving tokenizer's
         # vocabulary: response_format masks must legalize exactly the ids
         # the detokenizer renders.
         grammar_tokenizer=tok_spec,
         **spec_engine_args(args),
-    ), params=params, seed=args.seed).start()
+    )
+
+
+def load_weights(args, rank: int = 0):
+    """→ (ModelConfig, params or None): ``--model-path``'s checkpoint (this
+    rank's shards under ``--tp``), or the preset's config and None (random
+    weights from ``--seed``, made by the runner)."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+
+    if not args.model_path:
+        return ModelConfig.preset(args.preset), None
+    from dynamo_tpu_torch.engine.loader import load_model
+
+    t0 = time.perf_counter()
+    device = args.device if args.tp == 1 else str(rank_device(args.device, rank))
+    model, params = load_model(args.model_path, args.dtype, args.quant, device,
+                               tp=args.tp, rank=rank)
+    print(f"dynamo_tpu_torch worker: loaded {args.model_path} (quant {args.quant}"
+          f"{f', rank {rank} of tp {args.tp}' if args.tp > 1 else ''}) in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return model, params
+
+
+def step_addr(args) -> str:
+    """The leader's dispatch-stream address: ``--dist-step-addr``, or the
+    coordinator's host at its port + 1."""
+    if args.dist_step_addr:
+        return args.dist_step_addr
+    host, port = args.dist_coordinator.rsplit(":", 1)
+    return f"{host}:{int(port) + 1}"
+
+
+def tp_group(args, rank: int) -> TpGroup:
+    """This process's rank of the ``--tp`` group, on its card."""
+    group = TpGroup(rank, args.tp, args.dist_coordinator, rank_device(args.device, rank))
+    print(f"dynamo_tpu_torch {'worker' if rank == 0 else f'follower {rank}/{args.tp}'}: "
+          f"{group.describe()}; decode windows "
+          f"{'captured as CUDA graphs' if group.backend == 'nccl' else 'run eagerly'}",
+          flush=True)
+    return group
+
+
+async def build_engine(args):
+    """→ (engine, model_card). Under ``--tp`` the engine's runner is the
+    leader of the tp group."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    if args.model_path:
+        from dynamo_tpu_torch.engine.hub import resolve_model
+
+        args.model_path = resolve_model(args.model_path)
+    tok_spec = tokenizer_spec_for(args.model_path, args.tokenizer)
+    tokenizer = load_tokenizer(tok_spec)
+    runner = group = None
+    if args.tp > 1:
+        group = await asyncio.to_thread(tp_group, args, 0)
+    model, params = await asyncio.to_thread(load_weights, args)
+    eargs = engine_args(args, model, tok_spec, None if group is None else str(group.device))
+    if group is not None:
+        from dynamo_tpu_torch.engine.runner import LeaderRunner
+
+        runner = LeaderRunner(eargs, params=params, seed=args.seed, group=group,
+                              listen_addr=f"0.0.0.0:{step_addr(args).rsplit(':', 1)[1]}",
+                              num_followers=args.tp - 1)
+    engine = await TorchEngine(eargs, params=params, seed=args.seed, runner=runner).start()
     card = ModelDeploymentCard(
         name=args.model_name or model.name,
         tokenizer=tok_spec,
@@ -554,6 +662,10 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=No
                               if engine.runner.device.type == "cuda" else 0),
         "trace": trace_counters(engine, exporter),
     }
+    group = engine.runner.group
+    if group is not None:
+        out["tp"] = {**group.counters(), "token_digest": engine.runner.digest(),
+                     "frames": engine.runner.frames, "frame_bytes": engine.runner.frame_bytes}
     migrator = getattr(manager, "migrator", None)
     if migrator is not None:
         out["migration"] = {"outcomes": dict(migrator.outcomes),
@@ -730,9 +842,10 @@ async def async_main(args) -> None:
         for acard in adapter_cards(card, args.lora_specs):
             await register_model(rt, args.namespace, acard)
         role = "worker"
+    rank = "" if args.dp_rank is None else f" [dp rank {args.dp_rank}/{args.dp_size}]"
     print(
         f"dynamo_tpu_torch {role}: serving {card.name} as "
-        f"{args.namespace}/{args.component}/{args.endpoint} on "
+        f"{args.namespace}/{args.component}/{args.endpoint}{rank} on "
         f"{'no device (mocker)' if mocker else args.device} "
         f"({graphs} window graphs captured in {warm_s:.2f}s, {step_graphs} single-step "
         f"graphs in {step_s:.2f}s, {verify_graphs} verify graphs in {verify_s:.2f}s; registered "
@@ -760,6 +873,7 @@ async def async_main(args) -> None:
     await close_fleet_planes(publisher, exporter)
     await stop_engine(engine)
     print(json.dumps(engine_counters(engine, disagg, fetcher, exporter=exporter)), flush=True)
+    close_group(engine)
 
 
 async def close_fleet_planes(publisher, exporter) -> None:
@@ -774,9 +888,17 @@ async def close_fleet_planes(publisher, exporter) -> None:
 
 
 async def stop_engine(engine) -> None:
+    """Stop the engine (its tp followers with it); the tp group closes
+    once the counters line has been printed (``close_group``)."""
     stop = getattr(engine, "stop", None)  # the mocker has no thread to stop
     if stop is not None:
         await stop()
+
+
+def close_group(engine) -> None:
+    group = getattr(getattr(engine, "runner", None), "group", None)
+    if group is not None:
+        group.close()
 
 
 async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str,
@@ -819,10 +941,183 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str,
     await stop_engine(engine)
     await rt.shutdown()
     print(json.dumps(engine_counters(engine, manager=manager, exporter=exporter)), flush=True)
+    close_group(engine)
+
+
+def dp_rank_ports(base_port: int, dp_rank: int, stride: int = 4) -> dict:
+    """Deterministic per-rank port block (the JAX worker's): rank r owns
+    [base + r*stride, base + (r+1)*stride). Only the ``system`` slot (status
+    HTTP when DYNTPU_SYSTEM_ENABLED) is consumed; the rest of the block is
+    reserved for rank-local services, so external launchers can rely on
+    the stride."""
+    b = base_port + dp_rank * stride
+    return {"system": b, "reserved": (b + 1, b + stride)}
+
+
+def run_follower(args) -> None:
+    """A tensor-parallel follower rank: no store, no endpoint; replays the
+    leader's dispatch stream on this rank's shards, then prints its
+    counters line (launches, collectives, the sampled-token digest)."""
+    from dynamo_tpu_torch.engine.runner import follower_loop
+
+    rank = args.dist_process_id
+    group = tp_group(args, rank)
+    model, params = load_weights(args, rank)
+    eargs = engine_args(args, model, tokenizer_spec_for(args.model_path, args.tokenizer),
+                        str(group.device))
+    runner = follower_loop(eargs, step_addr(args), params=params, seed=args.seed, group=group)
+    # One write: the followers and the leader share a pipe when the leader
+    # spawned them, and a line written in pieces can interleave with theirs.
+    sys.stdout.write(json.dumps({
+        "event": "follower_counters", "rank": rank, "token_digest": runner.digest(),
+        "paged_attention_launches": pa.launches, "int8_matmul_launches": im.launches,
+        "int8_matmul_prefill_launches": im.prefill_launches,
+        "int8_matmul_tied_launches": im.tied_launches,
+        "int8_matmul_wide_launches": im.wide_launches,
+        "eager_windows": runner.eager_windows, "eager_steps": runner.eager_steps,
+        "collectives": group.counters(),
+        "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                              if runner.device.type == "cuda" else 0)}) + "\n")
+    sys.stdout.flush()
+    runner.stop()
+    group.close()
+
+
+def spawn_tp_followers(args, argv) -> list:
+    """``--tp N`` on one host: start ranks 1..N-1 as processes of this same
+    command (rank r on card r mod the cards), meeting at a fresh local
+    coordinator, and make this process rank 0 → the follower processes."""
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(sk.getsockname()[1])
+    args.dist_coordinator = f"127.0.0.1:{ports[0]}"
+    args.dist_step_addr = f"127.0.0.1:{ports[1]}"
+    args.dist_num_processes = args.tp
+    base = list(argv if argv is not None else sys.argv[1:])
+    return [subprocess.Popen([
+        sys.executable, "-m", "dynamo_tpu_torch.worker", *base,
+        "--dist-num-processes", str(args.tp), "--dist-process-id", str(r),
+        "--dist-coordinator", args.dist_coordinator, "--dist-step-addr", args.dist_step_addr])
+        for r in range(1, args.tp)]
+
+
+def run_dp_spawner(args, argv) -> int:
+    """Spawn and supervise one worker process per dp rank (the JAX worker's
+    spawner). Ranks are independent replicas of the same model: a dead rank
+    loses only its own KV and lease, so the spawner does not gang-kill on a
+    single failure; it forwards SIGINT/SIGTERM and exits with the worst
+    child code once all ranks are done. With ``--dp-restart`` a crashed
+    rank is respawned after jittered exponential backoff (the frontend
+    fleet's BackoffPolicy and DYNTPU_FLEET_RESTART_BACKOFF_* knobs)."""
+    base = list(argv if argv is not None else sys.argv[1:])
+    procs: list[subprocess.Popen] = []
+    stopping = False
+
+    def forward(signum, _frame):
+        nonlocal stopping
+        stopping = True  # mid-launch: abort spawning further ranks too
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    # Installed before spawning: a signal mid-launch must still reach the
+    # ranks already running, or they orphan with cards and leases held.
+    signal.signal(signal.SIGTERM, forward)
+    signal.signal(signal.SIGINT, forward)
+
+    def spawn_rank(r: int) -> subprocess.Popen:
+        env = dict(os.environ)
+        if args.dp_chips_per_rank > 0:
+            k = args.dp_chips_per_rank
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(c) for c in range(r * k, (r + 1) * k))
+        if env.get("DYNTPU_SYSTEM_ENABLED"):
+            env["DYNTPU_SYSTEM_PORT"] = str(dp_rank_ports(args.dp_base_port, r)["system"])
+        return subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.worker", *base, "--dp-rank", str(r)],
+            env=env)
+
+    try:
+        for r in range(args.dp_size):
+            if stopping:
+                break
+            procs.append(spawn_rank(r))
+    except Exception:
+        # A failed spawn must not leave earlier ranks orphaned.
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        raise
+    if stopping:
+        # A rank spawned while the handler ran may have missed the signal.
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+    print(f"dynamo_tpu_torch dp spawner: {args.dp_size} ranks launched", flush=True)
+    if args.dp_restart and not stopping:
+        from dynamo_tpu_torch.fleet.backoff import BackoffPolicy
+        from dynamo_tpu_torch.runtime.config import Config
+
+        fcfg = Config.from_env().fleet
+        backoff = BackoffPolicy(fcfg.restart_backoff_base, fcfg.restart_backoff_max,
+                                fcfg.restart_reset_after)
+        failures = [0] * len(procs)
+        started = [time.monotonic()] * len(procs)
+        restart_at = [0.0] * len(procs)
+        while not stopping:
+            now = time.monotonic()
+            for r, p in enumerate(procs):
+                # rc 0 is a deliberate exit: only crashed ranks restart.
+                if p.poll() is None or p.returncode == 0:
+                    continue
+                if restart_at[r] == 0.0:
+                    if now - started[r] > backoff.reset_after:
+                        failures[r] = 0
+                    failures[r] += 1
+                    restart_at[r] = now + backoff.delay(failures[r])
+                    print(f"dynamo_tpu_torch dp spawner: rank {r} exited rc={p.returncode}, "
+                          f"restart in {restart_at[r] - now:.2f}s", flush=True)
+                elif now >= restart_at[r] and not stopping:
+                    try:
+                        procs[r] = spawn_rank(r)
+                    except Exception:
+                        for q in procs:
+                            if q.poll() is None:
+                                q.terminate()
+                        raise
+                    started[r] = now
+                    restart_at[r] = 0.0
+            if all(p.poll() is not None and p.returncode == 0 for p in procs):
+                break  # every rank exited cleanly: nothing left to supervise
+            time.sleep(0.25)
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+    rcs = [p.wait() for p in procs]
+    return max((abs(rc) for rc in rcs), default=0)
 
 
 def main(argv=None) -> int:
-    asyncio.run(async_main(parse_args(argv)))
+    args = parse_args(argv)
+    if args.dp_size > 1 and args.dp_rank is None:
+        return run_dp_spawner(args, argv)
+    if args.tp > 1 and args.dist_num_processes > 1 and args.dist_process_id > 0:
+        run_follower(args)
+        return 0
+    followers = spawn_tp_followers(args, argv) if args.tp > 1 and \
+        args.dist_num_processes == 1 else []
+    try:
+        asyncio.run(async_main(args))
+    finally:
+        # The followers end when the leader's stream does; a leader that
+        # failed before connecting them takes them down.
+        for p in followers:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
     return 0
 
 
