@@ -58,7 +58,16 @@ Phases, in order; any failure raises and the run exits non-zero:
    and one prompt alone again under torch.profiler. Decode ms per substep,
    tokens/s, TTFT per request, the host-blocked share, graph capture and
    pool numbers and the device-busy share are printed beside the card's
-   name and power limit.
+   name and power limit. Since the prefill slice every prefill dispatch
+   is a graph replay too: the engine captures its prefill lattice first
+   (`LocalRunner.warm_prefills`: count, capture seconds and pool bytes
+   printed), the bursts run no eager prefill, each captured shape's
+   replay equals eager bit for bit on two seeded waves back to back
+   (`prefill_graph_checks`), chunks of 64, 512 and 2048 tokens are timed
+   as graph and op by op against their bound (`prefill_timing`), and
+   phase 4s's lone TTFT is taken again at pipeline depth 0
+   (`lone_ttft_depth0`). 4b's runs warm their prefill lattice too; the
+   int8-page run also holds every shape to eager.
 4b. The main path at int8 weights (random int8 made on the card, seed 0),
    twice: bf16 KV pages and int8 KV pages. Each serves the same burst at
    depth 2 and 0 (streams identical), holds the attention launches to 32 x
@@ -308,7 +317,10 @@ same weights.
    (linear, stepwise, tree; S1 = 4 and 7) and its device time against one
    dense substep. Tokens/s, tokens per weight pass, accept rates, launches
    per pass and the verify graphs' count and pool bytes are printed beside
-   the card's name and power limit.
+   the card's name and power limit. Since the prefill slice the bf16 run
+   also serves the dense burst with `prefill_batch_max` 4 and the tail
+   split off (`packed_prefill_pass`): two packed dispatches of two rows,
+   greedy streams held to the singles pass's under the gap rule.
 
 11. Disaggregated prefill/decode at the cut depth (the checkpoint), twice:
    bf16, and int8 weights with int8 pages. The store, one `python -m
@@ -1007,23 +1019,41 @@ def int8_rows_route(M: int) -> str:
     return "kernel" if M <= SMALL_M else "wide"
 
 
+def prefill_chunk_buckets(lens, bs: int = 16) -> list[int]:
+    """The T bucket of every prefill dispatch that cold single-row prefills
+    of ``lens`` tokens make at the engine's defaults (the "fine" ladder,
+    tail split on, max_prefill_tokens 2048): each suffix's chunk plan
+    (``EngineArgs.plan_prefill_chunks``; max_prefill_tokens chunks past
+    it), each chunk padded to its rung."""
+    from dynamo_tpu_torch.engine.config import EngineArgs
+
+    args = EngineArgs(block_size=bs)
+    out = []
+    for n in lens:
+        m = args.max_prefill_tokens
+        chunks = (args.plan_prefill_chunks(n) if n <= m
+                  else [min(m, n - pos) for pos in range(0, n, m)])
+        out += [args.bucket_prefill(c) for c in chunks]
+    return out
+
+
 def int8_expected(cfg, lens, substeps: int, bs: int = 16,
                   buckets: dict | None = None) -> tuple[int, int, int]:
     """int8 calls a burst makes on each route (decode kernel, prefill route,
     wide entry): 7 per layer plus lm_head per forward pass. Decode substeps
     run at batch bucket 8 (the decode kernel), or at the buckets of
-    ``buckets`` ({bucket rows: substeps}); each cold single-row prefill of a
-    prompt padded to T tokens runs its layer products on T's route and its
-    last-token head (1 row) on the decode kernel. A tied head (the int8
-    embedding as ``emb.T``) is none of these: it launches the tied entry
-    once per forward (``tied_launches``)."""
+    ``buckets`` ({bucket rows: substeps}); each single-row prefill chunk of
+    a cold prompt (``prefill_chunk_buckets``), padded to T tokens, runs its
+    layer products on T's route and its last-token head (1 row) on the
+    decode kernel. A tied head (the int8 embedding as ``emb.T``) is none of
+    these: it launches the tied entry once per forward (``tied_launches``)."""
     per_pass = 7 * cfg.num_layers
     head = 0 if cfg.tie_embeddings else 1
     n = {"kernel": 0, "prefill": 0, "wide": 0}
     for rows, steps in (buckets or {8: substeps}).items():
         n[int8_rows_route(rows)] += (per_pass + head) * steps
-    for length in lens:
-        n[int8_rows_route(-(-length // bs) * bs)] += per_pass
+    for T in prefill_chunk_buckets(lens, bs):
+        n[int8_rows_route(T)] += per_pass
         n["kernel"] += head
     return n["kernel"], n["prefill"], n["wide"]
 
@@ -1052,6 +1082,181 @@ def zero_counts() -> None:
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
+
+
+def warm_prefill_graphs(runner, tag: str, card_line: str) -> dict:
+    """``runner.warm_prefills()`` → the prefill graphs' count, capture
+    seconds and pool bytes (the worker's counters), logged beside the whole
+    pool."""
+    from dynamo_tpu_torch.worker.__main__ import prefill_graph_counters
+
+    t0 = time.perf_counter()
+    n = runner.warm_prefills()
+    c = prefill_graph_counters(runner.graphs)
+    st = {"graphs": c["prefill_graphs"], "capture_s": c["prefill_capture_s"],
+          "pool_bytes": c["prefill_pool_bytes"], "captured_now": n,
+          "wall_s": time.perf_counter() - t0}
+    g = runner.graphs
+    log(f"{tag}: {st['graphs']} prefill graphs (rows, T, W: "
+        f"{[k[1:4] for k in (g.shapes if g else []) if k[0] == 'prefill']}) captured ahead of "
+        f"traffic in {st['capture_s']:.2f}s ({st['wall_s']:.2f}s wall), adding "
+        f"{st['pool_bytes'] / 2**20:.1f} MiB to a graph pool of "
+        f"{(g.pool_bytes() if g else 0) / 2**20:.1f} MiB ({card_line})")
+    return st
+
+
+def prefill_inputs(runner, shape, seed: int, first_block: int = 1) -> tuple:
+    """Seeded operands of one prefill dispatch of ``shape`` (rows, T, W):
+    each row a suffix whose length lies in T's rung (one past the rung
+    below, up to T, and within the table), on blocks of its own from
+    ``first_block`` on; odd rows start behind a cached prefix when the
+    table has room. → ((toks, tables, starts, tlens), next free block)."""
+    import numpy as np
+
+    Bp, T, W = shape
+    args = runner.args
+    bs = args.block_size
+    ladder = (0, *args.prefill_buckets)
+    lo = ladder[ladder.index(T) - 1] + 1
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((Bp, T), np.int32)
+    tables = np.zeros((Bp, W), np.int32)
+    starts = np.zeros((Bp,), np.int32)
+    tlens = np.zeros((Bp,), np.int32)
+    nxt = first_block
+    for r in range(Bp):
+        n = int(rng.integers(lo, min(T, W * bs) + 1))
+        room = (W * bs - n) // bs
+        start = int(rng.integers(1, room + 1)) * bs if r % 2 and room > 0 else 0
+        nblk = -(-(start + n) // bs)
+        tables[r, :nblk] = np.arange(nxt, nxt + nblk)
+        nxt += nblk
+        toks[r, :n] = rng.integers(1, runner.cfg.vocab_size, n)
+        starts[r], tlens[r] = start, start + n
+    return (toks, tables, starts, tlens), nxt
+
+
+def prefill_graph_checks(runner, tag: str, card_line: str) -> dict:
+    """For every captured prefill shape, two seeded waves of that shape
+    back to back as graph replays, then op by op from the same cache (the
+    touched blocks restored between, as ``graph_vs_eager`` does): both
+    waves' logits and the KV pages they write (block 0, the garbage sink,
+    aside) must be bit-identical. The first wave's logits are read after
+    the second replay, which overwrites the graph's static output: the
+    copy each dispatch takes is what keeps them. The two waves' greedy
+    first tokens must differ. → shapes checked and seconds (0 on the CPU,
+    where no graph is captured)."""
+    import torch
+
+    g = runner.graphs
+    shapes = [k[1:4] for k in (g.shapes if g else []) if k[0] == "prefill" and not k[4]]
+    t0 = time.perf_counter()
+    for shape in shapes:
+        a, nxt = prefill_inputs(runner, shape, 7000 + sum(shape))
+        b, _ = prefill_inputs(runner, shape, 8000 + sum(shape), nxt)
+        blocks = torch.tensor(sorted({0, *a[1].ravel().tolist(), *b[1].ravel().tolist()}),
+                              device=runner.device)
+        pages = [t for t in runner.cache if t is not None]
+        saved = [t[:, blocks].clone() for t in pages]
+        runs = []
+        for eager in (False, True):
+            for t, v in zip(pages, saved):
+                t[:, blocks] = v
+            la = runner.prefill_batch(*a, eager=eager)
+            lb = runner.prefill_batch(*b, eager=eager)
+            runs.append((la, lb, [t[:, blocks[1:]].clone() for t in pages]))
+        for t, v in zip(pages, saved):
+            t[:, blocks] = v
+        torch.cuda.synchronize()
+        (ga, gb, gs), (ea, eb, es) = runs
+        if not (torch.equal(ga, ea) and torch.equal(gb, eb)):
+            raise RuntimeError(f"{tag}: prefill graph {shape} logits differ from eager ones")
+        if not all(torch.equal(x, y) for x, y in zip(gs, es)):
+            raise RuntimeError(f"{tag}: prefill graph {shape} wrote other KV pages than eager")
+        if torch.equal(ga.argmax(-1), gb.argmax(-1)):
+            raise RuntimeError(f"{tag}: prefill check {shape}: both waves have the same "
+                               "greedy first tokens")
+    st = {"shapes": len(shapes), "seconds": time.perf_counter() - t0}
+    if shapes:
+        log(f"{tag}: all {len(shapes)} prefill graphs bit-identical to eager (two waves of each "
+            f"shape back to back, logits and KV pages), in {st['seconds']:.1f}s ({card_line})")
+    return st
+
+
+PREFILL_TIMED = (64, 512, 2048)  # chunk lengths whose prefill graph is timed alone
+
+
+def prefill_bound(runner, T: int) -> dict:
+    """The least time one cold prefill chunk of T tokens (one row, from
+    position 0) can take: the larger of its FLOPs at the bf16 dense peak
+    and its bytes at 3.35 TB/s. FLOPs: 2 per layer parameter per token, the
+    head's 2·d·V for the last token only (prefill samples no other row),
+    and QK^T plus PV over the T(T+1)/2 causal pairs of every layer. Bytes:
+    the layers' and the head's weights, T embedding rows read, T tokens' K
+    and V written into every layer's pages and one row of f32 logits.
+    → {bound_ms, bound_by}."""
+    cfg, p = runner.cfg, runner.params
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    d, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    head = d * V
+    layer_params = cfg.param_count() - V * d - d - (0 if cfg.tie_embeddings else head)
+    flops = 2 * T * layer_params + 2 * head + 2 * L * cfg.q_size * T * (T + 1)
+    kv_elt = next(t for t in runner.cache if t is not None).element_size()
+    moved = (nbytes(p["layers"]) + nbytes(p.get("lm_head", p["embed"]))
+             + nbytes(p["final_norm"]) + T * nbytes(p["embed"]) // V
+             + T * L * 2 * cfg.kv_size * kv_elt + V * 4)
+    flops_ms = flops / PEAK_OPS["bfloat16"] * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms > bytes_ms else "bytes"}
+
+
+def prefill_timing(runner, tag: str, card_line: str) -> dict:
+    """Device time of one prefill chunk of T tokens (PREFILL_TIMED, one row,
+    a cold prompt's table bucket) as its graph replay and op by op, median
+    of 5 CUDA-event timings after one warm run, each behind a short spin
+    so that the host's packing hides; the bound is ``prefill_bound``'s.
+    The cache is restored after. → {T: numbers}."""
+    import numpy as np
+    import torch
+
+    args, cfg = runner.args, runner.cfg
+    pages = [t for t in runner.cache if t is not None]
+    out = {}
+    for T in PREFILL_TIMED:
+        nblk = -(-T // args.block_size)
+        W = args.bucket_table(nblk)
+        rng = np.random.default_rng(T)
+        toks = rng.integers(1, cfg.vocab_size, (1, T)).astype(np.int32)
+        tables = np.zeros((1, W), np.int32)
+        tables[0, :nblk] = np.arange(1, nblk + 1)
+        inp = (toks, tables, np.zeros((1,), np.int32), np.full((1,), T, np.int32))
+        blocks = torch.arange(0, nblk + 1, device=runner.device)
+        saved = [t[:, blocks].clone() for t in pages]
+        res = {}
+        for name, eager in (("ms", False), ("plain_ms", True)):
+            runner.prefill_batch(*inp, eager=eager)
+            times = []
+            for _ in range(5):
+                torch.cuda._sleep(SPIN_CYCLES)
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                runner.prefill_batch(*inp, eager=eager)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            res[name] = statistics.median(times)
+        for t, v in zip(pages, saved):
+            t[:, blocks] = v
+        res.update(W=W, **prefill_bound(runner, T))
+        out[T] = res
+        log(f"{tag}: prefill chunk T={T} (1 row, W={W}): {res['ms']:.3f} ms as its graph, "
+            f"{res['plain_ms']:.3f} ms op by op, bound {res['bound_ms']:.3f} ms "
+            f"({res['bound_by']}) ({card_line})")
+    return out
 
 
 async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cuda",
@@ -1086,6 +1291,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     log(f"{tag}: {n} window graphs captured ahead of traffic in {g.capture_s:.2f}s "
         f"(shapes B, W, L, K, mode, top_n: {g.shapes}), graph pool "
         f"{g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
+    prefill_warm = warm_prefill_graphs(runner, tag, card_line)
     lens, temps, max_tokens = BURST_LENS, BURST_TEMPS, BURST_TOKENS
     prompts = burst_prompts()
 
@@ -1110,6 +1316,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         after, once the engine has drained its queue."""
         steps0, phases0 = _counters(engine)
         replays0, eager0 = runner.graphs.replays, runner.eager_windows
+        eager_pre0 = runner.eager_prefills
+        counts0 = runner.graphs.replay_counts()
         zero_counts()
         t0 = time.perf_counter()
         outs = await asyncio.gather(*(one(i, p, t, 1000 + i)
@@ -1142,14 +1350,20 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         eager = runner.eager_windows - eager0
         if eager:
             raise RuntimeError(f"{label}: {eager} K-step windows ran eagerly on the card")
+        if runner.eager_prefills != eager_pre0:
+            raise RuntimeError(f"{label}: {runner.eager_prefills - eager_pre0} prefill "
+                               "dispatches ran eagerly on the card")
         decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
         total_tokens = sum(o["resp"]["usage"]["completion_tokens"] for o in outs)
         st = {"launches": launches, "int8_launches": i8, "int8_prefill_launches": i8_prefill,
               "int8_wide_launches": i8_wide, "substeps": substeps, "wall_s": wall,
               "tokens_per_s": total_tokens / wall, "substep_ms": decode_s / substeps * 1e3,
               "decode_s": decode_s, "host_blocked": phase.get("drain_sync", 0.0) / decode_s,
-              "prefill_dispatch_s": phase.get("prefill", 0.0),
+              "prefill_dispatch_s": phase.get("prefill_dispatch", 0.0),
               "replays": runner.graphs.replays - replays0,
+              "prefill_replays": {str(k[1:4]): n - counts0.get(k, 0) for k, n in
+                                  runner.graphs.replay_counts().items()
+                                  if k[0] == "prefill" and n > counts0.get(k, 0)},
               "ttft_s": [o["ttft_s"] for o in outs]}
         log(f"{tag}[{label}]: 8 requests, {total_tokens} completion tokens in {wall:.3f}s → "
             f"{st['tokens_per_s']:.1f} tokens/s ({card_line})")
@@ -1160,6 +1374,9 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
             f"(host time in decode phases {decode_s:.3f}s / substeps; batch of 8), host blocked "
             f"on fetches {100 * st['host_blocked']:.1f}% of it, {st['replays']} graph replays "
             f"({card_line})")
+        log(f"{tag}[{label}]: prefill dispatch {st['prefill_dispatch_s']:.3f}s of host time "
+            f"for the 8 prompts ({len(prefill_chunk_buckets(lens))} chunks, each a graph replay, "
+            f"no eager prefill; replays by (rows, T, W) {st['prefill_replays']}) ({card_line})")
         log(f"{tag}[{label}]: phases " + json.dumps({k: round(v, 4) for k, v in phase.items()}))
         log(f"{tag}[{label}]: paged_attention launches {launches} = {cfg.num_layers} layers x "
             f"{substeps} substeps; int8_matmul launches {i8} on the decode kernel, {i8_wide} on "
@@ -1194,7 +1411,9 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
                                              "host_blocked", "ttft_s")},
              "weight_bound_ms": weight_bound_ms, "graphs": g.captured,
              "capture_s": g.capture_s, "graph_pool_bytes": g.pool_bytes(),
-             "replays": st2["replays"],
+             "replays": st2["replays"], "prefill_dispatch_s": st2["prefill_dispatch_s"],
+             "prefill_replays": st2["prefill_replays"], "prefill_graphs": prefill_warm,
+             "prefill_timing": prefill_timing(runner, tag, card_line) if quant == "none" else {},
              "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     reference = {"burst": [o["ref"] for o in first]}
     if quant == "none" or kv_quant == "int8":
@@ -1220,6 +1439,10 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         stats["sweep"] = await sweep_phase(engine, card_line, device)
     else:
         stats.update(replay_phase(engine, card_line, tag))
+    # The wide run (int8 weights, bf16 pages) runs the int8 products that
+    # the int8-page run holds to eager already.
+    if not wide:
+        stats["prefill_vs_eager"] = prefill_graph_checks(runner, tag, card_line)
     if wide:
         t1 = time.perf_counter()
         stats["wide"] = await wide_phase(card_line, pipe, device)
@@ -1255,7 +1478,7 @@ async def sweep_phase(engine, card_line: str, device: str = "cuda") -> dict:
     runner = engine.runner
     engine.clear_kv_blocks()
     steps0, _ = _counters(engine)
-    eager0 = runner.eager_windows
+    eager0, eager_pre0 = runner.eager_windows, runner.eager_prefills
     zero_counts()
     t0 = time.perf_counter()
     decode, prefill = await sweep(engine, SWEEP_BATCHES, SWEEP_PROMPT_LENS, SWEEP_GEN,
@@ -1273,8 +1496,9 @@ async def sweep_phase(engine, card_line: str, device: str = "cuda") -> dict:
     if not decode.throughput_at(hi) > decode.throughput_at(lo):
         raise RuntimeError(f"sweep: tokens/s at B={hi} {decode.throughput_at(hi):.1f} is not "
                            f"above B={lo}'s {decode.throughput_at(lo):.1f}")
-    if runner.eager_windows != eager0:
-        raise RuntimeError(f"sweep: {runner.eager_windows - eager0} windows ran eagerly")
+    if (runner.eager_windows, runner.eager_prefills) != (eager0, eager_pre0):
+        raise RuntimeError(f"sweep: {runner.eager_windows - eager0} windows and "
+                           f"{runner.eager_prefills - eager_pre0} prefills ran eagerly")
     want = cfg.num_layers * substeps if device == "cuda" else 0
     if launches != want or substeps <= 0:
         raise RuntimeError(f"sweep: attention launches {launches} != {want} "
@@ -1290,12 +1514,56 @@ async def sweep_phase(engine, card_line: str, device: str = "cuda") -> dict:
     log("sweep: prefill curve (prompt tokens: TTFT ms) " + ", ".join(
         f"{n:.0f}: {t:.2f}" for n, t in zip(prefill.prompt_len, prefill.ttft_ms))
         + f" ({card_line})")
+    log(f"sweep: lone TTFT {min(prefill.ttft_ms):.1f}-{max(prefill.ttft_ms):.1f} ms at "
+        f"{min(SWEEP_PROMPT_LENS)}-{max(SWEEP_PROMPT_LENS)} prompt tokens, each prefill chunk "
+        f"a graph replay ({runner.eager_prefills - eager_pre0} eager) ({card_line})")
+    depth0 = await lone_ttft_depth0(engine, card_line)
     log(f"sweep: {substeps} substeps, attention launches {launches} (= {want}), no eager "
         f"window, {wall:.1f}s; profile written to {path}")
     return {"path": path, "wall_s": wall, "substeps": substeps, "launches": launches,
             "batch": decode.batch.tolist(), "tok_s": decode.tok_s.tolist(),
             "itl_ms": decode.itl_ms.tolist(), "prompt_len": prefill.prompt_len.tolist(),
-            "ttft_ms": prefill.ttft_ms.tolist(), "gen_len": SWEEP_GEN}
+            "ttft_ms": prefill.ttft_ms.tolist(), "gen_len": SWEEP_GEN,
+            "lone_ttft_ms_depth0": depth0}
+
+
+async def lone_ttft_depth0(engine, card_line: str) -> dict:
+    """The sweep's lone TTFT (one request of 2 tokens on an idle engine,
+    after a warm one of the same length) at pipeline depth 0, beside the
+    sweep's own at the engine's depth 2. At depth 2 the engine dispatches a
+    K-step window behind the first token's fetch and harvests that fetch
+    only when it next drains; at depth 0 it waits for the fetch before
+    planning a window. → {prompt tokens: ms}."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    rng = np.random.default_rng(1)
+    out = {}
+    depth = engine.args.pipeline_depth
+    engine.args.pipeline_depth = 0
+    try:
+        for n in SWEEP_PROMPT_LENS:
+            for warm in (True, False):
+                r = PreprocessedRequest(model=engine.cfg.name, token_ids=rng.integers(
+                    1, engine.cfg.vocab_size - 1, size=n).tolist())
+                r.sampling.temperature = 0.0
+                r.stop.max_tokens = 2
+                r.stop.ignore_eos = True
+                t0, first = time.perf_counter(), None
+                async for item in engine.generate(r, Context()):
+                    if item.get("token_ids") and first is None:
+                        first = time.perf_counter() - t0
+                while engine.busy():
+                    await asyncio.sleep(0.001)
+                if not warm:
+                    out[n] = first * 1e3
+    finally:
+        engine.args.pipeline_depth = depth
+    log("sweep: lone TTFT at pipeline depth 0: " + ", ".join(
+        f"{n}: {ms:.1f}" for n, ms in out.items()) + f" ms ({card_line})")
+    return out
 
 
 # -- phase 4c: the wide int8 entry on a serving path --------------------------
@@ -1408,7 +1676,7 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
     st = {"tokens_per_s": tokens / wall, "wall_s": wall, "substeps": substeps,
           "substeps_by_bucket": by_bucket, "launches": counts,
           "host_ms_per_substep": decode_s / max(1, substeps) * 1e3,
-          "prefill_s": phase.get("prefill", 0.0),
+          "prefill_s": phase.get("prefill_dispatch", 0.0),
           "graphs_captured": captured[0], "capture_s": captured[1],
           "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     log(f"{tag}: {len(reqs)} requests ({len(WIDE_SAMPLED)} at temperature 0.7), {tokens} "
@@ -1619,17 +1887,18 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
     tokens = sum(len(o["ids"]) for o in outs)
     decode_s = sum(lead["phase_s"].get(k, 0.0) for k in DECODE_PHASES)
     calls = lead["tp"]["calls"]
-    # Each prefill chunk (one per prompt here) makes 2L + 1 all-reduces of
-    # its rows' hidden states and one all-gather of one row's logit slice;
-    # each decode substep as many, over the batch's 8 rows.
+    # Each prefill chunk (a prompt's chunk plan, padded to its rung) makes
+    # 2L + 1 all-reduces of its rows' hidden states and one all-gather of
+    # one row's logit slice; each decode substep as many, over the batch's
+    # 8 rows.
     per_forward = 2 * L + 2
-    prefill_calls = len(outs) * per_forward
-    elt = 2 if dtype == "bfloat16" else 4
     bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
+    chunks = prefill_chunk_buckets(BURST_LENS, bs)
+    prefill_calls = len(chunks) * per_forward
+    elt = 2 if dtype == "bfloat16" else 4
     rows = int(ENGINE_ARGV[ENGINE_ARGV.index("--max-num-seqs") + 1])
     vocab_slice = cfg.vocab_size // tp * 4
-    prefill_bytes = sum((-(-n // bs) * bs) * cfg.hidden_size * elt * (2 * L + 1) + vocab_slice
-                        for n in BURST_LENS)
+    prefill_bytes = sum(T * cfg.hidden_size * elt * (2 * L + 1) + vocab_slice for T in chunks)
     want_bytes = rows * (cfg.hidden_size * elt * (2 * L + 1) + vocab_slice)
     # The groups count the collectives Python calls: every one under gloo,
     # where windows run eagerly; under NCCL a captured window's collectives
@@ -1799,7 +2068,9 @@ def window_inputs(runner, mode, seed, K=8, lens=None, live=6):
         nxt += nblk
         toks = np.zeros((-(-int(n) // bs) * bs,), np.int32)
         toks[:n] = rng.integers(1, V, n)
-        logits.append(runner.prefill_chunk(toks, np.asarray(tables[-1], np.int32), 0, int(n)))
+        # Set-up, op by op: these ad-hoc shapes are not the engine's ladder.
+        logits.append(runner.prefill_chunk(toks, np.asarray(tables[-1], np.int32), 0, int(n),
+                                           eager=True))
     W = args.bucket_table(max(len(t) for t in tables))
     tab = np.zeros((B, W), np.int32)
     for i, t in enumerate(tables):
@@ -4459,6 +4730,45 @@ SPEC_NGRAM = 1
 SPEC_GAP_TOL = 0.25
 
 
+PACKED_ROWS = 4  # prefill_batch_max of phase 10's packed-prefill pass
+
+
+async def packed_prefill_pass(engine, burst, against_dense, dense, singles: dict, tag: str,
+                              card_line: str) -> dict:
+    """Phase 10's dense burst again with ``prefill_batch_max`` PACKED_ROWS
+    and the tail split off, so that the burst's prompts of 768 and 1,024
+    tokens share the 1,024 rung and those of 1,280 and 1,536 the 2,048 one:
+    each pair prefills as one packed dispatch of two rows. Its greedy
+    streams must equal the singles pass's (``dense``, whose numbers are
+    ``singles``) under the gap rule (``against_dense``); nothing runs
+    eagerly (``burst`` checks). → the burst's numbers, the packed
+    dispatches (rows, T, W) and the gap rule's."""
+    runner = engine.runner
+    packs: list[tuple[int, int, int]] = []
+    batch = runner.prefill_batch
+
+    def spy(toks, tables, *a, **kw):
+        if len(toks) > 1:
+            packs.append((len(toks), len(toks[0]), len(tables[0])))
+        return batch(toks, tables, *a, **kw)
+
+    engine.args.prefill_batch_max, engine.args.prefill_tail_split = PACKED_ROWS, False
+    runner.prefill_batch = spy
+    try:
+        outs, st = await burst("packed prefill")
+    finally:
+        del runner.prefill_batch
+        engine.args.prefill_batch_max, engine.args.prefill_tail_split = 1, True
+    if sorted(packs) != [(2, 1024, 128), (2, 2048, 128)]:
+        raise RuntimeError(f"{tag}[packed prefill]: packed dispatches {packs}, not two pairs")
+    st["packs"] = packs
+    st["vs_singles"] = against_dense("packed prefill", outs, dense)
+    log(f"{tag}[packed prefill]: prefill_batch_max {PACKED_ROWS}: packed dispatches (rows, T, "
+        f"W) {packs}, prefill dispatch {st['prefill_dispatch_s']:.3f}s of host time against "
+        f"{singles['prefill_dispatch_s']:.3f}s for singles ({card_line})")
+    return st
+
+
 def _first_divergence(a: list, b: list) -> int | None:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
@@ -4482,7 +4792,7 @@ def verify_rows(runner, S1: int, lens=None) -> dict:
         nxt += nblk
         toks = np.zeros((-(-int(n) // bs) * bs,), np.int32)
         toks[:n] = rng.integers(1, V, n)
-        lg = runner.prefill_chunk(toks, np.asarray(tables[-1], np.int32), 0, int(n))
+        lg = runner.prefill_chunk(toks, np.asarray(tables[-1], np.int32), 0, int(n), eager=True)
         first.append(int(lg.argmax()))
     W = args.bucket_table(max(len(t) for t in tables))
     tab = np.zeros((B, W), np.int32)
@@ -4716,7 +5026,8 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
             "passes", "rows", "proposed", "accepted", "emitted", "tree_passes")}
         ver0 = (runner.verify_passes, runner.verify_forwards, runner.verify_calls,
                 runner.tree_verify_calls)
-        eager0 = (runner.eager_windows, runner.eager_verifies)
+        eager0 = (runner.eager_windows, runner.eager_verifies, runner.eager_prefills)
+        phase0 = _counters(engine)[1].get("prefill_dispatch", 0.0)
         zero_counts()
         entered, gate = threading.Event(), threading.Event()
 
@@ -4768,12 +5079,13 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
         if tcalls != tuple(n * spec["tree_passes"] for n in per_fwd):
             raise RuntimeError(f"{tag}[{label}]: tree verify passes made {tcalls} kernel calls "
                                f"for {spec['tree_passes']} passes")
-        if label != "dense" and passes == 0:
+        if label not in ("dense", "packed prefill") and passes == 0:
             raise RuntimeError(f"{tag}[{label}]: no verify pass was dispatched")
-        eager = (runner.eager_windows - eager0[0], runner.eager_verifies - eager0[1])
-        if cuda and eager != (0, 0):
-            raise RuntimeError(f"{tag}[{label}]: {eager[0]} windows and {eager[1]} verify passes "
-                               "ran eagerly on the card")
+        eager = (runner.eager_windows - eager0[0], runner.eager_verifies - eager0[1],
+                 runner.eager_prefills - eager0[2])
+        if cuda and eager != (0, 0, 0):
+            raise RuntimeError(f"{tag}[{label}]: {eager[0]} windows, {eager[1]} verify passes "
+                               f"and {eager[2]} prefills ran eagerly on the card")
         st = {"wall_s": wall, "tokens_per_s": len(prompts) * BURST_TOKENS / wall,
               "substeps": substeps, "verify_passes": passes, "verify_forwards": forwards,
               "attention_launches": launches[0], "int8_launches": launches[1],
@@ -4781,7 +5093,9 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
               "verify_attention_launches": vcalls[0], "tree_verify_attention_launches": tcalls[0],
               "verify_calls_per_pass": [c / max(1, passes) for c in vcalls],
               "tokens_per_weight_pass": row_tokens / max(1, row_passes),
-              "accept_rate": spec["accepted"] / max(1, spec["proposed"]), **spec}
+              "accept_rate": spec["accepted"] / max(1, spec["proposed"]),
+              "prefill_dispatch_s": _counters(engine)[1].get("prefill_dispatch", 0.0) - phase0,
+              **spec}
         log(f"{tag}[{label}]: 8 requests x {BURST_TOKENS} tokens in {wall:.3f}s → "
             f"{st['tokens_per_s']:.1f} tokens/s; {substeps} dense substeps, {passes} verify "
             f"passes ({spec['tree_passes']} branched, {forwards} forwards), "
@@ -4824,6 +5138,9 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     result = {"window_graphs": n_win, "layers": L}
     engine.set_spec(spec_tokens=0)
     dense, result["dense"] = await burst("dense")
+    if quant == "none":
+        result["packed_prefill"] = await packed_prefill_pass(engine, burst, against_dense, dense,
+                                                             result["dense"], tag, card_line)
     engine.set_spec(spec_tokens=SPEC_TOKENS)
     result["fused_lattice"] = warm("linear fused")
     fused, result["fused"] = await burst("fused")
@@ -4851,10 +5168,13 @@ async def spec_phase(card_line: str, preset: str = "llama-8b", device: str = "cu
     result["tree"]["vs_dense"] = against_dense("tree", tree, dense)
     if g is not None:
         verify = [k for k in g.shapes if k[0] == "verify"]
+        prefill = [k for k in g.shapes if k[0] == "prefill"]
         result["verify_graphs"] = len(verify)
+        result["prefill_graphs"] = len(prefill)
         result["graph_pool_bytes"] = g.pool_bytes()
-        log(f"{tag}: {len(verify)} verify graphs and {g.captured - len(verify)} window graphs "
-            f"in one pool of {g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
+        log(f"{tag}: {len(verify)} verify graphs, {len(prefill)} prefill graphs (captured at "
+            f"first use) and {g.captured - len(verify) - len(prefill)} window graphs in one "
+            f"pool of {g.pool_bytes() / 2**20:.1f} MiB ({card_line})")
     if cuda:
         result["timing"] = verify_timing(engine, card_line, tag)
     await engine.stop()
@@ -6060,14 +6380,14 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
                 np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]) or not all(
                 0 <= t < cfg.vocab_size for t in o["tokens"]):
             raise RuntimeError(f"{tag} request {i}: bad token/logprob stream")
-    forwards = substeps + len(reqs)
+    forwards = substeps + len(prefill_chunk_buckets([r["len"] for r in reqs]))
     want = ((L * substeps, *int8_expected(cfg, [r["len"] for r in reqs], substeps,
                                           buckets=by_bucket), forwards)
             if cuda else (0, 0, 0, 0, 0))
     if counts != want or substeps == 0:
         raise RuntimeError(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 "
                            f"wide entry, tied head) {counts} != {want} for substeps by bucket "
-                           f"{by_bucket} and {len(reqs)} prefills")
+                           f"{by_bucket} and {forwards - substeps} prefill chunks")
     if cuda and eager != (0, 0):
         raise RuntimeError(f"{tag}: {eager[0]} windows and {eager[1]} single steps ran eagerly")
     if cuda and not {32, TIED_SEQS} <= set(by_bucket):
@@ -6078,7 +6398,7 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
     st = {"model": cfg.name, "layers": L, "tokens_per_s": tokens / wall, "wall_s": wall,
           "substeps": substeps, "substeps_by_bucket": by_bucket, "forwards": forwards,
           "launches": counts, "host_ms_per_substep": decode_s / max(1, substeps) * 1e3,
-          "prefill_s": phase.get("prefill", 0.0), "graphs_captured": captured[0],
+          "prefill_s": phase.get("prefill_dispatch", 0.0), "graphs_captured": captured[0],
           "capture_s": captured[1],
           "graph_pool_bytes": runner.graphs.pool_bytes() if runner.graphs else 0,
           "max_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0}
@@ -6089,8 +6409,9 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
         f"in {captured[1]:.2f}s, graph pool {st['graph_pool_bytes'] / 2**20:.1f} MiB; peak memory "
         f"{st['max_mem_gib']:.2f} GiB ({card_line})")
     log(f"{tag}: launches (attention, int8 kernel, int8 prefill route, int8 wide entry, tied "
-        f"head) {counts}: the tied head once per forward ({substeps} substeps + {len(reqs)} "
-        f"prefills), the layer products 7 x {L} per forward on their rows' routes")
+        f"head) {counts}: the tied head once per forward ({substeps} substeps + "
+        f"{forwards - substeps} prefill chunks), the layer products 7 x {L} per forward on "
+        "their rows' routes")
     await engine.stop()
     del pipe, engine, runner
 
@@ -6100,6 +6421,7 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
                            quant="int8")
         trunner = LocalRunner(rargs, params=params)
         trunner.start()
+        weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
         st["replay_ms_per_substep"], st["replay_profile"] = {}, {}
         for live in (100, 32, 6):
             B = rargs.bucket_decode(live)
@@ -6137,12 +6459,20 @@ async def tied_phase(card_line: str, preset: str = "llama-3b", device: str = "cu
                     f"op by op (tokens, logprobs, KV pages, chain)")
                 kw128 = kw
             st["replay_ms_per_substep"][B] = replay_ms(trunner, kw)
+            # Byte bound of a substep: every weight once, and each live row's
+            # KV pages (k and v, every layer) over its context once.
+            kv_bytes = sum(int(n) for n in kw["positions"][:live]) * rargs.kv_bytes_per_block() \
+                // rargs.block_size
+            st.setdefault("byte_bound_ms_per_substep", {})[B] = (
+                (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3)
             prof = profile_replay(trunner, kw, card_line, f"{cfg.name}, bucket {B}, {live} live "
                                                          "rows")
             head = prof["families"]["int8 tied head"]["ms"]
             st["replay_profile"][B] = prof
             log(f"{tag}: bucket {B}: {st['replay_ms_per_substep'][B]:.3f} ms device time per "
-                f"substep as one graph replay; the tied head {head:.3f} ms of "
+                f"substep as one graph replay, byte bound "
+                f"{st['byte_bound_ms_per_substep'][B]:.3f} ms ({weight_bytes / 1e9:.3f} GB of "
+                f"weights and the live rows' KV at 3.35 TB/s); the tied head {head:.3f} ms of "
                 f"{prof['ms_per_substep']:.3f} profiled ({100 * head / prof['ms_per_substep']:.1f}%)"
                 f" ({card_line})")
         # Bucket 128's window captured alone, the head on the tied entry and
@@ -6421,7 +6751,7 @@ async def moe_phase(card_line: str, preset: str = "moe-wide", device: str = "cud
         st = {"requests": len(idx), "tokens_per_s": len(idx) * max_tokens / wall, "wall_s": wall,
               "substeps": substeps, "launches": counts,
               "host_ms_per_substep": decode_s / substeps * 1e3,
-              "prefill_s": phase.get("prefill", 0.0)}
+              "prefill_s": phase.get("prefill_dispatch", 0.0)}
         log(f"{tag}[{label}]: {len(idx)} requests, {len(idx) * max_tokens} tokens in {wall:.3f}s "
             f"→ {st['tokens_per_s']:.1f} tokens/s; {substeps} substeps, host ms per substep "
             f"{st['host_ms_per_substep']:.3f}; prefill {st['prefill_s']:.2f}s of host time; "

@@ -5,18 +5,19 @@ name means the same geometry in both packages. ``EngineArgs`` keeps only
 the knobs this port honours, plus ``device``; the speculative-decoding
 knobs carry the JAX package's names and defaults.
 
-What went: the prefill token ladder existed so that each jitted shape
-compiled once; prefill runs eagerly here, so prefill chunks are padded
-only to a block multiple (the page-scatter contract). The decode batch
-ladder stays: a fixed row count gives every decode matmul the same shape
-whatever the batch holds, so a row's result does not depend on how many
-other rows run beside it. The table-width ladder stays too (two buckets,
-as in the JAX package): each decode window shape is one CUDA graph
-(engine/graphs.py), so widths must come from a short list.
+Every ladder of the JAX package is here with its defaults: each prefill
+shape (rows, T bucket, table bucket) and each decode window shape is one
+CUDA graph (engine/graphs.py), as each is one jitted program there, so
+shapes must come from short lists. The prefill ladder (``prefill_buckets``,
+``plan_prefill_chunks``, ``bucket_prefill_rows``) is copied as it is, so
+both engines cut and pad a prompt alike. The decode batch ladder also
+gives every decode matmul the same shape whatever the batch holds, so a
+row's result does not depend on how many other rows run beside it.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 ATTN_IMPLS = ("auto", "cuda", "torch")
@@ -189,6 +190,28 @@ class EngineArgs:
     pipeline_depth: int = 2
     # Max prompt tokens admitted per scheduler step (0 = until slots are full).
     admission_budget_tokens: int = 8192
+    # Run every dispatch op by op: no CUDA graph is captured for a window,
+    # a single step, a verify pass or a prefill (the JAX package's "skip
+    # jit"); eager dispatches on the card count in the runner's eager_*.
+    enforce_eager: bool = False
+    # Prefill T-bucket ladder: "fine" (default) inserts 1.5x midpoints into
+    # the pow2 ladder through the common range (<= 512), halving the worst
+    # pad; "coarse" is the 2x/4x ladder (fewest graphs); a comma list
+    # ("64,128,384") pins an explicit schedule (values round up to
+    # block_size multiples; max_prefill_tokens is always appended). Each
+    # bucket x table-width x row-count triple is one CUDA graph
+    # (LocalRunner.warm_prefills captures the lattice).
+    prefill_buckets_spec: str = "fine"
+    # Split a suffix whose bucket pad is large into [bucket-sized chunk,
+    # re-bucketed tail] chunked-prefill dispatches: a 600-token suffix runs
+    # as 512 + (88 -> 96) instead of padding a whole 1024 row. Exact
+    # (chunked prefill is exact); costs one extra dispatch, so only splits
+    # that save >= 2 blocks of padding are taken.
+    prefill_tail_split: bool = True
+    # Max sequences packed into one prefill dispatch (model.prefill_batch).
+    # 1 (singles), as in the JAX package: each extra row bucket multiplies
+    # the graph lattice that warm-up captures.
+    prefill_batch_max: int = 1
     # Ranked alternatives returned to requests asking for top_logprobs.
     top_logprobs_max: int = 8
     # KV tier stack (block_manager/tiers.py): G2 host-RAM blocks (0 = off)
@@ -239,6 +262,11 @@ class EngineArgs:
     # Batch-level draft budgets: hot rows may draft up to 2 x spec_tokens
     # under the fixed batch total rows x spec_tokens (False = uniform).
     spec_budget_adaptive: bool = True
+    # Streaming KV export flow control: max host bytes of published but
+    # unacked chunks one export may buffer. A consumer that stops pulling
+    # aborts the stream at this budget (the decode side falls back to a
+    # local prefill) instead of growing the prefill worker's heap.
+    transfer_buffer_bytes: int = 256 << 20
     # Proactive defrag: at this KV pool usage fraction the engine fires its
     # migration-offer hook for the CHEAPEST running sequence, relocating it
     # to a pool peer BEFORE allocation failure forces a recompute-
@@ -260,6 +288,11 @@ class EngineArgs:
     lora_rank: int = 8
 
     def __post_init__(self):
+        # Fail fast on a mistyped ladder spec: anything that is not a named
+        # schedule must parse as a comma list of ints, or the error would
+        # surface as a bare int() ValueError inside the first bucket_prefill.
+        if self.prefill_buckets_spec not in ("fine", "coarse"):
+            self._parse_bucket_list(self.prefill_buckets_spec)
         if self.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8'; got {self.quant!r}")
         if self.kv_quant not in ("none", "int8"):
@@ -350,6 +383,92 @@ class EngineArgs:
         raise ValueError(
             f"sequence of {n_blocks} blocks exceeds blocks_per_seq={self.blocks_per_seq}"
         )
+
+    # The prefill ladders are cached: bucket_prefill runs on the scheduler
+    # thread (plan_prefill_chunks probes the ladder per admitted suffix).
+    # The fields they read (block_size, max_prefill_tokens,
+    # prefill_buckets_spec) are not changed after construction.
+    @functools.cached_property
+    def prefill_buckets(self) -> tuple[int, ...]:
+        """The prefill T ladder (the JAX package's, value for value): every
+        padded token runs the whole model, so the ladder's stride is the
+        pad waste; "fine" adds 1.5x midpoints to the pow2 ladder up to 512
+        and stays 2x beyond, where the tail split covers the long range.
+        Values stay block_size-aligned (the page-scatter contract)."""
+        spec = self.prefill_buckets_spec
+        bs = self.block_size
+        if spec not in ("fine", "coarse"):
+            vals = sorted({
+                min(-(-x // bs) * bs, self.max_prefill_tokens)
+                for x in self._parse_bucket_list(spec)
+            })
+            return tuple(dict.fromkeys(vals + [self.max_prefill_tokens]))
+        lo = min(max(bs * 2, 32), self.max_prefill_tokens)
+        out = []
+        b = lo
+        while b < self.max_prefill_tokens:
+            out.append(b)
+            if spec == "fine":
+                mid = -(-(b * 3 // 2) // bs) * bs  # 1.5x, block-aligned
+                if b < 512 and mid < self.max_prefill_tokens and mid > b:
+                    out.append(mid)
+                b *= 2
+            else:
+                b *= 2 if b < 512 else 4
+        out.append(self.max_prefill_tokens)
+        return tuple(dict.fromkeys(sorted(out)))
+
+    def bucket_prefill(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"prefill of {n} tokens exceeds max_prefill_tokens={self.max_prefill_tokens}")
+
+    @staticmethod
+    def _parse_bucket_list(spec: str) -> list[int]:
+        """Parse an explicit comma-list bucket spec: the one parse shared by
+        __post_init__ (fail fast at construction) and the ladder."""
+        try:
+            vals = [int(x) for x in spec.split(",") if x.strip()]
+        except ValueError:
+            vals = []
+        if not vals or any(v <= 0 for v in vals):
+            raise ValueError(
+                f"prefill_buckets_spec must be 'fine', 'coarse' or a comma "
+                f"list of positive ints; got {spec!r}"
+            )
+        return vals
+
+    def plan_prefill_chunks(self, sfx: int) -> list[int]:
+        """Chunk plan for one suffix of ``sfx`` tokens (<= max_prefill_tokens):
+        ``[sfx]``, one dispatch padded to its bucket, or ``[c1, sfx - c1]``
+        when splitting the tail into a smaller bucket saves >= 2 blocks of
+        padding. ``c1`` is a bucket value, hence block-aligned, so the
+        second chunk starts on a block boundary. Chunked prefill is exact:
+        the split changes only the padded work, never the tokens."""
+        direct = self.bucket_prefill(sfx)
+        if not self.prefill_tail_split or direct == sfx:
+            return [sfx]
+        best, best_cost = [sfx], direct
+        for c1 in self.prefill_buckets:
+            if c1 >= sfx:
+                break
+            cost = c1 + self.bucket_prefill(sfx - c1)
+            # <= : on cost ties the largest first chunk wins (600 -> [512,
+            # 88 -> 96], not [96, 504]).
+            if cost <= best_cost:
+                best, best_cost = [c1, sfx - c1], cost
+        if direct - best_cost >= 2 * self.block_size:
+            return best
+        return [sfx]
+
+    def bucket_prefill_rows(self, n: int) -> int:
+        """Pow2 row ladder of a packed prefill, capped at prefill_batch_max."""
+        b = 1
+        while b < min(n, self.prefill_batch_max):
+            b *= 2
+        return min(b, self.prefill_batch_max)
 
     @property
     def effective_pipeline_depth(self) -> int:

@@ -8,8 +8,12 @@ through a lock-guarded queue and receive deltas on per-request asyncio
 queues via ``loop.call_soon_threadsafe``.
 
 Kept from TpuEngine: (class, age)-ordered admission (FIFO for traffic of
-one QoS class) with block allocation and prefix-cache hits; single-row
-prefill chunked at ``max_prefill_tokens``; first tokens sampled on the
+one QoS class) with block allocation and prefix-cache hits; the prefill
+dispatch of each admission wave (``_dispatch_prefills``): suffixes packed
+by T bucket into ``prefill_batch`` rows up to ``prefill_batch_max``, longer
+ones and tail-split ones chunked, every chunk padded to a rung of the
+prefill ladder and its table to a table bucket, so each prefill shape is
+one CUDA graph on the card; first tokens sampled on the
 device per admission wave and folded into each
 sequence's chain slot, their fetch queued (async admission); fused K-step
 decode windows (``decode_steps``) over the running set in the sampler
@@ -156,13 +160,6 @@ from dynamo_tpu_torch.transfer.stream import KvChunk, KvStreamExport
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 _SENTINEL_DONE = object()
-
-# Streaming disaggregated export (transfer/stream.py): host bytes of
-# published-but-unacked chunks one export may buffer (the JAX package's
-# default). A consumer that stops pulling aborts the stream at this budget
-# (the decode side falls back to local prefill) instead of growing the
-# prefill worker's heap without bound.
-TRANSFER_BUFFER_BYTES = 256 << 20
 
 # Adaptive tree budgets: the per-row draft-node cap, as a multiple of
 # spec_tokens. Bounding hot rows at 2x keeps the verify-shape lattice at
@@ -582,14 +579,14 @@ class TorchEngine:
         # Monotonic counters, read racily by callers (stale reads harmless).
         self.total_generated = 0
         self.total_prefilled = 0
-        self.total_prefill_padded = 0  # prefill tokens dispatched, block padding included
+        self.total_prefill_padded = 0  # prefill tokens dispatched, bucket padding included
         self.total_decode_steps = 0   # device substeps dispatched, padded rows included
         # The same by decode batch bucket (rows per substep: what picks the
         # int8 product's route).
         self.decode_steps_by_bucket: collections.Counter = collections.Counter()
         self.total_preemptions_by: collections.Counter = collections.Counter()  # victim class
         self._arrival_no = 0
-        # Host seconds per phase: admission, prefill, first_dispatch,
+        # Host seconds per phase: admission, prefill_dispatch, first_dispatch,
         # decode_dispatch, drain_sync (waiting on a window's fetch),
         # drain_ready (a window already on the host), first_sample (waiting
         # on an admission sample), emit.
@@ -1414,22 +1411,26 @@ class TorchEngine:
         self._update_gauges()
 
     def _admit(self, allocated: list[tuple[_Seq, int]]) -> None:
-        """Prefill an admission wave and sample its first tokens on the
-        device, folded into each sequence's chain slot; the wave's fetch
-        joins the queue (async admission), so the next window can chain
-        from the samples while they travel to the host."""
+        """Prefill an admission wave (``_dispatch_prefills``) and sample its
+        first tokens on the device, folded into each sequence's chain slot;
+        the wave's fetch joins the queue (async admission), so the next
+        window can chain from the samples while they travel to the host."""
         seqs = [s for s, _ in allocated]
         t0 = time.perf_counter()
         try:
-            logits = [self._prefill(seq, start) for seq, start in allocated]
-            t0 = self._phase("prefill", t0)
+            admitted = self._dispatch_prefills(allocated)
+            t0 = self._phase("prefill_dispatch", t0)
+            # The JAX engine's row order: chunked prompts first, then the
+            # packs by bucket.
+            seqs = [s for s, _, _ in admitted]
             B = self.args.bucket_decode(len(seqs))
             for s in seqs:
                 s.slot = self._free_slots.pop()
             slots = np.full((B,), self.args.max_num_seqs, np.int32)
             slots[: len(seqs)] = [s.slot for s in seqs]
+            srcs = [(logits, row) for _, logits, row in admitted]
             top_n = self._top_n(seqs)
-            ref = self._sample_rows_device(logits + [logits[0]] * (B - len(seqs)), seqs, slots,
+            ref = self._sample_rows_device(srcs + [srcs[0]] * (B - len(seqs)), seqs, slots,
                                            top_n)
         except Exception as e:  # noqa: BLE001 — contain wave faults to the wave
             log.exception("prefill failed")
@@ -1555,7 +1556,8 @@ class TorchEngine:
         # decode worker's kv_fetch can pull while the prefill runs; blocks
         # already in the cache (a prefix hit) publish as chunk 0 now.
         if seq.export and seq.export_handle:
-            exp = KvStreamExport(seq.export_handle, max_buffer_bytes=TRANSFER_BUFFER_BYTES)
+            exp = KvStreamExport(seq.export_handle,
+                                 max_buffer_bytes=self.args.transfer_buffer_bytes)
             seq.export_stream = exp
             with self._mutex:
                 self._exports[seq.export_handle] = (exp, time.monotonic() + self.export_ttl_s)
@@ -1564,23 +1566,94 @@ class TorchEngine:
                 self._start_export_extract(seq, 0, hit)
         return start
 
-    def _prefill(self, seq: _Seq, start: int):
-        """Single-row prefill of positions [start, len) in chunks of at most
-        max_prefill_tokens (each padded to a block multiple; chunks start
-        on block boundaries) → last-token logits [V] on the device."""
+    def _dispatch_prefills(self, allocated: list[tuple[_Seq, int]]
+                           ) -> list[tuple[_Seq, Any, int | None]]:
+        """Run an admission wave's prefills, as the JAX engine's
+        ``_dispatch_prefills``: suffixes that fit one chunk are packed by T
+        bucket into ``prefill_batch`` dispatches; longer ones, and those
+        whose bucket pad the tail split cuts (``plan_prefill_chunks``), run
+        chunked, one sequence at a time. → (seq, logits, row) triples:
+        [Bp, V] logits and the row of a packed dispatch, or a chunked
+        prompt's last [V] logits and None (nothing synced)."""
+        out: list[tuple[_Seq, Any, int | None]] = []
+        singles: list[tuple[_Seq, int, list[int] | None]] = []
+        groups: dict[int, list[tuple[_Seq, int]]] = {}
+        for seq, start in allocated:
+            sfx = len(seq.tokens) - start
+            if sfx > self.args.max_prefill_tokens:
+                singles.append((seq, start, None))
+                continue
+            plan = self.args.plan_prefill_chunks(sfx)
+            if len(plan) > 1:
+                singles.append((seq, start, plan))
+            else:
+                groups.setdefault(self.args.bucket_prefill(sfx), []).append((seq, start))
+        for seq, start, plan in singles:
+            out.append((seq, self._prefill_chunked(seq, start, plan), None))
+        bmax = max(1, self.args.prefill_batch_max)
+        for t_pad, members in sorted(groups.items()):
+            # Greedy pow2 packs (5 → 4 + 1): every dispatch fills its row
+            # bucket, so no padded row runs the model.
+            i = 0
+            while i < len(members):
+                take = min(bmax, len(members) - i)
+                p = 1
+                while p * 2 <= take:
+                    p *= 2
+                sub = members[i : i + p]
+                i += p
+                logits = self._prefill_packed(sub, t_pad)
+                out += [(seq, logits, row) for row, (seq, _) in enumerate(sub)]
+        return out
+
+    def _prefill_packed(self, members: list[tuple[_Seq, int]], t_pad: int):
+        """One packed prefill dispatch of same-bucket suffixes → logits
+        [Bp, V] on the device."""
+        Bp = self.args.bucket_prefill_rows(len(members))
+        W = self.args.bucket_table(max(len(s.block_ids) for s, _ in members))
+        toks = np.zeros((Bp, t_pad), np.int32)
+        tables = np.zeros((Bp, W), np.int32)
+        starts = np.zeros((Bp,), np.int32)
+        tlens = np.zeros((Bp,), np.int32)  # padding rows: true_len 0 → inactive
+        for r, (seq, start) in enumerate(members):
+            sfx = seq.tokens[start:]
+            toks[r, : len(sfx)] = sfx
+            tables[r, : len(seq.block_ids)] = seq.block_ids
+            starts[r] = start
+            tlens[r] = len(seq.tokens)
+        aslots = self._adapter_row_slots([s for s, _ in members], Bp)
+        logits = self._runner.prefill_batch(toks, tables, starts, tlens, aslots)
+        self.total_prefill_padded += Bp * t_pad
+        for seq, start in members:
+            self._finish_prefill_bookkeeping(seq, start)
+        return logits
+
+    def _prefill_chunked(self, seq: _Seq, start: int, chunks: list[int] | None = None):
+        """One sequence's prefill in chunks: of at most max_prefill_tokens
+        each, or the tail-split plan ``chunks`` (true lengths; every chunk
+        but the last is a bucket value, hence block-aligned, so each starts
+        on a block boundary). Each chunk is padded to its bucket, the table
+        to its bucket. → last-token logits [V] on the device."""
         bs = self.args.block_size
         prompt = seq.tokens
         plen = len(prompt)
-        table = np.asarray(seq.block_ids, np.int32)
+        W = self.args.bucket_table(len(seq.block_ids))
+        table = np.zeros((W,), np.int32)
+        table[: len(seq.block_ids)] = seq.block_ids
         logits = None
-        pos = start
+        pos, ci = start, 0
         while pos < plen:
-            n = min(self.args.max_prefill_tokens, plen - pos)
-            toks = np.zeros((-(-n // bs) * bs,), np.int32)
+            if chunks is not None:
+                n = chunks[ci]
+                ci += 1
+            else:
+                n = min(self.args.max_prefill_tokens, plen - pos)
+            t_pad = self.args.bucket_prefill(n)
+            toks = np.zeros((t_pad,), np.int32)
             toks[:n] = prompt[pos : pos + n]
             logits = self._runner.prefill_chunk(
                 toks, table, pos, pos + n, seq.adapter_slot if seq.adapter_slot >= 0 else None)
-            self.total_prefill_padded += len(toks)
+            self.total_prefill_padded += t_pad
             pos += n
             # Streaming export: the blocks this chunk completed ship while
             # the next chunks compute (their gather is enqueued after this
@@ -1590,12 +1663,17 @@ class TorchEngine:
                 if done > seq.export_pub_blocks:
                     self._start_export_extract(seq, seq.export_pub_blocks, done)
                 self._drain_export_fetches()
+        self._finish_prefill_bookkeeping(seq, start)
+        return logits
+
+    def _finish_prefill_bookkeeping(self, seq: _Seq, start: int) -> None:
+        plen = len(seq.tokens)
         self.total_prefilled += plen - start
+        # Prompt positions are now in the cache: register their blocks.
         seq.kv_written = plen
         self._register_written_blocks(seq)
         if seq.export:
             self._export_kv(seq, plen)
-        return logits
 
     def _register_written_blocks(self, seq: _Seq) -> None:
         """Register sealed blocks whose KV is fully written."""

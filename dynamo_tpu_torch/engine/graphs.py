@@ -1,9 +1,10 @@
-"""CUDA-graph decode windows, verify passes and single steps: the port's
-counterpart of the JAX package's one jitted dispatch per window
+"""CUDA-graph decode windows, verify passes, single steps and prefills: the
+port's counterpart of the JAX package's one jitted dispatch per window
 (``dynamo_tpu/engine/runner.py`` ``multi_decode``), per speculative verify
-pass (``spec_verify``, whose shape lattice the JAX package AOT-compiles)
-and per grammar-constrained single step (``decode_step`` then masked
-``sample_rows``).
+pass (``spec_verify``, whose shape lattice the JAX package AOT-compiles),
+per grammar-constrained single step (``decode_step`` then masked
+``sample_rows``) and per prefill shape (``prefill_batch``, one program per
+rows × T bucket × table bucket).
 
 An eager window issues hundreds of small launches per substep and leaves
 the card idle while the host issues them. Here each window shape (B
@@ -14,11 +15,11 @@ at first use, as one ``torch.cuda.CUDAGraph`` of the whole window:
 Later windows of that shape copy their packed inputs into the graph's
 static input buffer and replay it.
 
-- Capture follows torch's documented pattern: the window runs twice on a
-  side stream first, on inert inputs (every row inactive, so KV writes land
-  in block 0, the garbage sink, and folds land in the sink slot), then is
-  captured. A capture that fails raises; nothing falls back to the eager
-  window.
+- Capture follows torch's documented pattern: the function runs once on
+  a side stream first, on inert inputs (every row inactive, so KV writes
+  land in block 0, the garbage sink, and folds land in the sink slot),
+  which initialises what the capture needs, then is captured. A capture
+  that fails raises; nothing falls back to the eager window.
 - All graphs share one memory pool. Each keeps references to its static
   inputs and outputs, so no capture reuses another graph's live buffers;
   every replay runs on the one stream, in dispatch order, and the runner
@@ -42,7 +43,7 @@ import torch
 from dynamo_tpu_torch.ops import int8_matmul as im
 from dynamo_tpu_torch.ops import paged_attention as pa
 
-WARMUP_RUNS = 2
+WARMUP_RUNS = 1
 # (module, counter) of every kernel wrapper a window can call.
 COUNTERS = ((pa, "launches"), (im, "launches"), (im, "prefill_launches"),
             (im, "tied_launches"), (im, "wide_launches"))
@@ -59,7 +60,7 @@ def set_counts(values) -> None:
 
 
 class _Graph:
-    __slots__ = ("graph", "static_in", "outs", "calls", "capture_s", "pool_bytes")
+    __slots__ = ("graph", "static_in", "outs", "calls", "capture_s", "pool_bytes", "replays")
 
     def __init__(self, graph, static_in, outs, calls, capture_s, pool_bytes):
         self.graph = graph
@@ -68,14 +69,16 @@ class _Graph:
         self.calls = calls  # per COUNTERS entry: calls one replay makes
         self.capture_s = capture_s    # seconds its capture took, warmup runs included
         self.pool_bytes = pool_bytes  # graph pool bytes its capture added
+        self.replays = 0
 
 
 class WindowGraphs:
-    """The runner's captured windows, verify passes and single steps,
-    keyed by shape: (B, W, L, K, mode, top_n, lora) for a window,
+    """The runner's captured windows, verify passes, single steps and
+    prefills, keyed by shape: (B, W, L, K, mode, top_n, lora) for a window,
     ("verify", B, W, S1, mode, top_n, tree, fused, lora, masked) for a
     verify pass, ("step", B, W, L, mode, top_n, lora, masked) for a single
-    step; ``lora`` is the variant whose rows carry adapter slots."""
+    step, ("prefill", rows, T, W, lora) for a prefill; ``lora`` is the
+    variant whose rows carry adapter slots."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -97,20 +100,31 @@ class WindowGraphs:
         """Captured shape → (capture seconds, graph pool bytes it added)."""
         return {k: (g.capture_s, g.pool_bytes) for k, g in self._graphs.items()}
 
+    def replay_counts(self) -> dict[tuple, int]:
+        """Captured shape → replays so far."""
+        return {k: g.replays for k, g in self._graphs.items()}
+
     def run(self, key: tuple, words: np.ndarray,
             make: Callable[[], tuple[Callable, np.ndarray]]) -> tuple[torch.Tensor, ...]:
         """Replay the graph of ``key`` on the packed inputs ``words``,
-        capturing it first if needed (``make()`` → the window function of
-        its packed inputs and inert inputs for the warmup). → the graph's
-        static outputs, overwritten by its next replay."""
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = self._capture(*make())
+        capturing it first if needed (``capture``). → the graph's static
+        outputs, overwritten by its next replay."""
+        g = self.capture(key, make)
         g.static_in.copy_(torch.from_numpy(words).pin_memory(), non_blocking=True)
         g.graph.replay()
         set_counts(a + b for a, b in zip(read_counts(), g.calls))
+        g.replays += 1
         self.replays += 1
         return g.outs
+
+    def capture(self, key: tuple, make: Callable[[], tuple[Callable, np.ndarray]]) -> _Graph:
+        """The graph of ``key``, captured now if it is not yet (``make()`` →
+        the function of its packed inputs, and inert inputs for the warmup
+        runs before the capture)."""
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(*make())
+        return g
 
     def _capture(self, fn: Callable, inert: np.ndarray) -> _Graph:
         t0, pool0 = time.perf_counter(), self.pool_bytes()

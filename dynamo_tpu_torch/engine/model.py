@@ -483,15 +483,23 @@ def prefill_batch(
         pk = pa.gather_dequant_pages(cache.k[layer], sk, block_tables, KVH, hd, x.dtype)
         pv = pa.gather_dequant_pages(cache.v[layer], sv, block_tables, KVH, hd, x.dtype)
 
+        # The f32 scores are the forward's largest buffers ([Bp, T, H, W·bs
+        # + T]): scaled and masked in place, and each dropped as soon as it
+        # is consumed, so that at most two are alive at once (what a
+        # captured prefill's share of the graph pool holds).
         qg = q.reshape(Bp, T, KVH, G, hd)
-        s_p = torch.einsum("btkgh,bckh->btkgc", qg, pk).float() * scale
-        s_s = torch.einsum("btkgh,bskh->btkgs", qg, k).float() * scale
-        s_p = s_p + mask_sp[:, None, None, None, :]
-        s_s = s_s + mask_ss[:, :, None, None, :]
-        p = torch.softmax(torch.cat([s_p, s_s], dim=-1), dim=-1).to(x.dtype)
-        p_p, p_s = p[..., : W * bs], p[..., W * bs :]
-        o = (torch.einsum("btkgc,bckh->btkgh", p_p, pv)
-             + torch.einsum("btkgs,bskh->btkgh", p_s, v))
+        s_p = torch.einsum("btkgh,bckh->btkgc", qg, pk).float().mul_(scale)
+        s_p.add_(mask_sp[:, None, None, None, :])
+        s_s = torch.einsum("btkgh,bskh->btkgs", qg, k).float().mul_(scale)
+        s_s.add_(mask_ss[:, :, None, None, :])
+        s = torch.cat([s_p, s_s], dim=-1)
+        del s_p, s_s, pk
+        p = torch.softmax(s, dim=-1)
+        del s
+        p = p.to(x.dtype)
+        o = (torch.einsum("btkgc,bckh->btkgh", p[..., : W * bs], pv)
+             + torch.einsum("btkgs,bskh->btkgh", p[..., W * bs :], v))
+        del p, pv
         x = x + _reduce(_wo_lora(o.reshape(Bp, T, cfg.q_size), lp, ll, lrows), tp)
         x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
 

@@ -27,8 +27,13 @@ device:
   captures its shape lattice) and every single step (``decode_sample``:
   the decode step and its sampling, masked for a grammar-constrained
   batch; ``warm_steps``). Grammar masks ride the packed upload as 32-bit
-  words. Prefill, admission sampling and embeddings run eagerly, as the
-  JAX package dispatches them separately too.
+  words. So is every prefill dispatch: one graph per (rows, T bucket,
+  table bucket, LoRA variant), the shapes the engine's prefill ladder
+  gives (``prefill_batch``, ``prefill_chunk``; ``warm_prefills`` captures
+  the lattice). Admission sampling and embeddings run eagerly, as the JAX
+  package dispatches them separately too. ``enforce_eager`` runs every
+  dispatch op by op, and each one that does on the card counts in its
+  ``eager_*`` counter.
 - Multi-LoRA: with ``lora_slots`` > 0 the adapter bank (``lora_bank``,
   engine/lora.py ``bank_shapes``, in the compute dtype) is allocated once
   and written in place by ``upload_adapter``, so captured graphs read what
@@ -63,7 +68,12 @@ from dynamo_tpu_torch.engine import kv_transfer
 from dynamo_tpu_torch.engine import model as M
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.grammar import mask_words
-from dynamo_tpu_torch.engine.graphs import COUNTERS, WindowGraphs, read_counts, set_counts
+from dynamo_tpu_torch.engine.graphs import (
+    COUNTERS,
+    WindowGraphs,
+    read_counts,
+    set_counts,
+)
 from dynamo_tpu_torch.engine.lora import LORA_PAGE_KEYS, bank_shapes
 from dynamo_tpu_torch.engine.quant import quantize_params_np, random_int8_params_device
 from dynamo_tpu_torch.engine.sampler import (
@@ -162,6 +172,14 @@ def verify_layout(B: int, W: int, S1: int, tree: bool, W32: int = 0,
     return Layout(*fields, *_aslots(B, lora))
 
 
+def prefill_layout(Bp: int, T: int, W: int, lora: bool = False) -> Layout:
+    """Operands of one prefill dispatch: Bp rows of T suffix tokens, W-wide
+    tables, each row's suffix start and true length (0: an inactive row),
+    and with ``lora`` each row's adapter slot."""
+    return Layout(("toks", (Bp, T), "i"), ("tables", (Bp, W), "i"), ("starts", (Bp,), "i"),
+                  ("tlens", (Bp,), "i"), *_aslots(Bp, lora))
+
+
 def sample_layout(B: int, L: int, W32: int = 0) -> Layout:
     """Operands of one sampling dispatch over B rows (L-wide penalty
     windows; with ``W32`` > 0 per-row grammar masks)."""
@@ -250,9 +268,10 @@ class LocalRunner:
     params (a full tree is cut, random weights are drawn whole and cut, so
     every tp holds tp=1's weights) and the rank's kv-head lanes of the
     cache, and every forward runs with the rank's ``ModelSharding``.
-    Captured windows need collectives a CUDA graph can hold: under NCCL
-    they are captured as at tp=1; under gloo (ranks sharing a card) they
-    run eagerly and count in ``eager_windows``. ``extract_pages`` gathers
+    Captured graphs need collectives a CUDA graph can hold: under NCCL
+    windows and prefills are captured as at tp=1; under gloo (ranks
+    sharing a card) they run eagerly and count in ``eager_windows`` and
+    ``eager_prefills``. ``extract_pages`` gathers
     every rank's lanes into the JAX layout ``[L, n, bs, KVH·hd]`` and
     ``inject_pages`` takes the rank's lanes of such pages, so tier files,
     disagg payloads and migrations read the same at any tp. Each rank
@@ -289,6 +308,7 @@ class LocalRunner:
         self.eager_windows = 0  # K-step windows run eagerly on CUDA
         self.eager_verifies = 0  # verify passes run eagerly on CUDA
         self.eager_steps = 0  # single decode steps run eagerly on CUDA
+        self.eager_prefills = 0  # prefill dispatches run eagerly on CUDA
         # Verify passes dispatched, the forwards over all layers they made
         # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
         # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route,
@@ -349,7 +369,8 @@ class LocalRunner:
                 for k, shape in bank_shapes(self.cfg, self.args.lora_slots,
                                             self.args.lora_rank).items()
             }
-        if self.device.type == "cuda" and (self.group is None or self.group.backend == "nccl"):
+        if (self.device.type == "cuda" and not self.args.enforce_eager
+                and (self.group is None or self.group.backend == "nccl")):
             self.graphs = WindowGraphs(self.device)
 
     def stop(self) -> None:
@@ -419,33 +440,104 @@ class LocalRunner:
 
     # -- dispatches -------------------------------------------------------
 
-    def prefill_batch(self, toks, tables, starts, tlens, adapter_slots=None) -> torch.Tensor:
-        """→ last-token logits [Bp, V] (device)."""
-        bank, aslots = self._lora_operands(
-            None if adapter_slots is None else self._t(adapter_slots, torch.int32))
-        return M.prefill_batch(
-            self.cfg, self.params, self.cache, self._t(toks, torch.int32),
-            self._t(tables, torch.int32), self._t(starts, torch.int32),
-            self._t(tlens, torch.int32), bank, aslots, self.sharding,
-        )
+    def prefill_batch(self, toks, tables, starts, tlens, adapter_slots=None, *,
+                      eager=False) -> torch.Tensor:
+        """Prefill Bp rows (``toks`` [Bp, T], ``tables`` [Bp, W], suffix
+        ``starts`` and true lengths ``tlens`` [Bp], 0 for an inactive row)
+        → last-token logits [Bp, V] on the device, dispatched without
+        waiting for it. ``adapter_slots`` [Bp] (-1 = base) selects the LoRA
+        variant; None the pre-LoRA one. On CUDA each shape is one graph
+        replay; ``eager=True`` runs it op by op (the parity checks' seam)."""
+        Bp, T = np.shape(toks)
+        lay = prefill_layout(Bp, T, np.shape(tables)[1], adapter_slots is not None)
+        return self._prefill(lay, lay.pack(toks=toks, tables=tables, starts=starts, tlens=tlens,
+                                           aslots=adapter_slots), eager)
 
-    def prefill_chunk(self, toks, table, pos: int, tlen: int,
-                      adapter_slot: int | None = None) -> torch.Tensor:
-        """Positions [pos, tlen) of one sequence → last-token logits [V]
-        (device), dispatched without waiting for the device. A row with an
-        adapter passes its bank slot (the JAX ``prefill_chunk``'s scalar
-        slot); None or -1 runs the pre-LoRA forward."""
-        T, W = len(toks), len(table)
+    def prefill_chunk(self, toks, table, pos: int, tlen: int, adapter_slot: int | None = None,
+                      *, eager=False) -> torch.Tensor:
+        """Positions [pos, tlen) of one sequence → last-token logits [V] on
+        the device: the one-row ``prefill_batch``, whose graphs it shares. A
+        row with an adapter passes its bank slot (the JAX
+        ``prefill_chunk``'s scalar slot); None or -1 runs the pre-LoRA
+        forward."""
         lora = adapter_slot is not None and adapter_slot >= 0
-        lay = Layout(("toks", (1, T), "i"), ("table", (1, W), "i"),
-                     ("pos", (1,), "i"), ("tlen", (1,), "i"), *_aslots(1, lora))
-        arrays = dict(toks=toks, table=table, pos=pos, tlen=tlen)
-        if lora:
-            arrays["aslots"] = adapter_slot
-        a = lay.unpack(self.upload(lay.pack(**arrays)))
-        bank, aslots = self._lora_operands(a.get("aslots"))
-        return M.prefill_batch(self.cfg, self.params, self.cache, a["toks"], a["table"],
-                               a["pos"], a["tlen"], bank, aslots, self.sharding)[0]
+        lay = prefill_layout(1, len(toks), len(table), lora)
+        return self._prefill(lay, lay.pack(toks=toks, tables=table, starts=pos, tlens=tlen,
+                                           aslots=adapter_slot), eager)[0]
+
+    def _prefill(self, lay: Layout, words: np.ndarray, eager: bool) -> torch.Tensor:
+        if self.graphs is not None and not eager:
+            (logits,) = self.graphs.run(words=words, **self._prefill_graph(lay))
+            # The graph's static logits are overwritten by its next replay,
+            # which may come before this wave samples (two singles of one
+            # shape, a prompt whose chunks share a bucket): the copy is
+            # enqueued right behind this replay, before any later one.
+            return logits.clone()
+        if self.device.type == "cuda":
+            self.eager_prefills += 1
+        return self._prefill_fn(lay)(self.upload(words))[0]
+
+    def _prefill_graph(self, lay: Layout) -> dict:
+        """``WindowGraphs.run``/``capture`` operands of a prefill layout:
+        its key ("prefill", rows, T, W, lora) and the maker."""
+        Bp, T = lay.slices["toks"][2]
+        key = ("prefill", Bp, T, lay.slices["tables"][2][1], "aslots" in lay.slices)
+        return dict(key=key, make=lambda: (self._prefill_fn(lay), self._inert_prefill(lay)))
+
+    def _prefill_fn(self, lay: Layout):
+        """The prefill as one function of its packed inputs (what a graph
+        captures)."""
+
+        def prefill(words: torch.Tensor):
+            a = lay.unpack(words)
+            bank, aslots = self._lora_operands(a.get("aslots"))
+            return (M.prefill_batch(self.cfg, self.params, self.cache, a["toks"], a["tables"],
+                                    a["starts"], a["tlens"], bank, aslots, self.sharding),)
+
+        return prefill
+
+    @staticmethod
+    def _inert_prefill(lay: Layout) -> np.ndarray:
+        """Prefill inputs that touch nothing live: every row's true length
+        0, so its KV writes land in block 0, the garbage sink."""
+        Bp, T = lay.slices["toks"][2]
+        z = np.zeros((Bp,), np.int32)
+        return lay.pack(toks=np.zeros((Bp, T), np.int32),
+                        tables=np.zeros(lay.slices["tables"][2], np.int32), starts=z, tlens=z,
+                        aslots=np.full((Bp,), -1, np.int32))
+
+    def prefill_shapes(self) -> list[tuple[int, int, int]]:
+        """Every (rows, T, W) a prefill dispatch of the engine can take:
+        rows a power of two up to ``prefill_batch_max`` (the engine's packs;
+        a chunk is one row), T a rung of the prefill ladder, W a table
+        bucket that can hold a suffix of T's bucket (its shortest suffix,
+        one past the rung below, fits in W blocks)."""
+        args = self.args
+        rows, b = [], 1
+        while b <= max(1, args.prefill_batch_max):
+            rows.append(b)
+            b *= 2
+        pairs, lo = [], 1
+        for T in args.prefill_buckets:
+            pairs += [(T, W) for W in args.table_buckets if -(-lo // args.block_size) <= W]
+            lo = T + 1
+        return [(Bp, T, W) for Bp in rows for T, W in pairs]
+
+    def warm_prefills(self) -> int:
+        """Capture, ahead of traffic, the CUDA graph of every prefill shape
+        (``prefill_shapes``), and with an adapter bank each shape's LoRA
+        variant too; a shape's first replay is its first real dispatch. →
+        graphs newly captured (0 on the CPU or under ``enforce_eager``)."""
+        if self.graphs is None:
+            return 0
+        before = self.graphs.captured
+        # Largest first: every later capture fits in the pool segments the
+        # first one freed (ascending, the pool grows by half again).
+        shapes = sorted(self.prefill_shapes(), key=lambda s: (s[1], s[2], s[0]), reverse=True)
+        for lora in self._lora_variants():
+            for Bp, T, W in shapes:
+                self.graphs.capture(**self._prefill_graph(prefill_layout(Bp, T, W, lora)))
+        return self.graphs.captured - before
 
     def decode_step(self, tokens, positions, tables, active, adapter_slots=None) -> torch.Tensor:
         """→ logits [B, V] (device)."""
@@ -737,17 +829,20 @@ class LocalRunner:
             pages = self.sharding.shard_pages(pages)
         kv_transfer.inject_pages(self.cache, block_ids, *pages)
 
-    def sample_rows(self, logits: list[torch.Tensor], mode: str, temps, tks, tps, pen, freqs,
+    def sample_rows(self, srcs: list, mode: str, temps, tks, tps, pen, freqs,
                     press, seeds, steps, fold_slots=None, top_n: int = 0,
                     masks=None) -> StepRef:
-        """Sample one token per row of the stacked ``logits`` ([V] each) in
-        sampler ``mode`` → StepRef (tokens [B], logprobs [B], top_vals
-        [B, n], top_ids [B, n]). ``masks`` = None or [B, W32] uint32 packed
-        grammar bitsets: each row samples from its legal vocabulary, while
-        the logprobs stay the raw model's. With ``fold_slots`` the tokens
-        also land in ``last_toks``, so the next window chains from them
-        without a host sync (async admission)."""
-        x = torch.stack(logits)
+        """Sample one token per row of the stacked logits ``srcs`` (each a
+        [V] tensor, or a (logits, row) pair: row ``row`` of a packed
+        prefill's [Bp, V] logits, or its [V] logits when ``row`` is None, as
+        the JAX runner's sources) in sampler ``mode`` → StepRef (tokens [B],
+        logprobs [B], top_vals [B, n], top_ids [B, n]). ``masks`` = None or
+        [B, W32] uint32 packed grammar bitsets: each row samples from its
+        legal vocabulary, while the logprobs stay the raw model's. With
+        ``fold_slots`` the tokens also land in ``last_toks``, so the next
+        window chains from them without a host sync (async admission)."""
+        x = torch.stack([t if isinstance(t, torch.Tensor) else t[0] if t[1] is None
+                         else t[0][t[1]] for t in srcs])
         B = x.shape[0]
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
@@ -917,7 +1012,8 @@ class LocalRunner:
 # packs and uploads the same words the leader does.
 MIRRORED = ("prefill_batch", "prefill_chunk", "upload_adapter", "multi_decode", "decode_step",
             "spec_verify", "sample_rows", "embed", "extract_pages", "start_extract_pages",
-            "inject_pages", "decode_sample", "warm_windows", "warm_spec", "warm_steps")
+            "inject_pages", "decode_sample", "warm_windows", "warm_spec", "warm_steps",
+            "warm_prefills")
 # How long the leader waits for its followers to connect, and a follower
 # retries while the leader starts up (it may load a checkpoint first).
 CONNECT_TIMEOUT_S = 600.0

@@ -227,6 +227,11 @@ def parse_args(argv=None):
     # Decode-window pipelining: max windows dispatched-but-unfetched (0 =
     # unpipelined; fetches still start async).
     p.add_argument("--pipeline-depth", type=int, default=2)
+    # Prefill T-bucket ladder: "fine" (1.5x midpoints ≤512), "coarse"
+    # (2x/4x, fewest graphs) or an explicit comma list.
+    p.add_argument("--prefill-buckets", default="fine")
+    p.add_argument("--no-prefill-tail-split", action="store_true",
+                   help="disable splitting padded prefill tails into smaller buckets")
     # Streaming delta coalescing: cap on tokens merged into one wire frame
     # when a stream's consumer lags (0 = one frame per decode window), and
     # an optional bounded gather wait in ms (adds up to that much ITL).
@@ -334,6 +339,12 @@ def parse_args(argv=None):
         p.error("--lora requires --lora-slots > 0")
     if args.lora and args.engine == "mocker":
         p.error("--lora requires --engine tpu (the mocker has no adapter bank)")
+    from dynamo_tpu_torch.engine.config import EngineArgs
+
+    try:  # EngineArgs' own check: a mistyped ladder fails before any weights load
+        EngineArgs(prefill_buckets_spec=args.prefill_buckets)
+    except ValueError as e:
+        p.error(f"--prefill-buckets: {e}")
     if args.engine == "mocker" and (args.disagg == "on" or args.is_prefill_worker):
         # The disagg handlers drive the real engine's KV extract/inject
         # surface; the mocker has neither (--disagg auto stays aggregated).
@@ -457,6 +468,8 @@ def engine_args(args, model, tok_spec, device: str | None = None):
         decode_steps=args.decode_steps,
         pipeline_depth=args.pipeline_depth,
         pipeline_windows=args.pipeline_depth > 0,
+        prefill_buckets_spec=args.prefill_buckets,
+        prefill_tail_split=not args.no_prefill_tail_split,
         delta_max_tokens=args.delta_max_tokens,
         delta_max_ms=args.delta_max_ms,
         qos_scheduling=args.qos_sched == "on",
@@ -609,6 +622,16 @@ def trace_counters(engine, exporter) -> dict:
     return out
 
 
+def prefill_graph_counters(graphs) -> dict:
+    """The prefill graphs captured so far: their count, capture seconds and
+    the graph-pool bytes their captures added."""
+    costs = [c for k, c in graphs.capture_costs().items()
+             if k[0] == "prefill"] if graphs is not None else []
+    return {"prefill_graphs": len(costs),
+            "prefill_capture_s": round(sum(s for s, _ in costs), 6),
+            "prefill_pool_bytes": sum(b for _, b in costs)}
+
+
 def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=None) -> dict:
     """The engine's monotonic counters as one JSON-able dict, with the
     disagg decode handler's, the peer prefix fetcher's and the role
@@ -635,6 +658,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=No
         "spec_forwards": engine.runner.verify_forwards,
         "eager_verifies": engine.runner.eager_verifies,
         "eager_steps": engine.runner.eager_steps,
+        "eager_prefills": engine.runner.eager_prefills,
         "grammar_seqs": engine.total_grammar_seqs,
         "grammar_mask_s": round(engine.total_grammar_mask_s, 6),
         "phase_s": {k: round(v, 6) for k, v in engine.phase_s.items()},
@@ -648,6 +672,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=No
         "onboard_s": round(engine.onboard_s, 6),
         "onboard_bytes": engine.onboard_bytes,
         "graphs_captured": graphs.captured if graphs is not None else 0,
+        **prefill_graph_counters(graphs),
         "graph_capture_s": round(graphs.capture_s, 6) if graphs is not None else 0.0,
         "migration_pump_s": round(engine.migration_pump_s, 6),
         "migration_pumps": engine.migration_pumps,
@@ -706,14 +731,14 @@ async def async_main(args) -> None:
     for lname, lrank, lseed in args.lora_specs:
         engine.register_adapter(lname, rank=lrank, seed=lseed)
     # Capture the decode-window graphs, the single steps (unmasked for the
-    # end-of-life tail, masked for grammar-constrained traffic) and, with
-    # --spec-tokens, the verify lattice with its masked tree shapes before
-    # registering, so that no
-    # request waits for a capture (none on the CPU). Like the JAX worker,
-    # this one has no flag that turns grammar on: any request may carry a
-    # response_format. A prefill worker never decodes: it captures nothing.
-    graphs = verify_graphs = step_graphs = 0
-    warm_s = verify_s = step_s = 0.0
+    # end-of-life tail, masked for grammar-constrained traffic), with
+    # --spec-tokens the verify lattice with its masked tree shapes, and the
+    # prefill lattice before registering, so that no request waits for a
+    # capture (none on the CPU). Like the JAX worker, this one has no flag
+    # that turns grammar on: any request may carry a response_format. A
+    # prefill worker never decodes: it captures its prefills only.
+    graphs = verify_graphs = step_graphs = prefill_graphs = 0
+    warm_s = verify_s = step_s = prefill_s = 0.0
     if not args.is_prefill_worker and not mocker:
         runner = engine.runner
         t0 = time.perf_counter()
@@ -730,6 +755,16 @@ async def async_main(args) -> None:
                   f"masked) and the masked verify shapes add "
                   f"{(runner.graphs.pool_bytes() - pool0) / 2**20:.1f} MiB to the graph pool",
                   flush=True)
+    if not mocker:
+        runner = engine.runner
+        pool0 = runner.graphs.pool_bytes() if runner.graphs is not None else 0
+        t0 = time.perf_counter()
+        prefill_graphs = await asyncio.to_thread(runner.warm_prefills)
+        prefill_s = time.perf_counter() - t0
+        if runner.graphs is not None:
+            print(f"dynamo_tpu_torch worker: {prefill_graphs} prefill graphs in "
+                  f"{prefill_s:.2f}s add {(runner.graphs.pool_bytes() - pool0) / 2**20:.1f} MiB "
+                  f"to the graph pool", flush=True)
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
     pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
@@ -762,7 +797,8 @@ async def async_main(args) -> None:
         await serve_autoscaled(rt, engine, card, args, broadcaster,
                                f"({graphs} window graphs captured in {warm_s:.2f}s, "
                                f"{step_graphs} single-step graphs in {step_s:.2f}s, "
-                               f"{verify_graphs} verify graphs in {verify_s:.2f}s; registered "
+                               f"{verify_graphs} verify graphs in {verify_s:.2f}s, "
+                               f"{prefill_graphs} prefill graphs in {prefill_s:.2f}s; registered "
                                f"{time.perf_counter() - t_launch:.2f}s after the runtime "
                                f"started)", publisher, exporter)
         return
@@ -848,7 +884,8 @@ async def async_main(args) -> None:
         f"{args.namespace}/{args.component}/{args.endpoint}{rank} on "
         f"{'no device (mocker)' if mocker else args.device} "
         f"({graphs} window graphs captured in {warm_s:.2f}s, {step_graphs} single-step "
-        f"graphs in {step_s:.2f}s, {verify_graphs} verify graphs in {verify_s:.2f}s; registered "
+        f"graphs in {step_s:.2f}s, {verify_graphs} verify graphs in {verify_s:.2f}s, "
+        f"{prefill_graphs} prefill graphs in {prefill_s:.2f}s; registered "
         f"{time.perf_counter() - t_launch:.2f}s after the runtime started)",
         flush=True,
     )
@@ -859,8 +896,8 @@ async def async_main(args) -> None:
         with contextlib.suppress(NotImplementedError):
             loop.add_signal_handler(sig, stop.set)
     with contextlib.suppress(NotImplementedError):
-        loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            json.dumps(engine_counters(engine, disagg, fetcher, exporter=exporter)), flush=True))
+        loop.add_signal_handler(signal.SIGUSR1, lambda: print_line(
+            engine_counters(engine, disagg, fetcher, exporter=exporter)))
     await stop.wait()
     log.info("worker shutting down")
     if puller is not None:
@@ -872,8 +909,17 @@ async def async_main(args) -> None:
     await rt.shutdown()
     await close_fleet_planes(publisher, exporter)
     await stop_engine(engine)
-    print(json.dumps(engine_counters(engine, disagg, fetcher, exporter=exporter)), flush=True)
+    print_line(engine_counters(engine, disagg, fetcher, exporter=exporter))
     close_group(engine)
+
+
+def print_line(record: dict) -> None:
+    """``record`` as one JSON line in one write: tp followers share the
+    leader's stdout pipe, and a line written in pieces (``print`` writes
+    the text and its newline apart on an unbuffered stream) can interleave
+    with theirs."""
+    sys.stdout.write(json.dumps(record) + "\n")
+    sys.stdout.flush()
 
 
 async def close_fleet_planes(publisher, exporter) -> None:
@@ -926,8 +972,8 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str,
         with contextlib.suppress(NotImplementedError):
             loop.add_signal_handler(sig, stop.set)
     with contextlib.suppress(NotImplementedError):
-        loop.add_signal_handler(signal.SIGUSR1, lambda: print(
-            json.dumps(engine_counters(engine, manager=manager, exporter=exporter)), flush=True))
+        loop.add_signal_handler(signal.SIGUSR1, lambda: print_line(
+            engine_counters(engine, manager=manager, exporter=exporter)))
     stop_task = loop.create_task(stop.wait())
     retired_task = loop.create_task(manager.retired.wait())
     await asyncio.wait((stop_task, retired_task), return_when=asyncio.FIRST_COMPLETED)
@@ -940,7 +986,7 @@ async def serve_autoscaled(rt, engine, card, args, broadcaster, warm_note: str,
     await close_fleet_planes(publisher, exporter)
     await stop_engine(engine)
     await rt.shutdown()
-    print(json.dumps(engine_counters(engine, manager=manager, exporter=exporter)), flush=True)
+    print_line(engine_counters(engine, manager=manager, exporter=exporter))
     close_group(engine)
 
 
@@ -966,9 +1012,7 @@ def run_follower(args) -> None:
     eargs = engine_args(args, model, tokenizer_spec_for(args.model_path, args.tokenizer),
                         str(group.device))
     runner = follower_loop(eargs, step_addr(args), params=params, seed=args.seed, group=group)
-    # One write: the followers and the leader share a pipe when the leader
-    # spawned them, and a line written in pieces can interleave with theirs.
-    sys.stdout.write(json.dumps({
+    print_line({
         "event": "follower_counters", "rank": rank, "token_digest": runner.digest(),
         "paged_attention_launches": pa.launches, "int8_matmul_launches": im.launches,
         "int8_matmul_prefill_launches": im.prefill_launches,
@@ -977,8 +1021,7 @@ def run_follower(args) -> None:
         "eager_windows": runner.eager_windows, "eager_steps": runner.eager_steps,
         "collectives": group.counters(),
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
-                              if runner.device.type == "cuda" else 0)}) + "\n")
-    sys.stdout.flush()
+                              if runner.device.type == "cuda" else 0)})
     runner.stop()
     group.close()
 

@@ -167,7 +167,7 @@ def test_mirrored_operations_cover_the_jax_leader():
                and "_cast" in ast.unparse(node)}
     assert casting and casting <= set(trunner.MIRRORED)
     assert set(trunner.MIRRORED) - casting == {"decode_sample", "warm_windows", "warm_spec",
-                                               "warm_steps"}
+                                               "warm_steps", "warm_prefills"}
     for op in trunner.MIRRORED:
         assert callable(getattr(trunner.LocalRunner, op))
         assert getattr(trunner.LeaderRunner, op) is not getattr(trunner.LocalRunner, op)
