@@ -829,6 +829,7 @@ def kernel_phase(device):
 
 INT8_SOURCE = "dynamo_tpu_torch/ops/csrc/int8_matmul.cu"
 INT8_REPLACES = "dynamo_tpu/engine/model.py:156"
+INT8_DECODE_VERSION = 2  # the decode entry (M <= 8); 1 was the split-K kernel and its merge
 # llama-8b's decode products (K, N): wq/wo, wk/wv, w_gate/w_up, w_down, and
 # lm_head; calls per substep beside each (32 layers).
 INT8_SHAPES = {"wq_wo": (4096, 4096, 64), "wk_wv": (4096, 1024, 64),
@@ -839,7 +840,7 @@ INT8_SHAPES = {"wq_wo": (4096, 4096, 64), "wk_wv": (4096, 1024, 64),
 INT8_TP_SHAPES = {"tp2_wq": (4096, 2048, 32), "tp2_wk_wv": (4096, 512, 64),
                   "tp2_wo": (2048, 4096, 32), "tp2_w_gate_up": (4096, 7168, 64),
                   "tp2_w_down": (7168, 4096, 32), "tp2_lm_head": (4096, 64128, 1)}
-INT8_TP_M = (8, 32)
+INT8_TP_M = (1, 8, 32)
 TP_KV_HEADS = 4  # llama-8b's 8 kv heads over tp_kv = 2
 INT8_ODD = ("odd", 1000, 200)  # breaks every tile and 16-byte alignment
 # The tied heads (K, N) = (D, V) of llama-1b and llama-3b: the int8 embedding
@@ -918,6 +919,69 @@ def int8_bound(M, K, N, x_bytes, out_bytes, scale_bytes, qdt_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# The products that share x, as ``_qkv`` and ``_mlp`` group them: one
+# launch of the decode entry each at 1-8 rows, at full width and at a tp=2
+# rank's shards.
+INT8_GROUPS = {
+    "qkv": ("wq_wo", "wk_wv", "wk_wv"), "gate_up": ("w_gate_up", "w_gate_up"),
+    "tp2_qkv": ("tp2_wq", "tp2_wk_wv", "tp2_wk_wv"),
+    "tp2_gate_up": ("tp2_w_gate_up", "tp2_w_gate_up"),
+}
+INT8_GROUP_M = (1, 8)
+
+
+def int8_group_case(M, names, seed, device):
+    """x [M, K] bf16 unit normals and, for each shape in ``names``
+    (INT8_SHAPES or INT8_TP_SHAPES), w [K, N] uniform int8 and f32 scales,
+    from a generator on the card seeded with ``seed``."""
+    import torch
+
+    shapes = {**INT8_SHAPES, **INT8_TP_SHAPES}
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, shapes[names[0]][0]), generator=g, device=device).to(torch.bfloat16)
+    ws = []
+    for name in names:
+        K, N, _ = shapes[name]
+        ws.append((torch.randint(-127, 128, (K, N), generator=g, device=device, dtype=torch.int8),
+                   torch.rand((N,), generator=g, device=device) * 0.02 + 1e-3))
+    return x, ws
+
+
+def int8_group_check(x, ws, label):
+    """One ``int8_matmul_group`` call against each weight's plain version (f32
+    on the same values), held as ``int8_check`` holds one product: repeats
+    bit-identical, TOL_INT8, one decode entry launch, one product counted a
+    weight → max |err|, or raise."""
+    import torch
+
+    from dynamo_tpu_torch.ops import int8_matmul as im
+
+    before = (im.launches, im.decode_launches)
+    outs = im.int8_matmul_group(x, ws)
+    again = im.int8_matmul_group(x, ws)
+    torch.cuda.synchronize()
+    if (im.launches, im.decode_launches) != (before[0] + 2 * len(ws), before[1] + 2):
+        raise RuntimeError(f"int8 group {label}: two calls counted "
+                           f"{im.launches - before[0]} products and "
+                           f"{im.decode_launches - before[1]} decode entry kernels")
+    rtol, c = TOL_INT8["bfloat16"]
+    worst = 0.0
+    for o, a, (w, s) in zip(outs, again, ws):
+        if not torch.equal(o, a):
+            raise RuntimeError(f"int8 group {label}: two calls on the same inputs differ")
+        ref = im.int8_matmul_ref(x.float(), w, s.float(), out_f32=True)
+        absref = (x.float().abs() @ w.float().abs()) * s.float().abs()
+        if o.shape != ref.shape or o.dtype != x.dtype or not torch.isfinite(o).all():
+            raise RuntimeError(f"int8 group {label}: output {o.dtype} {tuple(o.shape)}")
+        diff = (o.float() - ref).abs()
+        excess = float((diff - rtol * ref.abs() - c * absref).max())
+        if excess > 0:
+            raise RuntimeError(f"int8 group {label}: {tuple(w.shape)} disagrees with its plain "
+                               f"version by {excess:.3e} beyond the tolerance")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
 INT8_M = (1, 8, 16, 32, 64, 128, 256)  # rows at every llama-8b shape: decode buckets, verify
 INT8_PREFILL_M = (512, 2048)           # prefill chunks, at w_gate/w_up and w_down
 
@@ -929,6 +993,18 @@ def int8_substep(by: dict, M: int, shapes: dict = INT8_SHAPES) -> dict:
     return {k: sum(by[f"{name}_M{M}_bfloat16"][k] * calls
                    for name, (_, _, calls) in shapes.items())
             for k in ("ms", "plain_ms", "library_ms", "dequant_ms", "bound_ms")}
+
+
+def int8_substep_grouped(by: dict, M: int, tp: bool = False) -> dict:
+    """One llama-8b substep's 225 products at M <= 8 rows as the model
+    calls them (of a tp=2 rank's shards with ``tp``), summed from the cases'
+    times: per layer the q/k/v group, wo, the gate/up group and w_down,
+    then lm_head."""
+    pre = "tp2_" if tp else ""
+    parts = [(f"group_{pre}qkv", 32), (f"group_{pre}gate_up", 32),
+             (f"{pre}wo" if tp else "wq_wo", 32), (f"{pre}w_down", 32), (f"{pre}lm_head", 1)]
+    return {k: sum(by[f"{name}_M{M}_bfloat16"][k] * n for name, n in parts)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
 
 def int8_kernel_phase(device, card_line):
@@ -950,6 +1026,12 @@ def int8_kernel_phase(device, card_line):
                            f"assumes {im.WIDE_BLOCKS_PER_SM}")
     log(f"int8 wide entry: blocks per SM by row tile {got} (occupancy of the built kernel, as "
         f"the split plan assumes)")
+    got = im.decode_blocks_per_sm()
+    if got != im.DECODE_BLOCKS_PER_SM:
+        raise RuntimeError(f"int8 decode entry: {got} blocks per SM, the cluster plan assumes "
+                           f"{im.DECODE_BLOCKS_PER_SM}")
+    log(f"int8 decode entry: {got} blocks per SM (occupancy of the built kernel, as the cluster "
+        "plan assumes)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     cases = [(name, M, K, N, "bfloat16", name == "lm_head")
              for name, (K, N, _) in INT8_SHAPES.items() for M in INT8_M]
@@ -981,7 +1063,9 @@ def int8_kernel_phase(device, card_line):
         del wb
         xb = x.element_size()
         b_ms, b_by = int8_bound(M, K, N, xb, 4 if out_f32 else xb, s.element_size(), xdt)
-        plan = im.wide_plan(M, K, N) if which == "wide" else im.split_k(K, N)
+        plan = (im.wide_plan(M, K, N) if which == "wide" else
+                im.cluster_plan(K, -(-N // im.DECODE_BN)) if im.decode_entry(x, w) else
+                im.split_k(K, N))
         r = {"case": f"{name}_M{M}_{xdt}", "M": M, "K": K, "N": N, "route": which,
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
              "dequant_ms": dequant_ms, "bound_ms": b_ms, "bound_by": b_by, "plan": plan}
@@ -990,6 +1074,33 @@ def int8_kernel_phase(device, card_line):
             f"dequant_ms={dequant_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) plan={plan} ({card_line})")
         results.append(r)
         del x, w, s
+    for i, (name, names) in enumerate(INT8_GROUPS.items()):
+        for M in INT8_GROUP_M:
+            x, ws = int8_group_case(M, names, 900 + 10 * i + M, device)
+            err = int8_group_check(x, ws, f"{name} M={M}")
+            ms = time_ms(lambda: im.int8_matmul_group(x, ws), flush)
+            split_ms = time_ms(lambda: [im._launch(x, w, s, False, M, *w.shape) for w, s in ws],
+                               flush)
+            plain_ms = time_ms(lambda: [im.int8_matmul_ref(x, w, s) for w, s in ws], flush)
+            wbs = [w.to(x.dtype) for w, _ in ws]
+            lib_ms = time_ms(lambda: [torch.matmul(x, wb) for wb in wbs], flush)
+            del wbs
+            K = x.shape[1]
+            nbytes = sum(K * w.shape[1] + 4 * w.shape[1] + 2 * M * w.shape[1] for w, _ in ws)
+            t_bytes = (nbytes + 2 * M * K) / HBM_BYTES_PER_S
+            t_ops = sum(2.0 * M * K * w.shape[1] for w, _ in ws) / PEAK_OPS["bfloat16"]
+            r = {"case": f"group_{name}_M{M}_bfloat16", "M": M, "K": K,
+                 "N": [w.shape[1] for w, _ in ws], "route": "decode group",
+                 "max_abs_err": err, "ms": ms, "split_k_ms": split_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "plan": im.cluster_plan(K, sum(-(-w.shape[1] // im.DECODE_BN) for w, _ in ws))}
+            log(f"int8 {r['case']} ({K}x{r['N']}, one decode entry launch): max_abs_err={err:.3e} "
+                f"kernel_ms={ms:.4f} split-K kernel per weight {split_ms:.4f} plain_ms="
+                f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']}) plan={r['plan']} ({card_line})")
+            results.append(r)
+            del x, ws
     torch.cuda.empty_cache()
     by = {r["case"]: r for r in results}
     substep = {M: int8_substep(by, M) for M in INT8_M if M > 1}
@@ -998,6 +1109,14 @@ def int8_kernel_phase(device, card_line):
             f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, library (bf16 weights) "
             f"{t['library_ms']:.3f}, dequantize + torch.matmul {t['dequant_ms']:.3f}, bound "
             f"{t['bound_ms']:.3f} ({card_line})")
+    for M in INT8_GROUP_M:
+        for tp in (False, True):
+            t = int8_substep_grouped(by, M, tp)
+            substep[f"{'tp2_' if tp else ''}grouped_M{M}"] = t
+            log(f"int8: {'one tp=2 rank' if tp else 'one llama-8b substep'}'s 225 products at "
+                f"M={M} as the model calls them (q/k/v and gate/up grouped), from the cases "
+                f"above: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, library (bf16 "
+                f"weights) {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} ({card_line})")
     for M in INT8_TP_M:
         t = int8_substep(by, M, INT8_TP_SHAPES)
         substep[f"tp2_M{M}"] = t
@@ -1058,13 +1177,31 @@ def int8_expected(cfg, lens, substeps: int, bs: int = 16,
     return n["kernel"], n["prefill"], n["wide"]
 
 
+def decode_expected(cfg, lens, substeps: int, bs: int = 16, buckets: dict | None = None) -> int:
+    """Kernels the decode entry launches in a burst on the card (bf16 x at
+    the presets' aligned widths): per forward of a decode-route bucket 4 a
+    layer (q/k/v as one group, wo, gate/up as one group, w_down) and
+    lm_head, and each prefill chunk's last-token head (with its layer
+    products when the chunk is that short). A tied head is none of these."""
+    per_pass = 4 * cfg.num_layers
+    head = 0 if cfg.tie_embeddings else 1
+    n = sum((per_pass + head) * steps for rows, steps in (buckets or {8: substeps}).items()
+            if int8_rows_route(rows) == "kernel")
+    for T in prefill_chunk_buckets(lens, bs):
+        n += (per_pass if int8_rows_route(T) == "kernel" else 0) + head
+    return n
+
+
 def verify_per_forward(layers: int, cuda: bool, int8: bool, stepwise: bool = False) -> tuple:
     """Kernel-wrapper calls of one verify forward, in graphs.COUNTERS order
-    (attention, int8 kernel, int8 prefill route, int8 tied head, int8 wide
-    entry). A fused or tree pass's forward runs B x S1 > 8 rows (the wide
-    entry); a stepwise pass's forwards run B = 8 rows (the decode kernel)."""
+    (attention, int8 decode-route products, int8 prefill route, int8 tied
+    head, int8 wide entry, decode entry launches). A fused or tree pass's
+    forward runs B x S1 > 8 rows (the wide entry); a stepwise pass's
+    forwards run B = 8 rows (the decode route: its 7 products a layer are 4
+    decode entry launches, q/k/v and gate/up grouped)."""
     i8 = (7 * layers + 1) if cuda and int8 else 0
-    return (layers if cuda else 0, i8 if stepwise else 0, 0, 0, 0 if stepwise else i8)
+    groups = (4 * layers + 1) if cuda and int8 and stepwise else 0
+    return (layers if cuda else 0, i8 if stepwise else 0, 0, 0, 0 if stepwise else i8, groups)
 
 
 def int8_counts() -> tuple[int, int, int, int]:
@@ -1082,6 +1219,7 @@ def zero_counts() -> None:
     from dynamo_tpu_torch.ops import paged_attention as pa
 
     pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
+    im.decode_launches = 0
 
 
 def warm_prefill_graphs(runner, tag: str, card_line: str) -> dict:
@@ -1270,6 +1408,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     import torch
 
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
+    from dynamo_tpu_torch.ops import int8_matmul as im
     from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -1326,6 +1465,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         while engine.busy():
             await asyncio.sleep(0.001)
         launches, i8, i8_prefill, i8_wide = int8_counts()
+        i8_decode = im.decode_launches
         steps1, phases1 = _counters(engine)
         substeps = steps1 - steps0
         phase = {k: v - phases0.get(k, 0.0) for k, v in phases1.items()}
@@ -1347,6 +1487,11 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
             raise RuntimeError(f"{label}: int8_matmul launches (kernel, prefill route, wide "
                                f"entry) {(i8, i8_prefill, i8_wide)} != {want_i8} for {substeps} "
                                "substeps")
+        want_decode = decode_expected(cfg, lens, substeps) if (
+            quant == "int8" and device == "cuda") else 0
+        if i8_decode != want_decode:
+            raise RuntimeError(f"{label}: the int8 decode entry launched {i8_decode} kernels for "
+                               f"{i8} decode-route products; want {want_decode}")
         eager = runner.eager_windows - eager0
         if eager:
             raise RuntimeError(f"{label}: {eager} K-step windows ran eagerly on the card")
@@ -1356,7 +1501,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
         decode_s = sum(phase.get(k, 0.0) for k in DECODE_PHASES)
         total_tokens = sum(o["resp"]["usage"]["completion_tokens"] for o in outs)
         st = {"launches": launches, "int8_launches": i8, "int8_prefill_launches": i8_prefill,
-              "int8_wide_launches": i8_wide, "substeps": substeps, "wall_s": wall,
+              "int8_wide_launches": i8_wide, "int8_decode_launches": i8_decode,
+              "substeps": substeps, "wall_s": wall,
               "tokens_per_s": total_tokens / wall, "substep_ms": decode_s / substeps * 1e3,
               "decode_s": decode_s, "host_blocked": phase.get("drain_sync", 0.0) / decode_s,
               "prefill_dispatch_s": phase.get("prefill_dispatch", 0.0),
@@ -1379,8 +1525,9 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
             f"no eager prefill; replays by (rows, T, W) {st['prefill_replays']}) ({card_line})")
         log(f"{tag}[{label}]: phases " + json.dumps({k: round(v, 4) for k, v in phase.items()}))
         log(f"{tag}[{label}]: paged_attention launches {launches} = {cfg.num_layers} layers x "
-            f"{substeps} substeps; int8_matmul launches {i8} on the decode kernel, {i8_wide} on "
-            f"the wide entry, {i8_prefill} on the prefill route")
+            f"{substeps} substeps; int8_matmul products {i8} on the decode route ({i8_decode} "
+            f"decode entry kernels), {i8_wide} on the wide entry, {i8_prefill} on the prefill "
+            "route")
         return outs, st
 
     first, st2 = await burst("depth2")
@@ -1403,6 +1550,7 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
             raise RuntimeError(f"{tag} request {a['i']}: depth 2 and depth 0 streams differ")
     log(f"{tag}: all 8 token and logprob streams identical at pipeline_depth 2 and 0")
     stats = {"launches": st2["launches"], "int8_launches": st2["int8_launches"],
+             "int8_decode_launches": st2["int8_decode_launches"],
              "int8_prefill_launches": st2["int8_prefill_launches"],
              "int8_wide_launches": st2["int8_wide_launches"], "substeps": st2["substeps"],
              "tokens_per_s": st2["tokens_per_s"], "substep_ms": st2["substep_ms"],
@@ -8758,6 +8906,22 @@ def main() -> int:
         "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"], "library_ms": i8["library_ms"],
         "case": i8["case"], "substep_225_calls": int8_substeps, "cases": int8_cases,
     }
+    gu8 = next(r for r in int8_cases if r["case"] == "group_gate_up_M8_bfloat16")
+    decode_entry = {
+        "name": "int8_matmul_decode", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES, "version": INT8_DECODE_VERSION,
+        "launches": int8_runs["none"]["int8_decode_launches"],
+        "products": int8_runs["none"]["int8_launches"],
+        "launches_kv_int8": int8_runs["int8"]["int8_decode_launches"],
+        "max_abs_err": gu8["max_abs_err"], "ms": gu8["ms"], "plain_ms": gu8["plain_ms"],
+        "bound_ms": gu8["bound_ms"], "bound_by": gu8["bound_by"],
+        "library_ms": gu8["library_ms"], "split_k_ms": gu8["split_k_ms"], "case": gu8["case"],
+        "cases": [r for r in int8_cases if r["case"].startswith("group_")
+                  or (r["M"] <= 8 and r["route"] == "kernel" and r["case"].endswith("bfloat16")
+                      and "odd" not in r["case"])],
+        "substep_225_grouped": {k: v for k, v in int8_substeps.items()
+                                if "grouped" in str(k)},
+    }
     wide = int8_runs["none"]["wide"]
     w32 = next(r for r in int8_cases if r["case"] == "w_gate_up_M32_bfloat16")
     wide_entry = {
@@ -8850,8 +9014,8 @@ def main() -> int:
         "check": moe["check"], "max_mem_gib": moe["max_mem_gib"],
         "graph_pool_bytes": moe["graph_pool_bytes"], "card": card_line}))
     log(f"chip_smoke: phases 1-15 passed in {time.perf_counter() - t_start:.1f}s ({card_line})")
-    print(json.dumps({"kernels": [entry, int8_entry, wide_entry, tied_entry, *spec_entries]}),
-          flush=True)
+    print(json.dumps({"kernels": [entry, int8_entry, decode_entry, wide_entry, tied_entry,
+                                  *spec_entries]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

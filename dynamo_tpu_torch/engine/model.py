@@ -8,7 +8,8 @@ Norms, rope, softmax and logits run in f32; activations and matmuls in
 the compute dtype, which is the norms' dtype (``layers.attn_norm``), as in
 the JAX package. With ``quant="int8"`` the matmul weights are int8 with
 per-output-channel ``<name>_scale`` leaves (engine/quant.py); every product
-goes through ``_dot_q`` → ``ops.int8_matmul``.
+goes through ``_dot_q`` → ``ops.int8_matmul``, q/k/v and gate/up as one
+``ops.int8_matmul_group`` call each (``_dot_q_group``).
 
 Cache layout: k, v each ``[L, num_blocks, block_size, KVH*head_dim]``;
 with ``kv_quant="int8"`` the pages are int8 and per-position-per-head f32
@@ -245,9 +246,18 @@ def _embed_rows(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
     return e
 
 
+def _dot_q_group(x: torch.Tensor, lp: dict, names: tuple) -> list:
+    """``_dot_q`` of each weight in ``names``, all of which read x: int8
+    weights as one ``int8_matmul_group`` call (one launch on the decode
+    entry), float ones each on its own."""
+    if all(lp[n].dtype == torch.int8 for n in names):
+        return im.int8_matmul_group(x, [(lp[n], lp[n + "_scale"]) for n in names])
+    return [_dot_q(x, lp, n) for n in names]
+
+
 def _qkv(h: torch.Tensor, lp: dict, cfg: ModelConfig):
     """q/k/v projections with optional Qwen2-style bias."""
-    q, k, v = _dot_q(h, lp, "wq"), _dot_q(h, lp, "wk"), _dot_q(h, lp, "wv")
+    q, k, v = _dot_q_group(h, lp, ("wq", "wk", "wv"))
     if cfg.attn_bias:
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
@@ -310,8 +320,7 @@ def _wo_lora(o: torch.Tensor, lp: dict, ll: dict | None, rows) -> torch.Tensor:
 
 
 def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
-    g = _dot_q(x, lp, "w_gate")
-    u = _dot_q(x, lp, "w_up")
+    g, u = _dot_q_group(x, lp, ("w_gate", "w_up"))
     return _dot_q(torch.nn.functional.silu(g.float()).to(x.dtype) * u, lp, "w_down")
 
 

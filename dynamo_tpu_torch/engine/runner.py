@@ -311,9 +311,9 @@ class LocalRunner:
         self.eager_prefills = 0  # prefill dispatches run eagerly on CUDA
         # Verify passes dispatched, the forwards over all layers they made
         # (1 fused, S1 stepwise) and the kernel-wrapper calls they made, per
-        # graphs.COUNTERS entry (attention, int8 kernel, int8 prefill route,
-        # int8 tied head, int8 wide entry); ``tree_verify_calls`` the same for tree passes
-        # alone.
+        # graphs.COUNTERS entry (attention, int8 decode-route products, int8
+        # prefill route, int8 tied head, int8 wide entry, int8 decode entry
+        # kernels); ``tree_verify_calls`` the same for tree passes alone.
         self.verify_passes = 0
         self.verify_forwards = 0
         self.verify_calls = (0,) * len(COUNTERS)

@@ -16,15 +16,62 @@
 // where rx rounds to x's dtype (round to nearest even; identity for f32):
 // the rounding points of the JAX functions.
 //
-// Four entries, chosen by the wrapper from shapes alone (ops/int8_matmul.py
-// `route`): the decode kernel (dtpu_int8_matmul: M <= 8 rows of bf16 x, and
-// f32 x or unaligned shapes up to 64 rows), the wide entry
-// (dtpu_int8_matmul_wide: bf16 x of more than 8 rows, any count), and for
-// the tied head the tied wgmma entry (dtpu_int8_matmul_tw: bf16 x, any
-// count) and the first tied entry (dtpu_int8_matmul_t: f32 x, and bf16
-// shapes the wgmma entry refuses, up to 64 rows).
+// Five entries, chosen by the wrapper from shapes alone (ops/int8_matmul.py
+// `route` and `decode_entry`): the decode entry (dtpu_int8_matmul_decode:
+// 1-8 rows of bf16 x at aligned shapes, one launch for a group of weights
+// that share x), the split-K decode kernel (dtpu_int8_matmul: f32 x, and
+// unaligned shapes, up to 64 rows), the wide entry (dtpu_int8_matmul_wide:
+// bf16 x of more than 8 rows, any count), and for the tied head the tied
+// wgmma entry (dtpu_int8_matmul_tw: bf16 x, any count) and the first tied
+// entry (dtpu_int8_matmul_t: f32 x, and bf16 shapes the wgmma entry
+// refuses, up to 64 rows).
 //
-// The decode kernel. Bound on this card (H100 SXM, 3.35 TB/s HBM): at decode
+// The decode entry (int8_matmul_decode_kernel) replaces `_dot_q` (:156) at
+// every decode substep of a batch bucket of 8, with `_qkv` (:176) and `_mlp`
+// (:241) as one launch each, and the int8 `_logits` head (:279) of each
+// substep and of each prefill's last token. Bound on this card: 2*M
+// operations per weight byte at M <= 8, so reading K*N weight bytes once
+// at 3.35 TB/s (a llama-8b substep's 225 products: 7.50 GB, 2.240 ms). What
+// held the split-K kernel below back, and what this design does about it:
+// 1. Two kernels a product: its splits wrote f32 partials [splits, M, N] to
+//    device memory and a merge kernel added them. Here the ranks of one
+//    thread-block cluster (at most 8, the portable size; grid x) split K,
+//    each rank keeps its [8, 128] f32 partial in shared memory, and after a
+//    cluster barrier the ranks add them through distributed shared memory
+//    (mapa, ld.shared::cluster) in rank order, each rank finishing every
+//    ranks-th group of four outputs, then apply the epilogue: one kernel a
+//    product or group, no partials in device memory, and each output one
+//    fixed sum, so repeats give the same bits, inside CUDA graphs too. The
+//    ranks are planned from the shapes (the wrapper's cluster_plan): the
+//    largest power of two that keeps a launch within one block per SM (on
+//    the card more ranks only added tails). lm_head's 1,002 column blocks
+//    take one rank, three blocks to an SM.
+// 2. Fixed cost on small products: wk/wv ran 32 splits of one tile each.
+//    Here a group launch covers wq, wk and wv (or w_gate and w_up) at once,
+//    so every rank streams several tiles through its ring.
+// 3. Every thread copied and converted. Here one producer warp's one thread
+//    keeps a ring of four 18 KB stages in flight with TMA (a stage: a
+//    [128 k rows x 128 columns] weight box under the 128-byte swizzle and
+//    two [8 x rows x 64 k] boxes of x under the same swizzle, so x's rows
+//    are staged once per block beside the weights they meet; TMA zero-fills
+//    past M, K and N), completed on the stage's "full" mbarrier; eight
+//    consumer warps only convert and multiply (each 64 columns by a 32-row
+//    quarter of a stage: the split-K kernel's four-tiles-a-word A mapping
+//    and exact byte-permute conversion, mma.sync m16n8k16 with x's 8 rows as
+//    B), then arrive on its "empty" mbarrier. 64 KB of weights a block are
+//    in flight from the first tile on (the card streamed no faster with 6
+//    or 8 stages). The swizzle puts a warp's 32-bit reads of weights and of
+//    x in 32 distinct banks. (A programmatic dependent launch whose producer
+//    issued the first weights before griddepcontrol.wait sped a graph of
+//    decode launches back to back, but not a decode window, where other
+//    kernels come between: not taken.)
+// 4. Products that share x launched apart. Here one grid spans the column
+//    blocks of up to four weights, read through a table of (tensor map,
+//    scale, out, N) in the kernel's parameters; no weight is copied or
+//    concatenated. The four k quarters of a block are added in order in
+//    shared memory before the cluster's sum.
+//
+// The split-K decode kernel. Bound on this card (H100 SXM, 3.35 TB/s HBM): at decode
 // batch sizes the product does 2*M operations per weight byte, far below the
 // ~295 operations per byte the tensor cores need to be the limit, so it is
 // bound by reading K*N weight bytes once. The design streams them once:
@@ -56,7 +103,8 @@
 // - Shapes that break 16-byte alignment (K % 8 for bf16 x, K % 4 for f32,
 //   N % 16, or an unaligned pointer) stage the same tiles with plain loads,
 //   and so do bf16 calls of more than 8 rows (aligned ones take the wide
-//   entry).
+//   entry). Aligned bf16 calls of 1-8 rows take the decode entry above, so
+//   this kernel serves f32 x and the shapes TMA refuses.
 //
 // The first tied entry (dtpu_int8_matmul_t): llama-1b and llama-3b take
 // their logits from the int8 embedding [V, D] used transposed, so w arrives
@@ -158,13 +206,13 @@
 // - Outputs are written straight from the accumulators with the epilogue
 //   above, masked past N and M (TMA zero-fills the embedding past N and K).
 //
-// Not taken here (ROADMAP): fusing wq/wk/wv into one call, a persistent
-// grid for the wide entry.
+// Not taken here (ROADMAP): a persistent grid for the wide entry.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -1061,6 +1109,260 @@ __global__ void __launch_bounds__(W_THREADS, W_BLOCKS_PER_SM)
     }
 }
 
+// ---- the decode entry: bf16 x of 1-8 rows; TMA ring, cluster split-K, groups ----
+
+constexpr int D_BN = 128;                          // output columns per block
+constexpr int D_BK = 128;                          // k rows per stage
+constexpr int D_STAGES = 4;                        // stages in the ring (64 KB of weights)
+constexpr int D_CONSUMERS = 8;                     // warps: 2 column halves x 4 k quarters
+constexpr int D_THREADS = (D_CONSUMERS + 1) * 32;  // and one producer warp
+constexpr int D_WBYTES = D_BK * D_BN;              // a stage's weight tile, 16 KB
+constexpr int D_XBOX = 64;                         // k per x box: 128 bytes of each x row
+constexpr int D_XBYTES = 2 * 8 * D_XBOX * 2;       // a stage's two x boxes, 8 rows each
+constexpr int D_STAGE = D_WBYTES + D_XBYTES;       // 18 KB, a multiple of 1024
+constexpr int D_MAX_GROUP = 4;                     // weights one launch takes
+constexpr int D_MAX_RANKS = 8;                     // the portable cluster size
+constexpr int D_BLOCKS_PER_SM = 3;                 // by shared memory and registers
+constexpr int D_SMEM = D_STAGES * (D_STAGE + 16) + 1024;
+
+// One launch: up to D_MAX_GROUP weights that share x, their column blocks
+// concatenated along grid y (weight i's blocks from col0[i]); the ranks of
+// a cluster along grid x split K.
+struct DecodeParams {
+  CUtensorMap tm_w[D_MAX_GROUP];  // w_i [K, n_i] int8: boxes of D_BK rows x D_BN bytes
+  CUtensorMap tm_x;               // x [M, K] bf16: boxes of 8 rows x D_XBOX
+  const void* scale[D_MAX_GROUP];
+  void* out[D_MAX_GROUP];
+  int n[D_MAX_GROUP];
+  int col0[D_MAX_GROUP + 1];
+  int group, M, k_tiles, tiles_per_rank, scale_bf16, out_f32;
+};
+
+// A 32-bit word of a weight tile TMA wrote with the 128-byte swizzle: k row
+// r, column word cw (columns 4 cw .. 4 cw + 3). Chunk j of row r sits at
+// chunk j ^ (r & 7).
+__device__ __forceinline__ uint32_t sw128_word(const uint8_t* tile, int r, int cw) {
+  return *reinterpret_cast<const uint32_t*>(tile + r * D_BN + (((cw >> 2) ^ (r & 7)) << 4) +
+                                            ((cw & 3) << 2));
+}
+
+// `local`'s float4 in the shared memory of cluster rank `rank`. No memory
+// clobber: the loads of all ranks issue back to back, ordered after the
+// cluster barrier (volatile, as the barrier is) and waited for at first use.
+__device__ __forceinline__ float4 ld_rank_f4(const float* local, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(local)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// Every thread of every block of the cluster; what each wrote to shared
+// memory before is visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Block (rank x, column block y). Warps 0-7 consume: warp w owns the 64
+// columns of half w & 1 and the 32 k rows of quarter w >> 1 of every
+// stage. Warp 8 produces: its one thread keeps D_STAGES stages in flight,
+// each one TMA box of weights and two of x, completed on the stage's
+// "full" mbarrier; the consumer warps arrive on its "empty" one.
+__global__ void __launch_bounds__(D_THREADS, D_BLOCKS_PER_SM)
+    int8_matmul_decode_kernel(const __grid_constant__ DecodeParams p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + D_STAGES * D_STAGE);
+  uint64_t* empty = full + D_STAGES;
+  const int rank = blockIdx.x, ranks = gridDim.x, col = blockIdx.y;
+  // The block's weight, chosen with constant indices (a runtime index into
+  // the parameters would copy them to local memory).
+  const CUtensorMap* tw = &p.tm_w[0];
+  const void* scale = p.scale[0];
+  void* out = p.out[0];
+  int n_w = p.n[0], c0 = p.col0[0];
+#pragma unroll
+  for (int i = 1; i < D_MAX_GROUP; ++i)
+    if (i < p.group && col >= p.col0[i]) {
+      tw = &p.tm_w[i];
+      scale = p.scale[i];
+      out = p.out[i];
+      n_w = p.n[i];
+      c0 = p.col0[i];
+    }
+  const int n0 = (col - c0) * D_BN;
+  const int t0 = rank * p.tiles_per_rank;
+  const int nt = min(p.tiles_per_rank, p.k_tiles - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < D_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, D_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The partial sums of the block: [4 k quarters][8 x rows][D_BN] f32 over
+  // stage 0 once the ring is drained; quarter 0 then holds their sum.
+  float* red = reinterpret_cast<float*>(smem);
+  // The four outputs (x row m, columns n .. n + 3) this thread finishes.
+  const int f = rank + ranks * threadIdx.x;
+  const int m = f / (D_BN / 4), n = n0 + (f % (D_BN / 4)) * 4;
+  const bool finishes = warp < D_CONSUMERS && f < 2 * D_BN && m < p.M && n < n_w;
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (warp == D_CONSUMERS) {
+    if (lane == 0) {  // the producer
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % D_STAGES;
+        if (i >= D_STAGES) mbar_wait(empty + st, (i / D_STAGES - 1) & 1);
+        uint8_t* stage = smem + st * D_STAGE;
+        const int k0 = (t0 + i) * D_BK;
+        mbar_expect_tx(full + st, D_STAGE);
+        tma_load_2d(stage, tw, n0, k0, full + st);
+        tma_load_2d(stage + D_WBYTES, &p.tm_x, k0, 0, full + st);
+        tma_load_2d(stage + D_WBYTES + D_XBYTES / 2, &p.tm_x, k0 + D_XBOX, 0, full + st);
+      }
+    }
+    __syncwarp();
+  } else {
+    // The scales' load hides behind the first stage.
+    if (finishes) {
+      if (p.scale_bf16) {  // bf16 bits are the high half of an f32
+        const uint2 sv = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(scale) + n);
+        sc[0] = __uint_as_float(sv.x << 16);
+        sc[1] = __uint_as_float(sv.x & 0xFFFF0000u);
+        sc[2] = __uint_as_float(sv.y << 16);
+        sc[3] = __uint_as_float(sv.y & 0xFFFF0000u);
+      } else {
+        const float4 sv = *reinterpret_cast<const float4*>(static_cast<const float*>(scale) + n);
+        sc[0] = sv.x;
+        sc[1] = sv.y;
+        sc[2] = sv.z;
+        sc[3] = sv.w;
+      }
+    }
+    // A row r of m16 tile t is the warp's column 4 r + t (as in the split-K
+    // kernel above): a thread's A rows g and g + 8 of all four tiles come
+    // from one 32-bit word per k row each, column words cw and cw + 8.
+    const int ch = warp & 1, kq = warp >> 1, g = lane >> 2, tg = lane & 3;
+    const int cw = ch * 16 + g;
+    float acc[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % D_STAGES;
+      mbar_wait(full + st, (i / D_STAGES) & 1);
+      const uint8_t* wt = smem + st * D_STAGE;
+      // x row g of this quarter's box; its 16-byte chunk c sits at c ^ g.
+      const uint8_t* xr = wt + D_WBYTES + (kq >> 1) * (D_XBYTES / 2) + g * (2 * D_XBOX);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int r0 = kq * 32 + ks * 16 + 2 * tg;  // k rows r0, r0 + 1, r0 + 8, r0 + 9
+        uint32_t wv[8];
+        wv[0] = sw128_word(wt, r0, cw);
+        wv[1] = sw128_word(wt, r0 + 1, cw);
+        wv[2] = sw128_word(wt, r0, cw + 8);
+        wv[3] = sw128_word(wt, r0 + 1, cw + 8);
+        wv[4] = sw128_word(wt, r0 + 8, cw);
+        wv[5] = sw128_word(wt, r0 + 9, cw);
+        wv[6] = sw128_word(wt, r0 + 8, cw + 8);
+        wv[7] = sw128_word(wt, r0 + 9, cw + 8);
+        uint32_t a[4][4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          a[t][0] = i8_pair_bf16(wv[0], wv[1], t);  // A row g,     k r0, r0 + 1
+          a[t][1] = i8_pair_bf16(wv[2], wv[3], t);  // A row g + 8, k r0, r0 + 1
+          a[t][2] = i8_pair_bf16(wv[4], wv[5], t);  // A row g,     k r0 + 8, r0 + 9
+          a[t][3] = i8_pair_bf16(wv[6], wv[7], t);  // A row g + 8, k r0 + 8, r0 + 9
+        }
+        const int c = (kq & 1) * 4 + ks * 2;  // x's chunk of k r0 (r0 + 8: the next)
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr + ((c ^ g) << 4) + 4 * tg);
+        const uint32_t b1 =
+            *reinterpret_cast<const uint32_t*>(xr + (((c + 1) ^ g) << 4) + 4 * tg);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mma_bf16(acc[t], a[t], b0, b1);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    }
+    // Every TMA copy has landed and every consumer is past the ring: stage 0
+    // takes the partials. C fragment: rows g, g + 8 of tile t are columns
+    // ch * 64 + 4 g + t and that + 32; its columns 2 tg, 2 tg + 1 x rows.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(D_CONSUMERS * 32) : "memory");
+    float* rq = red + kq * 8 * D_BN;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int na = ch * 64 + 4 * g + t, row = 2 * tg;
+      rq[row * D_BN + na] = acc[t][0];
+      rq[(row + 1) * D_BN + na] = acc[t][1];
+      rq[row * D_BN + na + 32] = acc[t][2];
+      rq[(row + 1) * D_BN + na + 32] = acc[t][3];
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(D_CONSUMERS * 32) : "memory");
+    // The four k quarters in order, four columns a thread.
+    float4* r4 = reinterpret_cast<float4*>(red);
+    const int e = threadIdx.x;  // 256 float4s: [8 rows][32]
+    float4 v = r4[e];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      const float4 u = r4[q * 2 * D_BN + e];
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    r4[e] = v;
+  }
+
+  // The ranks' partials, added in rank order through distributed shared
+  // memory: rank r finishes every ranks-th float4 of the block's [8, D_BN]
+  // from r on (at most one a thread), so each output is one fixed sum, the
+  // same bits every call.
+  if (ranks > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+  if (finishes) {
+    float4 part[D_MAX_RANKS];
+    part[0] = reinterpret_cast<const float4*>(red)[f];
+#pragma unroll
+    for (int q = 0; q < D_MAX_RANKS; ++q)
+      if (ranks > 1 && q < ranks) part[q] = ld_rank_f4(red + 4 * f, q);
+    float4 v = part[0];
+#pragma unroll
+    for (int q = 1; q < D_MAX_RANKS; ++q)
+      if (q < ranks) {
+        v.x += part[q].x;
+        v.y += part[q].y;
+        v.z += part[q].z;
+        v.w += part[q].w;
+      }
+    const float r[4] = {round_x<bf16>(v.x), round_x<bf16>(v.y), round_x<bf16>(v.z),
+                        round_x<bf16>(v.w)};
+    const size_t o = static_cast<size_t>(m) * n_w + n;
+    if (p.out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+          make_float4(r[0] * sc[0], r[1] * sc[1], r[2] * sc[2], r[3] * sc[3]);
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(r[0] * round_x<bf16>(sc[0]),
+                                                      r[1] * round_x<bf16>(sc[1]));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(r[2] * round_x<bf16>(sc[2]),
+                                                      r[3] * round_x<bf16>(sc[3]));
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + o) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+  // No block leaves while another rank may still read its shared memory.
+  if (ranks > 1) cluster_sync();
+}
+
 // ---- the tied head on wgmma: w [N, K] int8 as stored (K-major), bf16 x, any rows ----
 
 constexpr int TW_BN = 128;              // embedding rows (output columns) per tile
@@ -1368,6 +1670,17 @@ int tied_occupancy() {
   return n;
 }
 
+int decode_occupancy() {
+  if (cudaFuncSetAttribute(int8_matmul_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           D_SMEM) != cudaSuccess)
+    return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, int8_matmul_decode_kernel, D_THREADS,
+                                                    D_SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1584,6 +1897,68 @@ int dtpu_int8_matmul_tw(const void* x, const void* w, const void* scale, void* o
     default: return cudaErrorInvalidValue;
   }
 }
+
+// Launch out_i = epilogue(x @ w_i) for the `group` (1-4) weights w_i [K,
+// n_i] int8 that share bf16 x [M, K] (1-8 rows) on `stream`, as one kernel
+// of the decode entry: every weight's 128-column blocks on grid y, `ranks`
+// (1-8) cluster ranks on grid x splitting K's 128-row tiles into contiguous
+// runs of ceil(tiles / ranks), none empty. scale_i [n_i] (scale_dtype 0
+// f32, 1 bf16), out_i [M, n_i] (f32 when out_f32, else bf16). Needs K % 8
+// == 0, n_i % 16 == 0 and 16-byte aligned x, w_i, scale_i and out_i; no
+// scratch, no synchronisation. Returns a cudaError_t.
+int dtpu_int8_matmul_decode(const void* x, const void* const* w, const void* const* scale,
+                            void* const* out, const int* n, int group, int scale_dtype,
+                            int out_f32, int M, int K, int ranks, void* stream) {
+  const int k_tiles = K > 0 ? (K + D_BK - 1) / D_BK : 0;
+  if (group < 1 || group > D_MAX_GROUP || M < 1 || M > 8 || K <= 0 || K % 8 != 0 ||
+      ranks < 1 || ranks > D_MAX_RANKS || ranks > k_tiles ||
+      (scale_dtype != DT_F32 && scale_dtype != DT_BF16) || reinterpret_cast<uintptr_t>(x) % 16)
+    return cudaErrorInvalidValue;
+  const int tpr = (k_tiles + ranks - 1) / ranks;
+  if ((ranks - 1) * tpr >= k_tiles) return cudaErrorInvalidValue;  // an empty rank
+  DecodeParams p;
+  memset(&p, 0, sizeof(p));
+  for (int i = 0; i < group; ++i) {
+    if (n[i] <= 0 || n[i] % 16 != 0 || reinterpret_cast<uintptr_t>(w[i]) % 16 ||
+        reinterpret_cast<uintptr_t>(scale[i]) % 16 || reinterpret_cast<uintptr_t>(out[i]) % 16)
+      return cudaErrorInvalidValue;
+    if (!tensor_map(&p.tm_w[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, w[i], K, n[i], 1, D_BK, D_BN))
+      return cudaErrorNotSupported;
+    p.scale[i] = scale[i];
+    p.out[i] = out[i];
+    p.n[i] = n[i];
+    p.col0[i + 1] = p.col0[i] + (n[i] + D_BN - 1) / D_BN;
+  }
+  if (p.col0[group] > 65535) return cudaErrorInvalidValue;
+  if (!tensor_map(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2, 8, D_XBOX))
+    return cudaErrorNotSupported;
+  p.group = group;
+  p.M = M;
+  p.k_tiles = k_tiles;
+  p.tiles_per_rank = tpr;
+  p.scale_bf16 = scale_dtype == DT_BF16;
+  p.out_f32 = out_f32 != 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      int8_matmul_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D_SMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, p.col0[group], 1);
+  cfg.blockDim = dim3(D_THREADS);
+  cfg.dynamicSmemBytes = D_SMEM;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_matmul_decode_kernel, p);
+}
+
+// Blocks of the decode entry one SM holds (the occupancy the CUDA runtime
+// computes from its shared memory and registers), or -1.
+int dtpu_int8_decode_blocks_per_sm() { return decode_occupancy(); }
 
 // Blocks of the tied wgmma entry one SM holds at `row_tile`, or -1.
 int dtpu_int8_tied_blocks_per_sm(int row_tile) {

@@ -15,9 +15,14 @@ scale as it is.
 Routes, chosen from shapes alone (never as a recovery from a failure):
 
 - CPU tensors: ``int8_matmul_ref``, the plain version (the tests' oracle).
-- CUDA, M ≤ ``SMALL_M`` rows and w contiguous: the decode kernel, the
-  only route of a batch bucket of 8. ``launches`` counts its calls (the
-  split kernel and its merge count as one).
+- CUDA, M ≤ ``SMALL_M`` rows and w contiguous: the decode route ("kernel"),
+  the only route of a batch bucket of 8. Inside it, bf16 x with K % 8 ==
+  0, N % 16 == 0 and w 16-byte aligned (``decode_entry``) takes the decode
+  entry (TMA ring, split-K inside a thread-block cluster, one kernel), and
+  ``int8_matmul_group`` makes one launch of it for weights that share x;
+  any other call (f32 x, unaligned shapes) the split-K decode kernel and
+  its merge. ``launches`` counts the products on this route, a group one
+  per weight; ``decode_launches`` the decode entry's kernel launches.
 - CUDA, more than ``SMALL_M`` rows of bf16 x, w contiguous, K % 8 == 0,
   N % 16 == 0 and w 16-byte aligned: the wide entry (wgmma with the
   weights dequantized in registers): decode buckets of 32 to 256 rows,
@@ -25,7 +30,7 @@ Routes, chosen from shapes alone (never as a recovery from a failure):
   counts its calls. It has no row limit: on the H100 it beats the prefill
   route at 512 and 2048 rows too (PERF.md).
 - CUDA, f32 x or a shape the wide entry refuses, at most ``MAX_M`` rows,
-  w contiguous: the decode kernel.
+  w contiguous: the split-K decode kernel.
 - CUDA, bf16 x and w the transpose of a contiguous ``[N, K]`` (the tied
   embedding ``[V, D]`` used as ``emb.T`` by ``_logits``) with K % 16 == 0
   and a 16-byte aligned base: the tied wgmma entry ("tied_wide"), which
@@ -73,10 +78,21 @@ TIED_BN, TIED_BK = 128, 64
 TIED_ROW_TILES = (8, 16, 32, 64, 128, 256)
 TIED_BLOCKS_PER_SM = 1
 
-# Calls that launched the kernel / the wide entry / took the prefill route /
-# launched either tied-head entry (read and reset by chip_smoke.py; CUDA-graph
-# replays add the calls their graph holds).
+# The decode entry (``int8_matmul_decode_kernel``): columns per block, k rows
+# per stage, the blocks one SM holds (the source's D_BLOCKS_PER_SM; the card
+# tests read the occupancy back through dtpu_int8_decode_blocks_per_sm),
+# the largest cluster and the most weights one launch takes.
+DECODE_BN, DECODE_BK = 128, 128
+DECODE_BLOCKS_PER_SM = 3
+DECODE_MAX_RANKS = 8
+DECODE_MAX_GROUP = 4
+
+# Products on the decode route / kernels the decode entry launched / calls
+# that launched the wide entry / took the prefill route / launched either
+# tied-head entry (read and reset by chip_smoke.py; CUDA-graph replays add
+# the calls their graph holds).
 launches = 0
+decode_launches = 0
 wide_launches = 0
 prefill_launches = 0
 tied_launches = 0
@@ -95,6 +111,35 @@ def split_k(K: int, N: int) -> int:
     want = min(tiles, max(1, RESIDENT_BLOCKS // groups))
     per = -(-tiles // want)
     return -(-tiles // per)
+
+
+def cluster_plan(K: int, col_blocks: int) -> tuple[int, int]:
+    """The decode entry's split of K for a launch of ``col_blocks`` blocks of
+    ``DECODE_BN`` columns, from the shapes alone → (cluster ranks, k tiles
+    per rank). The ranks are the largest power of two, at most
+    ``DECODE_MAX_RANKS`` and K's ``DECODE_BK``-row tiles, that keeps the
+    launch's blocks within one block per SM and leaves no rank empty (on
+    the H100 every llama-8b product and group ran fastest so, against
+    plans for up to ``DECODE_BLOCKS_PER_SM`` blocks an SM: PERF.md); each
+    rank takes a contiguous run of ceil(tiles / ranks) tiles. A launch of
+    more column blocks than SMs takes one rank, its blocks up to
+    ``DECODE_BLOCKS_PER_SM`` to an SM."""
+    tiles = -(-K // DECODE_BK)
+    want = min(DECODE_MAX_RANKS, tiles, max(1, SMS // col_blocks))
+    ranks = 1 << (want.bit_length() - 1)
+    while ranks > 1 and (ranks - 1) * -(-tiles // ranks) >= tiles:
+        ranks //= 2
+    return ranks, -(-tiles // ranks)
+
+
+def decode_entry(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a call on the decode route ("kernel") takes the decode entry:
+    bf16 x of 1 to ``SMALL_M`` rows, K % 8 == 0, N % 16 == 0 and w 16-byte
+    aligned (the strides and boxes its TMA copies take)."""
+    K, N = w.shape
+    M = x.numel() // K if K else 0
+    return (x.dtype == torch.bfloat16 and 1 <= M <= SMALL_M and K % 8 == 0 and N > 0
+            and N % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def wide_plan(M: int, K: int, N: int) -> tuple[int, int, int]:
@@ -157,12 +202,11 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return int8_matmul_ref(x, w, scale, out_f32)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on CUDA or CPU tensors, got {x.device}")
-    if w.dim() != 2 or w.dtype != torch.int8:
-        raise ValueError(f"w must be int8 [K, N], got {w.dtype} {tuple(w.shape)}")
+    _check(x, w)
     K, N = w.shape
-    if x.shape[-1] != K:
-        raise ValueError(f"x's last dim {x.shape[-1]} != K = {K}")
     which = route(x, w)
+    if which == "kernel" and decode_entry(x, w):
+        return _launch_decode(x, [(w, scale)], out_f32)[0]
     if which == "prefill":
         return _prefill_route(x, w, scale, out_f32)
     if which == "wide":
@@ -170,6 +214,31 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if which == "tied_wide":
         return _launch_tied_wide(x, w, scale, out_f32, x.numel() // K, K, N)
     return _launch(x, w, scale, out_f32, x.numel() // K if K else 0, K, N, which == "tied")
+
+
+def int8_matmul_group(x: torch.Tensor, weights: list, out_f32: bool = False) -> list:
+    """``x [..., K]`` times each ``(w [K, N_i] int8, scale [N_i])`` of
+    ``weights`` → one output per weight, each what ``int8_matmul`` gives. On
+    the card, when every product takes the decode entry (route "kernel",
+    ``decode_entry``) and their scales share a dtype, one launch covers them
+    (``DECODE_MAX_GROUP`` weights a launch; no weight is copied); otherwise,
+    and on the CPU, one ``int8_matmul`` call per weight."""
+    if x.device.type == "cuda" and len(weights) > 1 and len({s.dtype for _, s in weights}) == 1:
+        for w, _ in weights:
+            _check(x, w)
+        if all(route(x, w) == "kernel" and decode_entry(x, w) for w, _ in weights):
+            outs = []
+            for i in range(0, len(weights), DECODE_MAX_GROUP):
+                outs += _launch_decode(x, weights[i:i + DECODE_MAX_GROUP], out_f32)
+            return outs
+    return [int8_matmul(x, w, s, out_f32) for w, s in weights]
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if w.dim() != 2 or w.dtype != torch.int8:
+        raise ValueError(f"w must be int8 [K, N], got {w.dtype} {tuple(w.shape)}")
+    if x.shape[-1] != w.shape[0]:
+        raise ValueError(f"x's last dim {x.shape[-1]} != K = {w.shape[0]}")
 
 
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -197,16 +266,23 @@ def _operands(x, w, scale, M, K, N):
     [M, K], a contiguous scale)."""
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    scale = _scale_operand(x, w, scale, N)
+    lib = _build.library("int8_matmul")
+    x2 = x.reshape(M, K)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
+    return lib, x2, scale
+
+
+def _scale_operand(x, w, scale, N):
+    """Check w's and scale's device and scale's dtype and shape → scale,
+    contiguous."""
     if scale.dtype not in _DTYPE_CODES or tuple(scale.shape) != (N,):
         raise ValueError(f"scale must be f32 or bf16 [{N}], got {scale.dtype} {tuple(scale.shape)}")
     for t in (w, scale):
         if t.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, found {t.device}")
-    lib = _build.library("int8_matmul")
-    x2 = x.reshape(M, K)
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.contiguous() if not x2.is_contiguous() else x2.clone()
-    return lib, x2, scale.contiguous()
+    return scale.contiguous()
 
 
 def _launch_wide(x, w, scale, out_f32, M, K, N):
@@ -228,6 +304,48 @@ def _launch_wide(x, w, scale, out_f32, M, K, N):
     _build.check(lib, err, "int8_matmul wide launch")
     wide_launches += 1
     return out.reshape(*x.shape[:-1], N)
+
+
+def _launch_decode(x, weights, out_f32):
+    """One launch of the decode entry for ``weights`` (1 to
+    ``DECODE_MAX_GROUP`` pairs of w [K, N_i] and scale [N_i] that take it)
+    → their outputs."""
+    global launches, decode_launches
+    K = weights[0][0].shape[0]
+    M = x.numel() // K
+    lib, x2, _ = _operands(x, *weights[0], M, K, weights[0][0].shape[1])
+    ws, scales, outs = [], [], []
+    for w, scale in weights:
+        N = w.shape[1]
+        scale = _scale_operand(x, w, scale, N)
+        if scale.data_ptr() % 16:
+            scale = scale.clone()
+        ws.append(w)
+        scales.append(scale)
+        outs.append(torch.empty((M, N), dtype=torch.float32 if out_f32 else x.dtype,
+                                device=x.device))
+    ranks, _ = cluster_plan(K, sum(-(-w.shape[1] // DECODE_BN) for w in ws))
+    fn = lib.dtpu_int8_matmul_decode
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    G = len(ws)
+    ptrs = lambda ts: (ctypes.c_void_p * G)(*(t.data_ptr() for t in ts))  # noqa: E731
+    err = fn(x2.data_ptr(), ptrs(ws), ptrs(scales), ptrs(outs),
+             (ctypes.c_int * G)(*(w.shape[1] for w in ws)), G, _DTYPE_CODES[scales[0].dtype],
+             int(out_f32), M, K, ranks, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "int8_matmul decode launch")
+    launches += G
+    decode_launches += 1
+    return [o.reshape(*x.shape[:-1], o.shape[1]) for o in outs]
+
+
+def decode_blocks_per_sm() -> int:
+    """Blocks of the decode entry one SM holds, as the CUDA runtime computes
+    it from the built kernel (needs the card)."""
+    fn = _build.library("int8_matmul").dtpu_int8_decode_blocks_per_sm
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def _launch_tied_wide(x, w, scale, out_f32, M, K, N):

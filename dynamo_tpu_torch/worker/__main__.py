@@ -649,6 +649,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=No
         "int8_matmul_prefill_launches": im.prefill_launches,
         "int8_matmul_tied_launches": im.tied_launches,
         "int8_matmul_wide_launches": im.wide_launches,
+        "int8_matmul_decode_launches": im.decode_launches,
         "num_layers": engine.cfg.num_layers,
         "generated_tokens": engine.total_generated,
         "prefilled_tokens": engine.total_prefilled,
@@ -768,6 +769,7 @@ async def async_main(args) -> None:
     # The warm-up replays served no request: the kernels' launch counts
     # start here, beside the engine's decode substeps (all 0 now).
     pa.launches = im.launches = im.prefill_launches = im.tied_launches = im.wide_launches = 0
+    im.decode_launches = 0
     if mocker:
         # The mocker's engine-level chaos draws count on this process's
         # /metrics beside the messaging layer's.
@@ -1018,6 +1020,7 @@ def run_follower(args) -> None:
         "int8_matmul_prefill_launches": im.prefill_launches,
         "int8_matmul_tied_launches": im.tied_launches,
         "int8_matmul_wide_launches": im.wide_launches,
+        "int8_matmul_decode_launches": im.decode_launches,
         "eager_windows": runner.eager_windows, "eager_steps": runner.eager_steps,
         "collectives": group.counters(),
         "peak_device_bytes": (torch.cuda.max_memory_allocated()

@@ -238,10 +238,10 @@ def test_int8_expected_counts_the_engines_calls_by_bucket(monkeypatch, name):
 
 
 def test_verify_forwards_count_by_kind():
-    assert C.verify_per_forward(32, True, True) == (32, 0, 0, 0, 225)
-    assert C.verify_per_forward(32, True, True, stepwise=True) == (32, 225, 0, 0, 0)
-    assert C.verify_per_forward(32, True, False) == (32, 0, 0, 0, 0)
-    assert C.verify_per_forward(32, False, True) == (0, 0, 0, 0, 0)
+    assert C.verify_per_forward(32, True, True) == (32, 0, 0, 0, 225, 0)
+    assert C.verify_per_forward(32, True, True, stepwise=True) == (32, 225, 0, 0, 0, 129)
+    assert C.verify_per_forward(32, True, False) == (32, 0, 0, 0, 0, 0)
+    assert C.verify_per_forward(32, False, True) == (0, 0, 0, 0, 0, 0)
 
 
 # -- the plain version against the JAX package ---------------------------------------
