@@ -78,7 +78,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    burst's numbers: tokens/s, host ms per substep, replay device ms per
    substep, TTFT, peak memory and graph-pool bytes.
 4c. The wide entry on a serving path (`wide_phase`, after 4b's bf16-page
-   run, on its weights): an int8 engine of 128 sequences (bf16 pages,
+   run, on its weights' first `CUT_LAYERS` layers, which an 8-sequence
+   engine of its own serves as the reference): an int8 engine of 128
+   sequences (bf16 pages,
    max_model_len 2048, depth 2) serves 128 seeded completions at once
    (`wide_requests`: prompts of 64-512 byte tokens, 64 tokens each, 8 at
    temperature 0.7), so its decode runs buckets 32 and 128 (and 8 when the
@@ -86,7 +88,7 @@ Phases, in order; any failure raises and the run exits non-zero:
    No window or step runs eagerly; the int8 launches are held to
    `int8_expected` over the engine's substeps by bucket (225 per substep
    on the bucket's route) and its prefills, the wide entry's exactly;
-   every greedy stream is held against the same request served by 4b's
+   every greedy stream is held against the same request served by that
    engine of 8 sequences (the decode kernel at M=8), token for token
    except where the reference's top-2 gap is under `SPEC_GAP_TOL`.
    Then a window at buckets 32 and 128 as a graph replay bit-identical to
@@ -135,26 +137,51 @@ Phases, in order; any failure raises and the run exits non-zero:
    tokens/s, host ms per substep, prefill host seconds, peak memory,
    graph-pool bytes, and the dense and routed byte bounds per substep
    (the routed one from the experts the recorded rows chose).
-4t. Tensor parallelism (`tp_phase`, after phase 4): the store and
-   `python -m dynamo_tpu_torch.worker --tp 2` with llama-8b at full width
-   (32 layers, bf16, random weights from seed 0: each rank draws every
-   leaf whole and keeps its shard, so the ranks hold phase 4's weights),
-   block 16, 8 sequences, max_model_len 2048. The worker is rank 0 and
-   spawns rank 1; the two share the one card and meet over gloo, so their
-   windows run eagerly. Phase 4's burst goes through the worker's
-   `generate` endpoint over the runtime: every greedy stream equals phase
-   4's except where the two passes' chosen tokens are within
+4t. Tensor parallelism (`tp_phase`, after phase 10's checkpoint is
+   written): the store and `python -m dynamo_tpu_torch.worker --tp 2`
+   with llama-8b at full width and `CUT_LAYERS` layers from that
+   checkpoint (bf16; each rank keeps its shards as it loads), block 16,
+   8 sequences, max_model_len 2048. The worker is rank 0 and spawns rank
+   1; the two share the one card and meet over gloo, so their windows run
+   eagerly. Phase 4's burst goes through the worker's `generate` endpoint
+   over the runtime: every greedy stream equals the burst in process at
+   tp 1 on the same checkpoint (`burst_reference`, run while the worker
+   starts) except where the two passes' chosen tokens are within
    `SPEC_GAP_TOL` nats (the rule `tree_vs_dense_gaps` applies); the
    follower's sampled-token digest equals the leader's bit for bit, the
    two made the same collectives, and each launched the attention kernel
-   32 x substeps. After phase 10's checkpoint is written, the int8 leg:
-   int8 weights and pages at `CUT_LAYERS` layers from that checkpoint
-   (each rank keeps its shards as it loads), held the same way against
-   the burst in process at tp 1 on the same checkpoint
-   (`burst_reference`, run while the worker starts). Printed beside the
-   card's name and power limit: the backend, tokens/s, host ms per
-   substep, collectives and bytes per substep, host seconds in
-   collectives, peak memory per rank.
+   8 x substeps. Then the int8 leg: int8 weights and pages from the same
+   checkpoint, with a 4-slot adapter bank and two adapters of ranks 8 and
+   16 (`TP_ADAPTERS`; each rank holds its shard of the bank), held the
+   same way against the burst in process at tp 1 on the same checkpoint
+   with the same adapters: the burst as it is, then, after a cache
+   clear that also sets every rank's launch counts to 0, with half its
+   rows under an adapter (`TP_LORA_ROWS`), whose base rows equal the plain
+   burst's token ids and logprobs bit for bit and whose adapter rows each
+   differ from their plain row; every greedy stream's logprobs within
+   `TP_LP_TOL` of tp 1's until it leaves it; on each rank, read on that
+   rank, the attention kernel launched 8 x each burst's substeps; both
+   ranks count the same LoRA-variant windows. Printed beside the card's
+   name and power limit: the backend, tokens/s, host ms per substep,
+   collectives and bytes per substep, host seconds in collectives, peak
+   memory per rank, and the mixed burst's tokens/s and launches.
+4p. The ops no engine calls (`parallel_phase`, after phase 4): two rank
+   processes spawned once, sharing the card over gloo (ep 2 blocks of one
+   tp rank; the ring over both), run three checks: `ring_prefill` at
+   llama-8b's attention widths (T 8,192, H 32, KVH 8, hd 128, bf16, sp 2),
+   causal and not, against a dense f32 attention computed in 512-row
+   chunks on rank 0 (`PAR_RING_TOL`); `pipeline_apply` of 32 residual
+   RMSNorm + SwiGLU layers at llama-8b's MLP widths (D 4,096, I 14,336,
+   bf16, pp 2, B 16, M 4) against the sequential scan (`PAR_PIPE_TOL`);
+   and four moe-wide float32 decode steps with the experts over ep 2
+   against the unsharded step (`PAR_EP_TOL`), the attention kernel
+   launched 12 times a step on each rank. The ring and the pipeline run
+   once more over an exchange that hands each rank its own tensors back
+   (`_LostExchange`), and those controls' errors must leave the bounds.
+   The max errors, ms by rank,
+   exchanges and bytes are printed beside the card's name and power
+   limit; `--tp-nccl` runs the phase again at 2 and 4 ranks over NCCL,
+   each rank on a card of its own.
 4s. The SLA profile (`sweep_phase`, at the end of phase 4's bf16 run, on
    its engine: llama-8b, 32 layers, 8 sequences): `planner.profile_sweep.
    sweep` at batches 1, 2, 4, 8 (each warmed, then B concurrent greedy
@@ -342,8 +369,9 @@ same weights.
    shape rule over its prefills (the local prompts, and each remote
    prompt's 16-token suffix); the prefill worker decodes nothing. Request 7
    is then sent alone from an empty cache (one transfer with nothing else
-   running, held to the same reference). Then the prefill worker is
-   replaced by one started with
+   running, held to the same reference). Then, in the bf16 pass (one
+   chaos cell, as in phase 14), the prefill worker is replaced by one
+   started with
    `DYNTPU_CHAOS_ENABLED=1 DYNTPU_CHAOS_TRANSFER_CUT_P=1`, the decode
    worker's cache cleared, and request 7 sent again: its transfer is cut,
    the decode worker falls back to a local prefill
@@ -477,9 +505,10 @@ same weights.
 Each phase's seconds and the running total are logged as it ends.
 
 `python3 chip_smoke.py --tp-nccl`, on a host of two or more cards, runs
-only phase 4t's bf16 leg with each rank on a card of its own (NCCL,
-windows captured with their collectives inside): at tp 2, and at tp 4
-when four cards are visible (`tp_nccl_main`).
+only phase 4t's bf16 leg with the int8 leg's adapters, each rank on a
+card of its own (NCCL, windows captured with their collectives inside):
+at tp 2, and at tp 4 when four cards are visible; then phase 4p at 2 and
+4 NCCL ranks (`tp_nccl_main`).
 
 The last lines are the kernels JSON line (the attention kernel's decode
 entry, the int8 product, its wide entry, its tied-head entries with phase
@@ -489,9 +518,12 @@ worker's launches, the decode, tree and int8 entries phase 12's, the
 first two phases 13's and 14's, and all of them phase 15's; the decode
 entry's `launches_fleet` counts phase 7b's, `launches_sweep` phase 4s's and
 `launches_planner` phase 7c's; `launches_tp_ranks` on the decode, int8 and
-wide entries phase 4t's, rank by rank), nvidia-smi's name/power line, and {"ok": true, "device":
-{...}}. Without CUDA, or without the rest of
-the repository beside this file, it exits non-zero and prints no result.
+wide entries phase 4t's plain bursts, rank by rank; on the decode entry
+`launches_tp_ranks_int8_adapter_rows` 4t's mixed burst, each rank's count
+set to 0 before it, and `launches_ep_ranks` phase 4p's ep ranks),
+nvidia-smi's name/power line, and {"ok": true, "device": {...}}. Without
+CUDA, or without the rest of the repository beside this file, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -1402,8 +1434,8 @@ async def main_path(card_line: str, preset: str = "llama-8b", device: str = "cud
     """The burst through ``run --in batch:``'s pipeline. The bf16 run
     (quant "none") also serves the prefix-hit repeat, the profiled pass and
     the graph phase; an int8 run times one replay and profiles it, and with
-    ``wide`` then runs phase 4c (``wide_phase``) on its weights, its engine
-    the reference."""
+    ``wide`` then runs phase 4c (``wide_phase``) on its weights' first
+    ``CUT_LAYERS`` layers."""
     import numpy as np
     import torch
 
@@ -1736,15 +1768,17 @@ def wide_requests() -> list[dict]:
 
 async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
                      max_tokens: int = BURST_TOKENS) -> dict:
-    """Phase 4c: 4b's int8 weights (bf16 pages) in an engine of 128
+    """Phase 4c: 4b's int8 weights (bf16 pages), their first ``CUT_LAYERS``
+    layers (all of a model no deeper), in an engine of 128
     sequences at depth 2, serving ``wide_requests`` at once, so that its
     decode runs buckets 32 and 128 (8 too, when the last admissions leave
     a window to a few rows) as it fills and drains and every product above
     8 rows takes the wide entry. Holds: no eager window or
     step; int8 launches to ``int8_expected`` over the engine's substeps by
     bucket and its prefills (the wide entry's count exact); every greedy
-    stream against the same request served by ``ref_pipe`` (4b's engine of
-    8 sequences: the decode kernel at M=8), token for token except where
+    stream against the same request served by an engine of 8 sequences
+    on the same layers (``ref_pipe``, 4b's, or one made on the cut
+    weights: the decode kernel at M=8), token for token except where
     the reference's top-2 gap is under ``SPEC_GAP_TOL``. Then, on a runner
     of its own, one window at buckets 32 and 128 as a graph replay
     bit-identical to op by op, its device ms per substep (bucket 8 too) and
@@ -1760,10 +1794,20 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
     from dynamo_tpu_torch.runtime.engine import Context
 
     tag = "wide"
+    cfg, params = ref_pipe.engine.cfg, ref_pipe.engine.runner.params
+    dtype, preset = ref_pipe.engine.args.dtype, cfg.name
+    cut_ref = None
+    if cfg.num_layers > CUT_LAYERS:
+        # The first CUT_LAYERS layers, as views of 4b's weights, and an
+        # 8-sequence reference engine on them.
+        cfg = cut_config(preset, CUT_LAYERS)
+        params = {**params, "layers": {k: v[:CUT_LAYERS] for k, v in params["layers"].items()}}
+        ref_pipe = cut_ref = await local_pipeline(
+            parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype, "--device",
+                        device, *ENGINE_ARGV]), quant="int8", model=cfg, params=params)
     ref_engine = ref_pipe.engine
-    cfg, params = ref_engine.cfg, ref_engine.runner.params
     cuda = device == "cuda"
-    args = parse_args(["--in", "batch:-", "--preset", cfg.name, "--dtype", ref_engine.args.dtype,
+    args = parse_args(["--in", "batch:-", "--preset", preset, "--dtype", dtype,
                        "--device", device, "--block-size", "16", "--num-kv-blocks",
                        str(WIDE_KV_BLOCKS), "--max-num-seqs", str(WIDE_SEQS),
                        "--max-model-len", "2048", "--decode-steps", "8"])
@@ -1791,7 +1835,8 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
     zero_counts()
     tasks = await submit_then_start(engine, (one(pipe, r, 0) for r in reqs))
     t1 = time.perf_counter()
-    log(f"{tag}: {cfg.name} int8 engine of {WIDE_SEQS} sequences on phase 4b's weights up in "
+    log(f"{tag}: {cfg.name} int8 engine of {WIDE_SEQS} sequences on phase 4b's weights "
+        f"({L} layers) up in "
         f"{t1 - t0:.1f}s, decode buckets {engine.args.decode_buckets}, pipeline_depth "
         f"{engine.args.effective_pipeline_depth}, {len(reqs)} requests submitted before its "
         "scheduler started")
@@ -1894,63 +1939,120 @@ async def wide_phase(card_line: str, ref_pipe, device: str = "cuda",
                                                          f"bucket {B}, {live} live rows")
         trunner.stop()
         del trunner
-    del pipe, engine, runner
-    torch.cuda.empty_cache()
+    if cut_ref is not None:
+        await cut_ref.engine.stop()
+    del pipe, engine, runner, ref_pipe, ref_engine, cut_ref, params
+    if cuda:
+        torch.cuda.empty_cache()
     return st
 
 
 # -- phase 4t: tensor parallelism, two rank processes on the card ----------------
 
 TP_RANKS = 2
+# The int8 leg's adapters (name, rank, seed) over 4 bank slots, and the
+# rows of its mixed burst that name one (half the burst).
+TP_LORA_SLOTS = 4
+TP_ADAPTERS = [("tp-a", 8, 41), ("tp-b", 16, 42)]
+TP_LORA_ROWS = {1: "tp-a", 3: "tp-b", 5: "tp-a", 7: "tp-b"}
+# |logprob at tp − logprob at tp 1| on a greedy stream's tokens before it
+# leaves its reference, nats. On the card a logprob is a bf16 difference
+# of bf16 logits and their logsumexp; near ln 128,256 ≈ 11.8 one bf16 step
+# is 2^-4, and the readings were about one step (0.0627 bf16 leg, 0.0624
+# int8 leg; PERF.md §6). The bound is two steps.
+TP_LP_TOL = 0.125
+
+
+def tp_lora_argv() -> list[str]:
+    return ["--lora-slots", str(TP_LORA_SLOTS),
+            *(a for n, r, s in TP_ADAPTERS for a in ("--lora", f"{n}:{r}:{s}"))]
 
 
 async def burst_reference(weights: list[str], device: str = "cuda", dtype: str = "bfloat16",
-                          quant: str = "none", kv_quant: str = "none") -> list[dict]:
+                          quant: str = "none", kv_quant: str = "none",
+                          lora: bool = False) -> dict:
     """The burst in process at tp 1 (``run``'s pipeline with the main path's
     engine arguments, on the weights ``weights`` names: ``--preset`` or
-    ``--model-path``) → each request's token ids and logprobs, as phase 4
-    makes them."""
+    ``--model-path``) → {"plain": each request's token ids and logprobs, as
+    phase 4 makes them}. With ``lora`` the engine has phase 4t's adapter
+    bank and serves the burst a second time, cold, with the rows of
+    ``TP_LORA_ROWS`` under their adapters ("mixed")."""
     from dynamo_tpu_torch.llm.protocols import CompletionRequest
-    from dynamo_tpu_torch.run.__main__ import build_pipeline, parse_args
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+    from dynamo_tpu_torch.run.__main__ import LocalPipeline, build_pipeline, parse_args
     from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.worker.__main__ import adapter_cards
 
-    pipe = await build_pipeline(parse_args(["--in", "batch:-", *weights, "--dtype", dtype,
-                                            "--device", device, *ENGINE_ARGV]),
-                                quant=quant, kv_quant=kv_quant)
+    args = parse_args(["--in", "batch:-", *weights, "--dtype", dtype, "--device", device,
+                       *ENGINE_ARGV])
+    if lora:
+        pipe = await local_pipeline(args, quant=quant, kv_quant=kv_quant,
+                                    lora_slots=TP_LORA_SLOTS,
+                                    lora_rank=max(r for _, r, _ in TP_ADAPTERS))
+        for name, rank, seed in TP_ADAPTERS:
+            pipe.engine.register_adapter(name, rank=rank, seed=seed)
+        cards = {c.lora["adapter_id"]: c for c in adapter_cards(pipe.card, TP_ADAPTERS)}
+    else:
+        pipe = await build_pipeline(args, quant=quant, kv_quant=kv_quant)
     await asyncio.to_thread(pipe.engine.runner.warm_windows, ("greedy", "simple"))
     prompts = burst_prompts()
 
-    async def one(i):
+    async def one(i, adapter=None):
+        p = pipe if adapter is None else LocalPipeline(cards[adapter], pipe.engine,
+                                                       ByteTokenizer())
         req = CompletionRequest.parse({
-            "model": pipe.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
+            "model": p.card.name, "prompt": prompts[i], "max_tokens": BURST_TOKENS,
             "temperature": BURST_TEMPS[i], "seed": 1000 + i, "ignore_eos": True, "logprobs": 0})
         gen = None
-        async for g, _chunk in pipe.run(req, Context()):
+        async for g, _chunk in p.run(req, Context()):
             gen = g
         return {"ids": list(gen.lp_tokens), "logprobs": list(gen.lp_values)}
 
     try:
-        return list(await asyncio.gather(*(one(i) for i in range(len(prompts)))))
+        out = {"plain": list(await asyncio.gather(*(one(i) for i in range(len(prompts)))))}
+        if lora:
+            while pipe.engine.busy():
+                await asyncio.sleep(0.001)
+            pipe.engine.clear_kv_blocks()
+            out["mixed"] = list(await asyncio.gather(*(one(i, TP_LORA_ROWS.get(i))
+                                                       for i in range(len(prompts)))))
+        return out
     finally:
         await pipe.engine.stop()
 
 
 def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = "cuda",
              dtype: str = "bfloat16", quant: str = "none", kv_quant: str = "none",
-             model_path: str | None = None, tp: int = TP_RANKS) -> dict:
+             model_path: str | None = None, tp: int = TP_RANKS, lora: bool = False) -> dict:
     """Phase 4t: ``python -m dynamo_tpu_torch.worker --tp 2`` (this worker is
     rank 0, the leader; it spawns rank 1, and both share the one card over
     gloo) behind the port's store; phase 4's burst sent through the
-    worker's ``generate`` endpoint over the runtime. ``reference``: each
-    request's tp 1 token ids and logprobs (phase 4's, or a function that
-    makes them, run while the worker starts). Holds: every greedy stream
-    equal to its reference except where the two passes' chosen tokens are
-    within ``SPEC_GAP_TOL`` nats (``tree_vs_dense_gaps``' rule), the
-    follower's sampled-token digest equal to the leader's, attention
-    launches = layers x substeps on each rank, the windows eager under gloo
-    (its collectives cannot be captured) and all graph replays under NCCL
-    (``tp`` ranks on as many cards of their own), every exit 0. → the
-    phase's numbers."""
+    worker's ``generate`` endpoint over the runtime. ``reference``:
+    ``burst_reference``'s {"plain": each request's tp 1 token ids and
+    logprobs}, or a function that makes it, run while the worker starts.
+    Holds: every greedy stream equal to its reference
+    except where the two passes' chosen tokens are within ``SPEC_GAP_TOL``
+    nats (``tree_vs_dense_gaps``' rule), its logprobs up to there within
+    ``TP_LP_TOL`` of the reference's, the follower's sampled-token digest
+    equal to the leader's, attention launches = layers x substeps on each
+    rank, the windows eager under gloo (its collectives cannot be
+    captured) and all graph replays under NCCL (``tp`` ranks on as many
+    cards of their own), every exit 0.
+
+    With ``lora`` the worker has ``TP_LORA_SLOTS`` bank slots and the
+    adapters ``TP_ADAPTERS`` (each rank its shard of the bank), and
+    ``reference`` is ``burst_reference(..., lora=True)``'s: the burst runs
+    as it is, then, after a cache clear that also sets every rank's launch
+    counts to 0, with the rows of ``TP_LORA_ROWS`` under their adapters.
+    Each burst is held against its tp 1 reference as above, and each
+    rank's launches in each burst are layers x that burst's substeps, read
+    on that rank (the follower prints its counts where they are set to
+    0). The mixed burst's base rows equal the plain burst's token ids and
+    logprobs bit for bit (the ``where`` contract: a bank changes no base
+    row), each adapter row differs from its plain row (a dropped delta
+    would leave it equal), and both ranks count the same LoRA-variant
+    windows, more than none. → the phase's numbers, the plain burst's at
+    the top level and the mixed one's under "lora"."""
     import numpy as np
 
     tag = ("tp" if quant == "none" else f"tp-int8-kv{kv_quant}") + ("" if tp == TP_RANKS
@@ -1968,7 +2070,8 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
         worker = Proc(f"{tag}-worker", [
             "dynamo_tpu_torch.worker", "--store-url", store_url, "--tp", str(tp),
             *weights, "--dtype", dtype, "--device", device, "--quant", quant,
-            "--kv-quant", kv_quant, "--disagg", "off", *ENGINE_ARGV])
+            "--kv-quant", kv_quant, "--disagg", "off", *(tp_lora_argv() if lora else ()),
+            *ENGINE_ARGV])
         procs.append(worker)
         if callable(reference):
             reference = reference()
@@ -1977,10 +2080,16 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
         m, up_s = worker.wait_for(r"dynamo_tpu_torch worker: serving .*\((\d+) window graphs", 900)
         graphs = int(m.group(1))
         log(f"{tag}: {cfg.name} ({L} layers, {quant} weights, {kv_quant} KV pages) served by a "
-            f"--tp {tp} worker, {backend}, registered {up_s:.1f}s after launch "
-            f"({card_line})")
-        outs, wall = asyncio.run(_tp_burst(store_url, cfg.name))
-        settled_counters(worker)
+            f"--tp {tp} worker, {backend}"
+            + (f", {len(TP_ADAPTERS)} adapters over {TP_LORA_SLOTS} bank slots" if lora else "")
+            + f", registered {up_s:.1f}s after launch ({card_line})")
+        bursts, wall = {}, {}
+        bursts["plain"], wall["plain"] = asyncio.run(_tp_burst(store_url, cfg.name))
+        plain_c = settled_counters(worker)
+        if lora:
+            bursts["mixed"], wall["mixed"] = asyncio.run(_tp_burst(
+                store_url, cfg.name, clear=True, adapters=TP_LORA_ROWS))
+            mixed_c = settled_counters(worker)
         rc = worker.stop(120)
         if rc != 0:
             raise RuntimeError(f"{tag}: the leader exited rc={rc}: "
@@ -1992,16 +2101,31 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
                 if ln.startswith('{"event": "engine_counters"'))
     fols = sorted((json.loads(ln) for ln in worker.lines
                    if ln.startswith('{"event": "follower_counters"')), key=lambda c: c["rank"])
-    if [c["rank"] for c in fols] != list(range(1, tp)):
-        raise RuntimeError(f"{tag}: follower counters of ranks {[c['rank'] for c in fols]}")
-    substeps = lead["decode_substeps"]
+    zeroed = sorted((json.loads(ln) for ln in worker.lines
+                     if ln.startswith('{"event": "follower_counts_zeroed"')),
+                    key=lambda c: c["rank"])
+    ranks = list(range(1, tp))
+    if [c["rank"] for c in fols] != ranks or lora and [c["rank"] for c in zeroed] != ranks:
+        raise RuntimeError(f"{tag}: follower counters of ranks {[c['rank'] for c in fols]}, "
+                           f"counts set to 0 on ranks {[c['rank'] for c in zeroed]}")
+    # Each burst's launches on each rank, counted from 0 on that rank: the
+    # plain burst's from the warm-ups' end to the leader's reading after
+    # it and to the follower's counts where the mixed burst's clear set
+    # them to 0; the mixed burst's from that clear to every rank's end.
+    plain_substeps = plain_c["decode_substeps"]
+    runs = {"plain": (plain_substeps, [plain_c, *(zeroed if lora else fols)])}
+    if lora:
+        runs["mixed"] = (lead["decode_substeps"] - plain_substeps, [lead, *fols])
     cuda = device == "cuda"
-    want = L * substeps if cuda else 0
     nccl = lead["tp"]["backend"] == "nccl"
+    for name, (substeps, lines) in runs.items():
+        want = L * substeps if cuda else 0
+        for rank, c in enumerate(lines):
+            if c["paged_attention_launches"] != want or substeps == 0:
+                raise RuntimeError(f"{tag} {name}: rank {rank} attention launches "
+                                   f"{c['paged_attention_launches']} != {L} layers x "
+                                   f"{substeps} substeps")
     for who, c in (("leader", lead), *((f"follower {c['rank']}", c) for c in fols)):
-        if c["paged_attention_launches"] != want or substeps == 0:
-            raise RuntimeError(f"{tag}: {who} attention launches {c['paged_attention_launches']}"
-                               f" != {L} layers x {substeps} substeps")
         if cuda and (c["eager_windows"] == 0) != nccl:
             raise RuntimeError(f"{tag}: {who} ran {c['eager_windows']} windows eagerly under "
                                f"{lead['tp']['backend']}: gloo windows run eagerly, NCCL ones "
@@ -2014,34 +2138,48 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
             raise RuntimeError(f"{tag}: collectives differ: leader {lead['tp']['calls']}, "
                                f"follower {c['rank']} {c['collectives']['calls']}")
     fol = fols[0]
-    for i, o in enumerate(outs):
-        if len(o["ids"]) != BURST_TOKENS or not all(
-                np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
-            raise RuntimeError(f"{tag} request {i}: bad token/logprob stream")
-        if not all(0 <= t < cfg.vocab_size for t in o["ids"]):
-            raise RuntimeError(f"{tag} request {i}: token id out of range")
+    outs = bursts["plain"]
+    for name, got_b in bursts.items():
+        for i, o in enumerate(got_b):
+            if len(o["ids"]) != BURST_TOKENS or not all(
+                    np.isfinite(lp) and lp <= 0.0 for lp in o["logprobs"]):
+                raise RuntimeError(f"{tag} {name} request {i}: bad token/logprob stream")
+            if not all(0 <= t < cfg.vocab_size for t in o["ids"]):
+                raise RuntimeError(f"{tag} {name} request {i}: token id out of range")
     greedy = [i for i, t in enumerate(BURST_TEMPS) if t == 0.0]
-    dense = [{"tokens": r["ids"], "logprobs": r["logprobs"]} for r in reference]
-    got = [{"tokens": o["ids"], "logprobs": o["logprobs"]} for o in outs]
-    gaps = tree_vs_dense_gaps(dense, got, greedy, tag)
-    equal = [i for i in greedy if got[i]["tokens"] == dense[i]["tokens"]]
-    # Logprob drift up to each greedy stream's first divergence (past it the
-    # two continue different texts).
-    drift = max(abs(a - b) for i in greedy for a, b in zip(
-        got[i]["logprobs"][:_first_divergence(got[i]["tokens"], dense[i]["tokens"])],
-        dense[i]["logprobs"]))
-    sampled_equal = [i for i in range(len(outs)) if i not in greedy
-                     and got[i]["tokens"] == dense[i]["tokens"]]
+    held = {}
+    for name, got_b in bursts.items():
+        dense = [{"tokens": r["ids"], "logprobs": r["logprobs"]} for r in reference[name]]
+        got = [{"tokens": o["ids"], "logprobs": o["logprobs"]} for o in got_b]
+        gaps = tree_vs_dense_gaps(dense, got, greedy, f"{tag} {name}")
+        # Logprob drift up to each greedy stream's first divergence (past it
+        # the two continue different texts), by row.
+        drift = {i: max(abs(a - b) for a, b in zip(
+            got[i]["logprobs"][:_first_divergence(got[i]["tokens"], dense[i]["tokens"])],
+            dense[i]["logprobs"])) for i in greedy}
+        worst = max(drift, key=drift.get)
+        if drift[worst] > TP_LP_TOL:
+            raise RuntimeError(f"{tag} {name} request {worst}: |logprob - tp 1| "
+                               f"{drift[worst]:.4g} before the streams part (> {TP_LP_TOL})")
+        held[name] = {
+            "greedy_equal": [i for i in greedy if got[i]["tokens"] == dense[i]["tokens"]],
+            "gaps": gaps, "max_logprob_drift": drift[worst],
+            "max_logprob_drift_adapter_rows": max(
+                (d for i, d in drift.items() if name == "mixed" and i in TP_LORA_ROWS),
+                default=None),
+            "sampled_equal": [i for i in range(len(got)) if i not in greedy
+                              and got[i]["tokens"] == dense[i]["tokens"]]}
+    equal, gaps = held["plain"]["greedy_equal"], held["plain"]["gaps"]
+    drift, sampled_equal = held["plain"]["max_logprob_drift"], held["plain"]["sampled_equal"]
     tokens = sum(len(o["ids"]) for o in outs)
-    decode_s = sum(lead["phase_s"].get(k, 0.0) for k in DECODE_PHASES)
     calls = lead["tp"]["calls"]
     # Each prefill chunk (a prompt's chunk plan, padded to its rung) makes
     # 2L + 1 all-reduces of its rows' hidden states and one all-gather of
     # one row's logit slice; each decode substep as many, over the batch's
-    # 8 rows.
+    # 8 rows. An adapter's deltas add none: the o delta rides wo's sum.
     per_forward = 2 * L + 2
     bs = int(ENGINE_ARGV[ENGINE_ARGV.index("--block-size") + 1])
-    chunks = prefill_chunk_buckets(BURST_LENS, bs)
+    chunks = prefill_chunk_buckets(BURST_LENS, bs) * len(bursts)
     prefill_calls = len(chunks) * per_forward
     elt = 2 if dtype == "bfloat16" else 4
     rows = int(ENGINE_ARGV[ENGINE_ARGV.index("--max-num-seqs") + 1])
@@ -2052,15 +2190,20 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
     # where windows run eagerly; under NCCL a captured window's collectives
     # replay inside its graph, uncounted, so no per-substep figure comes
     # from the counts there.
+    all_substeps = lead["decode_substeps"]
     per_substep = (None, None) if nccl else (
-        (sum(calls.values()) - prefill_calls) / substeps,
-        (lead["tp"]["bytes"] - prefill_bytes) / substeps)
-    st = {"backend": backend, "tokens_per_s": tokens / wall, "wall_s": wall,
-          "substeps": substeps, "ms_per_substep": decode_s / substeps * 1e3,
-          "launches": [c["paged_attention_launches"] for c in (lead, *fols)],
-          "int8_launches": [[c[k] for k in ("int8_matmul_launches", "int8_matmul_wide_launches",
-                                            "int8_matmul_prefill_launches")]
-                            for c in (lead, *fols)],
+        (sum(calls.values()) - prefill_calls) / all_substeps,
+        (lead["tp"]["bytes"] - prefill_bytes) / all_substeps)
+    decode_s = sum(plain_c["phase_s"].get(k, 0.0) for k in DECODE_PHASES)
+
+    def int8_launches(lines):
+        return [[c[k] for k in ("int8_matmul_launches", "int8_matmul_wide_launches",
+                                "int8_matmul_prefill_launches")] for c in lines]
+
+    st = {"backend": backend, "tokens_per_s": tokens / wall["plain"], "wall_s": wall["plain"],
+          "substeps": plain_substeps, "ms_per_substep": decode_s / plain_substeps * 1e3,
+          "launches": [c["paged_attention_launches"] for c in runs["plain"][1]],
+          "int8_launches": int8_launches(runs["plain"][1]),
           "graphs_captured": graphs,
           "collectives": calls, "collective_bytes": lead["tp"]["bytes"],
           "collectives_per_substep": per_substep[0],
@@ -2072,16 +2215,58 @@ def tp_phase(card_line: str, reference, preset: str = "llama-8b", device: str = 
           "token_digest": fol["token_digest"], "frames": lead["tp"]["frames"],
           "frame_bytes": lead["tp"]["frame_bytes"], "greedy_equal": equal, "gaps": gaps,
           "max_logprob_drift": drift, "sampled_equal": sampled_equal, "registered_s": up_s}
-    log(f"{tag}: {len(outs)} requests, {tokens} tokens in {wall:.3f}s → "
-        f"{st['tokens_per_s']:.1f} tokens/s; {substeps} substeps, "
+    log(f"{tag}: {len(outs)} requests, {tokens} tokens in {wall['plain']:.3f}s → "
+        f"{st['tokens_per_s']:.1f} tokens/s; {plain_substeps} substeps, "
         f"{st['ms_per_substep']:.3f} host ms per substep; attention launches by rank "
-        f"{st['launches']} = {L} x {substeps}; eager windows {st['eager_windows']}, "
+        f"{st['launches']} = {L} x {plain_substeps}; eager windows {st['eager_windows']}, "
         f"{st['graphs_captured']} window graphs captured ({card_line})")
-    log(f"{tag}: greedy rows {equal} equal to tp 1's stream token for token; "
-        f"{len(gaps)} leave it where the two chosen tokens are {[round(g, 4) for g in gaps]} "
-        f"nats apart (|gap| < {SPEC_GAP_TOL}); max |logprob - tp 1| on equal tokens "
-        f"{drift:.4g}; sampled rows equal: {sampled_equal}; follower digest "
-        f"{fol['token_digest']} == leader's")
+    for name, h in held.items():
+        log(f"{tag} {name}: greedy rows {h['greedy_equal']} equal to tp 1's stream token for "
+            f"token; {len(h['gaps'])} leave it where the two chosen tokens are "
+            f"{[round(g, 4) for g in h['gaps']]} nats apart (|gap| < {SPEC_GAP_TOL}); max "
+            f"|logprob - tp 1| on equal tokens {h['max_logprob_drift']:.4g} (bound "
+            f"{TP_LP_TOL}); sampled rows equal: {h['sampled_equal']}")
+    log(f"{tag}: follower digest {fol['token_digest']} == leader's")
+    if lora:
+        mixed = bursts["mixed"]
+        base = [i for i in range(len(outs)) if i not in TP_LORA_ROWS]
+        differs = [i for i in base if mixed[i] != outs[i]]
+        if differs:
+            raise RuntimeError(f"{tag}: base rows {differs} of the mixed burst differ from the "
+                               "plain burst's (token ids or logprobs)")
+        same = [i for i in sorted(TP_LORA_ROWS) if mixed[i] == outs[i]]
+        if same:
+            raise RuntimeError(f"{tag}: adapter rows {same} of the mixed burst equal the plain "
+                               "burst's: their adapter's delta was not applied")
+        # Where each adapter row's stream leaves its plain row's (token
+        # ids), at tp 2 and in the tp 1 reference: what the adapters change.
+        parts = {who: {i: _first_divergence(b["mixed"][i]["ids"], b["plain"][i]["ids"])
+                       for i in sorted(TP_LORA_ROWS)}
+                 for who, b in (("tp", bursts), ("tp1", reference))}
+        lora_windows = [lead["lora"]["windows"], *(c["lora_windows"] for c in fols)]
+        if len(set(lora_windows)) != 1 or lora_windows[0] == 0:
+            raise RuntimeError(f"{tag}: LoRA-variant windows by rank {lora_windows}")
+        if lead["lora"]["uploads"] < len(TP_ADAPTERS):
+            raise RuntimeError(f"{tag}: {lead['lora']['uploads']} adapter uploads")
+        mixed_substeps, mixed_lines = runs["mixed"]
+        mixed_decode_s = sum(mixed_c["phase_s"].get(k, 0.0) for k in DECODE_PHASES) - decode_s
+        st["lora"] = {
+            **held["mixed"], "tokens_per_s": sum(len(o["ids"]) for o in mixed) / wall["mixed"],
+            "wall_s": wall["mixed"], "substeps": mixed_substeps,
+            "ms_per_substep": mixed_decode_s / mixed_substeps * 1e3,
+            "launches": [c["paged_attention_launches"] for c in mixed_lines],
+            "int8_launches": int8_launches(mixed_lines),
+            "lora_windows": lora_windows, "uploads": lead["lora"]["uploads"],
+            "base_rows_equal_plain": base, "adapter_rows_differ": sorted(TP_LORA_ROWS),
+            "adapter_rows_part_at": parts["tp"], "adapter_rows_part_at_tp1": parts["tp1"]}
+        log(f"{tag} mixed: rows {sorted(TP_LORA_ROWS)} under {len(TP_ADAPTERS)} adapters: "
+            f"{st['lora']['tokens_per_s']:.1f} tokens/s, {mixed_substeps} substeps, "
+            f"{st['lora']['ms_per_substep']:.3f} host ms per substep; base rows {base} equal "
+            f"the plain burst's bit for bit; each adapter row leaves its plain row at token "
+            f"{parts['tp']} (tp 1: {parts['tp1']}); max |logprob - tp 1| on adapter rows "
+            f"{held['mixed']['max_logprob_drift_adapter_rows']:.4g}; LoRA-variant windows by "
+            f"rank {lora_windows}; attention launches by rank {st['lora']['launches']} = {L} x "
+            f"{mixed_substeps}, counted from 0 on each rank ({card_line})")
     mib = lead["tp"]["bytes"] / 2**20
     counted = (f"{per_substep[0]:.1f} per substep past the prefills, {per_forward} a forward; "
                f"{mib:.1f} MiB in them, {per_substep[1] / 2**20:.3f} MiB per substep past the "
@@ -2101,10 +2286,12 @@ def tp_nccl_main(card_line: str) -> int:
     """``python3 chip_smoke.py --tp-nccl`` on a host of two or more cards:
     phase 4t's bf16 leg with each rank on a card of its own, so the ranks
     meet over NCCL and every window is a CUDA graph with its collectives
-    inside; at tp 2, and at tp 4 on four cards. Held as phase 4t holds the
-    one-card run, against the burst in process at tp 1 on card 0. Prints
-    the results and the card line before the last line, as the one-card run
-    does."""
+    inside; at tp 2, and at tp 4 on four cards; with the int8 leg's
+    adapters, so the LoRA variants' graphs run too. Held as phase 4t holds
+    the one-card run, against the burst in process at tp 1 on card 0. Then
+    phase 4p over NCCL, its ranks on cards of their own: at 2 ranks, and at
+    4 on four cards. Prints the results and the card line before the last
+    line, as the one-card run does."""
     import torch
 
     n = torch.cuda.device_count()
@@ -2112,13 +2299,15 @@ def tp_nccl_main(card_line: str) -> int:
         print(f"chip_smoke --tp-nccl: {n} card(s) visible; the NCCL path needs two",
               file=sys.stderr)
         return 2
-    ref = asyncio.run(burst_reference(["--preset", "llama-8b"]))
-    out = {tp: tp_phase(card_line, ref, tp=tp) for tp in (2, 4) if tp <= n}
+    ref = asyncio.run(burst_reference(["--preset", "llama-8b"], lora=True))
+    out = {tp: tp_phase(card_line, ref, tp=tp, lora=True) for tp in (2, 4) if tp <= n}
     log("tp_nccl_path: " + json.dumps(out))
+    par = {r: parallel_phase(card_line, n=r) for r in (2, 4) if r <= n}
+    log("parallel_nccl_path: " + json.dumps(par))
     print(json.dumps({"tp_nccl": {tp: {k: st[k] for k in (
         "backend", "tokens_per_s", "ms_per_substep", "substeps", "launches", "graphs_captured",
-        "eager_windows", "greedy_equal", "gaps", "peak_gib")} for tp, st in out.items()}}),
-        flush=True)
+        "eager_windows", "greedy_equal", "gaps", "peak_gib", "lora")}
+        for tp, st in out.items()}, "parallel_nccl": par}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2126,9 +2315,13 @@ def tp_nccl_main(card_line: str) -> int:
     return 0
 
 
-async def _tp_burst(store_url: str, model: str):
+async def _tp_burst(store_url: str, model: str, clear: bool = False,
+                    adapters: dict | None = None):
     """Phase 4's burst through the worker's generate endpoint → (each
-    request's token ids and logprobs, wall seconds)."""
+    request's token ids and logprobs, wall seconds). ``clear`` first empties
+    the worker's prefix cache and sets its launch counts to 0 on every rank
+    (its ``clear_kv`` endpoint); ``adapters`` names the adapter of each row
+    that has one."""
     from dynamo_tpu_torch.llm.protocols import PreprocessedRequest
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
     from dynamo_tpu_torch.runtime.engine import Context
@@ -2136,13 +2329,19 @@ async def _tp_burst(store_url: str, model: str):
 
     rt = await DistributedRuntime.create(store_url=store_url)
     try:
-        router = await rt.namespace("dynamo").component("backend").endpoint(
-            "generate").router(RouterMode.ROUND_ROBIN)
+        comp = rt.namespace("dynamo").component("backend")
+        router = await comp.endpoint("generate").router(RouterMode.ROUND_ROBIN)
         await router.discovery.wait_for_instances(1)
+        if clear:
+            clearer = await comp.endpoint("clear_kv").router(RouterMode.ROUND_ROBIN)
+            await clearer.discovery.wait_for_instances(1)
+            async for _ in clearer.generate({"zero_counts": True}, Context()):
+                pass
 
         async def one(i, prompt):
             req = PreprocessedRequest(model=model, token_ids=list(prompt.encode()),
                                       eos_token_ids=[257])
+            req.adapter_id = (adapters or {}).get(i)
             req.sampling.temperature = BURST_TEMPS[i]
             req.sampling.seed = 1000 + i
             req.sampling.logprobs = True
@@ -2159,6 +2358,423 @@ async def _tp_burst(store_url: str, model: str):
         return list(outs), time.perf_counter() - t0
     finally:
         await rt.shutdown()
+
+
+# -- phase 4p: the pipeline, ring-attention and expert-parallel ops --------------
+
+PAR_RANKS = 2
+PAR_SEED = 22
+# The checks' sizes: on the card llama-8b's attention and MLP widths and
+# moe-wide whole; on the CPU (the rehearsal) test-tiny's and moe-tiny.
+PAR_CARD = {"ring": {"T": 8192, "H": 32, "KVH": 8, "hd": 128, "dtype": "bfloat16"},
+            "pipeline": {"L": 32, "D": 4096, "I": 14336, "B": 16, "M": 4,
+                         "dtype": "bfloat16"},
+            "ep": {"preset": "moe-wide", "B": 8, "steps": 4, "blocks": 64, "bs": 16}}
+PAR_CPU = {"ring": {"T": 64, "H": 4, "KVH": 2, "hd": 16, "dtype": "float32"},
+           "pipeline": {"L": 4, "D": 32, "I": 64, "B": 16, "M": 4, "dtype": "float32"},
+           "ep": {"preset": "moe-tiny", "B": 4, "steps": 3, "blocks": 32, "bs": 8}}
+# |ring − f32 dense| ≤ atol + rtol·|dense|, by mode. bf16: the ring's scores
+# and probabilities are bf16 into exp and PV, and its output is bf16; the
+# causal errors are largest on the early rows, whose few keys average no
+# rounding away and whose outputs are large. At T 8,192 on the card the
+# sound ring's largest errors (0.01315 causal, 0.0023 non-causal) took
+# 0.67 and 0.37 of these bounds, the controls (the ring over an exchange
+# that never delivers) 17 and 26 times them (PERF.md §6). A float32 ring
+# is held at tests' 2e-5.
+PAR_RING_TOL = {"bfloat16": {"causal": (1e-2, 2e-2), "non_causal": (4e-3, 2e-2)},
+                "float32": {"causal": (2e-5, 2e-5), "non_causal": (2e-5, 2e-5)}}
+# |pipeline − sequential| ≤ this share of the sequential output's largest
+# magnitude. On the card the pipeline matched the scan bit for bit in every
+# run (a microbatch's rows take the whole batch's bf16 products); half a
+# bf16 step at the largest output leaves room for a product that rounds
+# once otherwise, and the control's error is of the outputs' own size.
+PAR_PIPE_TOL = {"bfloat16": 2.0 ** -8, "float32": 2e-5}
+# |ep step − unsharded step| ≤ atol + rtol·|unsharded| on float32 logits: the
+# experts' combine is summed in two (or n) parts, then across the ranks, so
+# the sums round in another order (tests/test_moe.py's 2e-4).
+PAR_EP_TOL = (2e-4, 2e-4)
+
+
+def swiglu_block(x, lp):
+    """tests/test_pipeline.py's layer: residual RMSNorm + SwiGLU."""
+    import torch
+
+    xf = x.float()
+    h = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5)).to(x.dtype)
+    g, u = h @ lp["w_gate"], h @ lp["w_up"]
+    return x + (torch.nn.functional.silu(g.float()).to(x.dtype) * u) @ lp["w_down"]
+
+
+def _par_timed(dev, fn):
+    """fn() once to warm, once timed → (its result, ms)."""
+    import torch
+
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _par_delta(group, before: tuple) -> dict:
+    calls, nbytes = before
+    return {"calls": {k: v - calls[k] for k, v in group.calls.items()},
+            "bytes": group.bytes - nbytes}
+
+
+class _LostExchange:
+    """A ``TpGroup`` whose neighbour exchange hands each rank its own
+    tensors back, as if the neighbour's never arrived; its other
+    collectives are the group's. Phase 4p's control: a ring or a pipeline
+    run over it is wrong, and its error must leave the check's bound."""
+
+    def __init__(self, group):
+        self._group = group
+
+    def __getattr__(self, name):
+        return getattr(self._group, name)
+
+    def ppermute_start(self, xs):
+        return _Kept(list(xs))
+
+
+class _Kept:
+    def __init__(self, xs):
+        self.xs = xs
+
+    def wait(self):
+        return self.xs
+
+
+def _par_ring(group, dev, z: dict) -> dict:
+    """``ring_prefill`` at ``z``'s widths, causal and not: the timed call's
+    ms and collectives; on rank 0 its max error against a dense f32
+    attention computed 512 query rows at a time, and the error of the
+    control (the call over ``_LostExchange``), each also as the largest
+    share of the bound ``PAR_RING_TOL`` it takes."""
+    import torch
+
+    from dynamo_tpu_torch.ops.ring_attention import ring_prefill
+
+    T, H, KVH, hd = z["T"], z["H"], z["KVH"], z["hd"]
+    G = H // KVH
+    dt = getattr(torch, z["dtype"])
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((T, H, hd), (T, KVH, hd), (T, KVH, hd)))
+    out = {}
+    for causal in (True, False):
+        mode = "causal" if causal else "non_causal"
+        atol, rtol = PAR_RING_TOL[z["dtype"]][mode]
+        before = (dict(group.calls), group.bytes)
+        o, ms = _par_timed(dev, lambda: ring_prefill(group, q, k, v, causal=causal))
+        moved = _par_delta(group, before)
+        r = {"ms": ms, "exchanges": moved["calls"]["ppermute"] // 2,
+             "bytes": moved["bytes"] // 2, "gathers": moved["calls"]["all_gather"] // 2,
+             "finite": bool(torch.isfinite(o).all()), "shape": list(o.shape)}
+        control = ring_prefill(_LostExchange(group), q, k, v, causal=causal)
+        if group.rank == 0:
+            kf, vf = k.float(), v.float()
+            err = {"": [0.0, 0.0], "control_": [0.0, 0.0]}  # max |err|, its share of the bound
+            for lo in range(0, T, 512):
+                qg = q[lo:lo + 512].float().reshape(-1, KVH, G, hd)
+                s = torch.einsum("tkgh,skh->tkgs", qg, kf) * hd ** -0.5
+                if causal:
+                    pos = torch.arange(lo, lo + qg.shape[0], device=dev)
+                    keep = torch.arange(T, device=dev)[None, :] <= pos[:, None]
+                    s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
+                ref = torch.einsum("tkgs,skh->tkgh", s.softmax(-1), vf).reshape(-1, H, hd)
+                for key, got in (("", o), ("control_", control)):
+                    d = (got[lo:lo + 512].float() - ref).abs()
+                    e = err[key]
+                    e[0] = max(e[0], float(d.max()))
+                    e[1] = max(e[1], float((d / (atol + rtol * ref.abs())).max()))
+                del s, ref, d
+            for key, (e, share) in err.items():
+                r.update({f"{key}max_abs_err": e, f"{key}tol_ratio": share})
+        out[mode] = r
+        del o, control
+    return out
+
+
+def _par_pipeline(group, dev, z: dict) -> dict:
+    """``pipeline_apply`` of ``swiglu_block`` at ``z``'s widths (every rank
+    holds all the layers, each runs its stage): the timed call's ms and
+    collectives; on rank 0 its max error against the sequential scan of
+    the whole batch, and the control's (the call over ``_LostExchange``)."""
+    import torch
+
+    from dynamo_tpu_torch.ops.pipeline import pipeline_apply
+
+    L, D, I, B, M = z["L"], z["D"], z["I"], z["B"], z["M"]
+    dt = getattr(torch, z["dtype"])
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED + 1)
+    params = {"w_gate": torch.empty((L, D, I), dtype=dt, device=dev),
+              "w_up": torch.empty((L, D, I), dtype=dt, device=dev),
+              "w_down": torch.empty((L, I, D), dtype=dt, device=dev)}
+    for layer in range(L):  # drawn in f32 a layer at a time, then cast
+        for name, w in params.items():
+            w[layer] = torch.randn(w.shape[1:], generator=g, device=dev) * w.shape[1] ** -0.5
+    x = torch.randn((B, D), generator=g, device=dev).to(dt)
+    before = (dict(group.calls), group.bytes)
+    y, ms = _par_timed(dev, lambda: pipeline_apply(group, params, x, swiglu_block, M))
+    moved = _par_delta(group, before)
+    r = {"ms": ms, "exchanges": moved["calls"]["ppermute"] // 2, "bytes": moved["bytes"] // 2,
+         "sums": moved["calls"]["all_reduce"] // 2, "finite": bool(torch.isfinite(y).all()),
+         "shape": list(y.shape)}
+    if group.rank == 0:
+        def sequential():
+            s = x
+            for layer in range(L):
+                s = swiglu_block(s, {n: w[layer] for n, w in params.items()})
+            return s
+
+        ref, r["sequential_ms"] = _par_timed(dev, sequential)
+        r["max_abs_err"] = float((y.float() - ref.float()).abs().max())
+        r["ref_max_abs"] = float(ref.float().abs().max())
+    control = pipeline_apply(_LostExchange(group), params, x, swiglu_block, M)
+    if group.rank == 0:
+        r["control_max_abs_err"] = float((control.float() - ref.float()).abs().max())
+    del params
+    return r
+
+
+def _par_ep(group, dev, z: dict) -> dict:
+    """``z["steps"]`` float32 decode steps of ``z["preset"]`` with its
+    experts split over the ranks (ep = ranks, tp = 1), from an empty cache,
+    each step's tokens the greedy ones of the one before: per-step ms and
+    collectives, the attention launches of those steps; on rank 0 each
+    step's max logit error against the unsharded step on the same tokens."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import model as M
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.parallel.mesh import ModelSharding
+
+    cfg = ModelConfig.preset(z["preset"])
+    n = group.size
+    sh = ModelSharding(cfg, 1, group.rank, group, ep=n)
+    B, N, bs, steps = z["B"], z["blocks"], z["bs"], z["steps"]
+    rng = np.random.default_rng(PAR_SEED)
+    W = N // B
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:B * (W - 1)]
+                              .reshape(B, W - 1).astype(np.int32)).to(dev)
+    tokens0 = torch.from_numpy(rng.integers(1, cfg.vocab_size, B).astype(np.int32)).to(dev)
+    pos0 = torch.from_numpy(rng.integers(0, (W - 1) * bs - steps, B).astype(np.int32)).to(dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+
+    def run(params, shard):
+        cache = M.init_kv_cache(cfg if shard is None else shard.local, N, bs, torch.float32,
+                                dev)
+        toks, pos, logits, ms = tokens0, pos0, [], []
+        for i in range(steps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lg = M.decode_step(cfg, params, cache, toks, pos, tables, active, tp=shard)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+            toks = feed[i] if shard is None else lg.argmax(-1).to(torch.int32)
+            if shard is not None:
+                feed.append(toks)
+            pos = pos + 1
+        return logits, ms
+
+    feed: list = []
+    params = M.init_params(cfg, dev, torch.float32, PAR_SEED, shard=sh)
+    zero_counts()
+    before = (dict(group.calls), group.bytes)
+    got, ms = run(params, sh)
+    r = {"ms_per_step": ms, "launches": pa.launches, "layers": cfg.num_layers,
+         "steps": steps, "experts": list(sh.experts), **_par_delta(group, before),
+         "finite": all(bool(torch.isfinite(lg).all()) for lg in got)}
+    del params
+    if group.rank == 0:
+        full = M.init_params(cfg, dev, torch.float32, PAR_SEED)
+        want, r["unsharded_ms_per_step"] = run(full, None)
+        atol, rtol = PAR_EP_TOL
+        r["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        r["tol_ratio"] = max(float(((a - b).abs() / (atol + rtol * b.abs())).max())
+                             for a, b in zip(got, want))
+        del full
+    return r
+
+
+def _par_rank_main(rank: int, n: int, coord: str, device: str, sizes: dict, q) -> None:
+    """One rank of phase 4p: its group (ep = n blocks of one tp rank, the
+    ring over all n), then the ring, pipeline and ep checks → the queue."""
+    import traceback
+
+    import torch
+
+    from dynamo_tpu_torch.parallel.comm import TpGroup, rank_device
+
+    try:
+        if device == "cpu":
+            torch.set_num_threads(1)
+        dev = rank_device(device, rank)
+        group = TpGroup(rank, n, coord, dev, ep=n)
+        try:
+            out = {"describe": group.describe()}
+            for name, check in (("ring", _par_ring), ("pipeline", _par_pipeline),
+                                ("ep", _par_ep)):
+                out[name] = check(group, dev, sizes[name])
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                               if dev.type == "cuda" else 0.0)
+            q.put((rank, "ok", out))
+        finally:
+            group.close()
+    except BaseException:  # noqa: BLE001 — reported to the parent, which raises
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def parallel_phase(card_line: str, device: str = "cuda", sizes: dict = PAR_CARD,
+                   n: int = PAR_RANKS, timeout: float = 600.0) -> dict:
+    """Phase 4p: ``n`` rank processes (spawned once; on one card they share
+    it and meet over gloo, on n cards of their own over NCCL) run three
+    checks of the ops the engines do not call: ``ring_prefill`` (sp = n)
+    against a dense f32 attention, ``pipeline_apply`` (pp = n) against the
+    sequential scan, and decode steps with the experts over ep = n against
+    the unsharded step, each within its stated tolerance, on rank 0. Every
+    rank's outputs finite and of their shape, the exchanges and bytes as
+    the schedules make them, and on the card the attention kernel
+    launched ``layers`` times a step on every ep rank. → the phase's
+    numbers, rank by rank."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    coord = f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_par_rank_main, args=(r, n, coord, device, sizes, q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    ranks: dict[int, dict] = {}
+    try:
+        for _ in range(n):
+            rank, status, val = q.get(timeout=timeout)
+            if status != "ok":
+                raise RuntimeError(f"4p: rank {rank} failed:\n{val}")
+            ranks[rank] = val
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    res = [ranks[r] for r in range(n)]
+    lead = res[0]
+    cuda = device == "cuda"
+    zr, zp, ze = sizes["ring"], sizes["pipeline"], sizes["ep"]
+    # ring: n − 1 exchanges of a (k, v) chunk a call, one gather of the output
+    elt = 2 if zr["dtype"] == "bfloat16" else 4
+    Tc = zr["T"] // n
+    ring_bytes = (n - 1) * 2 * Tc * zr["KVH"] * zr["hd"] * elt + Tc * zr["H"] * zr["hd"] * elt
+    # pipeline: M + n − 1 exchanges of a microbatch, one sum of the outputs
+    pe = 2 if zp["dtype"] == "bfloat16" else 4
+    steps_p = zp["M"] + n - 1
+    pipe_bytes = steps_p * zp["B"] // zp["M"] * zp["D"] * pe + zp["B"] * zp["D"] * pe
+    for rank, r in enumerate(res):
+        for mode in ("causal", "non_causal"):
+            m = r["ring"][mode]
+            if (not m["finite"] or m["shape"] != [zr["T"], zr["H"], zr["hd"]]
+                    or (m["exchanges"], m["gathers"], m["bytes"]) != (n - 1, 1, ring_bytes)):
+                raise RuntimeError(f"4p ring {mode} rank {rank}: {m} (want {n - 1} exchanges, "
+                                   f"1 gather, {ring_bytes} bytes)")
+        m = r["pipeline"]
+        if (not m["finite"] or m["shape"] != [zp["B"], zp["D"]]
+                or (m["exchanges"], m["sums"], m["bytes"]) != (steps_p, 1, pipe_bytes)):
+            raise RuntimeError(f"4p pipeline rank {rank}: {m} (want {steps_p} exchanges, 1 "
+                               f"sum, {pipe_bytes} bytes)")
+        m = r["ep"]
+        want = m["layers"] * m["steps"] if cuda else 0
+        if not m["finite"] or m["launches"] != want:
+            raise RuntimeError(f"4p ep rank {rank}: finite {m['finite']}, attention launches "
+                               f"{m['launches']} != {want}")
+        if m["calls"]["all_reduce"] != m["layers"] * m["steps"] or m["calls"]["all_gather"]:
+            raise RuntimeError(f"4p ep rank {rank}: collectives {m['calls']}: want one sum of "
+                               "the experts' combine a layer, nothing over the tp block of one")
+    for mode in ("causal", "non_causal"):
+        m, tol = lead["ring"][mode], PAR_RING_TOL[zr["dtype"]][mode]
+        if m["tol_ratio"] > 1.0:
+            raise RuntimeError(f"4p ring {mode}: max error {m['max_abs_err']} outside {tol} of "
+                               "the dense attention")
+        if m["control_tol_ratio"] <= 1.0:
+            raise RuntimeError(f"4p ring {mode}: the control (each rank's own kv chunk in place "
+                               f"of its neighbour's) stays within {tol} (max error "
+                               f"{m['control_max_abs_err']}): the bound does not tell a lost "
+                               "exchange")
+    pipe = lead["pipeline"]
+    pipe_bound = PAR_PIPE_TOL[zp["dtype"]] * pipe["ref_max_abs"]
+    if pipe["max_abs_err"] > pipe_bound:
+        raise RuntimeError(f"4p pipeline: max error {pipe['max_abs_err']} against the "
+                           f"sequential scan (largest |output| {pipe['ref_max_abs']})")
+    if pipe["control_max_abs_err"] <= pipe_bound:
+        raise RuntimeError(f"4p pipeline: the control (each stage's own output in place of "
+                           f"the one before's) stays within {pipe_bound} (max error "
+                           f"{pipe['control_max_abs_err']}): the bound does not tell a lost "
+                           "exchange")
+    if lead["ep"]["tol_ratio"] > 1.0:
+        raise RuntimeError(f"4p ep: max logit error {lead['ep']['max_abs_err']} outside "
+                           f"{PAR_EP_TOL} of the unsharded step")
+    st = {"backend": lead["describe"], "wall_s": wall, "ranks": n,
+          "ring": {mode: {**{k: lead["ring"][mode][k] for k in (
+                              "max_abs_err", "tol_ratio", "control_max_abs_err",
+                              "control_tol_ratio")},
+                          "ms": [r["ring"][mode]["ms"] for r in res],
+                          "exchanges": n - 1, "bytes": ring_bytes}
+                   for mode in ("causal", "non_causal")},
+          "pipeline": {"max_abs_err": pipe["max_abs_err"], "ref_max_abs": pipe["ref_max_abs"],
+                       "control_max_abs_err": pipe["control_max_abs_err"],
+                       "ms": [r["pipeline"]["ms"] for r in res],
+                       "sequential_ms": pipe["sequential_ms"], "exchanges": steps_p,
+                       "bytes": pipe_bytes},
+          "ep": {"max_abs_err": lead["ep"]["max_abs_err"],
+                 "ms_per_step": [r["ep"]["ms_per_step"] for r in res],
+                 "unsharded_ms_per_step": lead["ep"]["unsharded_ms_per_step"],
+                 "launches": [r["ep"]["launches"] for r in res],
+                 "collectives": lead["ep"]["calls"], "bytes": lead["ep"]["bytes"],
+                 "experts": [r["ep"]["experts"] for r in res]},
+          "peak_gib": [r["peak_gib"] for r in res]}
+    rt = st["ring"]
+    log(f"4p: {n} rank processes, {st['backend']}, three checks in {wall:.1f}s; peak memory "
+        f"per rank {' / '.join(f'{g:.2f}' for g in st['peak_gib'])} GiB ({card_line})")
+    for mode in ("causal", "non_causal"):
+        m = rt[mode]
+        log(f"4p ring_prefill {mode}: T {zr['T']}, H {zr['H']}, KVH {zr['KVH']}, hd "
+            f"{zr['hd']}, {zr['dtype']}, sp {n}: max |err| {m['max_abs_err']:.4g} against a "
+            f"dense f32 attention, {m['tol_ratio']:.3g} of the bound "
+            f"{PAR_RING_TOL[zr['dtype']][mode]} (atol, rtol); control over a lost exchange "
+            f"{m['control_max_abs_err']:.4g}, {m['control_tol_ratio']:.3g} of it; ms by rank "
+            f"{' / '.join(f'{x:.2f}' for x in rt[mode]['ms'])}, {n - 1} exchanges of a (k, v) "
+            f"chunk and 1 gather, {ring_bytes} bytes a rank ({card_line})")
+    log(f"4p pipeline_apply: {zp['L']} layers of D {zp['D']}, I {zp['I']}, {zp['dtype']}, pp "
+        f"{n}, B {zp['B']}, M {zp['M']}: max |err| {pipe['max_abs_err']:.4g} against the "
+        f"sequential scan (largest |output| {pipe['ref_max_abs']:.4g}, bound "
+        f"{PAR_PIPE_TOL[zp['dtype']]:.4g} of it); control over a lost exchange "
+        f"{pipe['control_max_abs_err']:.4g}; ms by rank "
+        f"{' / '.join(f'{x:.2f}' for x in st['pipeline']['ms'])} (sequential "
+        f"{pipe['sequential_ms']:.2f}), {steps_p} exchanges and 1 sum, {pipe_bytes} bytes a rank "
+        f"({card_line})")
+    e = st["ep"]
+    log(f"4p ep: {ze['preset']} float32, ep {n}, {ze['steps']} decode steps of {ze['B']} rows: "
+        f"max |logit err| {e['max_abs_err']:.4g} against the unsharded step (tolerance "
+        f"{PAR_EP_TOL}), ms per step by rank "
+        f"{' / '.join(','.join(f'{x:.2f}' for x in ms) for ms in e['ms_per_step'])} (unsharded "
+        f"{','.join(f'{x:.2f}' for x in e['unsharded_ms_per_step'])}), attention launches by "
+        f"rank {e['launches']}, experts by rank {e['experts']}, collectives {e['collectives']} "
+        f"({e['bytes']} bytes) ({card_line})")
+    return st
 
 
 async def busy_pass(engine, one, prompts, temps, first, card_line):
@@ -3203,6 +3819,19 @@ def fleet_phase(card_line: str, store_url: str, workers: list, reference: dict,
                 fleet.kill()
 
 
+FLEET_EXTRA_REPEATS = 16  # at most: each misses the idle child with odds 1/2
+
+
+def served_by_child(metrics: str) -> dict[str, float]:
+    """The fleet's aggregated /metrics → 200 responses by child."""
+    served: dict[str, float] = {}
+    for line in metrics.splitlines():
+        if line.startswith("dynamo_tpu_http_requests_total{") and 'status="200"' in line:
+            wid = line.split('fleet_worker_id="')[1].split('"')[0]
+            served[wid] = served.get(wid, 0) + float(line.rsplit(" ", 1)[1])
+    return served
+
+
 async def _drive_fleet(port: int, admin: int, store_url: str, model: str, reference: dict,
                        card_line: str) -> dict:
     from dynamo_tpu_torch.fleet.directory import kvdir_prefix
@@ -3293,6 +3922,20 @@ async def _drive_fleet(port: int, admin: int, store_url: str, model: str, refere
     again = await completion(7, f"{0xFD7:032x}")
     hold("repeated request 7", again, reference["repeat"])
 
+    # Both children on the one port: the kernel picks a child for each
+    # connection by a hash of its addresses, so the 11 connections above
+    # leave one child idle about once in 1,024 runs. Further repeats of
+    # request 7, each on a connection of its own and each held as the
+    # repeat is, until both children have served one.
+    repeats = [f"{0xFD7:032x}"]
+    for k in range(FLEET_EXTRA_REPEATS):
+        async with OpenAIClient(admin_url, timeout=30.0) as a:
+            if set(served_by_child((await a.get("/metrics")).text)) == {"0", "1"}:
+                break
+        repeats.append(f"{0xFE00 + k:032x}")
+        hold(f"repeat {k + 2} of request 7", await completion(7, repeats[-1]),
+             reference["repeat"])
+
     # The stitched traces: the supervisor's view of every request.
     async def fleet_trace(tid: str) -> dict:
         """Poll until the workers' exported engine spans have arrived."""
@@ -3337,13 +3980,15 @@ async def _drive_fleet(port: int, admin: int, store_url: str, model: str, refere
             raise RuntimeError(f"fleet: trace {s['trace_id']} has no frontend router.attempt span")
         instances[s["trace_id"]] = int(served[-1], 16)
     cold = [s["cached_blocks"] for s in sent[:8]]
-    if any(cold) or sent[-1]["cached_blocks"] <= 0:
-        raise RuntimeError(f"fleet: cached_blocks {cold} on the cold burst, "
-                           f"{sent[-1]['cached_blocks']} on the repeat")
-    if instances[f"{0xFD7:032x}"] != instances[f"{0xF07:032x}"]:
+    warm = [s["cached_blocks"] for s in sent if s["trace_id"] in repeats]
+    if any(cold) or min(warm) <= 0:
+        raise RuntimeError(f"fleet: cached_blocks {cold} on the cold burst, {warm} on the "
+                           "repeats")
+    strays = [t for t in repeats if instances[t] != instances[f"{0xF07:032x}"]]
+    if strays:
         seven = set(hashes_of(7))
         raise RuntimeError(
-            f"fleet: the repeat of request 7 went to instance {instances[f'{0xFD7:032x}']:x} "
+            f"fleet: the repeat {strays[0]} of request 7 went to instance {instances[strays[0]]:x} "
             f"({sent[-1]['cached_blocks']} cached blocks), not to {instances[f'{0xF07:032x}']:x} "
             f"which served it in the burst; the directory listed {listed_after_clear} blocks "
             f"by instance after the clear ({cleared} cleared) and now lists request 7's "
@@ -3364,15 +4009,11 @@ async def _drive_fleet(port: int, admin: int, store_url: str, model: str, refere
         if not all(rec["phases"].get(p, 0) > 0 for p in ("queue_wait", "prefill", "decode",
                                                          "route", "wire")):
             raise RuntimeError(f"fleet: ledger phases {rec['phases']}")
-        if s["index"] is not None and s["trace_id"] != f"{0xFD7:032x}":
+        if s["index"] is not None and s["trace_id"] not in repeats:
             ttfts.append(rec["ttft_s"])
 
     # Both children registered on the one port and served.
-    served_by = {}
-    for line in metrics.splitlines():
-        if line.startswith("dynamo_tpu_http_requests_total{") and 'status="200"' in line:
-            wid = line.split('fleet_worker_id="')[1].split('"')[0]
-            served_by[wid] = served_by.get(wid, 0) + float(line.rsplit(" ", 1)[1])
+    served_by = served_by_child(metrics)
     ws = status["workers"]
     if [(w["alive"], w["registered"]) for w in ws] != [(True, True)] * 2 or status["port"] != port:
         raise RuntimeError(f"fleet: /fleet says {status}")
@@ -3399,10 +4040,10 @@ async def _drive_fleet(port: int, admin: int, store_url: str, model: str, refere
                            f"entries {({f'{k:x}': len(v) for k, v in held.items()})}, after the "
                            f"clear {listed_after_clear}; by request {where}; hops "
                            + str({s["index"]: s["hops"] for s in sent[:8]}))
-    log(f"fleet: 8 burst completions, 2 chats (SSE through chat_stream, aggregate) and the repeat "
-        f"of request 7 through OpenAIClient; every burst response's 64 token texts and logprobs "
-        f"equal phase 7's reference bit for bit, the repeat ({sent[-1]['cached_blocks']} cached "
-        f"blocks) on its prefix holder {instances[f'{0xFD7:032x}']}; every stitched trace holds a "
+    log(f"fleet: 8 burst completions, 2 chats (SSE through chat_stream, aggregate) and "
+        f"{len(repeats)} repeat(s) of request 7 through OpenAIClient; every burst response's 64 "
+        f"token texts and logprobs equal phase 7's reference bit for bit, the repeat "
+        f"({sent[-1]['cached_blocks']} cached blocks) on its prefix holder {instances[f'{0xFD7:032x}']}; every stitched trace holds a "
         f"frontend and a worker lane with engine.queue/prefill/decode; children served "
         f"{served_by}; the directory lists {sum(len(v) for v in want.values())} burst blocks "
         f"under {len(want)} instance(s) ({card_line})")
@@ -3411,6 +4052,7 @@ async def _drive_fleet(port: int, admin: int, store_url: str, model: str, refere
             "chat_first_chunk_s": first_chunk_s, "cleared_blocks": cleared,
             "instances": [instances[s["trace_id"]] for s in sent],
             "cached_blocks_repeat": sent[-1]["cached_blocks"], "served_by_child": served_by,
+            "extra_repeats": len(repeats) - 1,
             "directory_blocks": sum(len(v) for v in want.values())}
 
 
@@ -5390,7 +6032,7 @@ def _disagg_sums(text: str) -> dict:
 def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
                  preset: str = "llama-8b", device: str = "cuda", dtype: str = "bfloat16",
                  quant: str = "none", kv_quant: str = "none",
-                 model_path: str | None = None) -> dict:
+                 model_path: str | None = None, chaos: bool = True) -> dict:
     """Phase 11: the port's store server, one ``--is-prefill-worker`` and
     one default worker (``--disagg auto``, ``--max-local-prefill-length
     512``) on the same weights, and a kv-mode frontend; the burst as 8
@@ -5401,7 +6043,9 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
     ``model_path`` the workers serve that checkpoint (``checkpoint_reference``
     makes the reference on it). ``reference`` may be a function that makes
     it: it then runs while the workers start, and ``agg_ttft`` defaults to
-    its burst's TTFTs."""
+    its burst's TTFTs. Without ``chaos`` the fault path (a prefill worker
+    that cuts every transfer, and the decode worker's fallback) is left
+    out."""
     from dynamo_tpu_torch.engine.config import EngineArgs
 
     tag = "disagg" if quant == "none" else f"disagg-int8-kv{kv_quant}"
@@ -5536,27 +6180,30 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
         # first chunk; the decode worker's cache cleared so the request
         # goes remote again, falls back and prefills locally (cold).
         rcs = {prefill.name: prefill.stop()}
-        asyncio.run(clear_kv(port, model, workers=1))
-        chaos = prefill_worker(f"{tag}-prefill-chaos", env={
-            "DYNTPU_CHAOS_ENABLED": "1", "DYNTPU_CHAOS_TRANSFER_CUT_P": "1"})
-        time.sleep(1.0)  # the decode worker's discovery sees the new instance
-        (r,), _ = asyncio.run(_disagg_burst(port, model, [CHAOS_REQUEST], "chaos"))
-        _check_disagg(f"{tag} chaos request {CHAOS_REQUEST}", r,
-                      reference["burst"][CHAOS_REQUEST])
-        dc2 = settled_counters(decode)
-        metrics2 = _disagg_sums(_get_text(sys_port, "/metrics"))
-        if (dc2["disagg"]["fallback_reasons"] != {"transfer": 1}
-                or dc2["disagg"]["remote_prefills"] != len(REMOTE) + 1
-                or metrics2["fallbacks"] != {"transfer": 1.0}):
-            raise RuntimeError(f"{tag}: chaos: handler {dc2['disagg']}, /metrics {metrics2}")
-        delta = {k: dc2[k] - dc1[k] for k in DRAIN_KEYS}
-        _held_counts(tag, "decode worker (chaos rerun)", delta, cfg,
-                     [BURST_LENS[CHAOS_REQUEST]], device, quant)
-        log(f"{tag}: chaos: DYNTPU_CHAOS_TRANSFER_CUT_P=1 on the prefill worker cut request "
-            f"{CHAOS_REQUEST}'s transfer; the decode worker fell back to a local prefill "
-            f"(disagg_fallback_total{{reason=\"transfer\"}} 1) and returned the cold burst's "
-            f"stream bit for bit")
-        rcs.update({p.name: p.stop() for p in [fe, decode, chaos, store]})
+        dc2 = None
+        if chaos:
+            asyncio.run(clear_kv(port, model, workers=1))
+            cutter = prefill_worker(f"{tag}-prefill-chaos", env={
+                "DYNTPU_CHAOS_ENABLED": "1", "DYNTPU_CHAOS_TRANSFER_CUT_P": "1"})
+            time.sleep(1.0)  # the decode worker's discovery sees the new instance
+            (r,), _ = asyncio.run(_disagg_burst(port, model, [CHAOS_REQUEST], "chaos"))
+            _check_disagg(f"{tag} chaos request {CHAOS_REQUEST}", r,
+                          reference["burst"][CHAOS_REQUEST])
+            dc2 = settled_counters(decode)
+            metrics2 = _disagg_sums(_get_text(sys_port, "/metrics"))
+            if (dc2["disagg"]["fallback_reasons"] != {"transfer": 1}
+                    or dc2["disagg"]["remote_prefills"] != len(REMOTE) + 1
+                    or metrics2["fallbacks"] != {"transfer": 1.0}):
+                raise RuntimeError(f"{tag}: chaos: handler {dc2['disagg']}, /metrics {metrics2}")
+            delta = {k: dc2[k] - dc1[k] for k in DRAIN_KEYS}
+            _held_counts(tag, "decode worker (chaos rerun)", delta, cfg,
+                         [BURST_LENS[CHAOS_REQUEST]], device, quant)
+            log(f"{tag}: chaos: DYNTPU_CHAOS_TRANSFER_CUT_P=1 on the prefill worker cut request "
+                f"{CHAOS_REQUEST}'s transfer; the decode worker fell back to a local prefill "
+                f"(disagg_fallback_total{{reason=\"transfer\"}} 1) and returned the cold "
+                f"burst's stream bit for bit")
+            rcs[cutter.name] = cutter.stop()
+        rcs.update({p.name: p.stop() for p in [fe, decode, store]})
         if any(rcs.values()):
             raise RuntimeError(f"{tag}: processes did not exit 0 on SIGTERM: {rcs}")
         final = next(json.loads(line) for line in reversed(decode.lines)
@@ -5567,7 +6214,8 @@ def disagg_phase(card_line: str, reference, agg_ttft: tuple | None = None,
                 "drain_sync_share": drain_sync_share, "inject_s": dc["inject_s"],
                 "inject_bytes": dc["inject_bytes"], "export_s": pc["export_s"],
                 "phase_s": phase, "prefill_phase_s": pc["phase_s"], "metrics": metrics,
-                "alone": dict(alone, ttft_s=alone_ttft), "chaos": dc2["disagg"],
+                "alone": dict(alone, ttft_s=alone_ttft),
+                "chaos": None if dc2 is None else dc2["disagg"],
                 "final_counters": final, "exit_codes": rcs}
     finally:
         for p in procs:
@@ -6936,10 +7584,10 @@ async def moe_phase(card_line: str, preset: str = "moe-wide", device: str = "cud
     # The window op by op, every layer's MoE input at its first substep recorded.
     xs, real = [], M._moe
 
-    def recording(x, lp, cfg_):
+    def recording(x, lp, cfg_, tp=None):
         if len(xs) < L:
             xs.append(x.detach().reshape(-1, x.shape[-1]).clone())
-        return real(x, lp, cfg_)
+        return real(x, lp, cfg_, tp)
 
     state = _device_state(trunner)
     M._moe = recording
@@ -8723,9 +9371,8 @@ def main() -> int:
             f"{st['graph_pool_bytes'] / 2**20:.1f} vs {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
             f"({card_line})")
     mark("4 main path")
-    tp = {"bf16": tp_phase(card_line, reference["burst"])}
-    torch.cuda.empty_cache()
-    mark("4t tensor parallel")
+    par = parallel_phase(card_line)
+    mark("4p pipeline, ring attention, ep")
     tied = asyncio.run(tied_phase(card_line))
     torch.cuda.empty_cache()
     mark("4d tied")
@@ -8760,11 +9407,14 @@ def main() -> int:
     shallow, _, _, shallow_bytes, shallow_s = write_checkpoint("llama-8b", CUT_LAYERS)
     mark("10- checkpoint of the cut model")
     shallow_weights = ["--model-path", shallow, "--tokenizer", "byte"]
-    tp["int8"] = tp_phase(card_line, lambda: asyncio.run(burst_reference(
-        shallow_weights, quant="int8", kv_quant="int8")), quant="int8", kv_quant="int8",
-        model_path=shallow)
+    tp = {"bf16": tp_phase(card_line, lambda: asyncio.run(burst_reference(shallow_weights)),
+                           model_path=shallow)}
     torch.cuda.empty_cache()
-    mark("4t int8 leg")
+    tp["int8"] = tp_phase(card_line, lambda: asyncio.run(burst_reference(
+        shallow_weights, quant="int8", kv_quant="int8", lora=True)), quant="int8",
+        kv_quant="int8", model_path=shallow, lora=True)
+    torch.cuda.empty_cache()
+    mark("4t tensor parallel")
     spec = {"bf16": asyncio.run(spec_phase(card_line, model=cut))}
     spec["int8"] = asyncio.run(spec_phase(card_line, quant="int8", kv_quant="int8", model=cut))
     for name, st in spec.items():
@@ -8788,10 +9438,11 @@ def main() -> int:
                                     ("endpoint → router over TCP", "runtime_s")))
         + f" (host CPU beside {card_line})")
     disagg = {"kv_wire": wire}
+    # One chaos cell, as in phase 14: the int8 pass runs without the cut.
     for name, q in (("bf16", "none"), ("int8", "int8")):
         disagg[name] = disagg_phase(
             card_line, lambda q=q: asyncio.run(checkpoint_reference(shallow, quant=q, kv_quant=q)),
-            quant=q, kv_quant=q, model_path=shallow)
+            quant=q, kv_quant=q, model_path=shallow, chaos=name == "bf16")
         torch.cuda.empty_cache()
     mark("11 disagg")
 
@@ -8881,6 +9532,8 @@ def main() -> int:
         "launches_moe": moe["launches"][0] + moe["depth0"]["launches"][0],
         "launches_tp_ranks": tp["bf16"]["launches"],
         "launches_tp_ranks_int8": tp["int8"]["launches"],
+        "launches_tp_ranks_int8_adapter_rows": tp["int8"]["lora"]["launches"],
+        "launches_ep_ranks": par["ep"]["launches"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "cases": cases,
@@ -8991,6 +9644,7 @@ def main() -> int:
     log("tied_path: " + json.dumps(tied, default=str))
     log("moe_path: " + json.dumps(moe, default=str))
     log("tp_path: " + json.dumps(tp))
+    log("parallel_path: " + json.dumps(par))
     log("http_path: " + json.dumps(http))
     log("checkpoint_path: " + json.dumps(ckpt))
     log("tokenizer_path: " + json.dumps(tok))

@@ -42,8 +42,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # QKV projection bias (Qwen2-family). o_proj stays bias-free.
     attn_bias: bool = False
-    # Mixture-of-experts (0 = dense FFN): top-k routed experts on one
-    # device (model._moe); expert parallelism is not ported.
+    # Mixture-of-experts (0 = dense FFN): top-k routed experts (model._moe),
+    # on one device or split over ep ranks (parallel/mesh.py).
     num_experts: int = 0
     num_experts_per_token: int = 2
     moe_intermediate_size: int | None = None  # per-expert FFN width (default: intermediate_size)

@@ -35,15 +35,19 @@ tensor products, the reference's being XLA einsums, not a Pallas kernel.
 Expert stacks stay in the compute dtype under ``quant="int8"``, as in the
 JAX package.
 
-Tensor parallelism: every forward takes ``tp``, the rank's
-``parallel.mesh.ModelSharding`` (None at tp=1, where no collective is
-called and the code path is unchanged). The rank computes with its local
-view of the model (its query and kv heads, its FFN width) on its shards;
-the partial sums of wo and of w_down (or the MoE combine) are summed over
-the ranks (``_reduce``), a vocabulary-split embedding is a masked lookup
-then a sum, and vocabulary-split logits are gathered, so every rank holds
-the full logits and samples the same token from the same bits. The XLA
-reference derives the same collectives from its shardings.
+Tensor and expert parallelism: every forward takes ``tp``, the rank's
+``parallel.mesh.ModelSharding`` (None on one device, where no collective
+is called and the code path is unchanged). The rank computes with its
+local view of the model (its query and kv heads, its FFN width, its
+experts) on its shards; the partial sums of wo and of w_down are summed
+over the tp ranks (``_reduce``), the MoE combine over the ep × tp ranks,
+a vocabulary-split embedding is a masked lookup then a sum, and
+vocabulary-split logits are gathered, so every rank holds the full logits
+and samples the same token from the same bits. An adapter bank under tp
+holds the rank's shard of each factor (``runner.shard_adapter_pages``):
+the q/k/v deltas come out as the rank's columns, and the o delta joins
+the rank's wo partial before the sum. The XLA reference derives the same
+collectives from its shardings.
 
 ``embed`` is the JAX package's ``embed_impl`` (/v1/embeddings): a
 cache-free causal forward, mean-pooled. Its attention, like prefill
@@ -220,10 +224,11 @@ def _local(cfg: ModelConfig, tp) -> ModelConfig:
     return cfg if tp is None else tp.local
 
 
-def _reduce(y: torch.Tensor, tp) -> torch.Tensor:
-    """Sum a row-split product's partial ``y`` over the tp ranks (nothing at
-    tp=1)."""
-    return y if tp is None else tp.group.all_reduce_(y)
+def _reduce(y: torch.Tensor, tp, axis: str = "tp") -> torch.Tensor:
+    """Sum a row-split product's partial ``y`` over the ranks of ``axis``
+    (``parallel.comm``: the tp ranks, or "ep_tp" for the MoE combine;
+    nothing on one device)."""
+    return y if tp is None else tp.group.all_reduce_(y, axis)
 
 
 def _embed_rows(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
@@ -312,7 +317,10 @@ def _qkv_lora(h: torch.Tensor, lp: dict, cfg: ModelConfig, ll: dict | None, rows
 
 
 def _wo_lora(o: torch.Tensor, lp: dict, ll: dict | None, rows) -> torch.Tensor:
-    """The o-projection with the optional per-row adapter delta."""
+    """The o-projection with the optional per-row adapter delta. Under tp
+    ``o`` and the bank's ``oa`` are the rank's rows, so the delta is the
+    rank's partial of ``o @ oa @ ob``, added to wo's before the caller's
+    all-reduce sums both."""
     y = _dot_q(o, lp, "wo")
     if ll is not None:
         y = _lora_apply(y, o, ll["oa"], ll["ob"], rows)
@@ -334,7 +342,7 @@ def _moe_route(xt: torch.Tensor, w_router: torch.Tensor, k: int):
     return probs, topv / topv.sum(dim=-1, keepdim=True), topi
 
 
-def _moe(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _moe(x: torch.Tensor, lp: dict, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """Top-k routed mixture of experts over the FFN (Mixtral's
     renormalised top-k), computed as the JAX package's ``_moe`` computes
     it: every expert's FFN for every token, the products in the activation
@@ -351,25 +359,37 @@ def _moe(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
       axis against ``moe_down`` viewed as [E·ie, d], so it accumulates as
       the reference's single einsum does.
 
+    Under expert parallelism (``tp`` with ep > 1) the router is replicated
+    and every rank takes the same top-k; the rank's stacks hold its E/ep
+    experts, which it applies to every token and combines with its slice
+    of the renormalised [T, E] weights. The caller sums the partial over
+    the ep × tp ranks (``_ffn``).
+
     No host synchronisation and no data-dependent shape: a decode window
     with MoE layers is captured as one CUDA graph like any other."""
     shape = x.shape
     xt = x.reshape(-1, shape[-1])                                          # [T, D]
-    T, E = xt.shape[0], cfg.num_experts
+    T = xt.shape[0]
     probs, topv, topi = _moe_route(xt, lp["w_router"], cfg.num_experts_per_token)
     weights = torch.zeros_like(probs).scatter_(1, topi, topv).to(xt.dtype)  # [T, E]
+    if tp is not None:
+        weights = weights[:, tp.experts[0]:tp.experts[1]]                  # [T, E/ep]
     g = torch.matmul(xt, lp["moe_gate"])                                   # [E, T, ie]
     u = torch.matmul(xt, lp["moe_up"])
     h = torch.nn.functional.silu(g.float()).to(xt.dtype) * u
     hw = (h * weights.T[:, :, None]).transpose(0, 1).reshape(T, -1)        # [T, E·ie]
     down = lp["moe_down"]
-    y = hw @ down.reshape(E * down.shape[1], down.shape[2])                # [T, D]
+    y = hw @ down.reshape(down.shape[0] * down.shape[1], down.shape[2])    # [T, D]
     return y.reshape(shape)
 
 
-def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    """The layer's FFN: routed experts for a MoE config, else the MLP."""
-    return _moe(x, lp, cfg) if cfg.num_experts else _mlp(x, lp)
+def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The layer's FFN, summed over the ranks that split it: routed experts
+    over the ep × tp ranks for a MoE config, else the MLP over the tp
+    ranks."""
+    if cfg.num_experts:
+        return _reduce(_moe(x, lp, cfg, tp), tp, "ep_tp")
+    return _reduce(_mlp(x, lp), tp)
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
@@ -510,7 +530,7 @@ def prefill_batch(
              + torch.einsum("btkgs,bskh->btkgh", p[..., W * bs :], v))
         del p, pv
         x = x + _reduce(_wo_lora(o.reshape(Bp, T, cfg.q_size), lp, ll, lrows), tp)
-        x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
+        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg, tp)
 
     last = torch.clamp(tlen - start - 1, 0, T - 1)
     x_last = x[torch.arange(Bp, device=dev), last]                         # [Bp, D]
@@ -587,7 +607,7 @@ def decode_step(
         o = attend(q.reshape(B, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                    lengths, cache.k_scale, cache.v_scale)
         x = x + _reduce(_wo_lora(o.reshape(B, cfg.q_size), lp, ll, lrows), tp)
-        x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
+        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg, tp)
     return _logits(cfg, params, x, tp)
 
 
@@ -798,7 +818,7 @@ def spec_verify(
             o = attend(q.reshape(B, T, KVH, G, hd), cache.k, cache.v, layer, block_tables,
                        lengths, cache.k_scale, cache.v_scale, anc)
             x = x + _reduce(_wo_lora(o.reshape(B, T, cfg.q_size), lp, ll, lrows), tp)
-            x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
+            x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg, tp)
         logits = _logits(cfg, params, x, tp)                              # [B, T, V]
     else:
         # Dead slots step at position 0 (their rows are inactive there).
@@ -901,7 +921,7 @@ def embed(
         p = torch.softmax(s, dim=-1).to(x.dtype)
         o = torch.einsum("tkgs,skh->tkgh", p, v).reshape(T, cfg.q_size)
         x = x + _reduce(_dot_q(o, lp, "wo"), tp)
-        x = x + _reduce(_ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg), tp)
+        x = x + _ffn(_rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg, tp)
     x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float()
     w = valid.float()[:, None]
     return (x * w).sum(dim=0) / max(float(true_len), 1.0)

@@ -257,6 +257,20 @@ def _leaves(tree):
         yield tree
 
 
+# An adapter's factor pages ([L, in, r] / [L, r, out]) cut as the weight
+# whose delta they carry: B of q/k/v on its columns, A of o on its rows.
+_ADAPTER_AS = {"qb": "wq", "kb": "wk", "vb": "wv", "oa": "wo"}
+
+
+def shard_adapter_pages(sharding, pages: tuple) -> tuple:
+    """One adapter's factor pages (engine/lora.py ``LORA_PAGE_KEYS``
+    order, full or already the rank's) → the rank's under ``sharding`` (a
+    ``parallel.mesh.ModelSharding``): qb, kb, vb and oa cut as wq, wk, wv
+    and wo are, the A factors of q/k/v and B of o whole."""
+    return tuple(sharding.shard_leaf(("layers", _ADAPTER_AS[k]), p) if k in _ADAPTER_AS else p
+                 for k, p in zip(LORA_PAGE_KEYS, pages))
+
+
 class LocalRunner:
     """``params``: a tree of tensors on the device, a tree of numpy arrays
     (moved there by ``params_from_numpy``; with ``quant="int8"`` float ones
@@ -276,8 +290,11 @@ class LocalRunner:
     ``inject_pages`` takes the rank's lanes of such pages, so tier files,
     disagg payloads and migrations read the same at any tp. Each rank
     folds the tokens it samples into ``token_digest`` on the device, so
-    ranks can be shown to sample alike without a fetch per dispatch. LoRA
-    under tp is not ported and is refused."""
+    ranks can be shown to sample alike without a fetch per dispatch. An
+    adapter bank under tp holds the rank's shard of each factor
+    (``bank_shapes`` of the rank's view), and ``upload_adapter`` cuts the
+    full pages it is given (``shard_adapter_pages``), so
+    adapter pages, the slot pool and tier files are the same at any tp."""
 
     def __init__(self, args: EngineArgs, params: Any | None = None, seed: int = 0,
                  group=None):
@@ -290,8 +307,6 @@ class LocalRunner:
         if args.tp > 1:
             if group is None or group.size != args.tp:
                 raise ValueError(f"tp={args.tp} needs a TpGroup of {args.tp} ranks")
-            if args.lora_slots > 0:
-                raise ValueError("LoRA under tp > 1 is not ported (lora_slots must be 0)")
             self.sharding = ModelSharding(self.cfg, args.tp, group.rank, group)
         self.token_digest: torch.Tensor | None = None
         self.cache: M.KVCache | None = None
@@ -322,6 +337,7 @@ class LocalRunner:
         # device, allocated once at start (None when lora_slots is 0): the
         # captured graphs hold its addresses, so uploads write in place.
         self.lora_bank: dict[str, torch.Tensor] | None = None
+        self.lora_windows = 0  # K-step windows dispatched in their LoRA variant
         self.adapter_uploads = 0
         self.adapter_upload_s = 0.0
 
@@ -352,9 +368,9 @@ class LocalRunner:
                 self.params = self.sharding.shard_params(self.params)
             if on_host:
                 self.params = params_from_numpy(self.params, self.device, self.dtype)
+        local = self.cfg if self.sharding is None else self.sharding.local
         self.cache = M.init_kv_cache(
-            self.cfg if self.sharding is None else self.sharding.local,
-            self.args.num_kv_blocks, self.args.block_size, self.dtype,
+            local, self.args.num_kv_blocks, self.args.block_size, self.dtype,
             self.device, kv_quant=self.args.kv_quant,
         )
         if self.sharding is not None:
@@ -366,7 +382,7 @@ class LocalRunner:
             # never dispatches a row pointing at a slot it has not uploaded.
             self.lora_bank = {
                 k: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for k, shape in bank_shapes(self.cfg, self.args.lora_slots,
+                for k, shape in bank_shapes(local, self.args.lora_slots,
                                             self.args.lora_rank).items()
             }
         if (self.device.type == "cuda" and not self.args.enforce_eager
@@ -415,11 +431,13 @@ class LocalRunner:
         copy on the compute stream, behind the windows already in flight
         (they read the slot's old occupant, as in the JAX package); torch's
         caching host allocator hands the staging out again only once its
-        copy has run."""
+        copy has run. Under tp the rank keeps its shard of each page."""
         if self.lora_bank is None:
             raise ValueError("upload_adapter on a runner without an adapter bank "
                              "(lora_slots == 0)")
         t0 = time.perf_counter()
+        if self.sharding is not None:
+            pages = shard_adapter_pages(self.sharding, pages)
         for key, arr in zip(LORA_PAGE_KEYS, pages):
             bank = self.lora_bank[key]
             host = torch.from_numpy(np.ascontiguousarray(arr)).to(bank.dtype)
@@ -576,6 +594,7 @@ class LocalRunner:
         if fold_slots is None:
             fold_slots = np.full((B,), self.args.max_num_seqs, np.int32)
         lay = window_layout(B, W, L, adapter_slots is not None)
+        self.lora_windows += adapter_slots is not None
         words = lay.pack(
             tokens=tokens, positions=positions, tables=tables, active=active, temps=temps,
             seeds=seeds, steps0=steps0, top_k=tks, top_p=tps, freq=freqs, pres=press,
@@ -991,6 +1010,11 @@ class LocalRunner:
         """The sampled-token digest so far (waits for the device), None at tp=1."""
         return None if self.token_digest is None else int(self.token_digest)
 
+    def zero_counts(self) -> None:
+        """Every kernel wrapper's launch count (graphs.COUNTERS) to 0, with
+        no dispatch in flight: a reading after it counts what came after."""
+        set_counts(0 for _ in COUNTERS)
+
     # -- embeddings ---------------------------------------------------------
 
     def embed(self, toks, tlen: int) -> torch.Tensor:
@@ -1115,6 +1139,14 @@ class LeaderRunner(LocalRunner):
         self._socks.clear()
         super().stop()
 
+    def zero_counts(self) -> None:
+        """The launch counts to 0 here and, in dispatch order, on every
+        follower, which first prints what it had counted (``on_zero`` of
+        ``follower_loop``). Called between dispatches (the engine thread's
+        ``run_on_engine_thread``), as a dispatch is."""
+        self._cast({"op": "zero_counts"})
+        super().zero_counts()
+
     def _cast(self, desc: dict) -> None:
         body = msgpack_lite.packb(desc, use_bin_type=True)
         frame = struct.pack(">I", len(body)) + body
@@ -1171,14 +1203,16 @@ for _op in MIRRORED:
 
 
 def follower_loop(args: EngineArgs, leader_addr: str, params: Any | None = None, seed: int = 0,
-                  group=None) -> LocalRunner:
+                  group=None, on_zero=None) -> LocalRunner:
     """Replay the leader's dispatch stream on this rank until the leader
     stops (or its connection closes) → the rank's runner, started and not
     yet stopped (its counters and digest are the caller's to read).
 
     Every dispatch the leader's engine makes runs here in the same order
     with the same host operands, so the collectives of both ranks meet and
-    the ranks sample the same tokens; nothing is fetched."""
+    the ranks sample the same tokens; nothing is fetched. The leader's
+    ``zero_counts`` calls ``on_zero(runner)`` (when given) with the counts
+    as they stand, then sets them to 0."""
     host, port = leader_addr.rsplit(":", 1)
     deadline = time.monotonic() + CONNECT_TIMEOUT_S
     while True:  # the leader may still be starting up
@@ -1200,6 +1234,11 @@ def follower_loop(args: EngineArgs, leader_addr: str, params: Any | None = None,
             op = desc["op"]
             if op == "start":
                 runner.start()
+                continue
+            if op == "zero_counts":
+                if on_zero is not None:
+                    on_zero(runner)
+                runner.zero_counts()
                 continue
             if op not in MIRRORED:
                 raise RuntimeError(f"unknown dispatch op {op!r}")

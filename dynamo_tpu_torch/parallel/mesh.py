@@ -26,7 +26,21 @@ tp_rep; query heads and the MLP split over all tp ranks. Rank r sits at
 head group i and query subgroup j, so with head index h = kvh·G + g the
 rank holds exactly the query heads that read its kv heads.
 
-Expert parallelism (ep > 1) is not ported: ``ep`` is accepted at 1 only.
+**Expert parallelism** (``ep`` > 1): ranks lie as the JAX grid ``(dp, ep,
+tp_kv, tp_rep)`` row-major (``build_mesh``), so global rank r is tp rank
+r mod tp of ep block r // tp. The MoE expert stacks split their expert
+axis over ep and keep ``ie`` over tp (each rank holds E/ep experts × ie/tp
+of each); everything else (attention, the KV lanes, the router, the
+vocabulary splits) is the tp rank's, replicated over ep. Attention, the
+embedding and the logits reduce over the tp block; the MoE combine over
+all ep × tp ranks (``parallel.comm``'s "tp" and "ep_tp" axes).
+
+Multi-LoRA under tp: an adapter's factor pages are cut as the rank's
+projections are (engine/runner.py ``shard_adapter_pages``, by this
+module's rules for wq/wk/wv/wo): B of q over tp and B of k/v
+over tp_kv on their columns, A of o over tp on its rows, the other
+factors whole. The o delta joins the rank's wo partial before the
+all-reduce, which sums ``o @ oa @ ob`` over the ranks.
 """
 
 from __future__ import annotations
@@ -64,19 +78,21 @@ def rank_coords(rank: int, tp_rep: int) -> tuple[int, int]:
 
 # Leaf rules of ``param_shardings``: (axis of the stacked leaf, over which
 # ranks) — "tp" splits over all tp ranks (block r), "kv" over tp_kv (block
-# i, the same on every query subgroup). Layer leaves carry the layer axis
-# first, so [L, in, out] columns are axis 2 and rows axis 1.
+# i, the same on every query subgroup), "ep" over the ep blocks. Layer
+# leaves carry the layer axis first, so [L, in, out] columns are axis 2
+# and rows axis 1; expert stacks [L, E, d, ie] / [L, E, ie, d] split E
+# (axis 1) over ep and ie over tp.
 _LAYER_RULES = {
-    "wq": (2, "tp"), "wk": (2, "kv"), "wv": (2, "kv"), "wo": (1, "tp"),
-    "w_gate": (2, "tp"), "w_up": (2, "tp"), "w_down": (1, "tp"),
-    "bq": (1, "tp"), "bk": (1, "kv"), "bv": (1, "kv"),
+    "wq": ((2, "tp"),), "wk": ((2, "kv"),), "wv": ((2, "kv"),), "wo": ((1, "tp"),),
+    "w_gate": ((2, "tp"),), "w_up": ((2, "tp"),), "w_down": ((1, "tp"),),
+    "bq": ((1, "tp"),), "bk": ((1, "kv"),), "bv": ((1, "kv"),),
     # int8 scales [L, out] follow their weight's output dimension; the
     # row-split weights' outputs are whole, so their scales are replicated.
-    "wq_scale": (1, "tp"), "wk_scale": (1, "kv"), "wv_scale": (1, "kv"),
-    "w_gate_scale": (1, "tp"), "w_up_scale": (1, "tp"),
-    "moe_gate": (3, "tp"), "moe_up": (3, "tp"), "moe_down": (2, "tp"),
+    "wq_scale": ((1, "tp"),), "wk_scale": ((1, "kv"),), "wv_scale": ((1, "kv"),),
+    "w_gate_scale": ((1, "tp"),), "w_up_scale": ((1, "tp"),),
+    "moe_gate": ((1, "ep"), (3, "tp")), "moe_up": ((1, "ep"), (3, "tp")),
+    "moe_down": ((1, "ep"), (2, "tp")),
 }
-
 
 class ModelSharding:
     """The shard rules of one model at tensor parallelism ``tp`` for one
@@ -84,12 +100,14 @@ class ModelSharding:
     shard bookkeeping alone, as the loader and the tests use it)."""
 
     def __init__(self, cfg, tp: int, rank: int, group=None, ep: int = 1):
-        if ep != 1:
-            raise ValueError(f"ep={ep}: expert parallelism is not ported (ep must be 1)")
-        if not 0 <= rank < tp:
-            raise ValueError(f"rank {rank} outside tp={tp}")
+        if cfg.num_experts and cfg.num_experts % ep:
+            raise ValueError(f"num_experts={cfg.num_experts} not divisible by ep={ep}")
+        if not 0 <= rank < ep * tp:
+            raise ValueError(f"rank {rank} outside tp={tp}" + (f" x ep={ep}" if ep > 1 else ""))
         self.cfg = cfg
-        self.tp, self.rank, self.group = tp, rank, group
+        self.tp, self.ep, self.rank, self.group = tp, ep, rank, group
+        # The rank's place in the (ep, tp) grid: its ep block and tp rank.
+        self.e, self.tp_rank = divmod(rank, tp)
         self.tp_kv, self.tp_rep = split_tp(tp, cfg)
         if cfg.num_kv_heads % self.tp_kv:
             raise ValueError(f"num_kv_heads={cfg.num_kv_heads} not divisible by tp_kv={self.tp_kv}")
@@ -102,13 +120,16 @@ class ModelSharding:
         ie = cfg.moe_intermediate_size or cfg.intermediate_size
         if cfg.num_experts and ie % tp:
             raise ValueError(f"moe_intermediate_size={ie} not divisible by tp={tp}")
-        self.i, self.j = rank_coords(rank, self.tp_rep)
+        self.i, self.j = rank_coords(self.tp_rank, self.tp_rep)
         # Vocabulary sharding falls back to replication on awkward sizes.
-        self.vocab_sharded = cfg.vocab_size % tp == 0
-        self.vocab_lo = rank * (cfg.vocab_size // tp) if self.vocab_sharded else 0
-        self.vocab_hi = (rank + 1) * (cfg.vocab_size // tp) if self.vocab_sharded \
-            else cfg.vocab_size
+        self.vocab_sharded = tp > 1 and cfg.vocab_size % tp == 0
+        w = cfg.vocab_size // tp
+        self.vocab_lo = self.tp_rank * w if self.vocab_sharded else 0
+        self.vocab_hi = (self.tp_rank + 1) * w if self.vocab_sharded else cfg.vocab_size
         self.kv_heads = cfg.num_kv_heads // self.tp_kv
+        # The rank's experts [lo, hi) (all of them at ep = 1).
+        ne = cfg.num_experts // ep
+        self.experts = (self.e * ne, (self.e + 1) * ne)
 
     @property
     def local(self):
@@ -123,42 +144,45 @@ class ModelSharding:
 
     # -- parameters ---------------------------------------------------------
 
-    def leaf_rule(self, path: tuple[str, ...]) -> tuple[int, int, int] | None:
-        """(axis, parts, block) of the leaf at ``path`` (``("layers",
-        "wq")``, ``("embed",)``, …), or None for a replicated leaf."""
+    def leaf_rules(self, path: tuple[str, ...]) -> list[tuple[int, int, int]]:
+        """[(axis, parts, block)] of the leaf at ``path`` (``("layers",
+        "wq")``, ``("embed",)``, …), one per split axis: none for a
+        replicated leaf."""
         name = path[-1]
         if path[0] == "layers":
-            rule = _LAYER_RULES.get(name)
-            if rule is None:
-                return None
-            axis, over = rule
-            return (axis, self.tp, self.rank) if over == "tp" else (axis, self.tp_kv, self.i)
-        if not self.vocab_sharded:
-            return None
-        return {"embed": (0, self.tp, self.rank), "embed_scale": (0, self.tp, self.rank),
-                "lm_head": (1, self.tp, self.rank),
-                "lm_head_scale": (0, self.tp, self.rank)}.get(name)
+            parts = {"tp": (self.tp, self.tp_rank), "kv": (self.tp_kv, self.i),
+                     "ep": (self.ep, self.e)}
+            rules = [(axis, *parts[over]) for axis, over in _LAYER_RULES.get(name, ())]
+        elif not self.vocab_sharded:
+            rules = []
+        else:
+            axis = {"embed": 0, "embed_scale": 0, "lm_head": 1, "lm_head_scale": 0}.get(name)
+            rules = [] if axis is None else [(axis, self.tp, self.tp_rank)]
+        return [r for r in rules if r[1] > 1]
 
     def shard_leaf(self, path: tuple[str, ...], a):
         """The rank's contiguous shard of the leaf at ``path`` (a numpy array
-        or a tensor). A leaf already of the shard's size on the split axis
-        is this rank's shard and comes back as it is."""
-        rule = self.leaf_rule(path)
-        if rule is None:
+        or a tensor). A leaf already of the shard's size on a split axis is
+        this rank's shard on that axis and is left as it is there."""
+        cut = False
+        for axis, parts, block in self.leaf_rules(path):
+            n, full = a.shape[axis], self._full_dim(path, axis)
+            w = full // parts
+            if n == w:
+                continue
+            if n != full:
+                raise ValueError(f"{'/'.join(path)}: dimension {axis} is {n}, neither the "
+                                 f"model's {full} nor its 1/{parts}")
+            cut = True
+            if isinstance(a, torch.Tensor):
+                a = a.narrow(axis, block * w, w)
+            else:
+                idx = [slice(None)] * a.ndim
+                idx[axis] = slice(block * w, (block + 1) * w)
+                a = np.asarray(a)[tuple(idx)]
+        if not cut:
             return a
-        axis, parts, block = rule
-        n, full = a.shape[axis], self._full_dim(path, axis)
-        w = full // parts
-        if n == w and parts > 1:
-            return a
-        if n != full:
-            raise ValueError(f"{'/'.join(path)}: dimension {axis} is {n}, neither the model's "
-                             f"{full} nor its 1/{parts}")
-        if isinstance(a, torch.Tensor):
-            return a.narrow(axis, block * w, w).contiguous()
-        idx = [slice(None)] * a.ndim
-        idx[axis] = slice(block * w, (block + 1) * w)
-        return np.ascontiguousarray(np.asarray(a)[tuple(idx)])
+        return a.contiguous() if isinstance(a, torch.Tensor) else np.ascontiguousarray(a)
 
     def _full_dim(self, path: tuple[str, ...], axis: int) -> int:
         """The model's size of the leaf's split axis."""
@@ -166,6 +190,8 @@ class ModelSharding:
         name = path[-1].removesuffix("_scale")
         if name in ("embed", "lm_head"):
             return cfg.vocab_size
+        if name.startswith("moe_") and axis == 1:
+            return cfg.num_experts
         ie = cfg.moe_intermediate_size or cfg.intermediate_size
         return {"wq": cfg.q_size, "wo": cfg.q_size, "bq": cfg.q_size,
                 "wk": cfg.kv_size, "wv": cfg.kv_size, "bk": cfg.kv_size, "bv": cfg.kv_size,

@@ -84,7 +84,10 @@ cost of the KV pump, proactive offers), the adapters (resident, page-ins,
 evictions, uploads and their host seconds, the gather seconds and the
 admissions' waits for a slot), the graphs captured and their capture
 seconds, the peak device memory and the disagg handler's counts); SIGUSR1
-logs the same line and serves on.
+logs the same line and serves on. The ``clear_kv`` endpoint drops the idle
+cached blocks, and with ``{"zero_counts": true}`` also sets the kernels'
+launch counts to 0 on every rank, so a reading after it counts what the
+worker launched since.
 
 The counters line also carries ``trace``: the requests that recorded
 engine spans, the wall seconds recording them took on the event loop, and
@@ -106,10 +109,14 @@ rank with ``--dist-num-processes N --dist-process-id r`` and the same
 dispatch stream). Only the leader schedules, registers and serves; a
 follower replays every dispatch (``engine/runner.py`` ``follower_loop``)
 and at its end prints one ``{"event": "follower_counters", ...}`` line,
-its sampled-token digest included. Ranks meet over NCCL when each has a
+its sampled-token digest included (and, where the leader set the counts
+to 0, one ``{"event": "follower_counts_zeroed", ...}`` line of the counts
+they had). Ranks meet over NCCL when each has a
 card of its own and over gloo otherwise (ranks sharing a card, the CPU);
 the worker prints which, and under gloo its windows run eagerly. LoRA
-(``--lora-slots``/``--lora``) with ``--tp`` > 1 is refused at start-up.
+(``--lora-slots``/``--lora``) combines with ``--tp``: each rank holds its
+shard of the adapter bank, and the leader's adapter uploads reach the
+followers with the rest of its dispatch stream.
 
 ``--dp-size N`` spawns and supervises N independent worker processes of
 the same model, one per dp rank (``--dp-rank r`` marks one; the rank's
@@ -365,8 +372,6 @@ def parse_args(argv=None):
     if args.dist_num_processes > 1 and args.dist_num_processes != args.tp:
         p.error("--dist-num-processes must equal --tp: each process is one tensor-parallel "
                 "rank")
-    if args.tp > 1 and (args.lora_slots > 0 or args.lora):
-        p.error("LoRA with --tp > 1 is not ported (--lora-slots/--lora need --tp 1)")
     return args
 
 
@@ -644,12 +649,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=No
     out = {
         "event": "engine_counters",
         "decode_substeps": engine.total_decode_steps,
-        "paged_attention_launches": pa.launches,
-        "int8_matmul_launches": im.launches,
-        "int8_matmul_prefill_launches": im.prefill_launches,
-        "int8_matmul_tied_launches": im.tied_launches,
-        "int8_matmul_wide_launches": im.wide_launches,
-        "int8_matmul_decode_launches": im.decode_launches,
+        **launch_counts(),
         "num_layers": engine.cfg.num_layers,
         "generated_tokens": engine.total_generated,
         "prefilled_tokens": engine.total_prefilled,
@@ -681,6 +681,7 @@ def engine_counters(engine, disagg=None, fetcher=None, manager=None, exporter=No
         "lora": {**engine.lora_stats(), "gather_s": round(engine.total_lora_s, 6),
                  "pagein_s": round(engine.lora_pagein_s, 6),
                  "uploads": engine.runner.adapter_uploads,
+                 "windows": engine.runner.lora_windows,
                  "upload_s": round(engine.runner.adapter_upload_s, 6),
                  "slot_waits": engine.lora_slot_waits,
                  "slot_wait_s": round(engine.lora_slot_wait_s, 6)},
@@ -870,7 +871,11 @@ async def async_main(args) -> None:
             await comp.endpoint("embed").serve(embed_handler)
 
             async def clear_handler(payload, ctx):
-                yield {"cleared": engine.clear_kv_blocks()}
+                cleared = engine.clear_kv_blocks()
+                if (payload or {}).get("zero_counts"):
+                    # Between two steps, so no dispatch straddles the zero.
+                    await engine.run_on_engine_thread(engine.runner.zero_counts)
+                yield {"cleared": cleared}
 
             await comp.endpoint("clear_kv").serve(clear_handler)
         await register_model(rt, args.namespace, card)
@@ -1002,6 +1007,15 @@ def dp_rank_ports(base_port: int, dp_rank: int, stride: int = 4) -> dict:
     return {"system": b, "reserved": (b + 1, b + stride)}
 
 
+def launch_counts() -> dict:
+    """The kernels' launch counts, as the counters lines name them."""
+    return {"paged_attention_launches": pa.launches, "int8_matmul_launches": im.launches,
+            "int8_matmul_prefill_launches": im.prefill_launches,
+            "int8_matmul_tied_launches": im.tied_launches,
+            "int8_matmul_wide_launches": im.wide_launches,
+            "int8_matmul_decode_launches": im.decode_launches}
+
+
 def run_follower(args) -> None:
     """A tensor-parallel follower rank: no store, no endpoint; replays the
     leader's dispatch stream on this rank's shards, then prints its
@@ -1013,16 +1027,15 @@ def run_follower(args) -> None:
     model, params = load_weights(args, rank)
     eargs = engine_args(args, model, tokenizer_spec_for(args.model_path, args.tokenizer),
                         str(group.device))
-    runner = follower_loop(eargs, step_addr(args), params=params, seed=args.seed, group=group)
+    runner = follower_loop(eargs, step_addr(args), params=params, seed=args.seed, group=group,
+                           on_zero=lambda _: print_line(
+                               {"event": "follower_counts_zeroed", "rank": rank,
+                                **launch_counts()}))
     print_line({
         "event": "follower_counters", "rank": rank, "token_digest": runner.digest(),
-        "paged_attention_launches": pa.launches, "int8_matmul_launches": im.launches,
-        "int8_matmul_prefill_launches": im.prefill_launches,
-        "int8_matmul_tied_launches": im.tied_launches,
-        "int8_matmul_wide_launches": im.wide_launches,
-        "int8_matmul_decode_launches": im.decode_launches,
+        **launch_counts(),
         "eager_windows": runner.eager_windows, "eager_steps": runner.eager_steps,
-        "collectives": group.counters(),
+        "lora_windows": runner.lora_windows, "collectives": group.counters(),
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if runner.device.type == "cuda" else 0)})
     runner.stop()

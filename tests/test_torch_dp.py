@@ -42,9 +42,15 @@ def test_dp_rank_ports_equal_jax():
      "--dp-size/--dp-rank cannot combine with --dist-num-processes > 1"),
     (["--dp-size", "2", "--dp-rank", "2"], r"--dp-rank must be in \[0, --dp-size\)"),
     (["--tp", "2", "--dist-num-processes", "3"], "--dist-num-processes must equal --tp"),
-    (["--tp", "2", "--lora-slots", "2"], "LoRA with --tp > 1 is not ported"),
+    (["--tp", "2", "--lora-slots", "2", "--lora", "a:8:1"], None),
 ])
 def test_parallel_flag_errors(argv, message, capsys):
+    """Each refused combination exits with its message; LoRA with --tp
+    parses (each rank holds its shard of the adapter bank)."""
+    if message is None:
+        args = parse_args(argv)
+        assert (args.tp, args.lora_slots, args.lora_specs) == (2, 2, [("a", 8, 1)])
+        return
     with pytest.raises(SystemExit):
         parse_args(argv)
     assert re.search(message, capsys.readouterr().err)

@@ -84,7 +84,8 @@ def test_port_imports_no_jax_and_no_reference_modules():
                 "planner.__main__", "router.__main__", "metrics_exporter",
                 "metrics_exporter.__main__", "operator.yaml_lite", "operator.graph",
                 "operator.kube", "operator.controller", "operator.__main__",
-                "runtime.urlfetch", "parallel", "parallel.mesh", "parallel.comm"):
+                "runtime.urlfetch", "parallel", "parallel.mesh", "parallel.comm",
+                "ops.pipeline", "ops.ring_attention"):
         assert f"dynamo_tpu_torch.{cli}" in res["modules"]
     assert res["bad"] == []
 

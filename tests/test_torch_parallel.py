@@ -172,15 +172,34 @@ def test_divisibility_errors_match_jax():
     with pytest.raises(ValueError) as got:
         tmesh.ModelSharding(tcfg, 8, 0)
     assert str(got.value) == str(want.value)
-    # experts over ep: the JAX message for an uneven split; the port refuses ep > 1
+    # experts over ep: the JAX message for an uneven split
     jcfg, tcfg = _cfg(num_experts=3)
-    with pytest.raises(ValueError, match="not divisible by ep=2"):
+    with pytest.raises(ValueError) as want:
         jmesh.ModelSharding(jmesh.build_mesh(tp=2, ep=2, cfg=jcfg), jcfg)
-    with pytest.raises(ValueError, match="expert parallelism is not ported"):
+    with pytest.raises(ValueError) as got:
         tmesh.ModelSharding(tcfg, 2, 0, ep=2)
+    assert str(got.value) == str(want.value) == "num_experts=3 not divisible by ep=2"
     with pytest.raises(ValueError, match="rank 2 outside tp=2"):
         tmesh.ModelSharding(tcfg, 2, 2)
     # a leaf of neither the model's size nor a shard's
     _, tcfg = _cfg()
     with pytest.raises(ValueError, match="neither the model's"):
         tmesh.ModelSharding(tcfg, 2, 0).shard_leaf(("layers", "wq"), np.zeros((2, 64, 24)))
+
+
+def test_ep_is_accepted():
+    """ep = 2 over tp = 2: four ranks, each with its ep block's experts and
+    its tp rank's attention and vocabulary; a dense model takes ep too (its
+    FFN replicated over ep), as the JAX ModelSharding does."""
+    _, tcfg = _cfg(num_experts=4, num_experts_per_token=2)
+    got = [tmesh.ModelSharding(tcfg, 2, r, ep=2) for r in range(4)]
+    assert [(sh.e, sh.tp_rank, sh.experts) for sh in got] == [
+        (0, 0, (0, 2)), (0, 1, (0, 2)), (1, 0, (2, 4)), (1, 1, (2, 4))]
+    assert [(sh.vocab_lo, sh.vocab_hi, sh.lanes(tcfg.head_dim)) for sh in got] == [
+        (0, 256, (0, 8)), (256, 512, (8, 16))] * 2
+    assert got[3].local.num_experts == 4 and got[3].local.num_heads == 4
+    _, dense = _cfg()
+    jcfg, _ = _cfg()
+    jmesh.ModelSharding(jmesh.build_mesh(tp=2, ep=2, cfg=jcfg), jcfg)
+    assert tmesh.ModelSharding(dense, 2, 3, ep=2).leaf_rules(("layers", "w_gate")) == [
+        (2, 2, 1)]

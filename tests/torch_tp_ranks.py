@@ -2,10 +2,11 @@
 of a gloo group of CPU processes and collect what each returns.
 
 Not a test module: it imports torch and the port only (no jax), so the
-spawned ranks start quickly. ``run_ranks(fn, tp, *args)`` starts ``tp``
+spawned ranks start quickly. ``run_ranks(fn, n, *args)`` starts ``n``
 processes from the ``spawn`` context, each calling ``fn(rank, group,
-*args)`` with its ``parallel.comm.TpGroup``, and returns their results in
-rank order; a rank that raises fails the call with its traceback.
+*args)`` with its ``parallel.comm.TpGroup`` (``ep`` blocks of n/ep tp
+ranks, given as ``ep=``), and returns their results in rank order; a rank
+that raises fails the call with its traceback.
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank, tp, coord, args, q):
+def _rank_main(fn, rank, tp, coord, args, q, ep=1):
     from dynamo_tpu_torch.parallel.comm import TpGroup
 
     torch.set_num_threads(1)
     try:
-        group = TpGroup(rank, tp, coord, "cpu")
+        group = TpGroup(rank, tp, coord, "cpu", ep=ep)
         try:
             q.put((rank, "ok", fn(rank, group, *args)))
         finally:
@@ -37,13 +38,13 @@ def _rank_main(fn, rank, tp, coord, args, q):
         q.put((rank, "error", traceback.format_exc()))
 
 
-def run_ranks(fn, tp: int, *args, timeout: float = 120.0) -> list:
+def run_ranks(fn, tp: int, *args, timeout: float = 120.0, ep: int = 1) -> list:
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     coord = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, tp, coord, args, q), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, tp, coord, args, q, ep), daemon=True)
              for r in range(tp)]
     for p in procs:
         p.start()
@@ -60,6 +61,17 @@ def run_ranks(fn, tp: int, *args, timeout: float = 120.0) -> list:
             if p.is_alive():
                 p.kill()
     return [out[r] for r in range(tp)]
+
+
+def run_groups(calls: dict) -> dict:
+    """``run_ranks`` of several groups at once, each on its own ports: key →
+    (fn, n, args, kwargs) → key → its ranks' results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futs = {key: pool.submit(run_ranks, fn, n, *args, **kw)
+                for key, (fn, n, args, kw) in calls.items()}
+        return {key: f.result() for key, f in futs.items()}
 
 
 # -- the forward scenario of tests/test_torch_tp_forward.py ---------------------
@@ -212,3 +224,118 @@ class Followers:
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
+
+
+# -- the pipeline, ring-attention and expert-parallel ops ----------------------
+
+
+def ring_rank(rank, group, cases):
+    """``ring_prefill`` of each (q, k, v, causal) case → the rank's outputs,
+    its collective counters, then the message of a sequence one token
+    short of the first case's (None if none raised)."""
+    from dynamo_tpu_torch.ops.ring_attention import ring_prefill
+
+    t = torch.from_numpy
+    outs = [ring_prefill(group, t(q), t(k), t(v), causal=causal).numpy()
+            for q, k, v, causal in cases]
+    counters = group.counters()
+    q, k, v, _ = cases[0]
+    try:
+        ring_prefill(group, t(q[1:]), t(k[1:]), t(v[1:]))
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return outs, counters, err
+
+
+def pipeline_rank(rank, group, params, x, microbatches):
+    """``pipeline_apply`` of chip_smoke's ``swiglu_block`` (tests/test_pipeline.py's
+    layer) at each microbatch count → the
+    rank's outputs, then the message of a count that does not divide the
+    batch (None if none raised)."""
+    from chip_smoke import swiglu_block
+    from dynamo_tpu_torch.ops.pipeline import pipeline_apply
+
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    outs = [pipeline_apply(group, p, torch.from_numpy(x), swiglu_block, m).numpy()
+            for m in microbatches]
+    try:
+        pipeline_apply(group, p, torch.zeros((10, x.shape[1])), swiglu_block, 3)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return outs, err, group.counters()
+
+
+def moe_ep_rank(rank, group, np_params, cfg, tp, ep, inp, steps):
+    """``steps`` decode steps of the ep × tp rank on its shards, from an
+    empty cache: the first at ``inp``'s tokens and positions, each later
+    one at the greedy tokens one position on → each step's logits, the
+    collective counters."""
+    from dynamo_tpu_torch.engine import model as TM
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.parallel.mesh import ModelSharding
+
+    sh = ModelSharding(cfg, tp, rank, group, ep=ep)
+    params = params_from_numpy(sh.shard_params(np_params), "cpu", torch.float32)
+    cache = TM.init_kv_cache(sh.local, inp["N"], inp["bs"], torch.float32, torch.device("cpu"))
+    t = torch.from_numpy
+    tokens, pos = t(inp["tokens"]), t(inp["positions"])
+    out = []
+    for _ in range(steps):
+        logits = TM.decode_step(cfg, params, cache, tokens, pos, t(inp["tables"]),
+                                torch.ones_like(tokens, dtype=torch.bool), tp=sh)
+        out.append(logits.numpy())
+        tokens, pos = logits.argmax(-1).to(torch.int32), pos + 1
+    return out, group.counters()
+
+
+# -- LoRA under tp -------------------------------------------------------------
+
+
+def lora_forward_scenario(runner, inp: dict, bank: bool) -> list:
+    """A 4-row prefill then two chained decode steps on ``runner``'s params
+    and a fresh cache of its own (the rank's lanes under tp), each row
+    under its adapter slot (``inp["slots"]``, -1 = base) with the runner's
+    bank, or every row on the exact base path without it (``bank`` False)
+    → the logits of each forward."""
+    from dynamo_tpu_torch.engine import model as TM
+
+    cfg, sh = runner.cfg, runner.sharding
+    local = cfg if sh is None else sh.local
+    cache = TM.init_kv_cache(local, NBLK, BS, torch.float32, torch.device("cpu"))
+    t = torch.from_numpy
+    lora = runner.lora_bank if bank else None
+    slots = t(inp["slots"]) if bank else None
+    lens = t(inp["lens"])
+    logits = TM.prefill_batch(cfg, runner.params, cache, t(inp["toks"]), t(inp["tables"]),
+                              torch.zeros_like(lens), lens, lora, slots, tp=sh)
+    out = [logits.numpy()]
+    tokens, pos = logits.argmax(-1).to(torch.int32), lens.clone()
+    for _ in range(2):
+        logits = TM.decode_step(cfg, runner.params, cache, tokens, pos, t(inp["tables"]),
+                                torch.ones_like(lens, dtype=torch.bool), lora=lora,
+                                adapter_slots=slots, tp=sh)
+        out.append(logits.numpy())
+        tokens, pos = logits.argmax(-1).to(torch.int32), pos + 1
+    return out
+
+
+def lora_runner(eargs, np_params, pages: list, group=None):
+    """A started LocalRunner of ``eargs`` (the rank's under tp) with each of
+    ``pages`` (full adapter pages) uploaded to the slot of its index."""
+    from dynamo_tpu_torch.engine.runner import LocalRunner
+
+    runner = LocalRunner(eargs, params=np_params, group=group)
+    runner.start()
+    for slot, p in enumerate(pages):
+        runner.upload_adapter(slot, p)
+    return runner
+
+
+def lora_tp_rank(rank, group, eargs, np_params, pages, inp):
+    """One tp rank of ``lora_forward_scenario``, with its bank and without
+    → (logits with, logits without, the rank's bank as numpy arrays)."""
+    runner = lora_runner(eargs, np_params, pages, group)
+    return (lora_forward_scenario(runner, inp, True), lora_forward_scenario(runner, inp, False),
+            {k: v.numpy() for k, v in runner.lora_bank.items()})
