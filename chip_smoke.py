@@ -5174,6 +5174,431 @@ def write_llama3_tokenizer(path: str, n_bpe: int = 128_000, learned_max: int = T
             "merges": len(merges), "eos": eos}
 
 
+# Phase 9's family sub-check: four published tokenizer kinds at their
+# published vocabulary sizes, written from recipes (a fixed corpus and a
+# seeded fill, no tokenizers library), loaded by the port and held to
+# digests that tests/test_torch_smoke_tokenizer_families.py computes
+# through the library on the same recipes.
+
+TOK_FAMILY_SIZES = {"bert": 30_522, "falcon": 65_024, "clip": 49_408, "xlmr": 250_002}
+TOK_FAMILY_TEXTS = [
+    "Hello, World! The quick brown fox jumps over the lazy dog.",
+    "héllo wörld, ça va? naïve café — «quotes» ‘single’ “double”",
+    "Ｆｕｌｌｗｉｄｔｈ ｔｅｘｔ ① ② ½ ﬁne ﬂow ㋿ ℌ ²³",
+    "日本語のテキストと中文文本，한국어 텍스트도 있습니다。",
+    "Привет, как дела? Γειά σου κόσμε! שלום עולם مرحبا بالعالم",
+    "emoji 😀🎉👍🏽 👨‍👩‍👧 flags 🇫🇷 and ∑∫√∞ math ±×÷",
+    "numbers 1234567 3.14159 2025-10-17 0xDEADBEEF 1,000,000 ٣٤٥ ６７",
+    "code: def f(x):\n    return x**2  # comment\n\tif a != b: pass\r\n",
+    "Café résumé ñ ä é́ क्षत्रिय",
+    "  leading   and   trailing   spaces  　 wide space​ zero",
+    "don't won't it's I'm we've they're he'd you'll CAN'T",
+    "[CLS] [SEP] [MASK] <s> </s> <unk> <|endoftext|> >>TITLE<<",
+    "ΑΣ İstanbul ẞtraße ǅemal ꞵeta İİ",
+    "tabs\tand\nnewlines\n\nand\r\nreturns \x00 \x07 � end",
+]
+TOK_FAMILY_DIGESTS = {  # family → sha256 at TOK_FAMILY_SIZES, through the library
+    'bert': 'c0df23d83c97fb88857f0c5410509bfd9477fd2ca73289f220689e5a4f29db17',
+    'falcon': 'f387c0102c9dfffd728ec89ebc3ad55f74e8592ce138aa52884433182e1a68a0',
+    'clip': 'cd15e6899b49a4a1bce5f4cd04caad5c756345a0bdc43e1a145395dc564fc777',
+    'xlmr': '39e3d1e204da5c2d58f8344baa6046c33430e9c8b945004fd94281b4f1397691',
+}
+
+
+def _family_words(spec: dict, texts) -> "collections.Counter":
+    """The words of ``texts`` under a tokenizer.json's normalizer and
+    pre-tokenizer (the port's) → their counts."""
+    import collections
+
+    from dynamo_tpu_torch.llm.tokenizer_json import TokenizerJson
+
+    tj = TokenizerJson({"model": {"type": "BPE", "vocab": {}, "merges": []},
+                        "normalizer": spec.get("normalizer"),
+                        "pre_tokenizer": spec.get("pre_tokenizer")})
+    words = collections.Counter()
+    for t in texts:
+        t = tj.normalize(t) if tj.normalize else t
+        words.update(w for w, _ in tj.pre_tokenize([(t, True)]))
+    return words
+
+
+def _family_corpus() -> list[str]:
+    return TOK_FAMILY_TEXTS * 3 + [t.lower() for t in TOK_FAMILY_TEXTS]
+
+
+def _added(tokens: list[tuple[int, str]]) -> list[dict]:
+    return [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True} for i, t in tokens]
+
+
+def _template(first: list[tuple[str, int]], last: list[tuple[str, int]],
+              pair_mid: list[tuple[str, int]]) -> dict:
+    """A TemplateProcessing of ``first $A last`` (pair: ``first $A mid $B
+    last``)."""
+    def special(name, type_id=0):
+        return {"SpecialToken": {"id": name, "type_id": type_id}}
+
+    single = [special(n) for n, _ in first] + [{"Sequence": {"id": "A", "type_id": 0}}] \
+        + [special(n) for n, _ in last]
+    pair = single[:-len(last) or None] + [special(n, 1) for n, _ in pair_mid] \
+        + [{"Sequence": {"id": "B", "type_id": 1}}] + [special(n, 1) for n, _ in last]
+    names = {n: i for n, i in first + last + pair_mid}
+    return {"type": "TemplateProcessing", "single": single, "pair": pair,
+            "special_tokens": {n: {"id": n, "ids": [i], "tokens": [n]} for n, i in names.items()}}
+
+
+def _fill_bpe(vocab: dict, merges: list, n: int, rng, glue=lambda a, b: a + b,
+              left_ok=lambda t: True) -> None:
+    """Merges of two existing tokens from a seeded RNG until ``vocab`` holds
+    ``n`` tokens."""
+    tokens = list(vocab)
+    while len(vocab) < n:
+        a = tokens[rng.randrange(len(tokens))]
+        b = tokens[rng.randrange(min(len(tokens), 4096))]
+        if not left_ok(a) or glue(a, b) in vocab:
+            continue
+        vocab[glue(a, b)] = len(vocab)
+        tokens.append(glue(a, b))
+        merges.append((a, b))
+
+
+def bert_family(n_ids: int, seed: int = 0) -> dict:
+    """bert-base-uncased's components: BertNormalizer (lowercase),
+    BertPreTokenizer, WordPiece (``[UNK]``, ``##``), a ``[CLS] $A [SEP]``
+    template, the WordPiece decoder; [PAD], [unused0..98], [UNK], [CLS],
+    [SEP], [MASK] at ids 0-103."""
+    import random
+
+    spec = {"normalizer": {"type": "BertNormalizer", "clean_text": True,
+                           "handle_chinese_chars": True, "strip_accents": None,
+                           "lowercase": True},
+            "pre_tokenizer": {"type": "BertPreTokenizer"}}
+    specials = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                  "[MASK]"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    words = _family_words(spec, _family_corpus())
+    for ch in sorted({ch for w in words for ch in w}):
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault("##" + ch, len(vocab))
+    for w, _ in sorted(words.items(), key=lambda kv: (-kv[1], kv[0])):
+        for k in range(2, len(w)):
+            vocab.setdefault(w[:k], len(vocab))
+            vocab.setdefault("##" + w[k:], len(vocab))
+        vocab.setdefault(w, len(vocab))
+    rng = random.Random(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    while len(vocab) < n_ids:
+        piece = "".join(rng.choice(letters) for _ in range(rng.randint(2, 7)))
+        vocab.setdefault(piece if rng.random() < 0.5 else "##" + piece, len(vocab))
+    ids = {t: vocab[t] for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")}
+    spec.update(
+        added_tokens=_added([(i, t) for t, i in ids.items()]),
+        post_processor=_template([("[CLS]", ids["[CLS]"])], [("[SEP]", ids["[SEP]"])],
+                                 [("[SEP]", ids["[SEP]"])]),
+        decoder={"type": "WordPiece", "prefix": "##", "cleanup": True},
+        model={"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+               "max_input_chars_per_word": 100, "vocab": vocab})
+    return spec
+
+
+def falcon_family(n_ids: int, seed: int = 0) -> dict:
+    """falcon-7b's components: Punctuation, ByteLevel and Digits in one
+    Sequence, BPE; its 12 specials (``>>TITLE<<`` … ``<|endoftext|>``) at
+    ids 0-11; the ByteLevel decoder."""
+    import random
+
+    from dynamo_tpu_torch.llm.tok_common import bytes_to_unicode
+
+    specials = [">>TITLE<<", ">>ABSTRACT<<", ">>INTRODUCTION<<", ">>SUMMARY<<", ">>COMMENT<<",
+                ">>ANSWER<<", ">>QUESTION<<", ">>DOMAIN<<", ">>PREFIX<<", ">>SUFFIX<<",
+                ">>MIDDLE<<", "<|endoftext|>"]
+    spec = {"pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+        {"type": "Punctuation", "behavior": "Contiguous"},
+        {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+         "use_regex": True},
+        {"type": "Digits", "individual_digits": False}]}}
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[bytes_to_unicode()[b]] = len(vocab)
+    merges: list[tuple[str, str]] = []
+    for a, b in learn_merges(_family_words(spec, _family_corpus()), n_ids // 4):
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+    _fill_bpe(vocab, merges, n_ids, random.Random(seed))
+    spec.update(
+        added_tokens=_added(list(enumerate(specials))),
+        post_processor={"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+        decoder={"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                 "use_regex": True},
+        model={"type": "BPE", "dropout": None, "unk_token": None,
+               "continuing_subword_prefix": None, "end_of_word_suffix": None,
+               "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+               "vocab": vocab, "merges": [list(m) for m in merges]})
+    return spec
+
+
+CLIP_SPLIT = r"""'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
+
+
+def clip_family(n_ids: int, seed: int = 0) -> dict:
+    """clip-vit-base-patch32's components: NFC, Replace(\\s+ → " ") and
+    Lowercase; Split (CLIP's pattern, Removed, inverted) then ByteLevel
+    without its regex; BPE with ``end_of_word_suffix`` ``</w>``; the
+    BPEDecoder; RobertaProcessing with ``<|startoftext|>`` and
+    ``<|endoftext|>``, the last two ids."""
+    import collections
+    import random
+
+    from dynamo_tpu_torch.llm.tok_common import bytes_to_unicode
+
+    spec = {"normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "NFC"},
+                {"type": "Replace", "pattern": {"Regex": r"\s+"}, "content": " "},
+                {"type": "Lowercase"}]},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": CLIP_SPLIT}, "behavior": "Removed",
+                 "invert": True},
+                {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                 "use_regex": False}]}}
+    chars = [bytes_to_unicode()[b] for b in range(256)]
+    vocab = {c: i for i, c in enumerate(chars + [c + "</w>" for c in chars])}
+    words = _family_words(spec, _family_corpus())
+    symbols = {tuple(w[:-1]) + (w[-1] + "</w>",): n for w, n in words.items()}
+    merges = []
+    for a, b in learn_merges(collections.Counter(symbols), n_ids // 4):
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+    _fill_bpe(vocab, merges, n_ids - 2, random.Random(seed),
+              left_ok=lambda t: not t.endswith("</w>"))
+    start, end = n_ids - 2, n_ids - 1
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = start, end
+    spec.update(
+        added_tokens=_added([(start, "<|startoftext|>"), (end, "<|endoftext|>")]),
+        post_processor={"type": "RobertaProcessing", "sep": ["<|endoftext|>", end],
+                        "cls": ["<|startoftext|>", start], "trim_offsets": False,
+                        "add_prefix_space": False},
+        decoder={"type": "BPEDecoder", "suffix": "</w>"},
+        model={"type": "BPE", "dropout": None, "unk_token": "<|endoftext|>",
+               "continuing_subword_prefix": "", "end_of_word_suffix": "</w>",
+               "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+               "vocab": vocab, "merges": [list(m) for m in merges]})
+    return spec
+
+
+def darts_charsmap(mapping: dict[str, str]) -> bytes:
+    """A SentencePiece ``precompiled_charsmap`` for ``mapping`` (key →
+    replacement): a little-endian u32 byte count, a darts-clone double
+    array over the keys' UTF-8 bytes (each node's children at its base XOR
+    their byte, a key's end a leaf at its base XOR 0 whose value is the
+    replacement's offset), then the pool of NUL-terminated replacements."""
+    import struct
+
+    pool = bytearray()
+    at: dict[str, int] = {}
+    for value in sorted(set(mapping.values())):
+        at[value] = len(pool)
+        pool += value.encode("utf-8") + b"\0"
+    trie: dict = {}
+    for key, value in mapping.items():
+        node = trie
+        for b in key.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[None] = at[value]
+    units = [0] * 4096
+    used = bytearray(4096)  # positions holding a unit
+    bases: set[int] = set()  # no two nodes share a base
+    used[0] = 1
+    top = 0
+    stack = [(0, trie)]
+    while stack:
+        pos, node = stack.pop()
+        labels = sorted(0 if k is None else k for k in node)
+        q = used.find(0, 1)
+        while True:
+            if q < 0 or q + 512 > len(used):
+                units.extend([0] * len(units))
+                used.extend(bytes(len(used)))
+                q = used.find(0, 1) if q < 0 else q
+                continue
+            base = q ^ labels[0]
+            if (base not in bases and (pos ^ base) < 1 << 21
+                    and not any(used[base ^ c] for c in labels)):
+                break
+            q = used.find(0, q + 1)
+        bases.add(base)
+        units[pos] |= (pos ^ base) << 10 | (1 << 8 if None in node else 0)
+        for c in labels:
+            used[base ^ c] = 1
+        top = max(top, base | 0xFF)
+        if None in node:
+            units[base] = node[None] | 1 << 31
+        for c in labels:
+            if c:
+                units[base ^ c] = c
+                stack.append((base ^ c, node[c]))
+    n = top + 1  # every block a lookup may touch lies inside the array
+    return struct.pack("<I", 4 * n) + struct.pack(f"<{n}I", *units[:n]) + bytes(pool)
+
+
+def xlmr_charsmap() -> bytes:
+    """A charsmap of the kind SentencePiece precompiles: NFKC of each
+    Basic Multilingual Plane character it changes, some whitespace and
+    zero-width characters, and a few decomposed clusters mapped whole."""
+    import unicodedata
+
+    mapping = {}
+    for c in range(0x20, 0x10000):
+        ch = chr(c)
+        if 0xD800 <= c < 0xE000:
+            continue
+        norm = unicodedata.normalize("NFKC", ch)
+        if norm != ch:
+            mapping[ch] = norm
+    mapping.update({"​": "", " ": " ", "\t": " ", "\n": " ", "　": " ",
+                    "é": "é", "ä": "ä", "ñ": "ñ", "\r\n": " "})
+    return darts_charsmap(mapping)
+
+
+def xlmr_family(n_ids: int, seed: int = 0) -> dict:
+    """xlm-roberta-base / t5-small's components: Precompiled (a charsmap
+    of ``xlmr_charsmap``) then Replace(" {2,}" → " "); WhitespaceSplit then
+    Metaspace; Unigram with ``<unk>`` (id 3); a ``<s> $A </s>`` template;
+    the Metaspace decoder; ``<mask>`` the last id."""
+    import base64
+    import math
+    import random
+
+    spec = {"normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Precompiled",
+                 "precompiled_charsmap": base64.b64encode(xlmr_charsmap()).decode()},
+                {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "WhitespaceSplit"},
+                {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                 "split": True}]}}
+    pieces = {"<s>": 0.0, "<pad>": 0.0, "</s>": 0.0, "<unk>": 0.0}
+    words = _family_words(spec, _family_corpus())
+    counts: dict[str, int] = {}
+    for w, n in words.items():
+        for i in range(len(w)):
+            for j in range(i + 1, min(len(w), i + 8) + 1):
+                counts[w[i:j]] = counts.get(w[i:j], 0) + n
+    total = sum(counts.values())
+    for p, n in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(pieces) >= n_ids - 1:
+            break
+        pieces.setdefault(p, math.log(n / total) - 0.1 * len(p))
+    rng = random.Random(seed)
+    alphabet = "abcdefghijklmnopqrstuvwxyzабвгдежзийклмнопрстуфхцчшщыэюя"
+    score = min(pieces.values()) - 1.0
+    while len(pieces) < n_ids - 1:
+        p = "".join(rng.choice(alphabet) for _ in range(rng.randint(2, 8)))
+        p = "▁" + p if rng.random() < 0.4 else p
+        if p not in pieces:
+            pieces[p] = score
+            score -= 1e-4
+    pieces["<mask>"] = 0.0
+    vocab = [[p, s] for p, s in pieces.items()]
+    ids = {p: i for i, (p, _) in enumerate(vocab)}
+    spec.update(
+        added_tokens=_added([(ids[t], t) for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]),
+        post_processor=_template([("<s>", 0)], [("</s>", 2)], [("</s>", 2), ("</s>", 2)]),
+        decoder={"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                 "split": True},
+        model={"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False})
+    return spec
+
+
+TOK_FAMILIES = {"bert": bert_family, "falcon": falcon_family, "clip": clip_family,
+                "xlmr": xlmr_family}
+
+
+def write_family_tokenizer(family: str, path: str, n_ids: int | None = None) -> str:
+    """``family``'s tokenizer.json (at its published size unless ``n_ids``)
+    in the directory ``path`` → path."""
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": [],
+            "normalizer": None, "pre_tokenizer": None, "post_processor": None, "decoder": None}
+    spec.update(TOK_FAMILIES[family](n_ids or TOK_FAMILY_SIZES[family]))
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    return path
+
+
+def family_outputs(tok, stream_cls, texts=TOK_FAMILY_TEXTS) -> dict:
+    """What a tokenizer makes of ``texts``: ids, decodes with and without
+    specials, and ``DecodeStream`` deltas (``stream_cls`` is either
+    package's class)."""
+    ids = [tok.encode(t) for t in texts]
+    out = {"ids": ids, "vocab_size": tok.vocab_size, "eos": tok.eos_token_ids,
+           "decoded": [tok.decode(i) for i in ids],
+           "raw": [tok.decode(i, skip_special_tokens=False) for i in ids], "stream": []}
+    for i in ids:
+        ds = stream_cls(tok)
+        out["stream"].append([ds.step(t) for t in i] + [ds.flush()])
+    return out
+
+
+def family_digest(outputs: dict) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(outputs, ensure_ascii=False,
+                                     sort_keys=True).encode("utf-8")).hexdigest()
+
+
+def tok_family_check(card_line: str, root: str, sizes: dict | None = None,
+                     digests: dict | None = None) -> dict:
+    """Each family written under ``root`` (at ``sizes``, by default the
+    published ones), loaded by the port's ``load_tokenizer``, its outputs
+    on TOK_FAMILY_TEXTS hashed and held to ``digests`` (by default
+    TOK_FAMILY_DIGESTS when the sizes are the published ones); load
+    seconds, encode and DecodeStream µs per token."""
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream, load_tokenizer
+
+    sizes = sizes or TOK_FAMILY_SIZES
+    if digests is None and sizes == TOK_FAMILY_SIZES:
+        digests = TOK_FAMILY_DIGESTS
+    out = {}
+    try:
+        for fam, n in sizes.items():
+            t0 = time.perf_counter()
+            path = write_family_tokenizer(fam, os.path.join(root, fam), n)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tok = load_tokenizer({"type": "hf", "path": path})
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ids = [tok.encode(t) for t in TOK_FAMILY_TEXTS]
+            encode_s = time.perf_counter() - t0
+            n_tok = sum(len(i) for i in ids)
+            t0 = time.perf_counter()
+            for i in ids:
+                ds = DecodeStream(tok)
+                for t in i:
+                    ds.step(t)
+                ds.flush()
+            stream_s = time.perf_counter() - t0
+            outputs = family_outputs(tok, DecodeStream)
+            digest = family_digest(outputs)
+            if tok.vocab_size != n:
+                raise RuntimeError(f"tok family {fam}: {tok.vocab_size} ids, not {n}")
+            if digests is not None and digests.get(fam) != digest:
+                raise RuntimeError(f"tok family {fam}: digest {digest} != the library's "
+                                   f"{digests.get(fam)}")
+            out[fam] = {"ids": n, "digest": digest, "write_s": write_s, "load_s": load_s,
+                        "tokens": n_tok, "encode_us_per_token": encode_s / n_tok * 1e6,
+                        "decode_stream_us_per_token": stream_s / n_tok * 1e6}
+            log(f"tok family {fam}: {n} ids written in {write_s:.3f}s, loaded by the port in "
+                f"{load_s:.3f}s; encode {encode_s / n_tok * 1e6:.2f} us/token, DecodeStream "
+                f"{stream_s / n_tok * 1e6:.2f} us/token over {n_tok} tokens; digest "
+                f"{digest[:16]} {'equal to the library' if digests else '(no reference)'} "
+                f"(host CPU beside {card_line})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def readme_cuts() -> list[str]:
     """The burst's lengths cut from README.md one after another (distinct
     prefixes, so no request hits another's cached blocks)."""
@@ -5254,7 +5679,9 @@ def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
     frontend; 4 chat and 4 completion requests bit-equal to an in-process
     engine on the loaded weights fed the port tokenizer's ids, the launches
     held, one mixed-priority check with a preemption, and the tokenizer's
-    host numbers."""
+    host numbers. First, in process, the family sub-check
+    (``tok_family_check``): the bert, falcon, clip and xlmr kinds at their
+    published sizes held to the library's digests."""
 
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.llm.tokenizer import DecodeStream, HFTokenizer, load_tokenizer
@@ -5262,6 +5689,11 @@ def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
     name = os.path.basename(path)
     procs: list[Proc] = []
     try:
+        t0 = time.perf_counter()
+        families = tok_family_check(card_line, os.path.join(os.path.dirname(path), "tok_families"))
+        families_s = time.perf_counter() - t0
+        log(f"tok: families {sorted(families)} equal to the library's digests in "
+            f"{families_s:.1f}s (host CPU beside {card_line})")
         t0 = time.perf_counter()
         wrote = write_llama3_tokenizer(path, cfg.vocab_size - len(LLAMA3_SPECIALS))
         write_s = time.perf_counter() - t0
@@ -5381,7 +5813,8 @@ def tokenizer_phase(card_line: str, path: str, cfg, device: str = "cuda",
             f"{len(prompts)} prompts ({n_tok} tokens); DecodeStream {decode_us:.2f} us/token "
             f"over {sum(len(i) for i in lp_ids)} tokens; worker registered {registered_s:.1f}s "
             f"after launch")
-        return {"name": name, "ids": wrote["ids"], "learned_tokens": wrote["learned_tokens"],
+        return {"families": families, "families_s": families_s,
+                "name": name, "ids": wrote["ids"], "learned_tokens": wrote["learned_tokens"],
                 "merges": wrote["merges"], "write_s": write_s, "load_s_inproc": load_s,
                 "load_s_frontend": fe_load, "encode_us_per_token_cold": cold_s / n_tok * 1e6,
                 "encode_us_per_token_warm": warm_s / n_tok * 1e6, "chars_per_token": chars / n_tok,

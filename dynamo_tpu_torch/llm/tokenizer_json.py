@@ -2,534 +2,105 @@
 
 The card's machine has neither ``tokenizers`` nor ``regex``, so the port
 runs a checkpoint's tokenizer here, component by component as the
-``tokenizers`` library (0.22) defines them, ids for ids:
+``tokenizers`` library (0.22) defines them, ids for ids. Every component
+type of that library is here, one module a stage:
 
 - added tokens, split out of the raw text before normalisation (and the
   ``normalized`` ones out of the normalised text), leftmost-longest, with
-  ``special``, ``lstrip``, ``rstrip`` and ``single_word``;
-- normalizers ``NFC``, ``Prepend``, ``Replace``, ``Sequence``;
-- pre-tokenizers ``Split`` (Isolated), ``ByteLevel``, ``Metaspace``,
-  ``Sequence`` (Oniguruma patterns through ``unicode_classes.translate``);
-- models ``BPE`` (merge ranks, a per-word cache, ``ignore_merges``,
-  ``byte_fallback``, ``fuse_unk``) and ``Unigram`` (Viterbi over scores,
-  ``unk_id``, ``byte_fallback``);
-- post-processors ``TemplateProcessing`` (single sequence), ``ByteLevel``,
-  ``Sequence``;
-- decoders ``ByteLevel``, ``Replace``, ``ByteFallback``, ``Fuse``,
-  ``Strip``, ``Sequence``.
+  ``special``, ``lstrip``, ``rstrip`` and ``single_word`` (this module);
+- normalizers (llm/tok_normalizers.py), pre-tokenizers
+  (llm/tok_pretokenizers.py), models (llm/tok_models.py), decoders and
+  post-processors (llm/tok_decoders.py);
+- the file's ``truncation`` and ``padding``, applied to the one sequence
+  ``encode`` makes, as the library's ``encode(text).ids`` applies them
+  (this module).
 
-These are the components of the presets' published tokenizers
-(Llama-3.1, Qwen2, the llama-2 SentencePiece-BPE kind, GPT-2) and of the
-GGUF vocabularies (engine/gguf.py). Any other component type raises
-``NotImplementedError`` naming it: nothing falls back silently.
+Characters are decided as the library decides them (llm/unicode_classes.py
+and its tables). A type or option value the library does not define raises
+``ValueError`` naming it: nothing falls back silently.
 """
 
 from __future__ import annotations
 
-import heapq
 import json
+import random
 import re
-import unicodedata
-from typing import Any, Callable, Sequence
+from typing import Sequence
 
-from dynamo_tpu_torch.llm.unicode_classes import class_ranges, translate
-
-# GPT-2's pre-tokenizer pattern (ByteLevel with use_regex).
-GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
-
-_CACHE_CAP = 10_000  # words kept per BPE cache, as the library's
-
-
-def _unsupported(kind: str, spec: dict) -> NotImplementedError:
-    return NotImplementedError(f"tokenizer.json {kind} type {spec.get('type')!r} is not ported")
+# Re-exported for callers of the module from before the stages were split.
+from dynamo_tpu_torch.llm.tok_common import BYTE_CHAR as _BYTE_CHAR  # noqa: F401
+from dynamo_tpu_torch.llm.tok_common import bytes_to_unicode  # noqa: F401
+from dynamo_tpu_torch.llm.tok_decoders import byte_fallback as _byte_fallback  # noqa: F401
+from dynamo_tpu_torch.llm.tok_decoders import decoder, post_processor
+from dynamo_tpu_torch.llm.tok_models import model
+from dynamo_tpu_torch.llm.tok_normalizers import normalizer
+from dynamo_tpu_torch.llm.tok_pretokenizers import pre_tokenizer
+from dynamo_tpu_torch.llm.unicode_classes import class_ranges
 
 
-def bytes_to_unicode() -> dict[int, str]:
-    """GPT-2's byte → printable character map of the ByteLevel components."""
-    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
-          + list(range(ord("®"), ord("ÿ") + 1)))
-    cs = bs[:]
-    n = 0
-    for b in range(256):
-        if b not in bs:
-            bs.append(b)
-            cs.append(256 + n)
-            n += 1
-    return {b: chr(c) for b, c in zip(bs, cs)}
+# -- truncation and padding ------------------------------------------------------------
 
 
-_BYTE_CHAR = bytes_to_unicode()
-_CHAR_BYTE = {c: b for b, c in _BYTE_CHAR.items()}
-
-
-def _pattern(spec: dict) -> re.Pattern:
-    """A Split/Replace ``pattern``: {"String": s} or {"Regex": oniguruma}."""
-    if "String" in spec:
-        return re.compile(re.escape(spec["String"]))
-    return re.compile(translate(spec["Regex"]))
-
-
-# -- normalizers -----------------------------------------------------------------
-
-
-def _normalizer(spec: dict | None) -> Callable[[str], str] | None:
-    if spec is None:
-        return None
-    kind = spec["type"]
-    if kind == "NFC":
-        return lambda s: unicodedata.normalize("NFC", s)
-    if kind == "Prepend":
-        pre = spec["prepend"]
-        return lambda s: pre + s if s else s
-    if kind == "Replace":
-        pat, content = _pattern(spec["pattern"]), spec["content"]
-        return lambda s: pat.sub(lambda _m: content, s)
-    if kind == "Sequence":
-        parts = [_normalizer(n) for n in spec["normalizers"]]
-
-        def seq(s: str) -> str:
-            for f in parts:
-                s = f(s)
-            return s
-
-        return seq
-    raise _unsupported("normalizer", spec)
-
-
-# -- pre-tokenizers ----------------------------------------------------------------
-#
-# A piece is (text, at_start): at_start marks the piece that begins at the
-# original text's offset 0 (Metaspace's prepend_scheme "first" reads it).
-
-Piece = tuple[str, bool]
-
-
-def _split_isolated(pat: re.Pattern, text: str, at_start: bool) -> list[Piece]:
-    """Matches and the gaps between them, each its own piece (empty ones
-    dropped)."""
-    out: list[Piece] = []
-    prev = 0
-    for m in pat.finditer(text):
-        a, b = m.span()
-        if a == b:
-            continue
-        if prev != a:
-            out.append((text[prev:a], at_start and prev == 0))
-        out.append((text[a:b], at_start and a == 0))
-        prev = b
-    if prev != len(text):
-        out.append((text[prev:], at_start and prev == 0))
-    return out
-
-
-def _split_merged_with_next(text: str, delim: str, at_start: bool) -> list[Piece]:
-    """Split on each ``delim`` character, each delimiter joined to the
-    piece after it (a delimiter followed by another stays alone)."""
-    parts: list[tuple[int, int, bool]] = []
-    prev = 0
-    for i, ch in enumerate(text):
-        if ch == delim:
-            if prev != i:
-                parts.append((prev, i, False))
-            parts.append((i, i + 1, True))
-            prev = i + 1
-    if prev != len(text):
-        parts.append((prev, len(text), False))
-    merged: list[tuple[int, int]] = []
-    next_match = False
-    for a, b, is_match in reversed(parts):
-        if is_match and not next_match and merged:
-            merged[-1] = (a, merged[-1][1])
-        else:
-            merged.append((a, b))
-        next_match = is_match
-    return [(text[a:b], at_start and a == 0) for a, b in reversed(merged)]
-
-
-def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]] | None:
-    if spec is None:
-        return None
-    kind = spec["type"]
-    if kind == "Split":
-        if spec.get("invert") or spec.get("behavior") != "Isolated":
-            raise NotImplementedError(
-                f"tokenizer.json Split behavior {spec.get('behavior')!r} "
-                f"(invert={spec.get('invert')}) is not ported; Isolated is")
-        pat = _pattern(spec["pattern"])
-        return lambda pieces: [q for t, s in pieces for q in _split_isolated(pat, t, s)]
-    if kind == "ByteLevel":
-        prefix = bool(spec.get("add_prefix_space", True))
-        regex = re.compile(translate(GPT2_PATTERN)) if spec.get("use_regex", True) else None
-
-        def byte_level(pieces: list[Piece]) -> list[Piece]:
-            out: list[Piece] = []
-            for t, s in pieces:
-                if prefix and not t.startswith(" "):
-                    t = " " + t
-                for u, us in (_split_isolated(regex, t, s) if regex else [(t, s)]):
-                    out.append(("".join(_BYTE_CHAR[b] for b in u.encode("utf-8")), us))
-            return out
-
-        return byte_level
-    if kind == "Metaspace":
-        rep = spec.get("replacement", "▁")
-        scheme = spec.get("prepend_scheme", "always")
-        if scheme not in ("always", "first", "never"):
-            raise NotImplementedError(f"Metaspace prepend_scheme {scheme!r}")
-        split = bool(spec.get("split", True))
-
-        def metaspace(pieces: list[Piece]) -> list[Piece]:
-            out: list[Piece] = []
-            for t, s in pieces:
-                t = t.replace(" ", rep)
-                if not t.startswith(rep) and (scheme == "always" or (scheme == "first" and s)):
-                    t = rep + t
-                out.extend(_split_merged_with_next(t, rep, s) if split else [(t, s)])
-            return out
-
-        return metaspace
-    if kind == "Sequence":
-        parts = [_pre_tokenizer(p) for p in spec["pretokenizers"]]
-
-        def seq(pieces: list[Piece]) -> list[Piece]:
-            for f in parts:
-                pieces = f(pieces)
-            return pieces
-
-        return seq
-    raise _unsupported("pre_tokenizer", spec)
-
-
-# -- models ------------------------------------------------------------------------
-
-
-def _byte_token(b: int) -> str:
-    return f"<0x{b:02X}>"
-
-
-class BPE:
-    """Byte-pair encoding with merge ranks, as ``tokenizers``' BPE: the
-    lowest-ranked adjacent pair merges first, the leftmost among equals."""
+class Truncation:
+    """The file's ``truncation``: at most ``max_length`` ids, less the
+    post-processor's specials when it adds them, cut on the ``direction``
+    side. ``stride`` only shapes the overflowing parts, which ``encode``
+    does not return; the library still refuses one that is not below the
+    length kept."""
 
     def __init__(self, spec: dict):
-        for opt in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
-            if spec.get(opt):
-                raise NotImplementedError(f"BPE {opt} is not ported")
-        self.vocab: dict[str, int] = dict(spec["vocab"])
-        self.unk_token = spec.get("unk_token")
-        self.fuse_unk = bool(spec.get("fuse_unk", False))
-        self.byte_fallback = bool(spec.get("byte_fallback", False))
-        self.ignore_merges = bool(spec.get("ignore_merges", False))
-        self.merges: dict[tuple[int, int], tuple[int, int]] = {}
-        for rank, m in enumerate(spec.get("merges") or []):
-            a, b = m.split(" ", 1) if isinstance(m, str) else m
-            try:
-                self.merges[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
-            except KeyError as e:
-                raise ValueError(f"BPE merge {a!r} {b!r}: {e.args[0]!r} is not in the vocab") from e
-        self._cache: dict[str, list[int]] = {}
+        self.max_length = int(spec["max_length"])
+        self.stride = int(spec.get("stride", 0))
+        self.direction = spec.get("direction", "Right")
+        self.strategy = spec.get("strategy", "LongestFirst")
+        if self.direction not in ("Right", "Left"):
+            raise ValueError(f"truncation direction {self.direction!r} is unknown")
+        if self.strategy not in ("LongestFirst", "OnlyFirst", "OnlySecond"):
+            raise ValueError(f"truncation strategy {self.strategy!r} is unknown")
 
-    def _symbols(self, word: str) -> list[int]:
-        """The word's characters as ids (byte fallback, unknowns)."""
-        syms: list[int] = []
-        unk: int | None = None
-        for s in word:
-            tid = self.vocab.get(s)
-            if tid is not None:
-                if unk is not None:
-                    syms.append(unk)
-                    unk = None
-                syms.append(tid)
-                continue
-            if self.byte_fallback:
-                fb = [self.vocab.get(_byte_token(b)) for b in s.encode("utf-8")]
-                if None not in fb:
-                    syms.extend(fb)
-                    continue
-            if self.unk_token is not None:
-                unk_id = self.vocab.get(self.unk_token)
-                if unk_id is None:
-                    raise ValueError(f"BPE unk_token {self.unk_token!r} is not in the vocab")
-                if unk is not None and not self.fuse_unk:
-                    syms.append(unk)
-                unk = unk_id
-        if unk is not None:
-            syms.append(unk)
-        return syms
-
-    def _merge(self, syms: list[int]) -> list[int]:
-        n = len(syms)
-        if n < 2:
-            return syms
-        merges = self.merges
-        c = list(syms)
-        nxt = list(range(1, n + 1))
-        prv = list(range(-1, n - 1))
-        alive = [True] * n
-        heap = [(m[0], i, m[1]) for i in range(n - 1)
-                if (m := merges.get((c[i], c[i + 1]))) is not None]
-        heapq.heapify(heap)
-        while heap:
-            _rank, pos, new_id = heapq.heappop(heap)
-            if not alive[pos] or nxt[pos] >= n:
-                continue
-            right = nxt[pos]
-            m = merges.get((c[pos], c[right]))
-            if m is None or m[1] != new_id:
-                continue  # a stale entry
-            c[pos] = new_id
-            alive[right] = False
-            nxt[pos] = nxt[right]
-            if nxt[pos] < n:
-                prv[nxt[pos]] = pos
-            if prv[pos] >= 0:
-                m = merges.get((c[prv[pos]], new_id))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], prv[pos], m[1]))
-            if nxt[pos] < n:
-                m = merges.get((new_id, c[nxt[pos]]))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], pos, m[1]))
-        return [t for t, a in zip(c, alive) if a]
-
-    def tokenize(self, word: str) -> list[int]:
-        if not word:
-            return []
-        if self.ignore_merges and (tid := self.vocab.get(word)) is not None:
-            return [tid]
-        hit = self._cache.get(word)
-        if hit is not None:
-            return hit
-        out = self._merge(self._symbols(word))
-        if len(self._cache) < _CACHE_CAP:
-            self._cache[word] = out
-        return out
-
-    def token_to_id(self, token: str) -> int | None:
-        return self.vocab.get(token)
-
-    def id_to_token(self) -> dict[int, str]:
-        return {i: t for t, i in self.vocab.items()}
-
-
-class Unigram:
-    """SentencePiece unigram: the best-scoring segmentation (Viterbi), an
-    unknown character scoring the lowest piece score minus 10, adjacent
-    unknowns fused, then byte fallback for them."""
-
-    UNK_PENALTY = 10.0
-
-    def __init__(self, spec: dict):
-        pieces = spec["vocab"]
-        self.pieces = [p for p, _ in pieces]
-        self.scores = [float(s) for _, s in pieces]
-        self.vocab = {p: i for i, p in enumerate(self.pieces)}  # the last of equal pieces
-        self.unk_id = spec.get("unk_id")
-        self.byte_fallback = bool(spec.get("byte_fallback", False))
-        self.min_score = min(self.scores) if self.scores else 0.0
-        self.max_len = max((len(p) for p in self.pieces), default=1)
-        self._cache: dict[str, list[int]] = {}
-
-    def _segment(self, s: str) -> list[str]:
-        n = len(s)
-        unk_score = self.min_score - self.UNK_PENALTY
-        score = [0.0] * (n + 1)
-        start: list[int | None] = [None] * (n + 1)
-        ident = [0] * (n + 1)
-        vocab, scores = self.vocab, self.scores
-        for i in range(n):
-            base = score[i]
-            single = False
-            for j in range(i + 1, min(n, i + self.max_len) + 1):
-                tid = vocab.get(s[i:j])
-                if tid is None:
-                    continue
-                cand = scores[tid] + base
-                if start[j] is None or cand > score[j]:
-                    score[j], start[j], ident[j] = cand, i, tid
-                if j == i + 1:
-                    single = True
-            if not single:
-                if self.unk_id is None:
-                    raise ValueError("Unigram: an unknown character and no unk_id")
-                cand = unk_score + base
-                if start[i + 1] is None or cand > score[i + 1]:
-                    score[i + 1], start[i + 1], ident[i + 1] = cand, i, self.unk_id
-        out: list[str] = []
-        fused: list[str] = []
-        end = n
-        while end > 0:
-            a = start[end]
-            if self.unk_id is not None and ident[end] == self.unk_id:
-                fused.append(s[a:end])
-            else:
-                if fused:
-                    out.append("".join(reversed(fused)))
-                    fused = []
-                out.append(s[a:end])
-            end = a
-        if fused:
-            out.append("".join(reversed(fused)))
-        out.reverse()
-        return out
-
-    def tokenize(self, word: str) -> list[int]:
-        if not word:
-            return []
-        hit = self._cache.get(word)
-        if hit is not None:
-            return hit
-        ids: list[int] = []
-        for piece in self._segment(word):
-            tid = self.vocab.get(piece)
-            if tid is None:
-                fb = [self.vocab.get(_byte_token(b)) for b in piece.encode("utf-8")] \
-                    if self.byte_fallback else [None]
-                if None not in fb:
-                    ids.extend(fb)
-                    continue
-                tid = self.unk_id
-            ids.append(tid)
-        if len(self._cache) < _CACHE_CAP:
-            self._cache[word] = ids
-        return ids
-
-    def token_to_id(self, token: str) -> int | None:
-        return self.vocab.get(token)
-
-    def id_to_token(self) -> dict[int, str]:
-        return dict(enumerate(self.pieces))
-
-
-def _model(spec: dict):
-    kind = spec.get("type")
-    if kind == "BPE":
-        return BPE(spec)
-    if kind == "Unigram":
-        return Unigram(spec)
-    raise _unsupported("model", spec)
-
-
-# -- post-processors ---------------------------------------------------------------
-
-
-def _post_processor(spec: dict | None) -> Callable[[list[int]], list[int]] | None:
-    if spec is None:
-        return None
-    kind = spec["type"]
-    if kind == "ByteLevel":
-        return None  # offsets only
-    if kind == "TemplateProcessing":
-        specials = spec.get("special_tokens") or {}
-        template: list[Any] = []
-        for item in spec["single"]:
-            if "SpecialToken" in item:
-                template.append(list(specials[item["SpecialToken"]["id"]]["ids"]))
-            elif "Sequence" in item:
-                if item["Sequence"]["id"] != "A":
-                    raise ValueError("TemplateProcessing single template names sequence B")
-                template.append(None)
-            else:
-                raise ValueError(f"TemplateProcessing piece {item!r}")
-
-        def apply(ids: list[int]) -> list[int]:
-            out: list[int] = []
-            for t in template:
-                out.extend(ids if t is None else t)
-            return out
-
-        return apply
-    if kind == "Sequence":
-        parts = [p for p in (_post_processor(q) for q in spec["processors"]) if p is not None]
-        if not parts:
-            return None
-
-        def seq(ids: list[int]) -> list[int]:
-            for f in parts:
-                ids = f(ids)
+    def __call__(self, ids: list[int], added: int) -> list[int]:
+        limit = self.max_length
+        if added:
+            if limit < added:
+                return ids  # the library's unsigned difference wraps: no limit
+            limit -= added
+        if len(ids) <= limit:
             return ids
+        if self.strategy == "OnlySecond":
+            raise ValueError("truncation: second sequence not provided")
+        if limit > 0 and self.stride >= limit:
+            raise ValueError(f"truncation: stride {self.stride} must be below {limit}, the "
+                             "length kept")
+        return ids[:limit] if self.direction == "Right" else ids[len(ids) - limit:]
 
-        return seq
-    raise _unsupported("post_processor", spec)
 
+class Padding:
+    """The file's ``padding``: ``Fixed(n)`` or ``BatchLongest`` (the one
+    sequence's own length), rounded up to ``pad_to_multiple_of``, filled
+    with ``pad_id`` on the ``direction`` side."""
 
-# -- decoders ------------------------------------------------------------------------
-
-
-def _byte_fallback(tokens: list[str]) -> list[str]:
-    out: list[str] = []
-    pend = bytearray()
-
-    def flush():
-        if pend:
-            try:
-                out.append(pend.decode("utf-8"))
-            except UnicodeDecodeError:
-                out.extend("�" * len(pend))
-            pend.clear()
-
-    for t in tokens:
-        if (len(t) == 6 and t.startswith("<0x") and t.endswith(">")
-                and all(ch in "0123456789abcdefABCDEF" for ch in t[3:5])):
-            pend.append(int(t[3:5], 16))
+    def __init__(self, spec: dict):
+        strategy = spec.get("strategy", "BatchLongest")
+        if strategy == "BatchLongest":
+            self.fixed = None
+        elif isinstance(strategy, dict) and set(strategy) == {"Fixed"}:
+            self.fixed = int(strategy["Fixed"])
         else:
-            flush()
-            out.append(t)
-    flush()
-    return out
+            raise ValueError(f"padding strategy {strategy!r} is unknown")
+        self.direction = spec.get("direction", "Right")
+        if self.direction not in ("Right", "Left"):
+            raise ValueError(f"padding direction {self.direction!r} is unknown")
+        self.multiple = int(spec.get("pad_to_multiple_of") or 0)
+        self.pad_id = int(spec.get("pad_id", 0))
 
-
-def _byte_level_decode(tokens: list[str]) -> list[str]:
-    data = bytearray()
-    for t in tokens:
-        bs = [_CHAR_BYTE.get(ch) for ch in t]
-        data += t.encode("utf-8") if None in bs else bytes(bs)
-    return [data.decode("utf-8", errors="replace")]
-
-
-def _strip(content: str, start: int, stop: int) -> Callable[[str], str]:
-    def f(t: str) -> str:
-        a, b = 0, len(t)
-        for i in range(min(start, len(t))):
-            if t[i] != content:
-                break
-            a = i + 1
-        for i in range(min(stop, len(t))):
-            j = len(t) - i - 1
-            if t[j] != content:
-                break
-            b = j
-        return t[a:b]
-
-    return f
-
-
-def _decoder(spec: dict | None) -> Callable[[list[str]], list[str]] | None:
-    if spec is None:
-        return None
-    kind = spec["type"]
-    if kind == "ByteLevel":
-        return _byte_level_decode
-    if kind == "Replace":
-        pat, content = _pattern(spec["pattern"]), spec["content"]
-        return lambda toks: [pat.sub(lambda _m: content, t) for t in toks]
-    if kind == "ByteFallback":
-        return _byte_fallback
-    if kind == "Fuse":
-        return lambda toks: ["".join(toks)]
-    if kind == "Strip":
-        f = _strip(spec["content"], int(spec.get("start", 0)), int(spec.get("stop", 0)))
-        return lambda toks: [f(t) for t in toks]
-    if kind == "Sequence":
-        parts = [_decoder(d) for d in spec["decoders"]]
-
-        def seq(toks: list[str]) -> list[str]:
-            for f in parts:
-                toks = f(toks)
-            return toks
-
-        return seq
-    raise _unsupported("decoder", spec)
+    def __call__(self, ids: list[int]) -> list[int]:
+        n = len(ids) if self.fixed is None else self.fixed
+        if self.multiple and n % self.multiple:
+            n += self.multiple - n % self.multiple
+        if len(ids) >= n:
+            return ids
+        pad = [self.pad_id] * (n - len(ids))
+        return ids + pad if self.direction == "Right" else pad + ids
 
 
 # -- added tokens --------------------------------------------------------------------
@@ -585,15 +156,17 @@ _WS = frozenset(chr(c) for a, b in class_ranges("White_Space") for c in range(a,
 
 class TokenizerJson:
     """One ``tokenizer.json``: encode (added tokens → normalizer →
-    pre-tokenizer → model → post-processor) and decode (ids → tokens,
-    specials skipped on request → decoder)."""
+    pre-tokenizer → model → truncation → post-processor → padding) and
+    decode (ids → tokens, specials skipped on request → decoder)."""
 
-    def __init__(self, spec: dict):
-        self.normalize = _normalizer(spec.get("normalizer"))
-        self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
-        self.model = _model(spec["model"])
-        self.post_process = _post_processor(spec.get("post_processor"))
-        self.decoder = _decoder(spec.get("decoder"))
+    def __init__(self, spec: dict, rng: random.Random | None = None):
+        self.normalize = normalizer(spec.get("normalizer"))
+        self.pre_tokenize = pre_tokenizer(spec.get("pre_tokenizer"))
+        self.model = model(spec["model"], rng)  # rng: BPE dropout's draws
+        self.post_process = post_processor(spec.get("post_processor"))
+        self.decoder = decoder(spec.get("decoder"))
+        self.truncation = Truncation(spec["truncation"]) if spec.get("truncation") else None
+        self.padding = Padding(spec["padding"]) if spec.get("padding") else None
         self._id_to_token = self.model.id_to_token()
         self.added: list[dict] = []
         for t in spec.get("added_tokens") or []:
@@ -648,8 +221,13 @@ class TokenizerJson:
                     ids.append(ntid)
                 elif sub:
                     self._tokenize_piece(sub, start == 0 and nstart == 0, ids)
-        if add_special_tokens and self.post_process is not None:
-            ids = self.post_process(ids)
+        post = self.post_process
+        if self.truncation is not None:
+            ids = self.truncation(ids, post.added if post and add_special_tokens else 0)
+        if post is not None:
+            ids = post(ids, add_special_tokens)
+        if self.padding is not None:
+            ids = self.padding(ids)
         return ids
 
     def _tokenize_piece(self, text: str, at_start: bool, ids: list[int]) -> None:

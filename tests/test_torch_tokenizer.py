@@ -156,23 +156,25 @@ def test_unicode_classes():
     assert all(unicodedata.category(chr(c))[0] == "L" for c in letters if c < 0x1C89)
     assert 0x2EBF0 in letters and 0x10D40 in {c for a, b in U.class_ranges("N")
                                              for c in range(a, b + 1)}
-    for bad in (r"\w+", r"\p{Han}", r"[[a-z]&&[^x]]"):
+    for bad in (r"\X", r"\p{Emoji}", r"[[a-z]&&[^x]]"):
         with pytest.raises(NotImplementedError):
             U.translate(bad)
 
 
 @pytest.mark.parametrize("component, spec", [
-    ("normalizer", {"type": "NFKC"}),
-    ("pre_tokenizer", {"type": "Digits", "individual_digits": True}),
-    ("pre_tokenizer", {"type": "Split", "pattern": {"String": " "}, "behavior": "Removed",
+    ("normalizer", {"type": "NFKX"}),
+    ("pre_tokenizer", {"type": "Digitz", "individual_digits": True}),
+    ("pre_tokenizer", {"type": "Split", "pattern": {"String": " "}, "behavior": "Dropped",
                        "invert": False}),
-    ("post_processor", {"type": "BertProcessing", "sep": ["[SEP]", 1], "cls": ["[CLS]", 0]}),
-    ("decoder", {"type": "WordPiece", "prefix": "##", "cleanup": True}),
-    ("model", {"type": "WordPiece", "vocab": {"a": 0}, "unk_token": "a"}),
+    ("post_processor", {"type": "BertProcessor", "sep": ["[SEP]", 1], "cls": ["[CLS]", 0]}),
+    ("decoder", {"type": "WordPieces", "prefix": "##", "cleanup": True}),
+    ("model", {"type": "WordPieces", "vocab": {"a": 0}, "unk_token": "a"}),
 ])
 def test_unported_components_raise_naming_the_type(component, spec):
+    """Every type the library defines is ported; one it does not define
+    (nor any option value it does not define) fails to load, named."""
     base = {"model": {"type": "BPE", "vocab": {"a": 0}, "merges": []}}
-    with pytest.raises(NotImplementedError, match=spec.get("behavior") or spec["type"]):
+    with pytest.raises(ValueError, match=spec.get("behavior") or spec["type"]):
         TokenizerJson({**base, component: spec})
 
 
